@@ -1,0 +1,81 @@
+"""CerberusNet, the joint three-headed model: port of ``CerberusNet`` in
+``cerberusnet_tpu/models/cerberus.py`` (default configuration).
+
+One shared pyramid encoder runs once over the batch [left; right; temporal]
+and feeds the disparity head (left, right), the flow head (left, temporal)
+and the segmentation head (left).
+
+Inputs and outputs are NHWC, as in the reference. Inside, the model runs
+NCHW tensors in ``torch.channels_last`` in the type given at construction;
+the segmentation classifier alone stays float32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from cerberusnet_torch.models.common import nchw, nhwc
+from cerberusnet_torch.models.disparity import DisparityDecoder
+from cerberusnet_torch.models.encoder import PyramidEncoder
+from cerberusnet_torch.models.flow import FlowDecoder
+from cerberusnet_torch.models.segmentation import SegmentationHead
+
+
+class CerberusNet(nn.Module):
+    """``encoder``, ``disparity``, ``flow`` and ``segmentation`` are the
+    reference's ``PyramidEncoder_0``, ``DisparityDecoder_0``,
+    ``FlowDecoder_0`` and ``SegmentationHead_0``. ``corr_impl="plain"``
+    runs the plain correlations on any device (a yardstick for the
+    kernels); None runs the CUDA kernels on a GPU."""
+
+    def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
+                 num_classes: int = 19, max_disp_full: int = 96,
+                 flow_max_disp: int = 4,
+                 est_channels: Sequence[int] = (128, 128, 96, 64, 32),
+                 ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
+                 fpn_channels: int = 96, corr_impl: str | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = PyramidEncoder(encoder_channels)
+        self.disparity = DisparityDecoder(encoder_channels, max_disp_full,
+                                          est_channels, ctx_channels,
+                                          corr_impl=corr_impl)
+        self.flow = FlowDecoder(encoder_channels, flow_max_disp, est_channels,
+                                ctx_channels, corr_impl=corr_impl)
+        self.segmentation = SegmentationHead(encoder_channels, num_classes,
+                                             fpn_channels)
+        self.to(dtype=dtype, memory_format=torch.channels_last)
+        self.segmentation.classifier.float()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.encoder.blocks[0].conv.weight.dtype
+
+    def forward(self, left, right, temporal):
+        """left/right/temporal: (B, H, W, 3) frames. Returns a dict:
+          seg_logits    (B, H, W, classes) float32
+          flow          (B, H, W, 2) float32, left -> temporal
+          disp          (B, H, W, 1) float32, left image
+          flow_pyramid  {level: (B, H/2^l, W/2^l, 2)} for levels 6..2
+          disp_pyramid  {level: (B, H/2^l, W/2^l, 1)} for levels 6..2
+        """
+        b = left.shape[0]
+        frames = torch.cat([left, right, temporal], dim=0).to(self.dtype)
+        feats = self.encoder(nchw(frames.contiguous()))
+        f_left = [f[:b] for f in feats]
+        f_right = [f[b : 2 * b] for f in feats]
+        f_temporal = [f[2 * b :] for f in feats]
+
+        disp = self.disparity(f_left, f_right)
+        flow = self.flow(f_left, f_temporal)
+        seg = self.segmentation(f_left, left.shape[1:3])
+        return {
+            "seg_logits": nhwc(seg),
+            "flow": nhwc(flow["flow"]).float(),
+            "disp": nhwc(disp["disp"]).float(),
+            "flow_pyramid": {l: nhwc(v) for l, v in flow["flow_pyramid"].items()},
+            "disp_pyramid": {l: nhwc(v) for l, v in disp["disp_pyramid"].items()},
+        }

@@ -1,0 +1,43 @@
+"""Stereo-disparity decoder, port of ``DisparityDecoder`` in
+``cerberusnet_tpu/models/disparity.py``.
+
+The 1-D epipolar form of the flow decoder's loop (``CoarseToFineDecoder``):
+per level the right features are warped horizontally by the upsampled
+disparity (sampling to the left), then correlated with the left features
+over k in 0..D_l with D_l = max(max_disp_full // 2**l, 4), i.e. 5, 5, 7,
+13 and 25 channels at levels 6..2; the estimate has one channel.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from cerberusnet_torch.models.flow import LEVELS, CoarseToFineDecoder
+from cerberusnet_torch.ops.correlation import correlation1d
+from cerberusnet_torch.ops.warp import warp1d
+
+
+class DisparityDecoder(CoarseToFineDecoder):
+    """Consumes left/right feature pyramids, emits left-image disparity."""
+
+    output = "disp"
+
+    def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
+                 max_disp_full: int = 96,
+                 est_channels: Sequence[int] = (128, 128, 96, 64, 32),
+                 ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
+                 corr_impl: str | None = None):
+        self.max_disp_full = max_disp_full
+        super().__init__(encoder_channels, 1,
+                         [self.level_max_disp(l) + 1 for l in LEVELS],
+                         est_channels, ctx_channels, corr_impl)
+
+    def level_max_disp(self, level: int) -> int:
+        return max(self.max_disp_full // (2**level), 4)
+
+    def correlate(self, level, f1, f2):
+        return correlation1d(f1, f2, self.level_max_disp(level),
+                             impl=self.corr_impl)
+
+    def warp(self, f2, up):
+        return warp1d(f2, up)

@@ -1,0 +1,128 @@
+"""Optical-flow decoder, port of ``FlowDecoder`` in
+``cerberusnet_tpu/models/flow.py``, and the coarse-to-fine loop it shares
+with the disparity decoder.
+
+Coarse to fine over pyramid levels 6..2. At each level:
+  1. up = 2 * upsample2x(estimate of the level above)   (none at level 6)
+  2. f2 warped by up
+  3. cost = LeakyReLU(correlation(f1, warped f2)): for flow the 2-D
+     correlation with d=4, 81 channels
+  4. DenseEstimator over cat([cost, f1, up, up_feat]), a 3x3 conv to the
+     estimate's channels, plus up
+  5. level 2 only: a dilated ContextNetwork adds a residual; other levels
+     make the next level's up_feat with a 4x4 stride-2 transposed conv.
+Estimates are in pixels at each level's own resolution; the full-resolution
+estimate is the level-2 one upsampled by two x2 steps and scaled by 4.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from cerberusnet_torch.models.common import (
+    ContextNetwork,
+    DenseEstimator,
+    leaky,
+    nchw,
+    nhwc,
+    upsample2x,
+)
+from cerberusnet_torch.ops.correlation import correlation2d
+from cerberusnet_torch.ops.warp import warp2d
+
+LEVELS = (6, 5, 4, 3, 2)
+UP_FEAT_CHANNELS = 2
+
+
+class CoarseToFineDecoder(nn.Module):
+    """The loop shared by the flow and disparity decoders. A subclass sets
+    ``output`` (the result's key) and gives ``correlate`` and ``warp`` on
+    NHWC tensors.
+
+    Per level index i (level 6 first): ``estimators[i]`` is the reference's
+    ``DenseEstimator_i``, ``predictors[i]`` its ``Conv_i`` and
+    ``upfeats[i]`` its ``ConvTranspose_i``; ``context`` is
+    ``ContextNetwork_0``."""
+
+    output = ""
+
+    def __init__(self, encoder_channels: Sequence[int], out_channels: int,
+                 cost_channels: Sequence[int], est_channels: Sequence[int],
+                 ctx_channels: Sequence[int], corr_impl: str | None):
+        super().__init__()
+        self.corr_impl = corr_impl
+        self.estimators = nn.ModuleList()
+        self.predictors = nn.ModuleList()
+        self.upfeats = nn.ModuleList()
+        for i, (level, nk) in enumerate(zip(LEVELS, cost_channels)):
+            extra = 0 if i == 0 else out_channels + UP_FEAT_CHANNELS
+            est = DenseEstimator(nk + encoder_channels[level - 1] + extra,
+                                 est_channels)
+            self.estimators.append(est)
+            self.predictors.append(
+                nn.Conv2d(est.out_channels, out_channels, 3, padding=1))
+            if level != LEVELS[-1]:
+                self.upfeats.append(nn.ConvTranspose2d(
+                    est.out_channels, UP_FEAT_CHANNELS, 4, stride=2, padding=1))
+        self.context = ContextNetwork(self.estimators[-1].out_channels,
+                                      out_channels, ctx_channels)
+
+    def correlate(self, level: int, f1, f2):
+        raise NotImplementedError
+
+    def warp(self, f2, up):
+        raise NotImplementedError
+
+    def forward(self, feats1, feats2):
+        """Two pyramids (lists of NCHW maps, levels 1..6) -> {output:
+        (B,C,H,W) at full resolution, output + "_pyramid": {level:
+        (B,C,H/2^l,W/2^l)}}."""
+        pyramid = {}
+        est = up_feat = None
+        for i, level in enumerate(LEVELS):
+            f1, f2 = feats1[level - 1], feats2[level - 1]
+            if est is None:
+                f2w = nhwc(f2)
+                inputs = []
+            else:
+                up = 2.0 * upsample2x(est)
+                f2w = self.warp(nhwc(f2), nhwc(up))
+                inputs = [up, up_feat]
+            cost = leaky(nchw(self.correlate(level, nhwc(f1), f2w)))
+            x = self.estimators[i](torch.cat([cost, f1] + inputs, dim=1))
+            est = self.predictors[i](x)
+            if inputs:
+                est = est + up
+            if level == LEVELS[-1]:
+                est = est + self.context(x)
+            else:
+                up_feat = leaky(self.upfeats[i](x))
+            pyramid[level] = est
+        full = 4.0 * upsample2x(upsample2x(est))
+        return {self.output: full, f"{self.output}_pyramid": pyramid}
+
+
+class FlowDecoder(CoarseToFineDecoder):
+    """Consumes two feature pyramids, emits flow (u, v) from the first
+    frame into the second."""
+
+    output = "flow"
+
+    def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
+                 max_disp: int = 4,
+                 est_channels: Sequence[int] = (128, 128, 96, 64, 32),
+                 ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
+                 corr_impl: str | None = None):
+        self.max_disp = max_disp
+        super().__init__(encoder_channels, 2,
+                         [(2 * max_disp + 1) ** 2] * len(LEVELS),
+                         est_channels, ctx_channels, corr_impl)
+
+    def correlate(self, level, f1, f2):
+        return correlation2d(f1, f2, self.max_disp, impl=self.corr_impl)
+
+    def warp(self, f2, up):
+        return warp2d(f2, up)
