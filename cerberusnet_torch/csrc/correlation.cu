@@ -21,7 +21,10 @@
 // read once, the output written once), 2.8 us, and do 0.17 GFLOP, 2.5 us: it
 // is bound by bytes, by a small margin. The 1-D kernel at its hottest call
 // (same shape, 25 displacements) moves 5.83 MB, 1.7 us, against 0.05 GFLOP,
-// 0.8 us: bound by bytes.
+// 0.8 us: bound by bytes. The operation counts take only the products whose
+// f2 sample lies in the frame, since an out-of-frame product is zero by
+// definition; at the coarse levels, where the window is large against the
+// frame, this makes the 2-D kernel bound by operations.
 //
 // Design against that bound. One block owns a tile of kTileW pixels of one
 // output row. It stages the f1 tile and the f2 pixels the tile's window needs
@@ -34,10 +37,17 @@
 // banks. Each thread computes one (pixel, displacement) dot product with a
 // C-loop of fused multiply-adds. The block collects its outputs in shared
 // memory and writes them back as one contiguous run, because in NHWC the
-// outputs of a tile of one row are contiguous. The C-loop reads two shared
-// operands per multiply-add, so the kernel is limited by shared-memory
-// bandwidth well before device memory: there is room for register blocking
-// over displacements and for tensor-core tiles in a later change.
+// outputs of a tile of one row are contiguous. Rows of f2 outside the frame
+// are skipped; columns outside it are staged as zeros and multiplied.
+//
+// Measured against that bound (chip_smoke.py, bf16, NVIDIA H100 80GB HBM3 at
+// 700 W) this first version is far from it: the 2-D kernel runs 23x (level 2)
+// to about 1700x (level 6) its bound, the 1-D kernel 13x to about 690x. Why is
+// not measured yet. Known from the launch shape: a level gets one block per
+// 32 pixels of a row, so the coarse levels launch fewer blocks than the card
+// has SMs (8 blocks at level 6 for 132 SMs). Not yet told apart: staging, where
+// each thread waits on one global load per loop trip, and the C-loop, which
+// reads two shared operands per multiply-add.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -53,56 +53,41 @@ def find_nvcc() -> str:
     )
 
 
-def source_names() -> list[str]:
-    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-
-
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, float]:
-    """Compiles the named sources (default: all) that have no library yet.
+def build(name: str) -> float | None:
+    """Compiles ``csrc/<name>.cu`` unless its library exists.
 
-    One nvcc per source, all started together. Returns the wall seconds per
-    library built. Raises RuntimeError with nvcc's output if any fails."""
-    names = source_names() if names is None else names
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return {}
+    Returns the seconds nvcc took, or None if nothing was built. Raises
+    RuntimeError with nvcc's output if it fails."""
+    out = library_path(name)
+    if out.exists():
+        return None
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # write under a private name, then rename: a concurrent build of the same
+    # source never exposes a half-written library
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    procs = {}
-    for name in todo:
-        # write under a private name, then rename: a concurrent build of the
-        # same source never exposes a half-written library
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    seconds, failures = {}, []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, library_path(name))
-        seconds[name] = time.perf_counter() - t0
-    if failures:
-        raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return seconds
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        build(name)
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib

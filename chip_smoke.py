@@ -119,6 +119,23 @@ def level_max_disp(level):
     return max(MAX_DISP_FULL // 2**level, 4)
 
 
+def in_frame(n, offsets):
+    """Pixels of a line of n whose sample at each offset lies in the frame,
+    summed over the offsets."""
+    return sum(max(n - abs(o), 0) for o in offsets)
+
+
+def corr2d_flops(b, h, w, c, d, dil):
+    """Multiply-adds of the 2-D correlation with f2 in frame, times two:
+    an out-of-frame product is zero by definition, so none is needed."""
+    offsets = [o * dil for o in range(-d, d + 1)]
+    return 2 * b * c * in_frame(h, offsets) * in_frame(w, offsets)
+
+
+def corr1d_flops(b, h, w, c, d, dil):
+    return 2 * b * h * c * in_frame(w, [k * dil for k in range(d + 1)])
+
+
 def phase_env():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,13 +153,11 @@ def phase_build():
     from cerberusnet_torch.ops import build
 
     t0 = time.perf_counter()
-    built = build.build()
-    for name in build.source_names():
-        build.load(name)
+    nvcc_seconds = build.build("correlation")
+    build.load("correlation")
     emit({"phase": "build", "ok": True, "nvcc": build.find_nvcc(),
-          "seconds": time.perf_counter() - t0, "built": built,
-          "libraries": [build.library_path(n).name
-                        for n in build.source_names()]})
+          "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_seconds,
+          "library": build.library_path("correlation").name})
 
 
 def phase_kernels(peak_bw, peak_flops, spin_rate):
@@ -152,13 +167,13 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
     kernels = {
         "corr2d_fwd": (cc.corr2d_fwd, corr._correlation2d_plain,
                        lambda level: FLOW_MAX_DISP,
-                       lambda d: (2 * d + 1) ** 2),
+                       lambda d: (2 * d + 1) ** 2, corr2d_flops),
         "corr1d_fwd": (cc.corr1d_fwd, corr._correlation1d_plain,
-                       level_max_disp, lambda d: d + 1),
+                       level_max_disp, lambda d: d + 1, corr1d_flops),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
-    for name, (kernel, plain, disp_of, nk_of) in kernels.items():
+    for name, (kernel, plain, disp_of, nk_of, flops_of) in kernels.items():
         cases = [(level, dt, 1) for level in LEVELS
                  for dt in (torch.bfloat16, torch.float32)]
         cases.append((2, torch.bfloat16, 2))
@@ -188,7 +203,7 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
             b, h, w, c = shape
             nk = nk_of(d)
             nbytes = (2 * b * h * w * c + b * h * w * nk) * f1.element_size()
-            flops = 2 * b * h * w * c * nk
+            flops = flops_of(b, h, w, c, d, dil)
             bound_ms = max(nbytes / peak_bw, flops / peak_flops) * 1e3
             checks.append({
                 "kernel": name, "level": level, "shape": list(shape),
