@@ -1,19 +1,32 @@
-"""Entry point: the default-width CerberusNet forward, ready to serve.
+"""Entry points: serving the default-width CerberusNet, and training it.
 
 ``entry()`` builds the joint model at the reference's default widths with
 seeded random weights and returns ``(forward, example_inputs)``: the
 forward takes (left, right, temporal) NHWC frames and returns the output
-dict of ``CerberusNet.forward``. It runs on the GPU unless the caller asks
-for ``device="cpu"``; with no CUDA device it raises rather than carry on on
-the CPU.
+dict of ``CerberusNet.forward``.
+
+``train_entry()`` reads an experiment config (``configs/*.json``) and
+returns ``(trainer, batches)``: a ``Trainer`` and batches of its synthetic
+dataset, ready for ``trainer.train_step(batch)``.
+
+Both run on the GPU unless the caller asks for ``device="cpu"``; with no
+CUDA device they raise rather than carry on on the CPU.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import torch
 
+from cerberusnet_torch.data.loader import batches
 from cerberusnet_torch.models.cerberus import CerberusNet
+from cerberusnet_torch.train.config import ExperimentConfig
+from cerberusnet_torch.train.trainer import Trainer
 from cerberusnet_torch.weights import init_params
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
 
 
 def make_frames(seed: int, hw=(512, 1024), device="cuda",
@@ -43,3 +56,26 @@ def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
         return model(left, right, temporal)
 
     return forward, make_frames(seed, hw, device=device, dtype=dtype)
+
+
+def train_entry(config_path="configs/cerberus_synthetic.json",
+                batch_size: int = 2, device="cuda",
+                corr_impl: str | None = None, n_batches: int = 1,
+                **overrides):
+    """Returns (trainer, batches) for the experiment in ``config_path`` (a
+    path relative to the repository root, or absolute).
+
+    ``batch_size`` replaces ``data.batch_size``; ``corr_impl="plain"`` runs
+    the plain correlations (a yardstick for the kernels); each keyword in
+    ``overrides`` names a config section and maps keys to new values, e.g.
+    ``optim={"schedule": "constant"}``. The batches are the first
+    ``n_batches`` of the trainer's synthetic dataset, as numpy dicts."""
+    with open(REPO_ROOT / config_path) as f:
+        raw = json.load(f)
+    for section, values in overrides.items():
+        raw[section] = {**raw.get(section, {}), **values}
+    raw["data"] = {**raw.get("data", {}), "batch_size": batch_size}
+    if corr_impl is not None:
+        raw["model"] = {**raw.get("model", {}), "corr_impl": corr_impl}
+    trainer = Trainer(ExperimentConfig.from_dict(raw), device=device)
+    return trainer, batches(trainer.dataset, batch_size, n_batches)

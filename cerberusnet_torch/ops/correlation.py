@@ -12,10 +12,22 @@ f2 samples outside the frame contribute zero. Products and sums run in
 float32 whatever the input type; each map is divided by C, then cast once
 to the input type.
 
-Dispatch: a CUDA tensor goes to the hand-written kernel
-(``ops/cuda/correlation.py``) or the call raises; a CPU tensor goes to the
-plain version below. ``impl="plain"`` asks for the plain version on any
-device, as a yardstick for the kernel.
+Their gradients, for the cost volume's gradient g (the formulas of
+``cerberusnet_tpu/ops/pallas/correlation.py``), are
+
+  2-D:  df1(x) = (1/C) * sum_o g(x, o) * f2(x + o)
+        df2(y) = (1/C) * sum_o g(y - o, o) * f1(y - o)
+  1-D:  df1(x) = (1/C) * sum_k g(x, k) * f2(x - k)
+        df2(x) = (1/C) * sum_k g(x + k, k) * f1(x + k)
+
+with offsets scaled by the dilation, out-of-frame terms zero, sums in
+float32, one division by C and one cast.
+
+Dispatch: a CUDA tensor goes through ``Correlation2d`` / ``Correlation1d``,
+whose forward and backward are the hand-written kernels
+(``ops/cuda/correlation.py``), or the call raises; a CPU tensor goes to the
+plain forward below, and autograd differentiates it. ``impl="plain"`` asks
+for the plain forward on any device, as a yardstick for the kernels.
 """
 
 from __future__ import annotations
@@ -55,6 +67,124 @@ def _correlation1d_plain(f1, f2, max_disp: int, dilation: int = 1):
     return torch.stack(maps, dim=-1)
 
 
+def _correlation2d_bwd_f1_plain(g, f2, max_disp: int, dilation: int = 1):
+    """df1(x) = (1/C) sum_o g(x, o) f2(x + o): one shifted multiply-add per
+    displacement (the plain version of ``corr2d_bwd_f1``)."""
+    b, h, w, c = f2.shape
+    d = max_disp * dilation
+    gf = g.float()
+    f2p = F.pad(f2.float(), (0, 0, d, d, d, d))
+    acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=f2.device)
+    k = 0
+    for dy in range(0, 2 * d + 1, dilation):
+        for dx in range(0, 2 * d + 1, dilation):
+            acc += gf[..., k : k + 1] * f2p[:, dy : dy + h, dx : dx + w, :]
+            k += 1
+    return (acc / c).to(f2.dtype)
+
+
+def _correlation2d_bwd_f2_plain(g, f1, max_disp: int, dilation: int = 1):
+    """df2(y) = (1/C) sum_o g(y - o, o) f1(y - o): g and f1 padded by the
+    window radius and read at (2d - dy, 2d - dx) (the plain version of
+    ``corr2d_bwd_f2``)."""
+    b, h, w, c = f1.shape
+    d = max_disp * dilation
+    gp = F.pad(g.float(), (0, 0, d, d, d, d))
+    f1p = F.pad(f1.float(), (0, 0, d, d, d, d))
+    acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=f1.device)
+    k = 0
+    for dy in range(0, 2 * d + 1, dilation):
+        for dx in range(0, 2 * d + 1, dilation):
+            ys = slice(2 * d - dy, 2 * d - dy + h)
+            xs = slice(2 * d - dx, 2 * d - dx + w)
+            acc += gp[:, ys, xs, k : k + 1] * f1p[:, ys, xs, :]
+            k += 1
+    return (acc / c).to(f1.dtype)
+
+
+def _correlation1d_bwd_f1_plain(g, f2, max_disp: int, dilation: int = 1):
+    """df1(x) = (1/C) sum_k g(x, k) f2(x - k) (the plain version of
+    ``corr1d_bwd_f1``)."""
+    b, h, w, c = f2.shape
+    dmax = max_disp * dilation
+    gf = g.float()
+    f2p = F.pad(f2.float(), (0, 0, dmax, 0))
+    acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=f2.device)
+    for i, k in enumerate(range(0, dmax + 1, dilation)):
+        acc += gf[..., i : i + 1] * f2p[:, :, dmax - k : dmax - k + w, :]
+    return (acc / c).to(f2.dtype)
+
+
+def _correlation1d_bwd_f2_plain(g, f1, max_disp: int, dilation: int = 1):
+    """df2(x) = (1/C) sum_k g(x + k, k) f1(x + k): g and f1 padded on the
+    right (the plain version of ``corr1d_bwd_f2``)."""
+    b, h, w, c = f1.shape
+    dmax = max_disp * dilation
+    gp = F.pad(g.float(), (0, 0, 0, dmax))
+    f1p = F.pad(f1.float(), (0, 0, 0, dmax))
+    acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=f1.device)
+    for i, k in enumerate(range(0, dmax + 1, dilation)):
+        acc += gp[:, :, k : k + w, i : i + 1] * f1p[:, :, k : k + w, :]
+    return (acc / c).to(f1.dtype)
+
+
+def _correlation2d_bwd_plain(g, f1, f2, max_disp: int, dilation: int = 1):
+    """(df1, df2) of the 2-D op for the cost volume's gradient g."""
+    return (_correlation2d_bwd_f1_plain(g, f2, max_disp, dilation),
+            _correlation2d_bwd_f2_plain(g, f1, max_disp, dilation))
+
+
+def _correlation1d_bwd_plain(g, f1, f2, max_disp: int, dilation: int = 1):
+    """(df1, df2) of the 1-D op for the cost volume's gradient g."""
+    return (_correlation1d_bwd_f1_plain(g, f2, max_disp, dilation),
+            _correlation1d_bwd_f2_plain(g, f1, max_disp, dilation))
+
+
+def _kernel_backward(ctx, g, bwd_f1, bwd_f2):
+    """(df1, df2, None, None) from the backward kernels. The incoming
+    gradient may be laid out in any order (its consumer is a channels_last
+    LeakyReLU and concatenation), so it is made NHWC-contiguous first; a
+    gradient nobody needs is not computed."""
+    f1, f2 = ctx.saved_tensors
+    g = g.contiguous()
+    df1 = df2 = None
+    if ctx.needs_input_grad[0]:
+        df1 = bwd_f1(g, f2, ctx.max_disp, ctx.dilation)
+    if ctx.needs_input_grad[1]:
+        df2 = bwd_f2(g, f1, ctx.max_disp, ctx.dilation)
+    return df1, df2, None, None
+
+
+class Correlation2d(torch.autograd.Function):
+    """The 2-D op on K1 (forward) and K2 + K3 (backward)."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_disp: int, dilation: int):
+        ctx.save_for_backward(f1, f2)
+        ctx.max_disp, ctx.dilation = max_disp, dilation
+        return cuda_correlation.corr2d_fwd(f1, f2, max_disp, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _kernel_backward(ctx, g, cuda_correlation.corr2d_bwd_f1,
+                                cuda_correlation.corr2d_bwd_f2)
+
+
+class Correlation1d(torch.autograd.Function):
+    """The 1-D op on K4 (forward) and K5 + K6 (backward)."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_disp: int, dilation: int):
+        ctx.save_for_backward(f1, f2)
+        ctx.max_disp, ctx.dilation = max_disp, dilation
+        return cuda_correlation.corr1d_fwd(f1, f2, max_disp, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _kernel_backward(ctx, g, cuda_correlation.corr1d_bwd_f1,
+                                cuda_correlation.corr1d_bwd_f2)
+
+
 def _dispatch(f1, f2, impl):
     if f1.shape != f2.shape:
         raise ValueError(f"f1/f2 shape mismatch: {tuple(f1.shape)} vs "
@@ -69,7 +199,7 @@ def correlation2d(f1, f2, max_disp: int = 4, dilation: int = 1,
     """2-D correlation. (B,H,W,C) x2 -> (B,H,W,(2*max_disp+1)**2)."""
     if _dispatch(f1, f2, impl):
         return _correlation2d_plain(f1, f2, max_disp, dilation)
-    return cuda_correlation.corr2d_fwd(f1, f2, max_disp, dilation)
+    return Correlation2d.apply(f1, f2, max_disp, dilation)
 
 
 def correlation1d(f1, f2, max_disp: int = 24, dilation: int = 1,
@@ -79,4 +209,4 @@ def correlation1d(f1, f2, max_disp: int = 24, dilation: int = 1,
     ``f1`` holds the left-image features and ``f2`` the right-image ones."""
     if _dispatch(f1, f2, impl):
         return _correlation1d_plain(f1, f2, max_disp, dilation)
-    return cuda_correlation.corr1d_fwd(f1, f2, max_disp, dilation)
+    return Correlation1d.apply(f1, f2, max_disp, dilation)

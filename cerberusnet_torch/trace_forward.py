@@ -1,15 +1,19 @@
-"""Where the time of one forward goes on the GPU.
+"""Where the time of one forward, or one train step, goes on the GPU.
 
-    python3 -m cerberusnet_torch.trace_forward [--corr-impl plain]
+    python3 -m cerberusnet_torch.trace_forward [--train] [--corr-impl plain]
 
-Runs the default-width CerberusNet (bf16, 512x1024, batch 1, through
-``entry``) under ``torch.profiler`` for 5 forwards after warmup and prints
-one JSON line: wall ms per forward, the device's kernel time per forward by
-category (convolutions, the correlation kernels, warp gathers, bilinear
-resizes, concatenations, pads, other elementwise), the device's idle share,
-the number of kernel launches per forward, and the top kernels. A kernel's
-category comes from a substring of its name, so each category also lists
-the names it took, where a misfiled kernel shows. Needs a CUDA device.
+Runs the default-width CerberusNet under ``torch.profiler`` for 5 calls
+after warmup: a bf16 forward at 512x1024, batch 1, through ``entry``, or
+with ``--train`` a train step of ``configs/cerberus_synthetic.json`` at
+batch 2 through ``train_entry`` (constant learning rate). Prints one JSON
+line: wall ms per call, the device's kernel time per call by category
+(convolutions, the correlation kernels, warp gathers and their backward's
+scatters, bilinear resizes, concatenations, pads, the optimizer's
+multi-tensor kernels, host-to-device copies, fills, other elementwise), the
+device's idle share, the number of launches per call (copies and fills
+included), and the top kernels. A kernel's category comes from a substring
+of its name, so each category also lists the names it took, where a
+misfiled kernel shows. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,12 +29,16 @@ from torch.profiler import ProfilerActivity, profile
 RUNS = 5
 # first match wins; kernel names are lower-cased before matching
 CATEGORIES = (
-    ("correlation", ("corr2d_fwd", "corr1d_fwd")),
+    ("correlation", ("corr2d_", "corr1d_")),
+    ("optimizer", ("multi_tensor", "foreach")),
+    # copies (the batch's upload from host memory) and fills, not kernels
+    ("memcpy", ("memcpy",)),
+    ("memset", ("memset",)),
     # nvjet: cuBLAS GEMMs; the model calls no matmul, so these run its
     # convolutions
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm", "cutlass",
                      "sm90", "winograd", "fft", "nvjet")),
-    ("warp_gather", ("gather",)),
+    ("warp_gather", ("gather", "scatter")),
     ("resize", ("upsample", "interpolate")),
     ("concat", ("cat",)),
     ("pad", ("pad",)),
@@ -48,29 +56,44 @@ def category(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corr-impl", choices=["plain"], default=None)
+    ap.add_argument("--train", action="store_true",
+                    help="trace a train step instead of a forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_forward: no CUDA device", file=sys.stderr)
         return 1
-    from cerberusnet_torch.entry import entry
+    from cerberusnet_torch.entry import entry, train_entry
 
-    # as chip_smoke.py times the forward: the f32 classifier without TF32
+    # as chip_smoke.py times them: the f32 classifier without TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    forward, imgs = entry(corr_impl=args.corr_impl)
+    if args.train:
+        trainer, (batch,) = train_entry(corr_impl=args.corr_impl,
+                                        optim={"schedule": "constant"})
+
+        def call():
+            trainer.train_step(batch)
+    else:
+        forward, imgs = entry(corr_impl=args.corr_impl)
+
+        def call():
+            forward(*imgs)
     for _ in range(3):
-        forward(*imgs)
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(RUNS):
-            forward(*imgs)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / RUNS
 
     kernels = {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range (the optimizer's step) also shows on the
+        # device's timeline; its time is that of the kernels it holds
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         k = kernels.setdefault(evt.name, [0, 0.0])
         k[0] += 1
@@ -86,20 +109,21 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "call": "train_step" if args.train else "forward",
         "corr_impl": args.corr_impl or "kernel", "runs": RUNS,
-        "wall_ms_per_forward": wall_ms,
-        "device_kernel_ms_per_forward": busy,
+        "wall_ms_per_call": wall_ms,
+        "device_kernel_ms_per_call": busy,
         "device_idle_share": 1.0 - busy / wall_ms if busy else None,
-        "launches_per_forward": launches / RUNS,
+        "launches_per_call": launches / RUNS,
         "by_category": {
-            c: {"ms_per_forward": ms / RUNS,
-                "launches_per_forward": n / RUNS,
+            c: {"ms_per_call": ms / RUNS,
+                "launches_per_call": n / RUNS,
                 "share_of_kernel_time": ms / RUNS / busy if busy else None,
                 "kernels": sorted(names)}
             for c, (n, ms, names) in sorted(by_cat.items(), key=lambda kv: -kv[1][1])},
         "top_kernels": [
-            {"name": name[:120], "calls_per_forward": n / RUNS,
-             "ms_per_forward": ms / RUNS} for name, (n, ms) in top],
+            {"name": name[:120], "launches_per_call": n / RUNS,
+             "ms_per_call": ms / RUNS} for name, (n, ms) in top],
     }))
     return 0
 

@@ -1,0 +1,242 @@
+"""Experiment configuration: the port's copy of
+``cerberusnet_tpu/train/config.py``.
+
+The same dataclass tree, the same keys and the same defaults, so every
+``configs/*.json`` parses unchanged (``ExperimentConfig.from_json``); an
+unknown key raises ``ValueError`` as in the reference.
+
+Parsing accepts every value. ``ExperimentConfig.check_supported()``, which
+the ``Trainer`` calls, raises ``NotImplementedError`` naming the ROADMAP
+item for a value the port does not run yet. Keys that only steer XLA's
+program in the reference, with the same arithmetic and the same parameter
+tree whatever their value, are accepted and have no effect here:
+``model.fused``, ``corr_stack``, ``distribute_outputs``, ``upfeat_impl``,
+``upsample_impl``, ``batched_encoder``, ``s2d_stem``, ``stem_pad_channels``,
+``s2d_levels``, ``entry_grad``, ``pallas_grad``, ``est_input`` and
+``optim.flatten``. So are the keys of parts the port does not have yet,
+which nothing here reads: the RAFT keys and ``loss.seq_gamma`` (other model
+families, A8), ``data.num_workers``, ``shuffle`` and ``eval_split`` (the
+loader and evaluation, A6/A7), and ``train.epochs``, ``log_every``,
+``eval_every_epochs``, ``ckpt_dir``, ``resume``, ``keep_checkpoints``,
+``ckpt_every_epochs``, ``nan_recovery_reset_steps``, ``max_nan_recoveries``
+and ``qat_calib_batches`` (``fit``, checkpoints and recovery, A5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    variant: str = "cerberus"
+    encoder_channels: Tuple[int, ...] = (16, 32, 64, 96, 128, 196)
+    num_classes: int = 19
+    max_disp_full: int = 96
+    flow_max_disp: int = 4
+    est_channels: Tuple[int, ...] = (128, 128, 96, 64, 32)
+    ctx_channels: Tuple[int, ...] = (128, 128, 128, 96, 64, 32)
+    fpn_channels: int = 96
+    seg_head: str = "fpn"
+    # None: the CUDA kernels on a GPU. "pallas" means the same here;
+    # "pure"/"purev" (the reference's XLA formulations) and "plain" run the
+    # plain torch correlations.
+    corr_impl: Optional[str] = None
+    fused: bool = True
+    corr_stack: str = "major"
+    distribute_outputs: bool = True
+    upfeat_impl: str = "subpixel"
+    upsample_impl: str = "resize"
+    batched_encoder: bool = True
+    s2d_stem: bool = False
+    stem_pad_channels: int = 0
+    s2d_levels: int = 0
+    entry_grad: str = "auto"
+    pallas_levels: int = 0
+    pallas_grad: str = "xla"
+    est_input: str = "concat"
+    dtype: str = "float32"  # compute dtype: float32 | bfloat16
+    raft_iters: int = 12
+    raft_radius: int = 4
+    raft_fdim: int = 128
+    raft_hdim: int = 96
+    raft_cdim: int = 64
+    raft_corr_levels: int = 4
+    raft_level: int = 3
+    raft_unroll: bool = False
+    raft_lookup: str = "onehot"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @property
+    def port_corr_impl(self) -> Optional[str]:
+        """The port's ``impl`` for the correlations (see ``corr_impl``)."""
+        return "plain" if self.corr_impl in ("pure", "purev", "plain") else None
+
+
+@dataclasses.dataclass
+class DataConfig:
+    dataset: str = "synthetic"
+    root: str = ""
+    split: str = "training"
+    render_pass: str = "clean"
+    eval_split: Optional[str] = None
+    hw: Tuple[int, int] = (512, 1024)
+    batch_size: int = 4
+    num_workers: int = 4
+    shuffle: bool = True
+    synthetic_length: int = 64
+    synthetic_sparse: bool = False
+    crop_hw: Optional[Tuple[int, int]] = None
+    flip_lr_prob: float = 0.0
+    brightness: float = 0.0
+    contrast: float = 0.0
+    scales: Tuple[float, ...] = ()
+
+
+@dataclasses.dataclass
+class OptimConfig:
+    optimizer: str = "adamw"  # adamw | adam | sgd
+    lr: float = 1e-4
+    weight_decay: float = 4e-4
+    schedule: str = "cosine"  # cosine | poly | onecycle | constant
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    grad_clip: float = 1.0
+    poly_power: float = 0.9
+    accum_steps: int = 1
+    flatten: bool = True
+    ema_decay: float = 0.0
+    grads_dtype: str = "float32"
+
+
+@dataclasses.dataclass
+class LossConfig:
+    seg_weight: float = 1.0
+    flow_weight: float = 1.0
+    disp_weight: float = 1.0
+    focal_gamma: Optional[float] = None
+    robust_q: Optional[float] = None
+    photometric_weight: float = 0.0
+    smoothness_weight: float = 0.0
+    rmi_weight: float = 0.0
+    uncertainty_weighting: bool = False
+    seq_gamma: float = 0.8
+
+    @property
+    def weights(self):
+        return {"seg": self.seg_weight, "flow": self.flow_weight,
+                "disp": self.disp_weight}
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    epochs: int = 10
+    seed: int = 0
+    log_every: int = 50
+    eval_every_epochs: int = 1
+    ckpt_dir: str = ""
+    resume: bool = True
+    keep_checkpoints: int = 3
+    ckpt_every_epochs: int = 1
+    recover_on_nan: bool = False
+    max_nan_recoveries: int = 3
+    nan_recovery_reset_steps: int = 200
+    num_data_devices: int = 0  # 0 = all visible devices
+    num_spatial_devices: int = 1
+    remat: bool = False
+    debug_nans: bool = False
+    # The reference forces its pure correlations; here the plain ones.
+    interpret_kernels: bool = False
+    tensorboard: bool = False
+    qat: bool = False
+    qat_calib_batches: int = 2
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    name: str = "experiment"
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+    @classmethod
+    def from_json(cls, path_or_str: str) -> "ExperimentConfig":
+        if path_or_str.lstrip().startswith("{"):
+            raw = json.loads(path_or_str)
+        else:
+            with open(path_or_str) as f:
+                raw = json.load(f)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: dict) -> "ExperimentConfig":
+        def build(dc, d):
+            names = {f.name for f in dataclasses.fields(dc)}
+            kwargs = {}
+            for k, v in d.items():
+                if k not in names:
+                    raise ValueError(
+                        f"unknown config key {k!r} for {dc.__name__}")
+                kwargs[k] = tuple(v) if isinstance(v, list) else v
+            return dc(**kwargs)
+
+        known = {"name", "model", "data", "optim", "loss", "train"}
+        unknown = set(raw) - known
+        if unknown:
+            raise ValueError(
+                f"unknown top-level config section(s) {sorted(unknown)} "
+                f"(expected {sorted(known)})")
+        return cls(
+            name=raw.get("name", "experiment"),
+            model=build(ModelConfig, raw.get("model", {})),
+            data=build(DataConfig, raw.get("data", {})),
+            optim=build(OptimConfig, raw.get("optim", {})),
+            loss=build(LossConfig, raw.get("loss", {})),
+            train=build(TrainConfig, raw.get("train", {})),
+        )
+
+    def check_supported(self):
+        """Raises NotImplementedError for the first value the port does not
+        run yet, naming its ROADMAP item."""
+        m, d, o, l, t = self.model, self.data, self.optim, self.loss, self.train
+        checks = (
+            (m.variant != "cerberus", f"model.variant={m.variant!r}", "A8"),
+            (m.seg_head != "fpn", f"model.seg_head={m.seg_head!r}", "A8"),
+            (m.corr_impl == "pallas_wl", "model.corr_impl='pallas_wl'",
+             "B5/B6"),
+            (m.pallas_levels > 0, f"model.pallas_levels={m.pallas_levels}",
+             "B7/B8"),
+            (d.dataset != "synthetic", f"data.dataset={d.dataset!r}", "A6"),
+            (bool(d.crop_hw or d.flip_lr_prob or d.brightness or d.contrast
+                  or d.scales), "data augmentation", "A6"),
+            (o.accum_steps > 1, f"optim.accum_steps={o.accum_steps}", "A5"),
+            (o.ema_decay > 0, f"optim.ema_decay={o.ema_decay}", "A5"),
+            (o.grads_dtype == "bfloat16", "optim.grads_dtype='bfloat16'",
+             "A5"),
+            (l.uncertainty_weighting, "loss.uncertainty_weighting", "A4"),
+            (bool(l.rmi_weight), f"loss.rmi_weight={l.rmi_weight}", "A4"),
+            (bool(l.photometric_weight),
+             f"loss.photometric_weight={l.photometric_weight}", "A4"),
+            (bool(l.smoothness_weight),
+             f"loss.smoothness_weight={l.smoothness_weight}", "A4"),
+            (t.qat, "train.qat", "A10"),
+            (t.num_data_devices > 1 or t.num_spatial_devices > 1,
+             "more than one device", "A11"),
+            (t.remat, "train.remat", "A5"),
+            (t.recover_on_nan, "train.recover_on_nan", "A5"),
+            (t.debug_nans, "train.debug_nans", "A5"),
+            (t.tensorboard, "train.tensorboard", "A12"),
+        )
+        for bad, what, item in checks:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP {item})")

@@ -6,16 +6,26 @@
 Phases, each printing one JSON line; any failed check exits non-zero:
   env      the card (nvidia-smi name and power limit), torch and CUDA
   build    nvcc builds every kernel of the path from cerberusnet_torch/csrc
-  kernels  each correlation kernel against its plain PyTorch version on the
-           card, at the five pyramid-level shapes of a 512x1024 frame, in
-           bfloat16 and float32, plus one dilation-2 case; CUDA-event times
-           of kernel and plain version beside the kernel's bound
+  kernels  each correlation kernel, forward and backward, against its plain
+           PyTorch version on the card, at the five pyramid-level shapes of
+           a 512x1024 frame (batch 1 for the forwards, as served; batch 2 for
+           the backwards, as trained), in bfloat16 and float32, plus one
+           dilation-2 case; CUDA-event times of kernel and plain version
+           beside the kernel's bound
   serve    the default-width CerberusNet through cerberusnet_torch.entry,
            bf16 at 512x1024, answering 3 seeded requests: output shapes,
            types and finiteness, the pyramids, and 5 + 5 kernel launches per
            request; then the same weights and inputs with the plain
            correlations in bf16 and in float32 (the yardstick), and the
            eager forward's CUDA-event time
+  train    5 steps of configs/cerberus_synthetic.json through
+           cerberusnet_torch.entry.train_entry (bf16, batch 2, 512x1024,
+           constant learning rate): finite losses, 5 launches of each of
+           the six kernels per step, every weight moved; then one step's
+           gradients from the same weights and batch with the plain
+           correlations in bf16 and in float32 (the yardstick), per module;
+           ms per train step with the kernels and with the plain
+           correlations, in turns, and the peak device memory
 Then a {"kernels": [...]} summary line, the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result.
@@ -24,6 +34,7 @@ no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,6 +48,8 @@ LEVELS = (6, 5, 4, 3, 2)
 FLOW_MAX_DISP = 4
 MAX_DISP_FULL = 96
 N_REQUESTS = 3
+TRAIN_STEPS = 5
+TRAIN_BATCH = 2
 TIMED_RUNS = 30
 # f32: only the summation order differs. bf16: both sides sum in f32 and
 # round once, so they differ by at most one bf16 ulp (inputs unit-normal).
@@ -164,45 +177,71 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
     from cerberusnet_torch.ops import correlation as corr
     from cerberusnet_torch.ops.cuda import correlation as cc
 
+    def nk2d(d):
+        return (2 * d + 1) ** 2
+
+    def nk1d(d):
+        return d + 1
+
+    def flow_disp(level):
+        return FLOW_MAX_DISP
+
+    # name: (wrapper, plain version, max_disp of a level, cost-volume
+    # channels, FLOPs, batch, is a backward). A forward takes (f1, f2) and
+    # writes the cost volume; a backward takes (g, f), g the cost volume's
+    # gradient, and writes one feature map's gradient. Both read and write
+    # the same tensors' worth of bytes, and a backward does the forward's
+    # in-frame multiply-adds.
     kernels = {
-        "corr2d_fwd": (cc.corr2d_fwd, corr._correlation2d_plain,
-                       lambda level: FLOW_MAX_DISP,
-                       lambda d: (2 * d + 1) ** 2, corr2d_flops),
+        "corr2d_fwd": (cc.corr2d_fwd, corr._correlation2d_plain, flow_disp,
+                       nk2d, corr2d_flops, 1, False),
         "corr1d_fwd": (cc.corr1d_fwd, corr._correlation1d_plain,
-                       level_max_disp, lambda d: d + 1, corr1d_flops),
+                       level_max_disp, nk1d, corr1d_flops, 1, False),
+        "corr2d_bwd_f1": (cc.corr2d_bwd_f1, corr._correlation2d_bwd_f1_plain,
+                          flow_disp, nk2d, corr2d_flops, TRAIN_BATCH, True),
+        "corr2d_bwd_f2": (cc.corr2d_bwd_f2, corr._correlation2d_bwd_f2_plain,
+                          flow_disp, nk2d, corr2d_flops, TRAIN_BATCH, True),
+        "corr1d_bwd_f1": (cc.corr1d_bwd_f1, corr._correlation1d_bwd_f1_plain,
+                          level_max_disp, nk1d, corr1d_flops, TRAIN_BATCH,
+                          True),
+        "corr1d_bwd_f2": (cc.corr1d_bwd_f2, corr._correlation1d_bwd_f2_plain,
+                          level_max_disp, nk1d, corr1d_flops, TRAIN_BATCH,
+                          True),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
-    for name, (kernel, plain, disp_of, nk_of, flops_of) in kernels.items():
+    for name, (kernel, plain, disp_of, nk_of, flops_of, batch,
+               backward) in kernels.items():
         cases = [(level, dt, 1) for level in LEVELS
                  for dt in (torch.bfloat16, torch.float32)]
         cases.append((2, torch.bfloat16, 2))
         for level, dt, dil in cases:
-            shape = (1, HW[0] >> level, HW[1] >> level,
+            shape = (batch, HW[0] >> level, HW[1] >> level,
                      ENCODER_CHANNELS[level - 1])
             d = disp_of(level)
-            f1 = torch.randn(shape, generator=gen, device="cuda").to(dt)
-            f2 = torch.randn(shape, generator=gen, device="cuda").to(dt)
-            got = kernel(f1, f2, d, dil)
+            nk = nk_of(d)
+            a_shape = (*shape[:3], nk) if backward else shape
+            a = torch.randn(a_shape, generator=gen, device="cuda").to(dt)
+            f = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            got = kernel(a, f, d, dil)
             torch.cuda.synchronize()
-            want = plain(f1, f2, d, dil)
+            want = plain(a, f, d, dil)
             rtol, atol = TOLERANCES[dt]
             diff = (got.float() - want.float()).abs()
             ok = bool((diff <= atol + rtol * want.float().abs()).all())
 
             def run_kernel():
-                kernel(f1, f2, d, dil)
+                kernel(a, f, d, dil)
 
             def run_plain():
-                plain(f1, f2, d, dil)
+                plain(a, f, d, dil)
 
             k_t = cuda_times(run_kernel, spin_rate=spin_rate)
             k_eager = cuda_times(run_kernel)
             p_t = cuda_times(run_plain, runs=20, spin_rate=spin_rate)
             p_eager = cuda_times(run_plain, runs=20)
             b, h, w, c = shape
-            nk = nk_of(d)
-            nbytes = (2 * b * h * w * c + b * h * w * nk) * f1.element_size()
+            nbytes = (2 * b * h * w * c + b * h * w * nk) * f.element_size()
             flops = flops_of(b, h, w, c, d, dil)
             bound_ms = max(nbytes / peak_bw, flops / peak_flops) * 1e3
             checks.append({
@@ -245,20 +284,19 @@ def phase_serve():
     requests = [make_frames(seed, HW) for seed in range(1, N_REQUESTS + 1)]
 
     errors = []
-    cc.corr2d_fwd_launches = 0
-    cc.corr1d_fwd_launches = 0
+    want_rise = {k: len(LEVELS) if k.endswith("_fwd") else 0
+                 for k in cc.KERNELS}
+    cc.reset_launches()
     answers = []
     for i, req in enumerate(requests):
-        before = (cc.corr2d_fwd_launches, cc.corr1d_fwd_launches)
+        before = cc.launches()
         out = forward(*req)
         torch.cuda.synchronize()
-        rise = (cc.corr2d_fwd_launches - before[0],
-                cc.corr1d_fwd_launches - before[1])
-        if rise != (len(LEVELS), len(LEVELS)):
+        rise = {k: v - before[k] for k, v in cc.launches().items()}
+        if rise != want_rise:
             errors.append(f"request {i}: kernel launches rose by {rise}")
         answers.append(out)
-    launches = {"corr2d_fwd": cc.corr2d_fwd_launches,
-                "corr1d_fwd": cc.corr1d_fwd_launches}
+    launches = cc.launches()
 
     h, w = HW
     want = {"seg_logits": (1, h, w, 19), "flow": (1, h, w, 2),
@@ -321,17 +359,136 @@ def phase_serve():
     return launches
 
 
-def summary(checks, launches):
+MODULES = ("encoder", "flow", "disparity", "segmentation")
+
+
+def module_rel_l2(grads, ref):
+    """Relative L2 distance of each module's gradients (all its parameters
+    as one vector) to the reference's."""
+    out = {}
+    for mod in MODULES:
+        names = [n for n in ref if n.split(".")[0] == mod]
+        a = torch.cat([grads[n].flatten() for n in names])
+        b = torch.cat([ref[n].flatten() for n in names])
+        out[mod] = rel_l2(a, b)
+    return out
+
+
+def phase_train():
+    from cerberusnet_torch.entry import train_entry
+    from cerberusnet_torch.ops.cuda import correlation as cc
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    constant = {"schedule": "constant"}
+    trainer, batches = train_entry(batch_size=TRAIN_BATCH,
+                                   n_batches=TRAIN_STEPS, optim=constant)
+    setup_s = time.perf_counter() - t0
+    errors = []
+    before = {n: m.clone() for n, m in trainer.masters.items()}
+    steps = []
+    cc.reset_launches()
+    for i, batch in enumerate(batches):
+        prev = cc.launches()
+        comps = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        rise = {k: v - prev[k] for k, v in cc.launches().items()}
+        if set(rise.values()) != {len(LEVELS)}:
+            errors.append(f"step {i}: kernel launches rose by {rise}")
+        vals = {k: v.item() for k, v in comps.items()}
+        if not all(map(math.isfinite, vals.values())):
+            errors.append(f"step {i}: loss components {vals}")
+        steps.append(vals)
+    launches = cc.launches()
+    moved = sum(not torch.equal(m, before[n])
+                for n, m in trainer.masters.items())
+    if moved != len(before):
+        errors.append(f"{len(before) - moved} of {len(before)} weights did "
+                      f"not move in {TRAIN_STEPS} steps")
+
+    # one step's gradients from the same weights and batch: kernels (bf16)
+    # against the plain correlations in bf16 and in float32 (the yardstick)
+    plain16, _ = train_entry(batch_size=TRAIN_BATCH, n_batches=0,
+                             corr_impl="plain", optim=constant)
+    plain32, _ = train_entry(batch_size=TRAIN_BATCH, n_batches=0,
+                             corr_impl="plain", optim=constant,
+                             model={"dtype": "float32"})
+    batch = batches[0]
+    plain16.load_masters(trainer.masters)
+    plain32.load_masters(trainer.masters)
+    grads = {}
+    for which, tr in (("kernel", trainer), ("plain_bf16", plain16),
+                      ("plain_f32", plain32)):
+        _, grads[which] = tr.loss_and_grads(batch)
+        torch.cuda.synchronize()
+    d_kernel = module_rel_l2(grads["kernel"], grads["plain_f32"])
+    d_plain = module_rel_l2(grads["plain_bf16"], grads["plain_f32"])
+    distances = []
+    for mod in MODULES:
+        limit = 1.5 * d_plain[mod] + 1e-3
+        distances.append({"module": mod, "kernel_bf16_vs_f32": d_kernel[mod],
+                          "plain_bf16_vs_f32": d_plain[mod], "limit": limit})
+        if not d_kernel[mod] <= limit:
+            errors.append(f"{mod} gradient rel L2 {d_kernel[mod]} > {limit}")
+    del grads, plain32
+
+    # ms per train step, kernel path and plain path in turns on one card
+    paths = {"kernel": trainer, "plain": plain16}
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        tr = paths[which]
+        times[which].append(cuda_times(lambda: tr.train_step(batch),
+                                       runs=5, warmup=2))
+    step = {}
+    for which, parts in times.items():
+        med = statistics.median([p["median"] for p in parts])
+        step[which] = {
+            "ms_per_step": med, "frames_per_s": TRAIN_BATCH * 1e3 / med,
+            "ms_min": min(p["min"] for p in parts),
+            "ms_max": max(p["max"] for p in parts),
+            "block_medians": [p["median"] for p in parts],
+            "runs": sum(p["runs"] for p in parts)}
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    ok = not errors
+    emit({"phase": "train", "ok": ok, "config": "configs/cerberus_synthetic.json",
+          "hw": list(HW), "batch": TRAIN_BATCH, "dtype": "bfloat16",
+          "steps": steps, "launches": launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in launches.items()},
+          "weights_moved": moved, "weights": len(before),
+          "setup_s": setup_s, "distances": distances, "train_step": step,
+          "timing": "CUDA events around one train_step(batch) call, host "
+                    "batch in, preprocessing and optimizer included",
+          "max_memory_allocated_gib": peak_mem, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+REPLACES = {
+    "corr2d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:86 "
+                  "(_corr2d_fwd_kernel, pallas_call at :153)",
+    "corr1d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:234 "
+                  "(_corr1d_fwd_kernel, pallas_call at :281)",
+    "corr2d_bwd_f1": "cerberusnet_tpu/ops/pallas/correlation.py:102 "
+                     "(_corr2d_bwd_f1_kernel, pallas_call at :197)",
+    "corr2d_bwd_f2": "cerberusnet_tpu/ops/pallas/correlation.py:122 "
+                     "(_corr2d_bwd_f2_kernel, pallas_call at :214)",
+    "corr1d_bwd_f1": "cerberusnet_tpu/ops/pallas/correlation.py:243 "
+                     "(_corr1d_bwd_f1_kernel, pallas_call at :323)",
+    "corr1d_bwd_f2": "cerberusnet_tpu/ops/pallas/correlation.py:255 "
+                     "(_corr1d_bwd_f2_kernel, pallas_call at :335)",
+}
+
+
+def summary(checks, serve_launches, train_launches):
     """One entry per kernel; its numbers add up its five main-path calls
-    (bf16, one forward), with the per-call rows under "shapes"."""
-    sources = {
-        "corr2d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:86 "
-                      "(_corr2d_fwd_kernel, pallas_call at :153)",
-        "corr1d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:234 "
-                      "(_corr1d_fwd_kernel, pallas_call at :281)",
-    }
+    in bf16 (a forward at batch 1 as served, a backward at batch 2 as in a
+    train step), with the per-call rows under "shapes". ``launches`` is the
+    train path's count, where all six kernels run; the serve path's count
+    is beside it."""
     entries = []
-    for name, replaces in sources.items():
+    for name, replaces in REPLACES.items():
         rows = [c for c in checks if c["kernel"] == name
                 and c["dtype"] == "bfloat16" and c["dilation"] == 1]
         bound = sum(r["bound_ms"] for r in rows)
@@ -339,13 +496,16 @@ def summary(checks, launches):
         entries.append({
             "name": name, "route": "cuda",
             "source": "cerberusnet_torch/csrc/correlation.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": train_launches[name],
+            "launches_by_path": {"serve": serve_launches[name],
+                                 "train": train_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
             "library_ms": None,
+            "batch": rows[0]["shape"][0],
             "eager_ms": sum(r["eager_ms"] for r in rows),
             "plain_eager_ms": sum(r["plain_eager_ms"] for r in rows),
             "shapes": [{k: r[k] for k in (
@@ -374,8 +534,9 @@ def main():
     phase_build()
     spin_rate = sleep_cycles_per_ms()
     checks = phase_kernels(peak_bw, peak_flops, spin_rate)
-    launches = phase_serve()
-    summary(checks, launches)
+    serve_launches = phase_serve()
+    train_launches = phase_train()
+    summary(checks, serve_launches, train_launches)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
 """The port stands alone: cerberusnet_torch and chip_smoke.py import nothing
-of JAX, flax, the JAX package or tools/, and refuse to run where they must
-not (no CUDA device, no nvcc, no port beside chip_smoke.py)."""
+of JAX, flax, optax, the JAX package or tools/, and refuse to run where they
+must not (no CUDA device, no nvcc, no port beside chip_smoke.py)."""
 
 import ast
 import os
@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "cerberusnet_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "cerberusnet_tpu", "tools")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "cerberusnet_tpu", "tools")
 
 IMPORT_ALL_BLOCKED = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -45,7 +45,7 @@ def run_python(code, cwd=REPO, env=None):
 def test_every_module_imports_with_jax_blocked():
     proc = run_python(IMPORT_ALL_BLOCKED)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 12  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 23  # every module was imported
 
 
 def _imported_roots(path):

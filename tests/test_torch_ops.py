@@ -8,6 +8,7 @@ in float32 and rounded once on both sides, so they agree within one bf16
 ulp.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +24,20 @@ from cerberusnet_tpu.ops.pallas.correlation import (
 )
 from cerberusnet_tpu.ops.warp import warp1d as jax_warp1d
 from cerberusnet_tpu.ops.warp import warp2d as jax_warp2d
-from cerberusnet_torch.ops.correlation import correlation1d, correlation2d
+from cerberusnet_torch.ops.correlation import (
+    Correlation1d,
+    Correlation2d,
+    _correlation1d_bwd_f1_plain,
+    _correlation1d_bwd_f2_plain,
+    _correlation1d_bwd_plain,
+    _correlation1d_plain,
+    _correlation2d_bwd_f1_plain,
+    _correlation2d_bwd_f2_plain,
+    _correlation2d_bwd_plain,
+    _correlation2d_plain,
+    correlation1d,
+    correlation2d,
+)
 from cerberusnet_torch.ops.cuda import correlation as cuda_correlation
 from cerberusnet_torch.ops.warp import warp1d, warp2d
 
@@ -36,7 +50,7 @@ def bf16_ulp(x):
     return np.exp2(np.floor(np.log2(mag)) - 7)
 
 
-def assert_close(got, want, dtype):
+def assert_close(got, want, dtype, extra_atol=0.0):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape
@@ -44,7 +58,8 @@ def assert_close(got, want, dtype):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     else:
         gap = np.abs(got - want)
-        assert np.all(gap <= np.maximum(bf16_ulp(got), bf16_ulp(want))), (
+        limit = np.maximum(bf16_ulp(got), bf16_ulp(want)) + extra_atol
+        assert np.all(gap <= limit), (
             f"more than one bf16 ulp apart: max gap {gap.max()}")
 
 
@@ -242,16 +257,159 @@ class TestWarp:
         assert_close(got.float().numpy(), want.numpy(), "bfloat16")
 
 
+BWD_OPS = {
+    "2d": (_correlation2d_bwd_plain, _correlation2d_plain),
+    "1d": (_correlation1d_bwd_plain, _correlation1d_plain),
+}
+
+
+def cotangent(rng, shape, nk, dtype):
+    _, jdt, tdt = DTYPES[dtype]
+    j = jnp.asarray(rng.randn(*shape[:3], nk).astype(np.float32), jdt)
+    return j, torch.from_numpy(np.array(j, np.float32)).to(tdt)
+
+
+@pytest.mark.parametrize("op,shape,max_disp,dilation,dtype,ref", _params())
+def test_correlation_backward_matches_jax_vjp(op, shape, max_disp, dilation,
+                                              dtype, ref):
+    """(df1, df2) of the plain backward against jax.vjp of the reference,
+    for the same random cotangent: f32 to summation order, bf16 to one ulp
+    (both sum in f32 and round once) plus 1e-6 for the sum order."""
+    _, pure, pallas = OPS[op]
+    bwd, _ = BWD_OPS[op]
+    rng = np.random.RandomState(10)
+    (j1, t1), (j2, t2) = pair(rng, shape, dtype)
+    nk = (2 * max_disp + 1) ** 2 if op == "2d" else max_disp + 1
+    jg, tg = cotangent(rng, shape, nk, dtype)
+    if ref == "pure":
+        _, vjp = jax.vjp(lambda a, b: pure(a, b, max_disp, dilation), j1, j2)
+    else:
+        _, vjp = jax.vjp(lambda a, b: pallas(a, b, max_disp, True), j1, j2)
+    want = vjp(jg)
+    got = bwd(tg, t1, t2, max_disp, dilation)
+    for g, w in zip(got, want):
+        assert g.dtype == DTYPES[dtype][2]
+        assert_close(g.float().numpy(), w, dtype, extra_atol=1e-6)
+
+
+@pytest.mark.parametrize("op,shape,max_disp,dilation",
+                         [pytest.param(*c, id=f"{c[0]}-{c[1]}-d{c[2]}-dil{c[3]}")
+                          for c in CASES])
+def test_correlation_backward_matches_autograd(op, shape, max_disp, dilation):
+    """The plain backward equals torch autograd of the plain forward (f32)."""
+    bwd, fwd = BWD_OPS[op]
+    rng = np.random.RandomState(11)
+    f1, f2 = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+              .requires_grad_() for _ in range(2))
+    out = fwd(f1, f2, max_disp, dilation)
+    g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32))
+    want = torch.autograd.grad(out, (f1, f2), g)
+    got = bwd(g, f1.detach(), f2.detach(), max_disp, dilation)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+PLAIN_KERNELS = {
+    "corr2d_fwd": _correlation2d_plain,
+    "corr1d_fwd": _correlation1d_plain,
+    "corr2d_bwd_f1": _correlation2d_bwd_f1_plain,
+    "corr2d_bwd_f2": _correlation2d_bwd_f2_plain,
+    "corr1d_bwd_f1": _correlation1d_bwd_f1_plain,
+    "corr1d_bwd_f2": _correlation1d_bwd_f2_plain,
+}
+
+
+@pytest.fixture
+def kernels_on_cpu(monkeypatch):
+    """The CUDA wrappers, counters included, with each launch replaced by
+    the kernel's plain version, so the autograd Functions run on CPU
+    tensors. A launch checks that its operands are NHWC-contiguous, as the
+    kernels need."""
+
+    def launch(name, a, f, max_disp, dilation, nk, out_channels):
+        assert a.is_contiguous() and f.is_contiguous(), name
+        assert a.shape[-1] == nk, name
+        out = PLAIN_KERNELS[name](a, f, max_disp, dilation)
+        assert out.shape[-1] == out_channels, name
+        return out
+
+    monkeypatch.setattr(cuda_correlation, "_launch", launch)
+    cuda_correlation.reset_launches()
+    yield
+    cuda_correlation.reset_launches()
+
+
+@pytest.mark.parametrize("op,dilation", [("2d", 1), ("2d", 2), ("1d", 1),
+                                         ("1d", 2)])
+class TestAutogradFunction:
+    """Correlation2d / Correlation1d, the ops' path for CUDA tensors: the
+    forward and both gradients go through the kernel wrappers."""
+
+    FUNCS = {"2d": (Correlation2d, _correlation2d_plain, 3),
+             "1d": (Correlation1d, _correlation1d_plain, 6)}
+
+    def _inputs(self, op):
+        rng = np.random.RandomState(12)
+        shape = (2, 7, 11, 5)
+        return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                .requires_grad_() for _ in range(2)]
+
+    def test_gradients_equal_plain_autograd(self, op, dilation,
+                                            kernels_on_cpu):
+        fn, plain, d = self.FUNCS[op]
+        f1, f2 = self._inputs(op)
+        out = fn.apply(f1, f2, d, dilation)
+        ref = plain(f1, f2, d, dilation)
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        # a gradient laid out as the model's consumer leaves it: a channel
+        # slice of a wider channels_last tensor, not NHWC-contiguous
+        wide = torch.randn(*out.shape[:3], 2 * out.shape[-1] + 3)
+        g = wide[..., 1 : 1 + 2 * out.shape[-1] : 2]
+        assert not g.is_contiguous()
+        got = torch.autograd.grad(out, (f1, f2), g)
+        want = torch.autograd.grad(ref, (f1, f2), g)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+
+    def test_counters_rise_once_per_call(self, op, dilation, kernels_on_cpu):
+        fn, _, d = self.FUNCS[op]
+        f1, f2 = self._inputs(op)
+        for call in (1, 2):
+            out = fn.apply(f1, f2, d, dilation)
+            out.square().sum().backward()
+            counts = cuda_correlation.launches()
+            for name, n in counts.items():
+                assert n == (call if name.startswith(f"corr{op}") else 0), (
+                    name, counts)
+
+    def test_only_the_needed_gradient(self, op, dilation, kernels_on_cpu):
+        fn, _, d = self.FUNCS[op]
+        f1, f2 = self._inputs(op)
+        out = fn.apply(f1.detach(), f2, d, dilation)
+        out.sum().backward()
+        counts = cuda_correlation.launches()
+        assert counts[f"corr{op}_bwd_f1"] == 0
+        assert counts[f"corr{op}_bwd_f2"] == 1
+
+    def test_inference_mode_forward(self, op, dilation, kernels_on_cpu):
+        fn, plain, d = self.FUNCS[op]
+        f1, f2 = (t.detach() for t in self._inputs(op))
+        with torch.inference_mode():
+            out = fn.apply(f1, f2, d, dilation)
+        torch.testing.assert_close(out, plain(f1, f2, d, dilation))
+        assert cuda_correlation.launches()[f"corr{op}_fwd"] == 1
+
+
 class TestDispatch:
     def test_cpu_tensors_launch_no_kernel(self):
-        f = torch.randn(1, 6, 8, 4)
-        correlation2d(f, f, 2)
-        correlation1d(f, f, 4)
+        f = torch.randn(1, 6, 8, 4, requires_grad=True)
+        correlation2d(f, f, 2).sum().backward()
+        correlation1d(f, f, 4).sum().backward()
         correlation2d(f, f, 2, impl="plain")
-        assert cuda_correlation.corr2d_fwd_launches == 0
-        assert cuda_correlation.corr1d_fwd_launches == 0
+        assert set(cuda_correlation.launches().values()) == {0}
 
-    @pytest.mark.parametrize("kernel", ["corr2d_fwd", "corr1d_fwd"])
+    @pytest.mark.parametrize("kernel", cuda_correlation.KERNELS)
     def test_kernel_wrapper_refuses_cpu_tensors(self, kernel):
         f = torch.randn(1, 6, 8, 4)
         with pytest.raises(ValueError, match="CUDA device"):
