@@ -4,9 +4,10 @@
 working size.
 
 ``batches`` stacks a dataset's samples in order into numpy batch dicts;
-``preprocess`` moves a batch to the device: images from uint8 to float32,
-/255, ImageNet mean and std, then the compute type; labels to int64; flow,
-disparity and the valid masks to float32. Resizing (and the worker pool,
+``preprocess`` uploads a batch in its own types and converts it on the
+device: images from uint8 to float32, /255, ImageNet mean and std, then the
+compute type; labels to int64; flow, disparity and the valid masks to
+float32. Resizing (and the worker pool,
 shuffling and prefetch of the reference's loader) is not ported yet
 (ROADMAP A6): an input of another size than ``hw`` raises.
 """
@@ -53,7 +54,10 @@ def preprocess(batch, hw, dtype: torch.dtype, device) -> dict:
             f"data.hw {hw}: resizing is not ported yet (ROADMAP A6)")
 
     def put(v, dt):
-        return torch.as_tensor(v).to(device=device, dtype=dt)
+        # upload in the array's own type (uint8 images and labels are a
+        # quarter and an eighth of their converted size), convert on the
+        # device
+        return torch.as_tensor(v).to(device).to(dt)
 
     mean = torch.from_numpy(IMAGENET_MEAN).to(device)
     std = torch.from_numpy(IMAGENET_STD).to(device)

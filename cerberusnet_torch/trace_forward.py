@@ -11,7 +11,8 @@ line: wall ms per call, the device's kernel time per call by category
 scatters, bilinear resizes, concatenations, pads, the optimizer's
 multi-tensor kernels, host-to-device copies, fills, other elementwise), the
 device's idle share, the number of launches per call (copies and fills
-included), and the top kernels. A kernel's category comes from a substring
+included), the bytes of the host batch a train step uploads, and the top
+kernels. A kernel's category comes from a substring
 of its name, so each category also lists the names it took, where a
 misfiled kernel shows. Needs a CUDA device.
 """
@@ -67,9 +68,11 @@ def main(argv=None) -> int:
     # as chip_smoke.py times them: the f32 classifier without TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    upload_bytes = None
     if args.train:
         trainer, (batch,) = train_entry(corr_impl=args.corr_impl,
                                         optim={"schedule": "constant"})
+        upload_bytes = sum(v.nbytes for v in batch.values())
 
         def call():
             trainer.train_step(batch)
@@ -115,6 +118,7 @@ def main(argv=None) -> int:
         "device_kernel_ms_per_call": busy,
         "device_idle_share": 1.0 - busy / wall_ms if busy else None,
         "launches_per_call": launches / RUNS,
+        "upload_bytes_per_call": upload_bytes,
         "by_category": {
             c: {"ms_per_call": ms / RUNS,
                 "launches_per_call": n / RUNS,

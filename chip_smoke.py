@@ -8,10 +8,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
   build    nvcc builds every kernel of the path from cerberusnet_torch/csrc
   kernels  each correlation kernel, forward and backward, against its plain
            PyTorch version on the card, at the five pyramid-level shapes of
-           a 512x1024 frame (batch 1 for the forwards, as served; batch 2 for
-           the backwards, as trained), in bfloat16 and float32, plus one
-           dilation-2 case; CUDA-event times of kernel and plain version
-           beside the kernel's bound
+           a 512x1024 frame (the forwards at batch 1, as served, and at
+           batch 2, as trained; the backwards at batch 2), in bfloat16 and
+           float32, plus one dilation-2 case; CUDA-event times of kernel
+           and plain version beside the kernel's bound
   serve    the default-width CerberusNet through cerberusnet_torch.entry,
            bf16 at 512x1024, answering 3 seeded requests: output shapes,
            types and finiteness, the pyramids, and 5 + 5 kernel launches per
@@ -23,10 +23,15 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            constant learning rate): finite losses, 5 launches of each of
            the six kernels per step, every weight moved; then one step's
            gradients from the same weights and batch with the plain
-           correlations in bf16 and in float32 (the yardstick), per module;
-           ms per train step with the kernels and with the plain
-           correlations, in turns, and the peak device memory
-Then a {"kernels": [...]} summary line, the card's nvidia-smi line and, last,
+           correlations in bf16 and in float32 (the yardstick), per module
+           and per correlation input, and the same with each backward
+           kernel, and then all four, returning zeros, which that
+           comparison must catch; ms per train step with the kernels and
+           with the plain correlations, in turns, and the peak device
+           memory
+Then a {"kernels": [...]} summary line (each kernel's numbers on the train
+path, where all six run, with the serve path's beside them), the card's
+nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result.
 """
@@ -187,35 +192,39 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
         return FLOW_MAX_DISP
 
     # name: (wrapper, plain version, max_disp of a level, cost-volume
-    # channels, FLOPs, batch, is a backward). A forward takes (f1, f2) and
-    # writes the cost volume; a backward takes (g, f), g the cost volume's
-    # gradient, and writes one feature map's gradient. Both read and write
-    # the same tensors' worth of bytes, and a backward does the forward's
-    # in-frame multiply-adds.
+    # channels, FLOPs, batches, is a backward). A forward takes (f1, f2)
+    # and writes the cost volume; a backward takes (g, f), g the cost
+    # volume's gradient, and writes one feature map's gradient. Both read
+    # and write the same tensors' worth of bytes, and a backward does the
+    # forward's in-frame multiply-adds. The forwards run at batch 1 when
+    # served and at the train batch in a train step; the backwards only in
+    # a train step.
+    both = (1, TRAIN_BATCH)
     kernels = {
         "corr2d_fwd": (cc.corr2d_fwd, corr._correlation2d_plain, flow_disp,
-                       nk2d, corr2d_flops, 1, False),
+                       nk2d, corr2d_flops, both, False),
         "corr1d_fwd": (cc.corr1d_fwd, corr._correlation1d_plain,
-                       level_max_disp, nk1d, corr1d_flops, 1, False),
+                       level_max_disp, nk1d, corr1d_flops, both, False),
         "corr2d_bwd_f1": (cc.corr2d_bwd_f1, corr._correlation2d_bwd_f1_plain,
-                          flow_disp, nk2d, corr2d_flops, TRAIN_BATCH, True),
+                          flow_disp, nk2d, corr2d_flops, (TRAIN_BATCH,), True),
         "corr2d_bwd_f2": (cc.corr2d_bwd_f2, corr._correlation2d_bwd_f2_plain,
-                          flow_disp, nk2d, corr2d_flops, TRAIN_BATCH, True),
+                          flow_disp, nk2d, corr2d_flops, (TRAIN_BATCH,), True),
         "corr1d_bwd_f1": (cc.corr1d_bwd_f1, corr._correlation1d_bwd_f1_plain,
-                          level_max_disp, nk1d, corr1d_flops, TRAIN_BATCH,
+                          level_max_disp, nk1d, corr1d_flops, (TRAIN_BATCH,),
                           True),
         "corr1d_bwd_f2": (cc.corr1d_bwd_f2, corr._correlation1d_bwd_f2_plain,
-                          level_max_disp, nk1d, corr1d_flops, TRAIN_BATCH,
+                          level_max_disp, nk1d, corr1d_flops, (TRAIN_BATCH,),
                           True),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
-    for name, (kernel, plain, disp_of, nk_of, flops_of, batch,
+    for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
                backward) in kernels.items():
-        cases = [(level, dt, 1) for level in LEVELS
+        cases = [(batch, level, dt, 1) for batch in batches
+                 for level in LEVELS
                  for dt in (torch.bfloat16, torch.float32)]
-        cases.append((2, torch.bfloat16, 2))
-        for level, dt, dil in cases:
+        cases.append((TRAIN_BATCH, 2, torch.bfloat16, 2))
+        for batch, level, dt, dil in cases:
             shape = (batch, HW[0] >> level, HW[1] >> level,
                      ENCODER_CHANNELS[level - 1])
             d = disp_of(level)
@@ -245,7 +254,8 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
             flops = flops_of(b, h, w, c, d, dil)
             bound_ms = max(nbytes / peak_bw, flops / peak_flops) * 1e3
             checks.append({
-                "kernel": name, "level": level, "shape": list(shape),
+                "kernel": name, "batch": batch, "level": level,
+                "shape": list(shape),
                 "max_disp": d, "dilation": dil, "dtype": str(dt)[6:],
                 "ok": ok, "max_abs_err": diff.max().item(),
                 "rtol": rtol, "atol": atol, "ms": k_t["median"],
@@ -360,6 +370,43 @@ def phase_serve():
 
 
 MODULES = ("encoder", "flow", "disparity", "segmentation")
+BACKWARDS = ("corr2d_bwd_f1", "corr2d_bwd_f2", "corr1d_bwd_f1",
+             "corr1d_bwd_f2")
+
+
+def grads_and_taps(trainer, batch):
+    """One step's gradients (``trainer.loss_and_grads``) and the gradient
+    each correlation call hands each of its inputs, as {"corr2d level 6
+    df1": tensor, ...}. An input goes through an identity view whose hook
+    reads its gradient, so the hook sees the correlation's share alone:
+    within a module's whole gradient that share is too small to show."""
+    from cerberusnet_torch.models.disparity import DisparityDecoder
+    from cerberusnet_torch.models.flow import FlowDecoder
+
+    taps = {}
+
+    def tapped(kind, correlate):
+        def call(self, level, f1, f2):
+            views = []
+            for which, f in (("df1", f1), ("df2", f2)):
+                v = f.view_as(f)
+                key = f"{kind} level {level} {which}"
+                v.register_hook(
+                    lambda g, key=key: taps.__setitem__(key, g.float()))
+                views.append(v)
+            return correlate(self, level, *views)
+        return call
+
+    saved = {FlowDecoder: FlowDecoder.correlate,
+             DisparityDecoder: DisparityDecoder.correlate}
+    FlowDecoder.correlate = tapped("corr2d", saved[FlowDecoder])
+    DisparityDecoder.correlate = tapped("corr1d", saved[DisparityDecoder])
+    try:
+        _, grads = trainer.loss_and_grads(batch)
+    finally:
+        for cls, fn in saved.items():
+            cls.correlate = fn
+    return grads, taps
 
 
 def module_rel_l2(grads, ref):
@@ -416,21 +463,55 @@ def phase_train():
     batch = batches[0]
     plain16.load_masters(trainer.masters)
     plain32.load_masters(trainer.masters)
-    grads = {}
+    # per module, and per correlation input (taps)
+    grads, taps = {}, {}
     for which, tr in (("kernel", trainer), ("plain_bf16", plain16),
                       ("plain_f32", plain32)):
-        _, grads[which] = tr.loss_and_grads(batch)
+        grads[which], taps[which] = grads_and_taps(tr, batch)
         torch.cuda.synchronize()
-    d_kernel = module_rel_l2(grads["kernel"], grads["plain_f32"])
-    d_plain = module_rel_l2(grads["plain_bf16"], grads["plain_f32"])
-    distances = []
-    for mod in MODULES:
-        limit = 1.5 * d_plain[mod] + 1e-3
-        distances.append({"module": mod, "kernel_bf16_vs_f32": d_kernel[mod],
-                          "plain_bf16_vs_f32": d_plain[mod], "limit": limit})
-        if not d_kernel[mod] <= limit:
-            errors.append(f"{mod} gradient rel L2 {d_kernel[mod]} > {limit}")
-    del grads, plain32
+        if len(taps[which]) != 2 * 2 * len(LEVELS):
+            fail("train", f"{which}: {len(taps[which])} correlation input "
+                          f"gradients, not {4 * len(LEVELS)}")
+    ref, ref_taps = grads["plain_f32"], taps["plain_f32"]
+
+    def distances_of(g, t):
+        return {**module_rel_l2(g, ref),
+                **{k: rel_l2(t[k], ref_taps[k]) for k in ref_taps}}
+
+    d_kernel = distances_of(grads["kernel"], taps["kernel"])
+    d_plain = distances_of(grads["plain_bf16"], taps["plain_bf16"])
+    limits = {k: 1.5 * v + 1e-3 for k, v in d_plain.items()}
+    distances = [{"of": k, "kernel_bf16_vs_f32": d_kernel[k],
+                  "plain_bf16_vs_f32": d_plain[k], "limit": limits[k]}
+                 for k in limits]
+    errors += [f"{k} gradient rel L2 {d_kernel[k]} > {limits[k]}"
+               for k in limits if not d_kernel[k] <= limits[k]]
+
+    # controls: the same step with backward kernels that return zeros, one
+    # at a time and all four (a cost volume without gradient); the
+    # comparison above must put each beyond a limit
+    controls = []
+    for dropped in [(k,) for k in BACKWARDS] + [BACKWARDS]:
+        saved = {k: getattr(cc, k) for k in dropped}
+        for k in dropped:
+            setattr(cc, k, lambda g, f, d, dil: torch.zeros_like(f))
+        try:
+            faulty, faulty_taps = grads_and_taps(trainer, batch)
+        finally:
+            for k, fn in saved.items():
+                setattr(cc, k, fn)
+        dist = distances_of(faulty, faulty_taps)
+        caught = [k for k in limits if not dist[k] <= limits[k]]
+        controls.append({
+            "zeroed": list(dropped), "caught_by": caught,
+            "module_rel_l2": {m: dist[m] for m in MODULES},
+            "module_limit": {m: limits[m] for m in MODULES},
+            "module_rel_l2_to_kernel_path": module_rel_l2(faulty,
+                                                          grads["kernel"])})
+        if not caught:
+            errors.append(f"zeroing {dropped} stays within every limit: "
+                          f"{dist}")
+    del grads, taps, faulty, faulty_taps, plain32
 
     # ms per train step, kernel path and plain path in turns on one card
     paths = {"kernel": trainer, "plain": plain16}
@@ -438,7 +519,7 @@ def phase_train():
     for which in ("plain", "kernel", "kernel", "plain"):
         tr = paths[which]
         times[which].append(cuda_times(lambda: tr.train_step(batch),
-                                       runs=5, warmup=2))
+                                       runs=10, warmup=2))
     step = {}
     for which, parts in times.items():
         med = statistics.median([p["median"] for p in parts])
@@ -456,7 +537,8 @@ def phase_train():
           "launches_per_step": {k: v / TRAIN_STEPS
                                 for k, v in launches.items()},
           "weights_moved": moved, "weights": len(before),
-          "setup_s": setup_s, "distances": distances, "train_step": step,
+          "setup_s": setup_s, "distances": distances, "controls": controls,
+          "train_step": step,
           "timing": "CUDA events around one train_step(batch) call, host "
                     "batch in, preprocessing and optimizer included",
           "max_memory_allocated_gib": peak_mem, "errors": errors})
@@ -481,38 +563,48 @@ REPLACES = {
 }
 
 
+def path_numbers(checks, name, batch, launches):
+    """A kernel's numbers on one path: its five calls there in bf16 at
+    that path's batch, summed, with the path's launch count and the
+    per-call rows under "shapes"."""
+    rows = [c for c in checks if c["kernel"] == name and c["batch"] == batch
+            and c["dtype"] == "bfloat16" and c["dilation"] == 1]
+    bound = sum(r["bound_ms"] for r in rows)
+    by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    return {
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": bound,
+        "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
+        "batch": batch,
+        "eager_ms": sum(r["eager_ms"] for r in rows),
+        "plain_eager_ms": sum(r["plain_eager_ms"] for r in rows),
+        "shapes": [{k: r[k] for k in (
+            "level", "shape", "max_disp", "ms", "ms_min", "ms_max",
+            "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
+            "bound_by", "max_abs_err")} for r in rows],
+    }
+
+
 def summary(checks, serve_launches, train_launches):
-    """One entry per kernel; its numbers add up its five main-path calls
-    in bf16 (a forward at batch 1 as served, a backward at batch 2 as in a
-    train step), with the per-call rows under "shapes". ``launches`` is the
-    train path's count, where all six kernels run; the serve path's count
-    is beside it."""
+    """One entry per kernel. Its numbers are the train path's (batch 2),
+    where all six kernels run: launches from that path's run, times and
+    bounds from its shapes. A forward's serve-path numbers (batch 1) stand
+    under "paths" beside them."""
     entries = []
     for name, replaces in REPLACES.items():
-        rows = [c for c in checks if c["kernel"] == name
-                and c["dtype"] == "bfloat16" and c["dilation"] == 1]
-        bound = sum(r["bound_ms"] for r in rows)
-        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        train = path_numbers(checks, name, TRAIN_BATCH, train_launches[name])
+        paths = {"train": {k: v for k, v in train.items() if k != "shapes"}}
+        if serve_launches[name]:
+            serve = path_numbers(checks, name, 1, serve_launches[name])
+            paths["serve"] = {k: v for k, v in serve.items() if k != "shapes"}
         entries.append({
             "name": name, "route": "cuda",
             "source": "cerberusnet_torch/csrc/correlation.cu",
-            "replaces": replaces, "launches": train_launches[name],
-            "launches_by_path": {"serve": serve_launches[name],
-                                 "train": train_launches[name]},
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": bound,
-            "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
-            "library_ms": None,
-            "batch": rows[0]["shape"][0],
-            "eager_ms": sum(r["eager_ms"] for r in rows),
-            "plain_eager_ms": sum(r["plain_eager_ms"] for r in rows),
-            "shapes": [{k: r[k] for k in (
-                "level", "shape", "max_disp", "ms", "ms_min", "ms_max",
-                "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
-                "bound_by", "max_abs_err")} for r in rows],
-        })
+            "replaces": replaces, "library_ms": None, **train,
+            "paths": paths})
     emit({"kernels": entries})
 
 
