@@ -15,7 +15,11 @@
 // _corr2d_fwd_kernel, _corr2d_bwd_f1_kernel and _corr2d_bwd_f2_kernel (host
 // functions _corr2d_forward and _corr2d_vjp_bwd), and _corr1d_fwd_kernel,
 // _corr1d_bwd_f1_kernel and _corr1d_bwd_f2_kernel (_corr1d_forward and
-// _corr1d_vjp_bwd).
+// _corr1d_vjp_bwd). At dilation > 1, as the DCV heads call them, the two
+// forwards also replace _corr2d_wl_kernel and _corr1d_wl_kernel
+// (_corr2d_wl_forward, _corr1d_wl_forward): the same functions, whose
+// W-in-lanes layout fitted the TPU's vector lanes and is no part of what
+// they compute.
 //
 // Samples outside the frame contribute zero; the kernels mask them while
 // staging, so the host pads nothing. Products and sums run in float32, the
@@ -70,7 +74,14 @@
 // apart: staging, where each thread waits on one global load per loop trip,
 // and the C-loop, which reads two shared operands per multiply-add. The
 // backward kernels share the launch shape and run 10x (1-D, level 2) to
-// about 570x (2-D, level 6) their bounds at batch 2 (PERF.md).
+// about 570x (2-D, level 6) their bounds at batch 2 (PERF.md). At the DCV
+// heads' level 3 (C=64, d=D=4) a dilation widens the staged window row
+// (kTileW + 2*d*dil columns: 96 at dilation 8, 43.6 KB of shared memory
+// for the 2-D forward) while the window rows outside the frame are
+// skipped; the 2-D forward at dilation 8 takes 1.5x its dilation-1 time.
+// There the 1-D forward at D=4 (160 threads a block) is slower than at
+// D=12 (416 threads) on the same rows, though it computes a third of the
+// products: a hint that staging, not the dot products, sets its time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,13 +1,15 @@
-"""Entry points: serving the default-width CerberusNet, and training it.
+"""Entry points: serving a joint model at default widths, and training.
 
-``entry()`` builds the joint model at the reference's default widths with
-seeded random weights and returns ``(forward, example_inputs)``: the
-forward takes (left, right, temporal) NHWC frames and returns the output
-dict of ``CerberusNet.forward``.
+``entry(variant=...)`` builds the joint model, ``"cerberus"``
+(``CerberusNet``, the default) or ``"cerberus_dcv"`` (``CerberusDCV``), at
+the reference's default widths with seeded random weights and returns
+``(forward, example_inputs)``: the forward takes (left, right, temporal)
+NHWC frames and returns the model's output dict.
 
-``train_entry()`` reads an experiment config (``configs/*.json``) and
-returns ``(trainer, batches)``: a ``Trainer`` and batches of its synthetic
-dataset, ready for ``trainer.train_step(batch)``.
+``train_entry()`` reads an experiment config (``configs/*.json``, any
+variant the port builds) and returns ``(trainer, batches)``: a ``Trainer``
+and batches of its synthetic dataset, ready for
+``trainer.train_step(batch)``.
 
 Both run on the GPU unless the caller asks for ``device="cpu"``; with no
 CUDA device they raise rather than carry on on the CPU.
@@ -22,11 +24,13 @@ import torch
 
 from cerberusnet_torch.data.loader import batches
 from cerberusnet_torch.models.cerberus import CerberusNet
+from cerberusnet_torch.models.dcv_flow import CerberusDCV
 from cerberusnet_torch.train.config import ExperimentConfig
 from cerberusnet_torch.train.trainer import Trainer
 from cerberusnet_torch.weights import init_params
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
+SERVED = {"cerberus": CerberusNet, "cerberus_dcv": CerberusDCV}
 
 
 def make_frames(seed: int, hw=(512, 1024), device="cuda",
@@ -41,13 +45,18 @@ def make_frames(seed: int, hw=(512, 1024), device="cuda",
 
 
 def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
-          seed: int = 0, corr_impl: str | None = None):
-    """Returns (forward, example_inputs) for the default-width model."""
+          seed: int = 0, corr_impl: str | None = None,
+          variant: str = "cerberus"):
+    """Returns (forward, example_inputs) for the default-width model of
+    ``variant`` ("cerberus" or "cerberus_dcv")."""
+    if variant not in SERVED:
+        raise ValueError(f"unknown variant {variant!r}; expected one of "
+                         f"{tuple(SERVED)}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the model on the CPU")
-    model = CerberusNet(corr_impl=corr_impl, dtype=dtype)
+    model = SERVED[variant](corr_impl=corr_impl, dtype=dtype)
     init_params(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
 

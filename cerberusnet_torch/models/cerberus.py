@@ -17,7 +17,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from cerberusnet_torch.models.common import nchw, nhwc
+from cerberusnet_torch.models.common import nhwc
 from cerberusnet_torch.models.disparity import DisparityDecoder
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.models.flow import FlowDecoder
@@ -62,13 +62,8 @@ class CerberusNet(nn.Module):
           flow_pyramid  {level: (B, H/2^l, W/2^l, 2)} for levels 6..2
           disp_pyramid  {level: (B, H/2^l, W/2^l, 1)} for levels 6..2
         """
-        b = left.shape[0]
-        frames = torch.cat([left, right, temporal], dim=0).to(self.dtype)
-        feats = self.encoder(nchw(frames.contiguous()))
-        f_left = [f[:b] for f in feats]
-        f_right = [f[b : 2 * b] for f in feats]
-        f_temporal = [f[2 * b :] for f in feats]
-
+        f_left, f_right, f_temporal = self.encoder.encode(left, right,
+                                                          temporal)
         disp = self.disparity(f_left, f_right)
         flow = self.flow(f_left, f_temporal)
         seg = self.segmentation(f_left, left.shape[1:3])

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 
-from cerberusnet_torch.models.common import ConvBlock
+from cerberusnet_torch.models.common import ConvBlock, nchw
 
 
 class PyramidEncoder(nn.Module):
@@ -35,3 +36,14 @@ class PyramidEncoder(nn.Module):
             if i % 3 == 2:
                 feats.append(x)
         return feats
+
+    def encode(self, *frames):
+        """NHWC frames (B, H, W, 3) -> one pyramid (list of NCHW maps,
+        levels 1..6) per frame. The frames run as one batch in the
+        encoder's type; the reference encodes them one at a time or
+        batched, with the same arithmetic per sample."""
+        b = frames[0].shape[0]
+        x = torch.cat(frames, dim=0).to(self.blocks[0].conv.weight.dtype)
+        feats = self(nchw(x.contiguous()))
+        return [[f[i * b : (i + 1) * b] for f in feats]
+                for i in range(len(frames))]

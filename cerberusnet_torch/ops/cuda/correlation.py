@@ -10,6 +10,10 @@ Each wrapper replaces one TPU kernel of
   corr1d_bwd_f1  _corr1d_bwd_f1_kernel    its gradient for f1
   corr1d_bwd_f2  _corr1d_bwd_f2_kernel    its gradient for f2
 
+At dilation > 1 (the DCV heads) corr2d_fwd and corr1d_fwd also replace
+``_corr2d_wl_kernel`` and ``_corr1d_wl_kernel``, the dilated W-in-lanes
+forms of the same two cost volumes.
+
 The source note in ``csrc/correlation.cu`` gives each kernel's bound on an
 H100 and what its design does about it. Their plain PyTorch versions are
 the ``_correlation{2d,1d}[_bwd_f1,_bwd_f2]_plain`` functions in

@@ -1,11 +1,15 @@
 """Where the time of one forward, or one train step, goes on the GPU.
 
-    python3 -m cerberusnet_torch.trace_forward [--train] [--corr-impl plain]
+    python3 -m cerberusnet_torch.trace_forward [--variant cerberus_dcv]
+        [--train [--config configs/....json]] [--corr-impl plain]
 
-Runs the default-width CerberusNet under ``torch.profiler`` for 5 calls
-after warmup: a bf16 forward at 512x1024, batch 1, through ``entry``, or
-with ``--train`` a train step of ``configs/cerberus_synthetic.json`` at
-batch 2 through ``train_entry`` (constant learning rate). Prints one JSON
+Runs a default-width joint model (``--variant``: ``cerberus``, the
+default, or ``cerberus_dcv``) under ``torch.profiler`` for 5 calls after
+warmup: a bf16 forward at 512x1024, batch 1, through ``entry``, or with
+``--train`` a train step at batch 2 through ``train_entry`` (constant
+learning rate) of ``--config``, by default the variant's own experiment
+(``configs/cerberus_synthetic.json`` or ``configs/cerberus_dcv.json``).
+Prints one JSON
 line: wall ms per call, the device's kernel time per call by category
 (convolutions, the correlation kernels, warp gathers and their backward's
 scatters, bilinear resizes, concatenations, pads, the optimizer's
@@ -28,6 +32,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 RUNS = 5
+TRAIN_CONFIGS = {"cerberus": "configs/cerberus_synthetic.json",
+                 "cerberus_dcv": "configs/cerberus_dcv.json"}
 # first match wins; kernel names are lower-cased before matching
 CATEGORIES = (
     ("correlation", ("corr2d_", "corr1d_")),
@@ -57,8 +63,13 @@ def category(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corr-impl", choices=["plain"], default=None)
+    ap.add_argument("--variant", choices=sorted(TRAIN_CONFIGS),
+                    default="cerberus")
     ap.add_argument("--train", action="store_true",
                     help="trace a train step instead of a forward")
+    ap.add_argument("--config", default=None,
+                    help="the train step's experiment (default: the "
+                         "variant's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_forward: no CUDA device", file=sys.stderr)
@@ -69,15 +80,18 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     upload_bytes = None
+    config = None
     if args.train:
-        trainer, (batch,) = train_entry(corr_impl=args.corr_impl,
+        config = args.config or TRAIN_CONFIGS[args.variant]
+        trainer, (batch,) = train_entry(config, corr_impl=args.corr_impl,
                                         optim={"schedule": "constant"})
         upload_bytes = sum(v.nbytes for v in batch.values())
 
         def call():
             trainer.train_step(batch)
     else:
-        forward, imgs = entry(corr_impl=args.corr_impl)
+        forward, imgs = entry(corr_impl=args.corr_impl,
+                              variant=args.variant)
 
         def call():
             forward(*imgs)
@@ -113,6 +127,8 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "call": "train_step" if args.train else "forward",
+        "variant": trainer.config.model.variant if args.train
+        else args.variant, "config": config,
         "corr_impl": args.corr_impl or "kernel", "runs": RUNS,
         "wall_ms_per_call": wall_ms,
         "device_kernel_ms_per_call": busy,

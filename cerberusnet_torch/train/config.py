@@ -7,9 +7,10 @@ unknown key raises ``ValueError`` as in the reference.
 
 Parsing accepts every value. ``ExperimentConfig.check_supported()``, which
 the ``Trainer`` calls, raises ``NotImplementedError`` naming the ROADMAP
-item for a value the port does not run yet. Keys that only steer XLA's
-program in the reference, with the same arithmetic and the same parameter
-tree whatever their value, are accepted and have no effect here:
+item for a value the port does not run yet; it builds the model variants
+in ``VARIANTS``. Keys that only steer XLA's program in the reference, with
+the same arithmetic and the same parameter tree whatever their value, are
+accepted and have no effect here:
 ``model.fused``, ``corr_stack``, ``distribute_outputs``, ``upfeat_impl``,
 ``upsample_impl``, ``batched_encoder``, ``s2d_stem``, ``stem_pad_channels``,
 ``s2d_levels``, ``entry_grad``, ``pallas_grad``, ``est_input`` and
@@ -30,6 +31,9 @@ from typing import Optional, Tuple
 
 import torch
 
+# model.variant values the port builds (train/trainer.py ``build_model``)
+VARIANTS = ("cerberus", "cerberus_dcv", "dcv_flow", "dcv_stereo")
+
 
 @dataclasses.dataclass
 class ModelConfig:
@@ -42,9 +46,10 @@ class ModelConfig:
     ctx_channels: Tuple[int, ...] = (128, 128, 128, 96, 64, 32)
     fpn_channels: int = 96
     seg_head: str = "fpn"
-    # None: the CUDA kernels on a GPU. "pallas" means the same here;
-    # "pure"/"purev" (the reference's XLA formulations) and "plain" run the
-    # plain torch correlations.
+    # None: the CUDA kernels on a GPU. "pallas" and "pallas_wl" (the
+    # reference's two Pallas layouts) mean the same here; "pure"/"purev"
+    # (the reference's XLA formulations) and "plain" run the plain torch
+    # correlations.
     corr_impl: Optional[str] = None
     fused: bool = True
     corr_stack: str = "major"
@@ -209,10 +214,8 @@ class ExperimentConfig:
         run yet, naming its ROADMAP item."""
         m, d, o, l, t = self.model, self.data, self.optim, self.loss, self.train
         checks = (
-            (m.variant != "cerberus", f"model.variant={m.variant!r}", "A8"),
+            (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (m.seg_head != "fpn", f"model.seg_head={m.seg_head!r}", "A8"),
-            (m.corr_impl == "pallas_wl", "model.corr_impl='pallas_wl'",
-             "B5/B6"),
             (m.pallas_levels > 0, f"model.pallas_levels={m.pallas_levels}",
              "B7/B8"),
             (d.dataset != "synthetic", f"data.dataset={d.dataset!r}", "A6"),
@@ -222,7 +225,6 @@ class ExperimentConfig:
             (o.ema_decay > 0, f"optim.ema_decay={o.ema_decay}", "A5"),
             (o.grads_dtype == "bfloat16", "optim.grads_dtype='bfloat16'",
              "A5"),
-            (l.uncertainty_weighting, "loss.uncertainty_weighting", "A4"),
             (bool(l.rmi_weight), f"loss.rmi_weight={l.rmi_weight}", "A4"),
             (bool(l.photometric_weight),
              f"loss.photometric_weight={l.photometric_weight}", "A4"),

@@ -11,9 +11,10 @@ Each loss is a masked mean over valid pixels (sparse ground truth):
   * disparity: berHu per level, with the same pyramid
   * joint: the weighted sum
 
-The RMI, photometric and smoothness terms, the RAFT sequence loss and
-uncertainty weighting are not ported yet (ROADMAP A4): ``joint_loss``
-raises ``NotImplementedError`` when asked for them.
+``uncertainty_weighted_total`` replaces the weighted sum with Kendall's
+weighting by learned log-variances. The RMI, photometric and smoothness
+terms and the RAFT sequence loss are not ported yet (ROADMAP A4):
+``joint_loss`` raises ``NotImplementedError`` when asked for them.
 """
 
 from __future__ import annotations
@@ -177,3 +178,15 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
         total = total + weights.get("disp", 1.0) * comps["disp"]
     comps["total"] = total
     return total, comps
+
+
+def uncertainty_weighted_total(comps, log_vars):
+    """Kendall et al.'s homoscedastic multi-task weighting: the sum over
+    the tasks present in ``comps`` of exp(-s_t) * L_t + 0.5 * s_t, with
+    ``log_vars`` {task: learnable float32 scalar s_t}. The config's task
+    weights do not enter it, as in the reference."""
+    total = 0.0
+    for task, s in log_vars.items():
+        if task in comps:
+            total = total + torch.exp(-s) * comps[task] + 0.5 * s
+    return total

@@ -1,19 +1,22 @@
 """The train step, port of ``cerberusnet_tpu/train/trainer.py``
 (``build_optimizer`` and the train step of ``Trainer``).
 
-A step: preprocess the batch on the device, run the joint model in its
-compute type, ``joint_loss``, backward (through the correlation kernels'
-backward on a GPU), upcast the gradients to float32, clip them by their
-global norm, update float32 master weights, and copy the masters into the
-model. The masters live here, not in the model: the serving model holds
-bf16 parameters (the classifier float32), and an update of 1e-4 vanishes
-in bf16 rounding. This is what the reference does with flax's float32
+A step: preprocess the batch on the device, run the model in its compute
+type, ``joint_loss`` (with ``loss.uncertainty_weighting``, Kendall's
+weighting by three learned float32 log-variances), backward (through the
+correlation kernels' backward on a GPU), upcast the gradients to float32,
+clip them by their global norm, update float32 master weights, and copy
+the masters into the model. The masters live here, not in the model: the
+serving model holds bf16 parameters (the classifier float32), and an
+update of 1e-4 vanishes in bf16 rounding. This is what the reference does with flax's float32
 parameters and bf16 compute: its gradient of a float32 parameter is the
 bf16 gradient of the cast, converted.
 
-``fit``, checkpoints, evaluation, EMA, NaN recovery and logging are not
-ported yet (ROADMAP A5, A7): the trainer takes steps on batches it is
-given.
+The model is ``build_model``'s for ``model.variant``: the joint
+``CerberusNet`` or ``CerberusDCV``, or the single-task ``DCVFlowNet`` or
+``DCVStereoNet``. ``fit``, checkpoints, evaluation, EMA, NaN recovery and
+logging are not ported yet (ROADMAP A5, A7): the trainer takes steps on
+batches it is given.
 """
 
 from __future__ import annotations
@@ -26,9 +29,55 @@ import torch
 from cerberusnet_torch.data.loader import preprocess
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.models.cerberus import CerberusNet
+from cerberusnet_torch.models.dcv_flow import (
+    CerberusDCV,
+    DCVFlowNet,
+    DCVStereoNet,
+)
 from cerberusnet_torch.train import losses
-from cerberusnet_torch.train.config import ExperimentConfig, OptimConfig
+from cerberusnet_torch.train.config import (
+    ExperimentConfig,
+    ModelConfig,
+    OptimConfig,
+)
 from cerberusnet_torch.weights import init_params
+
+# ----------------------------------------------------------------- model
+
+
+def build_model(cfg: ModelConfig, corr_impl: str | None,
+                dtype: torch.dtype):
+    """(model, input keys) for ``cfg.variant``, with the arguments the
+    reference's ``build_model`` passes: the DCV models keep their default
+    level, dilations and (stereo) max_disp, as there. The model's forward
+    takes the batch's tensors under the input keys, in order."""
+    common = dict(encoder_channels=tuple(cfg.encoder_channels),
+                  est_channels=tuple(cfg.est_channels),
+                  ctx_channels=tuple(cfg.ctx_channels), corr_impl=corr_impl,
+                  dtype=dtype)
+    if cfg.variant == "cerberus":
+        return CerberusNet(num_classes=cfg.num_classes,
+                           max_disp_full=cfg.max_disp_full,
+                           flow_max_disp=cfg.flow_max_disp,
+                           fpn_channels=cfg.fpn_channels, **common), (
+                               "left", "right", "temporal")
+    if cfg.variant == "cerberus_dcv":
+        return CerberusDCV(num_classes=cfg.num_classes,
+                           flow_max_disp=cfg.flow_max_disp,
+                           fpn_channels=cfg.fpn_channels, **common), (
+                               "left", "right", "temporal")
+    if cfg.variant == "dcv_flow":
+        return DCVFlowNet(max_disp=cfg.flow_max_disp, **common), (
+            "left", "temporal")
+    if cfg.variant == "dcv_stereo":
+        return DCVStereoNet(**common), ("left", "right")
+    raise ValueError(f"unknown model variant {cfg.variant!r}")
+
+
+# the reference's key for the log-variances in its parameter tree
+UNCERTAINTY = "__task_uncertainty__"
+TASKS = ("seg", "flow", "disp")
+
 
 # ------------------------------------------------------------- schedules
 #
@@ -161,10 +210,16 @@ class Optimizer:
 
 
 class Trainer:
-    """``Trainer(config, device="cuda")``: the joint CerberusNet in the
-    config's compute type on ``device``, seeded weights (flax's
+    """``Trainer(config, device="cuda")``: the model of ``model.variant``
+    in the config's compute type on ``device``, seeded weights (flax's
     initialisers, ``train.seed``), float32 masters and the optimizer over
-    them. Without a CUDA device it raises unless ``device="cpu"``."""
+    them. Without a CUDA device it raises unless ``device="cpu"``.
+
+    With ``loss.uncertainty_weighting`` three float32 log-variances,
+    ``__task_uncertainty__.seg``, ``.flow`` and ``.disp``, start at 0 and
+    are masters beside the model's, as the reference keeps them in its
+    parameter tree: they count in the clip's global norm, and AdamW's
+    decay applies to them."""
 
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
@@ -186,24 +241,27 @@ class Trainer:
             num_classes=m.num_classes, sparse=d.synthetic_sparse,
             seed=1 if d.split == "val" else 0)
 
-        ref = self._new_model(torch.float32)
+        ref, _ = build_model(m, self.corr_impl, torch.float32)
         init_params(ref, torch.Generator().manual_seed(config.train.seed))
-        self.model = self._new_model(self.dtype).to(device).train()
+        self.model, self.input_keys = build_model(m, self.corr_impl,
+                                                  self.dtype)
+        self.model = self.model.to(device).train()
         params = dict(self.model.named_parameters())
-        self.names = list(params)
-        self._params = [params[n] for n in self.names]
         self.masters = {n: p.detach().to(device).clone()
                         for n, p in ref.named_parameters()}
+        # the log-variances are leaves of the loss, as the model's
+        # parameters are, with masters of their own
+        self.log_vars = {}
+        if config.loss.uncertainty_weighting:
+            self.log_vars = {t: torch.zeros((), device=device,
+                                            requires_grad=True)
+                             for t in TASKS}
+            for t, s in self.log_vars.items():
+                params[f"{UNCERTAINTY}.{t}"] = s
+                self.masters[f"{UNCERTAINTY}.{t}"] = s.detach().clone()
+        self.names = list(params)
+        self._params = [params[n] for n in self.names]
         self._start()
-
-    def _new_model(self, dtype):
-        m = self.config.model
-        return CerberusNet(
-            encoder_channels=tuple(m.encoder_channels),
-            num_classes=m.num_classes, max_disp_full=m.max_disp_full,
-            flow_max_disp=m.flow_max_disp, est_channels=tuple(m.est_channels),
-            ctx_channels=tuple(m.ctx_channels), fpn_channels=m.fpn_channels,
-            corr_impl=self.corr_impl, dtype=dtype)
 
     # -- weights -----------------------------------------------------------
 
@@ -230,13 +288,17 @@ class Trainer:
     # -- steps -------------------------------------------------------------
 
     def _loss_fn(self, batch):
-        outputs = self.model(batch["left"], batch["right"], batch["temporal"])
+        outputs = self.model(*[batch[k] for k in self.input_keys])
         cfg = self.config.loss
-        return losses.joint_loss(
+        total, comps = losses.joint_loss(
             outputs, batch, weights=cfg.weights, focal_gamma=cfg.focal_gamma,
             robust_q=cfg.robust_q, photometric_weight=cfg.photometric_weight,
             smoothness_weight=cfg.smoothness_weight,
             rmi_weight=cfg.rmi_weight, seq_gamma=cfg.seq_gamma)
+        if self.log_vars:
+            total = losses.uncertainty_weighted_total(comps, self.log_vars)
+            comps = {**comps, "total": total}
+        return total, comps
 
     def loss_and_grads(self, batch):
         """Forward and backward on a batch as the dataset gives it; returns

@@ -3,9 +3,10 @@ initialiser with flax's defaults.
 
 ``load_flax_params(module, params)`` takes the flax ``variables["params"]``
 tree (numpy or array leaves) of the matching reference module and fills a
-port module in place: a whole ``CerberusNet`` or one of its parts
+port module in place: a whole ``CerberusNet``, ``CerberusDCV``,
+``DCVFlowNet`` or ``DCVStereoNet``, or one of their parts
 (``PyramidEncoder``, ``FlowDecoder``, ``DisparityDecoder``,
-``SegmentationHead``). Layouts:
+``DCVFlowDecoder``, ``DCVStereoDecoder``, ``SegmentationHead``). Layouts:
   * flax Conv kernel HWIO -> torch Conv2d weight OIHW
   * flax ConvTranspose kernel (kh, kw, cin, cout) -> torch ConvTranspose2d
     weight (cin, cout, kh, kw) of the spatially flipped kernel; with
@@ -26,6 +27,12 @@ import torch
 import torch.nn as nn
 
 from cerberusnet_torch.models.cerberus import CerberusNet
+from cerberusnet_torch.models.dcv_flow import (
+    CerberusDCV,
+    DCVDecoder,
+    DCVFlowNet,
+    DCVStereoNet,
+)
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.models.flow import CoarseToFineDecoder
 from cerberusnet_torch.models.segmentation import SegmentationHead
@@ -70,6 +77,14 @@ def _decoder(dec, p, done):
     _conv(dec.context.out, ctx["Conv_0"], done)
 
 
+def _dcv_decoder(dec, p, done):
+    _blocks(dec.estimator.blocks, p["DenseEstimator_0"], done)
+    _conv(dec.predictor, p["Conv_0"], done)
+    ctx = p["ContextNetwork_0"]
+    _blocks(dec.context.blocks, ctx, done)
+    _conv(dec.context.out, ctx["Conv_0"], done)
+
+
 def _segmentation(seg, p, done):
     for i, lat in enumerate(seg.laterals):
         _conv(lat, p[f"Conv_{i}"], done)
@@ -78,12 +93,29 @@ def _segmentation(seg, p, done):
     _conv(seg.classifier, p[f"Conv_{len(seg.laterals)}"], done)
 
 
+# the reference's names of a whole model's parts, by the port's attribute
+_PARTS = {
+    CerberusNet: {"encoder": "PyramidEncoder_0",
+                  "disparity": "DisparityDecoder_0",
+                  "flow": "FlowDecoder_0",
+                  "segmentation": "SegmentationHead_0"},
+    CerberusDCV: {"encoder": "PyramidEncoder_0",
+                  "disparity": "DCVStereoDecoder_0",
+                  "flow": "DCVFlowDecoder_0",
+                  "segmentation": "SegmentationHead_0"},
+    DCVFlowNet: {"encoder": "PyramidEncoder_0", "flow": "DCVFlowDecoder_0"},
+    DCVStereoNet: {"encoder": "PyramidEncoder_0",
+                   "disparity": "DCVStereoDecoder_0"},
+}
+
+
 def _load(module, p, done):
-    if isinstance(module, CerberusNet):
-        _load(module.encoder, p["PyramidEncoder_0"], done)
-        _load(module.disparity, p["DisparityDecoder_0"], done)
-        _load(module.flow, p["FlowDecoder_0"], done)
-        _load(module.segmentation, p["SegmentationHead_0"], done)
+    parts = _PARTS.get(type(module))
+    if parts:
+        for attr, name in parts.items():
+            _load(getattr(module, attr), p[name], done)
+    elif isinstance(module, DCVDecoder):
+        _dcv_decoder(module, p, done)
     elif isinstance(module, PyramidEncoder):
         _blocks(module.blocks, p, done)
     elif isinstance(module, CoarseToFineDecoder):

@@ -10,8 +10,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            PyTorch version on the card, at the five pyramid-level shapes of
            a 512x1024 frame (the forwards at batch 1, as served, and at
            batch 2, as trained; the backwards at batch 2), in bfloat16 and
-           float32, plus one dilation-2 case; CUDA-event times of kernel
-           and plain version beside the kernel's bound
+           float32, plus one dilation-2 case; and at the DCV heads' level-3
+           shape (B, 64, 128, 64) with d = D = 4, the 2-D kernels at
+           dilations 1, 2, 4, 8 and the 1-D ones at 1, 2, 3, at the same
+           batches; CUDA-event times of kernel and plain version beside the
+           kernel's bound
   serve    the default-width CerberusNet through cerberusnet_torch.entry,
            bf16 at 512x1024, answering 3 seeded requests: output shapes,
            types and finiteness, the pyramids, and 5 + 5 kernel launches per
@@ -29,9 +32,19 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            comparison must catch; ms per train step with the kernels and
            with the plain correlations, in turns, and the peak device
            memory
+  serve_dcv  the default-width CerberusDCV through
+           cerberusnet_torch.entry.entry(variant="cerberus_dcv"), as serve:
+           4 + 3 kernel launches per request (the 2-D op at dilations
+           1, 2, 4, 8 and the 1-D op at 1, 2, 3, at level 3), one-level
+           pyramids
+  train_dcv  5 steps of configs/cerberus_dcv.json (uncertainty weighting)
+           as train: 4 launches of each 2-D kernel and 3 of each 1-D kernel
+           per step, every weight and the three log-variances moved, the
+           gradients of the seven correlation calls' inputs against the
+           yardstick, and one control with all four backward kernels zeroed
 Then a {"kernels": [...]} summary line (each kernel's numbers on the train
-path, where all six run, with the serve path's beside them), the card's
-nvidia-smi line and, last,
+path, where all six run, with the serve path's beside them and the DCV
+paths' under "dcv"), the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result.
 """
@@ -52,6 +65,11 @@ ENCODER_CHANNELS = (16, 32, 64, 96, 128, 196)
 LEVELS = (6, 5, 4, 3, 2)
 FLOW_MAX_DISP = 4
 MAX_DISP_FULL = 96
+# the DCV heads: one level, d = D = 4, the dilations of CerberusDCV
+DCV_LEVEL = 3
+DCV_MAX_DISP = 4
+DCV_FLOW_DILATIONS = (1, 2, 4, 8)
+DCV_DISP_DILATIONS = (1, 2, 3)
 N_REQUESTS = 3
 TRAIN_STEPS = 5
 TRAIN_BATCH = 2
@@ -192,42 +210,51 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
         return FLOW_MAX_DISP
 
     # name: (wrapper, plain version, max_disp of a level, cost-volume
-    # channels, FLOPs, batches, is a backward). A forward takes (f1, f2)
-    # and writes the cost volume; a backward takes (g, f), g the cost
-    # volume's gradient, and writes one feature map's gradient. Both read
-    # and write the same tensors' worth of bytes, and a backward does the
-    # forward's in-frame multiply-adds. The forwards run at batch 1 when
-    # served and at the train batch in a train step; the backwards only in
-    # a train step.
+    # channels, FLOPs, batches, is a backward, the dilations of the DCV
+    # head that calls it). A forward takes (f1, f2) and writes the cost
+    # volume; a backward takes (g, f), g the cost volume's gradient, and
+    # writes one feature map's gradient. Both read and write the same
+    # tensors' worth of bytes, and a backward does the forward's in-frame
+    # multiply-adds. The forwards run at batch 1 when served and at the
+    # train batch in a train step; the backwards only in a train step.
     both = (1, TRAIN_BATCH)
+    train = (TRAIN_BATCH,)
+    flow_dils, disp_dils = DCV_FLOW_DILATIONS, DCV_DISP_DILATIONS
     kernels = {
         "corr2d_fwd": (cc.corr2d_fwd, corr._correlation2d_plain, flow_disp,
-                       nk2d, corr2d_flops, both, False),
+                       nk2d, corr2d_flops, both, False, flow_dils),
         "corr1d_fwd": (cc.corr1d_fwd, corr._correlation1d_plain,
-                       level_max_disp, nk1d, corr1d_flops, both, False),
+                       level_max_disp, nk1d, corr1d_flops, both, False,
+                       disp_dils),
         "corr2d_bwd_f1": (cc.corr2d_bwd_f1, corr._correlation2d_bwd_f1_plain,
-                          flow_disp, nk2d, corr2d_flops, (TRAIN_BATCH,), True),
+                          flow_disp, nk2d, corr2d_flops, train, True,
+                          flow_dils),
         "corr2d_bwd_f2": (cc.corr2d_bwd_f2, corr._correlation2d_bwd_f2_plain,
-                          flow_disp, nk2d, corr2d_flops, (TRAIN_BATCH,), True),
+                          flow_disp, nk2d, corr2d_flops, train, True,
+                          flow_dils),
         "corr1d_bwd_f1": (cc.corr1d_bwd_f1, corr._correlation1d_bwd_f1_plain,
-                          level_max_disp, nk1d, corr1d_flops, (TRAIN_BATCH,),
-                          True),
+                          level_max_disp, nk1d, corr1d_flops, train, True,
+                          disp_dils),
         "corr1d_bwd_f2": (cc.corr1d_bwd_f2, corr._correlation1d_bwd_f2_plain,
-                          level_max_disp, nk1d, corr1d_flops, (TRAIN_BATCH,),
-                          True),
+                          level_max_disp, nk1d, corr1d_flops, train, True,
+                          disp_dils),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
+    dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
-               backward) in kernels.items():
-        cases = [(batch, level, dt, 1) for batch in batches
-                 for level in LEVELS
-                 for dt in (torch.bfloat16, torch.float32)]
-        cases.append((TRAIN_BATCH, 2, torch.bfloat16, 2))
-        for batch, level, dt, dil in cases:
+               backward, dcv_dilations) in kernels.items():
+        # (path, batch, level, dtype, dilation, max_disp): CerberusNet's
+        # levels, one dilation-2 case, and the DCV head's calls
+        cases = [("cerberus", batch, level, dt, 1, disp_of(level))
+                 for batch in batches for level in LEVELS for dt in dtypes]
+        cases.append(("extra", TRAIN_BATCH, 2, torch.bfloat16, 2, disp_of(2)))
+        cases += [("dcv", batch, DCV_LEVEL, dt, dil, DCV_MAX_DISP)
+                  for batch in batches for dil in dcv_dilations
+                  for dt in dtypes]
+        for path, batch, level, dt, dil, d in cases:
             shape = (batch, HW[0] >> level, HW[1] >> level,
                      ENCODER_CHANNELS[level - 1])
-            d = disp_of(level)
             nk = nk_of(d)
             a_shape = (*shape[:3], nk) if backward else shape
             a = torch.randn(a_shape, generator=gen, device="cuda").to(dt)
@@ -254,7 +281,7 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
             flops = flops_of(b, h, w, c, d, dil)
             bound_ms = max(nbytes / peak_bw, flops / peak_flops) * 1e3
             checks.append({
-                "kernel": name, "batch": batch, "level": level,
+                "kernel": name, "path": path, "batch": batch, "level": level,
                 "shape": list(shape),
                 "max_disp": d, "dilation": dil, "dtype": str(dt)[6:],
                 "ok": ok, "max_abs_err": diff.max().item(),
@@ -284,18 +311,30 @@ def rel_l2(a, ref):
     return ((a.float() - ref).norm() / ref.norm().clamp_min(1e-12)).item()
 
 
-def phase_serve():
+# phase: (entry variant, pyramid levels, forward kernel launches per request)
+SERVE = {
+    "serve": ("cerberus", LEVELS,
+              {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)}),
+    "serve_dcv": ("cerberus_dcv", (DCV_LEVEL,),
+                  {"corr2d_fwd": len(DCV_FLOW_DILATIONS),
+                   "corr1d_fwd": len(DCV_DISP_DILATIONS)}),
+}
+
+
+def phase_serve(phase):
     from cerberusnet_torch.entry import entry, make_frames
     from cerberusnet_torch.ops.cuda import correlation as cc
 
-    forward, _ = entry()
-    plain_bf16, _ = entry(corr_impl="plain")
-    plain_f32, _ = entry(dtype=torch.float32, corr_impl="plain")
+    variant, levels, fwd_launches = SERVE[phase]
+    torch.cuda.reset_peak_memory_stats()
+    forward, _ = entry(variant=variant)
+    plain_bf16, _ = entry(variant=variant, corr_impl="plain")
+    plain_f32, _ = entry(variant=variant, dtype=torch.float32,
+                         corr_impl="plain")
     requests = [make_frames(seed, HW) for seed in range(1, N_REQUESTS + 1)]
 
     errors = []
-    want_rise = {k: len(LEVELS) if k.endswith("_fwd") else 0
-                 for k in cc.KERNELS}
+    want_rise = {k: fwd_launches.get(k, 0) for k in cc.KERNELS}
     cc.reset_launches()
     answers = []
     for i, req in enumerate(requests):
@@ -322,9 +361,12 @@ def phase_serve():
                 errors.append(f"request {i}: {key} all zero")
         for key, ch in (("flow_pyramid", 2), ("disp_pyramid", 1)):
             got = {l: tuple(v.shape) for l, v in out[key].items()}
-            need = {l: (1, h >> l, w >> l, ch) for l in LEVELS}
+            need = {l: (1, h >> l, w >> l, ch) for l in levels}
             if got != need:
                 errors.append(f"request {i}: {key} {got}")
+            elif not all(bool(torch.isfinite(v).all())
+                         for v in out[key].values()):
+                errors.append(f"request {i}: {key} not finite")
 
     distances = []
     for i, req in enumerate(requests):
@@ -358,8 +400,8 @@ def phase_serve():
             "runs": sum(p["runs"] for p in parts)}
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
     ok = not errors
-    emit({"phase": "serve", "ok": ok, "hw": list(HW), "dtype": "bfloat16",
-          "requests": N_REQUESTS, "launches": launches,
+    emit({"phase": phase, "ok": ok, "variant": variant, "hw": list(HW),
+          "dtype": "bfloat16", "requests": N_REQUESTS, "launches": launches,
           "launches_per_request": {k: v / N_REQUESTS
                                    for k, v in launches.items()},
           "distances": distances, "forward": fwd,
@@ -369,38 +411,54 @@ def phase_serve():
     return launches
 
 
-MODULES = ("encoder", "flow", "disparity", "segmentation")
 BACKWARDS = ("corr2d_bwd_f1", "corr2d_bwd_f2", "corr1d_bwd_f1",
              "corr1d_bwd_f2")
+# phase: (config, the model's correlation calls per step (2-D, 1-D), the
+# zeroed-backward controls)
+TRAIN = {
+    "train": ("configs/cerberus_synthetic.json", (len(LEVELS), len(LEVELS)),
+              [(k,) for k in BACKWARDS] + [BACKWARDS]),
+    "train_dcv": ("configs/cerberus_dcv.json",
+                  (len(DCV_FLOW_DILATIONS), len(DCV_DISP_DILATIONS)),
+                  [BACKWARDS]),
+}
 
 
 def grads_and_taps(trainer, batch):
     """One step's gradients (``trainer.loss_and_grads``) and the gradient
     each correlation call hands each of its inputs, as {"corr2d level 6
-    df1": tensor, ...}. An input goes through an identity view whose hook
-    reads its gradient, so the hook sees the correlation's share alone:
-    within a module's whole gradient that share is too small to show."""
+    df1": tensor, ...} (CerberusNet's decoders, by level) or {"corr2d
+    dilation 8 df1": tensor, ...} (the DCV decoders, by dilation). An
+    input goes through an identity view whose hook reads its gradient, so
+    the hook sees the correlation's share alone: within a module's whole
+    gradient that share is too small to show."""
+    from cerberusnet_torch.models.dcv_flow import (
+        DCVFlowDecoder,
+        DCVStereoDecoder,
+    )
     from cerberusnet_torch.models.disparity import DisparityDecoder
     from cerberusnet_torch.models.flow import FlowDecoder
 
     taps = {}
 
     def tapped(kind, correlate):
-        def call(self, level, f1, f2):
+        def call(self, arg, f1, f2):
             views = []
             for which, f in (("df1", f1), ("df2", f2)):
                 v = f.view_as(f)
-                key = f"{kind} level {level} {which}"
+                key = f"{kind} {arg} {which}"
                 v.register_hook(
                     lambda g, key=key: taps.__setitem__(key, g.float()))
                 views.append(v)
-            return correlate(self, level, *views)
+            return correlate(self, arg, *views)
         return call
 
-    saved = {FlowDecoder: FlowDecoder.correlate,
-             DisparityDecoder: DisparityDecoder.correlate}
-    FlowDecoder.correlate = tapped("corr2d", saved[FlowDecoder])
-    DisparityDecoder.correlate = tapped("corr1d", saved[DisparityDecoder])
+    kinds = {FlowDecoder: "corr2d level", DisparityDecoder: "corr1d level",
+             DCVFlowDecoder: "corr2d dilation",
+             DCVStereoDecoder: "corr1d dilation"}
+    saved = {cls: cls.correlate for cls in kinds}
+    for cls, kind in kinds.items():
+        cls.correlate = tapped(kind, saved[cls])
     try:
         _, grads = trainer.loss_and_grads(batch)
     finally:
@@ -411,9 +469,10 @@ def grads_and_taps(trainer, batch):
 
 def module_rel_l2(grads, ref):
     """Relative L2 distance of each module's gradients (all its parameters
-    as one vector) to the reference's."""
+    as one vector) to the reference's; the log-variances of uncertainty
+    weighting count as one module."""
     out = {}
-    for mod in MODULES:
+    for mod in sorted({n.split(".")[0] for n in ref}):
         names = [n for n in ref if n.split(".")[0] == mod]
         a = torch.cat([grads[n].flatten() for n in names])
         b = torch.cat([ref[n].flatten() for n in names])
@@ -421,14 +480,18 @@ def module_rel_l2(grads, ref):
     return out
 
 
-def phase_train():
+def phase_train(phase):
     from cerberusnet_torch.entry import train_entry
     from cerberusnet_torch.ops.cuda import correlation as cc
+    from cerberusnet_torch.train.trainer import UNCERTAINTY
 
+    config, (n2d, n1d), control_sets = TRAIN[phase]
+    want_rise = {k: n2d if k.startswith("corr2d") else n1d
+                 for k in cc.KERNELS}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     constant = {"schedule": "constant"}
-    trainer, batches = train_entry(batch_size=TRAIN_BATCH,
+    trainer, batches = train_entry(config, batch_size=TRAIN_BATCH,
                                    n_batches=TRAIN_STEPS, optim=constant)
     setup_s = time.perf_counter() - t0
     errors = []
@@ -440,7 +503,7 @@ def phase_train():
         comps = trainer.train_step(batch)
         torch.cuda.synchronize()
         rise = {k: v - prev[k] for k, v in cc.launches().items()}
-        if set(rise.values()) != {len(LEVELS)}:
+        if rise != want_rise:
             errors.append(f"step {i}: kernel launches rose by {rise}")
         vals = {k: v.item() for k, v in comps.items()}
         if not all(map(math.isfinite, vals.values())):
@@ -452,12 +515,17 @@ def phase_train():
     if moved != len(before):
         errors.append(f"{len(before) - moved} of {len(before)} weights did "
                       f"not move in {TRAIN_STEPS} steps")
+    log_vars = {n: m.item() for n, m in trainer.masters.items()
+                if n.startswith(UNCERTAINTY)}
+    if trainer.config.loss.uncertainty_weighting and not (
+            len(log_vars) == 3 and all(v != 0 for v in log_vars.values())):
+        errors.append(f"the log-variances did not all move: {log_vars}")
 
     # one step's gradients from the same weights and batch: kernels (bf16)
     # against the plain correlations in bf16 and in float32 (the yardstick)
-    plain16, _ = train_entry(batch_size=TRAIN_BATCH, n_batches=0,
+    plain16, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
                              corr_impl="plain", optim=constant)
-    plain32, _ = train_entry(batch_size=TRAIN_BATCH, n_batches=0,
+    plain32, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
                              corr_impl="plain", optim=constant,
                              model={"dtype": "float32"})
     batch = batches[0]
@@ -465,13 +533,14 @@ def phase_train():
     plain32.load_masters(trainer.masters)
     # per module, and per correlation input (taps)
     grads, taps = {}, {}
+    n_taps = 2 * (n2d + n1d)
     for which, tr in (("kernel", trainer), ("plain_bf16", plain16),
                       ("plain_f32", plain32)):
         grads[which], taps[which] = grads_and_taps(tr, batch)
         torch.cuda.synchronize()
-        if len(taps[which]) != 2 * 2 * len(LEVELS):
-            fail("train", f"{which}: {len(taps[which])} correlation input "
-                          f"gradients, not {4 * len(LEVELS)}")
+        if len(taps[which]) != n_taps:
+            fail(phase, f"{which}: {len(taps[which])} correlation input "
+                        f"gradients, not {n_taps}")
     ref, ref_taps = grads["plain_f32"], taps["plain_f32"]
 
     def distances_of(g, t):
@@ -479,6 +548,7 @@ def phase_train():
                 **{k: rel_l2(t[k], ref_taps[k]) for k in ref_taps}}
 
     d_kernel = distances_of(grads["kernel"], taps["kernel"])
+    modules = [k for k in d_kernel if k not in ref_taps]
     d_plain = distances_of(grads["plain_bf16"], taps["plain_bf16"])
     limits = {k: 1.5 * v + 1e-3 for k, v in d_plain.items()}
     distances = [{"of": k, "kernel_bf16_vs_f32": d_kernel[k],
@@ -487,11 +557,11 @@ def phase_train():
     errors += [f"{k} gradient rel L2 {d_kernel[k]} > {limits[k]}"
                for k in limits if not d_kernel[k] <= limits[k]]
 
-    # controls: the same step with backward kernels that return zeros, one
-    # at a time and all four (a cost volume without gradient); the
-    # comparison above must put each beyond a limit
+    # controls: the same step with backward kernels that return zeros (one
+    # at a time and all four, or all four alone: a cost volume without
+    # gradient); the comparison above must put each beyond a limit
     controls = []
-    for dropped in [(k,) for k in BACKWARDS] + [BACKWARDS]:
+    for dropped in control_sets:
         saved = {k: getattr(cc, k) for k in dropped}
         for k in dropped:
             setattr(cc, k, lambda g, f, d, dil: torch.zeros_like(f))
@@ -504,8 +574,8 @@ def phase_train():
         caught = [k for k in limits if not dist[k] <= limits[k]]
         controls.append({
             "zeroed": list(dropped), "caught_by": caught,
-            "module_rel_l2": {m: dist[m] for m in MODULES},
-            "module_limit": {m: limits[m] for m in MODULES},
+            "module_rel_l2": {m: dist[m] for m in modules},
+            "module_limit": {m: limits[m] for m in modules},
             "module_rel_l2_to_kernel_path": module_rel_l2(faulty,
                                                           grads["kernel"])})
         if not caught:
@@ -531,12 +601,13 @@ def phase_train():
             "runs": sum(p["runs"] for p in parts)}
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
     ok = not errors
-    emit({"phase": "train", "ok": ok, "config": "configs/cerberus_synthetic.json",
+    emit({"phase": phase, "ok": ok, "config": config,
           "hw": list(HW), "batch": TRAIN_BATCH, "dtype": "bfloat16",
           "steps": steps, "launches": launches,
           "launches_per_step": {k: v / TRAIN_STEPS
                                 for k, v in launches.items()},
           "weights_moved": moved, "weights": len(before),
+          "log_variances": log_vars,
           "setup_s": setup_s, "distances": distances, "controls": controls,
           "train_step": step,
           "timing": "CUDA events around one train_step(batch) call, host "
@@ -561,14 +632,23 @@ REPLACES = {
     "corr1d_bwd_f2": "cerberusnet_tpu/ops/pallas/correlation.py:255 "
                      "(_corr1d_bwd_f2_kernel, pallas_call at :335)",
 }
+# the TPU kernels of the DCV heads, which the forwards also replace at
+# dilation; the reference differentiates the DCV path without a kernel
+DCV_REPLACES = {
+    "corr2d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:369 "
+                  "(_corr2d_wl_kernel, pallas_call at :420)",
+    "corr1d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:385 "
+                  "(_corr1d_wl_kernel, pallas_call at :453)",
+}
 
 
-def path_numbers(checks, name, batch, launches):
-    """A kernel's numbers on one path: its five calls there in bf16 at
-    that path's batch, summed, with the path's launch count and the
-    per-call rows under "shapes"."""
-    rows = [c for c in checks if c["kernel"] == name and c["batch"] == batch
-            and c["dtype"] == "bfloat16" and c["dilation"] == 1]
+def path_numbers(checks, name, path, batch, launches):
+    """A kernel's numbers on one path: its calls there ("cerberus": the
+    five levels; "dcv": the dilations) in bf16 at that path's batch,
+    summed, with the path's launch count and the per-call rows under
+    "shapes"."""
+    rows = [c for c in checks if c["kernel"] == name and c["path"] == path
+            and c["batch"] == batch and c["dtype"] == "bfloat16"]
     bound = sum(r["bound_ms"] for r in rows)
     by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     return {
@@ -582,29 +662,40 @@ def path_numbers(checks, name, batch, launches):
         "eager_ms": sum(r["eager_ms"] for r in rows),
         "plain_eager_ms": sum(r["plain_eager_ms"] for r in rows),
         "shapes": [{k: r[k] for k in (
-            "level", "shape", "max_disp", "ms", "ms_min", "ms_max",
-            "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
+            "level", "shape", "max_disp", "dilation", "ms", "ms_min",
+            "ms_max", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
             "bound_by", "max_abs_err")} for r in rows],
     }
 
 
-def summary(checks, serve_launches, train_launches):
-    """One entry per kernel. Its numbers are the train path's (batch 2),
-    where all six kernels run: launches from that path's run, times and
-    bounds from its shapes. A forward's serve-path numbers (batch 1) stand
-    under "paths" beside them."""
+def summary(checks, launches):
+    """One entry per kernel. Its numbers are the CerberusNet train path's
+    (batch 2), where all six kernels run: launches from that path's run,
+    times and bounds from its shapes. A forward's serve-path numbers
+    (batch 1) stand under "paths" beside them, and each kernel's numbers
+    on the DCV paths, by dilation, under "dcv"."""
     entries = []
     for name, replaces in REPLACES.items():
-        train = path_numbers(checks, name, TRAIN_BATCH, train_launches[name])
+        train = path_numbers(checks, name, "cerberus", TRAIN_BATCH,
+                             launches["train"][name])
         paths = {"train": {k: v for k, v in train.items() if k != "shapes"}}
-        if serve_launches[name]:
-            serve = path_numbers(checks, name, 1, serve_launches[name])
+        dcv = {"train_dcv": path_numbers(checks, name, "dcv", TRAIN_BATCH,
+                                         launches["train_dcv"][name])}
+        if launches["serve"][name]:
+            serve = path_numbers(checks, name, "cerberus", 1,
+                                 launches["serve"][name])
             paths["serve"] = {k: v for k, v in serve.items() if k != "shapes"}
+            dcv["serve_dcv"] = path_numbers(checks, name, "dcv", 1,
+                                            launches["serve_dcv"][name])
+        dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
+                else DCV_DISP_DILATIONS)
         entries.append({
             "name": name, "route": "cuda",
             "source": "cerberusnet_torch/csrc/correlation.cu",
             "replaces": replaces, "library_ms": None, **train,
-            "paths": paths})
+            "paths": paths,
+            "dcv": {"replaces": DCV_REPLACES.get(name),
+                    "dilations": list(dils), "paths": dcv}})
     emit({"kernels": entries})
 
 
@@ -614,6 +705,7 @@ def main():
         return 1
     import cerberusnet_torch  # noqa: F401  fails where the port is absent
 
+    t0 = time.perf_counter()
     # f32 results are compared on the card: keep cuDNN and cuBLAS in full
     # f32 (no TF32). bf16 runs are unaffected.
     torch.backends.cudnn.allow_tf32 = False
@@ -626,9 +718,13 @@ def main():
     phase_build()
     spin_rate = sleep_cycles_per_ms()
     checks = phase_kernels(peak_bw, peak_flops, spin_rate)
-    serve_launches = phase_serve()
-    train_launches = phase_train()
-    summary(checks, serve_launches, train_launches)
+    launches = {}
+    for phase in ("serve", "train", "serve_dcv", "train_dcv"):
+        run = phase_serve if phase in SERVE else phase_train
+        launches[phase] = run(phase)
+    summary(checks, launches)
+    emit({"phase": "done", "ok": True,
+          "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

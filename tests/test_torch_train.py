@@ -131,12 +131,12 @@ def test_unknown_key_raises():
 
 
 @pytest.mark.parametrize("section,key,value,item", [
-    ("model", "variant", "cerberus_dcv", "A8"),
+    ("model", "variant", "raft", "A8"),
     ("model", "pallas_levels", 2, "B7"),
     ("optim", "accum_steps", 2, "A5"),
     ("optim", "ema_decay", 0.99, "A5"),
     ("optim", "grads_dtype", "bfloat16", "A5"),
-    ("loss", "uncertainty_weighting", True, "A4"),
+    ("train", "remat", True, "A5"),
     ("loss", "rmi_weight", 0.5, "A4"),
     ("loss", "photometric_weight", 0.1, "A4"),
     ("loss", "smoothness_weight", 0.1, "A4"),
@@ -150,6 +150,19 @@ def test_unported_values_raise(section, key, value, item):
     cfg = ExperimentConfig.from_dict(raw)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["cerberus_dcv.json"])
+def test_dcv_config_is_supported(name):
+    cfg = ExperimentConfig.from_json(str(REPO_ROOT / "configs" / name))
+    cfg.check_supported()
+    assert cfg.model.variant == "cerberus_dcv"
+    assert cfg.loss.uncertainty_weighting
+    assert cfg.model.port_corr_impl is None
+    # the W-in-lanes Pallas layout (K7, K8) runs on the same CUDA kernels
+    wl = ExperimentConfig.from_dict(tiny_config_dict("pallas_wl"))
+    wl.check_supported()
+    assert wl.model.port_corr_impl is None
 
 
 def test_synthetic_config_is_supported():
