@@ -4,7 +4,8 @@
 (``CerberusNet``, the default) or ``"cerberus_dcv"`` (``CerberusDCV``), at
 the reference's default widths with seeded random weights and returns
 ``(forward, example_inputs)``: the forward takes (left, right, temporal)
-NHWC frames and returns the model's output dict.
+NHWC frames and returns the model's output dict. For CerberusNet,
+``pallas_levels=N`` runs the encoder's first N levels as fused kernels.
 
 ``train_entry()`` reads an experiment config (``configs/*.json``, any
 variant the port builds) and returns ``(trainer, batches)``: a ``Trainer``
@@ -46,17 +47,27 @@ def make_frames(seed: int, hw=(512, 1024), device="cuda",
 
 def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
           seed: int = 0, corr_impl: str | None = None,
-          variant: str = "cerberus"):
+          variant: str = "cerberus", pallas_levels: int = 0,
+          pallas_grad: str = "xla"):
     """Returns (forward, example_inputs) for the default-width model of
-    ``variant`` ("cerberus" or "cerberus_dcv")."""
+    ``variant`` ("cerberus" or "cerberus_dcv"). ``pallas_levels`` runs
+    CerberusNet's first N encoder levels as fused kernels (with
+    ``pallas_grad``, their backward, for a caller that differentiates)."""
     if variant not in SERVED:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{tuple(SERVED)}")
+    fused = {}
+    if pallas_levels or pallas_grad != "xla":
+        if variant != "cerberus":
+            raise ValueError(f"pallas_levels and pallas_grad are "
+                             f"CerberusNet's; {variant!r} has no fused "
+                             f"encoder levels")
+        fused = dict(pallas_levels=pallas_levels, pallas_grad=pallas_grad)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the model on the CPU")
-    model = SERVED[variant](corr_impl=corr_impl, dtype=dtype)
+    model = SERVED[variant](corr_impl=corr_impl, dtype=dtype, **fused)
     init_params(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
 

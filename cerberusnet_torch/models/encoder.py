@@ -1,8 +1,16 @@
 """Shared pyramid encoder, port of ``PyramidEncoder`` in
-``cerberusnet_tpu/models/encoder.py`` (its default branch: plain convs).
+``cerberusnet_tpu/models/encoder.py``.
 
 Six levels; each is a stride-2 conv block then two stride-1 conv blocks.
 ``blocks[3*i + j]`` is the reference's ``ConvBlock_{3*i + j}``.
+
+``pallas_levels=N`` runs the first N levels through ``encoder_level``, one
+fused kernel per level (K9; its backward K10 with ``pallas_grad="pallas"``,
+the plain recompute with ``"xla"``), with the same blocks' weights: the
+parameters and the math are those of the plain levels. The reference's
+``s2d_stem``, ``stem_pad_channels`` and ``s2d_levels`` only steer XLA's
+program, so they change nothing here, but as there each is refused beside
+``pallas_levels``.
 """
 
 from __future__ import annotations
@@ -12,14 +20,22 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from cerberusnet_torch.models.common import ConvBlock, nchw
+from cerberusnet_torch.models.common import ConvBlock, nchw, nhwc
+from cerberusnet_torch.ops.encoder_level import encoder_level
 
 
 class PyramidEncoder(nn.Module):
     def __init__(self, channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
-                 in_channels: int = 3):
+                 in_channels: int = 3, pallas_levels: int = 0,
+                 pallas_grad: str = "xla", s2d_stem: bool = False,
+                 stem_pad_channels: int = 0, s2d_levels: int = 0):
         super().__init__()
+        if pallas_levels and (s2d_levels or s2d_stem or stem_pad_channels):
+            raise ValueError("pallas_levels is mutually exclusive with the "
+                             "s2d/stem reformulation knobs")
         self.channels = tuple(channels)
+        self.fused_levels = min(max(pallas_levels, 0), len(self.channels))
+        self.pallas_grad = pallas_grad
         self.blocks = nn.ModuleList()
         cin = in_channels
         for ch in self.channels:
@@ -31,7 +47,14 @@ class PyramidEncoder(nn.Module):
     def forward(self, x):
         """(B, 3, H, W) image -> list of 6 feature maps, levels 1..6."""
         feats = []
-        for i, block in enumerate(self.blocks):
+        for i in range(self.fused_levels):
+            convs = [b.conv for b in self.blocks[3 * i : 3 * i + 3]]
+            params = [t for c in convs for t in (c.weight.permute(2, 3, 1, 0),
+                                                 c.bias)]
+            x = nchw(encoder_level(nhwc(x), *params, grad=self.pallas_grad))
+            feats.append(x)
+        first = 3 * self.fused_levels
+        for i, block in enumerate(self.blocks[first:], first):
             x = block(x)
             if i % 3 == 2:
                 feats.append(x)

@@ -2,6 +2,7 @@
 
     python3 -m cerberusnet_torch.trace_forward [--variant cerberus_dcv]
         [--train [--config configs/....json]] [--corr-impl plain]
+        [--pallas-levels N]
 
 Runs a default-width joint model (``--variant``: ``cerberus``, the
 default, or ``cerberus_dcv``) under ``torch.profiler`` for 5 calls after
@@ -9,9 +10,11 @@ warmup: a bf16 forward at 512x1024, batch 1, through ``entry``, or with
 ``--train`` a train step at batch 2 through ``train_entry`` (constant
 learning rate) of ``--config``, by default the variant's own experiment
 (``configs/cerberus_synthetic.json`` or ``configs/cerberus_dcv.json``).
-Prints one JSON
+``--pallas-levels N`` runs CerberusNet's first N encoder levels as fused
+kernels (a train step with their reverse-sweep kernel). Prints one JSON
 line: wall ms per call, the device's kernel time per call by category
-(convolutions, the correlation kernels, warp gathers and their backward's
+(the fused encoder levels, convolutions, the correlation kernels, warp
+gathers and their backward's
 scatters, bilinear resizes, concatenations, pads, the optimizer's
 multi-tensor kernels, host-to-device copies, fills, other elementwise), the
 device's idle share, the number of launches per call (copies and fills
@@ -37,6 +40,8 @@ TRAIN_CONFIGS = {"cerberus": "configs/cerberus_synthetic.json",
 # first match wins; kernel names are lower-cased before matching
 CATEGORIES = (
     ("correlation", ("corr2d_", "corr1d_")),
+    # the fused encoder levels (csrc/encoder_level.cu), before "conv"
+    ("encoder_level", ("level_fwd_kernel", "level_bwd_kernel")),
     ("optimizer", ("multi_tensor", "foreach")),
     # copies (the batch's upload from host memory) and fills, not kernels
     ("memcpy", ("memcpy",)),
@@ -70,6 +75,8 @@ def main(argv=None) -> int:
     ap.add_argument("--config", default=None,
                     help="the train step's experiment (default: the "
                          "variant's)")
+    ap.add_argument("--pallas-levels", type=int, default=0,
+                    help="CerberusNet's encoder levels run as fused kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_forward: no CUDA device", file=sys.stderr)
@@ -83,15 +90,20 @@ def main(argv=None) -> int:
     config = None
     if args.train:
         config = args.config or TRAIN_CONFIGS[args.variant]
+        fused = ({"model": {"pallas_levels": args.pallas_levels,
+                            "pallas_grad": "pallas"}}
+                 if args.pallas_levels else {})
         trainer, (batch,) = train_entry(config, corr_impl=args.corr_impl,
-                                        optim={"schedule": "constant"})
+                                        optim={"schedule": "constant"},
+                                        **fused)
         upload_bytes = sum(v.nbytes for v in batch.values())
 
         def call():
             trainer.train_step(batch)
     else:
         forward, imgs = entry(corr_impl=args.corr_impl,
-                              variant=args.variant)
+                              variant=args.variant,
+                              pallas_levels=args.pallas_levels)
 
         def call():
             forward(*imgs)
@@ -129,7 +141,8 @@ def main(argv=None) -> int:
         "call": "train_step" if args.train else "forward",
         "variant": trainer.config.model.variant if args.train
         else args.variant, "config": config,
-        "corr_impl": args.corr_impl or "kernel", "runs": RUNS,
+        "corr_impl": args.corr_impl or "kernel",
+        "pallas_levels": args.pallas_levels, "runs": RUNS,
         "wall_ms_per_call": wall_ms,
         "device_kernel_ms_per_call": busy,
         "device_idle_share": 1.0 - busy / wall_ms if busy else None,

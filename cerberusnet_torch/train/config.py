@@ -8,17 +8,22 @@ unknown key raises ``ValueError`` as in the reference.
 Parsing accepts every value. ``ExperimentConfig.check_supported()``, which
 the ``Trainer`` calls, raises ``NotImplementedError`` naming the ROADMAP
 item for a value the port does not run yet; it builds the model variants
-in ``VARIANTS``. Keys that only steer XLA's program in the reference, with
+in ``VARIANTS``. ``model.pallas_levels`` runs CerberusNet's first N
+encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
+their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
+plain convolutions recomputed; the DCV variants ignore both, as the
+reference does. Keys that only steer XLA's program in the reference, with
 the same arithmetic and the same parameter tree whatever their value, are
 accepted and have no effect here:
 ``model.fused``, ``corr_stack``, ``distribute_outputs``, ``upfeat_impl``,
 ``upsample_impl``, ``batched_encoder``, ``s2d_stem``, ``stem_pad_channels``,
-``s2d_levels``, ``entry_grad``, ``pallas_grad``, ``est_input`` and
-``optim.flatten``. So are the keys of parts the port does not have yet,
-which nothing here reads: the RAFT keys and ``loss.seq_gamma`` (other model
-families, A8), ``data.num_workers``, ``shuffle`` and ``eval_split`` (the
-loader and evaluation, A6/A7), and ``train.epochs``, ``log_every``,
-``eval_every_epochs``, ``ckpt_dir``, ``resume``, ``keep_checkpoints``,
+``s2d_levels`` (each refused beside ``pallas_levels``, as there),
+``entry_grad``, ``est_input`` and ``optim.flatten``. So are the keys of
+parts the port does not have yet, which nothing here reads: the RAFT keys
+and ``loss.seq_gamma`` (other model families, A8), ``data.num_workers``,
+``shuffle`` and ``eval_split`` (the loader and evaluation, A6/A7), and
+``train.epochs``, ``log_every``, ``eval_every_epochs``, ``ckpt_dir``,
+``resume``, ``keep_checkpoints``,
 ``ckpt_every_epochs``, ``nan_recovery_reset_steps``, ``max_nan_recoveries``
 and ``qat_calib_batches`` (``fit``, checkpoints and recovery, A5).
 """
@@ -216,8 +221,6 @@ class ExperimentConfig:
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (m.seg_head != "fpn", f"model.seg_head={m.seg_head!r}", "A8"),
-            (m.pallas_levels > 0, f"model.pallas_levels={m.pallas_levels}",
-             "B7/B8"),
             (d.dataset != "synthetic", f"data.dataset={d.dataset!r}", "A6"),
             (bool(d.crop_hw or d.flip_lr_prob or d.brightness or d.contrast
                   or d.scales), "data augmentation", "A6"),

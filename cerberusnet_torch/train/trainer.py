@@ -49,8 +49,10 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
                 dtype: torch.dtype):
     """(model, input keys) for ``cfg.variant``, with the arguments the
     reference's ``build_model`` passes: the DCV models keep their default
-    level, dilations and (stereo) max_disp, as there. The model's forward
-    takes the batch's tensors under the input keys, in order."""
+    level, dilations and (stereo) max_disp, as there, and ignore
+    ``pallas_levels`` and ``pallas_grad``, which only CerberusNet's encoder
+    takes. The model's forward takes the batch's tensors under the input
+    keys, in order."""
     common = dict(encoder_channels=tuple(cfg.encoder_channels),
                   est_channels=tuple(cfg.est_channels),
                   ctx_channels=tuple(cfg.ctx_channels), corr_impl=corr_impl,
@@ -59,7 +61,11 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
         return CerberusNet(num_classes=cfg.num_classes,
                            max_disp_full=cfg.max_disp_full,
                            flow_max_disp=cfg.flow_max_disp,
-                           fpn_channels=cfg.fpn_channels, **common), (
+                           fpn_channels=cfg.fpn_channels,
+                           pallas_levels=cfg.pallas_levels,
+                           pallas_grad=cfg.pallas_grad, s2d_stem=cfg.s2d_stem,
+                           stem_pad_channels=cfg.stem_pad_channels,
+                           s2d_levels=cfg.s2d_levels, **common), (
                                "left", "right", "temporal")
     if cfg.variant == "cerberus_dcv":
         return CerberusDCV(num_classes=cfg.num_classes,

@@ -13,8 +13,13 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            float32, plus one dilation-2 case; and at the DCV heads' level-3
            shape (B, 64, 128, 64) with d = D = 4, the 2-D kernels at
            dilations 1, 2, 4, 8 and the 1-D ones at 1, 2, 3, at the same
-           batches; CUDA-event times of kernel and plain version beside the
-           kernel's bound
+           batches; and the fused encoder-level kernels: K9
+           (encoder_level_fwd) at the three level shapes of pallas_levels=3
+           at batch 3 (served) and 6 (trained) and one multi-tile odd shape,
+           K10 (encoder_level_bwd) at the level shapes at batch 6 and the odd
+           shape, in bfloat16 and float32, against the plain level (cuDNN);
+           CUDA-event times of kernel and plain version beside the kernel's
+           bound
   serve    the default-width CerberusNet through cerberusnet_torch.entry,
            bf16 at 512x1024, answering 3 seeded requests: output shapes,
            types and finiteness, the pyramids, and 5 + 5 kernel launches per
@@ -42,9 +47,21 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            per step, every weight and the three log-variances moved, the
            gradients of the seven correlation calls' inputs against the
            yardstick, and one control with all four backward kernels zeroed
-Then a {"kernels": [...]} summary line (each kernel's numbers on the train
-path, where all six run, with the serve path's beside them and the DCV
-paths' under "dcv"), the card's nvidia-smi line and, last,
+  serve_pallas_levels  CerberusNet with its first three encoder levels
+           fused (entry(pallas_levels=3)), as serve: 3 K9 and 5 + 5
+           correlation launches per request, no K10; timed in turns against
+           the default pallas_levels=0 path
+  train_pallas_levels  5 steps of configs/cerberus_synthetic.json with
+           pallas_levels=3, pallas_grad="pallas", as train: 3 K9 and 3 K10
+           launches per step, the nine fused conv blocks' gradients and the
+           gradient levels 2 and 3 hand their inputs against the yardstick,
+           a control with K10 zeroed, one step with pallas_grad="xla" (K9,
+           no K10); timed in turns against pallas_levels=0
+Then a {"kernels": [...]} summary line (each correlation kernel's numbers
+on the train path, where all six run, with the serve path's beside them
+and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
+K9's serve numbers beside them), a {"phase": "done"} line with the
+script's seconds, the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result.
 """
@@ -57,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -70,6 +88,8 @@ DCV_LEVEL = 3
 DCV_MAX_DISP = 4
 DCV_FLOW_DILATIONS = (1, 2, 4, 8)
 DCV_DISP_DILATIONS = (1, 2, 3)
+# the hand kernels' sources (cerberusnet_torch/csrc/<name>.cu)
+SOURCES = ("correlation", "encoder_level")
 N_REQUESTS = 3
 TRAIN_STEPS = 5
 TRAIN_BATCH = 2
@@ -77,12 +97,13 @@ TIMED_RUNS = 30
 # f32: only the summation order differs. bf16: both sides sum in f32 and
 # round once, so they differ by at most one bf16 ulp (inputs unit-normal).
 TOLERANCES = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2.0**-7, 1e-3)}
-# Published peaks (NVIDIA data sheets, dense): device memory bytes/s and
-# float32 FLOP/s on the CUDA cores, by the name nvidia-smi reports.
+# Published peaks (NVIDIA data sheets, dense): device memory bytes/s,
+# float32 FLOP/s on the CUDA cores and bf16 FLOP/s on the tensor cores, by
+# the name nvidia-smi reports.
 PEAKS = (
-    ("H100 PCIe", 2.0e12, 51.2e12),
-    ("H100 NVL", 3.9e12, 60.0e12),
-    ("H100", 3.35e12, 67.0e12),  # SXM (HBM3)
+    ("H100 PCIe", 2.0e12, 51.2e12, 756.0e12),
+    ("H100 NVL", 3.9e12, 60.0e12, 835.5e12),
+    ("H100", 3.35e12, 67.0e12, 989.4e12),  # SXM (HBM3)
 )
 
 
@@ -96,10 +117,12 @@ def fail(phase, msg):
 
 
 def card_peaks(name):
-    for key, bw, flops in PEAKS:
+    """{"bytes": bytes/s, "f32": FLOP/s, "bf16": FLOP/s} of the card, or
+    None."""
+    for key, bw, f32, bf16 in PEAKS:
         if key in name:
-            return bw, flops
-    return None, None
+            return {"bytes": bw, "f32": f32, "bf16": bf16}
+    return None
 
 
 def sleep_cycles_per_ms():
@@ -189,14 +212,17 @@ def phase_build():
     from cerberusnet_torch.ops import build
 
     t0 = time.perf_counter()
-    nvcc_seconds = build.build("correlation")
-    build.load("correlation")
+    # one nvcc for each source, all started together
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        nvcc_seconds = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
+    for name in SOURCES:
+        build.load(name)
     emit({"phase": "build", "ok": True, "nvcc": build.find_nvcc(),
           "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_seconds,
-          "library": build.library_path("correlation").name})
+          "libraries": [build.library_path(n).name for n in SOURCES]})
 
 
-def phase_kernels(peak_bw, peak_flops, spin_rate):
+def phase_kernels(peaks, spin_rate):
     from cerberusnet_torch.ops import correlation as corr
     from cerberusnet_torch.ops.cuda import correlation as cc
 
@@ -239,6 +265,7 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
                           level_max_disp, nk1d, corr1d_flops, train, True,
                           disp_dils),
     }
+    peak_bw, peak_flops = peaks["bytes"], peaks["f32"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
@@ -296,14 +323,136 @@ def phase_kernels(peak_bw, peak_flops, spin_rate):
                 "bound_by": "bytes" if nbytes / peak_bw >= flops / peak_flops
                 else "operations",
             })
+    checks += level_checks(peaks, spin_rate, gen)
     ok = all(c["ok"] for c in checks)
     emit({"phase": "kernels", "ok": ok, "runs": TIMED_RUNS,
           "timing": "ms: device time of one call (a spin kernel hides the "
                     "host's enqueue); eager_ms: one call as a caller sees it",
           "peak_bytes_per_s": peak_bw, "peak_f32_flops_per_s": peak_flops,
-          "checks": checks})
+          "peak_bf16_flops_per_s": peaks["bf16"], "checks": checks})
     if not ok:
         sys.exit(1)
+    return checks
+
+
+# The fused encoder levels at 512x1024 with pallas_levels=3: (level, H, W,
+# C, F) of each level's input; a request runs them at batch 3 (the three
+# frames in one batch), a train step at batch 6.
+ENCODER_LEVELS = ((1, 512, 1024, 3, 16), (2, 256, 512, 16, 32),
+                  (3, 128, 256, 32, 64))
+PALLAS_LEVELS = len(ENCODER_LEVELS)
+SERVE_FRAMES = 3
+TRAIN_FRAMES = 3 * TRAIN_BATCH
+LEVEL_RUNS = 10
+# K9/K10 against their plain versions. bf16: the kernel's rel L2 distance
+# to the float32 plain level on the same (bf16) inputs must stay within
+# 1.5x the plain bf16 level's distance + 1e-3 (the serve rule). float32:
+# the forward within 1e-5 rel L2 of the plain level (measured <= 1.6e-6 in
+# PR 4's first chip run, summation order only); the backward within 2e-3
+# (measured <= 9.6e-4): a LeakyReLU mask flips where the kernel's
+# recomputed pre-activation and cuDNN's lie on either side of 0, which
+# moves those few values by 0.9 of their gradient.
+LEVEL_F32_RTOL = {"fwd": 1e-5, "bwd": 2e-3}
+LEVEL_GRADS = ("dx", "dk1", "db1", "dk2", "db2", "dk3", "db3")
+
+
+def level_flops(b, h, w, c, f):
+    """(FLOPs of a level's three convolutions, FLOPs of one of its two
+    stride-1 convolutions), counting only taps whose input lies in the
+    image (a SAME-padding product is zero)."""
+    h2, w2 = h // 2, w // 2
+    entry = (3 * h2 - 1) * (3 * w2 - 1) * c  # stride 2 pads (0, 1)
+    inner = (3 * h2 - 2) * (3 * w2 - 2) * f  # stride 1 pads (1, 1)
+    return 2 * b * f * (entry + 2 * inner), 2 * b * f * inner
+
+
+def level_checks(peaks, spin_rate, gen):
+    """K9 (encoder_level_fwd) at the three level shapes at batch 3 (served)
+    and 6 (trained), and one multi-tile odd shape, and K10
+    (encoder_level_bwd) at the level shapes at batch 6 and the odd shape,
+    in bf16 and float32, against encoder_level_plain and
+    encoder_level_bwd_plain (cuDNN), with CUDA-event times and bounds."""
+    from cerberusnet_torch.ops import encoder_level as elv
+    from cerberusnet_torch.ops.cuda import encoder_level as cl
+
+    cases = [("fwd", batch, lv) for batch in (SERVE_FRAMES, TRAIN_FRAMES)
+             for lv in ENCODER_LEVELS]
+    cases += [("bwd", TRAIN_FRAMES, lv) for lv in ENCODER_LEVELS]
+    odd = (0, 72, 16, 3, 8)  # 36 output rows: top and bottom borders
+    cases += [("fwd", 1, odd), ("bwd", 1, odd)]
+    checks = []
+    for kind, b, (level, h, w, c, f) in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+            params = []
+            for cin in (c, f, f):
+                params.append(torch.randn((3, 3, cin, f), generator=gen,
+                                          device="cuda") / (9 * cin) ** 0.5)
+                params.append(0.1 * torch.randn((f,), generator=gen,
+                                                device="cuda"))
+            x, params = x.to(dt), [p.to(dt) for p in params]
+            y3 = cl.level_fwd(x, *params)
+            g = torch.randn(y3.shape, generator=gen, device="cuda").to(dt)
+            x32, p32 = x.float(), [p.float() for p in params]
+            if kind == "fwd":
+                def run_kernel():
+                    return cl.level_fwd(x, *params)
+
+                def run_plain():
+                    return elv.encoder_level_plain(x, *params)
+
+                def run_ref():
+                    return elv.encoder_level_plain(x32, *p32)
+            else:
+                def run_kernel():
+                    return cl.level_bwd(x, y3, g, *params)
+
+                def run_plain():
+                    return elv.encoder_level_bwd_plain(x, y3, g, *params)
+
+                def run_ref():
+                    return elv.encoder_level_bwd_plain(x32, None, g.float(),
+                                                       *p32)
+            outs = {"fwd": ("y3",), "bwd": LEVEL_GRADS}[kind]
+            got, plain, ref = (
+                [v] if kind == "fwd" else list(v)
+                for v in (run_kernel(), run_plain(), run_ref()))
+            torch.cuda.synchronize()
+            dist, limits = {}, {}
+            for name, k_, p_, r_ in zip(outs, got, plain, ref):
+                dist[name] = rel_l2(k_, r_.float())
+                limits[name] = (LEVEL_F32_RTOL[kind] if dt == torch.float32
+                                else 1.5 * rel_l2(p_, r_.float()) + 1e-3)
+            ok = all(dist[n] <= limits[n] for n in outs)
+            max_abs = max((k_.float() - p_.float()).abs().max().item()
+                          for k_, p_ in zip(got, plain))
+            k_t = cuda_times(run_kernel, runs=LEVEL_RUNS, spin_rate=spin_rate)
+            p_t = cuda_times(run_plain, runs=LEVEL_RUNS, spin_rate=spin_rate)
+            fwd_flops, inner = level_flops(b, h, w, c, f)
+            esize = x.element_size()
+            acts = b * (h * w * c + (h // 2) * (w // 2) * f)
+            if kind == "fwd":
+                nbytes, flops = acts * esize, fwd_flops
+            else:
+                # x, y3, g in, dx out; recompute of y1, y2, three input
+                # gradients and three weight gradients
+                nbytes = (2 * acts + b * (h // 2) * (w // 2) * f) * esize
+                flops = 3 * fwd_flops - inner
+            peak = peaks["bf16" if dt == torch.bfloat16 else "f32"]
+            t_bytes, t_ops = nbytes / peaks["bytes"], flops / peak
+            del x, params, y3, g, got, plain, ref
+            checks.append({
+                "kernel": f"encoder_level_{kind}", "path": "levels",
+                "batch": b, "level": level, "shape": [b, h, w, c, f],
+                "dtype": str(dt)[6:], "ok": ok, "max_abs_err": max_abs,
+                "rel_l2_to_f32_plain": dist, "limits": limits,
+                "ms": k_t["median"], "ms_min": k_t["min"],
+                "ms_max": k_t["max"], "plain_ms": p_t["median"],
+                "plain_ms_min": p_t["min"], "plain_ms_max": p_t["max"],
+                "bytes": nbytes, "flops": flops,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            })
     return checks
 
 
@@ -311,41 +460,70 @@ def rel_l2(a, ref):
     return ((a.float() - ref).norm() / ref.norm().clamp_min(1e-12)).item()
 
 
-# phase: (entry variant, pyramid levels, forward kernel launches per request)
+def launch_counts():
+    """{kernel name: launches so far} over every hand kernel."""
+    from cerberusnet_torch.ops.cuda import correlation as cc
+    from cerberusnet_torch.ops.cuda import encoder_level as cl
+
+    return {**cc.launches(), **cl.launches()}
+
+
+def reset_launch_counts():
+    from cerberusnet_torch.ops.cuda import correlation as cc
+    from cerberusnet_torch.ops.cuda import encoder_level as cl
+
+    cc.reset_launches()
+    cl.reset_launches()
+
+
+def launch_rise(fn):
+    """(fn's result, {kernel: launches fn made})."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in launch_counts().items()}
+
+
+# phase: (entry variant, pyramid levels, kernel launches per request, the
+# entry's keywords, the path timed beside it: (name, entry keywords))
 SERVE = {
     "serve": ("cerberus", LEVELS,
-              {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)}),
+              {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)}, {},
+              ("plain", {"corr_impl": "plain"})),
     "serve_dcv": ("cerberus_dcv", (DCV_LEVEL,),
                   {"corr2d_fwd": len(DCV_FLOW_DILATIONS),
-                   "corr1d_fwd": len(DCV_DISP_DILATIONS)}),
+                   "corr1d_fwd": len(DCV_DISP_DILATIONS)}, {},
+                  ("plain", {"corr_impl": "plain"})),
+    "serve_pallas_levels": (
+        "cerberus", LEVELS,
+        {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS),
+         "encoder_level_fwd": PALLAS_LEVELS},
+        {"pallas_levels": PALLAS_LEVELS}, ("pallas_levels_0", {})),
 }
 
 
 def phase_serve(phase):
     from cerberusnet_torch.entry import entry, make_frames
-    from cerberusnet_torch.ops.cuda import correlation as cc
 
-    variant, levels, fwd_launches = SERVE[phase]
+    variant, levels, fwd_launches, kwargs, (base_name, base_kw) = SERVE[phase]
     torch.cuda.reset_peak_memory_stats()
-    forward, _ = entry(variant=variant)
+    forward, _ = entry(variant=variant, **kwargs)
     plain_bf16, _ = entry(variant=variant, corr_impl="plain")
     plain_f32, _ = entry(variant=variant, dtype=torch.float32,
                          corr_impl="plain")
+    baseline, _ = entry(variant=variant, **base_kw)
     requests = [make_frames(seed, HW) for seed in range(1, N_REQUESTS + 1)]
 
     errors = []
-    want_rise = {k: fwd_launches.get(k, 0) for k in cc.KERNELS}
-    cc.reset_launches()
+    want_rise = {k: fwd_launches.get(k, 0) for k in launch_counts()}
+    reset_launch_counts()
     answers = []
     for i, req in enumerate(requests):
-        before = cc.launches()
-        out = forward(*req)
-        torch.cuda.synchronize()
-        rise = {k: v - before[k] for k, v in cc.launches().items()}
+        out, rise = launch_rise(lambda: forward(*req))
         if rise != want_rise:
             errors.append(f"request {i}: kernel launches rose by {rise}")
         answers.append(out)
-    launches = cc.launches()
+    launches = launch_counts()
 
     h, w = HW
     want = {"seg_logits": (1, h, w, 19), "flow": (1, h, w, 2),
@@ -382,11 +560,11 @@ def phase_serve(phase):
             if not d_kernel <= limit:
                 errors.append(f"request {i}: {key} rel L2 {d_kernel} > {limit}")
 
-    # eager forward time, kernel path and plain path in turns on one card
+    # eager forward time, this path and the baseline in turns on one card
     req = requests[0]
-    paths = {"kernel": forward, "plain": plain_bf16}
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    paths = {"kernel": forward, base_name: baseline}
+    times = {base_name: [], "kernel": []}
+    for which in (base_name, "kernel", "kernel", base_name):
         times[which].append(
             cuda_times(lambda: paths[which](*req), runs=20, warmup=3))
     fwd = {}
@@ -413,25 +591,88 @@ def phase_serve(phase):
 
 BACKWARDS = ("corr2d_bwd_f1", "corr2d_bwd_f2", "corr1d_bwd_f1",
              "corr1d_bwd_f2")
+FUSED = {"pallas_levels": PALLAS_LEVELS, "pallas_grad": "pallas"}
 # phase: (config, the model's correlation calls per step (2-D, 1-D), the
-# zeroed-backward controls)
+# zeroed-backward controls, the model's overrides, the encoder levels whose
+# input gradient is tapped, the path timed beside it). Where encoder levels
+# are tapped the correlation inputs are not: the fused levels round the
+# features otherwise than cuDNN does, so their bf16 noise reaches the
+# correlation inputs' gradients as a second, independent sample (up to 2.1x
+# the plain path's distance, my chip run 2, PR 4), while the "train" phase,
+# whose features the plain path shares, holds the correlation kernels.
 TRAIN = {
     "train": ("configs/cerberus_synthetic.json", (len(LEVELS), len(LEVELS)),
-              [(k,) for k in BACKWARDS] + [BACKWARDS]),
+              [(k,) for k in BACKWARDS] + [BACKWARDS], {}, (), "plain"),
     "train_dcv": ("configs/cerberus_dcv.json",
                   (len(DCV_FLOW_DILATIONS), len(DCV_DISP_DILATIONS)),
-                  [BACKWARDS]),
+                  [BACKWARDS], {}, (), "plain"),
+    "train_pallas_levels": (
+        "configs/cerberus_synthetic.json", (len(LEVELS), len(LEVELS)),
+        [("encoder_level_bwd",)], FUSED, (2, 3), "pallas_levels_0"),
 }
 
 
-def grads_and_taps(trainer, batch):
-    """One step's gradients (``trainer.loss_and_grads``) and the gradient
-    each correlation call hands each of its inputs, as {"corr2d level 6
-    df1": tensor, ...} (CerberusNet's decoders, by level) or {"corr2d
-    dilation 8 df1": tensor, ...} (the DCV decoders, by dilation). An
-    input goes through an identity view whose hook reads its gradient, so
-    the hook sees the correlation's share alone: within a module's whole
-    gradient that share is too small to show."""
+def zeroed_backward(name):
+    """(module, attribute, a stand-in returning zeros) for a backward
+    kernel's wrapper."""
+    from cerberusnet_torch.ops.cuda import correlation as cc
+    from cerberusnet_torch.ops.cuda import encoder_level as cl
+
+    if name != "encoder_level_bwd":
+        return cc, name, lambda g, f, d, dil: torch.zeros_like(f)
+
+    def level_bwd(x, y3, g, *params, need_dx=True):
+        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in params]
+        return (torch.zeros_like(x) if need_dx else None, *zeros)
+    return cl, "level_bwd", level_bwd
+
+
+def level_taps(encoder, levels, taps):
+    """Sets identity views with hooks on the input of each encoder level in
+    ``levels`` (1-based), so ``taps["encoder level N dx"]`` reads the
+    gradient that level alone hands its input (NCHW): through the fused
+    level's ``encoder_level`` call, or the plain level's first block.
+    Returns a function that removes them."""
+    from cerberusnet_torch.models import encoder as enc_mod
+
+    def hooked(x, key, to_nchw):
+        v = x.view_as(x)
+        v.register_hook(lambda g: taps.__setitem__(
+            key, (g.permute(0, 3, 1, 2) if to_nchw else g).float()))
+        return v
+
+    saved = enc_mod.encoder_level
+    calls = []
+
+    def fused(x, *args, **kw):
+        calls.append(None)
+        if len(calls) in levels:
+            x = hooked(x, f"encoder level {len(calls)} dx", True)
+        return saved(x, *args, **kw)
+
+    enc_mod.encoder_level = fused
+    handles = [encoder.blocks[3 * (lv - 1)].register_forward_pre_hook(
+        lambda mod, args, key=f"encoder level {lv} dx": (
+            hooked(args[0], key, False),))
+        for lv in levels if lv > encoder.fused_levels]
+
+    def remove():
+        enc_mod.encoder_level = saved
+        for h in handles:
+            h.remove()
+    return remove
+
+
+def grads_and_taps(trainer, batch, levels=()):
+    """One step's gradients (``trainer.loss_and_grads``) and, without
+    ``levels``, the gradient each correlation call hands each of its
+    inputs, as {"corr2d level 6 df1": tensor, ...} (CerberusNet's
+    decoders, by level) or {"corr2d dilation 8 df1": tensor, ...} (the DCV
+    decoders, by dilation); with them, the gradient each encoder level in
+    ``levels`` hands its input ({"encoder level 2 dx": ...}). An input goes through an identity view whose hook reads its
+    gradient, so the hook sees that call's share alone: within a module's
+    whole gradient a correlation's share is too small to show."""
     from cerberusnet_torch.models.dcv_flow import (
         DCVFlowDecoder,
         DCVStereoDecoder,
@@ -456,12 +697,16 @@ def grads_and_taps(trainer, batch):
     kinds = {FlowDecoder: "corr2d level", DisparityDecoder: "corr1d level",
              DCVFlowDecoder: "corr2d dilation",
              DCVStereoDecoder: "corr1d dilation"}
+    if levels:
+        kinds = {}
     saved = {cls: cls.correlate for cls in kinds}
     for cls, kind in kinds.items():
         cls.correlate = tapped(kind, saved[cls])
+    untap = level_taps(trainer.model.encoder, levels, taps)
     try:
         _, grads = trainer.loss_and_grads(batch)
     finally:
+        untap()
         for cls, fn in saved.items():
             cls.correlate = fn
     return grads, taps
@@ -480,36 +725,48 @@ def module_rel_l2(grads, ref):
     return out
 
 
+def block_rel_l2(grads, ref, blocks):
+    """The same for each of the encoder's first ``blocks`` conv blocks."""
+    out = {}
+    for i in range(blocks):
+        names = [n for n in ref if n.startswith(f"encoder.blocks.{i}.")]
+        a = torch.cat([grads[n].flatten() for n in names])
+        b = torch.cat([ref[n].flatten() for n in names])
+        out[f"encoder.blocks.{i}"] = rel_l2(a, b)
+    return out
+
+
 def phase_train(phase):
     from cerberusnet_torch.entry import train_entry
-    from cerberusnet_torch.ops.cuda import correlation as cc
     from cerberusnet_torch.train.trainer import UNCERTAINTY
 
-    config, (n2d, n1d), control_sets = TRAIN[phase]
+    config, (n2d, n1d), control_sets, model, levels, base = TRAIN[phase]
+    fused = model.get("pallas_levels", 0)
     want_rise = {k: n2d if k.startswith("corr2d") else n1d
-                 for k in cc.KERNELS}
+                 for k in launch_counts()}
+    want_rise["encoder_level_fwd"] = fused
+    want_rise["encoder_level_bwd"] = (
+        fused if model.get("pallas_grad") == "pallas" else 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     constant = {"schedule": "constant"}
     trainer, batches = train_entry(config, batch_size=TRAIN_BATCH,
-                                   n_batches=TRAIN_STEPS, optim=constant)
+                                   n_batches=TRAIN_STEPS, optim=constant,
+                                   model=model)
     setup_s = time.perf_counter() - t0
     errors = []
     before = {n: m.clone() for n, m in trainer.masters.items()}
     steps = []
-    cc.reset_launches()
+    reset_launch_counts()
     for i, batch in enumerate(batches):
-        prev = cc.launches()
-        comps = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        rise = {k: v - prev[k] for k, v in cc.launches().items()}
+        comps, rise = launch_rise(lambda: trainer.train_step(batch))
         if rise != want_rise:
             errors.append(f"step {i}: kernel launches rose by {rise}")
         vals = {k: v.item() for k, v in comps.items()}
         if not all(map(math.isfinite, vals.values())):
             errors.append(f"step {i}: loss components {vals}")
         steps.append(vals)
-    launches = cc.launches()
+    launches = launch_counts()
     moved = sum(not torch.equal(m, before[n])
                 for n, m in trainer.masters.items())
     if moved != len(before):
@@ -531,20 +788,21 @@ def phase_train(phase):
     batch = batches[0]
     plain16.load_masters(trainer.masters)
     plain32.load_masters(trainer.masters)
-    # per module, and per correlation input (taps)
+    # per module (and per fused encoder block), per correlation input and
+    # per tapped encoder level input
     grads, taps = {}, {}
-    n_taps = 2 * (n2d + n1d)
+    n_taps = len(levels) or 2 * (n2d + n1d)
     for which, tr in (("kernel", trainer), ("plain_bf16", plain16),
                       ("plain_f32", plain32)):
-        grads[which], taps[which] = grads_and_taps(tr, batch)
+        grads[which], taps[which] = grads_and_taps(tr, batch, levels)
         torch.cuda.synchronize()
         if len(taps[which]) != n_taps:
-            fail(phase, f"{which}: {len(taps[which])} correlation input "
-                        f"gradients, not {n_taps}")
+            fail(phase, f"{which}: {len(taps[which])} input gradients "
+                        f"tapped, not {n_taps}")
     ref, ref_taps = grads["plain_f32"], taps["plain_f32"]
 
     def distances_of(g, t):
-        return {**module_rel_l2(g, ref),
+        return {**module_rel_l2(g, ref), **block_rel_l2(g, ref, 3 * fused),
                 **{k: rel_l2(t[k], ref_taps[k]) for k in ref_taps}}
 
     d_kernel = distances_of(grads["kernel"], taps["kernel"])
@@ -559,17 +817,19 @@ def phase_train(phase):
 
     # controls: the same step with backward kernels that return zeros (one
     # at a time and all four, or all four alone: a cost volume without
-    # gradient); the comparison above must put each beyond a limit
+    # gradient; or the encoder levels' reverse sweep); the comparison above
+    # must put each beyond a limit
     controls = []
     for dropped in control_sets:
-        saved = {k: getattr(cc, k) for k in dropped}
-        for k in dropped:
-            setattr(cc, k, lambda g, f, d, dil: torch.zeros_like(f))
+        stand_ins = [zeroed_backward(k) for k in dropped]
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in stand_ins]
+        for mod, attr, fn in stand_ins:
+            setattr(mod, attr, fn)
         try:
-            faulty, faulty_taps = grads_and_taps(trainer, batch)
+            faulty, faulty_taps = grads_and_taps(trainer, batch, levels)
         finally:
-            for k, fn in saved.items():
-                setattr(cc, k, fn)
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
         dist = distances_of(faulty, faulty_taps)
         caught = [k for k in limits if not dist[k] <= limits[k]]
         controls.append({
@@ -583,10 +843,29 @@ def phase_train(phase):
                           f"{dist}")
     del grads, taps, faulty, faulty_taps, plain32
 
-    # ms per train step, kernel path and plain path in turns on one card
-    paths = {"kernel": trainer, "plain": plain16}
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    # with the levels' backward recomputed by the plain convs: the fused
+    # forward (K9) still runs, the reverse sweep (K10) does not
+    xla_step = None
+    if fused:
+        trainer.model.encoder.pallas_grad = "xla"
+        try:
+            _, rise = launch_rise(lambda: trainer.train_step(batch))
+        finally:
+            trainer.model.encoder.pallas_grad = model["pallas_grad"]
+        xla_step = {"launches": rise}
+        if rise != {**want_rise, "encoder_level_bwd": 0}:
+            errors.append(f"pallas_grad='xla' step: launches rose by {rise}")
+
+    # ms per train step, this path and the baseline in turns on one card
+    if base == "plain":
+        baseline = plain16
+    else:
+        baseline, _ = train_entry(config, batch_size=TRAIN_BATCH,
+                                  n_batches=0, optim=constant)
+        baseline.load_masters(trainer.masters)
+    paths = {"kernel": trainer, base: baseline}
+    times = {base: [], "kernel": []}
+    for which in (base, "kernel", "kernel", base):
         tr = paths[which]
         times[which].append(cuda_times(lambda: tr.train_step(batch),
                                        runs=10, warmup=2))
@@ -609,6 +888,7 @@ def phase_train(phase):
           "weights_moved": moved, "weights": len(before),
           "log_variances": log_vars,
           "setup_s": setup_s, "distances": distances, "controls": controls,
+          "model": model, "pallas_grad_xla_step": xla_step,
           "train_step": step,
           "timing": "CUDA events around one train_step(batch) call, host "
                     "batch in, preprocessing and optimizer included",
@@ -668,12 +948,41 @@ def path_numbers(checks, name, path, batch, launches):
     }
 
 
+def level_numbers(checks, name, batch, launches):
+    """A fused-level kernel's numbers on one path: its three level calls in
+    bf16 at that path's batch (3 frames served, 6 trained), summed, with
+    the path's launch count and the per-level rows under "shapes"."""
+    rows = [c for c in checks if c["kernel"] == name and c["level"] > 0
+            and c["batch"] == batch and c["dtype"] == "bfloat16"]
+    bound = sum(r["bound_ms"] for r in rows)
+    by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    return {
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": bound,
+        "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
+        "batch": batch,
+        "shapes": [{k: r[k] for k in (
+            "level", "shape", "ms", "ms_min", "ms_max", "plain_ms",
+            "bound_ms", "bound_by", "max_abs_err")} for r in rows],
+    }
+
+
 def summary(checks, launches):
-    """One entry per kernel. Its numbers are the CerberusNet train path's
-    (batch 2), where all six kernels run: launches from that path's run,
-    times and bounds from its shapes. A forward's serve-path numbers
-    (batch 1) stand under "paths" beside them, and each kernel's numbers
-    on the DCV paths, by dilation, under "dcv"."""
+    """One entry per kernel. A correlation kernel's numbers are the
+    CerberusNet train path's (batch 2), where all six run: launches from
+    that path's run, times and bounds from its shapes. A forward's
+    serve-path numbers (batch 1) stand under "paths" beside them, and each
+    kernel's numbers on the DCV paths, by dilation, under "dcv". The fused
+    level kernels' numbers are the train_pallas_levels path's (the three
+    levels at batch 6), with K9's serve_pallas_levels numbers (batch 3)
+    under "paths". No single library call computes a correlation or a
+    whole level (the plain level is three cuDNN convolutions and two
+    LeakyReLUs, its plain_ms), so library_ms is null."""
+    from cerberusnet_torch.ops.cuda import encoder_level as cl
+
     entries = []
     for name, replaces in REPLACES.items():
         train = path_numbers(checks, name, "cerberus", TRAIN_BATCH,
@@ -696,6 +1005,20 @@ def summary(checks, launches):
             "paths": paths,
             "dcv": {"replaces": DCV_REPLACES.get(name),
                     "dilations": list(dils), "paths": dcv}})
+    for name, replaces in cl.REPLACES.items():
+        train = level_numbers(checks, name, TRAIN_FRAMES,
+                              launches["train_pallas_levels"][name])
+        paths = {"train_pallas_levels": {
+            k: v for k, v in train.items() if k != "shapes"}}
+        if name == "encoder_level_fwd":
+            serve = level_numbers(checks, name, SERVE_FRAMES,
+                                  launches["serve_pallas_levels"][name])
+            paths["serve_pallas_levels"] = serve
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "cerberusnet_torch/csrc/encoder_level.cu",
+            "replaces": replaces, "library_ms": None, **train,
+            "paths": paths})
     emit({"kernels": entries})
 
 
@@ -712,14 +1035,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     card, name = phase_env()
-    peak_bw, peak_flops = card_peaks(name)
-    if peak_bw is None:
+    peaks = card_peaks(name)
+    if peaks is None:
         fail("env", f"no published peaks known for {name!r}")
     phase_build()
     spin_rate = sleep_cycles_per_ms()
-    checks = phase_kernels(peak_bw, peak_flops, spin_rate)
+    checks = phase_kernels(peaks, spin_rate)
     launches = {}
-    for phase in ("serve", "train", "serve_dcv", "train_dcv"):
+    for phase in ("serve", "train", "serve_dcv", "train_dcv",
+                  "serve_pallas_levels", "train_pallas_levels"):
         run = phase_serve if phase in SERVE else phase_train
         launches[phase] = run(phase)
     summary(checks, launches)

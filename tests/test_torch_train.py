@@ -132,7 +132,7 @@ def test_unknown_key_raises():
 
 @pytest.mark.parametrize("section,key,value,item", [
     ("model", "variant", "raft", "A8"),
-    ("model", "pallas_levels", 2, "B7"),
+    ("model", "seg_head", "aspp", "A8"),
     ("optim", "accum_steps", 2, "A5"),
     ("optim", "ema_decay", 0.99, "A5"),
     ("optim", "grads_dtype", "bfloat16", "A5"),
@@ -163,6 +163,21 @@ def test_dcv_config_is_supported(name):
     wl = ExperimentConfig.from_dict(tiny_config_dict("pallas_wl"))
     wl.check_supported()
     assert wl.model.port_corr_impl is None
+
+
+def test_fused_encoder_levels_are_supported():
+    raw = tiny_config_dict()
+    raw["model"].update(pallas_levels=3, pallas_grad="pallas")
+    cfg = ExperimentConfig.from_dict(raw)
+    cfg.check_supported()
+    tr = Trainer(cfg, device="cpu")
+    assert tr.model.encoder.fused_levels == 3
+    assert tr.model.encoder.pallas_grad == "pallas"
+    # the DCV variants accept the knobs and ignore them, as in JAX
+    raw["model"]["variant"] = "cerberus_dcv"
+    dcv = ExperimentConfig.from_dict(raw)
+    dcv.check_supported()
+    assert Trainer(dcv, device="cpu").model.encoder.fused_levels == 0
 
 
 def test_synthetic_config_is_supported():
