@@ -347,11 +347,11 @@ LEVEL_RUNS = 10
 # K9/K10 against their plain versions. bf16: the kernel's rel L2 distance
 # to the float32 plain level on the same (bf16) inputs must stay within
 # 1.5x the plain bf16 level's distance + 1e-3 (the serve rule). float32:
-# the forward within 1e-5 rel L2 of the plain level (measured <= 1.6e-6 in
-# PR 4's first chip run, summation order only); the backward within 2e-3
-# (measured <= 9.6e-4): a LeakyReLU mask flips where the kernel's
-# recomputed pre-activation and cuDNN's lie on either side of 0, which
-# moves those few values by 0.9 of their gradient.
+# the forward within 1e-5 rel L2 of the plain level (measured <= 1.6e-6 on
+# an H100, summation order only); the backward within 2e-3 (measured
+# <= 1.3e-3): a LeakyReLU mask flips where the kernel's recomputed
+# pre-activation and cuDNN's lie on either side of 0, which moves those
+# few values by 0.9 of their gradient.
 LEVEL_F32_RTOL = {"fwd": 1e-5, "bwd": 2e-3}
 LEVEL_GRADS = ("dx", "dk1", "db1", "dk2", "db2", "dk3", "db3")
 
@@ -597,9 +597,10 @@ FUSED = {"pallas_levels": PALLAS_LEVELS, "pallas_grad": "pallas"}
 # input gradient is tapped, the path timed beside it). Where encoder levels
 # are tapped the correlation inputs are not: the fused levels round the
 # features otherwise than cuDNN does, so their bf16 noise reaches the
-# correlation inputs' gradients as a second, independent sample (up to 2.1x
-# the plain path's distance, my chip run 2, PR 4), while the "train" phase,
-# whose features the plain path shares, holds the correlation kernels.
+# correlation inputs' gradients as a second, independent sample (measured
+# on an H100 at up to 2.1x the plain path's distance), while the "train"
+# phase, whose features the plain path shares, holds the correlation
+# kernels.
 TRAIN = {
     "train": ("configs/cerberus_synthetic.json", (len(LEVELS), len(LEVELS)),
               [(k,) for k in BACKWARDS] + [BACKWARDS], {}, (), "plain"),
