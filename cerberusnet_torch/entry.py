@@ -47,22 +47,19 @@ def make_frames(seed: int, hw=(512, 1024), device="cuda",
 
 def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
           seed: int = 0, corr_impl: str | None = None,
-          variant: str = "cerberus", pallas_levels: int = 0,
-          pallas_grad: str = "xla"):
+          variant: str = "cerberus", pallas_levels: int = 0):
     """Returns (forward, example_inputs) for the default-width model of
     ``variant`` ("cerberus" or "cerberus_dcv"). ``pallas_levels`` runs
-    CerberusNet's first N encoder levels as fused kernels (with
-    ``pallas_grad``, their backward, for a caller that differentiates)."""
+    CerberusNet's first N encoder levels as fused kernels."""
     if variant not in SERVED:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{tuple(SERVED)}")
     fused = {}
-    if pallas_levels or pallas_grad != "xla":
+    if pallas_levels:
         if variant != "cerberus":
-            raise ValueError(f"pallas_levels and pallas_grad are "
-                             f"CerberusNet's; {variant!r} has no fused "
-                             f"encoder levels")
-        fused = dict(pallas_levels=pallas_levels, pallas_grad=pallas_grad)
+            raise ValueError(f"pallas_levels is CerberusNet's; {variant!r} "
+                             f"has no fused encoder levels")
+        fused = dict(pallas_levels=pallas_levels)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -31,8 +31,7 @@ class CerberusNet(nn.Module):
     runs the plain correlations on any device (a yardstick for the
     kernels); None runs the CUDA kernels on a GPU. ``pallas_levels`` and
     ``pallas_grad`` go to the encoder (``PyramidEncoder``): the first N
-    levels as fused kernels. The s2d knobs change nothing but are refused
-    beside them, as in the reference."""
+    levels as fused kernels."""
 
     def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
                  num_classes: int = 19, max_disp_full: int = 96,
@@ -41,13 +40,11 @@ class CerberusNet(nn.Module):
                  ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
                  fpn_channels: int = 96, corr_impl: str | None = None,
                  dtype: torch.dtype = torch.float32, pallas_levels: int = 0,
-                 pallas_grad: str = "xla", s2d_stem: bool = False,
-                 stem_pad_channels: int = 0, s2d_levels: int = 0):
+                 pallas_grad: str = "xla"):
         super().__init__()
-        self.encoder = PyramidEncoder(
-            encoder_channels, pallas_levels=pallas_levels,
-            pallas_grad=pallas_grad, s2d_stem=s2d_stem,
-            stem_pad_channels=stem_pad_channels, s2d_levels=s2d_levels)
+        self.encoder = PyramidEncoder(encoder_channels,
+                                      pallas_levels=pallas_levels,
+                                      pallas_grad=pallas_grad)
         self.disparity = DisparityDecoder(encoder_channels, max_disp_full,
                                           est_channels, ctx_channels,
                                           corr_impl=corr_impl)

@@ -7,10 +7,7 @@ Six levels; each is a stride-2 conv block then two stride-1 conv blocks.
 ``pallas_levels=N`` runs the first N levels through ``encoder_level``, one
 fused kernel per level (K9; its backward K10 with ``pallas_grad="pallas"``,
 the plain recompute with ``"xla"``), with the same blocks' weights: the
-parameters and the math are those of the plain levels. The reference's
-``s2d_stem``, ``stem_pad_channels`` and ``s2d_levels`` only steer XLA's
-program, so they change nothing here, but as there each is refused beside
-``pallas_levels``.
+parameters and the math are those of the plain levels.
 """
 
 from __future__ import annotations
@@ -27,12 +24,8 @@ from cerberusnet_torch.ops.encoder_level import encoder_level
 class PyramidEncoder(nn.Module):
     def __init__(self, channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
                  in_channels: int = 3, pallas_levels: int = 0,
-                 pallas_grad: str = "xla", s2d_stem: bool = False,
-                 stem_pad_channels: int = 0, s2d_levels: int = 0):
+                 pallas_grad: str = "xla"):
         super().__init__()
-        if pallas_levels and (s2d_levels or s2d_stem or stem_pad_channels):
-            raise ValueError("pallas_levels is mutually exclusive with the "
-                             "s2d/stem reformulation knobs")
         self.channels = tuple(channels)
         self.fused_levels = min(max(pallas_levels, 0), len(self.channels))
         self.pallas_grad = pallas_grad

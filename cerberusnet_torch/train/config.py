@@ -17,8 +17,8 @@ the same arithmetic and the same parameter tree whatever their value, are
 accepted and have no effect here:
 ``model.fused``, ``corr_stack``, ``distribute_outputs``, ``upfeat_impl``,
 ``upsample_impl``, ``batched_encoder``, ``s2d_stem``, ``stem_pad_channels``,
-``s2d_levels`` (each refused beside ``pallas_levels``, as there),
-``entry_grad``, ``est_input`` and ``optim.flatten``. So are the keys of
+``s2d_levels`` (for CerberusNet each raises ``ValueError`` beside
+``pallas_levels``, as the reference's encoder does), ``entry_grad``, ``est_input`` and ``optim.flatten``. So are the keys of
 parts the port does not have yet, which nothing here reads: the RAFT keys
 and ``loss.seq_gamma`` (other model families, A8), ``data.num_workers``,
 ``shuffle`` and ``eval_split`` (the loader and evaluation, A6/A7), and
@@ -216,8 +216,13 @@ class ExperimentConfig:
 
     def check_supported(self):
         """Raises NotImplementedError for the first value the port does not
-        run yet, naming its ROADMAP item."""
+        run yet, naming its ROADMAP item, and ValueError for CerberusNet's
+        fused levels beside the s2d knobs."""
         m, d, o, l, t = self.model, self.data, self.optim, self.loss, self.train
+        if m.variant == "cerberus" and m.pallas_levels and (
+                m.s2d_levels or m.s2d_stem or m.stem_pad_channels):
+            raise ValueError("model.pallas_levels is mutually exclusive with "
+                             "s2d_stem, stem_pad_channels and s2d_levels")
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (m.seg_head != "fpn", f"model.seg_head={m.seg_head!r}", "A8"),

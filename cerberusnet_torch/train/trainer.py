@@ -63,9 +63,7 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
                            flow_max_disp=cfg.flow_max_disp,
                            fpn_channels=cfg.fpn_channels,
                            pallas_levels=cfg.pallas_levels,
-                           pallas_grad=cfg.pallas_grad, s2d_stem=cfg.s2d_stem,
-                           stem_pad_channels=cfg.stem_pad_channels,
-                           s2d_levels=cfg.s2d_levels, **common), (
+                           pallas_grad=cfg.pallas_grad, **common), (
                                "left", "right", "temporal")
     if cfg.variant == "cerberus_dcv":
         return CerberusDCV(num_classes=cfg.num_classes,

@@ -39,6 +39,7 @@ from cerberusnet_torch.ops.encoder_level import (
     encoder_level_bwd_plain,
     encoder_level_plain,
 )
+from cerberusnet_torch.train.config import ExperimentConfig
 from cerberusnet_torch.weights import load_flax_params
 
 TINY = dict(
@@ -226,9 +227,15 @@ def test_odd_extents_raise(shape):
 def test_knobs_that_exclude_each_other_raise():
     for knob in ({"s2d_levels": 1}, {"s2d_stem": True},
                  {"stem_pad_channels": 4}):
+        cfg = ExperimentConfig.from_dict(
+            {"model": {"pallas_levels": 1, **knob}})
         with pytest.raises(ValueError, match="mutually exclusive"):
-            PyramidEncoder(pallas_levels=1, **knob)
-    PyramidEncoder(s2d_levels=1)  # no effect without pallas_levels
+            cfg.check_supported()
+        # no effect without pallas_levels, nor on a DCV variant
+        ExperimentConfig.from_dict({"model": knob}).check_supported()
+        ExperimentConfig.from_dict({"model": {
+            "variant": "cerberus_dcv", "pallas_levels": 1, **knob}}
+        ).check_supported()
     x, kb = level_inputs(1, 8, 8, 3, 4)
     with pytest.raises(ValueError, match="unknown grad"):
         encoder_level(t(x), *map(t, kb), grad="mosaic")
