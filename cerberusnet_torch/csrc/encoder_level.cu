@@ -9,27 +9,20 @@
 //   y3 = leaky(conv_s1(y2, k3) + b3)
 //
 // x is (B, H, W, C), y1..y3 are (B, H/2, W/2, F); the kernels k1 (3,3,C,F)
-// and k2, k3 (3,3,F,F) are HWIO-contiguous, the biases (F,), all in the
-// working type of x. Each conv's SAME padding zero-pads its own input, so a
-// value of y1 or y2 that lies outside the image is 0, never leaky(bias).
+// and k2, k3 (3,3,F,F) are HWIO, the biases (F,), all in the working type
+// of x. Each conv's SAME padding zero-pads its own input, so a value of y1
+// or y2 that lies outside the image is 0, never leaky(bias).
 //
-// level_fwd_kernel replaces _level_kernel (host function _level_pallas_raw)
-// and level_bwd_kernel replaces _level_bwd_kernel (_level_pallas_bwd), both
-// in cerberusnet_tpu/ops/pallas/encoder_level.py. The TPU kernels walked
-// row strips in a W-folded layout that fitted the TPU's lanes and 16 MB of
-// VMEM; here a block owns a square tile of output pixels and keeps its
-// intermediates in shared memory, as the TPU kernels kept theirs in VMEM.
+// What replaces what. The forward kernels replace _level_kernel (host
+// function _level_pallas_raw) and the reverse sweeps _level_bwd_kernel
+// (_level_pallas_bwd), both in cerberusnet_tpu/ops/pallas/encoder_level.py.
+// The TPU kernels walked row strips in a W-folded layout that fitted the
+// TPU's lanes and 16 MB of VMEM; here a block owns a tile of output pixels
+// and keeps its intermediates in shared memory, as the TPU kernels kept
+// theirs in VMEM.
 //
-// Forward. One block per (image, T x T output tile). It stages the input
-// patch the tile needs (2T+9 rows and columns of x, zero outside the
-// image), computes y1 over the tile plus a 2-pixel halo and y2 over the
-// tile plus a 1-pixel halo into shared memory, then the tile's output.
-// Every value is a float32 sum of products plus the bias in float32,
-// LeakyReLU in float32, rounded once to the working type: y1 and y2 are
-// kept in the working type, as the TPU kernel keeps them (its scratch).
-//
-// Reverse sweep. One block per (image, T x T tile of y pixels it owns). It
-// recomputes y1 (tile plus a 3-pixel halo) and y2 (plus 2) from x, then
+// The reverse sweep, per tile of y pixels it owns: recompute y1 (tile plus
+// a 3-pixel halo) and y2 (plus 2) from x, then
 //   g3 = g * mask(y3)                   over the tile plus 3
 //   dk3, db3 from y2 and g3             over the owned pixels only
 //   g2 = convT(g3, k3) * mask(y2)       over the tile plus 2, in place of y2
@@ -40,30 +33,76 @@
 //   dx = entryT(g1, k1)                 the 2T x 2T input pixels it owns
 // mask(y) is 1 where y > 0 and 0.1 elsewhere (the sign of a LeakyReLU output
 // is that of its input; mask(0) = 0.1, as torch's leaky_relu gradient).
-// Cotangents outside the image are set to 0: they do not exist in the true
-// transpose. g1..g3 are kept in the working type, as the TPU kernel keeps
-// them; every product and sum is float32. dk and db are written per tile
-// as float32 partial sums of the owned pixels, so no halo pixel counts
-// twice; the wrapper sums the partials over tiles (the TPU kernel's
-// per-tile outputs, summed outside it), so no atomics are needed and the
-// result does not depend on the order blocks run in.
+// Cotangents outside the image are 0: they do not exist in the true
+// transpose. Numbers, in every kernel here: each value is a float32 sum of
+// products plus the float32 bias, LeakyReLU in float32, rounded once to the
+// working type; y1, y2 and g1..g3 are held in the working type, as the TPU
+// kernels hold them; dk and db are float32.
 //
 // Bound on an H100 SXM. The three convolutions of a level are
 // 2 * (H/2)(W/2) * 9 * F * (C + 2F) FLOP per image: at 512x1024, 1.32,
 // 1.51 and 1.51 GFLOP for levels 1-3 (C = 3, 16, 32). On the tensor cores
 // (989 TFLOP/s bf16) level 3 at batch 3 needs 4.5 us of operations against
 // 2.8 us of bytes (x read once, y3 written once); levels 1-2 are bound by
-// bytes (6.6 and 5.6 us). The reverse sweep does about 2.6x the forward's
-// operations and reads x, y3 and g and writes dx. These kernels run on the
-// CUDA cores: each thread owns one output value and loops over 9 taps and
-// the input channels, reading the staged operand from shared memory and
-// the weight from global memory (L1/L2), two loads per multiply-add, and
-// the halos recompute up to (T+4)^2/T^2 of the tile's y1. They are a
-// simple first version, far above that bound: measured with chip_smoke.py
-// (bf16, NVIDIA H100 80GB HBM3 at 700 W), the forward takes 1.1-1.5 ms a
-// level at batch 3, 4-17x the three cuDNN convolutions it replaces, and the
-// reverse sweep 5.3-7.1 ms a level at batch 6 (PERF.md). wgmma on staged
-// tiles is later work.
+// bytes. The reverse sweep does about 2.6x the forward's operations and
+// reads x, y3 and g and writes dx.
+//
+// Two designs, chosen by the wrapper from the type and the widths alone,
+// never on a failure:
+//
+// (1) bfloat16 at the widths in TC_LEVELS below (the encoder's levels 1-3:
+// (C, F) = (3, 16), (16, 32), (32, 64)): tensor cores. The first design
+// (kept as (2)) ran every product as a scalar fmaf on the CUDA cores, each
+// multiply-add loading its operand from shared memory and its weight from
+// global memory, at 3-4 TFLOP/s; wrote a float32 slot of dk1..dk3, db1..db3
+// for every tile (4608 slots, about 417 MB written and summed per train
+// step at batch 6); staged the input one element at a time; and recomputed
+// up to (T+5)^2/T^2 = 2.64x of y1 from 8x8 tiles. Measured with
+// chip_smoke.py (bf16, NVIDIA H100 80GB HBM3 at 700 W), it ran 160-330x its
+// bound and 2.6-23x slower than the three cuDNN convolutions it replaces;
+// this design runs 8-19x its bound, K9 0.06-0.20 ms a level at batch 3-6
+// and K10 0.28-0.50 ms a level at batch 6, each level faster than cuDNN's
+// (PERF.md). Here:
+//  - Every product is an implicit GEMM on mma.sync.m16n8k16 (bf16 in,
+//    float32 accumulators in registers). A convolution stage takes M = the
+//    stage's pixels, N = F, K = 9 taps x Cin: each lane hands ldmatrix the
+//    address of one pixel's row of Cin channels, so the 3x3 gather costs no
+//    copy. Level 1's entry conv (C = 3) is staged as im2col rows of 27 values
+//    and 5 zeros (K = 32). The transposed convolutions are the same GEMM with
+//    the taps flipped; dx is one GEMM per output parity class (taps 4, 2, 2,
+//    1). The weight gradients dk[tap] = in(p + tap)^T g(p) take M = Cin, N =
+//    F, K = the owned pixels, with in^T and g loaded by ldmatrix.trans.
+//  - B operands (the weights) are packed once per call by the wrapper into
+//    mma fragment order, so each lane reads its two registers as one
+//    coalesced 8-byte load through L1; nothing stages them.
+//  - The reverse sweep is persistent: at most two blocks per SM (one at
+//    levels 2-3, whose tile takes most of the SM's shared memory), each
+//    walking a fixed run of tiles and adding each tile's dk/db into its own
+//    float32 slot in global memory (written by the first tile, read and
+//    updated in place by the rest). The wrapper sums the slots in a fixed
+//    order; no slot is touched by two blocks and there are no atomics, so
+//    the result does not depend on the order blocks run in. The slots stay
+//    in device memory because one level-3 slot is 369 KB, more than an SM
+//    holds; the updates are L2 traffic.
+//  - The input patch is staged by cp.async in 16-byte pieces whose source
+//    size 0 zero-fills the SAME padding; two resident blocks overlap one's
+//    staging with the other's math where both fit, and the tiles are as
+//    large as shared memory allows, which cuts the halo recompute (the
+//    wrapper's TC_LEVELS lists the tiles; chip_smoke.py reports the factors).
+//  - Activations are kept in shared memory with each pixel's row padded by
+//    16 bytes, so the eight rows an ldmatrix phase reads fall in distinct
+//    banks (two-way at most for the stride-2 reads of x).
+// mma.sync, not wgmma: the A operand is a gather of pixel rows, which
+// ldmatrix takes lane by lane; wgmma would need the same rows copied into
+// its descriptor layout first. What is left above the bound is data
+// movement (the ldmatrix and L1 traffic per mma), not the instruction.
+//
+// (2) float32, and bfloat16 at any other widths: the CUDA cores. Each thread
+// owns one output value and loops over 9 taps and the input channels; dk
+// and db are written per tile as float32 partial sums of the owned pixels,
+// which the wrapper sums. TF32 tensor cores would break the float32 limits
+// (1e-5 forward, 2e-3 backward), and float32 is the port's witness
+// precision, on no default path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,12 +116,14 @@ constexpr int kFwdThreads = 256;
 constexpr int kBwdThreads = 512;
 constexpr int kTiles[] = {16, 8, 4, 2, 1};
 
+using bf16 = __nv_bfloat16;
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 template <>
 __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+__device__ __forceinline__ float to_f32<bf16>(bf16 v) {
   return __bfloat162float(v);
 }
 
@@ -91,7 +132,7 @@ __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch casts
 }
 
@@ -99,6 +140,8 @@ __device__ __forceinline__ float leaky(float v) {
   return v > 0.f ? v : 0.1f * v;
 }
 __device__ __forceinline__ float mask(float y) { return y > 0.f ? 1.f : 0.1f; }
+
+// ============================================ (2) CUDA cores: float32 etc.
 
 // Copies the n x n pixels of image x (H, W, C) whose top-left one is
 // (y0, x0) into dst as (n, n, C); pixels outside the image read as zero.
@@ -168,8 +211,6 @@ int pick_tile(size_t (*elems)(int, int, int), int C, int F, size_t elem_bytes,
   return 0;
 }
 
-// ---------------------------------------------------------------- forward
-
 // grid: (tiles_w, tiles_h, B). Shared: x patch (2T+9)^2 C, y1 (T+4)^2 F,
 // y2 (T+2)^2 F, in the working type.
 template <typename T>
@@ -220,8 +261,6 @@ __global__ void level_fwd_kernel(const T* __restrict__ x,
     ob[((int64_t)py * W2 + px) * F + f] = from_f32<T>(leaky(acc));
   }
 }
-
-// --------------------------------------------------------------- backward
 
 // The weight-gradient partial of one conv over the owned t x t pixels:
 // dk[tap][c][f] = sum_p in(p + tap)[c] * g(p)[f], db[f] = sum_p g(p)[f].
@@ -397,6 +436,619 @@ __global__ void level_bwd_kernel(
   }
 }
 
+// ================================== (1) tensor cores: bfloat16, TC_LEVELS
+
+namespace ptx {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the
+// addresses of matrix i's rows; register i of lane l holds row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed: register i of lane l holds rows
+// 2 (l % 4) and 2 (l % 4) + 1, column l / 4 of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B
+// (column-major fragment) and a 16x8 float32 d.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from global to shared memory without registers; the bytes past
+// src_bytes (0 or 16) are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+}  // namespace ptx
+
+constexpr int kThreads = 256;  // the forward's; a reverse sweep's is THREADS
+
+// The widths of one level and how its operands sit in shared memory.
+template <int C_, int F_>
+struct Widths {
+  static constexpr int C = C_, F = F_;
+  // C = 3: the entry conv reads im2col rows of 27 values and 5 zeros
+  static constexpr bool kIm2col = C == 3;
+  static constexpr int KC1 = kIm2col ? 2 : C / 16;  // k16 chunks per tap
+  static constexpr int KCF = F / 16;
+  static constexpr int NT = F / 8;         // n8 tiles of an F-wide output
+  static constexpr int NTX = (C + 7) / 8;  // of dx's C-wide output
+  // 16-pixel row blocks that share each B fragment in a convolution stage
+  static constexpr int MT = F >= 32 ? 2 : 1;
+  // elements per pixel row in shared memory: the operand plus 16 bytes, so
+  // eight consecutive rows start in eight distinct 16-byte bank groups
+  static constexpr int XS = (kIm2col ? 32 : C) + 8;
+  static constexpr int FS = F + 8;
+  // floats of one block's weight-gradient slot: dk1, dk2, dk3, db1..db3
+  static constexpr int kSlot = 9 * C * F + 2 * 9 * F * F + 3 * F;
+};
+
+// Forward tile TH x TW: x patch (or im2col rows) and y1 in shared memory;
+// y2 takes the x patch's place once y1 is done.
+template <int C, int F, int TH, int TW>
+struct FwdPlan {
+  using L = Widths<C, F>;
+  static constexpr int N1H = TH + 4, N1W = TW + 4;  // y1 from (r0-2, c0-2)
+  static constexpr int N2H = TH + 2, N2W = TW + 2;  // y2 from (r0-1, c0-1)
+  static constexpr int NXH = 2 * TH + 9, NXW = 2 * TW + 9;  // x from 2r0-4
+  static constexpr int XE =
+      L::kIm2col ? N1H * N1W * L::XS : NXH * NXW * L::XS;
+  static constexpr int Y2E = N2H * N2W * L::FS;
+  static constexpr int R0E = XE > Y2E ? XE : Y2E;
+  static constexpr int Y1E = N1H * N1W * L::FS;
+  static constexpr size_t kBytes = sizeof(bf16) * (size_t)(R0E + Y1E);
+};
+
+// Reverse-sweep tile TH x TW: x patch (or im2col rows), y1/g1, g3, y2/g2
+// and a float32 scratch for the bias gradients, THREADS threads.
+template <int C, int F, int TH, int TW, int THREADS>
+struct BwdPlan {
+  using L = Widths<C, F>;
+  static constexpr int N1H = TH + 5, N1W = TW + 5;  // y1, g1, g3 from r0-3
+  static constexpr int N2H = TH + 3, N2W = TW + 3;  // y2, g2 from r0-2
+  static constexpr int NXH = 2 * TH + 11, NXW = 2 * TW + 11;  // x from 2r0-6
+  static constexpr int XE =
+      L::kIm2col ? N1H * N1W * L::XS : NXH * NXW * L::XS;
+  static constexpr int Y1E = N1H * N1W * L::FS;
+  static constexpr int Y2E = N2H * N2W * L::FS;
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (size_t)(XE + 2 * Y1E + Y2E) + sizeof(float) * 3 * THREADS;
+};
+
+// An implicit GEMM over M output pixels: out(q)[n] = sum over taps t and k
+// of A(q, t)[k] * Bt[k][n], where A(q, t) is the row of K = 16 KC channels
+// at base_of(q) + tap_off(t) in shared memory and Bt is the packed weight
+// tap wtap(t) (KC x NT fragments of 32 lanes, uint2 each). A warp's item
+// is 16 MT pixels and all N = 8 NT outputs, or half of them where N = 64,
+// so that a small tile's stage still has work for every warp and the
+// accumulators stay in registers. B comes through L1 from L2 (the weights
+// do not fit beside the tile in shared memory), so each B fragment serves
+// the item's MT row blocks. epi(q, n, v, v') receives outputs n and n + 1
+// of pixel q.
+template <int KC, int NT, int MT, class Base, class TapOff, class WTap,
+          class Epi>
+__device__ __forceinline__ void gemm_rows(int M, int ntaps, Base base_of,
+                                          TapOff tap_off, WTap wtap,
+                                          const uint2* __restrict__ wpk,
+                                          Epi epi) {
+  constexpr int NS = NT >= 8 ? 2 : 1;  // items per 16 MT pixels
+  constexpr int NI = NT / NS;          // n8 tiles of an item
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int items = (M + 16 * MT - 1) / (16 * MT) * NS;
+  for (int item = warp; item < items; item += blockDim.x >> 5) {
+    const int m0 = item / NS * 16 * MT, n0 = item % NS * NI;
+    // ldmatrix: lanes 0-15 give rows m0..m0+15 at channels k..k+7, lanes
+    // 16-31 the same rows at k+8..k+15; rows past M repeat the last one
+    const bf16* row[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      row[mt] = base_of(min(m0 + 16 * mt + (lane & 15), M - 1)) +
+                8 * (lane >> 4);
+    }
+    float acc[MT][NI][4] = {};
+#pragma unroll 1
+    for (int t = 0; t < ntaps; ++t) {
+      const int off = tap_off(t);
+      const uint2* w = wpk + (size_t)wtap(t) * (KC * NT * 32) + lane;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          ptx::ldmatrix_x4(a[mt], row[mt] + off + kc * 16);
+        }
+#pragma unroll
+        for (int n = 0; n < NI; ++n) {
+          const uint2 b = __ldg(w + (kc * NT + n0 + n) * 32);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            ptx::mma_bf16(acc[mt][n], a[mt], b.x, b.y);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = m0 + 16 * mt + (lane >> 2);
+#pragma unroll
+      for (int n = 0; n < NI; ++n) {
+        const int col = (n0 + n) * 8 + 2 * (lane & 3);
+        if (r < M) epi(r, col, acc[mt][n][0], acc[mt][n][1]);
+        if (r + 8 < M) epi(r + 8, col, acc[mt][n][2], acc[mt][n][3]);
+      }
+    }
+  }
+}
+
+// A weight gradient over the NPIX owned pixels of a tile:
+//   dk[t][c][f] (+)= sum_p in(p, t)[c] * g(p)[f]   for rows c < `rows`,
+// where in(p, t) is the row at in_of(p) + tap_off(t) and g(p) the row at
+// g_of(p), both in shared memory. M = 16 MC rows of in^T, N = F = 8 NT,
+// K = the pixels; both operands come through ldmatrix.trans. Each warp owns
+// whole (tap, 16-row) units; `first` writes the slot, later tiles add to it
+// (one thread per slot value, so the update order is fixed).
+template <int MC, int NT, int NPIX, class In, class TapOff, class G>
+__device__ __forceinline__ void wgrad(int ntaps, int rows, In in_of,
+                                      TapOff tap_off, G g_of,
+                                      float* __restrict__ dk, bool first) {
+  constexpr int F = NT * 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int u = warp; u < ntaps * MC; u += blockDim.x >> 5) {
+    const int t = u / MC, mc = u % MC;
+    const int c = mc * 16 + (lane >> 2);
+    // the slot's values so far, loaded before the products so that their
+    // latency (device memory or L2) hides behind them
+    float acc[NT][4] = {};
+    if (!first) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int f = n * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (c + 8 * h >= rows) continue;
+          const float2 v = *reinterpret_cast<const float2*>(
+              dk + ((size_t)t * rows + c + 8 * h) * F + f);
+          acc[n][2 * h] = v.x;
+          acc[n][2 * h + 1] = v.y;
+        }
+      }
+    }
+    // A (16 channels x 16 pixels): lanes 0-7 pixels k..k+7 at channels
+    // c..c+7, 8-15 the same pixels at c+8.., 16-31 pixels k+8..k+15
+    const int a_off = tap_off(t) + mc * 16 + 8 * ((lane >> 3) & 1);
+    const int a_pix = (lane & 7) + 8 * (lane >> 4);
+    // B (16 pixels x 16 outputs): lanes 0-7 pixels k..k+7, 8-15 k+8..k+15,
+    // at outputs n..n+7; lanes 16-31 the same at n+8..n+15
+    const int b_pix = (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int b_off = 8 * (lane >> 4);
+#pragma unroll 2
+    for (int k0 = 0; k0 < NPIX; k0 += 16) {
+      uint32_t a[4];
+      ptx::ldmatrix_x4_trans(a, in_of(k0 + a_pix) + a_off);
+      const bf16* gp = g_of(k0 + b_pix) + b_off;
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t b[4];
+        ptx::ldmatrix_x4_trans(b, gp + n * 8);
+        ptx::mma_bf16(acc[n], a, b[0], b[1]);
+        ptx::mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int f = n * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (c + 8 * h >= rows) continue;
+        *reinterpret_cast<float2*>(dk + ((size_t)t * rows + c + 8 * h) * F +
+                                   f) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Rows y0 .. y0 + NH - 1, pixels x0 .. x0 + NWP - 1 of an image x (H, W, 3)
+// into raw (NH, NWP * 3), zero outside the image. x0 and NWP are even, so
+// each pair of values is one aligned 4-byte load where both lie inside.
+template <int NTH, int NH, int NWP>
+__device__ void stage_rows_c3(bf16* raw, const bf16* __restrict__ xb, int y0,
+                              int x0, int H, int W) {
+  constexpr int RP = NWP * 3 / 2;  // value pairs a row
+  for (int i = threadIdx.x; i < NH * RP; i += NTH) {
+    const int r = i / RP, e = 2 * (i - r * RP);
+    const int gy = y0 + r, g0 = x0 + e / 3, g1 = x0 + (e + 1) / 3;
+    __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+    if (gy >= 0 && gy < H) {
+      const int64_t at = ((int64_t)gy * W + x0) * 3 + e;
+      const bool in0 = g0 >= 0 && g0 < W, in1 = g1 >= 0 && g1 < W;
+      if (in0 && in1) {
+        v = *reinterpret_cast<const __nv_bfloat162*>(xb + at);
+      } else {
+        if (in0) v.x = xb[at];
+        if (in1) v.y = xb[at + 1];
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(raw + r * NWP * 3 + e) = v;
+  }
+}
+
+// Im2col rows of the stride-2 entry conv (C = 3) for NH x NW y pixels from
+// the raw rows of stage_rows_c3 (NWP pixels a row, from the x pixel under
+// y pixel 0's tap 0): row q holds x(2py + ky, 2px + kx)[c] at k = 3 (3ky +
+// kx) + c, and zero for k >= 27; rows of S elements. The 9 values of one
+// ky (3 pixels of 3 channels) lie together in both, so one thread copies
+// them.
+template <int NTH, int NH, int NW, int NWP, int S>
+__device__ void im2col_from(bf16* dst, const bf16* raw) {
+  for (int i = threadIdx.x; i < NH * NW * 3; i += NTH) {
+    const int q = i / 3, ky = i - 3 * q;
+    const bf16* src = raw + ((2 * (q / NW) + ky) * NWP + 2 * (q % NW)) * 3;
+    bf16* d = dst + q * S + 9 * ky;
+#pragma unroll
+    for (int e = 0; e < 9; ++e) d[e] = src[e];
+    if (ky == 2) {
+#pragma unroll
+      for (int e = 9; e < 14; ++e) d[e] = __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The NH x NW pixels of x (H, W, C) from (y0, x0) by cp.async, 16 bytes at
+// a time, zero outside the image; rows of S elements. Completes at
+// ptx::cp_async_wait_all().
+template <int C, int NH, int NW, int S>
+__device__ void stage_patch_async(bf16* dst, const bf16* __restrict__ xb,
+                                  int y0, int x0, int H, int W) {
+  constexpr int CH = C / 8;
+  for (int i = threadIdx.x; i < NH * NW * CH; i += blockDim.x) {
+    const int q = i / CH, k = i - q * CH;
+    const int gy = y0 + q / NW, gx = x0 + q % NW;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const bf16* src = in ? xb + ((int64_t)gy * W + gx) * C + 8 * k : xb;
+    ptx::cp_async16(dst + q * S + 8 * k, src, in ? 16 : 0);
+  }
+}
+
+// g3 = g * mask(y3) over the NH x NW y pixels from (py0, px0) of one image
+// (H2, W2, F), rounded once, 0 outside the image; rows of S elements.
+template <int F, int NH, int NW, int S>
+__device__ void stage_g3(bf16* dst, const bf16* __restrict__ g,
+                         const bf16* __restrict__ y3, int py0, int px0,
+                         int H2, int W2) {
+  constexpr int CH = F / 8;
+  for (int i = threadIdx.x; i < NH * NW * CH; i += blockDim.x) {
+    const int q = i / CH, k = i - q * CH;
+    const int py = py0 + q / NW, px = px0 + q % NW;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (py >= 0 && py < H2 && px >= 0 && px < W2) {
+      const int64_t at = ((int64_t)py * W2 + px) * F + 8 * k;
+      const uint4 gv = *reinterpret_cast<const uint4*>(g + at);
+      const uint4 yv = *reinterpret_cast<const uint4*>(y3 + at);
+      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&yv);
+      __nv_bfloat162* vp = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        vp[e] = __floats2bfloat162_rn(
+            __low2float(gp[e]) * mask(__low2float(yp[e])),
+            __high2float(gp[e]) * mask(__high2float(yp[e])));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + q * S + 8 * k) = v;
+  }
+}
+
+// Epilogue: leaky(v + bias) for pixel q of an NW-wide region whose pixel 0
+// is y pixel (py0, px0), stored at row q' = (q / NW) dw + q % NW + off of
+// dst; 0 outside the image.
+template <int S, int NW>
+__device__ __forceinline__ auto leaky_into(bf16* dst, int dw, int off,
+                                           int py0, int px0, int H2, int W2,
+                                           const bf16* __restrict__ bias) {
+  return [=](int q, int n, float v0, float v1) {
+    const int i = q / NW, j = q % NW;
+    const int py = py0 + i, px = px0 + j;
+    float a = 0.f, b = 0.f;
+    if (py >= 0 && py < H2 && px >= 0 && px < W2) {
+      a = leaky(v0 + __bfloat162float(bias[n]));
+      b = leaky(v1 + __bfloat162float(bias[n + 1]));
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dst + (i * dw + j + off) * S + n) =
+        __floats2bfloat162_rn(a, b);
+  };
+}
+
+// Epilogue of a transposed stage: v * mask(y) in place of y, 0 outside the
+// image; rows placed as in leaky_into.
+template <int S, int NW>
+__device__ __forceinline__ auto mask_into(bf16* buf, int dw, int off, int py0,
+                                          int px0, int H2, int W2) {
+  return [=](int q, int n, float v0, float v1) {
+    const int i = q / NW, j = q % NW;
+    const int py = py0 + i, px = px0 + j;
+    __nv_bfloat162* p =
+        reinterpret_cast<__nv_bfloat162*>(buf + (i * dw + j + off) * S + n);
+    float a = 0.f, b = 0.f;
+    if (py >= 0 && py < H2 && px >= 0 && px < W2) {
+      const __nv_bfloat162 y = *p;
+      a = v0 * mask(__low2float(y));
+      b = v1 * mask(__high2float(y));
+    }
+    *p = __floats2bfloat162_rn(a, b);
+  };
+}
+
+// y1 = leaky(conv_s2(x, k1) + b1) over the NH x NW y pixels from (py0,
+// px0), into y1s (rows of FS, NW wide), from the x patch that starts at x
+// pixel (2 py0, 2 px0) with NXW columns, or from im2col rows.
+template <class L, int NH, int NW, int NXW>
+__device__ __forceinline__ void entry_conv(bf16* y1s, const bf16* xs,
+                                           const uint2* __restrict__ k1,
+                                           const bf16* __restrict__ b1,
+                                           int py0, int px0, int H2, int W2) {
+  const auto epi = leaky_into<L::FS, NW>(y1s, NW, 0, py0, px0, H2, W2, b1);
+  if constexpr (L::kIm2col) {
+    gemm_rows<L::KC1, L::NT, L::MT>(
+        NH * NW, 1, [=](int q) { return xs + q * L::XS; },
+        [](int) { return 0; }, [](int) { return 0; }, k1, epi);
+  } else {
+    gemm_rows<L::KC1, L::NT, L::MT>(
+        NH * NW, 9,
+        [=](int q) { return xs + (2 * (q / NW) * NXW + 2 * (q % NW)) * L::XS; },
+        [](int t) { return ((t / 3) * NXW + t % 3) * L::XS; },
+        [](int t) { return t; }, k1, epi);
+  }
+}
+
+// dst (NH x NW pixels, rows of FS) = epi of the stride-1 3x3 conv of src
+// (rows of FS, SW wide), dst pixel (i, j) reading src (i + ky, j + kx).
+template <class L, int NH, int NW, int SW, class Epi>
+__device__ __forceinline__ void conv_s1(const bf16* src,
+                                        const uint2* __restrict__ w, Epi epi) {
+  gemm_rows<L::KCF, L::NT, L::MT>(
+      NH * NW, 9, [=](int q) { return src + ((q / NW) * SW + q % NW) * L::FS; },
+      [](int t) { return ((t / 3) * SW + t % 3) * L::FS; },
+      [](int t) { return t; }, w, epi);
+}
+
+// grid: one block per TH x TW tile of output pixels, numbered (b tiles_h +
+// tile row) tiles_w + tile column.
+template <int C, int F, int TH, int TW>
+__global__ void __launch_bounds__(kThreads, 2)
+    tc_fwd_kernel(const bf16* __restrict__ x, const uint2* __restrict__ k1,
+                  const bf16* __restrict__ b1, const uint2* __restrict__ k2,
+                  const bf16* __restrict__ b2, const uint2* __restrict__ k3,
+                  const bf16* __restrict__ b3, bf16* __restrict__ out, int H,
+                  int W, int tiles_h, int tiles_w) {
+  using P = FwdPlan<C, F, TH, TW>;
+  using L = typename P::L;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* y2s = xs;  // y2 takes the x patch's place
+  bf16* y1s = xs + P::R0E;
+  const int H2 = H / 2, W2 = W / 2;
+  const int tile = blockIdx.x;
+  const int b = tile / (tiles_h * tiles_w);
+  const int r0 = tile / tiles_w % tiles_h * TH, c0 = tile % tiles_w * TW;
+  const bf16* xb = x + (int64_t)b * H * W * C;
+
+  if constexpr (L::kIm2col) {
+    // the raw rows go where y1 will be
+    static_assert(P::NXH * (P::NXW + 1) * 3 <= P::Y1E, "raw rows");
+    stage_rows_c3<kThreads, P::NXH, P::NXW + 1>(y1s, xb, 2 * r0 - 4,
+                                                2 * c0 - 4, H, W);
+    __syncthreads();
+    im2col_from<kThreads, P::N1H, P::N1W, P::NXW + 1, L::XS>(xs, y1s);
+  } else {
+    stage_patch_async<C, P::NXH, P::NXW, L::XS>(xs, xb, 2 * r0 - 4,
+                                                2 * c0 - 4, H, W);
+    ptx::cp_async_wait_all();
+  }
+  __syncthreads();
+  entry_conv<L, P::N1H, P::N1W, P::NXW>(y1s, xs, k1, b1, r0 - 2, c0 - 2, H2,
+                                        W2);
+  __syncthreads();
+  conv_s1<L, P::N2H, P::N2W, P::N1W>(
+      y1s, k2,
+      leaky_into<L::FS, P::N2W>(y2s, P::N2W, 0, r0 - 1, c0 - 1, H2, W2, b2));
+  __syncthreads();
+  bf16* ob = out + (int64_t)b * H2 * W2 * F;
+  conv_s1<L, TH, TW, P::N2W>(y2s, k3, [=](int q, int n, float v0, float v1) {
+    const int py = r0 + q / TW, px = c0 + q % TW;
+    if (py >= H2 || px >= W2) return;
+    *reinterpret_cast<__nv_bfloat162*>(ob + ((int64_t)py * W2 + px) * F + n) =
+        __floats2bfloat162_rn(leaky(v0 + __bfloat162float(b3[n])),
+                              leaky(v1 + __bfloat162float(b3[n + 1])));
+  });
+}
+
+// Persistent: block i walks tiles sched[i] .. sched[i + 1] - 1 (numbered as
+// the forward's) and owns slot i of `slots` (kSlot floats: dk1 (9, C, F),
+// dk2, dk3 (9, F, F), db1, db2, db3). k3t and k2t are k3 and k2 with taps
+// flipped as (tap, F out, F in), k1t is k1 as (tap, F, C), all packed; dx
+// may be null (not wanted).
+template <int C, int F, int TH, int TW, int MINB, int THREADS>
+__global__ void __launch_bounds__(THREADS, MINB)
+    tc_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y3,
+                  const bf16* __restrict__ g, const uint2* __restrict__ k1,
+                  const bf16* __restrict__ b1, const uint2* __restrict__ k2,
+                  const bf16* __restrict__ b2, const uint2* __restrict__ k3t,
+                  const uint2* __restrict__ k2t,
+                  const uint2* __restrict__ k1t, bf16* __restrict__ dx,
+                  float* __restrict__ slots, const int* __restrict__ sched,
+                  int H, int W, int tiles_h, int tiles_w) {
+  using P = BwdPlan<C, F, TH, TW, THREADS>;
+  using L = typename P::L;
+  constexpr int NPIX = TH * TW;
+  constexpr int N1W = P::N1W, N2W = P::N2W, NXW = P::NXW, FS = L::FS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* y1s = xs + P::XE;    // y1, then g1, from y pixel (r0-3, c0-3)
+  bf16* g3s = y1s + P::Y1E;  // from (r0-3, c0-3)
+  bf16* y2s = g3s + P::Y1E;  // y2, then g2, from (r0-2, c0-2)
+  float* red = reinterpret_cast<float*>(y2s + P::Y2E);  // [3][THREADS]
+  float* dk1 = slots + (size_t)blockIdx.x * L::kSlot;
+  float* dk2 = dk1 + 9 * C * F;
+  float* dk3 = dk2 + 9 * F * F;
+  float* db = dk3 + 9 * F * F;  // db1, db2, db3
+  const int H2 = H / 2, W2 = W / 2;
+
+  // owned pixel p = (jy, jx) = (p / TW, p % TW) at y pixel (r0 + jy, c0 + jx)
+  const auto y1_at = [=](int p) {  // y1 / g1 at an owned pixel (+3)
+    return y1s + ((p / TW + 3) * N1W + p % TW + 3) * FS;
+  };
+  for (int tile = sched[blockIdx.x]; tile < sched[blockIdx.x + 1]; ++tile) {
+    const bool first = tile == sched[blockIdx.x];
+    const int b = tile / (tiles_h * tiles_w);
+    const int r0 = tile / tiles_w % tiles_h * TH, c0 = tile % tiles_w * TW;
+    const bf16* xb = x + (int64_t)b * H * W * C;
+    const int64_t img2 = (int64_t)b * H2 * W2 * F;
+
+    if constexpr (L::kIm2col) {
+      static_assert(P::NXH * (NXW + 1) * 3 <= P::Y1E, "raw rows");
+      stage_rows_c3<THREADS, P::NXH, NXW + 1>(y1s, xb, 2 * r0 - 6,
+                                              2 * c0 - 6, H, W);
+      __syncthreads();
+      im2col_from<THREADS, P::N1H, N1W, NXW + 1, L::XS>(xs, y1s);
+    } else {
+      stage_patch_async<C, P::NXH, NXW, L::XS>(xs, xb, 2 * r0 - 6,
+                                               2 * c0 - 6, H, W);
+    }
+    stage_g3<F, P::N1H, N1W, FS>(g3s, g + img2, y3 + img2, r0 - 3, c0 - 3, H2,
+                                 W2);
+    if constexpr (!L::kIm2col) ptx::cp_async_wait_all();
+    __syncthreads();
+    entry_conv<L, P::N1H, N1W, NXW>(y1s, xs, k1, b1, r0 - 3, c0 - 3, H2, W2);
+    __syncthreads();
+    // y2 pixel r0 - 2 + i reads y1 pixels r0 - 3 + i + k: local i + k
+    conv_s1<L, P::N2H, N2W, N1W>(
+        y1s, k2, leaky_into<FS, N2W>(y2s, N2W, 0, r0 - 2, c0 - 2, H2, W2, b2));
+    __syncthreads();
+    // dk3: y2 at p + tap - 1 (local +1 + tap), g3 at local p + 3
+    wgrad<L::KCF, L::NT, NPIX>(
+        9, F, [=](int p) { return y2s + ((p / TW + 1) * N2W + p % TW + 1) * FS; },
+        [](int t) { return ((t / 3) * N2W + t % 3) * FS; },
+        [=](int p) { return g3s + ((p / TW + 3) * N1W + p % TW + 3) * FS; },
+        dk3, first);
+    __syncthreads();
+    // g2 over y2's region: g2(p) = sum_t g3(p + t - 1) k3t[t], in place of y2
+    conv_s1<L, P::N2H, N2W, N1W>(
+        g3s, k3t, mask_into<FS, N2W>(y2s, N2W, 0, r0 - 2, c0 - 2, H2, W2));
+    __syncthreads();
+    // dk2: y1 at p + tap - 1 (local +2 + tap), g2 at local p + 2
+    wgrad<L::KCF, L::NT, NPIX>(
+        9, F, [=](int p) { return y1s + ((p / TW + 2) * N1W + p % TW + 2) * FS; },
+        [](int t) { return ((t / 3) * N1W + t % 3) * FS; },
+        [=](int p) { return y2s + ((p / TW + 2) * N2W + p % TW + 2) * FS; },
+        dk2, first);
+    __syncthreads();
+    // g1 over y pixels from (r0 - 1, c0 - 1), (TH + 1) x (TW + 1), in place
+    // of y1 (local +2): g1(p) = sum_t g2(p + t - 1) k2t[t]
+    conv_s1<L, TH + 1, TW + 1, N2W>(
+        y2s, k2t,
+        mask_into<FS, TW + 1>(y1s, N1W, 2 * N1W + 2, r0 - 1, c0 - 1, H2, W2));
+    __syncthreads();
+    // dk1: x at 2p + tap (local 2p + 6 + tap), or the im2col row of p
+    if constexpr (L::kIm2col) {
+      wgrad<L::KC1, L::NT, NPIX>(
+          1, 27,
+          [=](int p) { return xs + ((p / TW + 3) * N1W + p % TW + 3) * L::XS; },
+          [](int) { return 0; }, y1_at, dk1, first);
+    } else {
+      wgrad<L::KC1, L::NT, NPIX>(
+          9, C,
+          [=](int p) {
+            return xs + ((2 * (p / TW) + 6) * NXW + 2 * (p % TW) + 6) * L::XS;
+          },
+          [](int t) { return ((t / 3) * NXW + t % 3) * L::XS; }, y1_at, dk1,
+          first);
+    }
+    if (dx != nullptr) {
+      // one GEMM per parity class (a, e) of the owned x pixels (2(r0 + u) +
+      // a, 2(c0 + v) + e): taps ky = a ? {1} : {0, 2}, likewise kx, reading
+      // g1 at y pixel r0 + u + (a - ky) / 2
+      bf16* dxb = dx + (int64_t)b * H * W * C;
+      for (int cls = 0; cls < 4; ++cls) {
+        const int a = cls >> 1, e = cls & 1;
+        const int nkx = e ? 1 : 2;
+        const auto ky_of = [=](int t) { return a ? 1 : 2 * (t / nkx); };
+        const auto kx_of = [=](int t) { return e ? 1 : 2 * (t % nkx); };
+        gemm_rows<L::KCF, L::NTX, 1>(
+            NPIX, (a ? 1 : 2) * nkx, y1_at,
+            [=](int t) {
+              return ((a - ky_of(t)) / 2 * N1W + (e - kx_of(t)) / 2) * FS;
+            },
+            [=](int t) { return ky_of(t) * 3 + kx_of(t); }, k1t,
+            [=](int q, int n, float v0, float v1) {
+              const int gy = 2 * (r0 + q / TW) + a, gx = 2 * (c0 + q % TW) + e;
+              if (gy >= H || gx >= W) return;
+              bf16* d = dxb + ((int64_t)gy * W + gx) * C + n;
+              if (n < C) d[0] = __float2bfloat16(v0);
+              if (n + 1 < C) d[1] = __float2bfloat16(v1);
+            });
+      }
+    }
+    // db1..db3: each thread sums one output over a fixed share of the owned
+    // pixels, then F threads add the shares in a fixed order
+    {
+      constexpr int PARTS = THREADS / F;
+      const int f = threadIdx.x % F, part = threadIdx.x / F;
+      float s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      for (int p = part; p < NPIX; p += PARTS) {
+        const int jy = p / TW, jx = p % TW;
+        s1 += __bfloat162float(y1s[((jy + 3) * N1W + jx + 3) * FS + f]);
+        s2 += __bfloat162float(y2s[((jy + 2) * N2W + jx + 2) * FS + f]);
+        s3 += __bfloat162float(g3s[((jy + 3) * N1W + jx + 3) * FS + f]);
+      }
+      red[threadIdx.x] = s1;
+      red[THREADS + threadIdx.x] = s2;
+      red[2 * THREADS + threadIdx.x] = s3;
+    }
+    __syncthreads();
+    if (threadIdx.x < 3 * F) {
+      const int which = threadIdx.x / F, f = threadIdx.x % F;
+      float s = 0.f;
+      for (int part = 0; part < THREADS / F; ++part) {
+        s += red[which * THREADS + part * F + f];
+      }
+      db[which * F + f] = first ? s : db[which * F + f] + s;
+    }
+    // the next tile's staging touches neither `red` nor the slot
+  }
+}
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t shared) {
   if (shared > kMaxSharedBytes) return cudaErrorInvalidValue;
@@ -416,12 +1068,59 @@ dim3 grid_of(int B, int H, int W, int t) {
   return dim3((W / 2 + t - 1) / t, (H / 2 + t - 1) / t, B);
 }
 
+// The tensor-core instantiations: (C, F, forward tile rows, columns,
+// reverse-sweep tile rows, columns, reverse-sweep blocks per SM and
+// threads). The wrapper's TC_LEVELS (ops/cuda/encoder_level.py) holds the
+// same tiles and blocks. Where one reverse-sweep block fills an SM it runs
+// 16 warps, to hide the latency of its loads.
+#define TC_LEVELS(X)                 \
+  X(3, 16, 16, 32, 16, 16, 2, 256)   \
+  X(16, 32, 16, 16, 16, 16, 1, 512)  \
+  X(32, 64, 8, 8, 8, 16, 1, 512)
+
+template <int C, int F, int TH, int TW>
+cudaError_t launch_tc_fwd(const void* x, const void* k1, const void* b1,
+                          const void* k2, const void* b2, const void* k3,
+                          const void* b3, void* out, int B, int H, int W,
+                          cudaStream_t s) {
+  using P = FwdPlan<C, F, TH, TW>;
+  const auto kernel = tc_fwd_kernel<C, F, TH, TW>;
+  const cudaError_t err = prepare(kernel, P::kBytes);
+  if (err != cudaSuccess) return err;
+  const int th = (H / 2 + TH - 1) / TH, tw = (W / 2 + TW - 1) / TW;
+  kernel<<<B * th * tw, kThreads, P::kBytes, s>>>(
+      (const bf16*)x, (const uint2*)k1, (const bf16*)b1, (const uint2*)k2,
+      (const bf16*)b2, (const uint2*)k3, (const bf16*)b3, (bf16*)out, H, W,
+      th, tw);
+  return cudaGetLastError();
+}
+
+template <int C, int F, int TH, int TW, int MINB, int THREADS>
+cudaError_t launch_tc_bwd(const void* x, const void* y3, const void* g,
+                          const void* k1, const void* b1, const void* k2,
+                          const void* b2, const void* k3t, const void* k2t,
+                          const void* k1t, void* dx, void* slots,
+                          const void* sched, int blocks, int B, int H, int W,
+                          cudaStream_t s) {
+  using P = BwdPlan<C, F, TH, TW, THREADS>;
+  const auto kernel = tc_bwd_kernel<C, F, TH, TW, MINB, THREADS>;
+  const cudaError_t err = prepare(kernel, P::kBytes);
+  if (err != cudaSuccess) return err;
+  const int th = (H / 2 + TH - 1) / TH, tw = (W / 2 + TW - 1) / TW;
+  kernel<<<blocks, THREADS, P::kBytes, s>>>(
+      (const bf16*)x, (const bf16*)y3, (const bf16*)g, (const uint2*)k1,
+      (const bf16*)b1, (const uint2*)k2, (const bf16*)b2, (const uint2*)k3t,
+      (const uint2*)k2t, (const uint2*)k1t, (bf16*)dx, (float*)slots,
+      (const int*)sched, H, W, th, tw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The tile each kernel takes for (C, F) and the element size, 0 if none
-// fits. The forward prefers a tile that leaves room for two blocks on an
-// SM; the reverse sweep takes the largest that fits one block, since every
-// tile writes a full set of weight-gradient partials.
+// The CUDA-core tile each kernel takes for (C, F) and the element size, 0
+// if none fits. The forward prefers a tile that leaves room for two blocks
+// on an SM; the reverse sweep takes the largest that fits one block, since
+// every tile writes a full set of weight-gradient partials.
 extern "C" int encoder_level_fwd_tile(int C, int F, int elem_bytes) {
   const int t = pick_tile(fwd_shared_elems, C, F, elem_bytes, kTwoBlocksBytes);
   return t ? t : pick_tile(fwd_shared_elems, C, F, elem_bytes, kMaxSharedBytes);
@@ -432,9 +1131,9 @@ extern "C" int encoder_level_bwd_tile(int C, int F, int elem_bytes) {
 }
 
 // Each entry point launches on `stream` without synchronising and returns
-// the cudaError_t of the launch (0 on success). is_bf16 selects bfloat16
-// over float32 for every tensor but the float32 partials; t is the tile
-// that encoder_level_*_tile gave.
+// the cudaError_t of the launch (0 on success). CUDA cores: is_bf16 selects
+// bfloat16 over float32 for every tensor but the float32 partials; t is the
+// tile that encoder_level_*_tile gave.
 extern "C" int encoder_level_fwd(const void* x, const void* k1, const void* b1,
                                  const void* k2, const void* b2,
                                  const void* k3, const void* b3, void* out,
@@ -447,7 +1146,7 @@ extern "C" int encoder_level_fwd(const void* x, const void* k1, const void* b1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16) {
-    using T = __nv_bfloat16;
+    using T = bf16;
     err = prepare(level_fwd_kernel<T>, shared);
     if (err != cudaSuccess) return err;
     level_fwd_kernel<T><<<grid, kFwdThreads, shared, s>>>(
@@ -489,12 +1188,67 @@ extern "C" int encoder_level_bwd(
       (const T*)k2T, (const T*)k3T, (T*)dx, (float*)pk1, (float*)pb1,         \
       (float*)pk2, (float*)pb2, (float*)pk3, (float*)pb3, H, W, C, F, t);
   if (is_bf16) {
-    LEVEL_BWD_LAUNCH(__nv_bfloat16)
+    LEVEL_BWD_LAUNCH(bf16)
   } else {
     LEVEL_BWD_LAUNCH(float)
   }
 #undef LEVEL_BWD_LAUNCH
   return cudaGetLastError();
+}
+
+// Tensor cores, bfloat16: (th, tw) is the tile of TC_LEVELS for (C, F);
+// any other (C, F, th, tw) is refused. The weights come packed in mma
+// fragment order (the wrapper's pack_b): k1 (9 taps of C rows, or one of
+// 32 im2col rows), k2, k3 (9 of F).
+extern "C" int encoder_level_tc_fwd(const void* x, const void* k1,
+                                    const void* b1, const void* k2,
+                                    const void* b2, const void* k3,
+                                    const void* b3, void* out, int B, int H,
+                                    int W, int C, int F, int th, int tw,
+                                    void* stream) {
+  if (bad_shape(B, H, W, C, F, 1)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TC_FWD(c, f, fth, ftw, bth, btw, minb, nt)                            \
+  if (C == c && F == f && th == fth && tw == ftw)                           \
+    return launch_tc_fwd<c, f, fth, ftw>(x, k1, b1, k2, b2, k3, b3, out, B, \
+                                         H, W, s);
+  TC_LEVELS(TC_FWD)
+#undef TC_FWD
+  return cudaErrorInvalidValue;
+}
+
+// sched (int32, blocks + 1 entries, on the device): block i walks tiles
+// sched[i] .. sched[i+1] - 1 and writes slot i of `slots` (blocks x kSlot
+// float32), every block at least one tile. k3t, k2t, k1t as the wrapper's
+// tc_operands packs them.
+extern "C" int encoder_level_tc_bwd(
+    const void* x, const void* y3, const void* g, const void* k1,
+    const void* b1, const void* k2, const void* b2, const void* k3t,
+    const void* k2t, const void* k1t, void* dx, void* slots, const void* sched,
+    int blocks, int B, int H, int W, int C, int F, int th, int tw,
+    void* stream) {
+  if (bad_shape(B, H, W, C, F, 1) || blocks <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TC_BWD(c, f, fth, ftw, bth, btw, minb, nt)                           \
+  if (C == c && F == f && th == bth && tw == btw)                            \
+    return launch_tc_bwd<c, f, bth, btw, minb, nt>(x, y3, g, k1, b1, k2, b2, \
+                                               k3t, k2t, k1t, dx, slots, \
+                                               sched, blocks, B, H, W, s);
+  TC_LEVELS(TC_BWD)
+#undef TC_BWD
+  return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a tensor-core block for (C, F) in TC_LEVELS:
+// the forward's (bwd = 0) or the reverse sweep's; -1 for other widths.
+extern "C" int encoder_level_tc_smem(int C, int F, int bwd) {
+#define TC_SMEM(c, f, fth, ftw, bth, btw, minb, nt)              \
+  if (C == c && F == f)                                          \
+    return (int)(bwd ? BwdPlan<c, f, bth, btw, nt>::kBytes       \
+                     : FwdPlan<c, f, fth, ftw>::kBytes);
+  TC_LEVELS(TC_SMEM)
+#undef TC_SMEM
+  return -1;
 }
 
 extern "C" const char* encoder_level_error_string(int err) {

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 compiled for Hopper (``sm_90a``) into ``cerberusnet_torch/_build/`` (ignored
 by git) on first use. The file name carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
-No PyTorch header is compiled, which keeps a build to seconds.
+No PyTorch header is compiled, which keeps a build to seconds. nvcc's
+output, with ptxas's registers, shared memory and spills for each kernel
+(``-Xptxas -v``), is kept beside the library (``build_log``).
 
 Importing this module needs neither nvcc nor a GPU: both are looked up only
 when a library is built.
@@ -25,7 +27,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -80,8 +82,16 @@ def build(name: str) -> float | None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from building ``csrc/<name>.cu`` ("" if it was built
+    without one)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

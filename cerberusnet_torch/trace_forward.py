@@ -40,8 +40,10 @@ TRAIN_CONFIGS = {"cerberus": "configs/cerberus_synthetic.json",
 # first match wins; kernel names are lower-cased before matching
 CATEGORIES = (
     ("correlation", ("corr2d_", "corr1d_")),
-    # the fused encoder levels (csrc/encoder_level.cu), before "conv"
-    ("encoder_level", ("level_fwd_kernel", "level_bwd_kernel")),
+    # the fused encoder levels (csrc/encoder_level.cu: tensor cores in
+    # bf16, CUDA cores otherwise), before "conv"
+    ("encoder_level", ("tc_fwd_kernel", "tc_bwd_kernel", "level_fwd_kernel",
+                       "level_bwd_kernel")),
     ("optimizer", ("multi_tensor", "foreach")),
     # copies (the batch's upload from host memory) and fills, not kernels
     ("memcpy", ("memcpy",)),

@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line; any failed check exits non-zero:
   env      the card (nvidia-smi name and power limit), torch and CUDA
-  build    nvcc builds every kernel of the path from cerberusnet_torch/csrc
+  build    nvcc builds every kernel of the path from cerberusnet_torch/csrc;
+           each kernel's registers, spills and stack from ptxas, and the
+           tensor-core level kernels' shared memory per block
   kernels  each correlation kernel, forward and backward, against its plain
            PyTorch version on the card, at the five pyramid-level shapes of
            a 512x1024 frame (the forwards at batch 1, as served, and at
@@ -15,11 +17,13 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            dilations 1, 2, 4, 8 and the 1-D ones at 1, 2, 3, at the same
            batches; and the fused encoder-level kernels: K9
            (encoder_level_fwd) at the three level shapes of pallas_levels=3
-           at batch 3 (served) and 6 (trained) and one multi-tile odd shape,
-           K10 (encoder_level_bwd) at the level shapes at batch 6 and the odd
-           shape, in bfloat16 and float32, against the plain level (cuDNN);
-           CUDA-event times of kernel and plain version beside the kernel's
-           bound
+           at batch 3 (served) and 6 (trained) and four odd shapes (output
+           extents no multiple of a tile, at levels 1-3's widths and one
+           width the tensor cores do not take), K10 (encoder_level_bwd) at
+           the level shapes at batch 6 and the odd shapes, in bfloat16 and
+           float32, against the plain level (cuDNN), K10's dk and db
+           bit-identical over two runs; CUDA-event times of kernel and plain
+           version in turns beside the kernel's bound
   serve    the default-width CerberusNet through cerberusnet_torch.entry,
            bf16 at 512x1024, answering 3 seeded requests: output shapes,
            types and finiteness, the pyramids, and 5 + 5 kernel launches per
@@ -65,7 +69,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve path's beside them
 and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
-K9's serve numbers beside them), a {"phase": "done"} line with the
+K9's serve numbers beside them, each with its time over the cuDNN level's
+(vs_plain) per level, its tiles' halo factors and K10's weight-gradient
+partial bytes per step), a {"phase": "done"} line with the
 script's seconds, the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result.
@@ -75,6 +81,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -213,8 +220,50 @@ def phase_env():
     return card, name
 
 
+def kernel_name(mangled):
+    """"tc_bwd_kernel<32,64,8,16,1>", "level_fwd_kernel<float>" from a
+    mangled kernel name."""
+    # a mangled name is <length><name>: try each length a digit run ends in
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            n = int(m.group()[i:])
+            name = mangled[m.end():m.end() + n]
+            if name.endswith("_kernel") and name.isidentifier():
+                rest = mangled[m.end() + n:]
+                tpl = rest[1:rest.find("Ev")] if rest.startswith("I") else ""
+                ints = re.findall(r"Li(\d+)E", tpl)
+                args = (",".join(ints) if ints else "bf16"
+                        if "bfloat16" in tpl else "float"
+                        if tpl.startswith("f") else "")
+                return f"{name}<{args}>" if args else name
+    return mangled
+
+
+def ptxas_report(log):
+    """{kernel: {"registers", "spill_stores", "spill_loads", "stack"}} from
+    nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from cerberusnet_torch.ops import build
+    from cerberusnet_torch.ops.cuda import encoder_level as cl
 
     t0 = time.perf_counter()
     # one nvcc for each source, all started together
@@ -222,9 +271,16 @@ def phase_build():
         nvcc_seconds = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
     for name in SOURCES:
         build.load(name)
+    lib = cl._library()
+    # the tensor-core kernels' dynamic shared memory per block
+    tc_shared = {f"{c},{f}": {"fwd": lib.encoder_level_tc_smem(c, f, 0),
+                              "bwd": lib.encoder_level_tc_smem(c, f, 1)}
+                 for c, f in cl.TC_LEVELS}
     emit({"phase": "build", "ok": True, "nvcc": build.find_nvcc(),
           "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_seconds,
-          "libraries": [build.library_path(n).name for n in SOURCES]})
+          "libraries": [build.library_path(n).name for n in SOURCES],
+          "ptxas": {n: ptxas_report(build.build_log(n)) for n in SOURCES},
+          "tc_shared_bytes": tc_shared})
 
 
 def phase_kernels(peaks, spin_rate):
@@ -393,20 +449,44 @@ def level_fwd_rounded_once(x, k1, b1, k2, b2, k3, b3):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+# Odd shapes, (label, H, W, C, F) at batch 1: output extents that are no
+# multiple of any tile or of 64 rows, so every border case runs. The first
+# is level 1's input cut short with F = 8, which no tensor-core kernel takes
+# (the CUDA cores run it in bf16 too); the others run the tensor-core tiles
+# at each level's widths.
+ODD_LEVELS = ((0, 72, 16, 3, 8), (0, 72, 16, 3, 16), (0, 70, 100, 16, 32),
+              (0, 74, 92, 32, 64))
+
+
+def halo_factors(c, f):
+    """Pixels a tensor-core tile computes of y1 and y2 over the pixels it
+    owns, for a tile inside the image: the forward's and the reverse
+    sweep's."""
+    from cerberusnet_torch.ops.cuda import encoder_level as cl
+
+    (fh, fw), (bh, bw), _ = cl.TC_LEVELS[(c, f)]
+    return {"fwd_tile": [fh, fw], "bwd_tile": [bh, bw],
+            "fwd_y1": (fh + 4) * (fw + 4) / (fh * fw),
+            "fwd_y2": (fh + 2) * (fw + 2) / (fh * fw),
+            "bwd_y1": (bh + 5) * (bw + 5) / (bh * bw),
+            "bwd_y2": (bh + 3) * (bw + 3) / (bh * bw)}
+
+
 def level_checks(peaks, spin_rate, gen):
     """K9 (encoder_level_fwd) at the three level shapes at batch 3 (served)
-    and 6 (trained), and one multi-tile odd shape, and K10
-    (encoder_level_bwd) at the level shapes at batch 6 and the odd shape,
-    in bf16 and float32, against encoder_level_plain and
-    encoder_level_bwd_plain (cuDNN), with CUDA-event times and bounds."""
+    and 6 (trained), and the odd shapes, and K10 (encoder_level_bwd) at the
+    level shapes at batch 6 and the odd shapes, in bf16 and float32, against
+    encoder_level_plain and encoder_level_bwd_plain (cuDNN), with
+    CUDA-event times (kernel and plain level in turns) and bounds; K10 runs
+    twice and must give bit-identical dk and db."""
     from cerberusnet_torch.ops import encoder_level as elv
     from cerberusnet_torch.ops.cuda import encoder_level as cl
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [("fwd", batch, lv) for batch in (SERVE_FRAMES, TRAIN_FRAMES)
              for lv in ENCODER_LEVELS]
     cases += [("bwd", TRAIN_FRAMES, lv) for lv in ENCODER_LEVELS]
-    odd = (0, 72, 16, 3, 8)  # 36 output rows: top and bottom borders
-    cases += [("fwd", 1, odd), ("bwd", 1, odd)]
+    cases += [(kind, 1, odd) for odd in ODD_LEVELS for kind in ("fwd", "bwd")]
     checks = []
     for kind, b, (level, h, w, c, f) in cases:
         for dt in (torch.bfloat16, torch.float32):
@@ -451,10 +531,28 @@ def level_checks(peaks, spin_rate, gen):
                 limits[name] = (LEVEL_F32_RTOL[kind] if dt == torch.float32
                                 else 1.5 * rel_l2(p_, r_.float()) + 1e-3)
             ok = all(dist[n] <= limits[n] for n in outs)
+            # dk, db of a second run: the same bits, whatever order the
+            # blocks ran in
+            same = None
+            if kind == "bwd":
+                again = run_kernel()
+                same = all(torch.equal(a, b_) for a, b_ in
+                           zip(got[1:], again[1:]))
+                ok = ok and same
+                del again
             max_abs = max((k_.float() - p_.float()).abs().max().item()
                           for k_, p_ in zip(got, plain))
-            k_t = cuda_times(run_kernel, runs=LEVEL_RUNS, spin_rate=spin_rate)
-            p_t = cuda_times(run_plain, runs=LEVEL_RUNS, spin_rate=spin_rate)
+            # in turns on one card: kernel, plain, plain, kernel
+            times = {"kernel": [], "plain": []}
+            for which in ("kernel", "plain", "plain", "kernel"):
+                fn = run_kernel if which == "kernel" else run_plain
+                times[which].append(cuda_times(fn, runs=LEVEL_RUNS,
+                                               spin_rate=spin_rate))
+            k_t, p_t = ({"median": statistics.median(
+                            [t["median"] for t in parts]),
+                         "min": min(t["min"] for t in parts),
+                         "max": max(t["max"] for t in parts)}
+                        for parts in (times["kernel"], times["plain"]))
             fwd_flops, inner = level_flops(b, h, w, c, f)
             esize = x.element_size()
             acts = b * (h * w * c + (h // 2) * (w // 2) * f)
@@ -467,18 +565,26 @@ def level_checks(peaks, spin_rate, gen):
                 flops = 3 * fwd_flops - inner
             peak = peaks["bf16" if dt == torch.bfloat16 else "f32"]
             t_bytes, t_ops = nbytes / peaks["bytes"], flops / peak
+            tc = cl.uses_tensor_cores(dt, c, f)
             del x, params, y3, g, got, plain, ref
             checks.append({
                 "kernel": f"encoder_level_{kind}", "path": "levels",
                 "batch": b, "level": level, "shape": [b, h, w, c, f],
-                "dtype": str(dt)[6:], "ok": ok, "max_abs_err": max_abs,
+                "dtype": str(dt)[6:],
+                "design": "tensor cores" if tc else "cuda cores",
+                "ok": ok, "max_abs_err": max_abs,
                 "rel_l2_to_f32_plain": dist, "limits": limits,
                 "ms": k_t["median"], "ms_min": k_t["min"],
                 "ms_max": k_t["max"], "plain_ms": p_t["median"],
                 "plain_ms_min": p_t["min"], "plain_ms_max": p_t["max"],
+                "vs_plain": k_t["median"] / p_t["median"],
                 "bytes": nbytes, "flops": flops,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                **({"bit_identical": same,
+                    "partial_bytes": cl.partial_bytes(b, h, w, c, f, dt, sms)}
+                   if kind == "bwd" else {}),
+                **({"halo": halo_factors(c, f)} if tc else {}),
             })
     return checks
 
@@ -1014,23 +1120,29 @@ def path_numbers(checks, name, path, batch, launches):
 def level_numbers(checks, name, batch, launches):
     """A fused-level kernel's numbers on one path: its three level calls in
     bf16 at that path's batch (3 frames served, 6 trained), summed, with
-    the path's launch count and the per-level rows under "shapes"."""
+    the path's launch count, the time over the plain (cuDNN) level's, K10's
+    weight-gradient partial bytes, and the per-level rows under "shapes"
+    (each with its vs_plain and its tiles' halo factors)."""
     rows = [c for c in checks if c["kernel"] == name and c["level"] > 0
             and c["batch"] == batch and c["dtype"] == "bfloat16"]
     bound = sum(r["bound_ms"] for r in rows)
     by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
-    return {
+    ms, plain_ms = sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows)
+    out = {
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "ms": ms, "plain_ms": plain_ms, "vs_plain": ms / plain_ms,
         "bound_ms": bound,
         "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
         "batch": batch,
         "shapes": [{k: r[k] for k in (
-            "level", "shape", "ms", "ms_min", "ms_max", "plain_ms",
-            "bound_ms", "bound_by", "max_abs_err")} for r in rows],
+            "level", "shape", "design", "ms", "ms_min", "ms_max", "plain_ms",
+            "vs_plain", "bound_ms", "bound_by", "max_abs_err", "halo",
+            "partial_bytes") if k in r} for r in rows],
     }
+    if name == "encoder_level_bwd":
+        out["partial_bytes"] = sum(r["partial_bytes"] for r in rows)
+    return out
 
 
 def summary(checks, launches):
