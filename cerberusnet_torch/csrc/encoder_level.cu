@@ -60,9 +60,8 @@
 // up to (T+5)^2/T^2 = 2.64x of y1 from 8x8 tiles. Measured with
 // chip_smoke.py (bf16, NVIDIA H100 80GB HBM3 at 700 W), it ran 160-330x its
 // bound and 2.6-23x slower than the three cuDNN convolutions it replaces;
-// this design runs 8-19x its bound, K9 0.06-0.20 ms a level at batch 3-6
-// and K10 0.28-0.50 ms a level at batch 6, each level faster than cuDNN's
-// (PERF.md). Here:
+// this design runs within 20x its bound and each level faster than cuDNN's
+// (PERF.md keeps the numbers). Here:
 //  - Every product is an implicit GEMM on mma.sync.m16n8k16 (bf16 in,
 //    float32 accumulators in registers). A convolution stage takes M = the
 //    stage's pixels, N = F, K = 9 taps x Cin: each lane hands ldmatrix the
@@ -77,25 +76,31 @@
 //    coalesced 8-byte load through L1; nothing stages them.
 //  - The reverse sweep is persistent: at most two blocks per SM (one at
 //    levels 2-3, whose tile takes most of the SM's shared memory), each
-//    walking a fixed run of tiles and adding each tile's dk/db into its own
-//    float32 slot in global memory (written by the first tile, read and
-//    updated in place by the rest). The wrapper sums the slots in a fixed
-//    order; no slot is touched by two blocks and there are no atomics, so
-//    the result does not depend on the order blocks run in. The slots stay
-//    in device memory because one level-3 slot is 369 KB, more than an SM
-//    holds; the updates are L2 traffic.
-//  - The input patch is staged by cp.async in 16-byte pieces whose source
-//    size 0 zero-fills the SAME padding; two resident blocks overlap one's
-//    staging with the other's math where both fit, and the tiles are as
-//    large as shared memory allows, which cuts the halo recompute (the
-//    wrapper's TC_LEVELS lists the tiles; chip_smoke.py reports the factors).
+//    walking a fixed run of tiles and owning one float32 slot of dk/db,
+//    which the wrapper sums over blocks in a fixed order. At levels 1-2 a
+//    block's dk (20 and 92 KB) stay in its registers across its tiles, each
+//    warp holding the same units of work in every tile, and the slot is
+//    written once at the end. Level 3's dk (369 KB) exceed an SM, so each
+//    of its tiles updates the slot in place in device memory (L2 traffic).
+//    No slot is touched by two blocks and there are no atomics, so the
+//    result does not depend on the order blocks run in.
+//  - The input patch is staged by cp.async in 16-byte pieces (level 1's
+//    rows of three channels in 4-byte pieces) whose source size 0
+//    zero-fills the SAME padding, and the tiles are as large as
+//    shared memory allows, which cuts the halo recompute (TC_LEVELS below
+//    lists the tiles). Nothing prefetches the next tile and TMA is not
+//    used: where two blocks share an SM (the forward at every level, the
+//    reverse sweep at level 1) one block's staging overlaps the other's
+//    products, and level_phases.py measures what that is worth.
 //  - Activations are kept in shared memory with each pixel's row padded by
 //    16 bytes, so the eight rows an ldmatrix phase reads fall in distinct
 //    banks (two-way at most for the stride-2 reads of x).
 // mma.sync, not wgmma: the A operand is a gather of pixel rows, which
 // ldmatrix takes lane by lane; wgmma would need the same rows copied into
 // its descriptor layout first. What is left above the bound is data
-// movement (the ldmatrix and L1 traffic per mma), not the instruction.
+// movement (staging, and the ldmatrix and L1 traffic per mma), not the
+// instruction; cerberusnet_torch/level_phases.py reports each phase's share
+// of the block cycles from a build with the PHASE_MARK clocks below on.
 //
 // (2) float32, and bfloat16 at any other widths: the CUDA cores. Each thread
 // owns one output value and loops over 9 taps and the input channels; dk
@@ -107,6 +112,45 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Measurement builds (cerberusnet_torch/level_phases.py), off by default.
+// -DLEVEL_PHASES: thread 0 of each tensor-core block reads clock64() at
+// every PHASE_MARK(k) and adds the cycles since its previous reading to
+// phase_cycles[k][phase] (k = 0 forward, 1 reverse sweep), and SLOT_BYTES
+// counts the weight-gradient slot bytes the reverse sweep reads and writes.
+// -DLEVEL_FWD_SMEM_PAD=n: the tensor-core forward asks for n more bytes of
+// shared memory per block, so that fewer blocks share an SM.
+#ifdef LEVEL_PHASES
+__device__ unsigned long long phase_cycles[2][16];
+__device__ unsigned long long slot_bytes[2];  // read, written
+#define PHASE_BEGIN()                 \
+  long long phase_last_ = clock64(); \
+  int phase_ = 0
+#define PHASE_RESTART() phase_ = 0
+#define PHASE_MARK(k)                                                   \
+  do {                                                                  \
+    if (threadIdx.x == 0) {                                             \
+      const long long now_ = clock64();                                 \
+      atomicAdd(&phase_cycles[k][phase_],                               \
+                (unsigned long long)(now_ - phase_last_));              \
+      phase_last_ = now_;                                               \
+    }                                                                   \
+    ++phase_;                                                           \
+  } while (0)
+#define SLOT_BYTES(read, written)                                \
+  do {                                                           \
+    atomicAdd(&slot_bytes[0], (unsigned long long)(read));       \
+    atomicAdd(&slot_bytes[1], (unsigned long long)(written));    \
+  } while (0)
+#else
+#define PHASE_BEGIN()
+#define PHASE_RESTART()
+#define PHASE_MARK(k)
+#define SLOT_BYTES(read, written) ((void)(read), (void)(written))
+#endif
+#ifndef LEVEL_FWD_SMEM_PAD
+#define LEVEL_FWD_SMEM_PAD 0
+#endif
 
 namespace {
 
@@ -485,6 +529,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
+// The same for 4 bytes (two bf16 values), through L1.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
@@ -611,96 +663,126 @@ __device__ __forceinline__ void gemm_rows(int M, int ntaps, Base base_of,
   }
 }
 
-// A weight gradient over the NPIX owned pixels of a tile:
+// Weight gradients over the NPIX owned pixels of a tile:
 //   dk[t][c][f] (+)= sum_p in(p, t)[c] * g(p)[f]   for rows c < `rows`,
 // where in(p, t) is the row at in_of(p) + tap_off(t) and g(p) the row at
 // g_of(p), both in shared memory. M = 16 MC rows of in^T, N = F = 8 NT,
-// K = the pixels; both operands come through ldmatrix.trans. Each warp owns
-// whole (tap, 16-row) units; `first` writes the slot, later tiles add to it
-// (one thread per slot value, so the update order is fixed).
+// K = the pixels; both operands come through ldmatrix.trans. The work is
+// cut into units of one tap and 16 rows, each owned by one warp, whose
+// float32 accumulators are acc[NT][4] of each lane (mma's d fragment).
+
+// Adds one unit's products to acc; `off` is tap_off(t) + 16 mc.
+template <int NT, int NPIX, class In, class G>
+__device__ __forceinline__ void wgrad_products(float (&acc)[NT][4], int off,
+                                               In in_of, G g_of) {
+  const int lane = threadIdx.x & 31;
+  // A (16 channels x 16 pixels): lanes 0-7 pixels k..k+7 at channels
+  // c..c+7, 8-15 the same pixels at c+8.., 16-31 pixels k+8..k+15
+  const int a_off = off + 8 * ((lane >> 3) & 1);
+  const int a_pix = (lane & 7) + 8 * (lane >> 4);
+  // B (16 pixels x 16 outputs): lanes 0-7 pixels k..k+7, 8-15 k+8..k+15,
+  // at outputs n..n+7; lanes 16-31 the same at n+8..n+15
+  const int b_pix = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int b_off = 8 * (lane >> 4);
+#pragma unroll 2
+  for (int k0 = 0; k0 < NPIX; k0 += 16) {
+    uint32_t a[4];
+    ptx::ldmatrix_x4_trans(a, in_of(k0 + a_pix) + a_off);
+    const bf16* gp = g_of(k0 + b_pix) + b_off;
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t b[4];
+      ptx::ldmatrix_x4_trans(b, gp + n * 8);
+      ptx::mma_bf16(acc[n], a, b[0], b[1]);
+      ptx::mma_bf16(acc[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Moves unit (t, mc)'s accumulators between registers and rows c < `rows`
+// of dk (ntaps, rows, F) in device memory: stores them, or with `load`
+// loads them; returns the bytes moved.
+template <int NT, bool load>
+__device__ __forceinline__ int unit_rows(float* __restrict__ dk, int rows,
+                                         int t, int mc, float (&acc)[NT][4]) {
+  constexpr int F = NT * 8;
+  const int lane = threadIdx.x & 31;
+  const int c = mc * 16 + (lane >> 2);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int f = n * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (c + 8 * h >= rows) continue;
+      float2* p = reinterpret_cast<float2*>(
+          dk + ((size_t)t * rows + c + 8 * h) * F + f);
+      if constexpr (load) {
+        const float2 v = *p;
+        acc[n][2 * h] = v.x;
+        acc[n][2 * h + 1] = v.y;
+      } else {
+        *p = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+  }
+  return 4 * F * min(16, rows - 16 * mc);
+}
+
+// In place in the block's slot (where a slot does not fit on chip): each
+// warp walks its units; `first` stores the unit, a later tile loads it
+// first (before the products, so that the load's latency hides behind
+// them) and stores the sum. One lane per slot value keeps the order fixed.
 template <int MC, int NT, int NPIX, class In, class TapOff, class G>
 __device__ __forceinline__ void wgrad(int ntaps, int rows, In in_of,
                                       TapOff tap_off, G g_of,
                                       float* __restrict__ dk, bool first) {
-  constexpr int F = NT * 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
   for (int u = warp; u < ntaps * MC; u += blockDim.x >> 5) {
     const int t = u / MC, mc = u % MC;
-    const int c = mc * 16 + (lane >> 2);
-    // the slot's values so far, loaded before the products so that their
-    // latency (device memory or L2) hides behind them
     float acc[NT][4] = {};
-    if (!first) {
+    const int read = first ? 0 : unit_rows<NT, true>(dk, rows, t, mc, acc);
+    wgrad_products<NT, NPIX>(acc, tap_off(t) + 16 * mc, in_of, g_of);
+    const int written = unit_rows<NT, false>(dk, rows, t, mc, acc);
+    if ((threadIdx.x & 31) == 0) SLOT_BYTES(read, written);
+  }
+}
+
+// On chip (where a slot fits in the registers): the block's units are
+// numbered across its three weight gradients (dk3, dk2, dk1) and dealt to
+// the NW warps in turn, warp w holding units w + j NW in kept[j] across all
+// its tiles; this call adds the products of the units [ubase, ubase +
+// ntaps MC) that the caller's warp holds.
+template <int MC, int NT, int NPIX, int NW, int NU, class In, class TapOff,
+          class G>
+__device__ __forceinline__ void wgrad_kept(float (&kept)[NU][NT][4],
+                                           int ubase, int ntaps, In in_of,
+                                           TapOff tap_off, G g_of) {
+  const int warp = threadIdx.x >> 5;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int f = n * 8 + 2 * (lane & 3);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (c + 8 * h >= rows) continue;
-          const float2 v = *reinterpret_cast<const float2*>(
-              dk + ((size_t)t * rows + c + 8 * h) * F + f);
-          acc[n][2 * h] = v.x;
-          acc[n][2 * h + 1] = v.y;
-        }
-      }
-    }
-    // A (16 channels x 16 pixels): lanes 0-7 pixels k..k+7 at channels
-    // c..c+7, 8-15 the same pixels at c+8.., 16-31 pixels k+8..k+15
-    const int a_off = tap_off(t) + mc * 16 + 8 * ((lane >> 3) & 1);
-    const int a_pix = (lane & 7) + 8 * (lane >> 4);
-    // B (16 pixels x 16 outputs): lanes 0-7 pixels k..k+7, 8-15 k+8..k+15,
-    // at outputs n..n+7; lanes 16-31 the same at n+8..n+15
-    const int b_pix = (lane & 7) + 8 * ((lane >> 3) & 1);
-    const int b_off = 8 * (lane >> 4);
-#pragma unroll 2
-    for (int k0 = 0; k0 < NPIX; k0 += 16) {
-      uint32_t a[4];
-      ptx::ldmatrix_x4_trans(a, in_of(k0 + a_pix) + a_off);
-      const bf16* gp = g_of(k0 + b_pix) + b_off;
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t b[4];
-        ptx::ldmatrix_x4_trans(b, gp + n * 8);
-        ptx::mma_bf16(acc[n], a, b[0], b[1]);
-        ptx::mma_bf16(acc[n + 1], a, b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int f = n * 8 + 2 * (lane & 3);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (c + 8 * h >= rows) continue;
-        *reinterpret_cast<float2*>(dk + ((size_t)t * rows + c + 8 * h) * F +
-                                   f) =
-            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-      }
+  for (int j = 0; j < NU; ++j) {
+    const int u = warp + j * NW - ubase;
+    if (u >= 0 && u < ntaps * MC) {
+      wgrad_products<NT, NPIX>(kept[j], tap_off(u / MC) + 16 * (u % MC),
+                               in_of, g_of);
     }
   }
 }
 
 // Rows y0 .. y0 + NH - 1, pixels x0 .. x0 + NWP - 1 of an image x (H, W, 3)
-// into raw (NH, NWP * 3), zero outside the image. x0 and NWP are even, so
-// each pair of values is one aligned 4-byte load where both lie inside.
+// into raw (NH, NWP * 3) by cp.async, a pair of values (4 bytes) at a time,
+// zero outside the image. x0, NWP and W are even, so a pair never straddles
+// a pixel at the image's edge: it lies wholly inside or wholly outside.
+// Completes at ptx::cp_async_wait_all().
 template <int NTH, int NH, int NWP>
 __device__ void stage_rows_c3(bf16* raw, const bf16* __restrict__ xb, int y0,
                               int x0, int H, int W) {
   constexpr int RP = NWP * 3 / 2;  // value pairs a row
   for (int i = threadIdx.x; i < NH * RP; i += NTH) {
     const int r = i / RP, e = 2 * (i - r * RP);
-    const int gy = y0 + r, g0 = x0 + e / 3, g1 = x0 + (e + 1) / 3;
-    __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
-    if (gy >= 0 && gy < H) {
-      const int64_t at = ((int64_t)gy * W + x0) * 3 + e;
-      const bool in0 = g0 >= 0 && g0 < W, in1 = g1 >= 0 && g1 < W;
-      if (in0 && in1) {
-        v = *reinterpret_cast<const __nv_bfloat162*>(xb + at);
-      } else {
-        if (in0) v.x = xb[at];
-        if (in1) v.y = xb[at + 1];
-      }
-    }
-    *reinterpret_cast<__nv_bfloat162*>(raw + r * NWP * 3 + e) = v;
+    const int gy = y0 + r, gx = x0 + e / 3;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const bf16* src = in ? xb + ((int64_t)gy * W + x0) * 3 + e : xb;
+    ptx::cp_async4(raw + r * NWP * 3 + e, src, in ? 4 : 0);
   }
 }
 
@@ -716,8 +798,11 @@ __device__ void im2col_from(bf16* dst, const bf16* raw) {
     const int q = i / 3, ky = i - 3 * q;
     const bf16* src = raw + ((2 * (q / NW) + ky) * NWP + 2 * (q % NW)) * 3;
     bf16* d = dst + q * S + 9 * ky;
+    bf16 v[9];  // all nine loads issue before the first store
 #pragma unroll
-    for (int e = 0; e < 9; ++e) d[e] = src[e];
+    for (int e = 0; e < 9; ++e) v[e] = src[e];
+#pragma unroll
+    for (int e = 0; e < 9; ++e) d[e] = v[e];
     if (ky == 2) {
 #pragma unroll
       for (int e = 9; e < 14; ++e) d[e] = __float2bfloat16(0.f);
@@ -863,13 +948,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = tile / (tiles_h * tiles_w);
   const int r0 = tile / tiles_w % tiles_h * TH, c0 = tile % tiles_w * TW;
   const bf16* xb = x + (int64_t)b * H * W * C;
+  PHASE_BEGIN();
 
   if constexpr (L::kIm2col) {
     // the raw rows go where y1 will be
     static_assert(P::NXH * (P::NXW + 1) * 3 <= P::Y1E, "raw rows");
     stage_rows_c3<kThreads, P::NXH, P::NXW + 1>(y1s, xb, 2 * r0 - 4,
                                                 2 * c0 - 4, H, W);
+    ptx::cp_async_wait_all();
     __syncthreads();
+    PHASE_MARK(0);
     im2col_from<kThreads, P::N1H, P::N1W, P::NXW + 1, L::XS>(xs, y1s);
   } else {
     stage_patch_async<C, P::NXH, P::NXW, L::XS>(xs, xb, 2 * r0 - 4,
@@ -877,13 +965,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     ptx::cp_async_wait_all();
   }
   __syncthreads();
+  PHASE_MARK(0);
   entry_conv<L, P::N1H, P::N1W, P::NXW>(y1s, xs, k1, b1, r0 - 2, c0 - 2, H2,
                                         W2);
   __syncthreads();
+  PHASE_MARK(0);
   conv_s1<L, P::N2H, P::N2W, P::N1W>(
       y1s, k2,
       leaky_into<L::FS, P::N2W>(y2s, P::N2W, 0, r0 - 1, c0 - 1, H2, W2, b2));
   __syncthreads();
+  PHASE_MARK(0);
   bf16* ob = out + (int64_t)b * H2 * W2 * F;
   conv_s1<L, TH, TW, P::N2W>(y2s, k3, [=](int q, int n, float v0, float v1) {
     const int py = r0 + q / TW, px = c0 + q % TW;
@@ -892,14 +983,18 @@ __global__ void __launch_bounds__(kThreads, 2)
         __floats2bfloat162_rn(leaky(v0 + __bfloat162float(b3[n])),
                               leaky(v1 + __bfloat162float(b3[n + 1])));
   });
+  PHASE_MARK(0);
 }
 
 // Persistent: block i walks tiles sched[i] .. sched[i + 1] - 1 (numbered as
 // the forward's) and owns slot i of `slots` (kSlot floats: dk1 (9, C, F),
-// dk2, dk3 (9, F, F), db1, db2, db3). k3t and k2t are k3 and k2 with taps
-// flipped as (tap, F out, F in), k1t is k1 as (tap, F, C), all packed; dx
-// may be null (not wanted).
-template <int C, int F, int TH, int TW, int MINB, int THREADS>
+// dk2, dk3 (9, F, F), db1, db2, db3). With KEEP the block's dk live in
+// registers across its tiles (wgrad_kept) and the slot is written once at
+// the end; without, each tile updates the slot in place (wgrad). db lives in
+// registers either way. k3t and k2t are k3 and k2 with taps flipped as
+// (tap, F out, F in), k1t is k1 as (tap, F, C), all packed; dx may be null
+// (not wanted).
+template <int C, int F, int TH, int TW, int MINB, int THREADS, bool KEEP>
 __global__ void __launch_bounds__(THREADS, MINB)
     tc_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y3,
                   const bf16* __restrict__ g, const uint2* __restrict__ k1,
@@ -913,6 +1008,12 @@ __global__ void __launch_bounds__(THREADS, MINB)
   using L = typename P::L;
   constexpr int NPIX = TH * TW;
   constexpr int N1W = P::N1W, N2W = P::N2W, NXW = P::NXW, FS = L::FS;
+  // weight-gradient units (wgrad_kept): dk3's, then dk2's, then dk1's
+  constexpr int U3 = 9 * L::KCF;
+  constexpr int U1 = (L::kIm2col ? 1 : 9) * L::KC1;
+  constexpr int NW = THREADS / 32;
+  constexpr int NU = KEEP ? (2 * U3 + U1 + NW - 1) / NW : 1;
+  constexpr int ROWS1 = L::kIm2col ? 27 : C;  // of dk1 as (taps, rows, F)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);
   bf16* y1s = xs + P::XE;    // y1, then g1, from y pixel (r0-3, c0-3)
@@ -924,76 +1025,109 @@ __global__ void __launch_bounds__(THREADS, MINB)
   float* dk3 = dk2 + 9 * F * F;
   float* db = dk3 + 9 * F * F;  // db1, db2, db3
   const int H2 = H / 2, W2 = W / 2;
+  float kept[NU][L::NT][4] = {};
+  float db_sum = 0.f;  // db[threadIdx.x] for threads below 3F
+  PHASE_BEGIN();
 
   // owned pixel p = (jy, jx) = (p / TW, p % TW) at y pixel (r0 + jy, c0 + jx)
   const auto y1_at = [=](int p) {  // y1 / g1 at an owned pixel (+3)
     return y1s + ((p / TW + 3) * N1W + p % TW + 3) * FS;
   };
+  // dk3: y2 at p + tap - 1 (local +1 + tap), g3 at local p + 3
+  const auto y2_in = [=](int p) {
+    return y2s + ((p / TW + 1) * N2W + p % TW + 1) * FS;
+  };
+  const auto y2_tap = [](int t) { return ((t / 3) * N2W + t % 3) * FS; };
+  const auto g3_at = [=](int p) {
+    return g3s + ((p / TW + 3) * N1W + p % TW + 3) * FS;
+  };
+  // dk2: y1 at p + tap - 1 (local +2 + tap), g2 at local p + 2
+  const auto y1_in = [=](int p) {
+    return y1s + ((p / TW + 2) * N1W + p % TW + 2) * FS;
+  };
+  const auto y1_tap = [](int t) { return ((t / 3) * N1W + t % 3) * FS; };
+  const auto g2_at = [=](int p) {
+    return y2s + ((p / TW + 2) * N2W + p % TW + 2) * FS;
+  };
+  // dk1: x at 2p + tap (local 2p + 6 + tap), or the im2col row of p
+  const auto x_in = [=](int p) {
+    return L::kIm2col
+               ? xs + ((p / TW + 3) * N1W + p % TW + 3) * L::XS
+               : xs + ((2 * (p / TW) + 6) * NXW + 2 * (p % TW) + 6) * L::XS;
+  };
+  const auto x_tap = [](int t) {
+    return L::kIm2col ? 0 : ((t / 3) * NXW + t % 3) * L::XS;
+  };
+  constexpr int TAPS1 = L::kIm2col ? 1 : 9;
+
   for (int tile = sched[blockIdx.x]; tile < sched[blockIdx.x + 1]; ++tile) {
-    const bool first = tile == sched[blockIdx.x];
+    [[maybe_unused]] const bool first = tile == sched[blockIdx.x];
     const int b = tile / (tiles_h * tiles_w);
     const int r0 = tile / tiles_w % tiles_h * TH, c0 = tile % tiles_w * TW;
     const bf16* xb = x + (int64_t)b * H * W * C;
     const int64_t img2 = (int64_t)b * H2 * W2 * F;
+    PHASE_RESTART();
 
+    // x (level 1: its raw rows, where y1 will be) by cp.async, while g3
+    // is staged through registers
     if constexpr (L::kIm2col) {
       static_assert(P::NXH * (NXW + 1) * 3 <= P::Y1E, "raw rows");
       stage_rows_c3<THREADS, P::NXH, NXW + 1>(y1s, xb, 2 * r0 - 6,
                                               2 * c0 - 6, H, W);
-      __syncthreads();
-      im2col_from<THREADS, P::N1H, N1W, NXW + 1, L::XS>(xs, y1s);
     } else {
       stage_patch_async<C, P::NXH, NXW, L::XS>(xs, xb, 2 * r0 - 6,
                                                2 * c0 - 6, H, W);
     }
     stage_g3<F, P::N1H, N1W, FS>(g3s, g + img2, y3 + img2, r0 - 3, c0 - 3, H2,
                                  W2);
-    if constexpr (!L::kIm2col) ptx::cp_async_wait_all();
+    ptx::cp_async_wait_all();
     __syncthreads();
+    PHASE_MARK(1);
+    if constexpr (L::kIm2col) {
+      im2col_from<THREADS, P::N1H, N1W, NXW + 1, L::XS>(xs, y1s);
+      __syncthreads();
+      PHASE_MARK(1);
+    }
     entry_conv<L, P::N1H, N1W, NXW>(y1s, xs, k1, b1, r0 - 3, c0 - 3, H2, W2);
     __syncthreads();
+    PHASE_MARK(1);
     // y2 pixel r0 - 2 + i reads y1 pixels r0 - 3 + i + k: local i + k
     conv_s1<L, P::N2H, N2W, N1W>(
         y1s, k2, leaky_into<FS, N2W>(y2s, N2W, 0, r0 - 2, c0 - 2, H2, W2, b2));
     __syncthreads();
-    // dk3: y2 at p + tap - 1 (local +1 + tap), g3 at local p + 3
-    wgrad<L::KCF, L::NT, NPIX>(
-        9, F, [=](int p) { return y2s + ((p / TW + 1) * N2W + p % TW + 1) * FS; },
-        [](int t) { return ((t / 3) * N2W + t % 3) * FS; },
-        [=](int p) { return g3s + ((p / TW + 3) * N1W + p % TW + 3) * FS; },
-        dk3, first);
+    PHASE_MARK(1);
+    if constexpr (KEEP) {
+      wgrad_kept<L::KCF, L::NT, NPIX, NW>(kept, 0, 9, y2_in, y2_tap, g3_at);
+    } else {
+      wgrad<L::KCF, L::NT, NPIX>(9, F, y2_in, y2_tap, g3_at, dk3, first);
+    }
     __syncthreads();
+    PHASE_MARK(1);
     // g2 over y2's region: g2(p) = sum_t g3(p + t - 1) k3t[t], in place of y2
     conv_s1<L, P::N2H, N2W, N1W>(
         g3s, k3t, mask_into<FS, N2W>(y2s, N2W, 0, r0 - 2, c0 - 2, H2, W2));
     __syncthreads();
-    // dk2: y1 at p + tap - 1 (local +2 + tap), g2 at local p + 2
-    wgrad<L::KCF, L::NT, NPIX>(
-        9, F, [=](int p) { return y1s + ((p / TW + 2) * N1W + p % TW + 2) * FS; },
-        [](int t) { return ((t / 3) * N1W + t % 3) * FS; },
-        [=](int p) { return y2s + ((p / TW + 2) * N2W + p % TW + 2) * FS; },
-        dk2, first);
+    PHASE_MARK(1);
+    if constexpr (KEEP) {
+      wgrad_kept<L::KCF, L::NT, NPIX, NW>(kept, U3, 9, y1_in, y1_tap, g2_at);
+    } else {
+      wgrad<L::KCF, L::NT, NPIX>(9, F, y1_in, y1_tap, g2_at, dk2, first);
+    }
     __syncthreads();
+    PHASE_MARK(1);
     // g1 over y pixels from (r0 - 1, c0 - 1), (TH + 1) x (TW + 1), in place
     // of y1 (local +2): g1(p) = sum_t g2(p + t - 1) k2t[t]
     conv_s1<L, TH + 1, TW + 1, N2W>(
         y2s, k2t,
         mask_into<FS, TW + 1>(y1s, N1W, 2 * N1W + 2, r0 - 1, c0 - 1, H2, W2));
     __syncthreads();
-    // dk1: x at 2p + tap (local 2p + 6 + tap), or the im2col row of p
-    if constexpr (L::kIm2col) {
-      wgrad<L::KC1, L::NT, NPIX>(
-          1, 27,
-          [=](int p) { return xs + ((p / TW + 3) * N1W + p % TW + 3) * L::XS; },
-          [](int) { return 0; }, y1_at, dk1, first);
+    PHASE_MARK(1);
+    if constexpr (KEEP) {
+      wgrad_kept<L::KC1, L::NT, NPIX, NW>(kept, 2 * U3, TAPS1, x_in, x_tap,
+                                          y1_at);
     } else {
-      wgrad<L::KC1, L::NT, NPIX>(
-          9, C,
-          [=](int p) {
-            return xs + ((2 * (p / TW) + 6) * NXW + 2 * (p % TW) + 6) * L::XS;
-          },
-          [](int t) { return ((t / 3) * NXW + t % 3) * L::XS; }, y1_at, dk1,
-          first);
+      wgrad<L::KC1, L::NT, NPIX>(TAPS1, ROWS1, x_in, x_tap, y1_at, dk1,
+                                 first);
     }
     if (dx != nullptr) {
       // one GEMM per parity class (a, e) of the owned x pixels (2(r0 + u) +
@@ -1037,16 +1171,42 @@ __global__ void __launch_bounds__(THREADS, MINB)
       red[2 * THREADS + threadIdx.x] = s3;
     }
     __syncthreads();
+    PHASE_MARK(1);
     if (threadIdx.x < 3 * F) {
       const int which = threadIdx.x / F, f = threadIdx.x % F;
       float s = 0.f;
       for (int part = 0; part < THREADS / F; ++part) {
         s += red[which * THREADS + part * F + f];
       }
-      db[which * F + f] = first ? s : db[which * F + f] + s;
+      db_sum += s;
     }
+    PHASE_MARK(1);
     // the next tile's staging touches neither `red` nor the slot
   }
+  if constexpr (KEEP) {
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const int u = warp + j * NW;
+      int written = 0;
+      if (u < U3) {
+        written = unit_rows<L::NT, false>(dk3, F, u / L::KCF, u % L::KCF,
+                                          kept[j]);
+      } else if (u < 2 * U3) {
+        written = unit_rows<L::NT, false>(dk2, F, (u - U3) / L::KCF,
+                                          (u - U3) % L::KCF, kept[j]);
+      } else if (u < 2 * U3 + U1) {
+        written = unit_rows<L::NT, false>(dk1, ROWS1, (u - 2 * U3) / L::KC1,
+                                          (u - 2 * U3) % L::KC1, kept[j]);
+      }
+      if ((threadIdx.x & 31) == 0) SLOT_BYTES(0, written);
+    }
+  }
+  if (threadIdx.x < 3 * F) {
+    db[threadIdx.x] = db_sum;
+    SLOT_BYTES(0, 4);
+  }
+  PHASE_MARK(1);
 }
 
 template <typename K>
@@ -1068,15 +1228,18 @@ dim3 grid_of(int B, int H, int W, int t) {
   return dim3((W / 2 + t - 1) / t, (H / 2 + t - 1) / t, B);
 }
 
-// The tensor-core instantiations: (C, F, forward tile rows, columns,
-// reverse-sweep tile rows, columns, reverse-sweep blocks per SM and
-// threads). The wrapper's TC_LEVELS (ops/cuda/encoder_level.py) holds the
-// same tiles and blocks. Where one reverse-sweep block fills an SM it runs
-// 16 warps, to hide the latency of its loads.
-#define TC_LEVELS(X)                 \
-  X(3, 16, 16, 32, 16, 16, 2, 256)   \
-  X(16, 32, 16, 16, 16, 16, 1, 512)  \
-  X(32, 64, 8, 8, 8, 16, 1, 512)
+// The tensor-core instantiations, one row per level: (C, F, forward tile
+// rows, columns, reverse-sweep tile rows, columns, reverse-sweep blocks per
+// SM, threads, and whether its weight gradients stay in registers (KEEP)).
+// The wrapper reads its TC_LEVELS from these rows (ops/cuda/encoder_level.py),
+// so keep one X(...) per line. Where one reverse-sweep block fills an SM it
+// runs 16 warps, to hide the latency of its loads. KEEP holds a block's dk
+// (20 KB at level 1, 92 KB at level 2) in its registers; level 3's (369 KB)
+// does not fit, so its slot is updated in device memory.
+#define TC_LEVELS(X)                    \
+  X(3, 16, 16, 32, 16, 16, 2, 256, 1)   \
+  X(16, 32, 16, 16, 16, 16, 1, 512, 1)  \
+  X(32, 64, 8, 8, 8, 16, 1, 512, 0)
 
 template <int C, int F, int TH, int TW>
 cudaError_t launch_tc_fwd(const void* x, const void* k1, const void* b1,
@@ -1085,17 +1248,18 @@ cudaError_t launch_tc_fwd(const void* x, const void* k1, const void* b1,
                           cudaStream_t s) {
   using P = FwdPlan<C, F, TH, TW>;
   const auto kernel = tc_fwd_kernel<C, F, TH, TW>;
-  const cudaError_t err = prepare(kernel, P::kBytes);
+  const size_t shared = P::kBytes + LEVEL_FWD_SMEM_PAD;
+  const cudaError_t err = prepare(kernel, shared);
   if (err != cudaSuccess) return err;
   const int th = (H / 2 + TH - 1) / TH, tw = (W / 2 + TW - 1) / TW;
-  kernel<<<B * th * tw, kThreads, P::kBytes, s>>>(
+  kernel<<<B * th * tw, kThreads, shared, s>>>(
       (const bf16*)x, (const uint2*)k1, (const bf16*)b1, (const uint2*)k2,
       (const bf16*)b2, (const uint2*)k3, (const bf16*)b3, (bf16*)out, H, W,
       th, tw);
   return cudaGetLastError();
 }
 
-template <int C, int F, int TH, int TW, int MINB, int THREADS>
+template <int C, int F, int TH, int TW, int MINB, int THREADS, bool KEEP>
 cudaError_t launch_tc_bwd(const void* x, const void* y3, const void* g,
                           const void* k1, const void* b1, const void* k2,
                           const void* b2, const void* k3t, const void* k2t,
@@ -1103,7 +1267,7 @@ cudaError_t launch_tc_bwd(const void* x, const void* y3, const void* g,
                           const void* sched, int blocks, int B, int H, int W,
                           cudaStream_t s) {
   using P = BwdPlan<C, F, TH, TW, THREADS>;
-  const auto kernel = tc_bwd_kernel<C, F, TH, TW, MINB, THREADS>;
+  const auto kernel = tc_bwd_kernel<C, F, TH, TW, MINB, THREADS, KEEP>;
   const cudaError_t err = prepare(kernel, P::kBytes);
   if (err != cudaSuccess) return err;
   const int th = (H / 2 + TH - 1) / TH, tw = (W / 2 + TW - 1) / TW;
@@ -1208,7 +1372,7 @@ extern "C" int encoder_level_tc_fwd(const void* x, const void* k1,
                                     void* stream) {
   if (bad_shape(B, H, W, C, F, 1)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TC_FWD(c, f, fth, ftw, bth, btw, minb, nt)                            \
+#define TC_FWD(c, f, fth, ftw, bth, btw, minb, nt, keep)                  \
   if (C == c && F == f && th == fth && tw == ftw)                           \
     return launch_tc_fwd<c, f, fth, ftw>(x, k1, b1, k2, b2, k3, b3, out, B, \
                                          H, W, s);
@@ -1229,11 +1393,11 @@ extern "C" int encoder_level_tc_bwd(
     void* stream) {
   if (bad_shape(B, H, W, C, F, 1) || blocks <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TC_BWD(c, f, fth, ftw, bth, btw, minb, nt)                           \
-  if (C == c && F == f && th == bth && tw == btw)                            \
-    return launch_tc_bwd<c, f, bth, btw, minb, nt>(x, y3, g, k1, b1, k2, b2, \
-                                               k3t, k2t, k1t, dx, slots, \
-                                               sched, blocks, B, H, W, s);
+#define TC_BWD(c, f, fth, ftw, bth, btw, minb, nt, keep)                    \
+  if (C == c && F == f && th == bth && tw == btw)                             \
+    return launch_tc_bwd<c, f, bth, btw, minb, nt, keep>(                     \
+        x, y3, g, k1, b1, k2, b2, k3t, k2t, k1t, dx, slots, sched, blocks, B, \
+        H, W, s);
   TC_LEVELS(TC_BWD)
 #undef TC_BWD
   return cudaErrorInvalidValue;
@@ -1242,15 +1406,66 @@ extern "C" int encoder_level_tc_bwd(
 // Dynamic shared memory of a tensor-core block for (C, F) in TC_LEVELS:
 // the forward's (bwd = 0) or the reverse sweep's; -1 for other widths.
 extern "C" int encoder_level_tc_smem(int C, int F, int bwd) {
-#define TC_SMEM(c, f, fth, ftw, bth, btw, minb, nt)              \
-  if (C == c && F == f)                                          \
-    return (int)(bwd ? BwdPlan<c, f, bth, btw, nt>::kBytes       \
+#define TC_SMEM(c, f, fth, ftw, bth, btw, minb, nt, keep) \
+  if (C == c && F == f)                                    \
+    return (int)(bwd ? BwdPlan<c, f, bth, btw, nt>::kBytes \
                      : FwdPlan<c, f, fth, ftw>::kBytes);
   TC_LEVELS(TC_SMEM)
 #undef TC_SMEM
   return -1;
 }
 
+// Blocks of the tensor-core forward (bwd = 0) or reverse sweep for (C, F)
+// that the card keeps resident on one SM at the shared memory they launch
+// with; -1 for other widths, or minus the cudaError_t of the query.
+extern "C" int encoder_level_tc_blocks_per_sm(int C, int F, int bwd) {
+  int n = 0;
+  cudaError_t err = cudaSuccess;
+#define TC_OCC(c, f, fth, ftw, bth, btw, minb, nt, keep)                     \
+  if (C == c && F == f) {                                                    \
+    if (bwd) {                                                               \
+      const auto k = tc_bwd_kernel<c, f, bth, btw, minb, nt, keep>;          \
+      const size_t shared = BwdPlan<c, f, bth, btw, nt>::kBytes;             \
+      err = prepare(k, shared);                                              \
+      if (err == cudaSuccess)                                                \
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, nt,       \
+                                                            shared);         \
+    } else {                                                                 \
+      const auto k = tc_fwd_kernel<c, f, fth, ftw>;                          \
+      const size_t shared =                                                  \
+          FwdPlan<c, f, fth, ftw>::kBytes + LEVEL_FWD_SMEM_PAD;              \
+      err = prepare(k, shared);                                              \
+      if (err == cudaSuccess)                                                \
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, kThreads, \
+                                                            shared);         \
+    }                                                                        \
+    return err == cudaSuccess ? n : -(int)err;                               \
+  }
+  TC_LEVELS(TC_OCC)
+#undef TC_OCC
+  return -1;
+}
+
 extern "C" const char* encoder_level_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef LEVEL_PHASES
+// The counters of a measurement build: phase_cycles (2 x 16) then
+// slot_bytes (2), as unsigned 64-bit values into `host`; and their reset.
+extern "C" int level_counters_read(void* host) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(host, phase_cycles, sizeof(phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(
+      static_cast<char*>(host) + sizeof(phase_cycles), slot_bytes,
+      sizeof(slot_bytes));
+}
+
+extern "C" int level_counters_zero() {
+  static const unsigned long long zero[34] = {0};
+  cudaError_t err = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(slot_bytes, zero, sizeof(slot_bytes));
+}
+#endif

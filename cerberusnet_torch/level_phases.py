@@ -1,105 +1,85 @@
-"""Where a tensor-core encoder-level block spends its time, phase by phase.
+"""Inside the tensor-core encoder-level kernels: phases, slot traffic and
+residency.
 
     python3 -m cerberusnet_torch.level_phases
 
-No kernel profiler runs on the H100's machine, so this builds a copy of
-``csrc/encoder_level.cu`` in which thread 0 of every block of the
-tensor-core kernels reads ``clock64()`` after each ``__syncthreads()`` and
-adds the cycles since its previous reading to a device counter for that
-phase (one more reading ends each reverse-sweep tile). It runs K9 at the
-three 512x1024 level shapes at batch 3 and K10 at batch 6, in bf16, through
-the wrappers with that copy loaded in place of the library, and prints one
-JSON line per kernel and level: each phase's share of the summed block
-cycles. The copy and its library live in ``cerberusnet_torch/_build/``;
-nothing else loads them. The readings perturb the kernels a little, so
-shares, not times, are what this reports. Needs a CUDA device and nvcc.
+No kernel profiler runs on the H100's machine, so this builds
+``csrc/encoder_level.cu`` twice more, with the source's measurement flags
+(``MEASUREMENT_BUILDS``), and launches each build through the wrappers in
+place of the library:
+
+- ``-DLEVEL_PHASES``: thread 0 of every block reads ``clock64()`` at each of
+  the kernels' ``PHASE_MARK``s and adds the cycles since its previous
+  reading to a device counter for that phase, and the reverse sweep counts
+  the bytes of its weight-gradient slots it reads and writes in device
+  memory. K9 runs at the three 512x1024 level shapes at batch 3 and K10 at
+  batch 6, in bf16; one JSON line per kernel and level gives each phase's
+  share of the summed block cycles (the readings perturb the kernels a
+  little, so shares, not times) and K10's slot bytes.
+- ``-DLEVEL_FWD_SMEM_PAD``: the forward asks for enough more shared memory
+  that one block, not two, fits on an SM. K9 is timed at each level in
+  turns with the library (library, padded, padded, library; each a median
+  of CUDA-event times of one call queued behind a spin kernel, so the
+  events hold the device's time, not the host's enqueue), which shows what
+  the second resident block, overlapping one block's staging with the
+  other's products, is worth.
+
+The builds live in ``cerberusnet_torch/_build/``; nothing else loads them.
+Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import hashlib
 import json
-import subprocess
+import statistics
 import sys
+import time
 
 import torch
 
 from cerberusnet_torch.ops import build
 from cerberusnet_torch.ops.cuda import encoder_level as cl
 
+SOURCE = "encoder_level"
 LEVELS = ((512, 1024, 3, 16), (256, 512, 16, 32), (128, 256, 32, 64))
 BATCHES = {"fwd": 3, "bwd": 6}
-# the phases between one reading and the next, in the kernels' order; level
-# 1 (im2col) stages in two steps
+# 48 KB more per forward block: each level's then exceeds half an SM
+FWD_SMEM_PAD = 48 * 1024
+MEASUREMENT_BUILDS = {"phases": ("LEVEL_PHASES",),
+                      "one_block": (f"LEVEL_FWD_SMEM_PAD={FWD_SMEM_PAD}",)}
+# the phases between one PHASE_MARK and the next, in the kernels' order;
+# level 1 (im2col) stages in two steps (phase_names)
 PHASES = {
     "fwd": ("stage", "y1", "y2", "y3"),
     "bwd": ("stage", "y1", "y2", "dk3", "g2", "dk2", "g1", "dk1, dx, db",
-            "db sum"),
+            "db sum", "slot write"),
 }
-READ = ("if (threadIdx.x == 0) {{ const long long now = clock64(); "
-        "atomicAdd(&phase_cycles[{k}][phase], (unsigned long long)(now - "
-        "last)); last = now; }} ++phase;")
+N_COUNTERS = 2 * 16 + 2  # phase_cycles[2][16], slot_bytes[2]
+TIMED_RUNS = 10
 
 
-def _replace_once(text: str, old: str, new: str) -> str:
-    if old not in text:
-        raise RuntimeError(f"encoder_level.cu no longer has {old!r}: update "
-                           f"level_phases.py")
-    return text.replace(old, new, 1)
+def phase_names(kind: str, c: int) -> tuple:
+    if c == 3:  # x's raw rows (and g3), then the im2col rows
+        first = "stage x rows" if kind == "fwd" else "stage x rows, g3"
+        return (first, "stage im2col rows") + PHASES[kind][1:]
+    return PHASES[kind]
 
 
-def instrumented_source() -> str:
-    """encoder_level.cu with a phase counter after every __syncthreads() of
-    tc_fwd_kernel (counters [0]) and tc_bwd_kernel ([1])."""
-    src = (build.CSRC_DIR / "encoder_level.cu").read_text()
-    bodies = {0: ("tc_fwd_kernel(const bf16*", "// Persistent: block i walks"),
-              1: ("tc_bwd_kernel(const bf16*", "template <typename K>")}
-    for k, (start, end) in sorted(bodies.items(), reverse=True):
-        a, b = src.index(start), src.index(end)
-        body = src[a:b].replace("__syncthreads();",
-                                "__syncthreads(); " + READ.format(k=k))
-        first = body.index("{") + 1
-        body = (body[:first] + " long long last = clock64(); int phase = 0;"
-                + body[first:])
-        if k == 0:  # the forward's last phase ends with the kernel
-            close = body.rindex("}")
-            body = (body[:close] + READ.format(k=k) + "\n" + body[close:])
-        else:  # each tile starts at phase 0 and its last phase ends it
-            body = _replace_once(body, "    const bool first = ",
-                                 "    phase = 0;\n    const bool first = ")
-            body = _replace_once(body, "    // the next tile's staging",
-                                 "    " + READ.format(k=k) +
-                                 "\n    // the next tile's staging")
-        src = src[:a] + body + src[b:]
-    src = _replace_once(src, "namespace {\n",
-                        "__device__ unsigned long long phase_cycles[2][16];\n"
-                        "namespace {\n")
-    return src + (
-        '\nextern "C" int phase_cycles_read(void* host) {\n'
-        "  return (int)cudaMemcpyFromSymbol(host, phase_cycles,\n"
-        "                                   sizeof(phase_cycles));\n}\n"
-        'extern "C" int phase_cycles_zero() {\n'
-        "  static const unsigned long long zero[32] = {0};\n"
-        "  return (int)cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));\n"
-        "}\n")
-
-
-def load_instrumented() -> ctypes.CDLL:
-    src = instrumented_source()
-    digest = hashlib.sha256(src.encode() + " ".join(build.NVCC_FLAGS).encode())
-    stem = f"encoder_level_phases-{digest.hexdigest()[:16]}"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = build.BUILD_DIR / f"lib{stem}.so"
-    if not lib.exists():
-        cu = build.BUILD_DIR / f"{stem}.cu"
-        cu.write_text(src)
-        proc = subprocess.run(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
-    return ctypes.CDLL(str(lib))
+@contextlib.contextmanager
+def launching(lib: ctypes.CDLL):
+    """The wrappers launch ``lib`` in place of the library inside."""
+    key = (SOURCE, ())
+    saved = build._loaded.get(key)
+    build._loaded[key] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            build._loaded.pop(key)
+        else:
+            build._loaded[key] = saved
 
 
 def level_inputs(b, h, w, c, f, gen):
@@ -112,48 +92,106 @@ def level_inputs(b, h, w, c, f, gen):
     return x.bfloat16(), [p.bfloat16() for p in params]
 
 
+def counters(lib) -> list:
+    raw = (ctypes.c_ulonglong * N_COUNTERS)()
+    err = lib.level_counters_read(raw)
+    if err:
+        raise RuntimeError(f"level_counters_read: cudaError_t {err}")
+    return list(raw)
+
+
+def spin_cycles_per_ms() -> float:
+    """Calibrates torch.cuda._sleep, a spin kernel, in cycles per ms."""
+    rate = 0.0
+    for _ in range(2):  # the first call warms up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        rate = 10_000_000 / start.elapsed_time(end)
+    return rate
+
+
+def ms_per_call(fn, spin_rate: float) -> float:
+    """Median of TIMED_RUNS device times of one call, each between two CUDA
+    events behind a spin kernel twice as long as the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    cycles = int(spin_rate * (2 * (time.perf_counter() - t0) * 1e3 + 0.05))
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("level_phases: no CUDA device", file=sys.stderr)
         return 1
-    lib = load_instrumented()
-    lib.phase_cycles_read.argtypes = [ctypes.c_void_p]
-    saved = build._loaded.get("encoder_level")
-    build._loaded["encoder_level"] = lib  # the wrappers now launch the copy
+    phases, one_block = (build.load(SOURCE, MEASUREMENT_BUILDS[which])
+                         for which in ("phases", "one_block"))
+    lib = cl._library()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    try:
-        for level, (h, w, c, f) in enumerate(LEVELS, 1):
-            for kind, b in BATCHES.items():
-                x, params = level_inputs(b, h, w, c, f, gen)
-                y3 = cl.level_fwd(x, *params)
-                g = torch.randn(y3.shape, generator=gen,
-                                device="cuda").bfloat16()
-                torch.cuda.synchronize()
-                lib.phase_cycles_zero()
+    device = torch.cuda.get_device_name(0)
+    spin_rate = spin_cycles_per_ms()
+    for level, (h, w, c, f) in enumerate(LEVELS, 1):
+        for kind, b in BATCHES.items():
+            x, params = level_inputs(b, h, w, c, f, gen)
+            y3 = cl.level_fwd(x, *params)
+            g = torch.randn(y3.shape, generator=gen, device="cuda").bfloat16()
+
+            def run():
                 if kind == "fwd":
-                    cl.level_fwd(x, *params)
-                else:
-                    cl.level_bwd(x, y3, g, *params, need_dx=level > 1)
+                    return cl.level_fwd(x, *params)
+                return cl.level_bwd(x, y3, g, *params, need_dx=level > 1)
+
+            torch.cuda.synchronize()
+            with launching(phases):
+                phases.level_counters_zero()
+                cl.reset_launches()
+                run()
                 torch.cuda.synchronize()
-                raw = (ctypes.c_ulonglong * 32)()
-                lib.phase_cycles_read(raw)
-                cycles = list(raw)[:16] if kind == "fwd" else list(raw)[16:]
-                names = PHASES[kind]
-                if c == 3:  # raw rows, then the im2col rows (and g3)
-                    names = ("stage x rows", "stage im2col rows") + names[1:]
-                total = sum(cycles)
-                print(json.dumps({
-                    "kernel": f"encoder_level_{kind}", "level": level,
-                    "shape": [b, h, w, c, f],
-                    "device": torch.cuda.get_device_name(0),
+                partial = cl.encoder_level_bwd_partial_bytes
+                counts = counters(phases)
+            cycles = counts[:16] if kind == "fwd" else counts[16:32]
+            names = phase_names(kind, c)
+            total = sum(cycles)
+            line = {"kernel": f"encoder_level_{kind}", "level": level,
+                    "shape": [b, h, w, c, f], "device": device,
                     "share": {n: cycles[i] / total
                               for i, n in enumerate(names)},
-                    "block_cycles": total}), flush=True)
-    finally:
-        if saved is None:
-            build._loaded.pop("encoder_level")
-        else:
-            build._loaded["encoder_level"] = saved
+                    "block_cycles": total}
+            if kind == "bwd":
+                line.update(kept_on_chip=(c, f) in cl.TC_KEPT,
+                            partial_bytes=partial,
+                            slot_bytes_read=counts[32],
+                            slot_bytes_written=counts[33])
+            else:
+                times = {"library": [], "one_block": []}
+                for which in ("library", "one_block", "one_block", "library"):
+                    with launching(lib if which == "library" else one_block):
+                        times[which].append(ms_per_call(run, spin_rate))
+                line.update(
+                    blocks_per_sm=lib.encoder_level_tc_blocks_per_sm(c, f, 0),
+                    one_block_blocks_per_sm=(
+                        one_block.encoder_level_tc_blocks_per_sm(c, f, 0)),
+                    ms=statistics.median(times["library"]),
+                    one_block_ms=statistics.median(times["one_block"]),
+                    ms_runs=times)
+            print(json.dumps(line), flush=True)
+    cl.reset_launches()
     return 0
 
 

@@ -6,7 +6,9 @@ by git) on first use. The file name carries a hash of the source and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 No PyTorch header is compiled, which keeps a build to seconds. nvcc's
 output, with ptxas's registers, shared memory and spills for each kernel
-(``-Xptxas -v``), is kept beside the library (``build_log``).
+(``-Xptxas -v``), is kept beside the library (``build_log``). A build may
+add preprocessor defines (``-D``), which a measurement build of a source
+uses; its library is a separate file.
 
 Importing this module needs neither nvcc nor a GPU: both are looked up only
 when a library is built.
@@ -30,7 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -55,18 +57,24 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
+def flags(defines: tuple = ()) -> tuple:
+    """nvcc's flags with ``-D<define>`` for each of ``defines``."""
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> float | None:
-    """Compiles ``csrc/<name>.cu`` unless its library exists.
+def build(name: str, defines: tuple = ()) -> float | None:
+    """Compiles ``csrc/<name>.cu`` (with ``defines``) unless its library
+    exists.
 
     Returns the seconds nvcc took, or None if nothing was built. Raises
     RuntimeError with nvcc's output if it fails."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return None
     nvcc = find_nvcc()
@@ -76,7 +84,7 @@ def build(name: str) -> float | None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        [nvcc, *flags(defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -87,17 +95,19 @@ def build(name: str) -> float | None:
     return time.perf_counter() - t0
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: tuple = ()) -> str:
     """nvcc's output from building ``csrc/<name>.cu`` ("" if it was built
     without one)."""
-    log = library_path(name).with_suffix(".log")
+    log = library_path(name, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, built on first use."""
-    lib = _loaded.get(name)
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` with ``defines``, built on
+    first use."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        build(name)
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        build(name, defines)
+        lib = _loaded[(name, defines)] = ctypes.CDLL(
+            str(library_path(name, defines)))
     return lib

@@ -28,11 +28,14 @@ or bfloat16. A wrapper allocates its outputs with ``torch.empty``, launches
 on the current stream without synchronising, and raises on anything the
 kernel does not take or on a refused launch. Each kernel has its launch
 counter, ``<name>_launches``; nothing else changes them.
+``encoder_level_bwd_partial_bytes`` counts the float32 weight-gradient
+partials the reverse sweeps allocate, reset with the launch counters.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +44,7 @@ from cerberusnet_torch.ops import build
 
 encoder_level_fwd_launches = 0
 encoder_level_bwd_launches = 0
+encoder_level_bwd_partial_bytes = 0
 
 KERNELS = ("encoder_level_fwd", "encoder_level_bwd")
 REPLACES = {
@@ -50,16 +54,32 @@ REPLACES = {
                          "(_level_bwd_kernel, pallas_call at :766)",
 }
 
+
+def _tc_rows() -> list:
+    """The X(...) rows of the source's TC_LEVELS table, from which the
+    kernels are instantiated: (C, F, forward tile rows, cols, reverse-sweep
+    tile rows, cols, reverse-sweep blocks per SM, threads, keep)."""
+    text = (build.CSRC_DIR / "encoder_level.cu").read_text()
+    table = text[text.index("#define TC_LEVELS(X)"):].splitlines()[1:]
+    rows = []
+    for line in table:
+        m = re.match(r"\s*X\(([\d,\s]+)\)", line)
+        if m is None:
+            break
+        rows.append(tuple(int(v) for v in m.group(1).split(",")))
+    return rows
+
+
 # (C, F): (forward tile (rows, cols), reverse-sweep tile (rows, cols),
-# reverse-sweep blocks per SM) of the bfloat16 tensor-core kernels; the
-# source's TC_LEVELS holds the same table. A tile is as large as shared
-# memory allows with two forward blocks on an SM; the reverse sweep's takes
-# most of an SM at levels 2-3, so one block runs there.
-TC_LEVELS = {
-    (3, 16): ((16, 32), (16, 16), 2),
-    (16, 32): ((16, 16), (16, 16), 1),
-    (32, 64): ((8, 8), (8, 16), 1),
-}
+# reverse-sweep blocks per SM) of the bfloat16 tensor-core kernels, read
+# from the source. A tile is as large as shared memory allows with two
+# forward blocks on an SM; the reverse sweep's takes most of an SM at levels
+# 2-3, so one block runs there. TC_KEPT: the widths whose reverse sweep
+# keeps a block's weight gradients in registers across its tiles (the rest
+# update the block's slot in device memory).
+TC_LEVELS = {(r[0], r[1]): ((r[2], r[3]), (r[4], r[5]), r[6])
+             for r in _tc_rows()}
+TC_KEPT = frozenset((r[0], r[1]) for r in _tc_rows() if r[8])
 H100_SMS = 132
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,8 +94,11 @@ def launches() -> dict:
 
 
 def reset_launches():
+    """Zeroes the launch counters and ``encoder_level_bwd_partial_bytes``."""
+    global encoder_level_bwd_partial_bytes
     for name in KERNELS:
         globals()[f"{name}_launches"] = 0
+    encoder_level_bwd_partial_bytes = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -91,8 +114,10 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.encoder_level_fwd_tile.argtypes = [_I] * 3
         lib.encoder_level_bwd_tile.argtypes = [_I] * 3
-        lib.encoder_level_tc_smem.argtypes = [_I] * 3
-        lib.encoder_level_tc_smem.restype = ctypes.c_int
+        for fn in (lib.encoder_level_tc_smem,
+                   lib.encoder_level_tc_blocks_per_sm):
+            fn.argtypes = [_I] * 3
+            fn.restype = ctypes.c_int
         lib.encoder_level_error_string.argtypes = [_I]
         lib.encoder_level_error_string.restype = ctypes.c_char_p
     return lib
@@ -190,17 +215,6 @@ def bwd_plan(b: int, h: int, w: int, c: int, f: int, sms: int = H100_SMS):
 def slot_floats(c: int, f: int) -> int:
     """float32 values of one weight-gradient slot: dk1, dk2, dk3, db1..3."""
     return 9 * c * f + 2 * 9 * f * f + 3 * f
-
-
-def partial_bytes(b: int, h: int, w: int, c: int, f: int, dtype,
-                  sms: int = H100_SMS) -> int:
-    """Bytes of float32 weight-gradient partials one reverse sweep writes
-    and sums: one slot per block (tensor cores) or per tile (CUDA cores)."""
-    if uses_tensor_cores(dtype, c, f):
-        slots = bwd_plan(b, h, w, c, f, sms)[1]
-    else:
-        slots = tile_count(b, h, w, (_cuda_core_tile(c, f, dtype, "bwd"),) * 2)
-    return 4 * slots * slot_floats(c, f)
 
 
 def _cuda_core_tile(c, f, dtype, which):
@@ -315,6 +329,7 @@ def _split_slots(slots, c, f):
 def _bwd(x, y3, g, kernels, need_dx):
     """Checks and launches the reverse-sweep kernel; returns its gradients,
     the weight-gradient partials summed."""
+    global encoder_level_bwd_partial_bytes
     b, h, w, c, f = _check(x, kernels, (y3, g))
     lib = _library()
     dx = torch.empty_like(x) if need_dx else None
@@ -336,6 +351,7 @@ def _bwd(x, y3, g, kernels, need_dx):
                 slots.data_ptr(), _device_schedule(sched, x.device).data_ptr(),
                 blocks, b, h, w, c, f, th, tw, _stream(x))
             _raise_on(lib, err, "encoder_level_bwd", x, f)
+            encoder_level_bwd_partial_bytes += slots.nbytes
             return (dx, *_split_slots(slots, c, f))
         t = _cuda_core_tile(c, f, x.dtype, "bwd")
         tiles = tile_count(b, h, w, (t, t))
@@ -355,6 +371,7 @@ def _bwd(x, y3, g, kernels, need_dx):
             *(p.data_ptr() for p in parts),
             b, h, w, c, f, t, _DTYPES[x.dtype], _stream(x))
     _raise_on(lib, err, "encoder_level_bwd", x, f)
+    encoder_level_bwd_partial_bytes += sum(p.nbytes for p in parts)
     return (dx, *(p.sum(dim=0) for p in parts))
 
 

@@ -6,8 +6,10 @@
 Phases, each printing one JSON line; any failed check exits non-zero:
   env      the card (nvidia-smi name and power limit), torch and CUDA
   build    nvcc builds every kernel of the path from cerberusnet_torch/csrc;
-           each kernel's registers, spills and stack from ptxas, and the
-           tensor-core level kernels' shared memory per block
+           each kernel's registers, spills and stack from ptxas, and for the
+           tensor-core level kernels their tiles, the halo recompute those
+           imply, shared memory per block and the blocks the card keeps on
+           an SM
   kernels  each correlation kernel, forward and backward, against its plain
            PyTorch version on the card, at the five pyramid-level shapes of
            a 512x1024 frame (the forwards at batch 1, as served, and at
@@ -70,8 +72,9 @@ Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve path's beside them
 and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
 K9's serve numbers beside them, each with its time over the cuDNN level's
-(vs_plain) per level, its tiles' halo factors and K10's weight-gradient
-partial bytes per step), a {"phase": "done"} line with the
+(vs_plain) per level, and K10's weight-gradient partial bytes per step as
+its wrapper counted them in train_pallas_levels), a {"phase": "done"} line
+with the
 script's seconds, the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result.
@@ -272,15 +275,29 @@ def phase_build():
     for name in SOURCES:
         build.load(name)
     lib = cl._library()
-    # the tensor-core kernels' dynamic shared memory per block
-    tc_shared = {f"{c},{f}": {"fwd": lib.encoder_level_tc_smem(c, f, 0),
-                              "bwd": lib.encoder_level_tc_smem(c, f, 1)}
-                 for c, f in cl.TC_LEVELS}
-    emit({"phase": "build", "ok": True, "nvcc": build.find_nvcc(),
+    # the tensor-core level kernels: tiles and halo factors (the table's),
+    # dynamic shared memory per block and the blocks an SM keeps (the
+    # card's); the reverse sweep's schedule assumes the table's blocks
+    tc_levels, errors = {}, []
+    for (c, f), (_, _, per_sm) in cl.TC_LEVELS.items():
+        resident = {k: lib.encoder_level_tc_blocks_per_sm(c, f, bwd)
+                    for k, bwd in (("fwd", 0), ("bwd", 1))}
+        if resident["bwd"] < per_sm:
+            errors.append(f"({c}, {f}): {resident['bwd']} reverse-sweep "
+                          f"blocks fit an SM, the schedule takes {per_sm}")
+        tc_levels[f"{c},{f}"] = {
+            **halo_factors(c, f), "bwd_blocks_per_sm": per_sm,
+            "weight_grads_in_registers": (c, f) in cl.TC_KEPT,
+            "shared_bytes": {"fwd": lib.encoder_level_tc_smem(c, f, 0),
+                             "bwd": lib.encoder_level_tc_smem(c, f, 1)},
+            "resident_blocks_per_sm": resident}
+    emit({"phase": "build", "ok": not errors, "nvcc": build.find_nvcc(),
           "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_seconds,
           "libraries": [build.library_path(n).name for n in SOURCES],
           "ptxas": {n: ptxas_report(build.build_log(n)) for n in SOURCES},
-          "tc_shared_bytes": tc_shared})
+          "tc_levels": tc_levels, "errors": errors})
+    if errors:
+        sys.exit(1)
 
 
 def phase_kernels(peaks, spin_rate):
@@ -459,9 +476,9 @@ ODD_LEVELS = ((0, 72, 16, 3, 8), (0, 72, 16, 3, 16), (0, 70, 100, 16, 32),
 
 
 def halo_factors(c, f):
-    """Pixels a tensor-core tile computes of y1 and y2 over the pixels it
-    owns, for a tile inside the image: the forward's and the reverse
-    sweep's."""
+    """The tensor-core tiles of (c, f) and the pixels a tile computes of y1
+    and y2 over the pixels it owns, for a tile inside the image: the
+    forward's and the reverse sweep's (arithmetic on the tiles)."""
     from cerberusnet_torch.ops.cuda import encoder_level as cl
 
     (fh, fw), (bh, bw), _ = cl.TC_LEVELS[(c, f)]
@@ -478,11 +495,11 @@ def level_checks(peaks, spin_rate, gen):
     level shapes at batch 6 and the odd shapes, in bf16 and float32, against
     encoder_level_plain and encoder_level_bwd_plain (cuDNN), with
     CUDA-event times (kernel and plain level in turns) and bounds; K10 runs
-    twice and must give bit-identical dk and db."""
+    twice and must give bit-identical dk and db, and reports the partial
+    bytes its wrapper counted in the first run."""
     from cerberusnet_torch.ops import encoder_level as elv
     from cerberusnet_torch.ops.cuda import encoder_level as cl
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [("fwd", batch, lv) for batch in (SERVE_FRAMES, TRAIN_FRAMES)
              for lv in ENCODER_LEVELS]
     cases += [("bwd", TRAIN_FRAMES, lv) for lv in ENCODER_LEVELS]
@@ -521,9 +538,12 @@ def level_checks(peaks, spin_rate, gen):
                     return elv.encoder_level_bwd_plain(x32, None, g.float(),
                                                        *p32)
             outs = {"fwd": ("y3",), "bwd": LEVEL_GRADS}[kind]
+            counted = cl.encoder_level_bwd_partial_bytes
+            got = run_kernel()
+            counted = cl.encoder_level_bwd_partial_bytes - counted
             got, plain, ref = (
                 [v] if kind == "fwd" else list(v)
-                for v in (run_kernel(), run_plain(), run_ref()))
+                for v in (got, run_plain(), run_ref()))
             torch.cuda.synchronize()
             dist, limits = {}, {}
             for name, k_, p_, r_ in zip(outs, got, plain, ref):
@@ -581,10 +601,8 @@ def level_checks(peaks, spin_rate, gen):
                 "bytes": nbytes, "flops": flops,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                **({"bit_identical": same,
-                    "partial_bytes": cl.partial_bytes(b, h, w, c, f, dt, sms)}
+                **({"bit_identical": same, "partial_bytes": counted}
                    if kind == "bwd" else {}),
-                **({"halo": halo_factors(c, f)} if tc else {}),
             })
     return checks
 
@@ -894,6 +912,7 @@ def phase_train(phase):
             errors.append(f"step {i}: loss components {vals}")
         steps.append(vals)
     launches = launch_counts()
+    partial_bytes = cl.encoder_level_bwd_partial_bytes
     moved = sum(not torch.equal(m, before[n])
                 for n, m in trainer.masters.items())
     if moved != len(before):
@@ -1054,6 +1073,7 @@ def phase_train(phase):
           "steps": steps, "launches": launches,
           "launches_per_step": {k: v / TRAIN_STEPS
                                 for k, v in launches.items()},
+          "partial_bytes_per_step": partial_bytes // TRAIN_STEPS,
           "weights_moved": moved, "weights": len(before),
           "log_variances": log_vars,
           "setup_s": setup_s, "distances": distances, "controls": controls,
@@ -1064,7 +1084,8 @@ def phase_train(phase):
           "max_memory_allocated_gib": peak_mem, "errors": errors})
     if not ok:
         sys.exit(1)
-    return launches
+    # the wrappers' counters over the steps: launches, and K10's partials
+    return {**launches, "encoder_level_bwd_partial_bytes": partial_bytes}
 
 
 REPLACES = {
@@ -1117,19 +1138,20 @@ def path_numbers(checks, name, path, batch, launches):
     }
 
 
-def level_numbers(checks, name, batch, launches):
+def level_numbers(checks, name, batch, counts):
     """A fused-level kernel's numbers on one path: its three level calls in
     bf16 at that path's batch (3 frames served, 6 trained), summed, with
     the path's launch count, the time over the plain (cuDNN) level's, K10's
-    weight-gradient partial bytes, and the per-level rows under "shapes"
-    (each with its vs_plain and its tiles' halo factors)."""
+    weight-gradient partial bytes per step as its wrapper counted them on
+    the path, and the per-level rows under "shapes" (each with its vs_plain
+    and, for K10, the partial bytes counted in its check)."""
     rows = [c for c in checks if c["kernel"] == name and c["level"] > 0
             and c["batch"] == batch and c["dtype"] == "bfloat16"]
     bound = sum(r["bound_ms"] for r in rows)
     by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     ms, plain_ms = sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows)
     out = {
-        "launches": launches,
+        "launches": counts[name],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": ms, "plain_ms": plain_ms, "vs_plain": ms / plain_ms,
         "bound_ms": bound,
@@ -1137,15 +1159,16 @@ def level_numbers(checks, name, batch, launches):
         "batch": batch,
         "shapes": [{k: r[k] for k in (
             "level", "shape", "design", "ms", "ms_min", "ms_max", "plain_ms",
-            "vs_plain", "bound_ms", "bound_by", "max_abs_err", "halo",
+            "vs_plain", "bound_ms", "bound_by", "max_abs_err",
             "partial_bytes") if k in r} for r in rows],
     }
     if name == "encoder_level_bwd":
-        out["partial_bytes"] = sum(r["partial_bytes"] for r in rows)
+        out["partial_bytes"] = (counts["encoder_level_bwd_partial_bytes"]
+                                // TRAIN_STEPS)
     return out
 
 
-def summary(checks, launches):
+def summary(checks, counts):
     """One entry per kernel. A correlation kernel's numbers are the
     CerberusNet train path's (batch 2), where all six run: launches from
     that path's run, times and bounds from its shapes. A forward's
@@ -1155,22 +1178,23 @@ def summary(checks, launches):
     levels at batch 6), with K9's serve_pallas_levels numbers (batch 3)
     under "paths". No single library call computes a correlation or a
     whole level (the plain level is three cuDNN convolutions and two
-    LeakyReLUs, its plain_ms), so library_ms is null."""
+    LeakyReLUs, its plain_ms), so library_ms is null. counts: {phase:
+    the wrappers' counters over its run}."""
     from cerberusnet_torch.ops.cuda import encoder_level as cl
 
     entries = []
     for name, replaces in REPLACES.items():
         train = path_numbers(checks, name, "cerberus", TRAIN_BATCH,
-                             launches["train"][name])
+                             counts["train"][name])
         paths = {"train": {k: v for k, v in train.items() if k != "shapes"}}
         dcv = {"train_dcv": path_numbers(checks, name, "dcv", TRAIN_BATCH,
-                                         launches["train_dcv"][name])}
-        if launches["serve"][name]:
+                                         counts["train_dcv"][name])}
+        if counts["serve"][name]:
             serve = path_numbers(checks, name, "cerberus", 1,
-                                 launches["serve"][name])
+                                 counts["serve"][name])
             paths["serve"] = {k: v for k, v in serve.items() if k != "shapes"}
             dcv["serve_dcv"] = path_numbers(checks, name, "dcv", 1,
-                                            launches["serve_dcv"][name])
+                                            counts["serve_dcv"][name])
         dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
                 else DCV_DISP_DILATIONS)
         entries.append({
@@ -1182,12 +1206,12 @@ def summary(checks, launches):
                     "dilations": list(dils), "paths": dcv}})
     for name, replaces in cl.REPLACES.items():
         train = level_numbers(checks, name, TRAIN_FRAMES,
-                              launches["train_pallas_levels"][name])
+                              counts["train_pallas_levels"])
         paths = {"train_pallas_levels": {
             k: v for k, v in train.items() if k != "shapes"}}
         if name == "encoder_level_fwd":
             serve = level_numbers(checks, name, SERVE_FRAMES,
-                                  launches["serve_pallas_levels"][name])
+                                  counts["serve_pallas_levels"])
             paths["serve_pallas_levels"] = serve
         entries.append({
             "name": name, "route": "cuda",
@@ -1216,12 +1240,12 @@ def main():
     phase_build()
     spin_rate = sleep_cycles_per_ms()
     checks = phase_kernels(peaks, spin_rate)
-    launches = {}
+    counts = {}
     for phase in ("serve", "train", "serve_dcv", "train_dcv",
                   "serve_pallas_levels", "train_pallas_levels"):
         run = phase_serve if phase in SERVE else phase_train
-        launches[phase] = run(phase)
-    summary(checks, launches)
+        counts[phase] = run(phase)
+    summary(checks, counts)
     emit({"phase": "done", "ok": True,
           "seconds": time.perf_counter() - t0})
     print(card, flush=True)

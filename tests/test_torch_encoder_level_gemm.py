@@ -14,7 +14,9 @@ In float32 the emulation must give the plain level and its gradients
 (relative L2: only the summation order differs); in bfloat16 it must stay
 within 1.5x the plain bf16 level's distance to the float32 one plus 1e-3,
 the rule chip_smoke.py holds the kernels to. Also the persistent reverse
-sweep's schedule and slot count at the 512x1024 level shapes.
+sweep's schedule and slot count at the 512x1024 level shapes, the tile
+table the wrapper reads from the source, and the source's measurement
+builds (cerberusnet_torch/level_phases.py).
 """
 
 import numpy as np
@@ -22,6 +24,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cerberusnet_torch import level_phases
+from cerberusnet_torch.ops import build
 from cerberusnet_torch.ops.cuda import encoder_level as cl
 from cerberusnet_torch.ops.encoder_level import (
     encoder_level_bwd_plain,
@@ -272,10 +276,56 @@ def test_partials_one_slot_per_block():
         _, slots, _ = cl.bwd_plan(b, h, w, c, f)
         per_sm = cl.TC_LEVELS[(c, f)][2]
         assert slots == per_sm * cl.H100_SMS
-        nbytes = cl.partial_bytes(b, h, w, c, f, torch.bfloat16)
-        assert nbytes == 4 * slots * cl.slot_floats(c, f)
-        total += nbytes
+        total += 4 * slots * cl.slot_floats(c, f)
     assert total < 100e6  # about 417 MB with one slot per tile
+
+
+def test_partial_bytes_counter_resets_with_the_launches():
+    cl.encoder_level_bwd_partial_bytes = 123
+    cl.encoder_level_bwd_launches = 2
+    cl.reset_launches()
+    assert cl.encoder_level_bwd_partial_bytes == 0
+    assert cl.launches() == {"encoder_level_fwd": 0, "encoder_level_bwd": 0}
+
+
+def test_tile_table_is_read_from_the_source():
+    text = (build.CSRC_DIR / "encoder_level.cu").read_text()
+    rows = cl._tc_rows()
+    assert [r[:2] for r in rows] == [(3, 16), (16, 32), (32, 64)]
+    for row in rows:
+        assert len(row) == 9
+        # the row as written in the X-macro the kernels are built from
+        assert "X(" + ", ".join(map(str, row)) + ")" in text
+        c, f, fth, ftw, bth, btw, per_sm, threads, keep = row
+        assert cl.TC_LEVELS[(c, f)] == ((fth, ftw), (bth, btw), per_sm)
+        assert ((c, f) in cl.TC_KEPT) == bool(keep)
+        assert threads % f == 0 and 3 * f <= threads  # the db sums
+    # level 3's 369 KB of weight gradients do not fit in the registers
+    assert (32, 64) not in cl.TC_KEPT
+    assert 4 * cl.slot_floats(32, 64) > 256 * 1024
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_phase_marks_match_the_phase_names(kind):
+    # one PHASE_MARK per phase of a level-2/3 tile, one more where level 1
+    # stages its im2col rows; the measurement build defines LEVEL_PHASES
+    text = (build.CSRC_DIR / "encoder_level.cu").read_text()
+    k = {"fwd": 0, "bwd": 1}[kind]
+    marks = text.count(f"PHASE_MARK({k});")
+    assert marks == len(level_phases.phase_names(kind, 16)) + 1
+    assert len(level_phases.phase_names(kind, 3)) == marks
+    flags = build.flags(level_phases.MEASUREMENT_BUILDS["phases"])
+    assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+    assert flags[len(build.NVCC_FLAGS):] == ("-DLEVEL_PHASES",)
+    assert "#ifdef LEVEL_PHASES" in text
+
+
+def test_measurement_builds_are_separate_libraries():
+    paths = {build.library_path("encoder_level", d)
+             for d in ((), *level_phases.MEASUREMENT_BUILDS.values())}
+    assert len(paths) == 3
+    pad = build.flags(level_phases.MEASUREMENT_BUILDS["one_block"])[-1]
+    assert pad == f"-DLEVEL_FWD_SMEM_PAD={level_phases.FWD_SMEM_PAD}"
 
 
 def test_tensor_cores_by_type_and_width_only():
