@@ -798,7 +798,7 @@ __device__ void im2col_from(bf16* dst, const bf16* raw) {
     const int q = i / 3, ky = i - 3 * q;
     const bf16* src = raw + ((2 * (q / NW) + ky) * NWP + 2 * (q % NW)) * 3;
     bf16* d = dst + q * S + 9 * ky;
-    bf16 v[9];  // all nine loads issue before the first store
+    bf16 v[9];  // all nine loads go out before the first store
 #pragma unroll
     for (int e = 0; e < 9; ++e) v[e] = src[e];
 #pragma unroll
@@ -1464,7 +1464,8 @@ extern "C" int level_counters_read(void* host) {
 
 extern "C" int level_counters_zero() {
   static const unsigned long long zero[34] = {0};
-  cudaError_t err = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(phase_cycles));
+  cudaError_t err =
+      cudaMemcpyToSymbol(phase_cycles, zero, sizeof(phase_cycles));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(slot_bytes, zero, sizeof(slot_bytes));
 }

@@ -64,7 +64,8 @@ def flags(defines: tuple = ()) -> tuple:
 
 def library_path(name: str, defines: tuple = ()) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(defines)).encode())
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
