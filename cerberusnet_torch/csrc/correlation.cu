@@ -45,47 +45,128 @@
 // the window is large against the frame, this makes the 2-D kernels bound
 // by operations.
 //
-// Design against that bound. One block owns a tile of kTileW pixels of one
-// output row and stages in shared memory, as float32, the operands the tile
-// needs: the forward stages the f1 tile and the f2 pixels of the tile's
-// window (with the horizontal halo), once per block for the 1-D kernel and
-// once per window row for the 2-D kernel, so each block reads its inputs
-// from device memory about once (the 2-D kernel's (2d+1) re-reads of an f2
-// row across neighbouring output rows come from L2, which holds every
-// level's operands). Shared rows of features are padded to C+1 floats so
+// The bf16 forwards' products run on the tensor cores (989 TFLOP/s bf16),
+// where every bf16 call's operations take less time than its bytes.
+//
+// Two designs, chosen by the type alone, never on a failure.
+//
+// (1) bfloat16 forwards: the tensor cores (corr2d_tc_fwd_kernel,
+// corr1d_tc_fwd_kernel). What held the first design (2) back, measured by
+// its phase clocks (level_phases.py, -DCORR_PHASES, NVIDIA H100 80GB HBM3 at
+// 700 W): staging took 60-85% of its block cycles at every level and
+// dilation (one scalar load, an integer division and a convert per element,
+// window row after window row), the dot products 13-34% (two shared loads
+// per multiply-add), the store under 6%; and one block per 32 pixels of a
+// row left levels 6-5 with 8-16 blocks for 132 SMs. Here:
+//  - A window row's products for 16 output pixels are one band product
+//    S = F1 (16 x C) F2^T (C x ncols) on mma.sync.m16n8k16 (bf16 in,
+//    float32 accumulators), ncols = 16 + 2d window columns (2-D) or 16 + D
+//    (1-D); the outputs are its band, out(i, ox) = S[i, i + ox] of window
+//    row oy (2-D) and out(i, k) = S[i, i + D - k] (1-D). A product of two
+//    bf16 values is exact in float32 and the sums run in float32, so only
+//    the order of summation differs from the plain version. The band uses
+//    9 of 24 columns (2-D) to 25 of 40 (1-D, D = 24) of S; the rest costs
+//    little beside a multiply-add that no longer waits on shared memory.
+//    Each lane hands ldmatrix one pixel row. A warp holds NT n8 tiles of S
+//    (a template argument, so the k loop has no run-time branch) and two
+//    register sets: step k + 1's fragments load while step k's products run.
+//  - Dilation by residue class: the pixels x = r (mod dil) sample window
+//    columns of the same class, so a dilated correlation is dil undilated
+//    ones on sub-lattices. A block owns a run of 16 dil pixels of a row (T
+//    runs for the 1-D op) and stages it class by class, a class's pixels in
+//    adjacent shared rows, so the stride costs nothing. Rows likewise: a 2-D
+//    block owns R rows y, y + dil, ... of one class, whose window rows
+//    overlap, and stages R + 2d window rows, not R (2d + 1).
+//  - Staging: one loop issues every copy of the block (cp.async of 16, 8 or
+//    4 bytes, as the pointers and the pixel rows' 2C bytes allow; 2-byte
+//    loads for odd C), then one wait. Shared rows are 2 C16 + 16 bytes (C16:
+//    C rounded up to 16, the tail zero-filled), so the eight rows an
+//    ldmatrix phase reads fall in distinct banks; columns outside the frame
+//    are zero-filled (source size 0); window rows outside it are not staged
+//    and their outputs are written as zero. Run-time divisors are magic
+//    multiplies (fast_div).
+//  - Work: one warp per (row, window row, class, tile) item. The band goes
+//    to shared memory at its (pixel, k) place, and a row's outputs leave as
+//    one contiguous run of 16-byte stores where the block owns every window
+//    row. The launch plan (tc_plan) sizes R, the window-row groups G and T
+//    so that the grid has one and a half to two blocks per SM; its outputs
+//    are disjoint, so there are no atomics and no sum across blocks.
+//  - sum / C is rounded as float32 division rounds it, without the
+//    division's branches: a multiply by 1 / C where C is a power of two,
+//    else by the double reciprocal, rounded once to float (exact for
+//    C < 2^27: a float32 quotient a / C lies at least 2^-24 ulp / C from a
+//    rounding boundary).
+// What is left (PERF.md keeps the numbers): a call costs about 5 us of
+// launch before any work, and staging is the largest phase that follows.
+// wgmma and TMA are not used: the A and B operands are gathers of pixel
+// rows that ldmatrix takes lane by lane.
+//
+// (2) float32, the backward kernels in both types, and bfloat16 forwards in
+// a -DCORR_FWD_SIMT build: the CUDA cores. TF32 would break the float32
+// tolerance (1e-5). One block owns a tile of kTileW pixels of one output row
+// and stages in shared memory, as float32, the operands the tile needs: the
+// forward stages the f1 tile and the f2 pixels of the tile's window (with
+// the horizontal halo), once per block for the 1-D kernel and once per
+// window row for the 2-D kernel, so each block reads its inputs from device
+// memory about once (the re-reads of an f2 row across neighbouring output
+// rows come from L2). Shared rows of features are padded to C+1 floats so
 // neighbouring lanes hit different banks. The forward gives each thread one
 // (pixel, displacement) dot product with a C-loop of fused multiply-adds,
 // collects the tile's outputs in shared memory and writes them back as one
-// contiguous run, because in NHWC the outputs of a tile of one row are
-// contiguous. The backward kernels give each thread (pixel, channel)
+// contiguous run. The backward kernels give each thread (pixel, channel)
 // outputs, with the displacement loop inside: lanes of a warp hold
-// neighbouring channels, so their feature reads are conflict-free and
-// their g read is a broadcast, and their stores are contiguous. The 2-D
-// backward kernels stage one window row at a time and keep the running
-// sums in shared memory between rows. Rows outside the frame are skipped;
-// columns outside it are staged as zeros and multiplied.
-//
-// Measured against that bound (chip_smoke.py, bf16, NVIDIA H100 80GB HBM3 at
-// 700 W) the forward kernels are far from it: the 2-D kernel runs 23x (level
-// 2) to about 1700x (level 6) its bound, the 1-D kernel 13x to about 690x.
-// Why is not measured yet. Known from the launch shape: a level gets one
-// block per 32 pixels of a row, so the coarse levels launch fewer blocks
-// than the card has SMs (8 blocks at level 6 for 132 SMs). Not yet told
-// apart: staging, where each thread waits on one global load per loop trip,
-// and the C-loop, which reads two shared operands per multiply-add. The
-// backward kernels share the launch shape and run 10x (1-D, level 2) to
-// about 570x (2-D, level 6) their bounds at batch 2 (PERF.md). At the DCV
-// heads' level 3 (C=64, d=D=4) a dilation widens the staged window row
-// (kTileW + 2*d*dil columns: 96 at dilation 8, 43.6 KB of shared memory
-// for the 2-D forward) while the window rows outside the frame are
-// skipped; the 2-D forward at dilation 8 takes 1.5x its dilation-1 time.
-// There the 1-D forward at D=4 (160 threads a block) is slower than at
-// D=12 (416 threads) on the same rows, though it computes a third of the
-// products: a hint that staging, not the dot products, sets its time.
+// neighbouring channels, so their feature reads are conflict-free and their
+// g read is a broadcast, and their stores are contiguous. The 2-D backward
+// kernels stage one window row at a time and keep the running sums in
+// shared memory between rows. Rows outside the frame are skipped; columns
+// outside it are staged as zeros and multiplied. The backward kernels run
+// 10x (1-D, level 2) to about 570x (2-D, level 6) their bounds at batch 2
+// (PERF.md); why is not measured yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ptx.cuh"
+
+// Measurement builds (cerberusnet_torch/level_phases.py), off by default.
+// -DCORR_PHASES: at every PHASE_MARK(k, phase) of a forward kernel the block
+// synchronises and its thread 0 adds the clock64() cycles since its previous
+// reading to corr_phase_cycles[k][phase] (k: 0 corr2d_fwd_kernel, 1
+// corr1d_fwd_kernel, 2 corr2d_tc_fwd_kernel, 3 corr1d_tc_fwd_kernel; phase:
+// 0 staging, 1 products and band, 2 store). The added barriers perturb the
+// kernels a little, so the build gives shares of block cycles, not times.
+// In the tensor-core kernels lane 0 of warp 0 also splits each of its items
+// (one band product) into corr_item_cycles[k]: 0 the products, up to the
+// accumulators' arrival (ITEM_CLOCK waits on its operand), 1 the band, 2
+// the items counted.
+// -DCORR_FWD_SIMT: bfloat16 forwards run the CUDA-core kernels, as float32
+// does, so the two designs can be timed in turns on one card.
+#ifdef CORR_PHASES
+__device__ unsigned long long corr_phase_cycles[4][3];
+__device__ unsigned long long corr_item_cycles[4][3];
+#define PHASE_BEGIN() long long phase_last_ = clock64()
+#define PHASE_MARK(k, phase)                                             \
+  do {                                                                   \
+    __syncthreads();                                                     \
+    if (threadIdx.x == 0) {                                              \
+      const long long now_ = clock64();                                  \
+      atomicAdd(&corr_phase_cycles[k][phase],                            \
+                (unsigned long long)(now_ - phase_last_));               \
+      phase_last_ = now_;                                                \
+    }                                                                    \
+  } while (0)
+#define ITEM_CLOCK(t, v) \
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : "f"(v))
+#else
+#define PHASE_BEGIN()
+#define PHASE_MARK(k, phase) ((void)(k), (void)(phase))
+#endif
+#ifdef CORR_FWD_SIMT
+constexpr bool kFwdTensorCores = false;
+#else
+constexpr bool kFwdTensorCores = true;
+#endif
 
 namespace {
 
@@ -171,6 +252,7 @@ __global__ void corr2d_fwd_kernel(const T* __restrict__ f1,
   float* outs = f2s + (kTileW + 2 * R) * stride;
   const int64_t row_elems = (int64_t)W * C;
 
+  PHASE_BEGIN();
   stage_row(f1s, f1 + row * row_elems, x0, kTileW, W, C);
   for (int oy = 0; oy < nx; ++oy) {
     const int yy = y + (oy - d) * dil;
@@ -181,6 +263,7 @@ __global__ void corr2d_fwd_kernel(const T* __restrict__ f1,
                 W, C);
     }
     __syncthreads();
+    PHASE_MARK(0, 0);
     for (int i = threadIdx.x; i < kTileW * nx; i += blockDim.x) {
       const int p = i % kTileW;
       const int ox = i / kTileW;
@@ -191,9 +274,11 @@ __global__ void corr2d_fwd_kernel(const T* __restrict__ f1,
                    : 0.f;
       outs[p * K + oy * nx + ox] = acc / (float)C;
     }
+    PHASE_MARK(0, 1);
   }
   __syncthreads();
   store_tile(out + ((int64_t)row * W + x0) * K, outs, npix * K);
+  PHASE_MARK(0, 2);
 }
 
 // grid: (B*H, ceil(W / kTileW)); shared: f1 tile, f2 row with left halo, outputs.
@@ -213,9 +298,11 @@ __global__ void corr1d_fwd_kernel(const T* __restrict__ f1,
   float* outs = f2s + (kTileW + R) * stride;
   const int64_t row_off = (int64_t)row * W * C;
 
+  PHASE_BEGIN();
   stage_row(f1s, f1 + row_off, x0, kTileW, W, C);
   stage_row(f2s, f2 + row_off, x0 - R, kTileW + R, W, C);
   __syncthreads();
+  PHASE_MARK(1, 0);
   for (int i = threadIdx.x; i < kTileW * K; i += blockDim.x) {
     const int p = i % kTileW;
     const int k = i / kTileW;
@@ -224,8 +311,338 @@ __global__ void corr1d_fwd_kernel(const T* __restrict__ f1,
     const float acc = dot(f1s + p * stride, f2s + (p + R - k * dil) * stride, C);
     outs[p * K + k] = acc / (float)C;
   }
+  PHASE_MARK(1, 1);
   __syncthreads();
   store_tile(out + ((int64_t)row * W + x0) * K, outs, npix * K);
+  PHASE_MARK(1, 2);
+}
+
+// ------------------------------------------------- forward, tensor cores
+//
+// bfloat16 only. A window row's products for one 16-pixel tile of one
+// residue class are one band product S = F1 (16 x C) F2^T (C x ncols) on
+// mma.sync.m16n8k16, whose band S[i, i + j] is the output (see the note at
+// the top of the file).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcTile = 16;      // pixels of one residue class in an mma tile
+constexpr int kTcNtGroup = 6;    // n8 tiles of S a warp accumulates at once
+constexpr int kTcMinWarps = 8;   // warps a block stages with, fewer blocks
+                                 // than SMs (half that otherwise)
+constexpr int kTcMaxWarps = 16;
+constexpr int kTcMaxTiles = 4;   // 16-pixel tiles of a class a 1-D block owns
+constexpr size_t kTcSmemBudget = 100 * 1024;  // two blocks share an SM
+
+// n / d for 0 <= n and n * d < 2^32, from magic = ceil(2^32 / d): one wide
+// multiply where a division by a run-time d would take a dependent chain
+// of some twenty instructions (the staging and item loops divide per trip).
+__host__ __device__ constexpr uint64_t magic(int d) {
+  return ((1ull << 32) + d - 1) / d;
+}
+__device__ __forceinline__ int fast_div(int n, uint64_t magic) {
+  return (int)(((uint64_t)(uint32_t)n * magic) >> 32);
+}
+
+// What a tensor-core block needs to know of its call.
+struct TcGeom {
+  int H, W, C, disp, dil;
+  int K;          // outputs per pixel
+  int nx;         // 2-D: window row width 2d + 1; 1-D: 1
+  int ncols;      // window columns of one tile: 16 + 2d (2-D), 16 + D (1-D)
+  int T;          // 16-pixel tiles of each residue class a block owns
+  int G;          // window rows a block owns (2-D; 1 for 1-D)
+  int R;          // output rows a block owns (2-D; 1 for 1-D)
+  int nRb;        // blocks down one image's rows of a residue class
+  int row_bytes;  // shared stride of a pixel row: 2 C16 + 16 bytes, C16
+                  // the channels rounded up to 16
+  int kchunks;    // k16 steps: C rounded up to 16, over 16
+  int copy_bytes; // staging copy width: 16, 8 or 4 (cp.async), 2 (loads)
+  int per_row;    // copies of one pixel row: 32 kchunks / copy_bytes
+  int c_pow2;     // C is a power of two
+  double inv_c;   // 1 / C
+  // magic(d) of the divisors: dil, T, T * dil, nx, per_row, nRb, the
+  // pixels of a row's run (P) and its f2 pixels (slab)
+  uint64_t m_dil, m_T, m_Tdil, m_nx, m_per_row, m_nRb, m_P, m_slab;
+};
+
+// One copy of g.copy_bytes (16, 8 or 4 bytes by cp.async; 2 by a load and a
+// store) from `from` to `to`; zeros where !in.
+__device__ __forceinline__ void tc_copy(unsigned char* to, const char* from,
+                                        bool in, int w) {
+  switch (w) {
+    case 16: ptx::cp_async16(to, from, in ? 16 : 0); break;
+    case 8: ptx::cp_async8(to, from, in ? 8 : 0); break;
+    case 4: ptx::cp_async4(to, from, in ? 4 : 0); break;
+    default:  // odd C: 2-byte rows, which no cp.async takes
+      *reinterpret_cast<uint16_t*>(to) =
+          in ? *reinterpret_cast<const uint16_t*>(from) : uint16_t(0);
+  }
+}
+
+// grid: (blocks of R rows of one residue class of rows, runs of T*16*dil
+// pixels, groups of G window rows); shared: the R f1 runs, the f2 runs
+// (with halos) of the window rows they share, the outputs. NT: the n8
+// tiles of S a warp accumulates at once, min(window columns / 8 rounded
+// up, kTcNtGroup).
+template <bool k2d, int NT>
+__device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
+                                       const bf16* __restrict__ f2,
+                                       bf16* __restrict__ out,
+                                       const TcGeom& g) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  constexpr int kPhase = k2d ? 2 : 3;
+  const int dil = g.dil;
+  const int vdil = k2d ? dil : 1;                  // the rows' residue classes
+  const int per_class = g.T * kTcTile;             // f1 pixels of a class
+  const int nwin = per_class + g.ncols - kTcTile;  // f2 pixels of a class
+  const int P = per_class * dil;                   // pixels of a row's run
+  const int slab = dil * nwin;                     // f2 pixels of a row
+  // blockIdx.x = (b * vdil + cy) * nRb + jr: the output rows
+  // y_r = cy + vdil (R jr + r), r < R, of image b
+  const int bc = fast_div(blockIdx.x, g.m_nRb);
+  const int jr = blockIdx.x - bc * g.nRb;
+  const int b = k2d ? fast_div(bc, g.m_dil) : bc;
+  const int cy = bc - b * vdil;
+  const int m0 = g.R * jr;  // the block's first row, in its class's rows
+  const int x0 = blockIdx.y * P;
+  const int npix = min(P, g.W - x0);
+  const int oy0 = blockIdx.z * g.G;
+  const int nrows = k2d ? min(g.G, g.nx - oy0) : 1;  // window rows per row
+  const int nslab = g.R + nrows - 1;                 // f2 rows staged
+  const int kout = k2d ? nrows * g.nx : g.K;  // outputs per pixel here
+  const int S = g.row_bytes;
+  unsigned char* f1s = tc_smem;
+  unsigned char* f2s = f1s + (size_t)g.R * P * S;
+  bf16* outs = reinterpret_cast<bf16*>(f2s + (size_t)nslab * slab * S);
+  const char* img1 =
+      reinterpret_cast<const char*>(f1 + (int64_t)b * g.H * g.W * g.C);
+  const char* img2 =
+      reinterpret_cast<const char*>(f2 + (int64_t)b * g.H * g.W * g.C);
+
+  PHASE_BEGIN();
+  // Staging: one loop issues every copy (the R f1 runs, then the f2 runs,
+  // from x0 - disp * dil, of the nslab window rows the R rows share), then
+  // one wait. Pixel q of a run goes to shared row (q % dil) * (pixels of a
+  // class) + q / dil, so that a residue class's pixels are adjacent rows;
+  // columns outside the frame and the channel tail are zero-filled (source
+  // size 0); rows outside the frame are not staged.
+  {
+    const int w = g.copy_bytes;
+    const int valid = g.C * 2 / w;  // the copies that hold channels
+    const int n1 = g.R * P * g.per_row;
+    const int n = n1 + nslab * slab * g.per_row;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const bool first = i < n1;
+      const int q = fast_div(first ? i : i - n1, g.m_per_row);
+      const int c = (first ? i : i - n1) - q * g.per_row;
+      const int s = fast_div(q, first ? g.m_P : g.m_slab);  // run
+      const int qq = q - s * (first ? P : slab);             // its pixel
+      const int yy =
+          cy + vdil * (m0 + s + (first ? 0 : oy0 - (k2d ? g.disp : 0)));
+      if (yy < 0 || yy >= g.H) continue;  // its products are skipped
+      const int x = first ? x0 + qq : x0 - g.disp * dil + qq;
+      const bool in = c < valid && x >= 0 && x < g.W;
+      const char* base = first ? img1 : img2;
+      const char* from =
+          in ? base + ((int64_t)yy * g.W + x) * g.C * 2 + c * w : base;
+      const int m = fast_div(qq, g.m_dil);
+      unsigned char* to =
+          (first ? f1s + (size_t)s * P * S : f2s + (size_t)s * slab * S) +
+          ((size_t)(qq - m * dil) * (first ? per_class : nwin) + m) * S +
+          c * w;
+      tc_copy(to, from, in, w);
+    }
+  }
+  ptx::cp_async_wait_all();
+  __syncthreads();
+  PHASE_MARK(kPhase, 0);
+
+  // one warp per (row r, window row wr, residue class, tile t) item
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nt_all = (g.ncols + 7) / 8;
+  const int per_row_items = nrows * dil * g.T;
+  for (int item = warp; item < g.R * per_row_items;
+       item += blockDim.x >> 5) {
+    const int u = fast_div(item, g.m_Tdil);  // r * nrows + wr
+    const int tc = item - u * g.T * dil;     // cls * T + t
+    const int cls = fast_div(tc, g.m_T);
+    const int t = tc - cls * g.T;
+    const int r = u / nrows;
+    const int wr = u - r * nrows;
+    const int yr = cy + vdil * (m0 + r);
+    if (yr >= g.H) continue;  // past the frame: nothing is stored
+    // pixel i of the tile: offset t * 16 * dil + cls + dil * i of row r's run
+    const int p0 = t * kTcTile * dil + cls;
+    bf16* outs_r = outs + (size_t)r * P * kout;
+    if (k2d) {
+      const int yy = cy + vdil * (m0 + r + oy0 + wr - g.disp);
+      if (yy < 0 || yy >= g.H) {
+        for (int e = lane; e < kTcTile * g.nx; e += 32) {
+          const int i = fast_div(e, g.m_nx);
+          outs_r[(p0 + dil * i) * kout + wr * g.nx + e - i * g.nx] =
+              __float2bfloat16(0.f);
+        }
+        continue;
+      }
+    }
+    // ldmatrix rows: A, pixel (lane & 7) + 8 ((lane >> 3) & 1) of the
+    // tile, channels 8 (lane >> 4) on; B, window column (lane & 7) (+ 8
+    // (lane >> 4) for the second n8 tile of an x4), channels
+    // 8 ((lane >> 3) & 1) on. Row r's window row wr is staged row r + wr.
+    const unsigned char* a_row =
+        f1s + ((size_t)r * P + (size_t)cls * per_class + t * kTcTile +
+               (lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 16;
+    const unsigned char* b_class =
+        f2s + ((size_t)(r + wr) * slab + (size_t)cls * nwin +
+               t * kTcTile) * S + ((lane >> 3) & 1) * 16;
+    // NT n8 tiles of S at a time; a group past the window reads its last
+    // column again, which no band takes (2-D: ox = n - i > 2d; 1-D:
+    // k = i + D - n < 0)
+    for (int n0 = 0; n0 < nt_all; n0 += NT) {
+      float acc[NT][4] = {};
+#ifdef CORR_PHASES
+      long long item_t0, item_t1, item_t2;
+      ITEM_CLOCK(item_t0, 0.f);
+#endif
+      const unsigned char* b_row[(NT + 1) / 2];
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        const int col = (n0 + j) * 8 + (lane & 7) + (j + 1 < NT ? (lane >> 4) * 8 : 0);
+        b_row[j / 2] = b_class + (size_t)min(col, g.ncols - 1) * S;
+      }
+      // the fragments of one k16 step: A, and two B registers per n8 tile
+      auto load = [&](uint32_t(&fa)[4], uint32_t(&fb)[NT][2], int kc) {
+        ptx::ldmatrix_x4(fa, a_row + kc * 32);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          if (j + 1 < NT) {
+            uint32_t b[4];
+            ptx::ldmatrix_x4(b, b_row[j / 2] + kc * 32);
+            fb[j][0] = b[0], fb[j][1] = b[1];
+            fb[j + 1][0] = b[2], fb[j + 1][1] = b[3];
+          } else {
+            ptx::ldmatrix_x2(fb[j], b_row[j / 2] + kc * 32);
+          }
+        }
+      };
+      auto mma = [&](const uint32_t(&fa)[4], const uint32_t(&fb)[NT][2]) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) ptx::mma_bf16(acc[j], fa, fb[j][0], fb[j][1]);
+      };
+      // two register sets: step kc + 1's fragments load while step kc's
+      // products run
+      uint32_t fa0[4], fb0[NT][2], fa1[4], fb1[NT][2];
+      load(fa0, fb0, 0);
+      for (int kc = 0; kc < g.kchunks; kc += 2) {
+        if (kc + 1 < g.kchunks) load(fa1, fb1, kc + 1);
+        mma(fa0, fb0);
+        if (kc + 1 < g.kchunks) {
+          if (kc + 2 < g.kchunks) load(fa0, fb0, kc + 2);
+          mma(fa1, fb1);
+        }
+      }
+#ifdef CORR_PHASES
+      {  // a value that waits for every accumulator
+        float all = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          for (int e = 0; e < 4; ++e) all += acc[j][e];
+        ITEM_CLOCK(item_t1, __shfl_sync(0xffffffffu, all, 0));
+      }
+#endif
+      // the band: accumulator e of n8 tile j holds S[i, n] with
+      // i = lane / 4 + 8 (e / 2), n = 8 (n0 + j) + 2 (lane % 4) + e % 2;
+      // out = sum / C rounded as float32 division rounds it (scale)
+      auto band = [&](auto scale) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = (lane >> 2) + (e >> 1) * 8;
+            const int n = (n0 + j) * 8 + (lane & 3) * 2 + (e & 1);
+            // 2-D: window column n is displacement ox = n - i of row wr;
+            // 1-D: column n is displacement k = i + D - n
+            const int o = k2d ? n - i : i + g.disp - n;
+            if (o >= 0 && o < (k2d ? g.nx : g.K)) {
+              outs_r[(p0 + dil * i) * kout + (k2d ? wr * g.nx : 0) + o] =
+                  __float2bfloat16(scale(acc[j][e]));
+            }
+          }
+        }
+      };
+      if (g.c_pow2) {  // 1 / C is exact
+        const float inv = (float)g.inv_c;
+        band([inv](float a) { return a * inv; });
+      } else {
+        // the product with the double reciprocal, rounded once to float,
+        // is the float32 quotient for any C < 2^27: a quotient a / C lies
+        // at least 2^-24 ulp / C from a float32 rounding boundary
+        const double inv = g.inv_c;
+        band([inv](float a) { return (float)((double)a * inv); });
+      }
+#ifdef CORR_PHASES
+      ITEM_CLOCK(item_t2, 0.f);
+      if (threadIdx.x == 0) {
+        atomicAdd(&corr_item_cycles[kPhase][0],
+                  (unsigned long long)(item_t1 - item_t0));
+        atomicAdd(&corr_item_cycles[kPhase][1],
+                  (unsigned long long)(item_t2 - item_t1));
+        atomicAdd(&corr_item_cycles[kPhase][2], 1ull);
+      }
+#endif
+    }
+  }
+  __syncthreads();
+  PHASE_MARK(kPhase, 1);
+
+  // each row's outputs: one contiguous run when the block owns every
+  // window row
+  for (int r = 0; r < g.R; ++r) {
+    const int yr = cy + vdil * (m0 + r);
+    if (yr >= g.H) break;
+    const bf16* from = outs + (size_t)r * P * kout;
+    bf16* dst = out + (((int64_t)b * g.H + yr) * g.W + x0) * g.K +
+                (k2d ? oy0 * g.nx : 0);
+    if (kout == g.K) {
+      const int n = npix * g.K;
+      int head = 0;
+      if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        head = n / 8 * 8;
+        const uint4* from4 = reinterpret_cast<const uint4*>(from);
+        uint4* to4 = reinterpret_cast<uint4*>(dst);
+        for (int i = threadIdx.x; i < head / 8; i += blockDim.x) {
+          to4[i] = from4[i];
+        }
+      }
+      for (int i = head + threadIdx.x; i < n; i += blockDim.x) {
+        dst[i] = from[i];
+      }
+    } else {
+      for (int i = threadIdx.x; i < npix * kout; i += blockDim.x) {
+        const int p = i / kout;
+        dst[(int64_t)p * g.K + i - p * kout] = from[i];
+      }
+    }
+  }
+  PHASE_MARK(kPhase, 2);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    corr2d_tc_fwd_kernel(const bf16* __restrict__ f1,
+                         const bf16* __restrict__ f2, bf16* __restrict__ out,
+                         const TcGeom g) {
+  tc_fwd<true, NT>(f1, f2, out, g);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    corr1d_tc_fwd_kernel(const bf16* __restrict__ f1,
+                         const bf16* __restrict__ f2, bf16* __restrict__ out,
+                         const TcGeom g) {
+  tc_fwd<false, NT>(f1, f2, out, g);
 }
 
 // --------------------------------------------------------------- backward
@@ -479,33 +896,229 @@ bool bad_shape(int B, int H, int W, int C, int disp, int dil) {
   return B <= 0 || H <= 0 || W <= 0 || C <= 0 || disp < 0 || dil < 1;
 }
 
+// A tensor-core forward's launch: its geometry, grid, threads and shared
+// bytes.
+struct TcPlan {
+  TcGeom g;
+  dim3 grid;
+  int threads;
+  size_t shared;
+};
+
+size_t tc_shared(const TcGeom& g) {
+  const int per_class = g.T * kTcTile;
+  const int nwin = per_class + g.ncols - kTcTile;
+  const size_t pix = (size_t)per_class * g.dil;  // of a row's run
+  const int kout = g.nx == 1 ? g.K : g.G * g.nx;  // outputs per pixel
+  return (g.R * pix + (size_t)(g.R + g.G - 1) * g.dil * nwin) * g.row_bytes +
+         ((g.R * pix * kout * sizeof(bf16) + 15) / 16) * 16;
+}
+
+// The plan for a 2-D (k2d) or 1-D forward on a card of `sms` SMs. The 2-D
+// op takes blocks of R = 4, 2 or 1 output rows of one residue class of rows
+// (rows y, y + dil, ...: their window rows overlap, so R rows stage R + 2d
+// window rows, not R (2d + 1)) and all window rows, the largest R that
+// still gives 1.5 blocks per SM within kTcSmemBudget bytes; failing that,
+// one row and its window rows split into as many groups as that takes. The
+// 1-D op takes one row and up to kTcMaxTiles tiles per class, fewer while
+// the grid has fewer than two blocks per SM. The blocks' outputs are
+// disjoint either way. copy_bytes: the staging's copy width.
+TcPlan tc_plan(int B, int H, int W, int C, int disp, int dil, bool k2d,
+               int copy_bytes, int sms) {
+  TcGeom g{};
+  g.H = H, g.W = W, g.C = C, g.disp = disp, g.dil = dil;
+  g.nx = k2d ? 2 * disp + 1 : 1;
+  g.K = k2d ? g.nx * g.nx : disp + 1;
+  g.ncols = kTcTile + (k2d ? 2 * disp : disp);
+  g.kchunks = (C + 15) / 16;
+  g.row_bytes = g.kchunks * 32 + 16;
+  g.copy_bytes = copy_bytes;
+  const int run = kTcTile * dil;
+  const int vdil = k2d ? dil : 1;
+  const int class_rows = (H + vdil - 1) / vdil;
+  auto blocks = [&](const TcGeom& t) {
+    const int64_t runs = (W + run * t.T - 1) / (run * t.T);
+    const int64_t nrb = (class_rows + t.R - 1) / t.R;
+    return (int64_t)B * vdil * nrb * runs * ((t.nx + t.G - 1) / t.G);
+  };
+  g.T = 1;
+  g.G = g.nx;
+  g.R = 1;
+  if (k2d) {
+    for (int r = 4; r > 1; r /= 2) {
+      TcGeom t = g;
+      t.R = r;
+      if (blocks(t) * 2 >= 3 * (int64_t)sms &&
+          tc_shared(t) <= kTcSmemBudget) {
+        g.R = r;
+        break;
+      }
+    }
+    for (int parts = 2;
+         g.R == 1 && g.G > 1 &&
+         (blocks(g) * 2 < 3 * (int64_t)sms || tc_shared(g) > kTcSmemBudget);
+         ++parts) {
+      g.G = (g.nx + parts - 1) / parts;
+    }
+  } else {
+    const int runs_per_row = (W + run - 1) / run;
+    g.T = runs_per_row < kTcMaxTiles ? runs_per_row : kTcMaxTiles;
+    while (g.T > 1 &&
+           (blocks(g) < 2 * (int64_t)sms || tc_shared(g) > kTcSmemBudget)) {
+      g.T = (g.T + 1) / 2;
+    }
+  }
+  g.nRb = (class_rows + g.R - 1) / g.R;
+  g.per_row = g.kchunks * 32 / copy_bytes;
+  g.inv_c = 1.0 / C;
+  g.c_pow2 = (C & (C - 1)) == 0;
+  const int P = g.T * kTcTile * dil;
+  g.m_dil = magic(dil), g.m_T = magic(g.T), g.m_Tdil = magic(g.T * dil);
+  g.m_nx = magic(g.nx), g.m_per_row = magic(g.per_row);
+  g.m_nRb = magic(g.nRb), g.m_P = magic(P);
+  g.m_slab = magic(dil * (g.T * kTcTile + g.ncols - kTcTile));
+  const int64_t runs = (W + P - 1) / P;
+  // at least 4 warps to stage, 8 where blocks are fewer than SMs (each
+  // block's staging then sets the time)
+  const int items = g.R * g.T * dil * g.G;
+  const int least = blocks(g) < sms ? kTcMinWarps : kTcMinWarps / 2;
+  const int warps = items < least         ? least
+                    : items > kTcMaxWarps ? kTcMaxWarps
+                                          : items;
+  return {g,
+          dim3((unsigned)(B * vdil * g.nRb), (unsigned)runs,
+               (g.nx + g.G - 1) / g.G),
+          warps * 32, tc_shared(g)};
+}
+
+// The widest copy (16, 8, 4 or 2 bytes) to which both features' addresses
+// and a pixel's 2C bytes are aligned.
+int copy_width(const void* a, const void* b, int C) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b) | (uintptr_t)(2 * C);
+  int w = 16;
+  while (w > 2 && bits % w) w /= 2;
+  return w;
+}
+
+int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess) {
+    return 132;
+  }
+  return sms;
+}
+
+template <bool k2d>
+cudaError_t launch_tc(const void* a, const void* b, void* out, int B, int H,
+                      int W, int C, int disp, int dil, cudaStream_t stream) {
+  const TcPlan plan = tc_plan(B, H, W, C, disp, dil, k2d,
+                              copy_width(a, b, C), sm_count());
+  using Kernel = void (*)(const bf16*, const bf16*, bf16*, const TcGeom);
+  // by the n8 tiles a warp holds: 2..kTcNtGroup
+  static const Kernel kernels[2][kTcNtGroup - 1] = {
+      {corr1d_tc_fwd_kernel<2>, corr1d_tc_fwd_kernel<3>,
+       corr1d_tc_fwd_kernel<4>, corr1d_tc_fwd_kernel<5>,
+       corr1d_tc_fwd_kernel<6>},
+      {corr2d_tc_fwd_kernel<2>, corr2d_tc_fwd_kernel<3>,
+       corr2d_tc_fwd_kernel<4>, corr2d_tc_fwd_kernel<5>,
+       corr2d_tc_fwd_kernel<6>}};
+  const int nt_all = (plan.g.ncols + 7) / 8;
+  const int nt = nt_all < kTcNtGroup ? nt_all : kTcNtGroup;
+  const Kernel kernel = kernels[k2d][nt - 2];
+  if (plan.shared > kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (plan.shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)plan.shared);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<plan.grid, plan.threads, plan.shared, stream>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(out), plan.g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` without synchronising and returns the
 // cudaError_t of the launch (0 on success). is_bf16 selects bfloat16 over
 // float32 for all three tensors. a and b are (f1, f2) for a forward and
 // (g, f2) or (g, f1) for a backward; B, H, W, C are the features' shape.
-#define CORR_ENTRY(name)                                                      \
-  extern "C" int name(const void* a, const void* b, void* out, int B, int H,  \
-                      int W, int C, int disp, int dil, int is_bf16,           \
-                      void* stream) {                                         \
-    if (bad_shape(B, H, W, C, disp, dil)) return cudaErrorInvalidValue;       \
-    const Shape shape = shape_##name(C, disp, dil);                           \
-    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
-    return is_bf16 ? launch<__nv_bfloat16>(name##_kernel<__nv_bfloat16>,      \
-                                           shape, a, b, out, B, H, W, C,      \
-                                           disp, dil, s)                      \
-                   : launch<float>(name##_kernel<float>, shape, a, b, out, B, \
-                                   H, W, C, disp, dil, s);                    \
+// The forwards run bfloat16 on the tensor cores (on the CUDA cores in a
+// -DCORR_FWD_SIMT build) and float32 on the CUDA cores; the backwards run
+// both types on the CUDA cores.
+#define CORR_SIMT(name)                                                      \
+  (is_bf16 ? launch<__nv_bfloat16>(name##_kernel<__nv_bfloat16>,            \
+                                   shape_##name(C, disp, dil), a, b, out, B, \
+                                   H, W, C, disp, dil, s)                    \
+           : launch<float>(name##_kernel<float>, shape_##name(C, disp, dil), \
+                           a, b, out, B, H, W, C, disp, dil, s))
+// tc: 1 for the 2-D tensor-core forward, 0 for the 1-D one, -1 for none
+#define CORR_ENTRY(name, tc)                                                 \
+  extern "C" int name(const void* a, const void* b, void* out, int B, int H, \
+                      int W, int C, int disp, int dil, int is_bf16,          \
+                      void* stream) {                                        \
+    if (bad_shape(B, H, W, C, disp, dil)) return cudaErrorInvalidValue;      \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
+    if (kFwdTensorCores && is_bf16 && tc >= 0) {                             \
+      return tc ? launch_tc<true>(a, b, out, B, H, W, C, disp, dil, s)       \
+                : launch_tc<false>(a, b, out, B, H, W, C, disp, dil, s);     \
+    }                                                                        \
+    return CORR_SIMT(name);                                                  \
   }
 
-CORR_ENTRY(corr2d_fwd)
-CORR_ENTRY(corr1d_fwd)
-CORR_ENTRY(corr2d_bwd_f1)
-CORR_ENTRY(corr2d_bwd_f2)
-CORR_ENTRY(corr1d_bwd_f1)
-CORR_ENTRY(corr1d_bwd_f2)
+CORR_ENTRY(corr2d_fwd, 1)
+CORR_ENTRY(corr1d_fwd, 0)
+CORR_ENTRY(corr2d_bwd_f1, -1)
+CORR_ENTRY(corr2d_bwd_f2, -1)
+CORR_ENTRY(corr1d_bwd_f1, -1)
+CORR_ENTRY(corr1d_bwd_f2, -1)
+
+// The tensor-core plan of a forward on the current card (two_d: 1 for
+// corr2d_fwd, 0 for corr1d_fwd), 16-byte copies, into out[0..7]: tiles per
+// class T, window rows G and output rows R per block, grid x, y, z,
+// threads, shared bytes.
+extern "C" int corr_tc_plan(int B, int H, int W, int C, int disp, int dil,
+                            int two_d, int* out) {
+  if (bad_shape(B, H, W, C, disp, dil)) return cudaErrorInvalidValue;
+  const TcPlan p = tc_plan(B, H, W, C, disp, dil, two_d != 0, 16, sm_count());
+  const int v[8] = {p.g.T,         p.g.G,         p.g.R,
+                    (int)p.grid.x, (int)p.grid.y, (int)p.grid.z,
+                    p.threads,     (int)p.shared};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+// 1 where the entry point KERNELS[kernel] of ops/cuda/correlation.py runs on
+// the tensor cores for the type (is_bf16), else 0.
+extern "C" int corr_tensor_cores(int kernel, int is_bf16) {
+  return kFwdTensorCores && is_bf16 && (kernel == 0 || kernel == 1);
+}
 
 extern "C" const char* corr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef CORR_PHASES
+// Copies corr_phase_cycles then corr_item_cycles (2 x 4 x 3 values) to
+// `host`, or zeroes both.
+extern "C" int corr_counters_read(void* host) {
+  const cudaError_t err = cudaMemcpyFromSymbol(host, corr_phase_cycles,
+                                               sizeof(corr_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(
+      static_cast<char*>(host) + sizeof(corr_phase_cycles), corr_item_cycles,
+      sizeof(corr_item_cycles));
+}
+
+extern "C" int corr_counters_zero() {
+  static const unsigned long long zeros[4][3] = {};
+  const cudaError_t err =
+      cudaMemcpyToSymbol(corr_phase_cycles, zeros, sizeof(zeros));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(corr_item_cycles, zeros, sizeof(zeros));
+}
+#endif

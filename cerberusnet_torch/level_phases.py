@@ -1,12 +1,15 @@
-"""Inside the tensor-core encoder-level kernels: phases, slot traffic and
-residency.
+"""Inside the hand-written kernels: phases, slot traffic, residency, and the
+correlation forwards' two designs in turns.
 
-    python3 -m cerberusnet_torch.level_phases
+    python3 -m cerberusnet_torch.level_phases [--source encoder_level]
+                                              [--source correlation]
 
-No kernel profiler runs on the H100's machine, so this builds
-``csrc/encoder_level.cu`` twice more, with the source's measurement flags
-(``MEASUREMENT_BUILDS``), and launches each build through the wrappers in
-place of the library:
+(both sources without ``--source``). No kernel profiler runs on the H100's
+machine, so this builds each source again with its measurement flags and
+launches each build through the wrappers in place of the library.
+
+``csrc/encoder_level.cu`` (``MEASUREMENT_BUILDS``), the tensor-core
+encoder-level kernels:
 
 - ``-DLEVEL_PHASES``: thread 0 of every block reads ``clock64()`` at each of
   the kernels' ``PHASE_MARK``s and adds the cycles since its previous
@@ -24,12 +27,33 @@ place of the library:
   the second resident block, overlapping one block's staging with the
   other's products, is worth.
 
+``csrc/correlation.cu`` (``CORR_MEASUREMENT_BUILDS``), the forwards
+``corr2d_fwd`` and ``corr1d_fwd`` in bf16 at CerberusNet's five level
+shapes of a 512x1024 frame and at the DCV heads' level 3 at each dilation,
+batch 1 (served) and 2 (trained):
+
+- ``-DCORR_PHASES``: every block synchronises at each ``PHASE_MARK`` and its
+  thread 0 adds the cycles since its previous reading to a counter of that
+  kernel and phase (staging, products and band, store); in the tensor-core
+  kernels warp 0 also clocks each of its items (one band product) in two
+  parts, the products up to the accumulators' arrival and the band. After
+  WARM_CALLS calls (the timed calls find the kernel's code and operands
+  cached too), one JSON line per call gives each phase's share of the
+  summed block cycles and warp 0's cycles per item, by the kernel (design)
+  that ran.
+- ``-DCORR_FWD_SIMT``: bf16 runs the CUDA-core kernels that float32 runs.
+  Each call is timed in turns with the library (library, CUDA cores, CUDA
+  cores, library; each a median of device times as above), and the line
+  gives both and the largest difference of their outputs. A first line
+  times an empty kernel the same way: the floor of these times.
+
 The builds live in ``cerberusnet_torch/_build/``; nothing else loads them.
 Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import json
@@ -40,6 +64,7 @@ import time
 import torch
 
 from cerberusnet_torch.ops import build
+from cerberusnet_torch.ops.cuda import correlation as cc
 from cerberusnet_torch.ops.cuda import encoder_level as cl
 
 SOURCE = "encoder_level"
@@ -59,6 +84,22 @@ PHASES = {
 N_COUNTERS = 2 * 16 + 2  # phase_cycles[2][16], slot_bytes[2]
 TIMED_RUNS = 10
 
+CORR_SOURCE = "correlation"
+CORR_MEASUREMENT_BUILDS = {"phases": ("CORR_PHASES",),
+                           "cuda_cores": ("CORR_FWD_SIMT",)}
+CORR_PHASES = ("stage", "products and band", "store")
+# the rows of corr_phase_cycles: (wrapper, design) of each forward kernel
+CORR_KERNELS = (("corr2d_fwd", "cuda_cores"), ("corr1d_fwd", "cuda_cores"),
+                ("corr2d_fwd", "tc"), ("corr1d_fwd", "tc"))
+# CerberusNet's pyramid levels of a 512x1024 frame: (level, channels); the
+# flow head's d = 4, the disparity head's D = max(96 >> level, 4); the DCV
+# heads at level 3 with d = D = 4
+CORR_HW = (512, 1024)
+CORR_LEVELS = ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))
+CORR_DCV_DILATIONS = {"corr2d_fwd": (1, 2, 4, 8), "corr1d_fwd": (1, 2, 3)}
+CORR_BATCHES = (1, 2)
+WARM_CALLS = 3
+
 
 def phase_names(kind: str, c: int) -> tuple:
     if c == 3:  # x's raw rows (and g3), then the im2col rows
@@ -68,9 +109,9 @@ def phase_names(kind: str, c: int) -> tuple:
 
 
 @contextlib.contextmanager
-def launching(lib: ctypes.CDLL):
-    """The wrappers launch ``lib`` in place of the library inside."""
-    key = (SOURCE, ())
+def launching(lib: ctypes.CDLL, source: str = SOURCE):
+    """The wrappers launch ``lib`` in place of ``source``'s library inside."""
+    key = (source, ())
     saved = build._loaded.get(key)
     build._loaded[key] = lib
     try:
@@ -136,16 +177,103 @@ def ms_per_call(fn, spin_rate: float) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def main() -> int:
+def corr_cases() -> list:
+    """(wrapper, path, batch, level, (B, H, W, C), max_disp, dilation) of
+    every forward call measured."""
+    cases = []
+    for name, dils in CORR_DCV_DILATIONS.items():
+        for b in CORR_BATCHES:
+            for level, c in CORR_LEVELS:
+                d = 4 if name == "corr2d_fwd" else max(96 >> level, 4)
+                shape = (b, CORR_HW[0] >> level, CORR_HW[1] >> level, c)
+                cases.append((name, "cerberus", b, level, shape, d, 1))
+            shape = (b, CORR_HW[0] >> 3, CORR_HW[1] >> 3, 64)
+            cases += [(name, "dcv", b, 3, shape, 4, dil) for dil in dils]
+    return cases
+
+
+def corr_main(device: str, spin_rate: float):
+    builds = {which: build.load(CORR_SOURCE, defines)
+              for which, defines in CORR_MEASUREMENT_BUILDS.items()}
+    lib = cc._library()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # the floor of this timing: one launch of a spin kernel of no cycles
+    print(json.dumps({"kernel": "empty", "device": device,
+                      "ms": ms_per_call(lambda: torch.cuda._sleep(0),
+                                        spin_rate)}), flush=True)
+    for name, path, b, level, shape, d, dil in corr_cases():
+        f1, f2 = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                  for _ in range(2))
+        kernel = getattr(cc, name)
+
+        def run():
+            return kernel(f1, f2, d, dil)
+
+        torch.cuda.synchronize()
+        with launching(builds["phases"], CORR_SOURCE):
+            for _ in range(WARM_CALLS):  # code and operands cached, as timed
+                run()
+            torch.cuda.synchronize()
+            builds["phases"].corr_counters_zero()
+            run()
+            torch.cuda.synchronize()
+            raw = (ctypes.c_ulonglong * (2 * 4 * 3))()
+            err = builds["phases"].corr_counters_read(raw)
+            if err:
+                raise RuntimeError(f"corr_counters_read: cudaError_t {err}")
+        share, item = {}, {}
+        for i, (kname, design) in enumerate(CORR_KERNELS):
+            cycles = raw[3 * i:3 * i + 3]
+            if kname == name and sum(cycles):
+                share[design] = {p: cycles[j] / sum(cycles)
+                                 for j, p in enumerate(CORR_PHASES)}
+                share[design]["block_cycles"] = sum(cycles)
+            products, band, items = raw[12 + 3 * i:12 + 3 * i + 3]
+            if kname == name and items:
+                item[design] = {"products": products / items,
+                                "band": band / items, "items": items}
+        outs, times = {}, {"library": [], "cuda_cores": []}
+        for which in ("library", "cuda_cores", "cuda_cores", "library"):
+            with launching(lib if which == "library" else builds[which],
+                           CORR_SOURCE):
+                outs[which] = run()
+                times[which].append(ms_per_call(run, spin_rate))
+        torch.cuda.synchronize()
+        diff = (outs["library"].float() - outs["cuda_cores"].float()).abs()
+        print(json.dumps({
+            "kernel": name, "path": path, "batch": b, "level": level,
+            "shape": list(shape), "max_disp": d, "dilation": dil,
+            "device": device, "design": cc.design(name, torch.bfloat16),
+            "share": share, "ms": statistics.median(times["library"]),
+            "cuda_cores_ms": statistics.median(times["cuda_cores"]),
+            "item_cycles": item, "ms_runs": times,
+            "max_abs_diff": diff.max().item()}),
+            flush=True)
+    cc.reset_launches()
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--source", action="append",
+                        choices=(SOURCE, CORR_SOURCE))
+    sources = parser.parse_args(argv).source or (SOURCE, CORR_SOURCE)
     if not torch.cuda.is_available():
         print("level_phases: no CUDA device", file=sys.stderr)
         return 1
+    device = torch.cuda.get_device_name(0)
+    spin_rate = spin_cycles_per_ms()
+    if SOURCE in sources:
+        level_main(device, spin_rate)
+    if CORR_SOURCE in sources:
+        corr_main(device, spin_rate)
+    return 0
+
+
+def level_main(device: str, spin_rate: float):
     phases, one_block = (build.load(SOURCE, MEASUREMENT_BUILDS[which])
                          for which in ("phases", "one_block"))
     lib = cl._library()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    device = torch.cuda.get_device_name(0)
-    spin_rate = spin_cycles_per_ms()
     for level, (h, w, c, f) in enumerate(LEVELS, 1):
         for kind, b in BATCHES.items():
             x, params = level_inputs(b, h, w, c, f, gen)
@@ -192,7 +320,6 @@ def main() -> int:
                     ms_runs=times)
             print(json.dumps(line), flush=True)
     cl.reset_launches()
-    return 0
 
 
 if __name__ == "__main__":

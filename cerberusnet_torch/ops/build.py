@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 compiled for Hopper (``sm_90a``) into ``cerberusnet_torch/_build/`` (ignored
-by git) on first use. The file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+by git) on first use. The file name carries a hash of the source, the
+headers in ``csrc/`` and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 No PyTorch header is compiled, which keeps a build to seconds. nvcc's
 output, with ptxas's registers, shared memory and spills for each kernel
 (``-Xptxas -v``), is kept beside the library (``build_log``). A build may
@@ -63,9 +64,12 @@ def flags(defines: tuple = ()) -> tuple:
 
 
 def library_path(name: str, defines: tuple = ()) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags(defines)).encode())
+    """The library's path, named by a hash of the source, every header in
+    ``csrc/`` (which a source may include) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -68,7 +68,35 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.corr_error_string.argtypes = [ctypes.c_int]
         lib.corr_error_string.restype = ctypes.c_char_p
+        lib.corr_tensor_cores.argtypes = [ctypes.c_int] * 2
+        lib.corr_tensor_cores.restype = ctypes.c_int
+        lib.corr_tc_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.corr_tc_plan.restype = ctypes.c_int
     return lib
+
+
+def tc_plan(name: str, shape, max_disp: int, dilation: int) -> dict:
+    """The launch the library plans for forward ``name`` in bf16 on the
+    current card at feature shape (B,H,W,C): tiles per residue class T,
+    window rows G and output rows R per block, grid, threads and shared
+    bytes (csrc/correlation.cu ``tc_plan``)."""
+    lib = _library()
+    out = (ctypes.c_int * 8)()
+    err = lib.corr_tc_plan(*shape, max_disp, dilation,
+                           int(name == "corr2d_fwd"), out)
+    if err:
+        raise RuntimeError(
+            f"corr_tc_plan: {lib.corr_error_string(err).decode()}")
+    t, g, r, gx, gy, gz, threads, shared = out
+    return {"T": t, "G": g, "R": r, "grid": [gx, gy, gz], "threads": threads,
+            "shared_bytes": shared}
+
+
+def design(name: str, dtype: torch.dtype) -> str:
+    """"tc" where the library runs kernel ``name`` on the tensor cores for
+    ``dtype``, else "cuda_cores"."""
+    tc = _library().corr_tensor_cores(KERNELS.index(name), _DTYPES[dtype])
+    return "tc" if tc else "cuda_cores"
 
 
 def _check(a: torch.Tensor, f: torch.Tensor, nk: int, max_disp: int,

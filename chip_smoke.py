@@ -17,7 +17,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            float32, plus one dilation-2 case; and at the DCV heads' level-3
            shape (B, 64, 128, 64) with d = D = 4, the 2-D kernels at
            dilations 1, 2, 4, 8 and the 1-D ones at 1, 2, 3, at the same
-           batches; and the fused encoder-level kernels: K9
+           batches; the forwards also at odd shapes (B, 3, 37, 20) and
+           (B, 3, 37, 21), the 2-D one at dilations 1 and 3; each check
+           names the design that
+           ran ("tc": the bf16 forwards on the tensor cores, with their
+           launch plan; "cuda_cores": everything else) and fails on any
+           other; and the fused encoder-level kernels: K9
            (encoder_level_fwd) at the three level shapes of pallas_levels=3
            at batch 3 (served) and 6 (trained) and four odd shapes (output
            extents no multiple of a tile, at levels 1-3's widths and one
@@ -103,6 +108,13 @@ DCV_LEVEL = 3
 DCV_MAX_DISP = 4
 DCV_FLOW_DILATIONS = (1, 2, 4, 8)
 DCV_DISP_DILATIONS = (1, 2, 3)
+# The forwards' odd shapes, (H, W, C) at batch 1 and 2: a row no multiple
+# of a tile, fewer rows than the 2-D window's height, and 40-byte pixel
+# rows (8-byte aligned, no multiple of 16) or 42-byte ones (odd C, which
+# the tensor-core kernels stage by 2-byte loads); the 2-D op also at
+# dilation 3.
+ODD_CORR_SHAPES = ((3, 37, 20), (3, 37, 21))
+ODD_CORR_DILATIONS = {"corr2d_fwd": (1, 3), "corr1d_fwd": (1,)}
 # the hand kernels' sources (cerberusnet_torch/csrc/<name>.cu)
 SOURCES = ("correlation", "encoder_level")
 N_REQUESTS = 3
@@ -313,6 +325,10 @@ def phase_kernels(peaks, spin_rate):
     def flow_disp(level):
         return FLOW_MAX_DISP
 
+    def level_shape(batch, level):
+        return (batch, HW[0] >> level, HW[1] >> level,
+                ENCODER_CHANNELS[level - 1])
+
     # name: (wrapper, plain version, max_disp of a level, cost-volume
     # channels, FLOPs, batches, is a backward, the dilations of the DCV
     # head that calls it). A forward takes (f1, f2) and writes the cost
@@ -343,33 +359,51 @@ def phase_kernels(peaks, spin_rate):
                           level_max_disp, nk1d, corr1d_flops, train, True,
                           disp_dils),
     }
-    peak_bw, peak_flops = peaks["bytes"], peaks["f32"]
+    # the least time for the work: bf16 products at the tensor cores' bf16
+    # peak, float32 at the CUDA cores' (as the level checks count them)
+    peak_bw = peaks["bytes"]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    odd_gen = torch.Generator(device="cuda").manual_seed(1)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
                backward, dcv_dilations) in kernels.items():
-        # (path, batch, level, dtype, dilation, max_disp): CerberusNet's
-        # levels, one dilation-2 case, and the DCV head's calls
-        cases = [("cerberus", batch, level, dt, 1, disp_of(level))
+        # (path, batch, level, dtype, dilation, max_disp, shape):
+        # CerberusNet's levels, one dilation-2 case, the DCV head's calls
+        # and, for the forwards, the odd shapes (level 0)
+        cases = [("cerberus", batch, level, dt, 1, disp_of(level),
+                  level_shape(batch, level))
                  for batch in batches for level in LEVELS for dt in dtypes]
-        cases.append(("extra", TRAIN_BATCH, 2, torch.bfloat16, 2, disp_of(2)))
-        cases += [("dcv", batch, DCV_LEVEL, dt, dil, DCV_MAX_DISP)
+        cases.append(("extra", TRAIN_BATCH, 2, torch.bfloat16, 2, disp_of(2),
+                      level_shape(TRAIN_BATCH, 2)))
+        cases += [("dcv", batch, DCV_LEVEL, dt, dil, DCV_MAX_DISP,
+                   level_shape(batch, DCV_LEVEL))
                   for batch in batches for dil in dcv_dilations
                   for dt in dtypes]
-        for path, batch, level, dt, dil, d in cases:
-            shape = (batch, HW[0] >> level, HW[1] >> level,
-                     ENCODER_CHANNELS[level - 1])
+        if not backward:
+            cases += [("odd", batch, 0, dt, dil, 4, (batch, *odd))
+                      for batch in batches for odd in ODD_CORR_SHAPES
+                      for dil in ODD_CORR_DILATIONS[name] for dt in dtypes]
+        for path, batch, level, dt, dil, d, shape in cases:
             nk = nk_of(d)
+            # bf16 forwards run on the tensor cores, all else on the CUDA
+            # cores; the library says which it ran
+            design = cc.design(name, dt)
+            want_design = ("tc" if not backward and dt == torch.bfloat16
+                           else "cuda_cores")
             a_shape = (*shape[:3], nk) if backward else shape
-            a = torch.randn(a_shape, generator=gen, device="cuda").to(dt)
-            f = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            # the odd shapes draw from their own generator, so every other
+            # check keeps the inputs it had before they were added
+            g_ = odd_gen if path == "odd" else gen
+            a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
+            f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             got = kernel(a, f, d, dil)
             torch.cuda.synchronize()
             want = plain(a, f, d, dil)
             rtol, atol = TOLERANCES[dt]
             diff = (got.float() - want.float()).abs()
             ok = bool((diff <= atol + rtol * want.float().abs()).all())
+            ok = ok and design == want_design
 
             def run_kernel():
                 kernel(a, f, d, dil)
@@ -384,11 +418,15 @@ def phase_kernels(peaks, spin_rate):
             b, h, w, c = shape
             nbytes = (2 * b * h * w * c + b * h * w * nk) * f.element_size()
             flops = flops_of(b, h, w, c, d, dil)
+            peak_flops = peaks["bf16" if dt == torch.bfloat16 else "f32"]
             bound_ms = max(nbytes / peak_bw, flops / peak_flops) * 1e3
             checks.append({
                 "kernel": name, "path": path, "batch": batch, "level": level,
                 "shape": list(shape),
                 "max_disp": d, "dilation": dil, "dtype": str(dt)[6:],
+                "design": design,
+                **({"plan": cc.tc_plan(name, shape, d, dil)}
+                   if design == "tc" else {}),
                 "ok": ok, "max_abs_err": diff.max().item(),
                 "rtol": rtol, "atol": atol, "ms": k_t["median"],
                 "ms_min": k_t["min"], "ms_max": k_t["max"],
@@ -406,7 +444,7 @@ def phase_kernels(peaks, spin_rate):
     emit({"phase": "kernels", "ok": ok, "runs": TIMED_RUNS,
           "timing": "ms: device time of one call (a spin kernel hides the "
                     "host's enqueue); eager_ms: one call as a caller sees it",
-          "peak_bytes_per_s": peak_bw, "peak_f32_flops_per_s": peak_flops,
+          "peak_bytes_per_s": peak_bw, "peak_f32_flops_per_s": peaks["f32"],
           "peak_bf16_flops_per_s": peaks["bf16"], "checks": checks})
     if not ok:
         sys.exit(1)
@@ -1132,9 +1170,9 @@ def path_numbers(checks, name, path, batch, launches):
         "eager_ms": sum(r["eager_ms"] for r in rows),
         "plain_eager_ms": sum(r["plain_eager_ms"] for r in rows),
         "shapes": [{k: r[k] for k in (
-            "level", "shape", "max_disp", "dilation", "ms", "ms_min",
-            "ms_max", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
-            "bound_by", "max_abs_err")} for r in rows],
+            "level", "shape", "max_disp", "dilation", "design", "plan", "ms",
+            "ms_min", "ms_max", "eager_ms", "plain_ms", "plain_eager_ms",
+            "bound_ms", "bound_by", "max_abs_err") if k in r} for r in rows],
     }
 
 
