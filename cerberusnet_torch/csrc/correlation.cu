@@ -168,6 +168,14 @@ constexpr bool kFwdTensorCores = false;
 constexpr bool kFwdTensorCores = true;
 #endif
 
+// Launches by design since the caller last zeroed them: [0] the tensor-core
+// forwards, [1] the CUDA-core kernels. Each launcher counts where its launch
+// succeeds, so a caller reads which design ran (ops/cuda/correlation.py
+// reset_design_launches, launched_design).
+extern "C" {
+unsigned long long corr_design_launches[2];
+}
+
 namespace {
 
 constexpr int kTileW = 32;                 // output pixels per block
@@ -889,7 +897,9 @@ cudaError_t launch(void (*kernel)(const T*, const T*, T*, int, int, int, int,
   kernel<<<grid, shape.threads, shared, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
       H, W, C, disp, dil);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++corr_design_launches[1];
+  return err;
 }
 
 bool bad_shape(int B, int H, int W, int C, int disp, int dil) {
@@ -1001,13 +1011,17 @@ int copy_width(const void* a, const void* b, int C) {
   return w;
 }
 
+// The card's SM count, asked once per process (an H100's 132 if that fails).
 int sm_count() {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess) {
-    return 132;
-  }
+  static const int sms = [] {
+    int device = 0, n = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess) {
+      return 132;
+    }
+    return n;
+  }();
   return sms;
 }
 
@@ -1038,7 +1052,9 @@ cudaError_t launch_tc(const void* a, const void* b, void* out, int B, int H,
   kernel<<<plan.grid, plan.threads, plan.shared, stream>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
       static_cast<bf16*>(out), plan.g);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++corr_design_launches[0];
+  return err;
 }
 
 }  // namespace
@@ -1076,27 +1092,6 @@ CORR_ENTRY(corr2d_bwd_f1, -1)
 CORR_ENTRY(corr2d_bwd_f2, -1)
 CORR_ENTRY(corr1d_bwd_f1, -1)
 CORR_ENTRY(corr1d_bwd_f2, -1)
-
-// The tensor-core plan of a forward on the current card (two_d: 1 for
-// corr2d_fwd, 0 for corr1d_fwd), 16-byte copies, into out[0..7]: tiles per
-// class T, window rows G and output rows R per block, grid x, y, z,
-// threads, shared bytes.
-extern "C" int corr_tc_plan(int B, int H, int W, int C, int disp, int dil,
-                            int two_d, int* out) {
-  if (bad_shape(B, H, W, C, disp, dil)) return cudaErrorInvalidValue;
-  const TcPlan p = tc_plan(B, H, W, C, disp, dil, two_d != 0, 16, sm_count());
-  const int v[8] = {p.g.T,         p.g.G,         p.g.R,
-                    (int)p.grid.x, (int)p.grid.y, (int)p.grid.z,
-                    p.threads,     (int)p.shared};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
-  return 0;
-}
-
-// 1 where the entry point KERNELS[kernel] of ops/cuda/correlation.py runs on
-// the tensor cores for the type (is_bf16), else 0.
-extern "C" int corr_tensor_cores(int kernel, int is_bf16) {
-  return kFwdTensorCores && is_bf16 && (kernel == 0 || kernel == 1);
-}
 
 extern "C" const char* corr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -44,8 +44,9 @@ batch 1 (served) and 2 (trained):
 - ``-DCORR_FWD_SIMT``: bf16 runs the CUDA-core kernels that float32 runs.
   Each call is timed in turns with the library (library, CUDA cores, CUDA
   cores, library; each a median of device times as above), and the line
-  gives both and the largest difference of their outputs. A first line
-  times an empty kernel the same way: the floor of these times.
+  gives both, the design each build counted in its turns and the largest
+  difference of their outputs. A first line times an empty kernel the
+  same way: the floor of these times.
 
 The builds live in ``cerberusnet_torch/_build/``; nothing else loads them.
 Needs a CUDA device and nvcc.
@@ -232,18 +233,24 @@ def corr_main(device: str, spin_rate: float):
             if kname == name and items:
                 item[design] = {"products": products / items,
                                 "band": band / items, "items": items}
-        outs, times = {}, {"library": [], "cuda_cores": []}
+        # each build counts the designs it launched in its own turns
+        turns = {"library": lib, "cuda_cores": builds["cuda_cores"]}
+        for turn_lib in turns.values():
+            with launching(turn_lib, CORR_SOURCE):
+                cc.reset_design_launches()
+        outs, times, ran = {}, {"library": [], "cuda_cores": []}, {}
         for which in ("library", "cuda_cores", "cuda_cores", "library"):
-            with launching(lib if which == "library" else builds[which],
-                           CORR_SOURCE):
+            with launching(turns[which], CORR_SOURCE):
                 outs[which] = run()
                 times[which].append(ms_per_call(run, spin_rate))
+                ran[which] = cc.launched_design()
         torch.cuda.synchronize()
         diff = (outs["library"].float() - outs["cuda_cores"].float()).abs()
         print(json.dumps({
             "kernel": name, "path": path, "batch": b, "level": level,
             "shape": list(shape), "max_disp": d, "dilation": dil,
-            "device": device, "design": cc.design(name, torch.bfloat16),
+            "device": device, "design": ran["library"],
+            "cuda_cores_design": ran["cuda_cores"],
             "share": share, "ms": statistics.median(times["library"]),
             "cuda_cores_ms": statistics.median(times["cuda_cores"]),
             "item_cycles": item, "ms_runs": times,

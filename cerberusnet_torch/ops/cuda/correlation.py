@@ -24,7 +24,9 @@ type (two features for a forward; the cost volume's gradient and one
 feature for a backward), allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, and raises on
 anything the kernel does not take or on a refused launch. Each kernel has
-its launch counter, ``<name>_launches``; nothing else changes them.
+its launch counter, ``<name>_launches``; nothing else changes them. The
+library also counts its launches by design (``launched_design``): in
+bfloat16 the forwards run on the tensor cores, all else on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ corr1d_bwd_f2_launches = 0
 
 KERNELS = ("corr2d_fwd", "corr1d_fwd", "corr2d_bwd_f1", "corr2d_bwd_f2",
            "corr1d_bwd_f1", "corr1d_bwd_f2")
+# the rows of the library's corr_design_launches
+DESIGNS = ("tc", "cuda_cores")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -68,35 +72,28 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.corr_error_string.argtypes = [ctypes.c_int]
         lib.corr_error_string.restype = ctypes.c_char_p
-        lib.corr_tensor_cores.argtypes = [ctypes.c_int] * 2
-        lib.corr_tensor_cores.restype = ctypes.c_int
-        lib.corr_tc_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.corr_tc_plan.restype = ctypes.c_int
     return lib
 
 
-def tc_plan(name: str, shape, max_disp: int, dilation: int) -> dict:
-    """The launch the library plans for forward ``name`` in bf16 on the
-    current card at feature shape (B,H,W,C): tiles per residue class T,
-    window rows G and output rows R per block, grid, threads and shared
-    bytes (csrc/correlation.cu ``tc_plan``)."""
-    lib = _library()
-    out = (ctypes.c_int * 8)()
-    err = lib.corr_tc_plan(*shape, max_disp, dilation,
-                           int(name == "corr2d_fwd"), out)
-    if err:
-        raise RuntimeError(
-            f"corr_tc_plan: {lib.corr_error_string(err).decode()}")
-    t, g, r, gx, gy, gz, threads, shared = out
-    return {"T": t, "G": g, "R": r, "grid": [gx, gy, gz], "threads": threads,
-            "shared_bytes": shared}
+def _design_launches() -> ctypes.Array:
+    return (ctypes.c_ulonglong * len(DESIGNS)).in_dll(
+        _library(), "corr_design_launches")
 
 
-def design(name: str, dtype: torch.dtype) -> str:
-    """"tc" where the library runs kernel ``name`` on the tensor cores for
-    ``dtype``, else "cuda_cores"."""
-    tc = _library().corr_tensor_cores(KERNELS.index(name), _DTYPES[dtype])
-    return "tc" if tc else "cuda_cores"
+def reset_design_launches():
+    """Zeroes the library's launches by design."""
+    counts = _design_launches()
+    for i in range(len(counts)):
+        counts[i] = 0
+
+
+def launched_design() -> str:
+    """The design whose kernels the library launched since
+    reset_design_launches(): "tc" (the tensor-core forwards), "cuda_cores",
+    both joined by "+", or "none". The library counts where each launch
+    succeeds (csrc/correlation.cu ``corr_design_launches``)."""
+    ran = [d for d, n in zip(DESIGNS, _design_launches()) if n]
+    return "+".join(ran) or "none"
 
 
 def _check(a: torch.Tensor, f: torch.Tensor, nk: int, max_disp: int,

@@ -19,10 +19,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            dilations 1, 2, 4, 8 and the 1-D ones at 1, 2, 3, at the same
            batches; the forwards also at odd shapes (B, 3, 37, 20) and
            (B, 3, 37, 21), the 2-D one at dilations 1 and 3; each check
-           names the design that
-           ran ("tc": the bf16 forwards on the tensor cores, with their
-           launch plan; "cuda_cores": everything else) and fails on any
-           other; and the fused encoder-level kernels: K9
+           names the design that ran, as the library counted its
+           launches ("tc": the bf16 forwards on the tensor cores;
+           "cuda_cores": everything else), and fails on any other; and the
+           fused encoder-level kernels: K9
            (encoder_level_fwd) at the three level shapes of pallas_levels=3
            at batch 3 (served) and 6 (trained) and four odd shapes (output
            extents no multiple of a tile, at levels 1-3's widths and one
@@ -386,9 +386,8 @@ def phase_kernels(peaks, spin_rate):
                       for dil in ODD_CORR_DILATIONS[name] for dt in dtypes]
         for path, batch, level, dt, dil, d, shape in cases:
             nk = nk_of(d)
-            # bf16 forwards run on the tensor cores, all else on the CUDA
-            # cores; the library says which it ran
-            design = cc.design(name, dt)
+            # bf16 forwards must run on the tensor cores, all else on the
+            # CUDA cores; the library counts which design it launched
             want_design = ("tc" if not backward and dt == torch.bfloat16
                            else "cuda_cores")
             a_shape = (*shape[:3], nk) if backward else shape
@@ -397,7 +396,9 @@ def phase_kernels(peaks, spin_rate):
             g_ = odd_gen if path == "odd" else gen
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
+            cc.reset_design_launches()
             got = kernel(a, f, d, dil)
+            design = cc.launched_design()
             torch.cuda.synchronize()
             want = plain(a, f, d, dil)
             rtol, atol = TOLERANCES[dt]
@@ -425,8 +426,6 @@ def phase_kernels(peaks, spin_rate):
                 "shape": list(shape),
                 "max_disp": d, "dilation": dil, "dtype": str(dt)[6:],
                 "design": design,
-                **({"plan": cc.tc_plan(name, shape, d, dil)}
-                   if design == "tc" else {}),
                 "ok": ok, "max_abs_err": diff.max().item(),
                 "rtol": rtol, "atol": atol, "ms": k_t["median"],
                 "ms_min": k_t["min"], "ms_max": k_t["max"],
@@ -1170,9 +1169,9 @@ def path_numbers(checks, name, path, batch, launches):
         "eager_ms": sum(r["eager_ms"] for r in rows),
         "plain_eager_ms": sum(r["plain_eager_ms"] for r in rows),
         "shapes": [{k: r[k] for k in (
-            "level", "shape", "max_disp", "dilation", "design", "plan", "ms",
-            "ms_min", "ms_max", "eager_ms", "plain_ms", "plain_eager_ms",
-            "bound_ms", "bound_by", "max_abs_err") if k in r} for r in rows],
+            "level", "shape", "max_disp", "dilation", "design", "ms", "ms_min",
+            "ms_max", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
+            "bound_by", "max_abs_err") if k in r} for r in rows],
     }
 
 

@@ -40,6 +40,7 @@ from cerberusnet_torch.ops.correlation import (
     _correlation1d_plain,
     _correlation2d_plain,
 )
+from cerberusnet_torch.ops.cuda import correlation as cc
 from cerberusnet_tpu.ops.correlation import correlation1d as jax_corr1d
 from cerberusnet_tpu.ops.correlation import correlation2d as jax_corr2d
 
@@ -223,6 +224,23 @@ def test_kernel_names_and_phase_marks():
         assert sorted(int(p) for kk, p in marks if kk == k) == list(
             range(phases))
     assert len(level_phases.CORR_KERNELS) == 4
+
+
+def test_each_launcher_counts_its_design():
+    # a check reads the design that ran from these counts: the tensor-core
+    # launcher counts row "tc", the CUDA-core one "cuda_cores", each after a
+    # launch that succeeded, and nothing else touches them
+    rows = re.search(r"unsigned long long corr_design_launches\[(\d+)\];",
+                     SOURCE)
+    assert int(rows.group(1)) == len(cc.DESIGNS)
+    assert SOURCE.count("++corr_design_launches") == 2
+    for launcher, design in (("cudaError_t launch_tc(", "tc"),
+                             ("cudaError_t launch(", "cuda_cores")):
+        body = SOURCE[SOURCE.index(launcher):]
+        body = body[:body.index("\n}\n")]
+        row = cc.DESIGNS.index(design)
+        assert (f"if (err == cudaSuccess) ++corr_design_launches[{row}];"
+                in body)
 
 
 def test_correlation_measurement_builds():
