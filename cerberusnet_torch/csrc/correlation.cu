@@ -45,13 +45,14 @@
 // the window is large against the frame, this makes the 2-D kernels bound
 // by operations.
 //
-// The bf16 forwards' products run on the tensor cores (989 TFLOP/s bf16),
-// where every bf16 call's operations take less time than its bytes.
+// The bf16 forwards' and 2-D backwards' products run on the tensor cores
+// (989 TFLOP/s bf16), where every bf16 call's operations take less time
+// than its bytes.
 //
-// Two designs, chosen by the type alone, never on a failure.
+// Three designs, chosen by the type and the op alone, never on a failure.
 //
 // (1) bfloat16 forwards: the tensor cores (corr2d_tc_fwd_kernel,
-// corr1d_tc_fwd_kernel). What held the first design (2) back, measured by
+// corr1d_tc_fwd_kernel). What held the first design (3) back, measured by
 // its phase clocks (level_phases.py, -DCORR_PHASES, NVIDIA H100 80GB HBM3 at
 // 700 W): staging took 60-85% of its block cycles at every level and
 // dilation (one scalar load, an integer division and a convert per element,
@@ -101,8 +102,42 @@
 // wgmma and TMA are not used: the A and B operands are gathers of pixel
 // rows that ldmatrix takes lane by lane.
 //
-// (2) float32, the backward kernels in both types, and bfloat16 forwards in
-// a -DCORR_FWD_SIMT build: the CUDA cores. TF32 would break the float32
+// (2) bfloat16 2-D backwards: the tensor cores (corr2d_tc_bwd_f1_kernel,
+// corr2d_tc_bwd_f2_kernel). What held the CUDA-core backwards of (3) back,
+// by their phase clocks (level_phases.py, NVIDIA H100 80GB HBM3 at 700 W):
+// staging 43-68% of their block cycles (scalar loads, a division and a
+// convert per element, each f2 or f1 window row staged again per output
+// row), products 31-55% (two shared loads per multiply-add, the running
+// sums read and written in shared memory per window row), the store 1-2%;
+// and one block per 32 pixels of a row, 16 blocks at level 6. Here:
+//  - A window row's share of a 16-pixel tile's gradient is one band
+//    product on mma.sync.m16n8k16: df1 (16 x nc) += A F2win, A[i, j] =
+//    g(x_i, oy nx + j - i); df2 (16 x nc) += A F1win, A[i, j] =
+//    g(x_j, oy nx + 2d - (j - i)), x_j on the source row (a gather: the
+//    outputs stay disjoint), for 0 <= j - i <= 2d, 0 elsewhere. k (the
+//    16 + 2d window columns) is padded to a multiple of 16 with columns
+//    whose A is 0. g is bf16, so A is exact and so is every product in
+//    float32: only the order of summation differs from the plain version.
+//    Each lane builds its A fragment from the staged g in registers; B,
+//    the staged pixel rows (pixels along k, channels along n), comes
+//    through ldmatrix.trans.
+//  - The accumulators stay in registers across all 2d + 1 window rows;
+//    sum / C is rounded once as in (1) and stored once as bf16.
+//  - Dilation by residue classes of columns and rows, as in (1); a block
+//    owns R rows of a class, walks their R + 2d window rows in turn with
+//    the next NB - 1 rows' copies in flight and one barrier a row, and a
+//    group of 8 NT channels (blocks split C; so, within a block, do 1-4
+//    warps per (row, class)), so every level has 1.5 blocks per SM.
+//  - g's pixel rows are 2K = 162 bytes: a run of pixels is staged as one
+//    contiguous run, with shared and device addresses congruent mod 16,
+//    by 16-byte cp.async and at most three smaller copies at each end.
+// Measured (PERF.md): every call 2.4-7.1x faster than (3); what is left
+// is issuing the copies and building A (the products phase, 63-84% of the
+// block cycles), then the wait for copies (13-34%).
+//
+// (3) float32, the 1-D backwards in both types, and bfloat16 forwards or
+// 2-D backwards in a -DCORR_FWD_SIMT or -DCORR_BWD_SIMT build: the CUDA
+// cores. TF32 would break the float32
 // tolerance (1e-5). One block owns a tile of kTileW pixels of one output row
 // and stages in shared memory, as float32, the operands the tile needs: the
 // forward stages the f1 tile and the f2 pixels of the tile's window (with
@@ -119,9 +154,9 @@
 // g read is a broadcast, and their stores are contiguous. The 2-D backward
 // kernels stage one window row at a time and keep the running sums in
 // shared memory between rows. Rows outside the frame are skipped; columns
-// outside it are staged as zeros and multiplied. The backward kernels run
-// 10x (1-D, level 2) to about 570x (2-D, level 6) their bounds at batch 2
-// (PERF.md); why is not measured yet.
+// outside it are staged as zeros and multiplied. The 1-D backwards run 10x
+// (level 2) to about 150x (level 6) their bounds at batch 2 (PERF.md); their
+// phases are not clocked yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,20 +165,28 @@
 #include "ptx.cuh"
 
 // Measurement builds (cerberusnet_torch/level_phases.py), off by default.
-// -DCORR_PHASES: at every PHASE_MARK(k, phase) of a forward kernel the block
-// synchronises and its thread 0 adds the clock64() cycles since its previous
-// reading to corr_phase_cycles[k][phase] (k: 0 corr2d_fwd_kernel, 1
-// corr1d_fwd_kernel, 2 corr2d_tc_fwd_kernel, 3 corr1d_tc_fwd_kernel; phase:
-// 0 staging, 1 products and band, 2 store). The added barriers perturb the
-// kernels a little, so the build gives shares of block cycles, not times.
-// In the tensor-core kernels lane 0 of warp 0 also splits each of its items
-// (one band product) into corr_item_cycles[k]: 0 the products, up to the
-// accumulators' arrival (ITEM_CLOCK waits on its operand), 1 the band, 2
-// the items counted.
-// -DCORR_FWD_SIMT: bfloat16 forwards run the CUDA-core kernels, as float32
-// does, so the two designs can be timed in turns on one card.
+// -DCORR_PHASES: at every PHASE_MARK(k, phase) of a forward or 2-D backward
+// kernel the block synchronises and its thread 0 adds the clock64() cycles
+// since its previous reading to corr_phase_cycles[k][phase] (k: 0
+// corr2d_fwd_kernel, 1 corr1d_fwd_kernel, 2 corr2d_tc_fwd_kernel, 3
+// corr1d_tc_fwd_kernel, 4 corr2d_bwd_f1_kernel, 5 corr2d_bwd_f2_kernel, 6
+// corr2d_tc_bwd_f1_kernel, 7 corr2d_tc_bwd_f2_kernel; phase: 0 staging (in
+// the tensor-core backwards, the wait for a window row's copies that the
+// products of the ones before did not hide), 1 products (and band; in the
+// tensor-core backwards also issuing the next row's copies), 2 store). The added barriers perturb the kernels a little, so the build
+// gives shares of block cycles, not times.
+// In the tensor-core forwards lane 0 of warp 0 also splits each of its
+// items (one band product) into corr_item_cycles[k]: 0 the products, up to
+// the accumulators' arrival (ITEM_CLOCK waits on its operand), 1 the band,
+// 2 the items counted.
+// -DCORR_FWD_SIMT, -DCORR_BWD_SIMT: bfloat16 forwards, or 2-D backwards,
+// run the CUDA-core kernels, as float32 does, so the two designs can be
+// timed in turns on one card.
+// -DCORR_BAND_SMEM: the tensor-core backwards' warps write each window
+// row's band A to shared memory and read its fragments back by ldmatrix,
+// in place of building them in registers, so the two can be timed in turns.
 #ifdef CORR_PHASES
-__device__ unsigned long long corr_phase_cycles[4][3];
+__device__ unsigned long long corr_phase_cycles[8][3];
 __device__ unsigned long long corr_item_cycles[4][3];
 #define PHASE_BEGIN() long long phase_last_ = clock64()
 #define PHASE_MARK(k, phase)                                             \
@@ -167,9 +210,14 @@ constexpr bool kFwdTensorCores = false;
 #else
 constexpr bool kFwdTensorCores = true;
 #endif
+#ifdef CORR_BWD_SIMT
+constexpr bool kBwdTensorCores = false;
+#else
+constexpr bool kBwdTensorCores = true;
+#endif
 
 // Launches by design since the caller last zeroed them: [0] the tensor-core
-// forwards, [1] the CUDA-core kernels. Each launcher counts where its launch
+// kernels, [1] the CUDA-core kernels. Each launcher counts where its launch
 // succeeds, so a caller reads which design ran (ops/cuda/correlation.py
 // reset_design_launches, launched_design).
 extern "C" {
@@ -653,6 +701,350 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
   tc_fwd<false, NT>(f1, f2, out, g);
 }
 
+// ------------------------------------------------ backward, tensor cores
+//
+// bfloat16 only, the 2-D op at any dilation. A window row's share of the
+// gradient of one 16-pixel tile of one residue class is one band product
+// on mma.sync.m16n8k16 (see the note at the top of the file):
+//   df1 (16 x nc) += A (16 x ncols) F2win (ncols x nc),
+//     A[i, j] = g(x_i, oy nx + j - i)
+//   df2 (16 x nc) += A (16 x ncols) F1win (ncols x nc),
+//     A[i, j] = g(x_j, oy nx + 2d - (j - i)), x_j on the source row
+// for 0 <= j - i <= 2d (A is 0 elsewhere), window column j of the tile
+// the pixel 16 t + j - d of its class; k (the window columns) is padded
+// to a multiple of 16 with columns whose A is 0, and n is the block's
+// channel group.
+
+constexpr int kTcBwdNtMax = 8;    // n8 tiles of a block's channel group
+constexpr int kTcBwdMaxRows = 8;  // output rows a block owns
+constexpr int kTcBwdBuffers = 4;  // staged window rows a block holds, at
+                                  // most (fewer where they would exceed
+                                  // kTcSmemBudget; 2 at the least)
+
+// What a tensor-core backward block needs to know of its call.
+struct TcBwdGeom {
+  int H, W, C, disp, dil;
+  int K;          // (2d + 1)^2
+  int nx;         // 2d + 1
+  int ncols;      // window columns of a tile: 16 + 2d
+  int kchunks;    // k16 steps over them
+  int R;          // output rows a block owns (one residue class of rows)
+  int nRb;        // blocks down one image's rows of a residue class
+  int ncls;       // residue classes of columns a block computes
+  int nclsg;      // blocks across the classes: dil / ncls rounded up
+  int P;          // pixels of a row's run: 16 dil
+  int slab;       // window pixels of a row: dil ncols
+  int nc;         // channels of a block's group: 8 NT wc
+  int wc;         // warps that split a group's channels, NT each
+  int row_bytes;  // shared stride of a pixel's group: 2 nc + 16
+  int copy_bytes; // staging copy width: 16, 8 or 4 (cp.async), 2 (loads)
+  int per_row;    // copies of a pixel's group: 2 nc / copy_bytes
+  int feat_bytes; // one staged window row of features: slab row_bytes
+  int g_bytes;    // one staged run of g: its pixels' 2K bytes, + 16
+  int c_pow2;     // C is a power of two
+  double inv_c;   // 1 / C
+  uint64_t m_dil, m_nRb, m_per_row, m_nclsg;
+};
+
+// Where pixel x_start of a staged run of g lies in its buffer `buf`: the
+// buffer plus the run's misalignment in device memory, so that shared and
+// device addresses agree mod 16 (`row`: the image row's first pixel, kb
+// its pixels' bytes).
+__device__ __forceinline__ unsigned char* tc_g_base(unsigned char* buf,
+                                                   const char* row,
+                                                   int x_start, int kb) {
+  return buf +
+         ((reinterpret_cast<uintptr_t>(row) + (intptr_t)x_start * kb) & 15);
+}
+
+// Stages g of pixels x_start .. x_start + n - 1 of one image row at `base`
+// (tc_g_base), 2K = kb bytes a pixel, as one contiguous run: the middle by
+// 16-byte cp.async, each end by at most three copies of 8, 4 and 2 bytes
+// (cp.async where aligned; a 2-byte end, at an odd pixel, by a load and a
+// store). Pixels outside the frame are zero.
+__device__ __forceinline__ void tc_stage_g(unsigned char* base,
+                                           const char* row, int x_start,
+                                           int n, int W, int kb) {
+  // pixels [lo, hi) of the run lie in the frame
+  const int lo = min(max(-x_start, 0), n);
+  const int hi = max(min(W - x_start, n), lo);
+  uint16_t* base16 = reinterpret_cast<uint16_t*>(base);
+  const int half = kb / 2;
+  for (int i = threadIdx.x; i < lo * half; i += blockDim.x) base16[i] = 0;
+  for (int i = threadIdx.x; i < (n - hi) * half; i += blockDim.x) {
+    base16[hi * half + i] = 0;
+  }
+  if (hi == lo) return;
+  const char* src = row + (int64_t)(x_start + lo) * kb;
+  unsigned char* to = base + lo * kb;
+  const int nbytes = (hi - lo) * kb;
+  const int head =
+      min(nbytes, (int)((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15));
+  const int body = (nbytes - head) / 16 * 16;
+  for (int i = threadIdx.x; i < body / 16; i += blockDim.x) {
+    ptx::cp_async16(to + head + 16 * i, src + head + 16 * i, 16);
+  }
+  if (threadIdx.x < 2) {  // thread 0 the head, thread 1 the tail
+    int at = threadIdx.x == 0 ? 0 : head + body;
+    const int end = threadIdx.x == 0 ? head : nbytes;
+    while (at < end) {
+      const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(src + at);
+      if ((a & 7) == 0 && end - at >= 8) {
+        ptx::cp_async8(to + at, src + at, 8);
+        at += 8;
+      } else if ((a & 3) == 0 && end - at >= 4) {
+        ptx::cp_async4(to + at, src + at, 4);
+        at += 4;
+      } else {
+        *reinterpret_cast<uint16_t*>(to + at) =
+            *reinterpret_cast<const uint16_t*>(src + at);
+        at += 2;
+      }
+    }
+  }
+}
+
+// grid: (B dil nRb: blocks of R rows of one residue class of rows, runs of
+// 16 dil pixels, channel groups x class groups). Shared: NB buffers,
+// each one staged window row's features (the tile's window pixels, class
+// by class, the group's channels) and, for df2, its g run; for df1 the g
+// runs of the R output rows. The block walks its R + 2d window rows in
+// turn with the next NB - 1 in flight, one barrier a row. Each warp owns
+// one (row, class) item and keeps its accumulators in registers across
+// all window rows.
+template <bool kF2, int NT, int NB>
+__device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
+                                       const bf16* __restrict__ f,
+                                       bf16* __restrict__ out,
+                                       const TcBwdGeom& G) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  constexpr int kPhase = kF2 ? 7 : 6;
+  const int d = G.disp, dil = G.dil, kb = 2 * G.K;
+  const int bc = fast_div(blockIdx.x, G.m_nRb);
+  const int jr = blockIdx.x - bc * G.nRb;
+  const int b = fast_div(bc, G.m_dil);
+  const int cy = bc - b * dil;
+  const int m0 = G.R * jr;
+  const int x0 = blockIdx.y * G.P;
+  const int cg = fast_div(blockIdx.z, G.m_nclsg);
+  const int cls0 = (blockIdx.z - cg * G.nclsg) * G.ncls;
+  const int c_lo = cg * G.nc;
+  const int nslab = G.R + 2 * d;
+  const int xw0 = x0 - d * dil;  // the window's first pixel
+  unsigned char* feat = tc_smem;
+  unsigned char* gbuf = feat + (size_t)NB * G.feat_bytes;
+  const char* fimg =
+      reinterpret_cast<const char*>(f + (int64_t)b * G.H * G.W * G.C);
+  const char* gimg =
+      reinterpret_cast<const char*>(gin + (int64_t)b * G.H * G.W * G.K);
+
+  // staged window row s is image row cy + dil (m0 + s - d), in buffer
+  // s % NB
+  auto stage = [&](int s) {
+    const int yy = cy + dil * (m0 + s - d);
+    if (yy < 0 || yy >= G.H) return;  // its products are skipped
+    const int w = G.copy_bytes;
+    const int valid_ch = G.C - c_lo;
+    const int slot = s % NB;
+    unsigned char* buf = feat + (size_t)slot * G.feat_bytes;
+    const char* img_row = fimg + (int64_t)yy * G.W * G.C * 2;
+    for (int i = threadIdx.x; i < G.slab * G.per_row; i += blockDim.x) {
+      const int q = fast_div(i, G.m_per_row);
+      const int c = i - q * G.per_row;
+      const int x = xw0 + q;
+      const bool in = c * w / 2 < valid_ch && x >= 0 && x < G.W;
+      const char* from =
+          in ? img_row + ((int64_t)x * G.C + c_lo) * 2 + c * w : img_row;
+      const int m = fast_div(q, G.m_dil);
+      tc_copy(buf + ((size_t)(q - m * dil) * G.ncols + m) * G.row_bytes +
+                  c * w,
+              from, in, w);
+    }
+    if (kF2) {
+      const char* g_row = gimg + (int64_t)yy * G.W * kb;
+      tc_stage_g(tc_g_base(gbuf + (size_t)slot * G.g_bytes, g_row, xw0, kb),
+                 g_row, xw0, G.slab, G.W, kb);
+    }
+  };
+
+  PHASE_BEGIN();
+  if (!kF2) {
+    for (int r = 0; r < G.R; ++r) {
+      const int y = cy + dil * (m0 + r);
+      if (y < G.H) {
+        const char* g_row = gimg + (int64_t)y * G.W * kb;
+        tc_stage_g(tc_g_base(gbuf + (size_t)r * G.g_bytes, g_row, x0, kb),
+                   g_row, x0, G.P, G.W, kb);
+      }
+    }
+  }
+  for (int s = 0; s < NB - 1; ++s) {  // a copy group per window row
+    if (s < nslab) stage(s);
+    ptx::cp_async_commit();
+  }
+
+  // warp w owns item u = w / wc = r ncls + class (of the block's classes)
+  // and its share sub = w % wc of the channel group: 8 NT channels
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int u = warp / G.wc;
+  const int sub = warp - u * G.wc;
+  const int r = u / G.ncls;
+  const int cls = cls0 + u - r * G.ncls;
+  const int c_w = c_lo + 8 * NT * sub;  // the warp's first channel
+  const int yr = cy + dil * (m0 + r);
+  const bool active = r < G.R && cls < dil && yr < G.H;
+  const int i0 = lane >> 2, q2 = 2 * (lane & 3);
+  // ldmatrix.trans rows: window column (lane & 7) + 8 ((lane >> 3) & 1) of
+  // the k16 step, channels 8 (lane >> 4) on of an n8 pair
+  const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int kcol = (lane >> 4) * 16 + 16 * NT * sub;
+  float acc[NT][4] = {};
+#ifdef CORR_BAND_SMEM
+  // 16 rows of the band, k bytes and 16 more each, per warp, past the g runs
+  const int band_stride = G.kchunks * 32 + 16;
+  uint16_t* band = reinterpret_cast<uint16_t*>(
+      gbuf + (size_t)(kF2 ? NB : G.R) * G.g_bytes +
+      (size_t)warp * kTcTile * band_stride);
+#endif
+
+  for (int s = 0; s < nslab; ++s) {
+    ptx::cp_async_wait<NB - 2>();  // window row s has landed
+    __syncthreads();  // and every warp is done with window row s - 1
+    PHASE_MARK(kPhase, 0);
+    // row s + NB - 1 goes to row s - 1's buffer, in flight behind row s's
+    // products
+    if (s + NB - 1 < nslab) stage(s + NB - 1);
+    ptx::cp_async_commit();
+    const int yy = cy + dil * (m0 + s - d);
+    const int oy = kF2 ? r + 2 * d - s : s - r;
+    if (active && yy >= 0 && yy < G.H && oy >= 0 && oy <= 2 * d) {
+      const int slot = s % NB;
+      const unsigned char* fb =
+          feat + (size_t)slot * G.feat_bytes +
+          (size_t)cls * G.ncols * G.row_bytes + kcol;
+      // A's values: df1, g of the tile's pixel i (the output row's run);
+      // df2, g of the window pixel j (the source row's slab)
+      // A[i, j] = gb[dil i K + o] (df1) or gb[dil j K - o] (df2), o = j - i
+      const uint16_t* gb =
+          kF2 ? reinterpret_cast<const uint16_t*>(tc_g_base(
+                    gbuf + (size_t)slot * G.g_bytes,
+                    gimg + (int64_t)yy * G.W * kb, xw0, kb)) +
+                    (size_t)cls * G.K + oy * G.nx + 2 * d
+              : reinterpret_cast<const uint16_t*>(tc_g_base(
+                    gbuf + (size_t)r * G.g_bytes,
+                    gimg + (int64_t)yr * G.W * kb, x0, kb)) +
+                    (size_t)cls * G.K + oy * G.nx;
+      const uint16_t* ga = kF2 ? gb : gb + (size_t)dil * i0 * G.K;
+#ifdef CORR_BAND_SMEM
+      {  // the whole band to the warp's shared rows, read back by ldmatrix
+        const int kpad = G.kchunks * 16;
+        for (int e = lane; e < kTcTile * kpad; e += 32) {
+          const int i = e / kpad;
+          const int j = e - i * kpad;
+          const int o = j - i;
+          band[i * band_stride / 2 + j] =
+              o < 0 || o > 2 * d ? uint16_t(0)
+              : kF2              ? gb[(size_t)dil * j * G.K - o]
+                                 : gb[(size_t)dil * i * G.K + o];
+        }
+        __syncwarp();
+      }
+#endif
+      for (int kc = 0; kc < G.kchunks; ++kc) {
+        uint32_t a[4];
+#ifdef CORR_BAND_SMEM
+        ptx::ldmatrix_x4(a, reinterpret_cast<const unsigned char*>(band) +
+                                (lane & 15) * band_stride + kc * 32 +
+                                (lane >> 4) * 16);
+#else
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // columns q2 + 8 h, q2 + 8 h + 1
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {  // rows i0 + 8 v
+            uint32_t pair = 0;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = kc * 16 + q2 + 8 * h + e;
+              const int i = i0 + 8 * v;
+              const int o = j - i;
+              uint32_t val = 0;
+              if (o >= 0 && o <= 2 * d) {
+                val = kF2 ? ga[(size_t)dil * j * G.K - o]
+                          : ga[(size_t)dil * 8 * v * G.K + o];
+              }
+              pair |= val << (16 * e);
+            }
+            a[2 * h + v] = pair;
+          }
+        }
+#endif
+        const int j = min(kc * 16 + krow, G.ncols - 1);
+        const unsigned char* brow = fb + (size_t)j * G.row_bytes;
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          uint32_t bf[4];
+          ptx::ldmatrix_x4_trans(bf, brow + jp * 32);
+          ptx::mma_bf16(acc[2 * jp], a, bf[0], bf[1]);
+          ptx::mma_bf16(acc[2 * jp + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+    PHASE_MARK(kPhase, 1);
+  }
+
+  // accumulator e of n8 tile jn: pixel i0 + 8 (e / 2), channel
+  // c_w + 8 jn + q2 + e % 2; out = sum / C rounded as float32 division
+  // rounds it (see tc_fwd)
+  if (active) {
+    auto store = [&](auto scale) {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int x = x0 + cls + dil * (i0 + 8 * v);
+        if (x >= G.W) continue;
+        bf16* px = out + (((int64_t)b * G.H + yr) * G.W + x) * G.C;
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) {
+          const int c = c_w + 8 * jn + q2;
+          const bf16 lo = __float2bfloat16(scale(acc[jn][2 * v]));
+          const bf16 hi = __float2bfloat16(scale(acc[jn][2 * v + 1]));
+          if (c + 1 < G.C && (G.C & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(px + c) =
+                __halves2bfloat162(lo, hi);
+          } else {
+            if (c < G.C) px[c] = lo;
+            if (c + 1 < G.C) px[c + 1] = hi;
+          }
+        }
+      }
+    };
+    if (G.c_pow2) {
+      const float inv = (float)G.inv_c;
+      store([inv](float v) { return v * inv; });
+    } else {
+      const double inv = G.inv_c;
+      store([inv](float v) { return (float)((double)v * inv); });
+    }
+  }
+  PHASE_MARK(kPhase, 2);
+}
+
+template <int NT, int NB>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    corr2d_tc_bwd_f1_kernel(const bf16* __restrict__ g,
+                            const bf16* __restrict__ f2,
+                            bf16* __restrict__ df1, const TcBwdGeom G) {
+  tc_bwd<false, NT, NB>(g, f2, df1, G);
+}
+
+template <int NT, int NB>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    corr2d_tc_bwd_f2_kernel(const bf16* __restrict__ g,
+                            const bf16* __restrict__ f1,
+                            bf16* __restrict__ df2, const TcBwdGeom G) {
+  tc_bwd<true, NT, NB>(g, f1, df2, G);
+}
+
 // --------------------------------------------------------------- backward
 //
 // In each backward kernel thread t owns the outputs i = t, t + blockDim, ...
@@ -680,6 +1072,7 @@ __global__ void corr2d_bwd_f1_kernel(const T* __restrict__ g,
   const int64_t row_elems = (int64_t)W * C;
   const int n = npix * C;
 
+  PHASE_BEGIN();
   stage_run(gs, g + ((int64_t)row * W + x0) * K, npix * K, kTileW * K);
   for (int i = threadIdx.x; i < n; i += blockDim.x) sums[i] = 0.f;
   for (int oy = 0; oy < nx; ++oy) {
@@ -689,6 +1082,7 @@ __global__ void corr2d_bwd_f1_kernel(const T* __restrict__ g,
     stage_row(f2s, f2 + (row + (yy - y)) * row_elems, x0 - R, kTileW + 2 * R,
               W, C);
     __syncthreads();
+    PHASE_MARK(4, 0);
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int p = i / C;
       const int c = i - p * C;
@@ -699,11 +1093,13 @@ __global__ void corr2d_bwd_f1_kernel(const T* __restrict__ g,
       for (int ox = 0; ox < nx; ++ox) acc = fmaf(gp[ox], fp[ox * dil * stride], acc);
       sums[i] = acc;
     }
+    PHASE_MARK(4, 1);
   }
   T* dst = df1 + ((int64_t)row * W + x0) * C;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     dst[i] = from_f32<T>(sums[i] / (float)C);
   }
+  PHASE_MARK(4, 2);
 }
 
 // df2 of the 2-D op, a gather. grid: (B*H, ceil(W / kTileW)); shared: one
@@ -729,6 +1125,7 @@ __global__ void corr2d_bwd_f2_kernel(const T* __restrict__ g,
   const int64_t row_elems = (int64_t)W * C;
   const int n = npix * C;
 
+  PHASE_BEGIN();
   for (int i = threadIdx.x; i < n; i += blockDim.x) sums[i] = 0.f;
   for (int oy = 0; oy < nx; ++oy) {
     const int ys = y - (oy - d) * dil;  // the row whose displacement oy lands on y
@@ -745,6 +1142,7 @@ __global__ void corr2d_bwd_f2_kernel(const T* __restrict__ g,
                   : 0.f;
     }
     __syncthreads();
+    PHASE_MARK(5, 0);
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int p = i / C;
       const int c = i - p * C;
@@ -756,11 +1154,13 @@ __global__ void corr2d_bwd_f2_kernel(const T* __restrict__ g,
       }
       sums[i] = acc;
     }
+    PHASE_MARK(5, 1);
   }
   T* dst = df2 + ((int64_t)row * W + x0) * C;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     dst[i] = from_f32<T>(sums[i] / (float)C);
   }
+  PHASE_MARK(5, 2);
 }
 
 // df1 of the 1-D op. grid: (B*H, ceil(W / kTileW)); shared: the g tile and
@@ -1057,39 +1457,177 @@ cudaError_t launch_tc(const void* a, const void* b, void* out, int B, int H,
   return err;
 }
 
+// A tensor-core backward's launch: its geometry, grid, threads, shared
+// bytes, the n8 tiles of a warp's share of a block's channel group and the
+// staging buffers.
+struct TcBwdPlan {
+  TcBwdGeom g;
+  dim3 grid;
+  int threads;
+  size_t shared;
+  int nt;
+  int nbuf;
+};
+
+// The plan for a 2-D backward (df2: the gather) on a card of `sms` SMs.
+// A block owns R output rows of one residue class of rows (their window
+// rows overlap: R rows walk R + 2d window rows, not R (2d + 1)), one run of
+// 16 pixels of each of up to kTcMaxWarps / R residue classes of columns
+// (one warp each), and one group of 8 NT channels (df1 and df2 are
+// disjoint in the channels, so a split costs no sum). NT: of 8, 6, 4 and
+// 2, the one that computes the fewest padded channels with at least one
+// and a half blocks per SM (the larger on a tie; 2 if none has them); then
+// the largest R of 8, 4 and 2 that keeps them within kTcSmemBudget bytes;
+// then as many warps to split each item's channels as give the block
+// kTcMinWarps warps (staging sets a small block's time).
+// copy_bytes: the features' staging copy width.
+TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
+                      int copy_bytes, int sms) {
+  TcBwdGeom g{};
+  g.H = H, g.W = W, g.C = C, g.disp = disp, g.dil = dil;
+  g.nx = 2 * disp + 1;
+  g.K = g.nx * g.nx;
+  g.ncols = kTcTile + 2 * disp;
+  g.kchunks = (g.ncols + 15) / 16;
+  g.P = kTcTile * dil;
+  g.slab = dil * g.ncols;
+  g.copy_bytes = copy_bytes;
+  g.ncls = dil < kTcMaxWarps ? dil : kTcMaxWarps;
+  g.nclsg = (dil + g.ncls - 1) / g.ncls;
+  const int class_rows = (H + dil - 1) / dil;
+  const int64_t runs = (W + g.P - 1) / g.P;
+  const int nt8 = (C + 7) / 8;
+  const int64_t want = (3 * (int64_t)sms + 1) / 2;
+  auto blocks = [&](int nt, int R) {
+    return (int64_t)B * dil * ((class_rows + R - 1) / R) * runs *
+           ((nt8 + nt - 1) / nt) * g.nclsg;
+  };
+  int nt = 2, fewest = 1 << 30;
+  for (int cand = kTcBwdNtMax; cand >= 2; cand -= 2) {
+    const int padded = (nt8 + cand - 1) / cand * cand;
+    if (blocks(cand, 1) >= want && padded < fewest) nt = cand, fewest = padded;
+  }
+  g.g_bytes = ((f2 ? g.slab : g.P) * 2 * g.K + 16 + 15) / 16 * 16;
+  auto group = [&](int n) {  // a block's channel group of n n8 tiles
+    nt = n;
+    g.nc = 8 * nt;
+    g.row_bytes = 2 * g.nc + 16;
+    g.per_row = 2 * g.nc / copy_bytes;
+    g.feat_bytes = g.slab * g.row_bytes;
+  };
+  auto shared = [&](int R, int nbuf) {
+    return nbuf * (size_t)g.feat_bytes + (size_t)(f2 ? nbuf : R) * g.g_bytes;
+  };
+  group(nt);
+  // at large dilations the window is wide: narrower groups until a block
+  // fits an SM
+  while (nt > 2 && shared(1, 2) > kMaxSharedBytes) group(nt - 2);
+  g.R = 1;
+  for (int R = kTcBwdMaxRows; R > 1; R /= 2) {
+    if (R * g.ncls <= kTcMaxWarps && blocks(nt, R) >= want &&
+        shared(R, 2) <= kTcSmemBudget) {
+      g.R = R;
+      break;
+    }
+  }
+  g.nRb = (class_rows + g.R - 1) / g.R;
+  int nbuf = kTcBwdBuffers;
+  while (nbuf > 2 && shared(g.R, nbuf) > kTcSmemBudget) --nbuf;
+  g.inv_c = 1.0 / C;
+  g.c_pow2 = (C & (C - 1)) == 0;
+  g.m_dil = magic(dil), g.m_nRb = magic(g.nRb);
+  g.m_per_row = magic(g.per_row), g.m_nclsg = magic(g.nclsg);
+  // wc warps split each item's NT n8 tiles, an even count each: the
+  // fewest that give the block kTcMinWarps warps, else the most
+  const int items = g.R * g.ncls;
+  g.wc = 1;
+  for (int wc = 2; wc <= 4 && items * g.wc < kTcMinWarps; ++wc) {
+    if (nt % wc == 0 && (nt / wc) % 2 == 0 && items * wc <= kTcMaxWarps) {
+      g.wc = wc;
+    }
+  }
+  const int warps = items * g.wc < kTcMinWarps / 2 ? kTcMinWarps / 2
+                                                   : items * g.wc;
+  size_t bytes = shared(g.R, nbuf);
+#ifdef CORR_BAND_SMEM
+  bytes += (size_t)warps * kTcTile * (g.kchunks * 32 + 16);
+#endif
+  return {g,
+          dim3((unsigned)(B * dil * g.nRb), (unsigned)runs,
+               (unsigned)(((nt8 + nt - 1) / nt) * g.nclsg)),
+          warps * 32, bytes, nt / g.wc, nbuf};
+}
+
+template <bool f2>
+cudaError_t launch_tc_bwd(const void* g, const void* f, void* out, int B,
+                          int H, int W, int C, int disp, int dil,
+                          cudaStream_t stream) {
+  const TcBwdPlan plan = tc_bwd_plan(B, H, W, C, disp, dil, f2,
+                                     copy_width(f, f, C), sm_count());
+  using Kernel = void (*)(const bf16*, const bf16*, bf16*, const TcBwdGeom);
+  // by the n8 tiles of a warp (2, 4, 6, 8) and the buffers (2, 3, 4)
+#define CORR_TC_BWD(k, NT) {k<NT, 2>, k<NT, 3>, k<NT, 4>}
+#define CORR_TC_BWDS(k)                                               \
+  {CORR_TC_BWD(k, 2), CORR_TC_BWD(k, 4), CORR_TC_BWD(k, 6),           \
+   CORR_TC_BWD(k, 8)}
+  static const Kernel kernels[2][kTcBwdNtMax / 2][kTcBwdBuffers - 1] = {
+      CORR_TC_BWDS(corr2d_tc_bwd_f1_kernel),
+      CORR_TC_BWDS(corr2d_tc_bwd_f2_kernel)};
+#undef CORR_TC_BWDS
+#undef CORR_TC_BWD
+  const Kernel kernel = kernels[f2][plan.nt / 2 - 1][plan.nbuf - 2];
+  if (plan.shared > kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (plan.shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)plan.shared);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<plan.grid, plan.threads, plan.shared, stream>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(f),
+      static_cast<bf16*>(out), plan.g);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++corr_design_launches[0];
+  return err;
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` without synchronising and returns the
 // cudaError_t of the launch (0 on success). is_bf16 selects bfloat16 over
 // float32 for all three tensors. a and b are (f1, f2) for a forward and
 // (g, f2) or (g, f1) for a backward; B, H, W, C are the features' shape.
-// The forwards run bfloat16 on the tensor cores (on the CUDA cores in a
-// -DCORR_FWD_SIMT build) and float32 on the CUDA cores; the backwards run
-// both types on the CUDA cores.
+// bfloat16 runs the forwards and the 2-D backwards on the tensor cores (on
+// the CUDA cores in a -DCORR_FWD_SIMT or -DCORR_BWD_SIMT build), the 1-D
+// backwards on the CUDA cores; float32 runs everything on the CUDA cores.
 #define CORR_SIMT(name)                                                      \
   (is_bf16 ? launch<__nv_bfloat16>(name##_kernel<__nv_bfloat16>,            \
                                    shape_##name(C, disp, dil), a, b, out, B, \
                                    H, W, C, disp, dil, s)                    \
            : launch<float>(name##_kernel<float>, shape_##name(C, disp, dil), \
                            a, b, out, B, H, W, C, disp, dil, s))
-// tc: 1 for the 2-D tensor-core forward, 0 for the 1-D one, -1 for none
+// tc: the tensor-core kernel of the entry in bfloat16: 1 the 2-D forward,
+// 0 the 1-D forward, 2 the 2-D df1, 3 the 2-D df2, -1 none
 #define CORR_ENTRY(name, tc)                                                 \
   extern "C" int name(const void* a, const void* b, void* out, int B, int H, \
                       int W, int C, int disp, int dil, int is_bf16,          \
                       void* stream) {                                        \
     if (bad_shape(B, H, W, C, disp, dil)) return cudaErrorInvalidValue;      \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
-    if (kFwdTensorCores && is_bf16 && tc >= 0) {                             \
+    if (kFwdTensorCores && is_bf16 && (tc == 0 || tc == 1)) {                \
       return tc ? launch_tc<true>(a, b, out, B, H, W, C, disp, dil, s)       \
                 : launch_tc<false>(a, b, out, B, H, W, C, disp, dil, s);     \
+    }                                                                        \
+    if (kBwdTensorCores && is_bf16 && tc >= 2) {                             \
+      return launch_tc_bwd<tc == 3>(a, b, out, B, H, W, C, disp, dil, s);   \
     }                                                                        \
     return CORR_SIMT(name);                                                  \
   }
 
 CORR_ENTRY(corr2d_fwd, 1)
 CORR_ENTRY(corr1d_fwd, 0)
-CORR_ENTRY(corr2d_bwd_f1, -1)
-CORR_ENTRY(corr2d_bwd_f2, -1)
+CORR_ENTRY(corr2d_bwd_f1, 2)
+CORR_ENTRY(corr2d_bwd_f2, 3)
 CORR_ENTRY(corr1d_bwd_f1, -1)
 CORR_ENTRY(corr1d_bwd_f2, -1)
 
@@ -1098,7 +1636,7 @@ extern "C" const char* corr_error_string(int err) {
 }
 
 #ifdef CORR_PHASES
-// Copies corr_phase_cycles then corr_item_cycles (2 x 4 x 3 values) to
+// Copies corr_phase_cycles then corr_item_cycles (8 x 3 + 4 x 3 values) to
 // `host`, or zeroes both.
 extern "C" int corr_counters_read(void* host) {
   const cudaError_t err = cudaMemcpyFromSymbol(host, corr_phase_cycles,
@@ -1110,10 +1648,11 @@ extern "C" int corr_counters_read(void* host) {
 }
 
 extern "C" int corr_counters_zero() {
-  static const unsigned long long zeros[4][3] = {};
-  const cudaError_t err =
-      cudaMemcpyToSymbol(corr_phase_cycles, zeros, sizeof(zeros));
+  static const unsigned long long zeros[8][3] = {};
+  const cudaError_t err = cudaMemcpyToSymbol(corr_phase_cycles, zeros,
+                                             sizeof(corr_phase_cycles));
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaMemcpyToSymbol(corr_item_cycles, zeros, sizeof(zeros));
+  return (int)cudaMemcpyToSymbol(corr_item_cycles, zeros,
+                                 sizeof(corr_item_cycles));
 }
 #endif

@@ -78,6 +78,17 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
+// Closes the cp.async copies issued since the last commit into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most n committed groups are still in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");

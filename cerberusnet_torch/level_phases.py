@@ -1,5 +1,5 @@
 """Inside the hand-written kernels: phases, slot traffic, residency, and the
-correlation forwards' two designs in turns.
+correlation kernels' two designs in turns.
 
     python3 -m cerberusnet_torch.level_phases [--source encoder_level]
                                               [--source correlation]
@@ -28,25 +28,34 @@ encoder-level kernels:
   other's products, is worth.
 
 ``csrc/correlation.cu`` (``CORR_MEASUREMENT_BUILDS``), the forwards
-``corr2d_fwd`` and ``corr1d_fwd`` in bf16 at CerberusNet's five level
-shapes of a 512x1024 frame and at the DCV heads' level 3 at each dilation,
-batch 1 (served) and 2 (trained):
+``corr2d_fwd`` and ``corr1d_fwd`` and the 2-D backwards ``corr2d_bwd_f1``
+and ``corr2d_bwd_f2`` in bf16 at CerberusNet's five level shapes of a
+512x1024 frame and at the DCV heads' level 3 at each dilation, the
+forwards at batch 1 (served) and 2 (trained), the backwards at 2:
 
 - ``-DCORR_PHASES``: every block synchronises at each ``PHASE_MARK`` and its
   thread 0 adds the cycles since its previous reading to a counter of that
-  kernel and phase (staging, products and band, store); in the tensor-core
-  kernels warp 0 also clocks each of its items (one band product) in two
-  parts, the products up to the accumulators' arrival and the band. After
+  kernel and phase (staging, products and band, store; in the tensor-core
+  backwards, which keep the next window rows' copies in flight while the
+  current one's products run, "stage" is the wait for copies the products
+  did not hide, and "products" includes issuing the copies); in the
+  tensor-core forwards warp 0 also clocks each of its items
+  (one band product) in two parts, the products up to the accumulators'
+  arrival and the band. A second build adds ``-DCORR_FWD_SIMT
+  -DCORR_BWD_SIMT`` (below) to clock the CUDA-core kernels. After
   WARM_CALLS calls (the timed calls find the kernel's code and operands
   cached too), one JSON line per call gives each phase's share of the
-  summed block cycles and warp 0's cycles per item, by the kernel (design)
-  that ran.
-- ``-DCORR_FWD_SIMT``: bf16 runs the CUDA-core kernels that float32 runs.
-  Each call is timed in turns with the library (library, CUDA cores, CUDA
-  cores, library; each a median of device times as above), and the line
-  gives both, the design each build counted in its turns and the largest
-  difference of their outputs. A first line times an empty kernel the
-  same way: the floor of these times.
+  summed block cycles and warp 0's cycles per item, by design.
+- ``-DCORR_FWD_SIMT -DCORR_BWD_SIMT``: bf16 runs the CUDA-core kernels that
+  float32 runs. Each call is timed in turns with the library (library,
+  CUDA cores, CUDA cores, library; each a median of device times as
+  above), and the line gives both, the design each build counted in its
+  turns and the largest difference of their outputs. A first line times
+  an empty kernel the same way: the floor of these times.
+- ``-DCORR_BAND_SMEM``: the tensor-core 2-D backwards write each band to
+  shared memory and read it back by ldmatrix; each backward call is timed
+  in turns with the library (which builds the band in registers), and the
+  line says whether the two gave the same bits.
 
 The builds live in ``cerberusnet_torch/_build/``; nothing else loads them.
 Needs a CUDA device and nvcc.
@@ -86,19 +95,32 @@ N_COUNTERS = 2 * 16 + 2  # phase_cycles[2][16], slot_bytes[2]
 TIMED_RUNS = 10
 
 CORR_SOURCE = "correlation"
+CORR_SIMT = ("CORR_FWD_SIMT", "CORR_BWD_SIMT")
 CORR_MEASUREMENT_BUILDS = {"phases": ("CORR_PHASES",),
-                           "cuda_cores": ("CORR_FWD_SIMT",)}
+                           "phases_cuda_cores": ("CORR_PHASES", *CORR_SIMT),
+                           "cuda_cores": CORR_SIMT,
+                           "band_smem": ("CORR_BAND_SMEM",)}
 CORR_PHASES = ("stage", "products and band", "store")
-# the rows of corr_phase_cycles: (wrapper, design) of each forward kernel
+# the rows of corr_phase_cycles: (wrapper, design) of each kernel with
+# phase marks
 CORR_KERNELS = (("corr2d_fwd", "cuda_cores"), ("corr1d_fwd", "cuda_cores"),
-                ("corr2d_fwd", "tc"), ("corr1d_fwd", "tc"))
+                ("corr2d_fwd", "tc"), ("corr1d_fwd", "tc"),
+                ("corr2d_bwd_f1", "cuda_cores"),
+                ("corr2d_bwd_f2", "cuda_cores"),
+                ("corr2d_bwd_f1", "tc"), ("corr2d_bwd_f2", "tc"))
+# corr_item_cycles: the tensor-core forwards' rows (2, 3) of the four first
+CORR_ITEM_ROWS = 4
 # CerberusNet's pyramid levels of a 512x1024 frame: (level, channels); the
 # flow head's d = 4, the disparity head's D = max(96 >> level, 4); the DCV
 # heads at level 3 with d = D = 4
 CORR_HW = (512, 1024)
 CORR_LEVELS = ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))
-CORR_DCV_DILATIONS = {"corr2d_fwd": (1, 2, 4, 8), "corr1d_fwd": (1, 2, 3)}
-CORR_BATCHES = (1, 2)
+CORR_DCV_DILATIONS = {"corr2d_fwd": (1, 2, 4, 8), "corr1d_fwd": (1, 2, 3),
+                      "corr2d_bwd_f1": (1, 2, 4, 8),
+                      "corr2d_bwd_f2": (1, 2, 4, 8)}
+# the forwards serve (batch 1) and train (batch 2); the backwards train
+CORR_BATCHES = {"corr2d_fwd": (1, 2), "corr1d_fwd": (1, 2),
+                "corr2d_bwd_f1": (2,), "corr2d_bwd_f2": (2,)}
 WARM_CALLS = 3
 
 
@@ -180,12 +202,12 @@ def ms_per_call(fn, spin_rate: float) -> float:
 
 def corr_cases() -> list:
     """(wrapper, path, batch, level, (B, H, W, C), max_disp, dilation) of
-    every forward call measured."""
+    every call measured."""
     cases = []
     for name, dils in CORR_DCV_DILATIONS.items():
-        for b in CORR_BATCHES:
+        for b in CORR_BATCHES[name]:
             for level, c in CORR_LEVELS:
-                d = 4 if name == "corr2d_fwd" else max(96 >> level, 4)
+                d = 4 if name.startswith("corr2d") else max(96 >> level, 4)
                 shape = (b, CORR_HW[0] >> level, CORR_HW[1] >> level, c)
                 cases.append((name, "cerberus", b, level, shape, d, 1))
             shape = (b, CORR_HW[0] >> 3, CORR_HW[1] >> 3, 64)
@@ -203,36 +225,48 @@ def corr_main(device: str, spin_rate: float):
                       "ms": ms_per_call(lambda: torch.cuda._sleep(0),
                                         spin_rate)}), flush=True)
     for name, path, b, level, shape, d, dil in corr_cases():
-        f1, f2 = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
-                  for _ in range(2))
+        # a forward takes (f1, f2); a backward (g, f), g with the cost
+        # volume's channels
+        nk = (2 * d + 1) ** 2 if name.startswith("corr2d") else d + 1
+        a_shape = (*shape[:3], nk) if "_bwd" in name else shape
+        a, f = (torch.randn(s_, generator=gen, device="cuda").bfloat16()
+                for s_ in (a_shape, shape))
         kernel = getattr(cc, name)
 
         def run():
-            return kernel(f1, f2, d, dil)
+            return kernel(a, f, d, dil)
 
         torch.cuda.synchronize()
-        with launching(builds["phases"], CORR_SOURCE):
-            for _ in range(WARM_CALLS):  # code and operands cached, as timed
-                run()
-            torch.cuda.synchronize()
-            builds["phases"].corr_counters_zero()
-            run()
-            torch.cuda.synchronize()
-            raw = (ctypes.c_ulonglong * (2 * 4 * 3))()
-            err = builds["phases"].corr_counters_read(raw)
-            if err:
-                raise RuntimeError(f"corr_counters_read: cudaError_t {err}")
         share, item = {}, {}
-        for i, (kname, design) in enumerate(CORR_KERNELS):
-            cycles = raw[3 * i:3 * i + 3]
-            if kname == name and sum(cycles):
-                share[design] = {p: cycles[j] / sum(cycles)
-                                 for j, p in enumerate(CORR_PHASES)}
-                share[design]["block_cycles"] = sum(cycles)
-            products, band, items = raw[12 + 3 * i:12 + 3 * i + 3]
-            if kname == name and items:
-                item[design] = {"products": products / items,
-                                "band": band / items, "items": items}
+        # the clocks of each design: the tensor-core kernels in the phases
+        # build, the CUDA-core ones in the phases build that runs them
+        for which in ("phases", "phases_cuda_cores"):
+            with launching(builds[which], CORR_SOURCE):
+                for _ in range(WARM_CALLS):  # code and operands cached
+                    run()
+                torch.cuda.synchronize()
+                builds[which].corr_counters_zero()
+                run()
+                torch.cuda.synchronize()
+                raw = (ctypes.c_ulonglong * (3 * (len(CORR_KERNELS)
+                                                  + CORR_ITEM_ROWS)))()
+                err = builds[which].corr_counters_read(raw)
+                if err:
+                    raise RuntimeError(
+                        f"corr_counters_read: cudaError_t {err}")
+            for i, (kname, design) in enumerate(CORR_KERNELS):
+                cycles = raw[3 * i:3 * i + 3]
+                if kname == name and sum(cycles):
+                    share[design] = {p: cycles[j] / sum(cycles)
+                                     for j, p in enumerate(CORR_PHASES)}
+                    share[design]["block_cycles"] = sum(cycles)
+                at = 3 * (len(CORR_KERNELS) + i)
+                products, band, items = (raw[at:at + 3]
+                                         if i < CORR_ITEM_ROWS
+                                         else (0, 0, 0))
+                if kname == name and items:
+                    item[design] = {"products": products / items,
+                                    "band": band / items, "items": items}
         # each build counts the designs it launched in its own turns
         turns = {"library": lib, "cuda_cores": builds["cuda_cores"]}
         for turn_lib in turns.values():
@@ -244,6 +278,21 @@ def corr_main(device: str, spin_rate: float):
                 outs[which] = run()
                 times[which].append(ms_per_call(run, spin_rate))
                 ran[which] = cc.launched_design()
+        band = {}
+        if name.startswith("corr2d_bwd"):
+            # the band built in registers (library) against written to
+            # shared memory (band_smem), in turns
+            band_times = {"library": [], "band_smem": []}
+            for which in ("library", "band_smem", "band_smem", "library"):
+                with launching(lib if which == "library"
+                               else builds["band_smem"], CORR_SOURCE):
+                    outs[which] = run()
+                    band_times[which].append(ms_per_call(run, spin_rate))
+            band = {"band_smem_ms": statistics.median(band_times["band_smem"]),
+                    "band_registers_ms": statistics.median(
+                        band_times["library"]),
+                    "band_smem_same": torch.equal(outs["band_smem"],
+                                                  outs["library"])}
         torch.cuda.synchronize()
         diff = (outs["library"].float() - outs["cuda_cores"].float()).abs()
         print(json.dumps({
@@ -254,7 +303,7 @@ def corr_main(device: str, spin_rate: float):
             "share": share, "ms": statistics.median(times["library"]),
             "cuda_cores_ms": statistics.median(times["cuda_cores"]),
             "item_cycles": item, "ms_runs": times,
-            "max_abs_diff": diff.max().item()}),
+            "max_abs_diff": diff.max().item(), **band}),
             flush=True)
     cc.reset_launches()
 

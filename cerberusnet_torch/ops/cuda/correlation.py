@@ -26,7 +26,8 @@ launches on the current stream without synchronising, and raises on
 anything the kernel does not take or on a refused launch. Each kernel has
 its launch counter, ``<name>_launches``; nothing else changes them. The
 library also counts its launches by design (``launched_design``): in
-bfloat16 the forwards run on the tensor cores, all else on the CUDA cores.
+bfloat16 the forwards and the 2-D backwards run on the tensor cores, all
+else on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def reset_design_launches():
 
 def launched_design() -> str:
     """The design whose kernels the library launched since
-    reset_design_launches(): "tc" (the tensor-core forwards), "cuda_cores",
+    reset_design_launches(): "tc" (the tensor-core kernels), "cuda_cores",
     both joined by "+", or "none". The library counts where each launch
     succeeds (csrc/correlation.cu ``corr_design_launches``)."""
     ran = [d for d, n in zip(DESIGNS, _design_launches()) if n]

@@ -17,20 +17,22 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            float32, plus one dilation-2 case; and at the DCV heads' level-3
            shape (B, 64, 128, 64) with d = D = 4, the 2-D kernels at
            dilations 1, 2, 4, 8 and the 1-D ones at 1, 2, 3, at the same
-           batches; the forwards also at odd shapes (B, 3, 37, 20) and
-           (B, 3, 37, 21), the 2-D one at dilations 1 and 3; each check
-           names the design that ran, as the library counted its
-           launches ("tc": the bf16 forwards on the tensor cores;
-           "cuda_cores": everything else), and fails on any other; and the
+           batches; the forwards and the 2-D backwards also at odd shapes
+           (B, 3, 37, 20) and (B, 3, 37, 21), the 2-D ones at dilations 1
+           and 3; each check names the design that ran, as the library
+           counted its launches ("tc": the bf16 forwards and 2-D backwards
+           on the tensor cores; "cuda_cores": everything else), and fails
+           on any other; and the
            fused encoder-level kernels: K9
            (encoder_level_fwd) at the three level shapes of pallas_levels=3
            at batch 3 (served) and 6 (trained) and four odd shapes (output
            extents no multiple of a tile, at levels 1-3's widths and one
            width the tensor cores do not take), K10 (encoder_level_bwd) at
            the level shapes at batch 6 and the odd shapes, in bfloat16 and
-           float32, against the plain level (cuDNN), K10's dk and db
-           bit-identical over two runs; CUDA-event times of kernel and plain
-           version in turns beside the kernel's bound
+           float32, against the plain level (cuDNN; K10 against it in
+           float64, within limits that allow for LeakyReLU mask flips),
+           K10's dk and db bit-identical over two runs; CUDA-event times of
+           kernel and plain version in turns beside the kernel's bound
   serve    the default-width CerberusNet through cerberusnet_torch.entry,
            bf16 at 512x1024, answering 3 seeded requests: output shapes,
            types and finiteness, the pyramids, and 5 + 5 kernel launches per
@@ -108,13 +110,16 @@ DCV_LEVEL = 3
 DCV_MAX_DISP = 4
 DCV_FLOW_DILATIONS = (1, 2, 4, 8)
 DCV_DISP_DILATIONS = (1, 2, 3)
-# The forwards' odd shapes, (H, W, C) at batch 1 and 2: a row no multiple
-# of a tile, fewer rows than the 2-D window's height, and 40-byte pixel
-# rows (8-byte aligned, no multiple of 16) or 42-byte ones (odd C, which
-# the tensor-core kernels stage by 2-byte loads); the 2-D op also at
-# dilation 3.
+# The odd shapes of the forwards and the 2-D backwards, (H, W, C) at batch
+# 1 and 2: a row no multiple of a tile, fewer rows than the 2-D window's
+# height, and 40-byte pixel rows (8-byte aligned, no multiple of 16) or
+# 42-byte ones (odd C, which the tensor-core kernels stage by 2-byte
+# loads); the 2-D ops also at dilation 3.
 ODD_CORR_SHAPES = ((3, 37, 20), (3, 37, 21))
-ODD_CORR_DILATIONS = {"corr2d_fwd": (1, 3), "corr1d_fwd": (1,)}
+ODD_CORR_DILATIONS = {"corr2d_fwd": (1, 3), "corr1d_fwd": (1,),
+                      "corr2d_bwd_f1": (1, 3), "corr2d_bwd_f2": (1, 3)}
+# the correlation kernels that run on the tensor cores in bf16
+TC_KERNELS = ("corr2d_fwd", "corr1d_fwd", "corr2d_bwd_f1", "corr2d_bwd_f2")
 # the hand kernels' sources (cerberusnet_torch/csrc/<name>.cu)
 SOURCES = ("correlation", "encoder_level")
 N_REQUESTS = 3
@@ -380,15 +385,16 @@ def phase_kernels(peaks, spin_rate):
                    level_shape(batch, DCV_LEVEL))
                   for batch in batches for dil in dcv_dilations
                   for dt in dtypes]
-        if not backward:
-            cases += [("odd", batch, 0, dt, dil, 4, (batch, *odd))
-                      for batch in batches for odd in ODD_CORR_SHAPES
-                      for dil in ODD_CORR_DILATIONS[name] for dt in dtypes]
+        cases += [("odd", batch, 0, dt, dil, 4, (batch, *odd))
+                  for batch in both for odd in ODD_CORR_SHAPES
+                  for dil in ODD_CORR_DILATIONS.get(name, ())
+                  for dt in dtypes]
         for path, batch, level, dt, dil, d, shape in cases:
             nk = nk_of(d)
-            # bf16 forwards must run on the tensor cores, all else on the
-            # CUDA cores; the library counts which design it launched
-            want_design = ("tc" if not backward and dt == torch.bfloat16
+            # bf16 forwards and 2-D backwards must run on the tensor cores,
+            # all else on the CUDA cores; the library counts which design
+            # it launched
+            want_design = ("tc" if dt == torch.bfloat16 and name in TC_KERNELS
                            else "cuda_cores")
             a_shape = (*shape[:3], nk) if backward else shape
             # the odd shapes draw from their own generator, so every other
@@ -459,15 +465,20 @@ PALLAS_LEVELS = len(ENCODER_LEVELS)
 SERVE_FRAMES = 3
 TRAIN_FRAMES = 3 * TRAIN_BATCH
 LEVEL_RUNS = 10
-# K9/K10 against their plain versions. bf16: the kernel's rel L2 distance
-# to the float32 plain level on the same (bf16) inputs must stay within
-# 1.5x the plain bf16 level's distance + 1e-3 (the serve rule). float32:
-# the forward within 1e-5 rel L2 of the plain level (measured <= 1.6e-6 on
-# an H100, summation order only); the backward within 2e-3 (measured
-# <= 1.3e-3): a LeakyReLU mask flips where the kernel's recomputed
-# pre-activation and cuDNN's lie on either side of 0, which moves those
-# few values by 0.9 of their gradient.
-LEVEL_F32_RTOL = {"fwd": 1e-5, "bwd": 2e-3}
+# K9 against its plain version: bf16, the kernel's rel L2 distance to the
+# float32 plain level on the same (bf16) inputs within 1.5x the plain bf16
+# level's distance + 1e-3 (the serve rule); float32 within 1e-5 (measured
+# <= 1.6e-6 on an H100, summation order only). K10 against the float64
+# plain level (the witness): each gradient's rel L2 distance to it within
+# the limit of cerberusnet_torch.level_witness.k10_limits: the plain
+# level's own distance in the type (float32: with float64's masks, its
+# rounding) times 1.5, plus what LeakyReLU mask flips alone can move that
+# gradient in the type (every pre-activation within the type's rounding
+# of 0 flipped), plus 1e-6 (float32) or 1e-3 (bf16). A mask flips where two
+# correct computations round a pre-activation to either side of 0, and
+# moves that pixel's gradient by 0.9 of it; float32's fixed 2e-3 against
+# the float32 plain level failed on other inputs for that reason (C5).
+LEVEL_F32_FWD_RTOL = 1e-5
 LEVEL_GRADS = ("dx", "dk1", "db1", "dk2", "db2", "dk3", "db3")
 # train_pallas_levels in float32: every module's, fused block's, level
 # input's and correlation input's gradient of the fused path within this
@@ -530,10 +541,12 @@ def level_checks(peaks, spin_rate, gen):
     """K9 (encoder_level_fwd) at the three level shapes at batch 3 (served)
     and 6 (trained), and the odd shapes, and K10 (encoder_level_bwd) at the
     level shapes at batch 6 and the odd shapes, in bf16 and float32, against
-    encoder_level_plain and encoder_level_bwd_plain (cuDNN), with
-    CUDA-event times (kernel and plain level in turns) and bounds; K10 runs
-    twice and must give bit-identical dk and db, and reports the partial
-    bytes its wrapper counted in the first run."""
+    encoder_level_plain (K9) and the float64 encoder_level_bwd_plain (K10,
+    the witness; see LEVEL_F32_FWD_RTOL), with CUDA-event times (kernel and
+    plain level in turns) and bounds; K10 runs twice and must give
+    bit-identical dk and db, and reports the partial bytes its wrapper
+    counted in the first run."""
+    from cerberusnet_torch import level_witness as lw
     from cerberusnet_torch.ops import encoder_level as elv
     from cerberusnet_torch.ops.cuda import encoder_level as cl
 
@@ -582,11 +595,25 @@ def level_checks(peaks, spin_rate, gen):
                 [v] if kind == "fwd" else list(v)
                 for v in (got, run_plain(), run_ref()))
             torch.cuda.synchronize()
-            dist, limits = {}, {}
-            for name, k_, p_, r_ in zip(outs, got, plain, ref):
-                dist[name] = rel_l2(k_, r_.float())
-                limits[name] = (LEVEL_F32_RTOL[kind] if dt == torch.float32
-                                else 1.5 * rel_l2(p_, r_.float()) + 1e-3)
+            dist, limits, witness = {}, {}, {}
+            if kind == "fwd":
+                for name, k_, p_, r_ in zip(outs, got, plain, ref):
+                    dist[name] = rel_l2(k_, r_.float())
+                    limits[name] = (LEVEL_F32_FWD_RTOL if dt == torch.float32
+                                    else 1.5 * rel_l2(p_, r_.float()) + 1e-3)
+            else:
+                ref64 = lw.witness(x, g, params)
+                limits, parts = lw.k10_limits(x, g, params, ref64)
+                dist = lw.distances(got, ref64)
+                witness = {"rel_l2_to_f64": {
+                    "kernel": dist, "plain_f32": lw.distances(ref, ref64),
+                    **({"plain_bf16": lw.distances(plain, ref64)}
+                       if dt == torch.bfloat16 else {})},
+                    "limit_parts": parts,
+                    "kernel_rel_l2_to_f32_plain": {
+                        n: rel_l2(k_, r_.float())
+                        for n, k_, r_ in zip(outs, got, ref)}}
+                del ref64
             ok = all(dist[n] <= limits[n] for n in outs)
             # dk, db of a second run: the same bits, whatever order the
             # blocks ran in
@@ -630,7 +657,8 @@ def level_checks(peaks, spin_rate, gen):
                 "dtype": str(dt)[6:],
                 "design": "tensor cores" if tc else "cuda cores",
                 "ok": ok, "max_abs_err": max_abs,
-                "rel_l2_to_f32_plain": dist, "limits": limits,
+                **({"rel_l2_to_f32_plain": dist} if kind == "fwd" else {}),
+                "limits": limits, **witness,
                 "ms": k_t["median"], "ms_min": k_t["min"],
                 "ms_max": k_t["max"], "plain_ms": p_t["median"],
                 "plain_ms_min": p_t["min"], "plain_ms_max": p_t["max"],

@@ -22,12 +22,29 @@ shapes are small and odd (C = 20 and 32, W = 37 and 48, H = 3, below the
 2-D window's height) at dilations 1-3, and the 2-D op at dilation 8 on one
 wide row; the block splits (T, G, R) take the values the launch plan
 chooses between.
+
+The 2-D backwards (``corr2d_tc_bwd_f1_kernel``, ``corr2d_tc_bwd_f2_kernel``)
+likewise (``emulate_bwd``): a block owns R output rows of one residue
+class of rows, a run of ``kTcTile`` pixels of each residue class of columns
+and a group of 8 NT channels (NT up to ``kTcBwdNtMax``), and walks the
+R + 2d window rows those rows share; for each (row, class) whose window
+row oy a staged row is, it adds the band product A (16 x k, k the 16 + 2d
+window columns padded to a multiple of 16) times the staged window (k x
+8 NT, the columns past the window clamped to its last) to accumulators
+kept across the window rows, and scales once by 1/C at the end. df1's A
+is A[i, j] = g(x_i, oy (2d + 1) + j - i), df2's (the gather) A[i, j] =
+g(x_j, oy (2d + 1) + 2d - (j - i)) on the source row, both for
+0 <= j - i <= 2d. The result must equal ``_correlation2d_bwd_f1_plain`` /
+``_f2_plain`` and ``jax.vjp`` of the JAX package's ``correlation2d``
+(pure path) within 1e-6 of the largest output, at C = 20 and 21, W = 37,
+H = 3 and 7, dilations 1, 2, 3 and 8.
 """
 
 import functools
 import itertools
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,11 +55,26 @@ from cerberusnet_torch import level_phases, trace_forward
 from cerberusnet_torch.ops import build
 from cerberusnet_torch.ops.correlation import (
     _correlation1d_plain,
+    _correlation2d_bwd_f1_plain,
+    _correlation2d_bwd_f2_plain,
     _correlation2d_plain,
 )
 from cerberusnet_torch.ops.cuda import correlation as cc
 from cerberusnet_tpu.ops.correlation import correlation1d as jax_corr1d
 from cerberusnet_tpu.ops.correlation import correlation2d as jax_corr2d
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one intra-op thread for this module. Tier-1 runs a worker
+    process per core, and torch's default of a thread per core makes each
+    worker's waiting threads spin on the others' cores (a tiny train step
+    took 13 times as long under that load); these shapes need one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SOURCE = (build.CSRC_DIR / "correlation.cu").read_text()
 
@@ -54,6 +86,7 @@ def constant(name):
 TILE = constant("kTcTile")
 NT_GROUP = constant("kTcNtGroup")
 MAX_TILES = constant("kTcMaxTiles")
+BWD_NT_MAX = constant("kTcBwdNtMax")
 RTOL = 1e-6
 
 
@@ -206,24 +239,153 @@ def test_band_needs_more_than_one_column_group():
     check(False, (1, 2, 48, 20), disp, 1, [(1, 1), (MAX_TILES, 1)])
 
 
+def emulate_bwd(g, f, disp, dil, gather, nt, R):
+    """The tensor-core backward's blocks, one after another, in float32:
+    df1 from (g, f2), or df2 (``gather``) from (g, f1)."""
+    b, h, w, c = f.shape
+    nx = 2 * disp + 1
+    ncols = TILE + 2 * disp  # window columns of a tile, also per class
+    kpad = -(-ncols // 16) * 16
+    nc = 8 * nt
+    groups = -(-(-(-c // 8)) // nt)
+    fp = F.pad(f.float(), (0, groups * nc - c))  # channels past C are zero
+    g = g.float()
+    run = TILE * dil
+    out = torch.full((b, h, w, c), float("nan"))
+    i = torch.arange(TILE)[:, None]
+    j = torch.arange(kpad)[None, :]
+    o = j - i
+    band = (o >= 0) & (o <= 2 * disp)
+    cols = torch.arange(kpad).clamp(max=ncols - 1)
+
+    def stage(img_row, xs, n):
+        """n pixels from column xs; outside the frame zero."""
+        rows = torch.zeros((n, img_row.shape[-1]))
+        for q in range(n):
+            if 0 <= xs + q < w:
+                rows[q] = img_row[xs + q]
+        return rows
+
+    for bi, cy, m0, x0, cg in itertools.product(
+            range(b), range(dil), range(0, -(-h // dil), R), range(0, w, run),
+            range(groups)):
+        chans = slice(cg * nc, (cg + 1) * nc)
+        ys = [cy + dil * (m0 + r) for r in range(R)]
+        # df1: the g runs of the output rows
+        g_runs = {r: stage(g[bi, y], x0, run) for r, y in enumerate(ys)
+                  if y < h}
+        acc = {(r, cls): torch.zeros((TILE, nc)) for r in g_runs
+               for cls in range(dil)}
+        for s in range(R + 2 * disp):
+            yy = cy + dil * (m0 + s - disp)
+            if not 0 <= yy < h:
+                continue  # not staged, no products
+            win = stage(fp[bi, yy, :, chans], x0 - disp * dil, dil * ncols)
+            g_slab = stage(g[bi, yy], x0 - disp * dil, dil * ncols)
+            for r, cls in acc:
+                oy = r + 2 * disp - s if gather else s - r
+                if not 0 <= oy <= 2 * disp:
+                    continue
+                if gather:  # g of window pixel j at displacement 2d - o
+                    pix = (cls + dil * j).expand_as(o)
+                    a = g_slab[pix.clamp(max=dil * ncols - 1),
+                               (oy * nx + 2 * disp - o).clamp(0, nx * nx - 1)]
+                else:  # g of tile pixel i at displacement o
+                    pix = (cls + dil * i).expand_as(o)
+                    a = g_runs[r][pix, (oy * nx + o).clamp(0, nx * nx - 1)]
+                a = torch.where(band, a, torch.zeros(()))
+                acc[(r, cls)] += a @ win[cls + dil * cols]
+        for (r, cls), sums in acc.items():
+            for ii in range(TILE):
+                x = x0 + cls + dil * ii
+                if x < w:
+                    out[bi, ys[r], x, cg * nc:min((cg + 1) * nc, c)] = (
+                        sums[ii, :min(nc, c - cg * nc)] / c)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_vjp_reference(shape, disp, dil, seed):
+    """(df1, df2) of the JAX package's pure correlation2d for the
+    cotangent g."""
+    f1, f2, g = bwd_inputs(shape, disp, seed)
+    _, vjp = jax.vjp(
+        lambda a, b: jax_corr2d(a, b, disp, impl="pure", dilation=dil),
+        jnp.asarray(f1), jnp.asarray(f2))
+    return tuple(torch.from_numpy(np.array(v)) for v in vjp(jnp.asarray(g)))
+
+
+def bwd_inputs(shape, disp, seed):
+    rng = np.random.default_rng(seed)
+    f1, f2 = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    g = rng.standard_normal((*shape[:3], (2 * disp + 1) ** 2)).astype(
+        np.float32)
+    return f1, f2, g
+
+
+def check_bwd(shape, disp, dil, splits, seed=0):
+    f1, f2, g = (torch.from_numpy(v) for v in bwd_inputs(shape, disp, seed))
+    refs = jax_vjp_reference(shape, disp, dil, seed)
+    plains = (_correlation2d_bwd_f1_plain(g, f2, disp, dil),
+              _correlation2d_bwd_f2_plain(g, f1, disp, dil))
+    for gather, f, plain, ref in zip((False, True), (f2, f1), plains, refs):
+        scale = RTOL * ref.abs().max().item()
+        assert (plain - ref).abs().max().item() <= scale
+        for split in splits:
+            got = emulate_bwd(g, f, disp, dil, gather, *split)
+            assert not torch.isnan(got).any(), split  # every output written
+            assert (got - plain).abs().max().item() <= scale, (gather, split)
+            assert (got - ref).abs().max().item() <= scale, (gather, split)
+
+
+@pytest.mark.parametrize("dil", [1, 2, 3])
+@pytest.mark.parametrize("c", [20, 21])
+def test_corr2d_bwd_tiles(c, dil):
+    # H = 3 rows, W = 37: most window rows outside the frame, a ragged run;
+    # (NT, R): channel groups of 16 (two, the second partly past C), 32
+    # and the most, 64; 1, 2 and 4 rows a block, past the frame's last row
+    check_bwd((2, 3, 37, c), 4, dil, [(2, 1), (4, 2), (BWD_NT_MAX, 4)])
+
+
+def test_corr2d_bwd_tiles_dilation_8_on_one_wide_row():
+    # runs of 128 pixels, the second cut at 22; the halo of 32 columns each
+    # side lies partly outside the frame
+    check_bwd((1, 1, 150, 20), 4, 8, [(2, 1), (BWD_NT_MAX, 2)])
+
+
+def test_corr2d_bwd_tiles_row_runs():
+    # 4 rows a block over 7 rows at dilation 2: classes of 4 and 3 rows
+    check_bwd((1, 7, 21, 20), 4, 2, [(2, 4), (4, 2)])
+
+
 def test_kernel_names_and_phase_marks():
     # trace_forward files kernels by the corr2d_/corr1d_ prefix, chip_smoke
     # reads ptxas lines by the _kernel suffix
     names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+"
                        r"(\w+)\(", SOURCE)
-    assert {"corr2d_tc_fwd_kernel", "corr1d_tc_fwd_kernel"} <= set(names)
+    assert {"corr2d_tc_fwd_kernel", "corr1d_tc_fwd_kernel",
+            "corr2d_tc_bwd_f1_kernel", "corr2d_tc_bwd_f2_kernel"} <= set(names)
     for name in names:
         assert name.startswith(("corr2d_", "corr1d_"))
         assert name.endswith("_kernel")
         assert trace_forward.category(name) == "correlation"
-    # one mark per phase in each forward kernel (k = 2, 3: one device
-    # function for both tensor-core kernels)
+    # one mark per phase in each forward and 2-D backward kernel (k = 2, 3
+    # and k = 6, 7: one device function for each pair of tensor-core
+    # kernels, whose kPhase is the row)
     marks = re.findall(r"PHASE_MARK\((\w+), (\d)\);", SOURCE)
-    phases = len(level_phases.CORR_PHASES)
-    for k in ("0", "1", "kPhase"):
-        assert sorted(int(p) for kk, p in marks if kk == k) == list(
-            range(phases))
-    assert len(level_phases.CORR_KERNELS) == 4
+    phases = list(range(len(level_phases.CORR_PHASES)))
+    for k in ("0", "1", "4", "5"):
+        assert sorted(int(p) for kk, p in marks if kk == k) == phases
+    assert sorted(int(p) for kk, p in marks if kk == "kPhase") == sorted(
+        2 * phases)
+    for fn, rows in (("tc_fwd(", "k2d ? 2 : 3"), ("tc_bwd(", "kF2 ? 7 : 6")):
+        body = SOURCE[SOURCE.index(f"__forceinline__ void {fn}"):]
+        assert f"constexpr int kPhase = {rows};" in body[:body.index("\n}\n")]
+    rows = re.search(r"corr_phase_cycles\[(\d+)\]\[3\];", SOURCE)
+    assert int(rows.group(1)) == len(level_phases.CORR_KERNELS) == 8
+    items = re.search(r"corr_item_cycles\[(\d+)\]\[3\];", SOURCE)
+    assert int(items.group(1)) == level_phases.CORR_ITEM_ROWS
 
 
 def test_each_launcher_counts_its_design():
@@ -233,8 +395,9 @@ def test_each_launcher_counts_its_design():
     rows = re.search(r"unsigned long long corr_design_launches\[(\d+)\];",
                      SOURCE)
     assert int(rows.group(1)) == len(cc.DESIGNS)
-    assert SOURCE.count("++corr_design_launches") == 2
+    assert SOURCE.count("++corr_design_launches") == 3
     for launcher, design in (("cudaError_t launch_tc(", "tc"),
+                             ("cudaError_t launch_tc_bwd(", "tc"),
                              ("cudaError_t launch(", "cuda_cores")):
         body = SOURCE[SOURCE.index(launcher):]
         body = body[:body.index("\n}\n")]
@@ -246,12 +409,15 @@ def test_each_launcher_counts_its_design():
 def test_correlation_measurement_builds():
     flags = [build.flags(d)[len(build.NVCC_FLAGS):]
              for d in level_phases.CORR_MEASUREMENT_BUILDS.values()]
-    assert flags == [("-DCORR_PHASES",), ("-DCORR_FWD_SIMT",)]
-    for define in ("CORR_PHASES", "CORR_FWD_SIMT"):
+    simt = ("-DCORR_FWD_SIMT", "-DCORR_BWD_SIMT")
+    assert flags == [("-DCORR_PHASES",), ("-DCORR_PHASES", *simt), simt,
+                     ("-DCORR_BAND_SMEM",)]
+    for define in ("CORR_PHASES", "CORR_FWD_SIMT", "CORR_BWD_SIMT",
+                   "CORR_BAND_SMEM"):
         assert f"#ifdef {define}" in SOURCE
     paths = {build.library_path("correlation", d)
              for d in ((), *level_phases.CORR_MEASUREMENT_BUILDS.values())}
-    assert len(paths) == 3
+    assert len(paths) == 5
 
 
 def test_library_name_covers_the_shared_header(tmp_path, monkeypatch):

@@ -42,6 +42,19 @@ from cerberusnet_torch.ops.encoder_level import (
 from cerberusnet_torch.train.config import ExperimentConfig
 from cerberusnet_torch.weights import load_flax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one intra-op thread for this module. Tier-1 runs a worker
+    process per core, and torch's default of a thread per core makes each
+    worker's waiting threads spin on the others' cores (a tiny train step
+    took 13 times as long under that load); these shapes need one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(
     encoder_channels=(8, 12, 16, 16, 16, 16),
     est_channels=(16, 16, 12),
@@ -249,9 +262,8 @@ def test_entry_refuses_fused_levels_where_there_are_none():
 # --------------------------------------------------- encoder and model
 
 
-def random_params(model, args, seed):
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            *[jnp.asarray(a) for a in args])["params"]
+def random_params(shapes, seed):
+    """A param tree of ``shapes`` (from jax.eval_shape of an init)."""
     rng = np.random.RandomState(seed)
 
     def draw(path, leaf):
@@ -268,7 +280,8 @@ def test_pyramid_encoder_three_fused_levels_matches_jax():
     chans = TINY["encoder_channels"]
     x = np.random.RandomState(3).randn(2, 64, 64, 3).astype(np.float32)
     jenc = JaxEncoder(chans, pallas_levels=3)
-    params = random_params(jenc, [x], 4)
+    params = random_params(jax.eval_shape(
+        jenc.init, jax.random.PRNGKey(0), jnp.asarray(x))["params"], 4)
     want = jax.jit(jenc.apply)({"params": params}, x)
     enc = load_flax_params(PyramidEncoder(chans, pallas_levels=3), params)
     assert enc.state_dict().keys() == PyramidEncoder(chans).state_dict().keys()
@@ -288,20 +301,23 @@ OUT_KEYS = ("flow", "disp", "seg_logits")
 def jax_cerberus():
     """JAX CerberusNet(pallas_levels=2) at 64x64 (the case of
     tests/test_pallas_encoder.py): params, frames, outputs, and the
-    gradients of a fixed weighted sum of the three heads."""
+    gradients of a fixed weighted sum of the three heads. One trace gives
+    the parameter and output shapes, and one compiled call the outputs
+    and gradients: the forward is traced and compiled once."""
     rng = np.random.RandomState(9)
     imgs = [rng.randn(1, 64, 64, 3).astype(np.float32) for _ in range(3)]
     model = JaxCerberusNet(pallas_levels=2, pallas_grad="pallas", **TINY)
-    params = random_params(model, imgs, 10)
-    out = jax.jit(model.apply)({"params": params}, *imgs)
-    weights = {k: rng.randn(*out[k].shape).astype(np.float32)
+    out_shapes, shapes = jax.eval_shape(model.init_with_output,
+                                        jax.random.PRNGKey(0), *imgs)
+    params = random_params(shapes["params"], 10)
+    weights = {k: rng.randn(*out_shapes[k].shape).astype(np.float32)
                for k in OUT_KEYS}
 
     def loss(p):
         o = model.apply({"params": p}, *imgs)
-        return sum((o[k] * weights[k]).sum() for k in OUT_KEYS)
+        return sum((o[k] * weights[k]).sum() for k in OUT_KEYS), o
 
-    grads = jax.jit(jax.grad(loss))(params)
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
     return (to_np(params), imgs, {k: np.asarray(out[k]) for k in OUT_KEYS},
             weights, to_np(grads))

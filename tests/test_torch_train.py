@@ -40,6 +40,19 @@ from cerberusnet_torch.train.config import ExperimentConfig, OptimConfig
 from cerberusnet_torch.train.trainer import Optimizer, Trainer, build_schedule
 from cerberusnet_torch.weights import load_flax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one intra-op thread for this module. Tier-1 runs a worker
+    process per core, and torch's default of a thread per core makes each
+    worker's waiting threads spin on the others' cores (a tiny train step
+    took 13 times as long under that load); these shapes need one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TINY = dict(
     encoder_channels=(8, 12, 16, 16, 16, 16),
     est_channels=(16, 16, 12),
@@ -443,8 +456,12 @@ def jax_step():
     (_, comps), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         params, prep)
     tx = jax_build_optimizer(cfg.optim)
-    upd, _ = tx.update(grads, tx.init(params), params)
-    new = optax.apply_updates(params, upd)
+
+    def update(p, g):  # one compile, not one per eager op and leaf
+        upd, _ = tx.update(g, tx.init(p), p)
+        return optax.apply_updates(p, upd)
+
+    new = jax.jit(update)(params, grads)
     as_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
     return (as_np(params), batch, {k: float(v) for k, v in comps.items()},
             as_np(grads), as_np(new))
