@@ -127,7 +127,11 @@
 //    owns R rows of a class, walks their R + 2d window rows in turn with
 //    the next NB - 1 rows' copies in flight and one barrier a row, and a
 //    group of 8 NT channels (blocks split C; so, within a block, do 1-4
-//    warps per (row, class)), so every level has 1.5 blocks per SM.
+//    warps per (row, class)), so every level has 1.5 blocks per SM. A
+//    block stages the window and g of only the (up to 16) classes it
+//    computes, so at d <= 16 every dilation fits a block's shared memory
+//    (narrower channel groups, then fewer classes a block, where a wide
+//    window would not).
 //  - g's pixel rows are 2K = 162 bytes: a run of pixels is staged as one
 //    contiguous run, with shared and device addresses congruent mod 16,
 //    by 16-byte cp.async and at most three smaller copies at each end.
@@ -135,25 +139,24 @@
 // is issuing the copies and building A (the products phase, 63-84% of the
 // block cycles), then the wait for copies (13-34%).
 //
-// (3) float32, the 1-D backwards in both types, and bfloat16 forwards or
-// 2-D backwards in a -DCORR_FWD_SIMT or -DCORR_BWD_SIMT build: the CUDA
-// cores. TF32 would break the float32
-// tolerance (1e-5). One block owns a tile of kTileW pixels of one output row
-// and stages in shared memory, as float32, the operands the tile needs: the
-// forward stages the f1 tile and the f2 pixels of the tile's window (with
-// the horizontal halo), once per block for the 1-D kernel and once per
-// window row for the 2-D kernel, so each block reads its inputs from device
-// memory about once (the re-reads of an f2 row across neighbouring output
-// rows come from L2). Shared rows of features are padded to C+1 floats so
-// neighbouring lanes hit different banks. The forward gives each thread one
-// (pixel, displacement) dot product with a C-loop of fused multiply-adds,
-// collects the tile's outputs in shared memory and writes them back as one
-// contiguous run. The backward kernels give each thread (pixel, channel)
-// outputs, with the displacement loop inside: lanes of a warp hold
-// neighbouring channels, so their feature reads are conflict-free and their
-// g read is a broadcast, and their stores are contiguous. The 2-D backward
-// kernels stage one window row at a time and keep the running sums in
-// shared memory between rows. Rows outside the frame are skipped; columns
+// (3) float32, the 1-D backwards in both types, and bfloat16 forwards or 2-D
+// backwards in a -DCORR_SIMT build: the CUDA cores. TF32 would break the
+// float32 tolerance (1e-5). One block owns a tile of kTileW pixels of one
+// output row and stages in shared memory, as float32, the operands the tile
+// needs: the forward stages the f1 tile and the f2 pixels of the tile's
+// window (with the horizontal halo), once per block for the 1-D kernel and
+// once per window row for the 2-D kernel, so each block reads its inputs
+// from device memory about once (the re-reads of an f2 row across
+// neighbouring output rows come from L2). Shared rows of features are padded
+// to C+1 floats so neighbouring lanes hit different banks. The forward gives
+// each thread one (pixel, displacement) dot product with a C-loop of fused
+// multiply-adds, collects the tile's outputs in shared memory and writes
+// them back as one contiguous run. The backward kernels give each thread
+// (pixel, channel) outputs, with the displacement loop inside: lanes of a
+// warp hold neighbouring channels, so their feature reads are conflict-free
+// and their g read is a broadcast, and their stores are contiguous. The 2-D
+// backward kernels stage one window row at a time and keep the running sums
+// in shared memory between rows. Rows outside the frame are skipped; columns
 // outside it are staged as zeros and multiplied. The 1-D backwards run 10x
 // (level 2) to about 150x (level 6) their bounds at batch 2 (PERF.md); their
 // phases are not clocked yet.
@@ -179,12 +182,9 @@
 // items (one band product) into corr_item_cycles[k]: 0 the products, up to
 // the accumulators' arrival (ITEM_CLOCK waits on its operand), 1 the band,
 // 2 the items counted.
-// -DCORR_FWD_SIMT, -DCORR_BWD_SIMT: bfloat16 forwards, or 2-D backwards,
-// run the CUDA-core kernels, as float32 does, so the two designs can be
-// timed in turns on one card.
-// -DCORR_BAND_SMEM: the tensor-core backwards' warps write each window
-// row's band A to shared memory and read its fragments back by ldmatrix,
-// in place of building them in registers, so the two can be timed in turns.
+// -DCORR_SIMT: bfloat16 forwards and 2-D backwards run the CUDA-core
+// kernels, as float32 does, so the two designs can be timed in turns on one
+// card.
 #ifdef CORR_PHASES
 __device__ unsigned long long corr_phase_cycles[8][3];
 __device__ unsigned long long corr_item_cycles[4][3];
@@ -205,15 +205,10 @@ __device__ unsigned long long corr_item_cycles[4][3];
 #define PHASE_BEGIN()
 #define PHASE_MARK(k, phase) ((void)(k), (void)(phase))
 #endif
-#ifdef CORR_FWD_SIMT
-constexpr bool kFwdTensorCores = false;
+#ifdef CORR_SIMT
+constexpr bool kTensorCores = false;
 #else
-constexpr bool kFwdTensorCores = true;
-#endif
-#ifdef CORR_BWD_SIMT
-constexpr bool kBwdTensorCores = false;
-#else
-constexpr bool kBwdTensorCores = true;
+constexpr bool kTensorCores = true;
 #endif
 
 // Launches by design since the caller last zeroed them: [0] the tensor-core
@@ -733,7 +728,11 @@ struct TcBwdGeom {
   int ncls;       // residue classes of columns a block computes
   int nclsg;      // blocks across the classes: dil / ncls rounded up
   int P;          // pixels of a row's run: 16 dil
-  int slab;       // window pixels of a row: dil ncols
+  int slab;       // window pixels of a row a block stages: ncls ncols
+  int gcol;       // bf16 from one window column of a class to the next in
+                  // a staged g run: S / 2, S = ncls 2K rounded up to the
+                  // next bytes congruent to dil 2K mod 16 (dil K if
+                  // ncls = dil: one contiguous run)
   int nc;         // channels of a block's group: 8 NT wc
   int wc;         // warps that split a group's channels, NT each
   int row_bytes;  // shared stride of a pixel's group: 2 nc + 16
@@ -743,7 +742,7 @@ struct TcBwdGeom {
   int g_bytes;    // one staged run of g: its pixels' 2K bytes, + 16
   int c_pow2;     // C is a power of two
   double inv_c;   // 1 / C
-  uint64_t m_dil, m_nRb, m_per_row, m_nclsg;
+  uint64_t m_dil, m_nRb, m_per_row, m_nclsg, m_ncls;
 };
 
 // Where pixel x_start of a staged run of g lies in its buffer `buf`: the
@@ -804,11 +803,32 @@ __device__ __forceinline__ void tc_stage_g(unsigned char* base,
   }
 }
 
+// Stages g of the classes cls0 .. cls0 + ncls - 1 of n window columns of
+// one image row, column m of class cls0 + u being pixel x_start + u + dil m,
+// at `base` (tc_g_base of x_start): one contiguous run where the block
+// computes every class, else a run of ncls pixels per column, S = 2 gcol
+// bytes apart, so shared and device addresses still agree mod 16.
+__device__ __forceinline__ void tc_stage_g_classes(unsigned char* base,
+                                                   const char* row,
+                                                   int x_start, int n,
+                                                   const TcBwdGeom& G) {
+  const int kb = 2 * G.K;
+  if (G.ncls == G.dil) {
+    tc_stage_g(base, row, x_start, n * G.dil, G.W, kb);
+  } else {
+    for (int m = 0; m < n; ++m) {
+      tc_stage_g(base + (size_t)m * 2 * G.gcol, row, x_start + G.dil * m,
+                 G.ncls, G.W, kb);
+    }
+  }
+}
+
 // grid: (B dil nRb: blocks of R rows of one residue class of rows, runs of
 // 16 dil pixels, channel groups x class groups). Shared: NB buffers,
-// each one staged window row's features (the tile's window pixels, class
-// by class, the group's channels) and, for df2, its g run; for df1 the g
-// runs of the R output rows. The block walks its R + 2d window rows in
+// each one staged window row's features (the tile's window pixels of the
+// block's ncls classes, class by class, the group's channels) and, for
+// df2, its g of those pixels; for df1 the g of the R output rows' tile
+// pixels of those classes. The block walks its R + 2d window rows in
 // turn with the next NB - 1 in flight, one barrier a row. Each warp owns
 // one (row, class) item and keeps its accumulators in registers across
 // all window rows.
@@ -848,22 +868,25 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
     const int slot = s % NB;
     unsigned char* buf = feat + (size_t)slot * G.feat_bytes;
     const char* img_row = fimg + (int64_t)yy * G.W * G.C * 2;
+    // pixel q: window column m of class cls0 + u (past the last class,
+    // a pixel no warp reads)
     for (int i = threadIdx.x; i < G.slab * G.per_row; i += blockDim.x) {
       const int q = fast_div(i, G.m_per_row);
       const int c = i - q * G.per_row;
-      const int x = xw0 + q;
+      const int m = fast_div(q, G.m_ncls);
+      const int u = q - m * G.ncls;
+      const int x = xw0 + cls0 + u + dil * m;
       const bool in = c * w / 2 < valid_ch && x >= 0 && x < G.W;
       const char* from =
           in ? img_row + ((int64_t)x * G.C + c_lo) * 2 + c * w : img_row;
-      const int m = fast_div(q, G.m_dil);
-      tc_copy(buf + ((size_t)(q - m * dil) * G.ncols + m) * G.row_bytes +
-                  c * w,
-              from, in, w);
+      tc_copy(buf + ((size_t)u * G.ncols + m) * G.row_bytes + c * w, from,
+              in, w);
     }
     if (kF2) {
       const char* g_row = gimg + (int64_t)yy * G.W * kb;
-      tc_stage_g(tc_g_base(gbuf + (size_t)slot * G.g_bytes, g_row, xw0, kb),
-                 g_row, xw0, G.slab, G.W, kb);
+      tc_stage_g_classes(
+          tc_g_base(gbuf + (size_t)slot * G.g_bytes, g_row, xw0 + cls0, kb),
+          g_row, xw0 + cls0, G.ncols, G);
     }
   };
 
@@ -873,8 +896,9 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
       const int y = cy + dil * (m0 + r);
       if (y < G.H) {
         const char* g_row = gimg + (int64_t)y * G.W * kb;
-        tc_stage_g(tc_g_base(gbuf + (size_t)r * G.g_bytes, g_row, x0, kb),
-                   g_row, x0, G.P, G.W, kb);
+        tc_stage_g_classes(
+            tc_g_base(gbuf + (size_t)r * G.g_bytes, g_row, x0 + cls0, kb),
+            g_row, x0 + cls0, kTcTile, G);
       }
     }
   }
@@ -900,13 +924,6 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
   const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int kcol = (lane >> 4) * 16 + 16 * NT * sub;
   float acc[NT][4] = {};
-#ifdef CORR_BAND_SMEM
-  // 16 rows of the band, k bytes and 16 more each, per warp, past the g runs
-  const int band_stride = G.kchunks * 32 + 16;
-  uint16_t* band = reinterpret_cast<uint16_t*>(
-      gbuf + (size_t)(kF2 ? NB : G.R) * G.g_bytes +
-      (size_t)warp * kTcTile * band_stride);
-#endif
 
   for (int s = 0; s < nslab; ++s) {
     ptx::cp_async_wait<NB - 2>();  // window row s has landed
@@ -922,42 +939,22 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
       const int slot = s % NB;
       const unsigned char* fb =
           feat + (size_t)slot * G.feat_bytes +
-          (size_t)cls * G.ncols * G.row_bytes + kcol;
+          (size_t)(cls - cls0) * G.ncols * G.row_bytes + kcol;
       // A's values: df1, g of the tile's pixel i (the output row's run);
       // df2, g of the window pixel j (the source row's slab)
-      // A[i, j] = gb[dil i K + o] (df1) or gb[dil j K - o] (df2), o = j - i
+      // A[i, j] = gb[gcol i + o] (df1) or gb[gcol j - o] (df2), o = j - i
       const uint16_t* gb =
           kF2 ? reinterpret_cast<const uint16_t*>(tc_g_base(
                     gbuf + (size_t)slot * G.g_bytes,
-                    gimg + (int64_t)yy * G.W * kb, xw0, kb)) +
-                    (size_t)cls * G.K + oy * G.nx + 2 * d
+                    gimg + (int64_t)yy * G.W * kb, xw0 + cls0, kb)) +
+                    (size_t)(cls - cls0) * G.K + oy * G.nx + 2 * d
               : reinterpret_cast<const uint16_t*>(tc_g_base(
                     gbuf + (size_t)r * G.g_bytes,
-                    gimg + (int64_t)yr * G.W * kb, x0, kb)) +
-                    (size_t)cls * G.K + oy * G.nx;
-      const uint16_t* ga = kF2 ? gb : gb + (size_t)dil * i0 * G.K;
-#ifdef CORR_BAND_SMEM
-      {  // the whole band to the warp's shared rows, read back by ldmatrix
-        const int kpad = G.kchunks * 16;
-        for (int e = lane; e < kTcTile * kpad; e += 32) {
-          const int i = e / kpad;
-          const int j = e - i * kpad;
-          const int o = j - i;
-          band[i * band_stride / 2 + j] =
-              o < 0 || o > 2 * d ? uint16_t(0)
-              : kF2              ? gb[(size_t)dil * j * G.K - o]
-                                 : gb[(size_t)dil * i * G.K + o];
-        }
-        __syncwarp();
-      }
-#endif
+                    gimg + (int64_t)yr * G.W * kb, x0 + cls0, kb)) +
+                    (size_t)(cls - cls0) * G.K + oy * G.nx;
+      const uint16_t* ga = kF2 ? gb : gb + (size_t)G.gcol * i0;
       for (int kc = 0; kc < G.kchunks; ++kc) {
         uint32_t a[4];
-#ifdef CORR_BAND_SMEM
-        ptx::ldmatrix_x4(a, reinterpret_cast<const unsigned char*>(band) +
-                                (lane & 15) * band_stride + kc * 32 +
-                                (lane >> 4) * 16);
-#else
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // columns q2 + 8 h, q2 + 8 h + 1
 #pragma unroll
@@ -970,15 +967,14 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
               const int o = j - i;
               uint32_t val = 0;
               if (o >= 0 && o <= 2 * d) {
-                val = kF2 ? ga[(size_t)dil * j * G.K - o]
-                          : ga[(size_t)dil * 8 * v * G.K + o];
+                val = kF2 ? ga[(size_t)G.gcol * j - o]
+                          : ga[(size_t)G.gcol * 8 * v + o];
               }
               pair |= val << (16 * e);
             }
             a[2 * h + v] = pair;
           }
         }
-#endif
         const int j = min(kc * 16 + krow, G.ncols - 1);
         const unsigned char* brow = fb + (size_t)j * G.row_bytes;
 #pragma unroll
@@ -1479,7 +1475,9 @@ struct TcBwdPlan {
 // and a half blocks per SM (the larger on a tie; 2 if none has them); then
 // the largest R of 8, 4 and 2 that keeps them within kTcSmemBudget bytes;
 // then as many warps to split each item's channels as give the block
-// kTcMinWarps warps (staging sets a small block's time).
+// kTcMinWarps warps (staging sets a small block's time). Where the window
+// is too wide for a block's shared memory (a large dilation or max_disp),
+// narrower channel groups, then fewer classes a block, until it fits.
 // copy_bytes: the features' staging copy width.
 TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
                       int copy_bytes, int sms) {
@@ -1490,10 +1488,18 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
   g.ncols = kTcTile + 2 * disp;
   g.kchunks = (g.ncols + 15) / 16;
   g.P = kTcTile * dil;
-  g.slab = dil * g.ncols;
   g.copy_bytes = copy_bytes;
-  g.ncls = dil < kTcMaxWarps ? dil : kTcMaxWarps;
-  g.nclsg = (dil + g.ncls - 1) / g.ncls;
+  auto classes = [&](int n) {  // n residue classes of columns a block
+    g.ncls = n;
+    g.nclsg = (dil + n - 1) / n;
+    g.slab = n * g.ncols;
+    const int kb = 2 * g.K;
+    const int S = n * kb + (((dil - n) * kb) & 15);
+    g.gcol = S / 2;
+    g.g_bytes = ((f2 ? g.ncols : kTcTile) * S + 16 + 15) / 16 * 16;
+    g.feat_bytes = g.slab * g.row_bytes;
+  };
+  classes(dil < kTcMaxWarps ? dil : kTcMaxWarps);
   const int class_rows = (H + dil - 1) / dil;
   const int64_t runs = (W + g.P - 1) / g.P;
   const int nt8 = (C + 7) / 8;
@@ -1507,7 +1513,6 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
     const int padded = (nt8 + cand - 1) / cand * cand;
     if (blocks(cand, 1) >= want && padded < fewest) nt = cand, fewest = padded;
   }
-  g.g_bytes = ((f2 ? g.slab : g.P) * 2 * g.K + 16 + 15) / 16 * 16;
   auto group = [&](int n) {  // a block's channel group of n n8 tiles
     nt = n;
     g.nc = 8 * nt;
@@ -1519,9 +1524,15 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
     return nbuf * (size_t)g.feat_bytes + (size_t)(f2 ? nbuf : R) * g.g_bytes;
   };
   group(nt);
-  // at large dilations the window is wide: narrower groups until a block
-  // fits an SM
-  while (nt > 2 && shared(1, 2) > kMaxSharedBytes) group(nt - 2);
+  while (shared(1, 2) > kMaxSharedBytes) {
+    if (nt > 2) {
+      group(nt - 2);
+    } else if (g.ncls > 1) {
+      classes(g.ncls - 1);
+    } else {
+      break;  // launch_tc_bwd refuses it
+    }
+  }
   g.R = 1;
   for (int R = kTcBwdMaxRows; R > 1; R /= 2) {
     if (R * g.ncls <= kTcMaxWarps && blocks(nt, R) >= want &&
@@ -1537,6 +1548,7 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
   g.c_pow2 = (C & (C - 1)) == 0;
   g.m_dil = magic(dil), g.m_nRb = magic(g.nRb);
   g.m_per_row = magic(g.per_row), g.m_nclsg = magic(g.nclsg);
+  g.m_ncls = magic(g.ncls);
   // wc warps split each item's NT n8 tiles, an even count each: the
   // fewest that give the block kTcMinWarps warps, else the most
   const int items = g.R * g.ncls;
@@ -1548,14 +1560,10 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
   }
   const int warps = items * g.wc < kTcMinWarps / 2 ? kTcMinWarps / 2
                                                    : items * g.wc;
-  size_t bytes = shared(g.R, nbuf);
-#ifdef CORR_BAND_SMEM
-  bytes += (size_t)warps * kTcTile * (g.kchunks * 32 + 16);
-#endif
   return {g,
           dim3((unsigned)(B * dil * g.nRb), (unsigned)runs,
                (unsigned)(((nt8 + nt - 1) / nt) * g.nclsg)),
-          warps * 32, bytes, nt / g.wc, nbuf};
+          warps * 32, shared(g.R, nbuf), nt / g.wc, nbuf};
 }
 
 template <bool f2>
@@ -1598,10 +1606,10 @@ cudaError_t launch_tc_bwd(const void* g, const void* f, void* out, int B,
 // float32 for all three tensors. a and b are (f1, f2) for a forward and
 // (g, f2) or (g, f1) for a backward; B, H, W, C are the features' shape.
 // bfloat16 runs the forwards and the 2-D backwards on the tensor cores (on
-// the CUDA cores in a -DCORR_FWD_SIMT or -DCORR_BWD_SIMT build), the 1-D
-// backwards on the CUDA cores; float32 runs everything on the CUDA cores.
-#define CORR_SIMT(name)                                                      \
-  (is_bf16 ? launch<__nv_bfloat16>(name##_kernel<__nv_bfloat16>,            \
+// the CUDA cores in a -DCORR_SIMT build), the 1-D backwards on the CUDA
+// cores; float32 runs everything on the CUDA cores.
+#define CORR_CUDA_CORES(name)                                                \
+  (is_bf16 ? launch<__nv_bfloat16>(name##_kernel<__nv_bfloat16>,             \
                                    shape_##name(C, disp, dil), a, b, out, B, \
                                    H, W, C, disp, dil, s)                    \
            : launch<float>(name##_kernel<float>, shape_##name(C, disp, dil), \
@@ -1614,14 +1622,14 @@ cudaError_t launch_tc_bwd(const void* g, const void* f, void* out, int B,
                       void* stream) {                                        \
     if (bad_shape(B, H, W, C, disp, dil)) return cudaErrorInvalidValue;      \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                      \
-    if (kFwdTensorCores && is_bf16 && (tc == 0 || tc == 1)) {                \
+    if (kTensorCores && is_bf16 && (tc == 0 || tc == 1)) {                   \
       return tc ? launch_tc<true>(a, b, out, B, H, W, C, disp, dil, s)       \
                 : launch_tc<false>(a, b, out, B, H, W, C, disp, dil, s);     \
     }                                                                        \
-    if (kBwdTensorCores && is_bf16 && tc >= 2) {                             \
-      return launch_tc_bwd<tc == 3>(a, b, out, B, H, W, C, disp, dil, s);   \
+    if (kTensorCores && is_bf16 && tc >= 2) {                                \
+      return launch_tc_bwd<tc == 3>(a, b, out, B, H, W, C, disp, dil, s);    \
     }                                                                        \
-    return CORR_SIMT(name);                                                  \
+    return CORR_CUDA_CORES(name);                                            \
   }
 
 CORR_ENTRY(corr2d_fwd, 1)

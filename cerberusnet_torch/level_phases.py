@@ -41,21 +41,16 @@ forwards at batch 1 (served) and 2 (trained), the backwards at 2:
   did not hide, and "products" includes issuing the copies); in the
   tensor-core forwards warp 0 also clocks each of its items
   (one band product) in two parts, the products up to the accumulators'
-  arrival and the band. A second build adds ``-DCORR_FWD_SIMT
-  -DCORR_BWD_SIMT`` (below) to clock the CUDA-core kernels. After
+  arrival and the band. A second build adds ``-DCORR_SIMT`` (below) to
+  clock the CUDA-core kernels. After
   WARM_CALLS calls (the timed calls find the kernel's code and operands
   cached too), one JSON line per call gives each phase's share of the
   summed block cycles and warp 0's cycles per item, by design.
-- ``-DCORR_FWD_SIMT -DCORR_BWD_SIMT``: bf16 runs the CUDA-core kernels that
-  float32 runs. Each call is timed in turns with the library (library,
+- ``-DCORR_SIMT``: bf16 runs the CUDA-core kernels that float32 runs. Each call is timed in turns with the library (library,
   CUDA cores, CUDA cores, library; each a median of device times as
   above), and the line gives both, the design each build counted in its
   turns and the largest difference of their outputs. A first line times
   an empty kernel the same way: the floor of these times.
-- ``-DCORR_BAND_SMEM``: the tensor-core 2-D backwards write each band to
-  shared memory and read it back by ldmatrix; each backward call is timed
-  in turns with the library (which builds the band in registers), and the
-  line says whether the two gave the same bits.
 
 The builds live in ``cerberusnet_torch/_build/``; nothing else loads them.
 Needs a CUDA device and nvcc.
@@ -95,11 +90,9 @@ N_COUNTERS = 2 * 16 + 2  # phase_cycles[2][16], slot_bytes[2]
 TIMED_RUNS = 10
 
 CORR_SOURCE = "correlation"
-CORR_SIMT = ("CORR_FWD_SIMT", "CORR_BWD_SIMT")
 CORR_MEASUREMENT_BUILDS = {"phases": ("CORR_PHASES",),
-                           "phases_cuda_cores": ("CORR_PHASES", *CORR_SIMT),
-                           "cuda_cores": CORR_SIMT,
-                           "band_smem": ("CORR_BAND_SMEM",)}
+                           "phases_cuda_cores": ("CORR_PHASES", "CORR_SIMT"),
+                           "cuda_cores": ("CORR_SIMT",)}
 CORR_PHASES = ("stage", "products and band", "store")
 # the rows of corr_phase_cycles: (wrapper, design) of each kernel with
 # phase marks
@@ -278,21 +271,6 @@ def corr_main(device: str, spin_rate: float):
                 outs[which] = run()
                 times[which].append(ms_per_call(run, spin_rate))
                 ran[which] = cc.launched_design()
-        band = {}
-        if name.startswith("corr2d_bwd"):
-            # the band built in registers (library) against written to
-            # shared memory (band_smem), in turns
-            band_times = {"library": [], "band_smem": []}
-            for which in ("library", "band_smem", "band_smem", "library"):
-                with launching(lib if which == "library"
-                               else builds["band_smem"], CORR_SOURCE):
-                    outs[which] = run()
-                    band_times[which].append(ms_per_call(run, spin_rate))
-            band = {"band_smem_ms": statistics.median(band_times["band_smem"]),
-                    "band_registers_ms": statistics.median(
-                        band_times["library"]),
-                    "band_smem_same": torch.equal(outs["band_smem"],
-                                                  outs["library"])}
         torch.cuda.synchronize()
         diff = (outs["library"].float() - outs["cuda_cores"].float()).abs()
         print(json.dumps({
@@ -303,7 +281,7 @@ def corr_main(device: str, spin_rate: float):
             "share": share, "ms": statistics.median(times["library"]),
             "cuda_cores_ms": statistics.median(times["cuda_cores"]),
             "item_cycles": item, "ms_runs": times,
-            "max_abs_diff": diff.max().item(), **band}),
+            "max_abs_diff": diff.max().item()}),
             flush=True)
     cc.reset_launches()
 

@@ -34,10 +34,12 @@ window columns padded to a multiple of 16) times the staged window (k x
 kept across the window rows, and scales once by 1/C at the end. df1's A
 is A[i, j] = g(x_i, oy (2d + 1) + j - i), df2's (the gather) A[i, j] =
 g(x_j, oy (2d + 1) + 2d - (j - i)) on the source row, both for
-0 <= j - i <= 2d. The result must equal ``_correlation2d_bwd_f1_plain`` /
-``_f2_plain`` and ``jax.vjp`` of the JAX package's ``correlation2d``
-(pure path) within 1e-6 of the largest output, at C = 20 and 21, W = 37,
-H = 3 and 7, dilations 1, 2, 3 and 8.
+0 <= j - i <= 2d. A block computes up to ``kTcMaxWarps`` residue classes
+of columns and stages the window and g of only those. The result must
+equal ``_correlation2d_bwd_f1_plain`` / ``_f2_plain`` and ``jax.vjp`` of
+the JAX package's ``correlation2d`` (pure path) within 1e-6 of the largest
+output, at C = 20 and 21, W = 37, H = 3 and 7, dilations 1, 2, 3, 8 and
+25.
 """
 
 import functools
@@ -60,20 +62,10 @@ from cerberusnet_torch.ops.correlation import (
     _correlation2d_plain,
 )
 from cerberusnet_torch.ops.cuda import correlation as cc
+from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
 from cerberusnet_tpu.ops.correlation import correlation1d as jax_corr1d
 from cerberusnet_tpu.ops.correlation import correlation2d as jax_corr2d
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one intra-op thread for this module. Tier-1 runs a worker
-    process per core, and torch's default of a thread per core makes each
-    worker's waiting threads spin on the others' cores (a tiny train step
-    took 13 times as long under that load); these shapes need one."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 SOURCE = (build.CSRC_DIR / "correlation.cu").read_text()
@@ -87,6 +79,7 @@ TILE = constant("kTcTile")
 NT_GROUP = constant("kTcNtGroup")
 MAX_TILES = constant("kTcMaxTiles")
 BWD_NT_MAX = constant("kTcBwdNtMax")
+MAX_WARPS = constant("kTcMaxWarps")
 RTOL = 1e-6
 
 
@@ -239,15 +232,24 @@ def test_band_needs_more_than_one_column_group():
     check(False, (1, 2, 48, 20), disp, 1, [(1, 1), (MAX_TILES, 1)])
 
 
-def emulate_bwd(g, f, disp, dil, gather, nt, R):
+def emulate_bwd(g, f, disp, dil, gather, nt, R, ncls=None):
     """The tensor-core backward's blocks, one after another, in float32:
-    df1 from (g, f2), or df2 (``gather``) from (g, f1)."""
+    df1 from (g, f2), or df2 (``gather``) from (g, f1). A block computes
+    ``ncls`` residue classes of columns (by default as many as a block has
+    warps for) and stages only theirs; its g sits in a flat buffer as the
+    kernel's shared memory holds it, window column m of class cls0 + u at
+    m gcol + u K."""
     b, h, w, c = f.shape
     nx = 2 * disp + 1
+    k = nx * nx
     ncols = TILE + 2 * disp  # window columns of a tile, also per class
     kpad = -(-ncols // 16) * 16
     nc = 8 * nt
     groups = -(-(-(-c // 8)) // nt)
+    ncls = ncls or min(dil, MAX_WARPS)
+    # bf16 between one window column of a class and the next: ncls 2K
+    # bytes rounded up to bytes congruent to dil 2K mod 16
+    gcol = (ncls * 2 * k + ((dil - ncls) * 2 * k) % 16) // 2
     fp = F.pad(f.float(), (0, groups * nc - c))  # channels past C are zero
     g = g.float()
     run = TILE * dil
@@ -257,44 +259,55 @@ def emulate_bwd(g, f, disp, dil, gather, nt, R):
     o = j - i
     band = (o >= 0) & (o <= 2 * disp)
     cols = torch.arange(kpad).clamp(max=ncols - 1)
+    u = torch.arange(ncls)[:, None]
 
-    def stage(img_row, xs, n):
-        """n pixels from column xs; outside the frame zero."""
-        rows = torch.zeros((n, img_row.shape[-1]))
-        for q in range(n):
-            if 0 <= xs + q < w:
-                rows[q] = img_row[xs + q]
-        return rows
+    def pixels(img_row, xs):
+        """img_row at columns xs; outside the frame zero."""
+        inside = (xs >= 0) & (xs < w)
+        return img_row[xs.clamp(0, w - 1)] * inside[..., None]
 
-    for bi, cy, m0, x0, cg in itertools.product(
+    def stage_g(img_row, x_start, n):
+        """g of classes cls0 + u, window columns m < n, flat."""
+        flat = torch.zeros(n * gcol + ncls * k)
+        rows = pixels(img_row, x_start + u + dil * torch.arange(n)[None])
+        for m in range(n):
+            flat[m * gcol:m * gcol + ncls * k] = rows[:, m].reshape(-1)
+        return flat
+
+    def band_a(flat, at):
+        """A[i, j] = flat[at + offset(i, j)] in the band, 0 elsewhere."""
+        return torch.where(band, flat[at.clamp(0, flat.numel() - 1)],
+                           torch.zeros(()))
+
+    for bi, cy, m0, x0, cg, cls0 in itertools.product(
             range(b), range(dil), range(0, -(-h // dil), R), range(0, w, run),
-            range(groups)):
+            range(groups), range(0, dil, ncls)):
         chans = slice(cg * nc, (cg + 1) * nc)
         ys = [cy + dil * (m0 + r) for r in range(R)]
-        # df1: the g runs of the output rows
-        g_runs = {r: stage(g[bi, y], x0, run) for r, y in enumerate(ys)
-                  if y < h}
+        # df1: the g of the output rows' tile pixels of the block's classes
+        g_runs = {r: stage_g(g[bi, y], x0 + cls0, TILE)
+                  for r, y in enumerate(ys) if y < h}
         acc = {(r, cls): torch.zeros((TILE, nc)) for r in g_runs
-               for cls in range(dil)}
-        for s in range(R + 2 * disp):
-            yy = cy + dil * (m0 + s - disp)
+               for cls in range(cls0, min(cls0 + ncls, dil))}
+        xw0 = x0 - disp * dil
+        for s_ in range(R + 2 * disp):
+            yy = cy + dil * (m0 + s_ - disp)
             if not 0 <= yy < h:
                 continue  # not staged, no products
-            win = stage(fp[bi, yy, :, chans], x0 - disp * dil, dil * ncols)
-            g_slab = stage(g[bi, yy], x0 - disp * dil, dil * ncols)
+            # (class, window column, channel)
+            win = pixels(fp[bi, yy, :, chans],
+                         xw0 + cls0 + u + dil * torch.arange(ncols)[None])
+            g_slab = stage_g(g[bi, yy], xw0 + cls0, ncols)
             for r, cls in acc:
-                oy = r + 2 * disp - s if gather else s - r
+                oy = r + 2 * disp - s_ if gather else s_ - r
                 if not 0 <= oy <= 2 * disp:
                     continue
+                base = (cls - cls0) * k + oy * nx
                 if gather:  # g of window pixel j at displacement 2d - o
-                    pix = (cls + dil * j).expand_as(o)
-                    a = g_slab[pix.clamp(max=dil * ncols - 1),
-                               (oy * nx + 2 * disp - o).clamp(0, nx * nx - 1)]
+                    a = band_a(g_slab, base + 2 * disp + gcol * j - o)
                 else:  # g of tile pixel i at displacement o
-                    pix = (cls + dil * i).expand_as(o)
-                    a = g_runs[r][pix, (oy * nx + o).clamp(0, nx * nx - 1)]
-                a = torch.where(band, a, torch.zeros(()))
-                acc[(r, cls)] += a @ win[cls + dil * cols]
+                    a = band_a(g_runs[r], base + gcol * i + o)
+                acc[(r, cls)] += a @ win[cls - cls0, cols]
         for (r, cls), sums in acc.items():
             for ii in range(TILE):
                 x = x0 + cls + dil * ii
@@ -359,6 +372,14 @@ def test_corr2d_bwd_tiles_row_runs():
     check_bwd((1, 7, 21, 20), 4, 2, [(2, 4), (4, 2)])
 
 
+def test_corr2d_bwd_tiles_class_groups():
+    # blocks that compute some of the residue classes of columns and stage
+    # only theirs: at dilation 25 the first block 16 classes (one a warp),
+    # the second the last 9; at dilation 3 groups of 2 and 1
+    check_bwd((1, 3, 37, 21), 4, 25, [(2, 1)])
+    check_bwd((2, 3, 37, 20), 4, 3, [(2, 1, 2), (BWD_NT_MAX, 2, 1)])
+
+
 def test_kernel_names_and_phase_marks():
     # trace_forward files kernels by the corr2d_/corr1d_ prefix, chip_smoke
     # reads ptxas lines by the _kernel suffix
@@ -409,15 +430,13 @@ def test_each_launcher_counts_its_design():
 def test_correlation_measurement_builds():
     flags = [build.flags(d)[len(build.NVCC_FLAGS):]
              for d in level_phases.CORR_MEASUREMENT_BUILDS.values()]
-    simt = ("-DCORR_FWD_SIMT", "-DCORR_BWD_SIMT")
-    assert flags == [("-DCORR_PHASES",), ("-DCORR_PHASES", *simt), simt,
-                     ("-DCORR_BAND_SMEM",)]
-    for define in ("CORR_PHASES", "CORR_FWD_SIMT", "CORR_BWD_SIMT",
-                   "CORR_BAND_SMEM"):
+    assert flags == [("-DCORR_PHASES",), ("-DCORR_PHASES", "-DCORR_SIMT"),
+                     ("-DCORR_SIMT",)]
+    for define in ("CORR_PHASES", "CORR_SIMT"):
         assert f"#ifdef {define}" in SOURCE
     paths = {build.library_path("correlation", d)
              for d in ((), *level_phases.CORR_MEASUREMENT_BUILDS.values())}
-    assert len(paths) == 5
+    assert len(paths) == 4
 
 
 def test_library_name_covers_the_shared_header(tmp_path, monkeypatch):

@@ -40,19 +40,9 @@ from cerberusnet_torch.ops.encoder_level import (
     encoder_level_plain,
 )
 from cerberusnet_torch.train.config import ExperimentConfig
+from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
 from cerberusnet_torch.weights import load_flax_params
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one intra-op thread for this module. Tier-1 runs a worker
-    process per core, and torch's default of a thread per core makes each
-    worker's waiting threads spin on the others' cores (a tiny train step
-    took 13 times as long under that load); these shapes need one."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 TINY = dict(

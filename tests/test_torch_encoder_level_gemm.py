@@ -31,18 +31,8 @@ from cerberusnet_torch.ops.encoder_level import (
     encoder_level_bwd_plain,
     encoder_level_plain,
 )
+from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one intra-op thread for this module. Tier-1 runs a worker
-    process per core, and torch's default of a thread per core makes each
-    worker's waiting threads spin on the others' cores (a tiny train step
-    took 13 times as long under that load); these shapes need one."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 WIDTHS = sorted(cl.TC_LEVELS)  # (3, 16), (16, 32), (32, 64)
