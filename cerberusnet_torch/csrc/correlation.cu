@@ -45,9 +45,9 @@
 // the window is large against the frame, this makes the 2-D kernels bound
 // by operations.
 //
-// The bf16 forwards' and 2-D backwards' products run on the tensor cores
-// (989 TFLOP/s bf16), where every bf16 call's operations take less time
-// than its bytes.
+// Every bf16 kernel's products run on the tensor cores (989 TFLOP/s
+// bf16), where every bf16 call's operations take less time than its
+// bytes.
 //
 // Three designs, chosen by the type and the op alone, never on a failure.
 //
@@ -77,7 +77,11 @@
 //    runs for the 1-D op) and stages it class by class, a class's pixels in
 //    adjacent shared rows, so the stride costs nothing. Rows likewise: a 2-D
 //    block owns R rows y, y + dil, ... of one class, whose window rows
-//    overlap, and stages R + 2d window rows, not R (2d + 1).
+//    overlap, and stages R + 2d window rows, not R (2d + 1). A block
+//    computes every class of its run, or, where their runs would exceed a
+//    block's shared memory (at C = 196 the 2-D op above dilation 13, the
+//    1-D op at D = 4 above 14), the fewest equal groups of classes that
+//    fit, one group a block, and stages only its own.
 //  - Staging: one loop issues every copy of the block (cp.async of 16, 8 or
 //    4 bytes, as the pointers and the pixel rows' 2C bytes allow; 2-byte
 //    loads for odd C), then one wait. Shared rows are 2 C16 + 16 bytes (C16:
@@ -102,14 +106,17 @@
 // wgmma and TMA are not used: the A and B operands are gathers of pixel
 // rows that ldmatrix takes lane by lane.
 //
-// (2) bfloat16 2-D backwards: the tensor cores (corr2d_tc_bwd_f1_kernel,
-// corr2d_tc_bwd_f2_kernel). What held the CUDA-core backwards of (3) back,
-// by their phase clocks (level_phases.py, NVIDIA H100 80GB HBM3 at 700 W):
-// staging 43-68% of their block cycles (scalar loads, a division and a
-// convert per element, each f2 or f1 window row staged again per output
-// row), products 31-55% (two shared loads per multiply-add, the running
-// sums read and written in shared memory per window row), the store 1-2%;
-// and one block per 32 pixels of a row, 16 blocks at level 6. Here:
+// (2) bfloat16 backwards: the tensor cores (corr2d_tc_bwd_f1_kernel,
+// corr2d_tc_bwd_f2_kernel, corr1d_tc_bwd_f1_kernel, corr1d_tc_bwd_f2_kernel,
+// one device function). What held the CUDA-core backwards of (3) back, by
+// their phase clocks (level_phases.py, NVIDIA H100 80GB HBM3 at 700 W): the
+// 2-D ones staged for 43-68% of their block cycles (scalar loads, a
+// division and a convert per element, each f2 or f1 window row staged
+// again per output row), products 31-55% (two shared loads per
+// multiply-add, the running sums read and written in shared memory per
+// window row), the store 1-2%; the 1-D ones staged for 42-63%, products
+// with their stores 36-56%; and one block per 32 pixels of a row, 16
+// blocks at level 6. Here:
 //  - A window row's share of a 16-pixel tile's gradient is one band
 //    product on mma.sync.m16n8k16: df1 (16 x nc) += A F2win, A[i, j] =
 //    g(x_i, oy nx + j - i); df2 (16 x nc) += A F1win, A[i, j] =
@@ -121,6 +128,11 @@
 //    Each lane builds its A fragment from the staged g in registers; B,
 //    the staged pixel rows (pixels along k, channels along n), comes
 //    through ldmatrix.trans.
+//    The 1-D op has one window row: a tile's df1 = A F2win, A[i, j] =
+//    g(x_i, D - (j - i)), window column j the pixel 16 t + j - D of its
+//    class, and df2 = A F1win, A[i, j] = g(x_j, j - i), window column j
+//    the pixel 16 t + j (a gather), for 0 <= j - i <= D: one band product,
+//    no walk over window rows.
 //  - The accumulators stay in registers across all 2d + 1 window rows;
 //    sum / C is rounded once as in (1) and stored once as bf16.
 //  - Dilation by residue classes of columns and rows, as in (1); a block
@@ -131,35 +143,39 @@
 //    block stages the window and g of only the (up to 16) classes it
 //    computes, so at d <= 16 every dilation fits a block's shared memory
 //    (narrower channel groups, then fewer classes a block, where a wide
-//    window would not).
-//  - g's pixel rows are 2K = 162 bytes: a run of pixels is staged as one
-//    contiguous run, with shared and device addresses congruent mod 16,
-//    by 16-byte cp.async and at most three smaller copies at each end.
-// Measured (PERF.md): every call 2.4-7.1x faster than (3); what is left
-// is issuing the copies and building A (the products phase, 63-84% of the
-// block cycles), then the wait for copies (13-34%).
+//    window would not). A 1-D block owns one row and T (up to
+//    kTcMaxTiles) tiles of each of its classes, whose windows overlap: it
+//    stages 16 T + D window pixels a class, not T (16 + D), once.
+//  - g's pixel rows are 2K = 162 bytes (2-D), 10 to 50 (1-D): a run of
+//    pixels is staged as one contiguous run, with shared and device
+//    addresses congruent mod 16, by 16-byte cp.async and at most three
+//    smaller copies at each end.
+// Measured (PERF.md): every 2-D call 2.4-7.1x faster than (3), every 1-D
+// call 1.2-2.8x; what is left in the 2-D ones is issuing the copies and
+// building A (the products phase, 63-84% of the block cycles), then the
+// wait for copies (13-34%); the 1-D ones wait for their one staging for
+// 47-74% of their block cycles and store for 11-35%, and at levels 6-4 a
+// call is the 5 us launch floor plus about 2 us.
 //
-// (3) float32, the 1-D backwards in both types, and bfloat16 forwards or 2-D
-// backwards in a -DCORR_SIMT build: the CUDA cores. TF32 would break the
-// float32 tolerance (1e-5). One block owns a tile of kTileW pixels of one
-// output row and stages in shared memory, as float32, the operands the tile
-// needs: the forward stages the f1 tile and the f2 pixels of the tile's
-// window (with the horizontal halo), once per block for the 1-D kernel and
-// once per window row for the 2-D kernel, so each block reads its inputs
-// from device memory about once (the re-reads of an f2 row across
+// (3) float32, and bfloat16 in a -DCORR_SIMT build: the CUDA cores. TF32
+// would break the float32 tolerance (1e-5). One block owns a tile of kTileW
+// pixels of one output row and stages in shared memory, as float32, the
+// operands the tile needs: the forward stages the f1 tile and the f2 pixels
+// of the tile's window (with the horizontal halo), once per block for the 1-D
+// kernel and once per window row for the 2-D kernel, so each block reads its
+// inputs from device memory about once (the re-reads of an f2 row across
 // neighbouring output rows come from L2). Shared rows of features are padded
 // to C+1 floats so neighbouring lanes hit different banks. The forward gives
 // each thread one (pixel, displacement) dot product with a C-loop of fused
-// multiply-adds, collects the tile's outputs in shared memory and writes
-// them back as one contiguous run. The backward kernels give each thread
-// (pixel, channel) outputs, with the displacement loop inside: lanes of a
-// warp hold neighbouring channels, so their feature reads are conflict-free
-// and their g read is a broadcast, and their stores are contiguous. The 2-D
-// backward kernels stage one window row at a time and keep the running sums
-// in shared memory between rows. Rows outside the frame are skipped; columns
-// outside it are staged as zeros and multiplied. The 1-D backwards run 10x
-// (level 2) to about 150x (level 6) their bounds at batch 2 (PERF.md); their
-// phases are not clocked yet.
+// multiply-adds, collects the tile's outputs in shared memory and writes them
+// back as one contiguous run. The backward kernels give each thread (pixel,
+// channel) outputs, with the displacement loop inside: lanes of a warp hold
+// neighbouring channels, so their feature reads are conflict-free and their g
+// read is a broadcast, and their stores are contiguous. The 2-D backward
+// kernels stage one window row at a time and keep the running sums in shared
+// memory between rows. Rows outside the frame are skipped; columns outside it
+// are staged as zeros and multiplied. The 1-D backwards store each output as
+// soon as its sum is done.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,25 +184,27 @@
 #include "ptx.cuh"
 
 // Measurement builds (cerberusnet_torch/level_phases.py), off by default.
-// -DCORR_PHASES: at every PHASE_MARK(k, phase) of a forward or 2-D backward
-// kernel the block synchronises and its thread 0 adds the clock64() cycles
-// since its previous reading to corr_phase_cycles[k][phase] (k: 0
-// corr2d_fwd_kernel, 1 corr1d_fwd_kernel, 2 corr2d_tc_fwd_kernel, 3
-// corr1d_tc_fwd_kernel, 4 corr2d_bwd_f1_kernel, 5 corr2d_bwd_f2_kernel, 6
-// corr2d_tc_bwd_f1_kernel, 7 corr2d_tc_bwd_f2_kernel; phase: 0 staging (in
-// the tensor-core backwards, the wait for a window row's copies that the
-// products of the ones before did not hide), 1 products (and band; in the
-// tensor-core backwards also issuing the next row's copies), 2 store). The added barriers perturb the kernels a little, so the build
-// gives shares of block cycles, not times.
+// -DCORR_PHASES: at every PHASE_MARK(k, phase) of a kernel the block
+// synchronises and its thread 0 adds the clock64() cycles since its
+// previous reading to corr_phase_cycles[k][phase] (k: 0 corr2d_fwd_kernel,
+// 1 corr1d_fwd_kernel, 2 corr2d_tc_fwd_kernel, 3 corr1d_tc_fwd_kernel, 4
+// corr2d_bwd_f1_kernel, 5 corr2d_bwd_f2_kernel, 6 corr2d_tc_bwd_f1_kernel,
+// 7 corr2d_tc_bwd_f2_kernel, 8 corr1d_bwd_f1_kernel, 9
+// corr1d_bwd_f2_kernel, 10 corr1d_tc_bwd_f1_kernel, 11
+// corr1d_tc_bwd_f2_kernel; phase: 0 staging (in the tensor-core
+// backwards, the wait for a window row's copies that the products of the
+// ones before did not hide), 1 products (and band; in the tensor-core
+// backwards also issuing the next row's copies; in the CUDA-core 1-D
+// backwards also the stores), 2 store). The added barriers perturb the
+// kernels a little, so the build gives shares of block cycles, not times.
 // In the tensor-core forwards lane 0 of warp 0 also splits each of its
 // items (one band product) into corr_item_cycles[k]: 0 the products, up to
 // the accumulators' arrival (ITEM_CLOCK waits on its operand), 1 the band,
 // 2 the items counted.
-// -DCORR_SIMT: bfloat16 forwards and 2-D backwards run the CUDA-core
-// kernels, as float32 does, so the two designs can be timed in turns on one
-// card.
+// -DCORR_SIMT: bfloat16 runs the CUDA-core kernels, as float32 does, so
+// the two designs can be timed in turns on one card.
 #ifdef CORR_PHASES
-__device__ unsigned long long corr_phase_cycles[8][3];
+__device__ unsigned long long corr_phase_cycles[12][3];
 __device__ unsigned long long corr_item_cycles[4][3];
 #define PHASE_BEGIN() long long phase_last_ = clock64()
 #define PHASE_MARK(k, phase)                                             \
@@ -405,6 +423,8 @@ struct TcGeom {
   int G;          // window rows a block owns (2-D; 1 for 1-D)
   int R;          // output rows a block owns (2-D; 1 for 1-D)
   int nRb;        // blocks down one image's rows of a residue class
+  int ncls;       // residue classes of columns a block computes
+  int nclsg;      // blocks across the classes: dil / ncls rounded up
   int row_bytes;  // shared stride of a pixel row: 2 C16 + 16 bytes, C16
                   // the channels rounded up to 16
   int kchunks;    // k16 steps: C rounded up to 16, over 16
@@ -412,9 +432,11 @@ struct TcGeom {
   int per_row;    // copies of one pixel row: 32 kchunks / copy_bytes
   int c_pow2;     // C is a power of two
   double inv_c;   // 1 / C
-  // magic(d) of the divisors: dil, T, T * dil, nx, per_row, nRb, the
-  // pixels of a row's run (P) and its f2 pixels (slab)
-  uint64_t m_dil, m_T, m_Tdil, m_nx, m_per_row, m_nRb, m_P, m_slab;
+  // magic(d) of the divisors: dil, T, T * ncls, ncls, nclsg, nx, per_row,
+  // nRb, the f1 pixels of a row's run a block stages (P) and its f2 pixels
+  // of a window row (slab)
+  uint64_t m_dil, m_T, m_Tncls, m_ncls, m_nclsg, m_nx, m_per_row, m_nRb,
+      m_P, m_slab;
 };
 
 // One copy of g.copy_bytes (16, 8 or 4 bytes by cp.async; 2 by a load and a
@@ -432,9 +454,10 @@ __device__ __forceinline__ void tc_copy(unsigned char* to, const char* from,
 }
 
 // grid: (blocks of R rows of one residue class of rows, runs of T*16*dil
-// pixels, groups of G window rows); shared: the R f1 runs, the f2 runs
-// (with halos) of the window rows they share, the outputs. NT: the n8
-// tiles of S a warp accumulates at once, min(window columns / 8 rounded
+// pixels, groups of G window rows x groups of ncls residue classes of
+// columns); shared: the R f1 runs, the f2 runs (with halos) of the window
+// rows they share, the outputs, each of the block's classes only. NT: the
+// n8 tiles of S a warp accumulates at once, min(window columns / 8 rounded
 // up, kTcNtGroup).
 template <bool k2d, int NT>
 __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
@@ -444,11 +467,12 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
   extern __shared__ __align__(16) unsigned char tc_smem[];
   constexpr int kPhase = k2d ? 2 : 3;
   const int dil = g.dil;
+  const int ncls = g.ncls;
   const int vdil = k2d ? dil : 1;                  // the rows' residue classes
   const int per_class = g.T * kTcTile;             // f1 pixels of a class
   const int nwin = per_class + g.ncols - kTcTile;  // f2 pixels of a class
-  const int P = per_class * dil;                   // pixels of a row's run
-  const int slab = dil * nwin;                     // f2 pixels of a row
+  const int P = per_class * ncls;    // f1 pixels of a row's run staged
+  const int slab = ncls * nwin;      // f2 pixels of a window row staged
   // blockIdx.x = (b * vdil + cy) * nRb + jr: the output rows
   // y_r = cy + vdil (R jr + r), r < R, of image b
   const int bc = fast_div(blockIdx.x, g.m_nRb);
@@ -456,9 +480,13 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
   const int b = k2d ? fast_div(bc, g.m_dil) : bc;
   const int cy = bc - b * vdil;
   const int m0 = g.R * jr;  // the block's first row, in its class's rows
-  const int x0 = blockIdx.y * P;
-  const int npix = min(P, g.W - x0);
-  const int oy0 = blockIdx.z * g.G;
+  const int x0 = blockIdx.y * per_class * dil;
+  const int npix = min(per_class * dil, g.W - x0);
+  // blockIdx.z = window-row group * nclsg + class group: the classes
+  // cls0 .. cls0 + ncls - 1 (those below dil) of window rows oy0 on
+  const int grp = fast_div(blockIdx.z, g.m_nclsg);
+  const int cls0 = (blockIdx.z - grp * g.nclsg) * ncls;
+  const int oy0 = grp * g.G;
   const int nrows = k2d ? min(g.G, g.nx - oy0) : 1;  // window rows per row
   const int nslab = g.R + nrows - 1;                 // f2 rows staged
   const int kout = k2d ? nrows * g.nx : g.K;  // outputs per pixel here
@@ -474,10 +502,12 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
   PHASE_BEGIN();
   // Staging: one loop issues every copy (the R f1 runs, then the f2 runs,
   // from x0 - disp * dil, of the nslab window rows the R rows share), then
-  // one wait. Pixel q of a run goes to shared row (q % dil) * (pixels of a
-  // class) + q / dil, so that a residue class's pixels are adjacent rows;
-  // columns outside the frame and the channel tail are zero-filled (source
-  // size 0); rows outside the frame are not staged.
+  // one wait. Pixel q = m ncls + u of a staged run, column m of class
+  // cls0 + u, goes to shared row u (pixels of a class) + m, so that a
+  // residue class's pixels are adjacent rows (where the block computes
+  // every class, q is the run's pixel q); columns outside the frame and the
+  // channel tail are zero-filled (source size 0); rows outside the frame
+  // are not staged.
   {
     const int w = g.copy_bytes;
     const int valid = g.C * 2 / w;  // the copies that hold channels
@@ -492,16 +522,16 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
       const int yy =
           cy + vdil * (m0 + s + (first ? 0 : oy0 - (k2d ? g.disp : 0)));
       if (yy < 0 || yy >= g.H) continue;  // its products are skipped
-      const int x = first ? x0 + qq : x0 - g.disp * dil + qq;
+      const int m = fast_div(qq, g.m_ncls);
+      const int u = qq - m * ncls;
+      const int x = (first ? x0 : x0 - g.disp * dil) + cls0 + u + dil * m;
       const bool in = c < valid && x >= 0 && x < g.W;
       const char* base = first ? img1 : img2;
       const char* from =
           in ? base + ((int64_t)yy * g.W + x) * g.C * 2 + c * w : base;
-      const int m = fast_div(qq, g.m_dil);
       unsigned char* to =
           (first ? f1s + (size_t)s * P * S : f2s + (size_t)s * slab * S) +
-          ((size_t)(qq - m * dil) * (first ? per_class : nwin) + m) * S +
-          c * w;
+          ((size_t)u * (first ? per_class : nwin) + m) * S + c * w;
       tc_copy(to, from, in, w);
     }
   }
@@ -513,26 +543,28 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nt_all = (g.ncols + 7) / 8;
-  const int per_row_items = nrows * dil * g.T;
+  const int per_row_items = nrows * ncls * g.T;
   for (int item = warp; item < g.R * per_row_items;
        item += blockDim.x >> 5) {
-    const int u = fast_div(item, g.m_Tdil);  // r * nrows + wr
-    const int tc = item - u * g.T * dil;     // cls * T + t
-    const int cls = fast_div(tc, g.m_T);
-    const int t = tc - cls * g.T;
+    const int u = fast_div(item, g.m_Tncls);  // r * nrows + wr
+    const int tc = item - u * g.T * ncls;     // (cls - cls0) * T + t
+    const int cl = fast_div(tc, g.m_T);
+    const int t = tc - cl * g.T;
     const int r = u / nrows;
     const int wr = u - r * nrows;
     const int yr = cy + vdil * (m0 + r);
-    if (yr >= g.H) continue;  // past the frame: nothing is stored
-    // pixel i of the tile: offset t * 16 * dil + cls + dil * i of row r's run
-    const int p0 = t * kTcTile * dil + cls;
+    // past the frame or the last class: nothing is stored
+    if (yr >= g.H || cls0 + cl >= dil) continue;
+    // pixel i of the tile: staged pixel (t 16 + i) ncls + cl of row r's
+    // run, which is its outputs' place
+    const int p0 = t * kTcTile * ncls + cl;
     bf16* outs_r = outs + (size_t)r * P * kout;
     if (k2d) {
       const int yy = cy + vdil * (m0 + r + oy0 + wr - g.disp);
       if (yy < 0 || yy >= g.H) {
         for (int e = lane; e < kTcTile * g.nx; e += 32) {
           const int i = fast_div(e, g.m_nx);
-          outs_r[(p0 + dil * i) * kout + wr * g.nx + e - i * g.nx] =
+          outs_r[(p0 + ncls * i) * kout + wr * g.nx + e - i * g.nx] =
               __float2bfloat16(0.f);
         }
         continue;
@@ -543,10 +575,10 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
     // (lane >> 4) for the second n8 tile of an x4), channels
     // 8 ((lane >> 3) & 1) on. Row r's window row wr is staged row r + wr.
     const unsigned char* a_row =
-        f1s + ((size_t)r * P + (size_t)cls * per_class + t * kTcTile +
+        f1s + ((size_t)r * P + (size_t)cl * per_class + t * kTcTile +
                (lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 16;
     const unsigned char* b_class =
-        f2s + ((size_t)(r + wr) * slab + (size_t)cls * nwin +
+        f2s + ((size_t)(r + wr) * slab + (size_t)cl * nwin +
                t * kTcTile) * S + ((lane >> 3) & 1) * 16;
     // NT n8 tiles of S at a time; a group past the window reads its last
     // column again, which no band takes (2-D: ox = n - i > 2d; 1-D:
@@ -617,7 +649,7 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
             // 1-D: column n is displacement k = i + D - n
             const int o = k2d ? n - i : i + g.disp - n;
             if (o >= 0 && o < (k2d ? g.nx : g.K)) {
-              outs_r[(p0 + dil * i) * kout + (k2d ? wr * g.nx : 0) + o] =
+              outs_r[(p0 + ncls * i) * kout + (k2d ? wr * g.nx : 0) + o] =
                   __float2bfloat16(scale(acc[j][e]));
             }
           }
@@ -649,14 +681,14 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
   PHASE_MARK(kPhase, 1);
 
   // each row's outputs: one contiguous run when the block owns every
-  // window row
+  // window row and residue class, else each pixel's kout outputs
   for (int r = 0; r < g.R; ++r) {
     const int yr = cy + vdil * (m0 + r);
     if (yr >= g.H) break;
     const bf16* from = outs + (size_t)r * P * kout;
     bf16* dst = out + (((int64_t)b * g.H + yr) * g.W + x0) * g.K +
                 (k2d ? oy0 * g.nx : 0);
-    if (kout == g.K) {
+    if (kout == g.K && ncls == dil) {
       const int n = npix * g.K;
       int head = 0;
       if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
@@ -671,9 +703,14 @@ __device__ __forceinline__ void tc_fwd(const bf16* __restrict__ f1,
         dst[i] = from[i];
       }
     } else {
-      for (int i = threadIdx.x; i < npix * kout; i += blockDim.x) {
-        const int p = i / kout;
-        dst[(int64_t)p * g.K + i - p * kout] = from[i];
+      for (int i = threadIdx.x; i < P * kout; i += blockDim.x) {
+        const int q = i / kout;  // staged pixel m ncls + u
+        const int m = fast_div(q, g.m_ncls);
+        const int u = q - m * ncls;
+        const int x = cls0 + u + dil * m;  // its column from x0
+        if (cls0 + u < dil && x < npix) {
+          dst[(int64_t)x * g.K + i - q * kout] = from[i];
+        }
       }
     }
   }
@@ -698,37 +735,46 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
 
 // ------------------------------------------------ backward, tensor cores
 //
-// bfloat16 only, the 2-D op at any dilation. A window row's share of the
+// bfloat16 only, either op at any dilation. A window row's share of the
 // gradient of one 16-pixel tile of one residue class is one band product
 // on mma.sync.m16n8k16 (see the note at the top of the file):
-//   df1 (16 x nc) += A (16 x ncols) F2win (ncols x nc),
+//   2-D df1 (16 x nc) += A (16 x ncols) F2win (ncols x nc),
 //     A[i, j] = g(x_i, oy nx + j - i)
-//   df2 (16 x nc) += A (16 x ncols) F1win (ncols x nc),
+//   2-D df2 (16 x nc) += A (16 x ncols) F1win (ncols x nc),
 //     A[i, j] = g(x_j, oy nx + 2d - (j - i)), x_j on the source row
 // for 0 <= j - i <= 2d (A is 0 elsewhere), window column j of the tile
-// the pixel 16 t + j - d of its class; k (the window columns) is padded
-// to a multiple of 16 with columns whose A is 0, and n is the block's
-// channel group.
+// the pixel 16 t + j - d of its class; the 1-D op has one window row:
+//   1-D df1 (16 x nc) = A F2win, A[i, j] = g(x_i, D - (j - i)),
+//     window column j the pixel 16 t + j - D of its class
+//   1-D df2 (16 x nc) = A F1win, A[i, j] = g(x_j, j - i),
+//     window column j the pixel 16 t + j of its class (a gather)
+// for 0 <= j - i <= D. k (the window columns) is padded to a multiple of
+// 16 with columns whose A is 0, and n is the block's channel group.
 
 constexpr int kTcBwdNtMax = 8;    // n8 tiles of a block's channel group
-constexpr int kTcBwdMaxRows = 8;  // output rows a block owns
+constexpr int kTcBwdMaxRows = 8;  // output rows a block owns (2-D)
 constexpr int kTcBwdBuffers = 4;  // staged window rows a block holds, at
                                   // most (fewer where they would exceed
-                                  // kTcSmemBudget; 2 at the least)
+                                  // kTcSmemBudget; 2 at the least; the
+                                  // 1-D op stages its one window row once)
 
 // What a tensor-core backward block needs to know of its call.
 struct TcBwdGeom {
   int H, W, C, disp, dil;
-  int K;          // (2d + 1)^2
-  int nx;         // 2d + 1
-  int ncols;      // window columns of a tile: 16 + 2d
+  int K;          // (2d + 1)^2 (2-D), D + 1 (1-D)
+  int nx;         // 2d + 1 (2-D), 1 (1-D)
+  int span;       // the band's last offset j - i: 2d (2-D), D (1-D)
+  int ncols;      // window columns of a tile: 16 + span
   int kchunks;    // k16 steps over them
-  int R;          // output rows a block owns (one residue class of rows)
+  int R;          // output rows a block owns (2-D: one residue class of
+                  // rows; 1-D: 1)
+  int T;          // 16-pixel tiles of each class a block owns (2-D: 1)
   int nRb;        // blocks down one image's rows of a residue class
   int ncls;       // residue classes of columns a block computes
   int nclsg;      // blocks across the classes: dil / ncls rounded up
-  int P;          // pixels of a row's run: 16 dil
-  int slab;       // window pixels of a row a block stages: ncls ncols
+  int P;          // pixels of a row's run: 16 T dil
+  int nwin;       // window columns of a class: 16 (T - 1) + ncols
+  int slab;       // window pixels of a row a block stages: ncls nwin
   int gcol;       // bf16 from one window column of a class to the next in
                   // a staged g run: S / 2, S = ncls 2K rounded up to the
                   // next bytes congruent to dil 2K mod 16 (dil K if
@@ -823,45 +869,51 @@ __device__ __forceinline__ void tc_stage_g_classes(unsigned char* base,
   }
 }
 
-// grid: (B dil nRb: blocks of R rows of one residue class of rows, runs of
-// 16 dil pixels, channel groups x class groups). Shared: NB buffers,
-// each one staged window row's features (the tile's window pixels of the
-// block's ncls classes, class by class, the group's channels) and, for
-// df2, its g of those pixels; for df1 the g of the R output rows' tile
-// pixels of those classes. The block walks its R + 2d window rows in
-// turn with the next NB - 1 in flight, one barrier a row. Each warp owns
-// one (row, class) item and keeps its accumulators in registers across
-// all window rows.
-template <bool kF2, int NT, int NB>
+// grid: (B vdil nRb: blocks of R rows of one residue class of rows (1-D:
+// one row), runs of 16 T dil pixels, channel groups x class groups).
+// Shared: NB buffers (1-D: one), each one staged window row's features
+// (the run's window pixels of the block's ncls classes, class by class, the
+// group's channels) and, for df2, its g of those pixels; for df1 the g of
+// the R output rows' tile pixels of those classes. The block walks its
+// R + 2d window rows (1-D: its one row) in turn with the next NB - 1 in
+// flight, one barrier a row. Each warp owns one (row or tile, class) item
+// and keeps its accumulators in registers across all window rows.
+template <bool k2d, bool kF2, int NT, int NB>
 __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
                                        const bf16* __restrict__ f,
                                        bf16* __restrict__ out,
                                        const TcBwdGeom& G) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  constexpr int kPhase = kF2 ? 7 : 6;
-  const int d = G.disp, dil = G.dil, kb = 2 * G.K;
+  constexpr int kPhase = k2d ? (kF2 ? 7 : 6) : (kF2 ? 11 : 10);
+  // the band's values are g at base + o (2-D df1, 1-D df2) or base - o
+  constexpr bool kUp = k2d != kF2;
+  const int d = k2d ? G.disp : 0;  // window rows above and below a row
+  const int dil = G.dil, kb = 2 * G.K;
+  const int vdil = k2d ? dil : 1;  // residue classes of rows
   const int bc = fast_div(blockIdx.x, G.m_nRb);
   const int jr = blockIdx.x - bc * G.nRb;
-  const int b = fast_div(bc, G.m_dil);
-  const int cy = bc - b * dil;
+  const int b = k2d ? fast_div(bc, G.m_dil) : bc;
+  const int cy = bc - b * vdil;
   const int m0 = G.R * jr;
   const int x0 = blockIdx.y * G.P;
   const int cg = fast_div(blockIdx.z, G.m_nclsg);
   const int cls0 = (blockIdx.z - cg * G.nclsg) * G.ncls;
   const int c_lo = cg * G.nc;
   const int nslab = G.R + 2 * d;
-  const int xw0 = x0 - d * dil;  // the window's first pixel
+  // the window's first pixel: the window reaches d dil left of a tile
+  // (2-D), D dil (1-D df1) or none (1-D df2, whose sources lie right)
+  const int xw0 = x0 - (k2d ? G.disp : kF2 ? 0 : G.disp) * dil;
   unsigned char* feat = tc_smem;
-  unsigned char* gbuf = feat + (size_t)NB * G.feat_bytes;
+  unsigned char* gbuf = feat + (size_t)(k2d ? NB : 1) * G.feat_bytes;
   const char* fimg =
       reinterpret_cast<const char*>(f + (int64_t)b * G.H * G.W * G.C);
   const char* gimg =
       reinterpret_cast<const char*>(gin + (int64_t)b * G.H * G.W * G.K);
 
-  // staged window row s is image row cy + dil (m0 + s - d), in buffer
+  // staged window row s is image row cy + vdil (m0 + s - d), in buffer
   // s % NB
   auto stage = [&](int s) {
-    const int yy = cy + dil * (m0 + s - d);
+    const int yy = cy + vdil * (m0 + s - d);
     if (yy < 0 || yy >= G.H) return;  // its products are skipped
     const int w = G.copy_bytes;
     const int valid_ch = G.C - c_lo;
@@ -879,26 +931,26 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
       const bool in = c * w / 2 < valid_ch && x >= 0 && x < G.W;
       const char* from =
           in ? img_row + ((int64_t)x * G.C + c_lo) * 2 + c * w : img_row;
-      tc_copy(buf + ((size_t)u * G.ncols + m) * G.row_bytes + c * w, from,
+      tc_copy(buf + ((size_t)u * G.nwin + m) * G.row_bytes + c * w, from,
               in, w);
     }
     if (kF2) {
       const char* g_row = gimg + (int64_t)yy * G.W * kb;
       tc_stage_g_classes(
           tc_g_base(gbuf + (size_t)slot * G.g_bytes, g_row, xw0 + cls0, kb),
-          g_row, xw0 + cls0, G.ncols, G);
+          g_row, xw0 + cls0, G.nwin, G);
     }
   };
 
   PHASE_BEGIN();
   if (!kF2) {
     for (int r = 0; r < G.R; ++r) {
-      const int y = cy + dil * (m0 + r);
+      const int y = cy + vdil * (m0 + r);
       if (y < G.H) {
         const char* g_row = gimg + (int64_t)y * G.W * kb;
         tc_stage_g_classes(
             tc_g_base(gbuf + (size_t)r * G.g_bytes, g_row, x0 + cls0, kb),
-            g_row, x0 + cls0, kTcTile, G);
+            g_row, x0 + cls0, kTcTile * G.T, G);
       }
     }
   }
@@ -907,17 +959,23 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
     ptx::cp_async_commit();
   }
 
-  // warp w owns item u = w / wc = r ncls + class (of the block's classes)
-  // and its share sub = w % wc of the channel group: 8 NT channels
+  // warp w owns item u = w / wc = rt ncls + class (of the block's
+  // classes), rt its row r (2-D) or tile t (1-D), and its share
+  // sub = w % wc of the channel group: 8 NT channels
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int u = warp / G.wc;
   const int sub = warp - u * G.wc;
-  const int r = u / G.ncls;
-  const int cls = cls0 + u - r * G.ncls;
+  const int rt = u / G.ncls;
+  const int r = k2d ? rt : 0;
+  const int t = k2d ? 0 : rt;
+  const int cls = cls0 + u - rt * G.ncls;
   const int c_w = c_lo + 8 * NT * sub;  // the warp's first channel
-  const int yr = cy + dil * (m0 + r);
-  const bool active = r < G.R && cls < dil && yr < G.H;
+  const int yr = cy + vdil * (m0 + r);
+  // the tile's first pixel, from x0
+  const int xt = cls + dil * kTcTile * t;
+  const bool active = rt < (k2d ? G.R : G.T) && cls < dil && yr < G.H &&
+                      x0 + xt < G.W;
   const int i0 = lane >> 2, q2 = 2 * (lane & 3);
   // ldmatrix.trans rows: window column (lane & 7) + 8 ((lane >> 3) & 1) of
   // the k16 step, channels 8 (lane >> 4) on of an n8 pair
@@ -933,25 +991,28 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
     // products
     if (s + NB - 1 < nslab) stage(s + NB - 1);
     ptx::cp_async_commit();
-    const int yy = cy + dil * (m0 + s - d);
-    const int oy = kF2 ? r + 2 * d - s : s - r;
+    const int yy = cy + vdil * (m0 + s - d);
+    const int oy = kF2 ? r + 2 * d - s : s - r;  // 1-D: 0
     if (active && yy >= 0 && yy < G.H && oy >= 0 && oy <= 2 * d) {
       const int slot = s % NB;
+      // the tile's window: columns 16 t on of its class's
       const unsigned char* fb =
           feat + (size_t)slot * G.feat_bytes +
-          (size_t)(cls - cls0) * G.ncols * G.row_bytes + kcol;
+          ((size_t)(cls - cls0) * G.nwin + kTcTile * t) * G.row_bytes + kcol;
       // A's values: df1, g of the tile's pixel i (the output row's run);
-      // df2, g of the window pixel j (the source row's slab)
-      // A[i, j] = gb[gcol i + o] (df1) or gb[gcol j - o] (df2), o = j - i
+      // df2, g of the window pixel j (the source row's slab). A[i, j] =
+      // gb[gcol i + o] (2-D df1), gb[gcol j - o] (2-D df2), gb[gcol i - o]
+      // (1-D df1), gb[gcol j + o] (1-D df2), o = j - i
       const uint16_t* gb =
-          kF2 ? reinterpret_cast<const uint16_t*>(tc_g_base(
-                    gbuf + (size_t)slot * G.g_bytes,
-                    gimg + (int64_t)yy * G.W * kb, xw0 + cls0, kb)) +
-                    (size_t)(cls - cls0) * G.K + oy * G.nx + 2 * d
-              : reinterpret_cast<const uint16_t*>(tc_g_base(
-                    gbuf + (size_t)r * G.g_bytes,
-                    gimg + (int64_t)yr * G.W * kb, x0 + cls0, kb)) +
-                    (size_t)(cls - cls0) * G.K + oy * G.nx;
+          (kF2 ? reinterpret_cast<const uint16_t*>(tc_g_base(
+                     gbuf + (size_t)slot * G.g_bytes,
+                     gimg + (int64_t)yy * G.W * kb, xw0 + cls0, kb)) +
+                     (k2d ? oy * G.nx + 2 * d : 0)
+               : reinterpret_cast<const uint16_t*>(tc_g_base(
+                     gbuf + (size_t)r * G.g_bytes,
+                     gimg + (int64_t)yr * G.W * kb, x0 + cls0, kb)) +
+                     (k2d ? oy * G.nx : G.disp)) +
+          (size_t)G.gcol * kTcTile * t + (size_t)(cls - cls0) * G.K;
       const uint16_t* ga = kF2 ? gb : gb + (size_t)G.gcol * i0;
       for (int kc = 0; kc < G.kchunks; ++kc) {
         uint32_t a[4];
@@ -966,9 +1027,9 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
               const int i = i0 + 8 * v;
               const int o = j - i;
               uint32_t val = 0;
-              if (o >= 0 && o <= 2 * d) {
-                val = kF2 ? ga[(size_t)G.gcol * j - o]
-                          : ga[(size_t)G.gcol * 8 * v + o];
+              if (o >= 0 && o <= G.span) {
+                val = ga[(kF2 ? G.gcol * j : G.gcol * 8 * v) +
+                         (kUp ? o : -o)];
               }
               pair |= val << (16 * e);
             }
@@ -996,7 +1057,7 @@ __device__ __forceinline__ void tc_bwd(const bf16* __restrict__ gin,
     auto store = [&](auto scale) {
 #pragma unroll
       for (int v = 0; v < 2; ++v) {
-        const int x = x0 + cls + dil * (i0 + 8 * v);
+        const int x = x0 + xt + dil * (i0 + 8 * v);
         if (x >= G.W) continue;
         bf16* px = out + (((int64_t)b * G.H + yr) * G.W + x) * G.C;
 #pragma unroll
@@ -1030,7 +1091,7 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
     corr2d_tc_bwd_f1_kernel(const bf16* __restrict__ g,
                             const bf16* __restrict__ f2,
                             bf16* __restrict__ df1, const TcBwdGeom G) {
-  tc_bwd<false, NT, NB>(g, f2, df1, G);
+  tc_bwd<true, false, NT, NB>(g, f2, df1, G);
 }
 
 template <int NT, int NB>
@@ -1038,7 +1099,25 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
     corr2d_tc_bwd_f2_kernel(const bf16* __restrict__ g,
                             const bf16* __restrict__ f1,
                             bf16* __restrict__ df2, const TcBwdGeom G) {
-  tc_bwd<true, NT, NB>(g, f1, df2, G);
+  tc_bwd<true, true, NT, NB>(g, f1, df2, G);
+}
+
+// The 1-D op stages its one window row once: NB = 2 makes the walk one
+// wait for that row's copies.
+template <int NT>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    corr1d_tc_bwd_f1_kernel(const bf16* __restrict__ g,
+                            const bf16* __restrict__ f2,
+                            bf16* __restrict__ df1, const TcBwdGeom G) {
+  tc_bwd<false, false, NT, 2>(g, f2, df1, G);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    corr1d_tc_bwd_f2_kernel(const bf16* __restrict__ g,
+                            const bf16* __restrict__ f1,
+                            bf16* __restrict__ df2, const TcBwdGeom G) {
+  tc_bwd<false, true, NT, 2>(g, f1, df2, G);
 }
 
 // --------------------------------------------------------------- backward
@@ -1177,9 +1256,13 @@ __global__ void corr1d_bwd_f1_kernel(const T* __restrict__ g,
   float* f2s = gs + kTileW * K;
   const int n = npix * C;
 
+  PHASE_BEGIN();
   stage_run(gs, g + ((int64_t)row * W + x0) * K, npix * K, kTileW * K);
   stage_row(f2s, f2 + (int64_t)row * W * C, x0 - R, kTileW + R, W, C);
   __syncthreads();
+  PHASE_MARK(8, 0);
+  // each output is stored as soon as its sum is done, so phase 1 holds
+  // the products and the stores, and phase 2 only a barrier
   T* dst = df1 + ((int64_t)row * W + x0) * C;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int p = i / C;
@@ -1191,6 +1274,8 @@ __global__ void corr1d_bwd_f1_kernel(const T* __restrict__ g,
     }
     dst[i] = from_f32<T>(acc / (float)C);
   }
+  PHASE_MARK(8, 1);
+  PHASE_MARK(8, 2);
 }
 
 // df2 of the 1-D op, a gather. grid: (B*H, ceil(W / kTileW)); shared: the
@@ -1212,9 +1297,12 @@ __global__ void corr1d_bwd_f2_kernel(const T* __restrict__ g,
   float* gw = f1s + nw * stride;
   const int n = npix * C;
 
+  PHASE_BEGIN();
   stage_row(f1s, f1 + (int64_t)row * W * C, x0, nw, W, C);
   stage_run(gw, g + ((int64_t)row * W + x0) * K, min(nw, W - x0) * K, nw * K);
   __syncthreads();
+  PHASE_MARK(9, 0);
+  // each output is stored as soon as its sum is done (see df1)
   T* dst = df2 + ((int64_t)row * W + x0) * C;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int p = i / C;
@@ -1227,6 +1315,8 @@ __global__ void corr1d_bwd_f2_kernel(const T* __restrict__ g,
     }
     dst[i] = from_f32<T>(acc / (float)C);
   }
+  PHASE_MARK(9, 1);
+  PHASE_MARK(9, 2);
 }
 
 // ----------------------------------------------------------------- launch
@@ -1314,9 +1404,9 @@ struct TcPlan {
 size_t tc_shared(const TcGeom& g) {
   const int per_class = g.T * kTcTile;
   const int nwin = per_class + g.ncols - kTcTile;
-  const size_t pix = (size_t)per_class * g.dil;  // of a row's run
-  const int kout = g.nx == 1 ? g.K : g.G * g.nx;  // outputs per pixel
-  return (g.R * pix + (size_t)(g.R + g.G - 1) * g.dil * nwin) * g.row_bytes +
+  const size_t pix = (size_t)per_class * g.ncls;  // of a row's run
+  const int kout = g.nx == 1 ? g.K : g.G * g.nx;   // outputs per pixel
+  return (g.R * pix + (size_t)(g.R + g.G - 1) * g.ncls * nwin) * g.row_bytes +
          ((g.R * pix * kout * sizeof(bf16) + 15) / 16) * 16;
 }
 
@@ -1327,7 +1417,10 @@ size_t tc_shared(const TcGeom& g) {
 // still gives 1.5 blocks per SM within kTcSmemBudget bytes; failing that,
 // one row and its window rows split into as many groups as that takes. The
 // 1-D op takes one row and up to kTcMaxTiles tiles per class, fewer while
-// the grid has fewer than two blocks per SM. The blocks' outputs are
+// the grid has fewer than two blocks per SM. Then a block computes every
+// residue class of columns, or, where their runs would exceed a block's
+// shared memory (a large dilation at a wide C), the fewest equal groups of
+// classes that fit (a block stages only its own). The blocks' outputs are
 // disjoint either way. copy_bytes: the staging's copy width.
 TcPlan tc_plan(int B, int H, int W, int C, int disp, int dil, bool k2d,
                int copy_bytes, int sms) {
@@ -1339,13 +1432,16 @@ TcPlan tc_plan(int B, int H, int W, int C, int disp, int dil, bool k2d,
   g.kchunks = (C + 15) / 16;
   g.row_bytes = g.kchunks * 32 + 16;
   g.copy_bytes = copy_bytes;
+  g.ncls = dil;
+  g.nclsg = 1;
   const int run = kTcTile * dil;
   const int vdil = k2d ? dil : 1;
   const int class_rows = (H + vdil - 1) / vdil;
   auto blocks = [&](const TcGeom& t) {
     const int64_t runs = (W + run * t.T - 1) / (run * t.T);
     const int64_t nrb = (class_rows + t.R - 1) / t.R;
-    return (int64_t)B * vdil * nrb * runs * ((t.nx + t.G - 1) / t.G);
+    return (int64_t)B * vdil * nrb * runs * ((t.nx + t.G - 1) / t.G) *
+           t.nclsg;
   };
   g.T = 1;
   g.G = g.nx;
@@ -1374,26 +1470,32 @@ TcPlan tc_plan(int B, int H, int W, int C, int disp, int dil, bool k2d,
       g.T = (g.T + 1) / 2;
     }
   }
+  // launch_tc refuses a plan that still does not fit at one class a block
+  while (g.ncls > 1 && tc_shared(g) > kMaxSharedBytes) {
+    ++g.nclsg;
+    g.ncls = (dil + g.nclsg - 1) / g.nclsg;
+  }
+  g.nclsg = (dil + g.ncls - 1) / g.ncls;
   g.nRb = (class_rows + g.R - 1) / g.R;
   g.per_row = g.kchunks * 32 / copy_bytes;
   g.inv_c = 1.0 / C;
   g.c_pow2 = (C & (C - 1)) == 0;
-  const int P = g.T * kTcTile * dil;
-  g.m_dil = magic(dil), g.m_T = magic(g.T), g.m_Tdil = magic(g.T * dil);
+  g.m_dil = magic(dil), g.m_T = magic(g.T), g.m_Tncls = magic(g.T * g.ncls);
+  g.m_ncls = magic(g.ncls), g.m_nclsg = magic(g.nclsg);
   g.m_nx = magic(g.nx), g.m_per_row = magic(g.per_row);
-  g.m_nRb = magic(g.nRb), g.m_P = magic(P);
-  g.m_slab = magic(dil * (g.T * kTcTile + g.ncols - kTcTile));
-  const int64_t runs = (W + P - 1) / P;
+  g.m_nRb = magic(g.nRb), g.m_P = magic(g.T * kTcTile * g.ncls);
+  g.m_slab = magic(g.ncls * (g.T * kTcTile + g.ncols - kTcTile));
+  const int64_t runs = (W + run * g.T - 1) / (run * g.T);
   // at least 4 warps to stage, 8 where blocks are fewer than SMs (each
   // block's staging then sets the time)
-  const int items = g.R * g.T * dil * g.G;
+  const int items = g.R * g.T * g.ncls * g.G;
   const int least = blocks(g) < sms ? kTcMinWarps : kTcMinWarps / 2;
   const int warps = items < least         ? least
                     : items > kTcMaxWarps ? kTcMaxWarps
                                           : items;
   return {g,
           dim3((unsigned)(B * vdil * g.nRb), (unsigned)runs,
-               (g.nx + g.G - 1) / g.G),
+               (unsigned)((g.nx + g.G - 1) / g.G * g.nclsg)),
           warps * 32, tc_shared(g)};
 }
 
@@ -1465,53 +1567,67 @@ struct TcBwdPlan {
   int nbuf;
 };
 
-// The plan for a 2-D backward (df2: the gather) on a card of `sms` SMs.
-// A block owns R output rows of one residue class of rows (their window
-// rows overlap: R rows walk R + 2d window rows, not R (2d + 1)), one run of
-// 16 pixels of each of up to kTcMaxWarps / R residue classes of columns
-// (one warp each), and one group of 8 NT channels (df1 and df2 are
-// disjoint in the channels, so a split costs no sum). NT: of 8, 6, 4 and
-// 2, the one that computes the fewest padded channels with at least one
-// and a half blocks per SM (the larger on a tie; 2 if none has them); then
-// the largest R of 8, 4 and 2 that keeps them within kTcSmemBudget bytes;
-// then as many warps to split each item's channels as give the block
-// kTcMinWarps warps (staging sets a small block's time). Where the window
-// is too wide for a block's shared memory (a large dilation or max_disp),
-// narrower channel groups, then fewer classes a block, until it fits.
-// copy_bytes: the features' staging copy width.
-TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
-                      int copy_bytes, int sms) {
+// The plan for a 2-D (k2d) or 1-D backward (f2: df2, the gather) on a card
+// of `sms` SMs. A 2-D block owns R output rows of one residue class of rows
+// (their window rows overlap: R rows walk R + 2d window rows, not
+// R (2d + 1)) and one run of 16 pixels of each of its classes; a 1-D block
+// owns one row and a run of T tiles of 16 pixels of each of its classes.
+// A block computes up to kTcMaxWarps residue classes of columns (one warp
+// per class and row or tile) and one group of 8 NT channels (df1 and df2
+// are disjoint in the channels, so a split costs no sum). NT: of 8, 6, 4
+// and 2, the one that computes the fewest padded channels with at least
+// one and a half blocks per SM (the larger on a tie; 2 if none has them);
+// then the largest R of 8, 4 and 2 (2-D) or T of kTcMaxTiles, 2 (1-D) that
+// keeps them within kTcSmemBudget bytes; then as many warps to split each
+// item's channels as give the block kTcMinWarps warps (staging sets a
+// small block's time). Where the window is too wide for a block's shared
+// memory (a large dilation or max_disp), narrower channel groups, then
+// fewer classes a block, until it fits. copy_bytes: the features' staging
+// copy width.
+TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil,
+                      bool k2d, bool f2, int copy_bytes, int sms) {
   TcBwdGeom g{};
   g.H = H, g.W = W, g.C = C, g.disp = disp, g.dil = dil;
-  g.nx = 2 * disp + 1;
-  g.K = g.nx * g.nx;
-  g.ncols = kTcTile + 2 * disp;
+  g.nx = k2d ? 2 * disp + 1 : 1;
+  g.K = k2d ? g.nx * g.nx : disp + 1;
+  g.span = k2d ? 2 * disp : disp;
+  g.ncols = kTcTile + g.span;
   g.kchunks = (g.ncols + 15) / 16;
-  g.P = kTcTile * dil;
   g.copy_bytes = copy_bytes;
+  g.R = 1;
+  g.T = 1;
+  auto tiles = [&](int T) {  // T tiles of each class a block
+    g.T = T;
+    g.P = kTcTile * T * dil;
+    g.nwin = kTcTile * (T - 1) + g.ncols;
+  };
   auto classes = [&](int n) {  // n residue classes of columns a block
     g.ncls = n;
     g.nclsg = (dil + n - 1) / n;
-    g.slab = n * g.ncols;
+    g.slab = n * g.nwin;
     const int kb = 2 * g.K;
     const int S = n * kb + (((dil - n) * kb) & 15);
     g.gcol = S / 2;
-    g.g_bytes = ((f2 ? g.ncols : kTcTile) * S + 16 + 15) / 16 * 16;
+    g.g_bytes = ((f2 ? g.nwin : kTcTile * g.T) * S + 16 + 15) / 16 * 16;
     g.feat_bytes = g.slab * g.row_bytes;
   };
+  tiles(1);
   classes(dil < kTcMaxWarps ? dil : kTcMaxWarps);
-  const int class_rows = (H + dil - 1) / dil;
-  const int64_t runs = (W + g.P - 1) / g.P;
+  const int vdil = k2d ? dil : 1;
+  const int class_rows = (H + vdil - 1) / vdil;
   const int nt8 = (C + 7) / 8;
   const int64_t want = (3 * (int64_t)sms + 1) / 2;
-  auto blocks = [&](int nt, int R) {
-    return (int64_t)B * dil * ((class_rows + R - 1) / R) * runs *
+  auto blocks = [&](int nt, int R, int T) {
+    const int64_t runs = (W + kTcTile * T * dil - 1) / (kTcTile * T * dil);
+    return (int64_t)B * vdil * ((class_rows + R - 1) / R) * runs *
            ((nt8 + nt - 1) / nt) * g.nclsg;
   };
   int nt = 2, fewest = 1 << 30;
   for (int cand = kTcBwdNtMax; cand >= 2; cand -= 2) {
     const int padded = (nt8 + cand - 1) / cand * cand;
-    if (blocks(cand, 1) >= want && padded < fewest) nt = cand, fewest = padded;
+    if (blocks(cand, 1, 1) >= want && padded < fewest) {
+      nt = cand, fewest = padded;
+    }
   }
   auto group = [&](int n) {  // a block's channel group of n n8 tiles
     nt = n;
@@ -1520,8 +1636,10 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
     g.per_row = 2 * g.nc / copy_bytes;
     g.feat_bytes = g.slab * g.row_bytes;
   };
+  // the bytes of R rows (2-D) and nbuf staged window rows (1-D: one)
   auto shared = [&](int R, int nbuf) {
-    return nbuf * (size_t)g.feat_bytes + (size_t)(f2 ? nbuf : R) * g.g_bytes;
+    const int bufs = k2d ? nbuf : 1;
+    return bufs * (size_t)g.feat_bytes + (size_t)(f2 ? bufs : R) * g.g_bytes;
   };
   group(nt);
   while (shared(1, 2) > kMaxSharedBytes) {
@@ -1533,17 +1651,31 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
       break;  // launch_tc_bwd refuses it
     }
   }
-  g.R = 1;
-  for (int R = kTcBwdMaxRows; R > 1; R /= 2) {
-    if (R * g.ncls <= kTcMaxWarps && blocks(nt, R) >= want &&
-        shared(R, 2) <= kTcSmemBudget) {
-      g.R = R;
-      break;
+  if (k2d) {
+    for (int R = kTcBwdMaxRows; R > 1; R /= 2) {
+      if (R * g.ncls <= kTcMaxWarps && blocks(nt, R, 1) >= want &&
+          shared(R, 2) <= kTcSmemBudget) {
+        g.R = R;
+        break;
+      }
+    }
+  } else {
+    const int runs_per_row = (W + kTcTile * dil - 1) / (kTcTile * dil);
+    for (int T = kTcMaxTiles; T > 1; T /= 2) {
+      if (T > runs_per_row || T * g.ncls > kTcMaxWarps ||
+          blocks(nt, 1, T) < want) {
+        continue;
+      }
+      tiles(T);
+      classes(g.ncls);
+      if (shared(1, 2) <= kTcSmemBudget) break;
+      tiles(1);
+      classes(g.ncls);
     }
   }
   g.nRb = (class_rows + g.R - 1) / g.R;
   int nbuf = kTcBwdBuffers;
-  while (nbuf > 2 && shared(g.R, nbuf) > kTcSmemBudget) --nbuf;
+  while (nbuf > 2 && (!k2d || shared(g.R, nbuf) > kTcSmemBudget)) --nbuf;
   g.inv_c = 1.0 / C;
   g.c_pow2 = (C & (C - 1)) == 0;
   g.m_dil = magic(dil), g.m_nRb = magic(g.nRb);
@@ -1551,7 +1683,7 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
   g.m_ncls = magic(g.ncls);
   // wc warps split each item's NT n8 tiles, an even count each: the
   // fewest that give the block kTcMinWarps warps, else the most
-  const int items = g.R * g.ncls;
+  const int items = g.R * g.T * g.ncls;
   g.wc = 1;
   for (int wc = 2; wc <= 4 && items * g.wc < kTcMinWarps; ++wc) {
     if (nt % wc == 0 && (nt / wc) % 2 == 0 && items * wc <= kTcMaxWarps) {
@@ -1560,30 +1692,42 @@ TcBwdPlan tc_bwd_plan(int B, int H, int W, int C, int disp, int dil, bool f2,
   }
   const int warps = items * g.wc < kTcMinWarps / 2 ? kTcMinWarps / 2
                                                    : items * g.wc;
+  const int64_t runs = (W + g.P - 1) / g.P;
   return {g,
-          dim3((unsigned)(B * dil * g.nRb), (unsigned)runs,
+          dim3((unsigned)(B * vdil * g.nRb), (unsigned)runs,
                (unsigned)(((nt8 + nt - 1) / nt) * g.nclsg)),
           warps * 32, shared(g.R, nbuf), nt / g.wc, nbuf};
 }
 
-template <bool f2>
+template <bool k2d, bool f2>
 cudaError_t launch_tc_bwd(const void* g, const void* f, void* out, int B,
                           int H, int W, int C, int disp, int dil,
                           cudaStream_t stream) {
-  const TcBwdPlan plan = tc_bwd_plan(B, H, W, C, disp, dil, f2,
+  const TcBwdPlan plan = tc_bwd_plan(B, H, W, C, disp, dil, k2d, f2,
                                      copy_width(f, f, C), sm_count());
   using Kernel = void (*)(const bf16*, const bf16*, bf16*, const TcBwdGeom);
-  // by the n8 tiles of a warp (2, 4, 6, 8) and the buffers (2, 3, 4)
+  Kernel kernel;
+  if constexpr (k2d) {
+    // by the n8 tiles of a warp (2, 4, 6, 8) and the buffers (2, 3, 4)
 #define CORR_TC_BWD(k, NT) {k<NT, 2>, k<NT, 3>, k<NT, 4>}
 #define CORR_TC_BWDS(k)                                               \
   {CORR_TC_BWD(k, 2), CORR_TC_BWD(k, 4), CORR_TC_BWD(k, 6),           \
    CORR_TC_BWD(k, 8)}
-  static const Kernel kernels[2][kTcBwdNtMax / 2][kTcBwdBuffers - 1] = {
-      CORR_TC_BWDS(corr2d_tc_bwd_f1_kernel),
-      CORR_TC_BWDS(corr2d_tc_bwd_f2_kernel)};
+    static const Kernel kernels[2][kTcBwdNtMax / 2][kTcBwdBuffers - 1] = {
+        CORR_TC_BWDS(corr2d_tc_bwd_f1_kernel),
+        CORR_TC_BWDS(corr2d_tc_bwd_f2_kernel)};
 #undef CORR_TC_BWDS
 #undef CORR_TC_BWD
-  const Kernel kernel = kernels[f2][plan.nt / 2 - 1][plan.nbuf - 2];
+    kernel = kernels[f2][plan.nt / 2 - 1][plan.nbuf - 2];
+  } else {
+    // by the n8 tiles of a warp (2, 4, 6, 8)
+    static const Kernel kernels[2][kTcBwdNtMax / 2] = {
+        {corr1d_tc_bwd_f1_kernel<2>, corr1d_tc_bwd_f1_kernel<4>,
+         corr1d_tc_bwd_f1_kernel<6>, corr1d_tc_bwd_f1_kernel<8>},
+        {corr1d_tc_bwd_f2_kernel<2>, corr1d_tc_bwd_f2_kernel<4>,
+         corr1d_tc_bwd_f2_kernel<6>, corr1d_tc_bwd_f2_kernel<8>}};
+    kernel = kernels[f2][plan.nt / 2 - 1];
+  }
   if (plan.shared > kMaxSharedBytes) return cudaErrorInvalidValue;
   if (plan.shared > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1605,9 +1749,8 @@ cudaError_t launch_tc_bwd(const void* g, const void* f, void* out, int B,
 // cudaError_t of the launch (0 on success). is_bf16 selects bfloat16 over
 // float32 for all three tensors. a and b are (f1, f2) for a forward and
 // (g, f2) or (g, f1) for a backward; B, H, W, C are the features' shape.
-// bfloat16 runs the forwards and the 2-D backwards on the tensor cores (on
-// the CUDA cores in a -DCORR_SIMT build), the 1-D backwards on the CUDA
-// cores; float32 runs everything on the CUDA cores.
+// bfloat16 runs every kernel on the tensor cores (on the CUDA cores in a
+// -DCORR_SIMT build); float32 runs everything on the CUDA cores.
 #define CORR_CUDA_CORES(name)                                                \
   (is_bf16 ? launch<__nv_bfloat16>(name##_kernel<__nv_bfloat16>,             \
                                    shape_##name(C, disp, dil), a, b, out, B, \
@@ -1615,7 +1758,8 @@ cudaError_t launch_tc_bwd(const void* g, const void* f, void* out, int B,
            : launch<float>(name##_kernel<float>, shape_##name(C, disp, dil), \
                            a, b, out, B, H, W, C, disp, dil, s))
 // tc: the tensor-core kernel of the entry in bfloat16: 1 the 2-D forward,
-// 0 the 1-D forward, 2 the 2-D df1, 3 the 2-D df2, -1 none
+// 0 the 1-D forward, 2 the 2-D df1, 3 the 2-D df2, 4 the 1-D df1, 5 the
+// 1-D df2
 #define CORR_ENTRY(name, tc)                                                 \
   extern "C" int name(const void* a, const void* b, void* out, int B, int H, \
                       int W, int C, int disp, int dil, int is_bf16,          \
@@ -1627,7 +1771,8 @@ cudaError_t launch_tc_bwd(const void* g, const void* f, void* out, int B,
                 : launch_tc<false>(a, b, out, B, H, W, C, disp, dil, s);     \
     }                                                                        \
     if (kTensorCores && is_bf16 && tc >= 2) {                                \
-      return launch_tc_bwd<tc == 3>(a, b, out, B, H, W, C, disp, dil, s);    \
+      return launch_tc_bwd<(tc <= 3), (tc == 3 || tc == 5)>(               \
+          a, b, out, B, H, W, C, disp, dil, s);                              \
     }                                                                        \
     return CORR_CUDA_CORES(name);                                            \
   }
@@ -1636,15 +1781,15 @@ CORR_ENTRY(corr2d_fwd, 1)
 CORR_ENTRY(corr1d_fwd, 0)
 CORR_ENTRY(corr2d_bwd_f1, 2)
 CORR_ENTRY(corr2d_bwd_f2, 3)
-CORR_ENTRY(corr1d_bwd_f1, -1)
-CORR_ENTRY(corr1d_bwd_f2, -1)
+CORR_ENTRY(corr1d_bwd_f1, 4)
+CORR_ENTRY(corr1d_bwd_f2, 5)
 
 extern "C" const char* corr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 #ifdef CORR_PHASES
-// Copies corr_phase_cycles then corr_item_cycles (8 x 3 + 4 x 3 values) to
+// Copies corr_phase_cycles then corr_item_cycles (12 x 3 + 4 x 3 values) to
 // `host`, or zeroes both.
 extern "C" int corr_counters_read(void* host) {
   const cudaError_t err = cudaMemcpyFromSymbol(host, corr_phase_cycles,
@@ -1656,7 +1801,7 @@ extern "C" int corr_counters_read(void* host) {
 }
 
 extern "C" int corr_counters_zero() {
-  static const unsigned long long zeros[8][3] = {};
+  static const unsigned long long zeros[12][3] = {};
   const cudaError_t err = cudaMemcpyToSymbol(corr_phase_cycles, zeros,
                                              sizeof(corr_phase_cycles));
   if (err != cudaSuccess) return (int)err;

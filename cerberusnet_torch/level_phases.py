@@ -27,30 +27,34 @@ encoder-level kernels:
   the second resident block, overlapping one block's staging with the
   other's products, is worth.
 
-``csrc/correlation.cu`` (``CORR_MEASUREMENT_BUILDS``), the forwards
-``corr2d_fwd`` and ``corr1d_fwd`` and the 2-D backwards ``corr2d_bwd_f1``
-and ``corr2d_bwd_f2`` in bf16 at CerberusNet's five level shapes of a
+``csrc/correlation.cu`` (``CORR_MEASUREMENT_BUILDS``), all six
+correlation kernels, the forwards ``corr2d_fwd`` and ``corr1d_fwd`` and
+the backwards ``corr2d_bwd_f1``, ``corr2d_bwd_f2``, ``corr1d_bwd_f1`` and
+``corr1d_bwd_f2``, in bf16 at CerberusNet's five level shapes of a
 512x1024 frame and at the DCV heads' level 3 at each dilation, the
 forwards at batch 1 (served) and 2 (trained), the backwards at 2:
 
 - ``-DCORR_PHASES``: every block synchronises at each ``PHASE_MARK`` and its
   thread 0 adds the cycles since its previous reading to a counter of that
   kernel and phase (staging, products and band, store; in the tensor-core
-  backwards, which keep the next window rows' copies in flight while the
-  current one's products run, "stage" is the wait for copies the products
-  did not hide, and "products" includes issuing the copies); in the
-  tensor-core forwards warp 0 also clocks each of its items
-  (one band product) in two parts, the products up to the accumulators'
-  arrival and the band. A second build adds ``-DCORR_SIMT`` (below) to
-  clock the CUDA-core kernels. After
-  WARM_CALLS calls (the timed calls find the kernel's code and operands
-  cached too), one JSON line per call gives each phase's share of the
-  summed block cycles and warp 0's cycles per item, by design.
-- ``-DCORR_SIMT``: bf16 runs the CUDA-core kernels that float32 runs. Each call is timed in turns with the library (library,
-  CUDA cores, CUDA cores, library; each a median of device times as
-  above), and the line gives both, the design each build counted in its
-  turns and the largest difference of their outputs. A first line times
-  an empty kernel the same way: the floor of these times.
+  2-D backwards, which keep the next window rows' copies in flight while
+  the current one's products run, "stage" is the wait for copies the
+  products did not hide, and "products" includes issuing the copies; the
+  CUDA-core 1-D backwards store each output as soon as its sum is done,
+  so their "products" include the stores and their "store" only a
+  barrier); in the tensor-core forwards warp 0 also clocks each of its
+  items (one band product) in two parts, the products up to the
+  accumulators' arrival and the band. A second build adds ``-DCORR_SIMT``
+  (below) to clock the CUDA-core kernels. After WARM_CALLS calls (the
+  timed calls find the kernel's code and operands cached too), one JSON
+  line per call gives each phase's share of the summed block cycles and
+  warp 0's cycles per item, by design.
+- ``-DCORR_SIMT``: bf16 runs the CUDA-core kernels that float32 runs. Each
+  call is timed in turns with the library (library, CUDA cores, CUDA
+  cores, library; each a median of device times as above), and the line
+  gives both, the design each build counted in its turns and the largest
+  difference of their outputs. A first line times an empty kernel the
+  same way: the floor of these times.
 
 The builds live in ``cerberusnet_torch/_build/``; nothing else loads them.
 Needs a CUDA device and nvcc.
@@ -100,7 +104,10 @@ CORR_KERNELS = (("corr2d_fwd", "cuda_cores"), ("corr1d_fwd", "cuda_cores"),
                 ("corr2d_fwd", "tc"), ("corr1d_fwd", "tc"),
                 ("corr2d_bwd_f1", "cuda_cores"),
                 ("corr2d_bwd_f2", "cuda_cores"),
-                ("corr2d_bwd_f1", "tc"), ("corr2d_bwd_f2", "tc"))
+                ("corr2d_bwd_f1", "tc"), ("corr2d_bwd_f2", "tc"),
+                ("corr1d_bwd_f1", "cuda_cores"),
+                ("corr1d_bwd_f2", "cuda_cores"),
+                ("corr1d_bwd_f1", "tc"), ("corr1d_bwd_f2", "tc"))
 # corr_item_cycles: the tensor-core forwards' rows (2, 3) of the four first
 CORR_ITEM_ROWS = 4
 # CerberusNet's pyramid levels of a 512x1024 frame: (level, channels); the
@@ -110,10 +117,12 @@ CORR_HW = (512, 1024)
 CORR_LEVELS = ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))
 CORR_DCV_DILATIONS = {"corr2d_fwd": (1, 2, 4, 8), "corr1d_fwd": (1, 2, 3),
                       "corr2d_bwd_f1": (1, 2, 4, 8),
-                      "corr2d_bwd_f2": (1, 2, 4, 8)}
+                      "corr2d_bwd_f2": (1, 2, 4, 8),
+                      "corr1d_bwd_f1": (1, 2, 3), "corr1d_bwd_f2": (1, 2, 3)}
 # the forwards serve (batch 1) and train (batch 2); the backwards train
 CORR_BATCHES = {"corr2d_fwd": (1, 2), "corr1d_fwd": (1, 2),
-                "corr2d_bwd_f1": (2,), "corr2d_bwd_f2": (2,)}
+                "corr2d_bwd_f1": (2,), "corr2d_bwd_f2": (2,),
+                "corr1d_bwd_f1": (2,), "corr1d_bwd_f2": (2,)}
 WARM_CALLS = 3
 
 

@@ -26,8 +26,8 @@ launches on the current stream without synchronising, and raises on
 anything the kernel does not take or on a refused launch. Each kernel has
 its launch counter, ``<name>_launches``; nothing else changes them. The
 library also counts its launches by design (``launched_design``): in
-bfloat16 the forwards and the 2-D backwards run on the tensor cores, all
-else on the CUDA cores.
+bfloat16 every kernel runs on the tensor cores, in float32 on the CUDA
+cores.
 """
 
 from __future__ import annotations

@@ -17,12 +17,14 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            float32, plus one dilation-2 case; and at the DCV heads' level-3
            shape (B, 64, 128, 64) with d = D = 4, the 2-D kernels at
            dilations 1, 2, 4, 8 and the 1-D ones at 1, 2, 3, at the same
-           batches; the forwards and the 2-D backwards also at odd shapes
-           (B, 3, 37, 20) and (B, 3, 37, 21), the 2-D ones at dilations 1
-           and 3, the 2-D backwards also at 25; each check names the design that ran, as the library
-           counted its launches ("tc": the bf16 forwards and 2-D backwards
-           on the tensor cores; "cuda_cores": everything else), and fails
-           on any other; and the
+           batches; all six also at odd shapes (B, 3, 37, 20) and
+           (B, 3, 37, 21) at dilations 1 and 3, the backwards also at 25,
+           and the forwards at level 6's width, (B, 64, 256, 196), the 2-D
+           one at dilations 14 and 25 and the 1-D one at 15 and 25, where a
+           block stages only a group of the residue classes; each check
+           names the design that ran, as the library counted its launches
+           ("tc": every bf16 correlation kernel on the tensor cores;
+           "cuda_cores": float32), and fails on any other; and the
            fused encoder-level kernels: K9
            (encoder_level_fwd) at the three level shapes of pallas_levels=3
            at batch 3 (served) and 6 (trained) and four odd shapes (output
@@ -110,19 +112,24 @@ DCV_LEVEL = 3
 DCV_MAX_DISP = 4
 DCV_FLOW_DILATIONS = (1, 2, 4, 8)
 DCV_DISP_DILATIONS = (1, 2, 3)
-# The odd shapes of the forwards and the 2-D backwards, (H, W, C) at batch
-# 1 and 2: a row no multiple of a tile, fewer rows than the 2-D window's
-# height, and 40-byte pixel rows (8-byte aligned, no multiple of 16) or
-# 42-byte ones (odd C, which the tensor-core kernels stage by 2-byte
-# loads); the 2-D ops also at dilation 3, and the 2-D backwards at
-# dilation 25, where a block computes 16 of the 25 residue classes of
-# columns and stages only theirs.
+# The odd shapes of the correlation kernels, (H, W, C) at batch 1 and 2: a
+# row no multiple of a tile, fewer rows than the 2-D window's height, and
+# 40-byte pixel rows (8-byte aligned, no multiple of 16) or 42-byte ones
+# (odd C, which the tensor-core kernels stage by 2-byte loads); also at
+# dilation 3, and the backwards at dilation 25, where a block computes 16
+# of the 25 residue classes of columns and stages only theirs.
 ODD_CORR_SHAPES = ((3, 37, 20), (3, 37, 21))
-ODD_CORR_DILATIONS = {"corr2d_fwd": (1, 3), "corr1d_fwd": (1,),
+ODD_CORR_DILATIONS = {"corr2d_fwd": (1, 3), "corr1d_fwd": (1, 3),
                       "corr2d_bwd_f1": (1, 3, 25),
-                      "corr2d_bwd_f2": (1, 3, 25)}
-# the correlation kernels that run on the tensor cores in bf16
-TC_KERNELS = ("corr2d_fwd", "corr1d_fwd", "corr2d_bwd_f1", "corr2d_bwd_f2")
+                      "corr2d_bwd_f2": (1, 3, 25),
+                      "corr1d_bwd_f1": (1, 3, 25),
+                      "corr1d_bwd_f2": (1, 3, 25)}
+# The forwards at level 6's width, (H, W, C) at batch 1 and 2, d = D = 4,
+# at dilations where the runs of every residue class of columns would
+# exceed a block's shared memory (the 2-D op above 13, the 1-D op above
+# 14): a block computes a group of the classes and stages only theirs.
+WIDE_CORR_SHAPE = (64, 256, 196)
+WIDE_CORR_DILATIONS = {"corr2d_fwd": (14, 25), "corr1d_fwd": (15, 25)}
 # the hand kernels' sources (cerberusnet_torch/csrc/<name>.cu)
 SOURCES = ("correlation", "encoder_level")
 N_REQUESTS = 3
@@ -372,13 +379,14 @@ def phase_kernels(peaks, spin_rate):
     peak_bw = peaks["bytes"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     odd_gen = torch.Generator(device="cuda").manual_seed(1)
+    wide_gen = torch.Generator(device="cuda").manual_seed(2)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
                backward, dcv_dilations) in kernels.items():
         # (path, batch, level, dtype, dilation, max_disp, shape):
-        # CerberusNet's levels, one dilation-2 case, the DCV head's calls
-        # and, for the forwards, the odd shapes (level 0)
+        # CerberusNet's levels, one dilation-2 case, the DCV head's calls,
+        # the odd shapes and, for the forwards, the wide ones (level 0)
         cases = [("cerberus", batch, level, dt, 1, disp_of(level),
                   level_shape(batch, level))
                  for batch in batches for level in LEVELS for dt in dtypes]
@@ -390,19 +398,21 @@ def phase_kernels(peaks, spin_rate):
                   for dt in dtypes]
         cases += [("odd", batch, 0, dt, dil, 4, (batch, *odd))
                   for batch in both for odd in ODD_CORR_SHAPES
-                  for dil in ODD_CORR_DILATIONS.get(name, ())
+                  for dil in ODD_CORR_DILATIONS[name] for dt in dtypes]
+        cases += [("wide", batch, 0, dt, dil, 4, (batch, *WIDE_CORR_SHAPE))
+                  for batch in both
+                  for dil in WIDE_CORR_DILATIONS.get(name, ())
                   for dt in dtypes]
         for path, batch, level, dt, dil, d, shape in cases:
             nk = nk_of(d)
-            # bf16 forwards and 2-D backwards must run on the tensor cores,
-            # all else on the CUDA cores; the library counts which design
-            # it launched
-            want_design = ("tc" if dt == torch.bfloat16 and name in TC_KERNELS
-                           else "cuda_cores")
+            # bf16 kernels must run on the tensor cores, float32 on the
+            # CUDA cores; the library counts which design it launched
+            want_design = "tc" if dt == torch.bfloat16 else "cuda_cores"
             a_shape = (*shape[:3], nk) if backward else shape
-            # the odd shapes draw from their own generator, so every other
-            # check keeps the inputs it had before they were added
-            g_ = odd_gen if path == "odd" else gen
+            # the odd and wide shapes draw from their own generators, so
+            # every other check keeps the inputs it had before they were
+            # added
+            g_ = {"odd": odd_gen, "wide": wide_gen}.get(path, gen)
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             cc.reset_design_launches()
