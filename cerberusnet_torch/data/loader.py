@@ -3,13 +3,17 @@
 ``data/encodings.py``) for the case where the input already has the
 working size.
 
-``batches`` stacks a dataset's samples in order into numpy batch dicts;
+``DataLoader`` yields numpy batch dicts in the reference loader's order
+(``shuffle``, ``drop_last``, ``seed``; epoch e, counted from 1 by each
+iteration, shuffles with ``np.random.RandomState(seed + e)``), loading
+synchronously; ``pad_batch`` pads a partial eval batch and masks its
+padding. ``batches`` stacks a dataset's first samples in order.
 ``preprocess`` uploads a batch in its own types and converts it on the
 device: images from uint8 to float32, /255, ImageNet mean and std, then the
 compute type; labels to int64; flow, disparity and the valid masks to
-float32. Resizing (and the worker pool,
-shuffling and prefetch of the reference's loader) is not ported yet
-(ROADMAP A6): an input of another size than ``hw`` raises.
+float32. Resizing, and the worker pool and prefetch of the reference's
+loader, are not ported yet (ROADMAP A6): an input of another size than
+``hw`` raises.
 """
 
 from __future__ import annotations
@@ -22,6 +26,24 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 IMAGE_KEYS = ("left", "right", "temporal")
+
+
+def pad_batch(batch: dict, target_bs: int):
+    """Pads a (possibly partial) batch to ``target_bs`` samples by repeating
+    the last sample; returns (padded batch, sample mask), the mask (target_bs,)
+    float32, 1.0 for a real sample and 0.0 for padding. Evaluation uses it
+    with drop_last=False, so every sample counts and none counts twice."""
+    n = len(next(iter(batch.values())))
+    if n > target_bs:
+        raise ValueError(f"batch of {n} exceeds target {target_bs}")
+    mask = np.zeros((target_bs,), np.float32)
+    mask[:n] = 1.0
+    if n == target_bs:
+        return batch, mask
+    pad = target_bs - n
+    out = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
+           for k, v in batch.items()}
+    return out, mask
 
 
 def collate(samples):
@@ -43,6 +65,33 @@ def batches(dataset, batch_size: int, count: int | None = None):
     return [collate([dataset[i] for i in range(k * batch_size,
                                                 (k + 1) * batch_size)])
             for k in range(count)]
+
+
+class DataLoader:
+    """Batches of ``dataset`` as numpy dicts, in the order of the
+    reference's ``DataLoader``; each iteration is one epoch."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = True, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self):
+        self._epoch += 1
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self._epoch).shuffle(idx)
+        for i in range(len(self)):
+            part = idx[i * self.batch_size:(i + 1) * self.batch_size]
+            yield collate([self.dataset[int(j)] for j in part])
 
 
 def preprocess(batch, hw, dtype: torch.dtype, device) -> dict:

@@ -1,5 +1,6 @@
-"""The train step, port of ``cerberusnet_tpu/train/trainer.py``
-(``build_optimizer`` and the train step of ``Trainer``).
+"""The trainer, port of ``cerberusnet_tpu/train/trainer.py``
+(``build_optimizer`` and ``Trainer``: the train step, ``fit``, evaluation,
+EMA, gradient accumulation, bf16 gradients, checkpoints and NaN recovery).
 
 A step: preprocess the batch on the device, run the model in its compute
 type, ``joint_loss`` (with ``loss.uncertainty_weighting``, Kendall's
@@ -14,19 +15,27 @@ bf16 gradient of the cast, converted.
 
 The model is ``build_model``'s for ``model.variant``: the joint
 ``CerberusNet`` or ``CerberusDCV``, or the single-task ``DCVFlowNet`` or
-``DCVStereoNet``. ``fit``, checkpoints, evaluation, EMA, NaN recovery and
-logging are not ported yet (ROADMAP A5, A7): the trainer takes steps on
-batches it is given.
+``DCVStereoNet``. ``Trainer.fit`` runs the reference's epochs over the
+synthetic dataset, evaluates on ``data.eval_split`` with the EMA weights,
+logs to ``train_log.csv`` and checkpoints under ``train.ckpt_dir`` in the
+port's own format (one ``torch.save`` file per step; the reference's is
+Orbax's).
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import math
+import os
+import re
+import time
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from cerberusnet_torch.data.loader import preprocess
+from cerberusnet_torch.data.loader import DataLoader, pad_batch, preprocess
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.models.dcv_flow import (
@@ -40,6 +49,8 @@ from cerberusnet_torch.train.config import (
     ModelConfig,
     OptimConfig,
 )
+from cerberusnet_torch.train.metrics import METRICS, MetricState
+from cerberusnet_torch.utils import visualization as vis
 from cerberusnet_torch.weights import init_params
 
 # ----------------------------------------------------------------- model
@@ -209,21 +220,48 @@ class Optimizer:
         self.opt.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """torch.optim's state and the update count (the schedule's)."""
+        return {"opt": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict):
+        self.opt.load_state_dict(state["opt"])
+        self.count = state["count"]
+
 
 # --------------------------------------------------------------- trainer
+
+# a checkpoint's file name under train.ckpt_dir, by its step
+_CKPT = re.compile(r"ckpt_(\d+)\.pt")
 
 
 class Trainer:
     """``Trainer(config, device="cuda")``: the model of ``model.variant``
     in the config's compute type on ``device``, seeded weights (flax's
     initialisers, ``train.seed``), float32 masters and the optimizer over
-    them. Without a CUDA device it raises unless ``device="cpu"``.
+    them, the training dataset (``data.split``) and, with
+    ``data.eval_split``, the held-out one. Without a CUDA device it raises
+    unless ``device="cpu"``. With ``train.ckpt_dir`` and ``train.resume``
+    it restores the newest checkpoint there.
 
     With ``loss.uncertainty_weighting`` three float32 log-variances,
     ``__task_uncertainty__.seg``, ``.flow`` and ``.disp``, start at 0 and
     are masters beside the model's, as the reference keeps them in its
-    parameter tree: they count in the clip's global norm, and AdamW's
-    decay applies to them."""
+    parameter tree: they count in the clip's global norm, AdamW's decay
+    applies to them, and the EMA and checkpoints hold them.
+
+    ``optim.ema_decay`` keeps float32 copies of the masters, moved after
+    every ``train_step`` as ``optax.incremental_update``; evaluation and
+    the panels run them in the model and put the masters back.
+    ``optim.accum_steps`` = k keeps the running mean of the gradients and
+    clips and updates once every k calls (``optax.MultiSteps``): the
+    schedule counts updates, the EMA and ``step`` count calls.
+    ``optim.grads_dtype="bfloat16"`` differentiates with respect to a bf16
+    cast of every float32 leaf (the classifier of a bf16 model, every
+    parameter of a float32 one, the log-variances), as the reference does.
+    ``train.remat`` recomputes the forward in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` of the loss), so
+    the forward kernels launch twice a step."""
 
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
@@ -233,26 +271,20 @@ class Trainer:
                 "no CUDA device: pass device='cpu' to train on the CPU")
         self.config = config
         self.device = device
-        m = config.model
+        m, d = config.model, config.data
         # interpret_kernels forces the reference's pure correlations; here
         # the plain ones
         self.corr_impl = ("plain" if config.train.interpret_kernels
                           else m.port_corr_impl)
         self.dtype = m.torch_dtype
-        d = config.data
-        self.dataset = SyntheticPerceptionDataset(
-            length=d.synthetic_length, hw=tuple(d.hw),
-            num_classes=m.num_classes, sparse=d.synthetic_sparse,
-            seed=1 if d.split == "val" else 0)
+        self.dataset = self._build_dataset(d.split)
+        self.eval_dataset = (self._build_dataset(d.eval_split)
+                             if d.eval_split else None)
 
-        ref, _ = build_model(m, self.corr_impl, torch.float32)
-        init_params(ref, torch.Generator().manual_seed(config.train.seed))
         self.model, self.input_keys = build_model(m, self.corr_impl,
                                                   self.dtype)
         self.model = self.model.to(device).train()
         params = dict(self.model.named_parameters())
-        self.masters = {n: p.detach().to(device).clone()
-                        for n, p in ref.named_parameters()}
         # the log-variances are leaves of the loss, as the model's
         # parameters are, with masters of their own
         self.log_vars = {}
@@ -262,37 +294,82 @@ class Trainer:
                              for t in TASKS}
             for t, s in self.log_vars.items():
                 params[f"{UNCERTAINTY}.{t}"] = s
-                self.masters[f"{UNCERTAINTY}.{t}"] = s.detach().clone()
         self.names = list(params)
         self._params = [params[n] for n in self.names]
+        self.masters = self._initial_masters()
+        self.history: list = []
         self._start()
+        if config.train.ckpt_dir and config.train.resume:
+            self._maybe_restore()
+
+    def _build_dataset(self, split):
+        d = self.config.data
+        return SyntheticPerceptionDataset(
+            length=d.synthetic_length, hw=tuple(d.hw),
+            num_classes=self.config.model.num_classes,
+            sparse=d.synthetic_sparse, seed=1 if split == "val" else 0)
 
     # -- weights -----------------------------------------------------------
 
+    def _initial_masters(self) -> dict:
+        """The float32 masters ``train.seed`` draws: the model's (on the
+        CPU, so any device gets the same values) and log-variances of 0."""
+        ref, _ = build_model(self.config.model, self.corr_impl, torch.float32)
+        init_params(ref, torch.Generator().manual_seed(self.config.train.seed))
+        masters = {n: p.detach().to(self.device).clone()
+                   for n, p in ref.named_parameters()}
+        for t in self.log_vars:
+            masters[f"{UNCERTAINTY}.{t}"] = torch.zeros((), device=self.device)
+        return masters
+
     def _start(self):
-        """A fresh optimizer over the masters, and the masters in the
-        model."""
-        self.optimizer = Optimizer(self.config.optim,
-                                   [self.masters[n] for n in self.names])
-        self._sync()
+        """A fresh optimizer over the masters, the EMA at the masters, no
+        accumulated gradient, step 0, and the masters in the model."""
+        o = self.config.optim
+        self.optimizer = Optimizer(o, [self.masters[n] for n in self.names])
+        self.ema = ({n: m.clone() for n, m in self.masters.items()}
+                    if o.ema_decay > 0 else None)
+        self._accum = None
+        self._mini_step = 0
+        self.step = 0
+        self._sync(self.masters)
 
     @torch.no_grad()
     def load_masters(self, masters: dict):
-        """Sets the float32 masters (name -> tensor, as ``self.masters``),
-        copies them into the model and starts the optimizer afresh."""
+        """Sets the float32 masters (name -> tensor, as ``self.masters``)
+        and starts afresh from them: optimizer, EMA, accumulation, step."""
         for n in self.names:
             self.masters[n].copy_(masters[n])
         self._start()
 
     @torch.no_grad()
-    def _sync(self):
+    def _sync(self, values: dict):
+        """Copies ``values`` (the masters or the EMA) into the model and
+        the log-variance leaves, in their types."""
         for p, n in zip(self._params, self.names):
-            p.copy_(self.masters[n])
+            p.copy_(values[n])
+
+    @contextlib.contextmanager
+    def _eval_weights(self):
+        """The EMA in the model (when kept) for the body, the masters back
+        after it: a train step after an evaluation starts from the
+        masters."""
+        if self.ema is None:
+            yield
+            return
+        self._sync(self.ema)
+        try:
+            yield
+        finally:
+            self._sync(self.masters)
 
     # -- steps -------------------------------------------------------------
 
+    def _forward(self, batch):
+        return self.model(*[batch[k] for k in self.input_keys])
+
     def _loss_fn(self, batch):
-        outputs = self.model(*[batch[k] for k in self.input_keys])
+        outputs = self._forward(batch)
         cfg = self.config.loss
         total, comps = losses.joint_loss(
             outputs, batch, weights=cfg.weights, focal_gamma=cfg.focal_gamma,
@@ -300,7 +377,13 @@ class Trainer:
             smoothness_weight=cfg.smoothness_weight,
             rmi_weight=cfg.rmi_weight, seq_gamma=cfg.seq_gamma)
         if self.log_vars:
-            total = losses.uncertainty_weighted_total(comps, self.log_vars)
+            log_vars = self.log_vars
+            if self.config.optim.grads_dtype == "bfloat16":
+                # the bf16 leaves of the reference: exp(-s) and 0.5 s in
+                # bf16, the cast's backward upcasts their gradients
+                log_vars = {t: s.to(torch.bfloat16)
+                            for t, s in log_vars.items()}
+            total = losses.uncertainty_weighted_total(comps, log_vars)
             comps = {**comps, "total": total}
         return total, comps
 
@@ -312,17 +395,64 @@ class Trainer:
                            self.device)
         for p in self._params:
             p.grad = None
-        total, comps = self._loss_fn(batch)
-        total.backward()
-        grads = {n: (p.grad.float() if p.grad is not None
-                     else torch.zeros_like(self.masters[n]))
-                 for n, p in zip(self.names, self._params)}
+        bf16 = self.config.optim.grads_dtype == "bfloat16"
+        # bf16 gradients: the float32 leaves hold their bf16 values for the
+        # step (a float32 module computes in float32 on them, as flax
+        # promotes a bf16 parameter to the module's type)
+        rounded = [(p, n) for p, n in zip(self._params, self.names)
+                   if bf16 and p.dtype == torch.float32]
+        with torch.no_grad():
+            for p, _ in rounded:
+                p.copy_(p.to(torch.bfloat16))
+        try:
+            if self.config.train.remat:
+                total, comps = checkpoint(self._loss_fn, batch,
+                                          use_reentrant=False)
+            else:
+                total, comps = self._loss_fn(batch)
+            total.backward()
+        finally:
+            with torch.no_grad():
+                for p, n in rounded:
+                    p.copy_(self.masters[n])
+        grads = {}
+        for n, p in zip(self.names, self._params):
+            g = p.grad if p.grad is not None else torch.zeros_like(
+                self.masters[n])
+            grads[n] = (g.to(torch.bfloat16) if bf16 else g).float()
         return {k: v.detach() for k, v in comps.items()}, grads
 
+    @torch.no_grad()
     def apply_grads(self, grads: dict):
-        """Clips, updates the masters and copies them into the model."""
-        self.optimizer.step([grads[n] for n in self.names])
-        self._sync()
+        """One call of the reference's optimizer: clips, updates the masters
+        and copies them into the model; with ``optim.accum_steps`` = k,
+        adds the gradients to the running mean and updates by it every k
+        calls. Then moves the EMA and counts the step."""
+        g = [grads[n] for n in self.names]
+        k = self.config.optim.accum_steps
+        if k > 1:
+            if self._accum is None:
+                self._accum = [torch.zeros_like(x) for x in g]
+            # optax.MultiSteps' mean: acc + (g - acc) / (n + 1)
+            delta = torch._foreach_sub(g, self._accum)
+            torch._foreach_div_(delta, self._mini_step + 1)
+            torch._foreach_add_(self._accum, delta)
+            self._mini_step = (self._mini_step + 1) % k
+            if self._mini_step == 0:
+                self.optimizer.step(self._accum)
+                torch._foreach_zero_(self._accum)
+                self._sync(self.masters)
+        else:
+            self.optimizer.step(g)
+            self._sync(self.masters)
+        if self.ema is not None:
+            # optax.incremental_update(new, old, s): s new + (1 - s) old
+            s = 1.0 - self.config.optim.ema_decay
+            ema = [self.ema[n] for n in self.names]
+            torch._foreach_mul_(ema, 1.0 - s)
+            torch._foreach_add_(ema, torch._foreach_mul(
+                [self.masters[n] for n in self.names], s))
+        self.step += 1
 
     def train_step(self, batch):
         """One step; returns the loss components (device tensors, before
@@ -330,3 +460,206 @@ class Trainer:
         comps, grads = self.loss_and_grads(batch)
         self.apply_grads(grads)
         return comps
+
+    # -- evaluation --------------------------------------------------------
+
+    def _prep_eval_batch(self, batch):
+        """Pads a partial batch to ``data.batch_size``, preprocesses it on
+        the device and attaches the (B,) sample mask that keeps the padding
+        out of the metrics."""
+        batch, mask = pad_batch(batch, self.config.data.batch_size)
+        prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
+        prep["_sample_mask"] = torch.from_numpy(mask).to(self.device)
+        return prep
+
+    @torch.no_grad()
+    def evaluate(self, loader=None):
+        """Metrics (``MetricState.compute()``) of the EMA weights, or the
+        masters without EMA, over ``loader`` or else every sample of the
+        held-out dataset (the training one without ``data.eval_split``),
+        the last batch padded and masked."""
+        if loader is None:
+            loader = DataLoader(self.eval_dataset or self.dataset,
+                                self.config.data.batch_size, drop_last=False)
+        metrics = MetricState.zeros(self.config.model.num_classes,
+                                    self.device)
+        with self._eval_weights():
+            for batch in loader:
+                prep = self._prep_eval_batch(batch)
+                metrics = metrics.update(self._forward(prep), prep)
+        return metrics.compute()
+
+    @torch.no_grad()
+    def render_panel(self):
+        """The predictions of the evaluation weights on the training
+        dataset's first sample as an (H, W, 3) uint8 panel: the image, then
+        the segmentation overlay, flow and disparity, as present."""
+        batch = next(iter(DataLoader(self.dataset, batch_size=1)))
+        prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
+        with self._eval_weights():
+            out = self._forward(prep)
+        inputs = {"image": batch["left"][0]}
+        if "seg_logits" in out:
+            inputs["seg"] = out["seg_logits"][0].argmax(-1).cpu().numpy()
+        if "flow" in out:
+            inputs["flow"] = out["flow"][0].float().cpu().numpy()
+        if "disp" in out:
+            inputs["disp"] = out["disp"][0, ..., 0].float().cpu().numpy()
+        return vis.summary_panel(inputs)
+
+    def dump_visualization(self, path: str) -> str:
+        """Writes ``render_panel()`` to ``path`` as a PNG."""
+        return vis.write_png_u8(path, self.render_panel())
+
+    # -- checkpoints -------------------------------------------------------
+
+    def _checkpoints(self) -> dict:
+        """{step: path} of the checkpoints under ``train.ckpt_dir``."""
+        d = self.config.train.ckpt_dir
+        if not d or not os.path.isdir(d):
+            return {}
+        found = (_CKPT.fullmatch(name) for name in os.listdir(d))
+        return {int(m.group(1)): os.path.join(d, m.group(0))
+                for m in found if m}
+
+    def save_checkpoint(self):
+        """Writes the state at this step (masters, EMA, optimizer with its
+        update count, accumulated gradients, step) to one file under
+        ``train.ckpt_dir``, through a temporary file and ``os.replace``,
+        and keeps the newest ``train.keep_checkpoints``. Returns its path,
+        or None without a ``ckpt_dir``."""
+        d = self.config.train.ckpt_dir
+        if not d:
+            return None
+        os.makedirs(d, exist_ok=True)
+        state = {"step": self.step, "masters": self.masters, "ema": self.ema,
+                 "optimizer": self.optimizer.state_dict(),
+                 "accum": self._accum, "mini_step": self._mini_step}
+        path = os.path.join(d, f"ckpt_{self.step:08d}.pt")
+        torch.save(state, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        kept = sorted(self._checkpoints().items())
+        for _, old in kept[:-self.config.train.keep_checkpoints]:
+            os.remove(old)
+        return path
+
+    @torch.no_grad()
+    def _maybe_restore(self):
+        """Restores the newest checkpoint under ``train.ckpt_dir``; returns
+        its step, or None when there is none."""
+        ckpts = self._checkpoints()
+        if not ckpts:
+            return None
+        # on the CPU: the optimizer keeps its step counts there
+        state = torch.load(ckpts[max(ckpts)], map_location="cpu",
+                           weights_only=True)
+        for n, m in self.masters.items():
+            m.copy_(state["masters"][n])
+        self._start()
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.ema is not None:
+            for n, e in self.ema.items():
+                e.copy_(state["ema"][n])
+        if state["accum"] is not None:
+            self._accum = [a.to(self.device) for a in state["accum"]]
+        self._mini_step = state["mini_step"]
+        self.step = state["step"]
+        print(f"[trainer] restored checkpoint at step {self.step}")
+        return self.step
+
+    # -- the loop ----------------------------------------------------------
+
+    def fit(self):
+        """``train.epochs`` epochs over the training dataset; returns the
+        history, one row a epoch: epoch, step, epoch_seconds, the last
+        step's loss components (``loss_*``) and, every
+        ``train.eval_every_epochs``, the held-out metrics. With a
+        ``ckpt_dir``: rows appended to its ``train_log.csv``, a
+        ``predictions_epoch{e}.png`` panel at each evaluation, checkpoints
+        every ``ckpt_every_epochs`` and at the last epoch. With
+        ``recover_on_nan``, a non-finite loss rolls back to the newest
+        checkpoint (to the seeded weights without one), up to
+        ``max_nan_recoveries`` times within ``nan_recovery_reset_steps``
+        healthy steps. Losses are read on the host only at ``log_every``, at
+        an epoch's end and, under ``recover_on_nan``, every step."""
+        cfg = self.config
+        t = cfg.train
+        loader = DataLoader(self.dataset, cfg.data.batch_size,
+                            shuffle=cfg.data.shuffle, seed=t.seed)
+        log_path = None
+        if t.ckpt_dir:
+            os.makedirs(t.ckpt_dir, exist_ok=True)
+            log_path = os.path.join(t.ckpt_dir, "train_log.csv")
+        nan_recoveries = 0
+        steps_since_recovery = 0
+        if t.recover_on_nan and t.ckpt_dir and not self._checkpoints():
+            # a rollback point before the first step: an early divergence
+            # must not silently restart from scratch
+            print("[trainer] recover_on_nan: saving initial rollback "
+                  "checkpoint")
+            self.save_checkpoint()
+        for epoch in range(t.epochs):
+            t_epoch = time.time()
+            comps = {}
+            for i, batch in enumerate(loader):
+                comps = self.train_step(batch)
+                if t.recover_on_nan and not math.isfinite(
+                        float(comps["total"])):
+                    nan_recoveries += 1
+                    steps_since_recovery = 0
+                    if nan_recoveries > t.max_nan_recoveries:
+                        raise RuntimeError(
+                            f"loss non-finite after {nan_recoveries - 1} "
+                            "checkpoint recoveries — aborting")
+                    print(f"[trainer] non-finite loss at step {self.step}; "
+                          f"restoring last checkpoint (recovery "
+                          f"{nan_recoveries}/{t.max_nan_recoveries})")
+                    self.load_masters(self._initial_masters())
+                    if self._maybe_restore() is None:
+                        print("[trainer] WARNING: no checkpoint to restore — "
+                              "NaN recovery re-initialized from scratch at "
+                              "step 0 (set train.ckpt_dir for real rollback)")
+                    continue
+                steps_since_recovery += 1
+                if (nan_recoveries and t.nan_recovery_reset_steps
+                        and steps_since_recovery
+                        >= t.nan_recovery_reset_steps):
+                    # a long healthy stretch forgets old transient NaNs
+                    nan_recoveries = 0
+                if (i + 1) % t.log_every == 0:
+                    vals = {k: float(v) for k, v in comps.items()}
+                    print(f"[epoch {epoch} step {i + 1}] {vals}")
+            # the losses' read waits for the device, so epoch_seconds holds
+            # the epoch's device work
+            losses_row = {f"loss_{k}": float(v) for k, v in comps.items()}
+            row = {"epoch": epoch, "step": self.step,
+                   "epoch_seconds": round(time.time() - t_epoch, 2),
+                   **losses_row}
+            if (self.eval_dataset is not None
+                    and (epoch + 1) % t.eval_every_epochs == 0):
+                row.update(self.evaluate())
+                if t.ckpt_dir:
+                    self.dump_visualization(os.path.join(
+                        t.ckpt_dir, f"predictions_epoch{epoch}.png"))
+            self.history.append(row)
+            print(f"[epoch {epoch}] {row}")
+            if log_path:
+                self._append_log(log_path, row)
+            if ((epoch + 1) % t.ckpt_every_epochs == 0
+                    or epoch + 1 == t.epochs):
+                self.save_checkpoint()
+        return self.history
+
+    def _append_log(self, path: str, row: dict):
+        """Appends ``row`` to the CSV at ``path``. The header names every
+        column a row can hold (the reference's names only the first row's,
+        so its evaluation rows run past it); a row without evaluation
+        leaves the metric columns empty."""
+        metrics = METRICS if self.eval_dataset is not None else ()
+        fields = sorted({*row, *metrics})
+        write_header = not os.path.exists(path)
+        with open(path, "a", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=fields, restval="")
+            if write_header:
+                writer.writeheader()
+            writer.writerow(row)

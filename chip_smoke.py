@@ -77,6 +77,20 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            rounded where K9 rounds; a control with K10 zeroed, one step
            with pallas_grad="xla" (K9, no K10); timed in turns against
            pallas_levels=0
+  fit      Trainer.fit of configs/cerberus_evidence.json at its widths
+           (128x256, batch 4, bf16, EMA 0.995) cut to 16 samples and 2
+           epochs, evaluating, drawing its panel and checkpointing each
+           epoch: 2 history rows with finite losses and the five held-out
+           metrics, 8 steps, 5 launches of each correlation kernel a step
+           and of each forward an evaluation batch, every bf16 call on the
+           tensor cores; evaluate() changes no master; its metrics against
+           the same EMA weights with the plain correlations; a resumed
+           trainer's step, masters, EMA and optimizer state bit-equal, its
+           next two steps' losses within 1e-3 of the first trainer's; one
+           step's EMA by its rule; the panel's PNG decoded to its shape.
+           A fit_times line gives ms per fit step, evaluation seconds per
+           batch and the checkpoint's bytes and save seconds beside the
+           card's name and power limit
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve path's beside them
 and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
@@ -1177,6 +1191,218 @@ def phase_train(phase):
     return {**launches, "encoder_level_bwd_partial_bytes": partial_bytes}
 
 
+# The fit phase: configs/cerberus_evidence.json at its widths (128x256,
+# batch 4, bf16, EMA 0.995) with the depth cut: 16 synthetic samples (4
+# steps an epoch, 4 held-out batches), 2 epochs, evaluating and
+# checkpointing each. A train step launches each correlation kernel once a
+# level (train.remat would launch the forwards twice); an evaluation batch
+# and the panel's forward launch the two forwards once a level.
+FIT_CONFIG = "configs/cerberus_evidence.json"
+FIT_EPOCHS = 2
+FIT_SAMPLES = 16
+# evaluate() on the kernels against the plain correlations, the same EMA
+# weights: EPE and MAE relative, the rates (an argmax or a threshold flips
+# on a pixel) absolute
+FIT_REL = {"flow_epe": 1e-2, "disp_mae": 1e-2}
+FIT_ABS = {"miou": 5e-3, "flow_fl_all": 5e-3, "disp_d1_all": 5e-3}
+# a resumed trainer's next steps against the first trainer's: the losses
+# within the floor of the bf16 rule (cuDNN may pick non-deterministic
+# algorithms, so the states need not stay bit-equal past a step)
+FIT_RESUME_RTOL = 1e-3
+
+
+def timed_calls(obj, name, record):
+    """Replaces ``obj.name`` by a wrapper that appends (kernel launches the
+    call made, seconds to its end on the card) to ``record``."""
+    real = getattr(obj, name)
+
+    def call(*args, **kw):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        record.append(({k: v - before[k] for k, v in launch_counts().items()},
+                       time.perf_counter() - t0, out))
+        return out
+
+    setattr(obj, name, call)
+    return real
+
+
+def phase_fit(card):
+    import contextlib
+    import copy
+    import os
+    import tempfile
+
+    from cerberusnet_torch.data.loader import batches
+    from cerberusnet_torch.entry import REPO_ROOT
+    from cerberusnet_torch.ops.cuda import correlation as cc
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.metrics import METRICS
+    from cerberusnet_torch.train.trainer import Trainer
+    from cerberusnet_torch.utils.visualization import read_png_u8
+
+    raw = json.loads((REPO_ROOT / FIT_CONFIG).read_text())
+    errors = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        raw["data"]["synthetic_length"] = FIT_SAMPLES
+        raw["train"].update(epochs=FIT_EPOCHS, eval_every_epochs=1,
+                            ckpt_every_epochs=1, ckpt_dir=ckpt_dir,
+                            resume=True)
+
+        def trainer(**model):
+            r = copy.deepcopy(raw)
+            r["model"].update(model)
+            # the trainer's prints (a restore, fit's rows) go to stderr:
+            # stdout holds the JSON lines
+            with contextlib.redirect_stdout(sys.stderr):
+                return Trainer(ExperimentConfig.from_dict(r))
+
+        t0 = time.perf_counter()
+        tr = trainer()
+        setup_s = time.perf_counter() - t0
+        bs = tr.config.data.batch_size
+        eval_batches = -(-FIT_SAMPLES // bs)
+        steps, evals, saves = [], [], []
+        real_step = timed_calls(tr, "train_step", steps)
+        timed_calls(tr, "evaluate", evals)
+        timed_calls(tr, "save_checkpoint", saves)
+        reset_launch_counts()
+        cc.reset_design_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            history = tr.fit()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts()
+        design = cc.launched_design()
+
+        n_steps = FIT_EPOCHS * (FIT_SAMPLES // bs)
+        want_step = {k: len(LEVELS) if k in REPLACES else 0
+                     for k in launches}
+        want_eval = {k: eval_batches * len(LEVELS)
+                     if k in ("corr2d_fwd", "corr1d_fwd") else 0
+                     for k in launches}
+        # and the panel's forward (batch 1) after each evaluation
+        want = {k: n_steps * want_step[k] + len(evals) * (
+            want_eval[k] + want_eval[k] // eval_batches) for k in launches}
+        errors += [f"step {i}: kernel launches rose by {r}"
+                   for i, (r, _, _) in enumerate(steps) if r != want_step]
+        errors += [f"evaluation {i}: kernel launches rose by {r}"
+                   for i, (r, _, _) in enumerate(evals) if r != want_eval]
+        if launches != want:
+            errors.append(f"fit launched {launches}, not {want}")
+        if design != "tc":
+            errors.append(f"the bf16 correlations ran on {design!r}, not tc")
+        if len(history) != FIT_EPOCHS or tr.step != n_steps or len(
+                steps) != n_steps or len(evals) != FIT_EPOCHS:
+            errors.append(f"{len(history)} history rows, step {tr.step}, "
+                          f"{len(steps)} steps, {len(evals)} evaluations")
+        for row in history:
+            vals = [v for k, v in row.items() if k.startswith("loss_")]
+            vals += [row.get(k, math.nan) for k in METRICS]
+            if len(vals) != 4 + len(METRICS) or not all(
+                    map(math.isfinite, vals)):
+                errors.append(f"epoch {row['epoch']}: {row}")
+        panel_path = os.path.join(ckpt_dir,
+                                  f"predictions_epoch{FIT_EPOCHS - 1}.png")
+        h, w = tr.config.data.hw
+        panel_shape = list(read_png_u8(panel_path).shape)
+        if panel_shape != [4 * h, w, 3]:
+            errors.append(f"panel {panel_shape}, not {[4 * h, w, 3]}")
+
+        # evaluate() changes no master
+        masters = {n: m.clone() for n, m in tr.masters.items()}
+        got = tr.evaluate()
+        changed = [n for n, m in tr.masters.items()
+                   if not torch.equal(m, masters[n])]
+        if changed:
+            errors.append(f"evaluate() changed {len(changed)} masters")
+
+        # the kernels against the plain correlations: the same EMA weights
+        # (restored from the last checkpoint)
+        plain = trainer(corr_impl="plain")
+        if plain.step != n_steps:
+            errors.append(f"the plain trainer restored step {plain.step}")
+        want_metrics = plain.evaluate()
+        del plain
+        metric_check = {}
+        for k, tol in (*FIT_REL.items(), *FIT_ABS.items()):
+            d = abs(got[k] - want_metrics[k])
+            if k in FIT_REL:
+                d /= abs(want_metrics[k])
+            metric_check[k] = {"kernel": got[k], "plain": want_metrics[k],
+                               "distance": d, "limit": tol,
+                               "relative": k in FIT_REL}
+            if not d <= tol:
+                errors.append(f"{k}: kernels {got[k]}, plain "
+                              f"{want_metrics[k]}, {d} > {tol}")
+
+        # resume: the same state bit for bit, then the same next steps
+        resumed = trainer()
+        sa = tr.optimizer.state_dict()
+        sb = resumed.optimizer.state_dict()
+        same = (resumed.step == tr.step and sa["count"] == sb["count"]
+                and all(torch.equal(tr.masters[n], resumed.masters[n])
+                        and torch.equal(tr.ema[n], resumed.ema[n])
+                        for n in tr.names)
+                and all(torch.equal(v, sb["opt"]["state"][i][k])
+                        for i, st in sa["opt"]["state"].items()
+                        for k, v in st.items()))
+        if not same:
+            errors.append(f"resume restored step {resumed.step} and not "
+                          f"the same masters, EMA and optimizer state")
+        tr.train_step = real_step
+        decay = tr.config.optim.ema_decay
+        resume_losses = []
+        for i, batch in enumerate(batches(tr.dataset, bs, 2)):
+            ema0 = {n: e.clone() for n, e in tr.ema.items()}
+            ca = {k: v.item() for k, v in tr.train_step(batch).items()}
+            cb = {k: v.item() for k, v in resumed.train_step(batch).items()}
+            resume_losses.append({"first": ca, "resumed": cb})
+            errors += [f"resumed step {i}: {k} {cb[k]} against {ca[k]}"
+                       for k in ca if not abs(cb[k] - ca[k])
+                       <= FIT_RESUME_RTOL * abs(ca[k])]
+            if i == 0:
+                # the EMA rule, d ema0 + (1 - d) p1, to float32 rounding
+                ema_err = 0.0
+                for n, e in tr.ema.items():
+                    a = decay * ema0[n].double()
+                    b = (1 - decay) * tr.masters[n].double()
+                    bound = 2.0**-22 * (a.abs() + b.abs()) + 1e-30
+                    ema_err = max(ema_err, ((e.double() - a - b).abs()
+                                            / bound).max().item())
+                if not ema_err <= 1:
+                    errors.append(f"EMA off its rule by {ema_err} of the "
+                                  f"float32 rounding bound")
+        del resumed
+        ckpt_bytes = os.path.getsize(saves[-1][2])
+
+    step_ms = [dt * 1e3 for _, dt, _ in steps]
+    ok = not errors
+    emit({"phase": "fit", "ok": ok, "config": FIT_CONFIG,
+          "hw": list(tr.config.data.hw), "batch": bs, "dtype": "bfloat16",
+          "ema_decay": decay, "epochs": FIT_EPOCHS, "samples": FIT_SAMPLES,
+          "history": history, "launches": launches,
+          "launches_per_step": want_step, "launches_per_eval_batch": {
+              k: v // eval_batches for k, v in want_eval.items()},
+          "design": design, "metrics_kernels_vs_plain": metric_check,
+          "resume_losses": resume_losses, "ema_rule_err_of_bound": ema_err,
+          "panel_shape": panel_shape, "setup_s": setup_s, "fit_s": fit_s,
+          "errors": errors})
+    emit({"phase": "fit_times", "card": card,
+          "ms_per_fit_step": statistics.median(step_ms[1:]),
+          "ms_per_fit_step_all": step_ms,
+          "timing": "host clock around train_step and a synchronize, "
+                    "median over the steps after the first",
+          "eval_s_per_batch": statistics.median(
+              dt / eval_batches for _, dt, _ in evals),
+          "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_save_s": [dt for _, dt, _ in saves]})
+    if not ok:
+        sys.exit(1)
+
+
 REPLACES = {
     "corr2d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:86 "
                   "(_corr2d_fwd_kernel, pallas_call at :153)",
@@ -1334,6 +1560,7 @@ def main():
                   "serve_pallas_levels", "train_pallas_levels"):
         run = phase_serve if phase in SERVE else phase_train
         counts[phase] = run(phase)
+    phase_fit(card)
     summary(checks, counts)
     emit({"phase": "done", "ok": True,
           "seconds": time.perf_counter() - t0})

@@ -136,10 +136,10 @@ def test_unknown_key_raises():
 @pytest.mark.parametrize("section,key,value,item", [
     ("model", "variant", "raft", "A8"),
     ("model", "seg_head", "aspp", "A8"),
-    ("optim", "accum_steps", 2, "A5"),
-    ("optim", "ema_decay", 0.99, "A5"),
-    ("optim", "grads_dtype", "bfloat16", "A5"),
-    ("train", "remat", True, "A5"),
+    ("train", "debug_nans", True, "A5"),
+    ("train", "tensorboard", True, "A12"),
+    ("data", "flip_lr_prob", 0.5, "A6"),
+    ("train", "num_spatial_devices", 2, "A11"),
     ("loss", "rmi_weight", 0.5, "A4"),
     ("loss", "photometric_weight", 0.1, "A4"),
     ("loss", "smoothness_weight", 0.1, "A4"),
@@ -153,6 +153,19 @@ def test_unported_values_raise(section, key, value, item):
     cfg = ExperimentConfig.from_dict(raw)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, device="cpu")
+
+
+EVIDENCE = ("cerberus_evidence", "cerberus_evidence60", "cerberus_evidence_cpu",
+            "dcv_evidence", "dcv_evidence60", "wide_evidence",
+            "cerberus_evidence_bf16g")
+
+
+@pytest.mark.parametrize("name", EVIDENCE)
+def test_evidence_config_is_supported(name):
+    cfg = ExperimentConfig.from_json(
+        str(REPO_ROOT / "configs" / f"{name}.json"))
+    cfg.check_supported()
+    assert cfg.optim.ema_decay > 0 and cfg.data.eval_split == "val"
 
 
 @pytest.mark.parametrize("name", ["cerberus_dcv.json"])
