@@ -18,6 +18,8 @@ loader, are not ported yet (ROADMAP A6): an input of another size than
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -62,9 +64,7 @@ def batches(dataset, batch_size: int, count: int | None = None):
     if count > n:
         raise ValueError(f"{count} batches of {batch_size} asked of a dataset "
                          f"of {len(dataset)} samples")
-    return [collate([dataset[i] for i in range(k * batch_size,
-                                                (k + 1) * batch_size)])
-            for k in range(count)]
+    return list(itertools.islice(DataLoader(dataset, batch_size), count))
 
 
 class DataLoader:

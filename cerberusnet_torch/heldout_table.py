@@ -1,9 +1,8 @@
-#!/usr/bin/env python3
 """Tabulates the held-out metrics of training runs from their
 ``train_log.csv`` (written by the port's ``Trainer.fit``,
 ``python -m cerberusnet_torch.cli``).
 
-    python3 scripts/heldout_table.py runs/torch_cerberus_evidence/train_log.csv [...]
+    python3 -m cerberusnet_torch.heldout_table runs/torch_cerberus_evidence/train_log.csv [...]
 
 For each log: the five held-out metrics at every evaluated epoch, then the
 median ms per step (an epoch's ``epoch_seconds`` over its steps: loading,

@@ -21,7 +21,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            (B, 3, 37, 21) at dilations 1 and 3, the backwards also at 25,
            and the forwards at level 6's width, (B, 64, 256, 196), the 2-D
            one at dilations 14 and 25 and the 1-D one at 15 and 25, where a
-           block stages only a group of the residue classes; each check
+           block stages only a group of the residue classes, and all six at
+           the five level shapes of fit's 128x256 frame (forwards at batch 1
+           and 4, backwards at 4; level 6 is (B, 2, 4, C), narrower than a
+           tile and shorter than the 2-D window); each check
            names the design that ran, as the library counted its launches
            ("tc": every bf16 correlation kernel on the tensor cores;
            "cuda_cores": float32), and fails on any other; and the
@@ -87,13 +90,16 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            the same EMA weights with the plain correlations; a resumed
            trainer's step, masters, EMA and optimizer state bit-equal, its
            next two steps' losses within 1e-3 of the first trainer's; one
-           step's EMA by its rule; the panel's PNG decoded to its shape.
-           A fit_times line gives ms per fit step, evaluation seconds per
-           batch and the checkpoint's bytes and save seconds beside the
-           card's name and power limit
+           step's EMA by its rule; the panel's PNG decoded to its shape;
+           then one more train step and one evaluation batch with every
+           correlation call's output held to its plain version on the same
+           tensors. A fit_times line gives ms per fit step, the loader's
+           seconds per batch, evaluation seconds per batch and the
+           checkpoint's bytes and save seconds beside the card's name and
+           power limit
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
-on the train path, where all six run, with the serve path's beside them
-and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
+on the train path, where all six run, with the serve and fit paths'
+beside them and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
 K9's serve numbers beside them, each with its time over the cuDNN level's
 (vs_plain) per level, and K10's weight-gradient partial bytes per step as
 its wrapper counted them in train_pallas_levels), a {"phase": "done"} line
@@ -144,6 +150,11 @@ ODD_CORR_DILATIONS = {"corr2d_fwd": (1, 3), "corr1d_fwd": (1, 3),
 # 14): a block computes a group of the classes and stages only theirs.
 WIDE_CORR_SHAPE = (64, 256, 196)
 WIDE_CORR_DILATIONS = {"corr2d_fwd": (14, 25), "corr1d_fwd": (15, 25)}
+# The fit phase's frame and batch (configs/cerberus_evidence.json, which
+# phase_fit checks): its five levels run from (B, 32, 64, 32) down to
+# (B, 2, 4, 196); the forwards also at batch 1 (the panel).
+FIT_HW = (128, 256)
+FIT_BATCH = 4
 # the hand kernels' sources (cerberusnet_torch/csrc/<name>.cu)
 SOURCES = ("correlation", "encoder_level")
 N_REQUESTS = 3
@@ -354,8 +365,8 @@ def phase_kernels(peaks, spin_rate):
     def flow_disp(level):
         return FLOW_MAX_DISP
 
-    def level_shape(batch, level):
-        return (batch, HW[0] >> level, HW[1] >> level,
+    def level_shape(batch, level, hw=HW):
+        return (batch, hw[0] >> level, hw[1] >> level,
                 ENCODER_CHANNELS[level - 1])
 
     # name: (wrapper, plain version, max_disp of a level, cost-volume
@@ -394,13 +405,15 @@ def phase_kernels(peaks, spin_rate):
     gen = torch.Generator(device="cuda").manual_seed(0)
     odd_gen = torch.Generator(device="cuda").manual_seed(1)
     wide_gen = torch.Generator(device="cuda").manual_seed(2)
+    fit_gen = torch.Generator(device="cuda").manual_seed(3)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
                backward, dcv_dilations) in kernels.items():
         # (path, batch, level, dtype, dilation, max_disp, shape):
         # CerberusNet's levels, one dilation-2 case, the DCV head's calls,
-        # the odd shapes and, for the forwards, the wide ones (level 0)
+        # the odd shapes, for the forwards the wide ones (level 0), and
+        # the levels of fit's frame
         cases = [("cerberus", batch, level, dt, 1, disp_of(level),
                   level_shape(batch, level))
                  for batch in batches for level in LEVELS for dt in dtypes]
@@ -417,16 +430,21 @@ def phase_kernels(peaks, spin_rate):
                   for batch in both
                   for dil in WIDE_CORR_DILATIONS.get(name, ())
                   for dt in dtypes]
+        cases += [("fit", batch, level, dt, 1, disp_of(level),
+                   level_shape(batch, level, FIT_HW))
+                  for batch in ((FIT_BATCH,) if backward else (1, FIT_BATCH))
+                  for level in LEVELS for dt in dtypes]
         for path, batch, level, dt, dil, d, shape in cases:
             nk = nk_of(d)
             # bf16 kernels must run on the tensor cores, float32 on the
             # CUDA cores; the library counts which design it launched
             want_design = "tc" if dt == torch.bfloat16 else "cuda_cores"
             a_shape = (*shape[:3], nk) if backward else shape
-            # the odd and wide shapes draw from their own generators, so
-            # every other check keeps the inputs it had before they were
+            # the odd, wide and fit shapes draw from their own generators,
+            # so every other check keeps the inputs it had before they were
             # added
-            g_ = {"odd": odd_gen, "wide": wide_gen}.get(path, gen)
+            g_ = {"odd": odd_gen, "wide": wide_gen,
+                  "fit": fit_gen}.get(path, gen)
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             cc.reset_design_launches()
@@ -1209,6 +1227,13 @@ FIT_ABS = {"miou": 5e-3, "flow_fl_all": 5e-3, "disp_d1_all": 5e-3}
 # within the floor of the bf16 rule (cuDNN may pick non-deterministic
 # algorithms, so the states need not stay bit-equal past a step)
 FIT_RESUME_RTOL = 1e-3
+# every correlation call of one fit step and one evaluation batch against
+# its plain version on the same (bf16) tensors: |kernel - plain| within
+# 2^-7 |plain| (one bf16 ulp: both sum in f32 and round once) plus
+# FIT_CALL_SLACK times the plain op on the inputs' magnitudes, the sum of
+# |terms| behind each output (the f32 summation order moves a sum by about
+# n 2^-24 of that, n <= 196 terms here)
+FIT_CALL_SLACK = 1e-3
 
 
 def timed_calls(obj, name, record):
@@ -1229,22 +1254,92 @@ def timed_calls(obj, name, record):
     return real
 
 
+def timed_loader(record):
+    """Replaces the trainer's DataLoader by one that appends the seconds of
+    each batch's next() to record[kind] ("train": fit's epochs, "eval":
+    evaluate(), "panel": render_panel's batch of 1); returns the real
+    class."""
+    from cerberusnet_torch.train import trainer as trainer_module
+    real = trainer_module.DataLoader
+
+    class TimedLoader(real):
+        def __iter__(self):
+            kind = ("eval" if not self.drop_last else
+                    "train" if self.batch_size > 1 else "panel")
+            batches = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                record.setdefault(kind, []).append(time.perf_counter() - t0)
+                yield batch
+
+    trainer_module.DataLoader = TimedLoader
+    return real
+
+
+def checked_corr_calls(calls):
+    """Replaces the six correlation wrappers by ones that also hold each
+    call's output to its plain version on the same tensors (the
+    FIT_CALL_SLACK rule) and append a row per call to ``calls``; returns
+    the real wrappers. The plain calls launch no kernel."""
+    from cerberusnet_torch.ops import correlation as corr
+    from cerberusnet_torch.ops.cuda import correlation as cc
+
+    plain = {"corr2d_fwd": corr._correlation2d_plain,
+             "corr1d_fwd": corr._correlation1d_plain,
+             "corr2d_bwd_f1": corr._correlation2d_bwd_f1_plain,
+             "corr2d_bwd_f2": corr._correlation2d_bwd_f2_plain,
+             "corr1d_bwd_f1": corr._correlation1d_bwd_f1_plain,
+             "corr1d_bwd_f2": corr._correlation1d_bwd_f2_plain}
+    real = {name: getattr(cc, name) for name in plain}
+
+    def checked(name):
+        def call(a, f, max_disp, dilation=1):
+            out = real[name](a, f, max_disp, dilation)
+            want = plain[name](a, f, max_disp, dilation).float()
+            mag = plain[name](a.abs(), f.abs(), max_disp, dilation).float()
+            limit = TOLERANCES[out.dtype][0] * want.abs() + (
+                FIT_CALL_SLACK * mag)
+            diff = (out.float() - want).abs()
+            calls.append({
+                "kernel": name, "shape": list(f.shape), "max_disp": max_disp,
+                "dtype": str(out.dtype)[6:],
+                "ok": bool((diff <= limit).all()),
+                "max_abs_err": diff.max().item(),
+                "err_of_limit": (diff / limit.clamp_min(1e-30)).max().item()})
+            return out
+        return call
+
+    for name in plain:
+        setattr(cc, name, checked(name))
+    return real
+
+
 def phase_fit(card):
     import contextlib
     import copy
     import os
     import tempfile
 
+    from collections import Counter
+
     from cerberusnet_torch.data.loader import batches
     from cerberusnet_torch.entry import REPO_ROOT
     from cerberusnet_torch.ops.cuda import correlation as cc
     from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train import trainer as trainer_module
     from cerberusnet_torch.train.metrics import METRICS
     from cerberusnet_torch.train.trainer import Trainer
     from cerberusnet_torch.utils.visualization import read_png_u8
 
     raw = json.loads((REPO_ROOT / FIT_CONFIG).read_text())
     errors = []
+    if (tuple(raw["data"]["hw"]) != FIT_HW
+            or raw["data"]["batch_size"] != FIT_BATCH):
+        errors.append(f"{FIT_CONFIG} is no longer {FIT_HW} at batch "
+                      f"{FIT_BATCH}, the shapes the kernels phase checked")
     with tempfile.TemporaryDirectory() as ckpt_dir:
         raw["data"]["synthetic_length"] = FIT_SAMPLES
         raw["train"].update(epochs=FIT_EPOCHS, eval_every_epochs=1,
@@ -1266,8 +1361,10 @@ def phase_fit(card):
         eval_batches = -(-FIT_SAMPLES // bs)
         steps, evals, saves = [], [], []
         real_step = timed_calls(tr, "train_step", steps)
-        timed_calls(tr, "evaluate", evals)
+        real_evaluate = timed_calls(tr, "evaluate", evals)
         timed_calls(tr, "save_checkpoint", saves)
+        load_s = {}
+        real_loader = timed_loader(load_s)
         reset_launch_counts()
         cc.reset_design_launches()
         t0 = time.perf_counter()
@@ -1276,6 +1373,8 @@ def phase_fit(card):
         fit_s = time.perf_counter() - t0
         launches = launch_counts()
         design = cc.launched_design()
+        trainer_module.DataLoader = real_loader
+        tr.evaluate = real_evaluate
 
         n_steps = FIT_EPOCHS * (FIT_SAMPLES // bs)
         want_step = {k: len(LEVELS) if k in REPLACES else 0
@@ -1376,6 +1475,27 @@ def phase_fit(card):
                     errors.append(f"EMA off its rule by {ema_err} of the "
                                   f"float32 rounding bound")
         del resumed
+
+        # every correlation call of one more train step and one evaluation
+        # batch against its plain version on the same tensors
+        calls = []
+        real_corr = checked_corr_calls(calls)
+        cc.reset_design_launches()
+        tr.train_step(batches(tr.dataset, bs, 1)[0])
+        tr.evaluate(batches(tr.eval_dataset, bs, 1))
+        call_design = cc.launched_design()
+        for name, wrapper in real_corr.items():
+            setattr(cc, name, wrapper)
+        want_calls = {k: want_step[k] + want_eval[k] // eval_batches
+                      for k in REPLACES}
+        got_calls = dict(Counter(c["kernel"] for c in calls))
+        if got_calls != want_calls:
+            errors.append(f"checked calls {got_calls}, not {want_calls}")
+        if call_design != "tc":
+            errors.append(f"the checked calls ran on {call_design!r}, not tc")
+        errors += [f"{c['kernel']} at {c['shape']}, d={c['max_disp']}: "
+                   f"{c['err_of_limit']} of its limit"
+                   for c in calls if not c["ok"]]
         ckpt_bytes = os.path.getsize(saves[-1][2])
 
     step_ms = [dt * 1e3 for _, dt, _ in steps]
@@ -1388,6 +1508,10 @@ def phase_fit(card):
               k: v // eval_batches for k, v in want_eval.items()},
           "design": design, "metrics_kernels_vs_plain": metric_check,
           "resume_losses": resume_losses, "ema_rule_err_of_bound": ema_err,
+          "corr_calls_vs_plain": {
+              "rule": f"|kernel - plain| <= 2^-7 |plain| + {FIT_CALL_SLACK}"
+                      " plain(|a|, |f|)", "design": call_design,
+              "calls": calls},
           "panel_shape": panel_shape, "setup_s": setup_s, "fit_s": fit_s,
           "errors": errors})
     emit({"phase": "fit_times", "card": card,
@@ -1397,10 +1521,17 @@ def phase_fit(card):
                     "median over the steps after the first",
           "eval_s_per_batch": statistics.median(
               dt / eval_batches for _, dt, _ in evals),
+          "load_s_per_batch": {k: statistics.median(v)
+                               for k, v in load_s.items()},
+          "load_s_all": load_s,
+          "load_timing": "host clock around the trainer's DataLoader's "
+                         "next() in fit (train: its epochs, eval: "
+                         "evaluate(), panel: the panel's sample)",
           "checkpoint_bytes": ckpt_bytes,
           "checkpoint_save_s": [dt for _, dt, _ in saves]})
     if not ok:
         sys.exit(1)
+    return launches
 
 
 REPLACES = {
@@ -1487,7 +1618,9 @@ def summary(checks, counts):
     """One entry per kernel. A correlation kernel's numbers are the
     CerberusNet train path's (batch 2), where all six run: launches from
     that path's run, times and bounds from its shapes. A forward's
-    serve-path numbers (batch 1) stand under "paths" beside them, and each
+    serve-path numbers (batch 1) and every kernel's on the fit path (batch
+    4 at 128x256, launches over the whole fit run) stand under "paths"
+    beside them, and each
     kernel's numbers on the DCV paths, by dilation, under "dcv". The fused
     level kernels' numbers are the train_pallas_levels path's (the three
     levels at batch 6), with K9's serve_pallas_levels numbers (batch 3)
@@ -1510,6 +1643,9 @@ def summary(checks, counts):
             paths["serve"] = {k: v for k, v in serve.items() if k != "shapes"}
             dcv["serve_dcv"] = path_numbers(checks, name, "dcv", 1,
                                             counts["serve_dcv"][name])
+        fit = path_numbers(checks, name, "fit", FIT_BATCH,
+                           counts["fit"][name])
+        paths["fit"] = {k: v for k, v in fit.items() if k != "shapes"}
         dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
                 else DCV_DISP_DILATIONS)
         entries.append({
@@ -1560,7 +1696,7 @@ def main():
                   "serve_pallas_levels", "train_pallas_levels"):
         run = phase_serve if phase in SERVE else phase_train
         counts[phase] = run(phase)
-    phase_fit(card)
+    counts["fit"] = phase_fit(card)
     summary(checks, counts)
     emit({"phase": "done", "ok": True,
           "seconds": time.perf_counter() - t0})

@@ -35,7 +35,7 @@ from cerberusnet_tpu.data.synthetic import (
 from cerberusnet_tpu.train import metrics as jm
 from cerberusnet_tpu.train.config import ExperimentConfig as JaxConfig
 from cerberusnet_tpu.train.trainer import Trainer as JaxTrainer
-from cerberusnet_torch import cli
+from cerberusnet_torch import cli, heldout_table
 from cerberusnet_torch.data.loader import DataLoader, batches, pad_batch
 from cerberusnet_torch.entry import REPO_ROOT
 from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
@@ -574,6 +574,25 @@ def test_evidence_cpu_fit(tmp_path):
         panel = vis.read_png_u8(str(tmp_path / f"predictions_epoch{e}.png"))
         assert panel.shape == (4 * 64, 64, 3)
     assert sorted(tr._checkpoints()) == [2, 4]
+
+
+def test_heldout_table(tmp_path):
+    """The table of a train_log.csv: the evaluated epochs' metrics, the
+    median ms a step over the epochs and the training minutes."""
+    path = tmp_path / "train_log.csv"
+    path.write_text(
+        "disp_d1_all,disp_mae,epoch,epoch_seconds,flow_epe,flow_fl_all,"
+        "miou,step\n"
+        ",,0,6.0,,,,2\n"
+        "0.5,3.25,1,3.0,1.5,0.125,0.25,4\n"
+        "0.25,2.5,2,9.0,1.25,0.0625,0.375,6\n")
+    lines = heldout_table.table(str(path)).splitlines()
+    assert lines[2] == "| val metric | epoch 1 | epoch 2 |"
+    assert "| seg mIoU | 0.25 | 0.375 |" in lines
+    assert "| flow Fl-all (%) | 12.5 | 6.25 |" in lines
+    assert "| disp MAE (px) | 3.25 | 2.5 |" in lines
+    assert lines[-1] == ("ms per step, median over 3 epochs: 3000.0 (min "
+                         "1500.0, max 4500.0); training minutes: 0.30")
 
 
 @pytest.mark.parametrize("flag,item", [
