@@ -1,11 +1,15 @@
 """Entry points: serving a joint model at default widths, and training.
 
 ``entry(variant=...)`` builds the joint model, ``"cerberus"``
-(``CerberusNet``, the default) or ``"cerberus_dcv"`` (``CerberusDCV``), at
-the reference's default widths with seeded random weights and returns
-``(forward, example_inputs)``: the forward takes (left, right, temporal)
-NHWC frames and returns the model's output dict. For CerberusNet,
-``pallas_levels=N`` runs the encoder's first N levels as fused kernels.
+(``CerberusNet``, the default), ``"cerberus_dcv"`` (``CerberusDCV``) or
+``"cerberus_raft"`` (``CerberusRAFT``), at the reference's default widths
+with seeded random weights and returns ``(forward, example_inputs)``: the
+forward takes (left, right, temporal) NHWC frames and returns the model's
+output dict. For CerberusNet, ``pallas_levels=N`` runs the encoder's first
+N levels as fused kernels; for CerberusRAFT, ``raft_level``,
+``raft_iters`` and ``raft_lookup`` set its operating level (3, or 4 at the
+deploy point of ``configs/raft_lv4_deploy.json``), its iterations and its
+volume lookup.
 
 ``train_entry()`` reads an experiment config (``configs/*.json``, any
 variant the port builds) and returns ``(trainer, batches)``: a ``Trainer``
@@ -26,12 +30,14 @@ import torch
 from cerberusnet_torch.data.loader import batches
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.models.dcv_flow import CerberusDCV
+from cerberusnet_torch.models.raft import CerberusRAFT
 from cerberusnet_torch.train.config import ExperimentConfig
 from cerberusnet_torch.train.trainer import Trainer
 from cerberusnet_torch.weights import init_params
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
-SERVED = {"cerberus": CerberusNet, "cerberus_dcv": CerberusDCV}
+SERVED = {"cerberus": CerberusNet, "cerberus_dcv": CerberusDCV,
+          "cerberus_raft": CerberusRAFT}
 
 
 def make_frames(seed: int, hw=(512, 1024), device="cuda",
@@ -47,24 +53,34 @@ def make_frames(seed: int, hw=(512, 1024), device="cuda",
 
 def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
           seed: int = 0, corr_impl: str | None = None,
-          variant: str = "cerberus", pallas_levels: int = 0):
+          variant: str = "cerberus", pallas_levels: int = 0,
+          raft_level: int = 3, raft_iters: int = 12,
+          raft_lookup: str = "onehot"):
     """Returns (forward, example_inputs) for the default-width model of
-    ``variant`` ("cerberus" or "cerberus_dcv"). ``pallas_levels`` runs
-    CerberusNet's first N encoder levels as fused kernels."""
+    ``variant`` ("cerberus", "cerberus_dcv" or "cerberus_raft").
+    ``pallas_levels`` runs CerberusNet's first N encoder levels as fused
+    kernels; ``raft_level``, ``raft_iters`` and ``raft_lookup`` are
+    CerberusRAFT's, which has no correlation kernel (``corr_impl``)."""
     if variant not in SERVED:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{tuple(SERVED)}")
-    fused = {}
-    if pallas_levels:
-        if variant != "cerberus":
-            raise ValueError(f"pallas_levels is CerberusNet's; {variant!r} "
-                             f"has no fused encoder levels")
-        fused = dict(pallas_levels=pallas_levels)
+    if pallas_levels and variant != "cerberus":
+        raise ValueError(f"pallas_levels is CerberusNet's; {variant!r} "
+                         f"has no fused encoder levels")
+    if variant == "cerberus_raft":
+        if corr_impl is not None:
+            raise ValueError("CerberusRAFT has no correlation kernel: "
+                             "corr_impl does not apply")
+        kw = dict(level=raft_level, iters=raft_iters, lookup_impl=raft_lookup)
+    else:
+        kw = dict(corr_impl=corr_impl)
+        if pallas_levels:
+            kw["pallas_levels"] = pallas_levels
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the model on the CPU")
-    model = SERVED[variant](corr_impl=corr_impl, dtype=dtype, **fused)
+    model = SERVED[variant](dtype=dtype, **kw)
     init_params(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
 

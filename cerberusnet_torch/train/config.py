@@ -11,17 +11,21 @@ item for a value the port does not run yet; it builds the model variants
 in ``VARIANTS``. ``model.pallas_levels`` runs CerberusNet's first N
 encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
 their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
-plain convolutions recomputed; the DCV variants ignore both, as the
-reference does. Keys that only steer XLA's program in the reference, with
-the same arithmetic and the same parameter tree whatever their value, are
-accepted and have no effect here:
+plain convolutions recomputed; the DCV and RAFT variants ignore both, as
+the reference does. The RAFT variants (``raft``, ``raft_stereo``,
+``cerberus_raft``) read the ``raft_*`` keys, ``raft_lookup`` choosing the
+volume lookup (``"onehot"`` or ``"gather"``, the same function), and their
+losses ``loss.seq_gamma``. Keys that only steer XLA's program in the
+reference, with the same arithmetic and the same parameter tree whatever
+their value, are accepted and have no effect here:
 ``model.fused``, ``corr_stack``, ``distribute_outputs``, ``upfeat_impl``,
 ``upsample_impl``, ``batched_encoder``, ``s2d_stem``, ``stem_pad_channels``,
 ``s2d_levels`` (for CerberusNet each raises ``ValueError`` beside
-``pallas_levels``, as the reference's encoder does), ``entry_grad``, ``est_input`` and ``optim.flatten``. So are the keys of
-parts the port does not have yet, which nothing here reads: the RAFT keys
-and ``loss.seq_gamma`` (other model families, A8), ``data.num_workers``
-(the worker pool, A6) and ``train.qat_calib_batches`` (A10).
+``pallas_levels``, as the reference's encoder does), ``entry_grad``,
+``est_input``, ``raft_unroll`` (``nn.scan`` or an unrolled loop over one
+parameter tree) and ``optim.flatten``. So are the keys of parts the port
+does not have yet, which nothing here reads: ``data.num_workers`` (the
+worker pool, A6) and ``train.qat_calib_batches`` (A10).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from typing import Optional, Tuple
 import torch
 
 # model.variant values the port builds (train/trainer.py ``build_model``)
-VARIANTS = ("cerberus", "cerberus_dcv", "dcv_flow", "dcv_stereo")
+VARIANTS = ("cerberus", "cerberus_dcv", "dcv_flow", "dcv_stereo", "raft",
+            "raft_stereo", "cerberus_raft")
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
-"""Losses of the joint model, port of ``cerberusnet_tpu/train/losses.py``
-(its default ``joint_loss`` path).
+"""Losses of the joint models, port of ``cerberusnet_tpu/train/losses.py``
+(``joint_loss`` without its RMI, photometric and smoothness terms).
 
 Tensors are NHWC, as the model's outputs; everything reduces in float32.
 Each loss is a masked mean over valid pixels (sparse ground truth):
@@ -9,12 +9,15 @@ Each loss is a masked mean over valid pixels (sparse ground truth):
     over the prediction pyramid, against ground truth averaged over the
     valid pixels of each 2^l x 2^l cell and scaled by 1/2^l
   * disparity: berHu per level, with the same pyramid
+  * RAFT's sequence loss, for a model that returns ``*_iterates``: the
+    gamma-weighted L1 over every iterate, at the operating level, against
+    the same valid-aware ground truth at that level
   * joint: the weighted sum
 
 ``uncertainty_weighted_total`` replaces the weighted sum with Kendall's
 weighting by learned log-variances. The RMI, photometric and smoothness
-terms and the RAFT sequence loss are not ported yet (ROADMAP A4):
-``joint_loss`` raises ``NotImplementedError`` when asked for them.
+terms are not ported yet (ROADMAP A4): ``joint_loss`` raises
+``NotImplementedError`` when asked for them.
 """
 
 from __future__ import annotations
@@ -110,6 +113,24 @@ def multiscale_flow_loss(flow_pyramid, gt_flow, valid=None,
     return total
 
 
+def raft_sequence_loss(iterates, gt_flow, valid=None, level: int = 3,
+                       gamma: float = 0.8):
+    """RAFT's sequence loss: sum over the T iterates (T, B, h, w, C), in
+    level pixels, of gamma^(T-1-t) times the masked mean over valid cells
+    of the L1 error against ``gt_flow`` (B, H, W, C) brought to ``level``
+    by ``gt_pyramid`` (the reference's ``downsample_gt``)."""
+    if valid is None:
+        valid = torch.ones(gt_flow.shape[:3], device=gt_flow.device)
+    gt_l, valid_l = gt_pyramid(gt_flow, valid, (level,), True)[level]
+    t = iterates.shape[0]
+    err = (iterates.float() - gt_l[None]).abs().sum(-1)  # (T, B, h, w)
+    per_iter = (err * valid_l[None]).sum(dim=(1, 2, 3)) / valid_l.sum(
+    ).clamp_min(1.0)
+    weights = gamma ** torch.arange(t - 1, -1, -1, dtype=torch.float32,
+                                    device=iterates.device)
+    return (weights * per_iter).sum()
+
+
 def berhu_loss(pred, gt, valid=None, c_frac: float = 0.2):
     """berHu: L1 below c, (d^2 + c^2) / (2c) above, c = c_frac * the batch's
     largest error. ``amax`` shares the gradient among tied maxima, as JAX's
@@ -150,15 +171,13 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
 
     A task contributes when the model output and its ground truth are both
     present: seg_labels (B,H,W), flow_gt (B,H,W,2) with flow_valid, disp_gt
-    (B,H,W) with disp_valid. ``seq_gamma`` belongs to the RAFT sequence
-    loss and has no effect on this path."""
+    (B,H,W) with disp_valid. A RAFT model's ``flow_iterates`` and
+    ``disp_iterates`` take the sequence loss with ``seq_gamma`` at their
+    one pyramid level in place of the multi-scale terms."""
     if rmi_weight or photometric_weight or smoothness_weight:
         raise NotImplementedError(
             "the RMI, photometric and smoothness terms are not ported yet "
             "(ROADMAP A4)")
-    if "flow_iterates" in outputs or "disp_iterates" in outputs:
-        raise NotImplementedError(
-            "the RAFT sequence loss is not ported yet (ROADMAP A4)")
     weights = weights or {"seg": 1.0, "flow": 1.0, "disp": 1.0}
     comps = {}
     total = 0.0
@@ -167,12 +186,25 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
                                          batch["seg_labels"],
                                          focal_gamma=focal_gamma)
         total = total + weights.get("seg", 1.0) * comps["seg"]
-    if "flow_gt" in batch and "flow_pyramid" in outputs:
+    if "flow_gt" in batch and "flow_iterates" in outputs:
+        (level,) = outputs["flow_pyramid"].keys()
+        comps["flow"] = raft_sequence_loss(
+            outputs["flow_iterates"], batch["flow_gt"],
+            batch.get("flow_valid"), level=level, gamma=seq_gamma)
+        total = total + weights.get("flow", 1.0) * comps["flow"]
+    elif "flow_gt" in batch and "flow_pyramid" in outputs:
         comps["flow"] = multiscale_flow_loss(
             outputs["flow_pyramid"], batch["flow_gt"],
             batch.get("flow_valid"), robust_q=robust_q)
         total = total + weights.get("flow", 1.0) * comps["flow"]
-    if "disp_gt" in batch and "disp_pyramid" in outputs:
+    if "disp_gt" in batch and "disp_iterates" in outputs:
+        (level,) = outputs["disp_pyramid"].keys()
+        gt = batch["disp_gt"]
+        comps["disp"] = raft_sequence_loss(
+            outputs["disp_iterates"], gt[..., None] if gt.dim() == 3 else gt,
+            batch.get("disp_valid"), level=level, gamma=seq_gamma)
+        total = total + weights.get("disp", 1.0) * comps["disp"]
+    elif "disp_gt" in batch and "disp_pyramid" in outputs:
         comps["disp"] = multiscale_disparity_loss(
             outputs["disp_pyramid"], batch["disp_gt"], batch.get("disp_valid"))
         total = total + weights.get("disp", 1.0) * comps["disp"]

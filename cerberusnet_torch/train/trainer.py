@@ -14,8 +14,10 @@ parameters and bf16 compute: its gradient of a float32 parameter is the
 bf16 gradient of the cast, converted.
 
 The model is ``build_model``'s for ``model.variant``: the joint
-``CerberusNet`` or ``CerberusDCV``, or the single-task ``DCVFlowNet`` or
-``DCVStereoNet``. ``Trainer.fit`` runs the reference's epochs over the
+``CerberusNet``, ``CerberusDCV`` or ``CerberusRAFT``, or the single-task
+``DCVFlowNet``, ``DCVStereoNet``, ``RAFTFlowNet`` or ``RAFTStereoNet``
+(a RAFT model's losses are the sequence losses over its iterates).
+``Trainer.fit`` runs the reference's epochs over the
 synthetic dataset, evaluates on ``data.eval_split`` with the EMA weights,
 logs to ``train_log.csv`` and checkpoints under ``train.ckpt_dir`` in the
 port's own format (one ``torch.save`` file per step; the reference's is
@@ -43,6 +45,12 @@ from cerberusnet_torch.models.dcv_flow import (
     DCVFlowNet,
     DCVStereoNet,
 )
+from cerberusnet_torch.models.raft import (
+    CerberusRAFT,
+    RAFTFlowNet,
+    RAFTStereoNet,
+    keep_tied_float32,
+)
 from cerberusnet_torch.train import losses
 from cerberusnet_torch.train.config import (
     ExperimentConfig,
@@ -56,14 +64,21 @@ from cerberusnet_torch.weights import init_params
 # ----------------------------------------------------------------- model
 
 
+# the RAFT variants: (model, input keys)
+RAFT_VARIANTS = {"raft": (RAFTFlowNet, ("left", "temporal")),
+                 "raft_stereo": (RAFTStereoNet, ("left", "right")),
+                 "cerberus_raft": (CerberusRAFT, ("left", "right", "temporal"))}
+
+
 def build_model(cfg: ModelConfig, corr_impl: str | None,
                 dtype: torch.dtype):
     """(model, input keys) for ``cfg.variant``, with the arguments the
     reference's ``build_model`` passes: the DCV models keep their default
-    level, dilations and (stereo) max_disp, as there, and ignore
-    ``pallas_levels`` and ``pallas_grad``, which only CerberusNet's encoder
-    takes. The model's forward takes the batch's tensors under the input
-    keys, in order."""
+    level, dilations and (stereo) max_disp, as there, the RAFT models take
+    every ``raft_*`` key, and both ignore ``pallas_levels`` and
+    ``pallas_grad``, which only CerberusNet's encoder takes (and the RAFT
+    models ``corr_impl``: they have no correlation kernel). The model's
+    forward takes the batch's tensors under the input keys, in order."""
     common = dict(encoder_channels=tuple(cfg.encoder_channels),
                   est_channels=tuple(cfg.est_channels),
                   ctx_channels=tuple(cfg.ctx_channels), corr_impl=corr_impl,
@@ -86,6 +101,20 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
             "left", "temporal")
     if cfg.variant == "dcv_stereo":
         return DCVStereoNet(**common), ("left", "right")
+    if cfg.variant in RAFT_VARIANTS:
+        model, keys = RAFT_VARIANTS[cfg.variant]
+        seg = ({"num_classes": cfg.num_classes,
+                "fpn_channels": cfg.fpn_channels}
+               if model is CerberusRAFT else {})
+        # the weights used at every iteration stay float32, so the
+        # gradients of their uses sum in float32, as the reference's do
+        return keep_tied_float32(model(
+            encoder_channels=tuple(cfg.encoder_channels),
+            level=cfg.raft_level, fdim=cfg.raft_fdim, hdim=cfg.raft_hdim,
+            cdim=cfg.raft_cdim, corr_levels=cfg.raft_corr_levels,
+            radius=cfg.raft_radius, iters=cfg.raft_iters,
+            lookup_impl=cfg.raft_lookup,
+            dtype=dtype, **seg)), keys
     raise ValueError(f"unknown model variant {cfg.variant!r}")
 
 

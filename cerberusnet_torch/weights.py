@@ -4,9 +4,12 @@ initialiser with flax's defaults.
 ``load_flax_params(module, params)`` takes the flax ``variables["params"]``
 tree (numpy or array leaves) of the matching reference module and fills a
 port module in place: a whole ``CerberusNet``, ``CerberusDCV``,
-``DCVFlowNet`` or ``DCVStereoNet``, or one of their parts
-(``PyramidEncoder``, ``FlowDecoder``, ``DisparityDecoder``,
-``DCVFlowDecoder``, ``DCVStereoDecoder``, ``SegmentationHead``). Layouts:
+``DCVFlowNet``, ``DCVStereoNet``, ``CerberusRAFT``, ``RAFTFlowNet`` or
+``RAFTStereoNet``, or one of their parts (``PyramidEncoder``,
+``FlowDecoder``, ``DisparityDecoder``, ``DCVFlowDecoder``,
+``DCVStereoDecoder``, ``RAFTFlowDecoder``, ``RAFTStereoDecoder``,
+``SegmentationHead``). A RAFT decoder's update block has one parameter tree
+whether the reference scans or unrolls its iterations. Layouts:
   * flax Conv kernel HWIO -> torch Conv2d weight OIHW
   * flax ConvTranspose kernel (kh, kw, cin, cout) -> torch ConvTranspose2d
     weight (cin, cout, kh, kw) of the spatially flipped kernel; with
@@ -35,6 +38,12 @@ from cerberusnet_torch.models.dcv_flow import (
 )
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.models.flow import CoarseToFineDecoder
+from cerberusnet_torch.models.raft import (
+    CerberusRAFT,
+    RAFTDecoder,
+    RAFTFlowNet,
+    RAFTStereoNet,
+)
 from cerberusnet_torch.models.segmentation import SegmentationHead
 
 # flax's truncated normal is cut at +-2 std and rescaled to unit variance
@@ -85,6 +94,19 @@ def _dcv_decoder(dec, p, done):
     _conv(dec.context.out, ctx["Conv_0"], done)
 
 
+def _raft_decoder(dec, p, done):
+    _conv(dec.corr_proj, p["corr_proj"], done)
+    _conv(dec.context_proj, p["context_proj"], done)
+    update, pu = dec.update, p["update"]
+    for part, names in (("motion", ("convc1", "convc2", "convf1", "convf2",
+                                    "conv")),
+                        ("gru", ("convz", "convr", "convq"))):
+        for name in names:
+            _conv(getattr(getattr(update, part), name), pu[part][name], done)
+    for name in ("flow_head1", "flow_head2", "mask_head1", "mask_head2"):
+        _conv(getattr(update, name), pu[name], done)
+
+
 def _segmentation(seg, p, done):
     for i, lat in enumerate(seg.laterals):
         _conv(lat, p[f"Conv_{i}"], done)
@@ -106,6 +128,13 @@ _PARTS = {
     DCVFlowNet: {"encoder": "PyramidEncoder_0", "flow": "DCVFlowDecoder_0"},
     DCVStereoNet: {"encoder": "PyramidEncoder_0",
                    "disparity": "DCVStereoDecoder_0"},
+    CerberusRAFT: {"encoder": "PyramidEncoder_0",
+                   "flow": "RAFTFlowDecoder_0",
+                   "disparity": "RAFTStereoDecoder_0",
+                   "segmentation": "SegmentationHead_0"},
+    RAFTFlowNet: {"encoder": "PyramidEncoder_0", "flow": "RAFTFlowDecoder_0"},
+    RAFTStereoNet: {"encoder": "PyramidEncoder_0",
+                    "disparity": "RAFTStereoDecoder_0"},
 }
 
 
@@ -116,6 +145,8 @@ def _load(module, p, done):
             _load(getattr(module, attr), p[name], done)
     elif isinstance(module, DCVDecoder):
         _dcv_decoder(module, p, done)
+    elif isinstance(module, RAFTDecoder):
+        _raft_decoder(module, p, done)
     elif isinstance(module, PyramidEncoder):
         _blocks(module.blocks, p, done)
     elif isinstance(module, CoarseToFineDecoder):

@@ -97,6 +97,33 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            seconds per batch, evaluation seconds per batch and the
            checkpoint's bytes and save seconds beside the card's name and
            power limit
+  serve_raft  the default-width CerberusRAFT through
+           cerberusnet_torch.entry.entry(variant="cerberus_raft") (bf16,
+           512x1024, level 3, 12 iterations, batch 1), 3 seeded requests:
+           shapes, types and finiteness of every output, the one-level
+           pyramids and the iterates (12, 1, 64, 128, 2) and (12, 1, 64,
+           128, 1), and no hand-kernel launch (the family has none); the
+           onehot and gather lookups on the same float32 weights within
+           1e-4 relative L2 on each output (bf16 reported); the card
+           against the CPU in float32 at 128x256 within 1e-4; eager ms per
+           frame of both lookups in turns, here and at the deploy point
+           (level 4, 6 iterations), and the peak memory of a request
+  train_raft  5 steps of configs/cerberus_raft.json through train_entry
+           (bf16 over float32 masters, batch 2, 512x1024, constant learning
+           rate): finite losses with flow and disp from the sequence loss,
+           no hand-kernel launch, every master moved but the upsampling
+           masks' heads' biases (no loss reaches them: their gradients are
+           checked to be zero); one step's gradients per module (the
+           names' first three parts) against the float32 step's within
+           0.1 relative L2 (RAFT_BF16_GRAD_RTOL),
+           and one float32 step at 128x256 against the CPU's within 1e-3;
+           ms per step of both lookups in turns and the peak memory
+  fit_raft  Trainer.fit of configs/raft_evidence.json at its widths
+           (128x256, batch 4, 8 iterations, EMA) cut as fit cuts its
+           config: 2 history rows with finite losses and the five held-out
+           metrics, no hand-kernel launch, evaluate() changing no master, a
+           resumed trainer bit-equal and its next two steps' losses within
+           1e-3, the EMA rule, the panel decoded; ms per fit step
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve and fit paths'
 beside them and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
@@ -977,13 +1004,17 @@ def grads_and_taps(trainer, batch, levels=()):
     return grads, taps
 
 
-def module_rel_l2(grads, ref):
+def module_rel_l2(grads, ref, parts=1):
     """Relative L2 distance of each module's gradients (all its parameters
-    as one vector) to the reference's; the log-variances of uncertainty
-    weighting count as one module."""
+    as one vector) to the reference's, a module the first ``parts`` parts
+    of the names; the log-variances of uncertainty weighting count as one
+    module."""
+    def module(name):
+        return ".".join(name.split(".")[:parts])
+
     out = {}
-    for mod in sorted({n.split(".")[0] for n in ref}):
-        names = [n for n in ref if n.split(".")[0] == mod]
+    for mod in sorted({module(n) for n in ref}):
+        names = [n for n in ref if module(n) == mod]
         a = torch.cat([grads[n].flatten() for n in names])
         b = torch.cat([ref[n].flatten() for n in names])
         out[mod] = rel_l2(a, b)
@@ -1317,6 +1348,51 @@ def checked_corr_calls(calls):
     return real
 
 
+def resume_checks(tr, resumed, errors):
+    """A trainer restored from ``tr``'s last checkpoint against ``tr``: the
+    step, masters, EMA and optimizer state bit for bit, then two more steps
+    of each on the same batches, their losses within FIT_RESUME_RTOL, and
+    the first step's EMA by its rule. Appends to ``errors``; returns (the
+    steps' losses, the EMA's largest error over its rounding bound)."""
+    from cerberusnet_torch.data.loader import batches
+
+    sa = tr.optimizer.state_dict()
+    sb = resumed.optimizer.state_dict()
+    same = (resumed.step == tr.step and sa["count"] == sb["count"]
+            and all(torch.equal(tr.masters[n], resumed.masters[n])
+                    and torch.equal(tr.ema[n], resumed.ema[n])
+                    for n in tr.names)
+            and all(torch.equal(v, sb["opt"]["state"][i][k])
+                    for i, st in sa["opt"]["state"].items()
+                    for k, v in st.items()))
+    if not same:
+        errors.append(f"resume restored step {resumed.step} and not "
+                      f"the same masters, EMA and optimizer state")
+    decay = tr.config.optim.ema_decay
+    resume_losses, ema_err = [], 0.0
+    for i, batch in enumerate(batches(tr.dataset, tr.config.data.batch_size,
+                                      2)):
+        ema0 = {n: e.clone() for n, e in tr.ema.items()}
+        ca = {k: v.item() for k, v in tr.train_step(batch).items()}
+        cb = {k: v.item() for k, v in resumed.train_step(batch).items()}
+        resume_losses.append({"first": ca, "resumed": cb})
+        errors += [f"resumed step {i}: {k} {cb[k]} against {ca[k]}"
+                   for k in ca if not abs(cb[k] - ca[k])
+                   <= FIT_RESUME_RTOL * abs(ca[k])]
+        if i == 0:
+            # the EMA rule, d ema0 + (1 - d) p1, to float32 rounding
+            for n, e in tr.ema.items():
+                a = decay * ema0[n].double()
+                b = (1 - decay) * tr.masters[n].double()
+                bound = 2.0**-22 * (a.abs() + b.abs()) + 1e-30
+                ema_err = max(ema_err, ((e.double() - a - b).abs()
+                                        / bound).max().item())
+            if not ema_err <= 1:
+                errors.append(f"EMA off its rule by {ema_err} of the "
+                              f"float32 rounding bound")
+    return resume_losses, ema_err
+
+
 def phase_fit(card):
     import contextlib
     import copy
@@ -1439,41 +1515,9 @@ def phase_fit(card):
 
         # resume: the same state bit for bit, then the same next steps
         resumed = trainer()
-        sa = tr.optimizer.state_dict()
-        sb = resumed.optimizer.state_dict()
-        same = (resumed.step == tr.step and sa["count"] == sb["count"]
-                and all(torch.equal(tr.masters[n], resumed.masters[n])
-                        and torch.equal(tr.ema[n], resumed.ema[n])
-                        for n in tr.names)
-                and all(torch.equal(v, sb["opt"]["state"][i][k])
-                        for i, st in sa["opt"]["state"].items()
-                        for k, v in st.items()))
-        if not same:
-            errors.append(f"resume restored step {resumed.step} and not "
-                          f"the same masters, EMA and optimizer state")
         tr.train_step = real_step
         decay = tr.config.optim.ema_decay
-        resume_losses = []
-        for i, batch in enumerate(batches(tr.dataset, bs, 2)):
-            ema0 = {n: e.clone() for n, e in tr.ema.items()}
-            ca = {k: v.item() for k, v in tr.train_step(batch).items()}
-            cb = {k: v.item() for k, v in resumed.train_step(batch).items()}
-            resume_losses.append({"first": ca, "resumed": cb})
-            errors += [f"resumed step {i}: {k} {cb[k]} against {ca[k]}"
-                       for k in ca if not abs(cb[k] - ca[k])
-                       <= FIT_RESUME_RTOL * abs(ca[k])]
-            if i == 0:
-                # the EMA rule, d ema0 + (1 - d) p1, to float32 rounding
-                ema_err = 0.0
-                for n, e in tr.ema.items():
-                    a = decay * ema0[n].double()
-                    b = (1 - decay) * tr.masters[n].double()
-                    bound = 2.0**-22 * (a.abs() + b.abs()) + 1e-30
-                    ema_err = max(ema_err, ((e.double() - a - b).abs()
-                                            / bound).max().item())
-                if not ema_err <= 1:
-                    errors.append(f"EMA off its rule by {ema_err} of the "
-                                  f"float32 rounding bound")
+        resume_losses, ema_err = resume_checks(tr, resumed, errors)
         del resumed
 
         # every correlation call of one more train step and one evaluation
@@ -1529,6 +1573,367 @@ def phase_fit(card):
                          "evaluate(), panel: the panel's sample)",
           "checkpoint_bytes": ckpt_bytes,
           "checkpoint_save_s": [dt for _, dt, _ in saves]})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+# The RAFT phases: CerberusRAFT (configs/cerberus_raft.json's widths:
+# level 3, 12 iterations, radius 4, 4 volume levels, bf16) runs no hand
+# kernel (its all-pairs volumes and lookups are torch.matmul and gathers),
+# so every counter must stay at 0 on its paths.
+RAFT_CONFIG = "configs/cerberus_raft.json"
+RAFT_FIT_CONFIG = "configs/raft_evidence.json"
+RAFT_LEVEL, RAFT_ITERS = 3, 12
+# the deploy point, configs/raft_lv4_deploy.json: level 4, 6 iterations
+RAFT_DEPLOY = (4, 6)
+RAFT_LOOKUPS = ("onehot", "gather")
+# The onehot and gather lookups on the same float32 weights and frames: the
+# same function, apart by float32 rounding (relative L2 on each output).
+RAFT_LOOKUP_RTOL = 1e-4
+# The card against the CPU in float32, the same seeded weights and inputs,
+# at RAFT_PARITY_HW (the CPU side stays short): outputs and one step's
+# gradients per module, relative L2; only the summation order differs (TF32
+# off), through 12 iterations.
+RAFT_PARITY_HW = (128, 256)
+RAFT_DEVICE_RTOL = 1e-4
+RAFT_DEVICE_GRAD_RTOL = 1e-3
+# A bf16 step's gradients per module (the names' first three parts: the
+# GRU, the motion encoder and each head of an update block apart, each
+# encoder block, a projection's kernel and bias) against the float32 step's
+# on the same weights and batch, relative L2; the mask heads, whose
+# gradients are zero, are checked apart. Set from the card's readings at
+# this phase's size, up to 0.019 (PERF.md): a gradient a quarter off, or a
+# lost path (1), exceeds it. On the CPU at 64x64 single modules of both packages read
+# up to 0.2-0.4 (sums over few pixels that cancel;
+# scripts/raft_bf16_grad_spread.py); tests/test_torch_raft.py holds the
+# port's bf16 step to the JAX Trainer's.
+RAFT_BF16_GRAD_RTOL = 0.1
+# The masters a CerberusRAFT step leaves where they are: the biases
+# (initialised to 0, so no weight decay moves them) of the upsampling masks'
+# heads, which no loss reaches (the sequence loss supervises the iterates,
+# not the upsampled field; so in the reference too).
+RAFT_UNMOVED = sorted(f"{d}.update.{h}.bias" for d in ("flow", "disparity")
+                      for h in ("mask_head1", "mask_head2"))
+
+
+def flat_outputs(out):
+    """An output dict as {name: tensor}, the pyramids by level."""
+    res = {}
+    for key, v in out.items():
+        for level, t in (v.items() if isinstance(v, dict) else [(None, v)]):
+            res[key if level is None else f"{key}[{level}]"] = t
+    return res
+
+
+def raft_output_errors(out, hw, level, iters):
+    """What is wrong with one CerberusRAFT answer at batch 1: each output's
+    shape, float32, finite and not all zero."""
+    h, w = hw
+    hl, wl = h >> level, w >> level
+    want = {"seg_logits": (1, h, w, 19), "flow": (1, h, w, 2),
+            "disp": (1, h, w, 1), f"flow_pyramid[{level}]": (1, hl, wl, 2),
+            f"disp_pyramid[{level}]": (1, hl, wl, 1),
+            "flow_iterates": (iters, 1, hl, wl, 2),
+            "disp_iterates": (iters, 1, hl, wl, 1)}
+    got = flat_outputs(out)
+    if sorted(got) != sorted(want):
+        return [f"outputs {sorted(got)}"]
+    errors = []
+    for key, shape in want.items():
+        v = got[key]
+        if tuple(v.shape) != shape or v.dtype != torch.float32:
+            errors.append(f"{key} {tuple(v.shape)} {v.dtype}")
+        elif not bool(torch.isfinite(v).all()):
+            errors.append(f"{key} not finite")
+        elif v.abs().max().item() <= 0:
+            errors.append(f"{key} all zero")
+    return errors
+
+
+def turns(fns, call, runs, warmup):
+    """CUDA-event times of ``call(fn)`` for each of two paths in turns (a,
+    b, b, a) on one card: {name: {"ms": median of the block medians, "ms_min",
+    "ms_max", "block_medians", "runs"}}."""
+    a, b = fns
+    parts = {a: [], b: []}
+    for which in (a, b, b, a):
+        parts[which].append(cuda_times(lambda: call(fns[which]), runs=runs,
+                                       warmup=warmup))
+    return {which: {"ms": statistics.median(p["median"] for p in ps),
+                    "ms_min": min(p["min"] for p in ps),
+                    "ms_max": max(p["max"] for p in ps),
+                    "block_medians": [p["median"] for p in ps],
+                    "runs": sum(p["runs"] for p in ps)}
+            for which, ps in parts.items()}
+
+
+def peak_gib(fn):
+    """Peak device memory (GiB) over one call of ``fn`` after the memory
+    already held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_serve_raft(card):
+    from cerberusnet_torch.entry import entry, make_frames
+
+    errors = []
+    forward, _ = entry(variant="cerberus_raft")
+    requests = [make_frames(seed, HW) for seed in range(1, N_REQUESTS + 1)]
+    reset_launch_counts()
+    answers = [forward(*req) for req in requests]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if any(launches.values()):
+        errors.append(f"hand kernels launched on the RAFT path: {launches}")
+    for i, out in enumerate(answers):
+        errors += [f"request {i}: {e}" for e in
+                   raft_output_errors(out, HW, RAFT_LEVEL, RAFT_ITERS)]
+    del answers
+
+    # the two lookups on the same weights and frames: float32 (held) and
+    # bf16 (reported)
+    lookups = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        req = make_frames(1, HW, dtype=dtype)
+        a, b = (flat_outputs(entry(variant="cerberus_raft", dtype=dtype,
+                                   raft_lookup=impl)[0](*req))
+                for impl in RAFT_LOOKUPS)
+        lookups[name] = {k: rel_l2(b[k], a[k].float()) for k in a}
+    errors += [f"float32 {k}: gather against onehot rel L2 {d} > "
+               f"{RAFT_LOOKUP_RTOL}" for k, d in lookups["float32"].items()
+               if not d <= RAFT_LOOKUP_RTOL]
+
+    # the card against the CPU: float32, the same seeded weights and frames
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fwd, imgs = entry(device=device, dtype=torch.float32,
+                          hw=RAFT_PARITY_HW, variant="cerberus_raft")
+        outs[device] = flat_outputs(fwd(*imgs))
+    device_rel = {k: rel_l2(v.cpu(), outs["cpu"][k])
+                  for k, v in outs["cuda"].items()}
+    errors += [f"card against CPU: {k} rel L2 {d} > {RAFT_DEVICE_RTOL}"
+               for k, d in device_rel.items() if not d <= RAFT_DEVICE_RTOL]
+    del outs
+
+    # eager ms per frame for both lookups, in turns, at the config's point
+    # and at the deploy point; the peak memory of one request
+    req = requests[0]
+    points = {}
+    for level, iters in ((RAFT_LEVEL, RAFT_ITERS), RAFT_DEPLOY):
+        fwds = {impl: entry(variant="cerberus_raft", raft_level=level,
+                            raft_iters=iters, raft_lookup=impl)[0]
+                for impl in RAFT_LOOKUPS}
+        reset_launch_counts()
+        for impl, fwd in fwds.items():
+            errors += [f"level {level} {impl}: {e}" for e in
+                       raft_output_errors(fwd(*req), HW, level, iters)]
+        if any(launch_counts().values()):
+            errors.append(f"level {level}: hand kernels launched")
+        times = turns(fwds, lambda f: f(*req), runs=20, warmup=3)
+        points[f"level{level}_iters{iters}"] = {
+            impl: {**times[impl], "frames_per_s": 1e3 / times[impl]["ms"],
+                   "max_memory_allocated_gib": peak_gib(
+                       lambda: fwds[impl](*req))}
+            for impl in RAFT_LOOKUPS}
+        del fwds
+    ok = not errors
+    emit({"phase": "serve_raft", "ok": ok, "variant": "cerberus_raft",
+          "hw": list(HW), "dtype": "bfloat16", "requests": N_REQUESTS,
+          "launches": launches, "lookup_gather_vs_onehot": lookups,
+          "lookup_rtol_f32": RAFT_LOOKUP_RTOL,
+          "device_vs_cpu_f32": {"hw": list(RAFT_PARITY_HW),
+                                "rel_l2": device_rel,
+                                "limit": RAFT_DEVICE_RTOL},
+          "forward": points, "card": card,
+          "timing": "CUDA events around one eager forward after warmup, "
+                    "the lookups in turns", "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+def phase_train_raft(card):
+    from cerberusnet_torch.entry import train_entry
+
+    errors = []
+    constant = {"schedule": "constant"}
+    t0 = time.perf_counter()
+    trainer, batches = train_entry(RAFT_CONFIG, batch_size=TRAIN_BATCH,
+                                   n_batches=TRAIN_STEPS, optim=constant)
+    setup_s = time.perf_counter() - t0
+    before = {n: m.clone() for n, m in trainer.masters.items()}
+    steps = []
+    reset_launch_counts()
+    for i, batch in enumerate(batches):
+        vals = {k: v.item() for k, v in trainer.train_step(batch).items()}
+        if sorted(vals) != ["disp", "flow", "seg", "total"] or not all(
+                map(math.isfinite, vals.values())):
+            errors.append(f"step {i}: loss components {vals}")
+        steps.append(vals)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if any(launches.values()):
+        errors.append(f"hand kernels launched on the RAFT path: {launches}")
+    still = sorted(n for n, m in trainer.masters.items()
+                   if torch.equal(m, before[n]))
+    if still != RAFT_UNMOVED:
+        errors.append(f"masters that did not move in {TRAIN_STEPS} steps: "
+                      f"{still}, not {RAFT_UNMOVED}")
+
+    # one step's gradients, bf16 against float32 on the same weights and
+    # batch, per module; the mask heads' are exactly zero in both
+    batch = batches[0]
+    f32, _ = train_entry(RAFT_CONFIG, batch_size=TRAIN_BATCH, n_batches=0,
+                         optim=constant, model={"dtype": "float32"})
+    f32.load_masters(trainer.masters)
+    _, g16 = trainer.loss_and_grads(batch)
+    _, g32 = f32.loss_and_grads(batch)
+    del f32
+    heads = [n for n in g32 if ".mask_head" in n]
+    if len(heads) != 8 or any(g16[n].any() or g32[n].any() for n in heads):
+        errors.append(f"the mask heads' gradients are not all zero: {heads}")
+    bf16_rel = module_rel_l2(g16, {n: g for n, g in g32.items()
+                                   if n not in heads}, parts=3)
+    errors += [f"bf16 {k} gradient rel L2 {d} > {RAFT_BF16_GRAD_RTOL}"
+               for k, d in bf16_rel.items() if not d <= RAFT_BF16_GRAD_RTOL]
+    del g16, g32
+
+    # the card against the CPU: one float32 step's gradients at
+    # RAFT_PARITY_HW from the same seeded weights and batch
+    small = {"hw": list(RAFT_PARITY_HW)}
+    grads = {}
+    for device in ("cuda", "cpu"):
+        tr, (b,) = train_entry(RAFT_CONFIG, batch_size=TRAIN_BATCH,
+                               device=device, optim=constant,
+                               model={"dtype": "float32"}, data=small)
+        grads[device] = {n: g.cpu() for n, g in tr.loss_and_grads(b)[1].items()}
+    device_rel = module_rel_l2(grads["cuda"], grads["cpu"], parts=2)
+    errors += [f"card against CPU: {k} gradient rel L2 {d} > "
+               f"{RAFT_DEVICE_GRAD_RTOL}" for k, d in device_rel.items()
+               if not d <= RAFT_DEVICE_GRAD_RTOL]
+    del grads
+
+    # ms per step for both lookups, in turns, and the peak memory of one
+    gather, _ = train_entry(RAFT_CONFIG, batch_size=TRAIN_BATCH, n_batches=0,
+                            optim=constant, model={"raft_lookup": "gather"})
+    gather.load_masters(trainer.masters)
+    trainers = {"onehot": trainer, "gather": gather}
+    times = turns(trainers, lambda tr: tr.train_step(batch), runs=10,
+                  warmup=2)
+    step = {impl: {**times[impl],
+                   "frames_per_s": TRAIN_BATCH * 1e3 / times[impl]["ms"],
+                   "max_memory_allocated_gib": peak_gib(
+                       lambda: trainers[impl].train_step(batch))}
+            for impl in RAFT_LOOKUPS}
+    ok = not errors
+    emit({"phase": "train_raft", "ok": ok, "config": RAFT_CONFIG,
+          "hw": list(HW), "batch": TRAIN_BATCH, "dtype": "bfloat16",
+          "steps": steps, "launches": launches, "masters_unmoved": still,
+          "weights": len(before), "setup_s": setup_s,
+          "bf16_vs_f32_grad_rel_l2": bf16_rel,
+          "bf16_limit": RAFT_BF16_GRAD_RTOL,
+          "device_vs_cpu_f32_grad": {"hw": list(RAFT_PARITY_HW),
+                                     "rel_l2": device_rel,
+                                     "limit": RAFT_DEVICE_GRAD_RTOL},
+          "train_step": step, "card": card,
+          "timing": "CUDA events around one train_step(batch) call, host "
+                    "batch in, the lookups in turns", "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+def phase_fit_raft(card):
+    import contextlib
+    import copy
+    import os
+    import tempfile
+
+    from cerberusnet_torch.entry import REPO_ROOT
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.metrics import METRICS
+    from cerberusnet_torch.train.trainer import Trainer
+    from cerberusnet_torch.utils.visualization import read_png_u8
+
+    raw = json.loads((REPO_ROOT / RAFT_FIT_CONFIG).read_text())
+    errors = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        raw["data"]["synthetic_length"] = FIT_SAMPLES
+        raw["train"].update(epochs=FIT_EPOCHS, eval_every_epochs=1,
+                            ckpt_every_epochs=1, ckpt_dir=ckpt_dir,
+                            resume=True)
+
+        def trainer():
+            # the trainer's prints go to stderr: stdout holds the JSON lines
+            with contextlib.redirect_stdout(sys.stderr):
+                return Trainer(ExperimentConfig.from_dict(copy.deepcopy(raw)))
+
+        t0 = time.perf_counter()
+        tr = trainer()
+        setup_s = time.perf_counter() - t0
+        bs = tr.config.data.batch_size
+        steps, evals = [], []
+        real_step = timed_calls(tr, "train_step", steps)
+        real_evaluate = timed_calls(tr, "evaluate", evals)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            history = tr.fit()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if any(launches.values()):
+            errors.append(f"hand kernels launched on the RAFT fit: {launches}")
+        tr.evaluate = real_evaluate
+        n_steps = FIT_EPOCHS * (FIT_SAMPLES // bs)
+        if len(history) != FIT_EPOCHS or tr.step != n_steps or len(
+                evals) != FIT_EPOCHS:
+            errors.append(f"{len(history)} history rows, step {tr.step}, "
+                          f"{len(evals)} evaluations")
+        for row in history:
+            vals = [v for k, v in row.items() if k.startswith("loss_")]
+            vals += [row.get(k, math.nan) for k in METRICS]
+            if len(vals) != 4 + len(METRICS) or not all(
+                    map(math.isfinite, vals)):
+                errors.append(f"epoch {row['epoch']}: {row}")
+        h, w = tr.config.data.hw
+        panel_shape = list(read_png_u8(os.path.join(
+            ckpt_dir, f"predictions_epoch{FIT_EPOCHS - 1}.png")).shape)
+        if panel_shape != [4 * h, w, 3]:
+            errors.append(f"panel {panel_shape}, not {[4 * h, w, 3]}")
+
+        # evaluate() changes no master
+        masters = {n: m.clone() for n, m in tr.masters.items()}
+        tr.evaluate()
+        changed = [n for n, m in tr.masters.items()
+                   if not torch.equal(m, masters[n])]
+        if changed:
+            errors.append(f"evaluate() changed {len(changed)} masters")
+
+        # resume: the same state bit for bit, then the same next steps
+        resumed = trainer()
+        tr.train_step = real_step
+        resume_losses, ema_err = resume_checks(tr, resumed, errors)
+        del resumed
+    step_ms = [dt * 1e3 for _, dt, _ in steps]
+    ok = not errors
+    emit({"phase": "fit_raft", "ok": ok, "config": RAFT_FIT_CONFIG,
+          "hw": [h, w], "batch": bs, "dtype": "bfloat16",
+          "raft_iters": tr.config.model.raft_iters,
+          "ema_decay": tr.config.optim.ema_decay, "epochs": FIT_EPOCHS,
+          "samples": FIT_SAMPLES, "history": history, "launches": launches,
+          "resume_losses": resume_losses, "ema_rule_err_of_bound": ema_err,
+          "panel_shape": panel_shape, "setup_s": setup_s, "fit_s": fit_s,
+          "ms_per_fit_step": statistics.median(step_ms[1:]),
+          "ms_per_fit_step_all": step_ms,
+          "eval_s_per_batch": statistics.median(
+              dt / -(-FIT_SAMPLES // bs) for _, dt, _ in evals),
+          "card": card, "errors": errors})
     if not ok:
         sys.exit(1)
     return launches
@@ -1697,6 +2102,8 @@ def main():
         run = phase_serve if phase in SERVE else phase_train
         counts[phase] = run(phase)
     counts["fit"] = phase_fit(card)
+    for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
+        phase(card)
     summary(checks, counts)
     emit({"phase": "done", "ok": True,
           "seconds": time.perf_counter() - t0})

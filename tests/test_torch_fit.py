@@ -41,9 +41,9 @@ from cerberusnet_torch.entry import REPO_ROOT
 from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
 from cerberusnet_torch.train import metrics as tm
 from cerberusnet_torch.train.config import ExperimentConfig
-from cerberusnet_torch.train.trainer import UNCERTAINTY, Trainer, build_model
+from cerberusnet_torch.train.trainer import UNCERTAINTY, Trainer
 from cerberusnet_torch.utils import visualization as vis
-from cerberusnet_torch.weights import load_flax_params
+from tests.jax_pairs import numpy_tree, port_masters
 from tests.test_torch_train import rel, tiny_config_dict
 
 
@@ -59,23 +59,6 @@ def config_dict(variant="cerberus", **sections):
     for section, values in sections.items():
         raw[section] = {**raw[section], **values}
     return raw
-
-
-def numpy_tree(tree):
-    """Copies of a JAX tree's leaves (a donated buffer is reused)."""
-    return jax.tree.map(np.array, tree)
-
-
-def port_masters(cfg: ExperimentConfig, params) -> dict:
-    """The port's masters (name -> float32 tensor) from a JAX trainer's
-    parameter tree, log-variances included."""
-    params = dict(params)
-    log_vars = params.pop("__task_uncertainty__", {})
-    ref, _ = build_model(cfg.model, "plain", torch.float32)
-    load_flax_params(ref, params)
-    out = {n: p.detach().clone() for n, p in ref.named_parameters()}
-    out.update({f"{UNCERTAINTY}.{k}": t(v) for k, v in log_vars.items()})
-    return out
 
 
 def assert_trees_close(got: dict, want: dict, tol=1e-4):

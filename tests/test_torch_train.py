@@ -134,7 +134,7 @@ def test_unknown_key_raises():
 
 
 @pytest.mark.parametrize("section,key,value,item", [
-    ("model", "variant", "raft", "A8"),
+    ("model", "variant", "flow", "A8"),
     ("model", "seg_head", "aspp", "A8"),
     ("train", "debug_nans", True, "A5"),
     ("train", "tensorboard", True, "A12"),
@@ -157,7 +157,8 @@ def test_unported_values_raise(section, key, value, item):
 
 EVIDENCE = ("cerberus_evidence", "cerberus_evidence60", "cerberus_evidence_cpu",
             "dcv_evidence", "dcv_evidence60", "wide_evidence",
-            "cerberus_evidence_bf16g")
+            "cerberus_evidence_bf16g", "raft_evidence", "raft_evidence60",
+            "raft_lv4_evidence")
 
 
 @pytest.mark.parametrize("name", EVIDENCE)
@@ -166,6 +167,26 @@ def test_evidence_config_is_supported(name):
         str(REPO_ROOT / "configs" / f"{name}.json"))
     cfg.check_supported()
     assert cfg.optim.ema_decay > 0 and cfg.data.eval_split == "val"
+
+
+@pytest.mark.parametrize("name,level,iters", [("cerberus_raft", 3, 12),
+                                               ("raft_lv4_deploy", 4, 6)])
+def test_raft_config_is_supported(name, level, iters):
+    cfg = ExperimentConfig.from_json(
+        str(REPO_ROOT / "configs" / f"{name}.json"))
+    cfg.check_supported()
+    m = cfg.model
+    assert (m.variant, m.raft_level, m.raft_iters) == ("cerberus_raft",
+                                                       level, iters)
+    assert m.torch_dtype == torch.bfloat16 and cfg.loss.seq_gamma == 0.8
+
+
+def test_raft_kitti_waits_on_the_data_pipeline():
+    cfg = ExperimentConfig.from_json(
+        str(REPO_ROOT / "configs" / "raft_kitti.json"))
+    assert cfg.model.variant == "raft"
+    with pytest.raises(NotImplementedError, match="A6"):
+        cfg.check_supported()
 
 
 @pytest.mark.parametrize("name", ["cerberus_dcv.json"])
