@@ -1,31 +1,39 @@
-"""Batching and device preprocessing, port of ``make_preprocess_fn`` in
-``cerberusnet_tpu/data/loader.py`` (and ``preprocess_image`` of
-``data/encodings.py``) for the case where the input already has the
-working size.
+"""Batching and device preprocessing, port of ``cerberusnet_tpu/data/loader.py``
+(``DataLoader``, ``pad_batch``, ``collate`` and ``make_preprocess_fn``).
 
 ``DataLoader`` yields numpy batch dicts in the reference loader's order
 (``shuffle``, ``drop_last``, ``seed``; epoch e, counted from 1 by each
-iteration, shuffles with ``np.random.RandomState(seed + e)``), loading
-synchronously; ``pad_batch`` pads a partial eval batch and masks its
-padding. ``batches`` stacks a dataset's first samples in order.
-``preprocess`` uploads a batch in its own types and converts it on the
-device: images from uint8 to float32, /255, ImageNet mean and std, then the
-compute type; labels to int64; flow, disparity and the valid masks to
-float32. Resizing, and the worker pool and prefetch of the reference's
-loader, are not ported yet (ROADMAP A6): an input of another size than
-``hw`` raises.
+iteration, shuffles with ``np.random.RandomState(seed + e)``). As the
+reference's, a producer thread decodes each batch's samples on a pool of
+``num_workers`` threads (the decoders drop the GIL) and queues up to
+``prefetch`` batches ahead of the consumer; a consumer that leaves early
+stops it, and an error in a worker reaches the consumer. With
+``pin_memory`` the producer copies each numeric array into page-locked
+memory, so ``to_device`` uploads it without blocking the host: the torch
+form of the reference's ``device_put`` in its producer. ``pad_batch`` pads
+a partial evaluation batch and masks its padding; ``batches`` takes a
+dataset's first batches in order.
+
+``to_device`` uploads a batch in its own types (uint8 images are a
+quarter of their float size); ``preprocess`` converts it on the device as
+``make_preprocess_fn`` does: images from uint8 to float32, /255, resized
+(bilinear) to ``hw`` when they have another size, ImageNet mean and std,
+then the compute type; labels resized (nearest) to int64; flow, disparity
+and their valid masks resized (nearest) to float32 with their values
+scaled.
 """
 
 from __future__ import annotations
 
 import itertools
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-# ImageNet statistics, as in cerberusnet_tpu/data/encodings.py.
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+from cerberusnet_torch.data import encodings
 
 IMAGE_KEYS = ("left", "right", "temporal")
 
@@ -67,64 +75,121 @@ def batches(dataset, batch_size: int, count: int | None = None):
     return list(itertools.islice(DataLoader(dataset, batch_size), count))
 
 
+def _pinned(batch: dict) -> dict:
+    """The batch with each numeric array copied into page-locked memory."""
+    return {k: torch.from_numpy(v).pin_memory()
+            if v.dtype.kind in "biuf" else v for k, v in batch.items()}
+
+
 class DataLoader:
-    """Batches of ``dataset`` as numpy dicts, in the order of the
-    reference's ``DataLoader``; each iteration is one epoch."""
+    """Batches of ``dataset`` as numpy dicts (or, with ``pin_memory``,
+    dicts of page-locked tensors), in the order of the reference's
+    ``DataLoader``; each iteration is one epoch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = True, seed: int = 0):
+                 num_workers: int = 4, drop_last: bool = True, seed: int = 0,
+                 prefetch: int = 2, pin_memory: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.num_workers = max(num_workers, 1)
         self.drop_last = drop_last
         self.seed = seed
+        self.prefetch = prefetch
+        self.pin_memory = pin_memory
         self._epoch = 0
 
     def __len__(self):
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def __iter__(self):
-        self._epoch += 1
+    def _batch_indices(self):
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(idx)
         for i in range(len(self)):
-            part = idx[i * self.batch_size:(i + 1) * self.batch_size]
-            yield collate([self.dataset[int(j)] for j in part])
+            yield idx[i * self.batch_size:(i + 1) * self.batch_size]
+
+    def __iter__(self):
+        self._epoch += 1
+        indices = list(self._batch_indices())
+        pool = ThreadPoolExecutor(self.num_workers)
+        out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def put(item):
+            # gives up when the consumer has left and nothing drains the queue
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.05)
+                    return
+                except queue.Full:
+                    pass
+
+        def produce():
+            try:
+                for part in indices:
+                    if stop.is_set():
+                        return
+                    batch = collate(list(pool.map(
+                        self.dataset.__getitem__, (int(j) for j in part))))
+                    put(_pinned(batch) if self.pin_memory else batch)
+                put(done)
+            except Exception as e:  # handed to the consumer, raised there
+                put(e)
+
+        producer = threading.Thread(target=produce, daemon=True)
+        producer.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            producer.join()
+            pool.shutdown(wait=True)
+
+
+def to_device(batch: dict, device) -> dict:
+    """The batch's numeric arrays as tensors on ``device`` in their own
+    types (a page-locked tensor uploads without blocking the host); other
+    entries (a sample's ``decoder`` names) stay on the host."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray) and v.dtype.kind not in "biuf":
+            out[k] = v
+        else:
+            out[k] = torch.as_tensor(v).to(device, non_blocking=True)
+    return out
 
 
 def preprocess(batch, hw, dtype: torch.dtype, device) -> dict:
-    """A numpy (or torch) batch dict -> normalised tensors on ``device``."""
+    """A numpy (or torch) batch dict -> normalised tensors on ``device``,
+    every spatial entry at ``hw``."""
     hw = tuple(hw)
-    if tuple(batch["left"].shape[1:3]) != hw:
-        raise NotImplementedError(
-            f"input size {tuple(batch['left'].shape[1:3])} differs from "
-            f"data.hw {hw}: resizing is not ported yet (ROADMAP A6)")
-
-    def put(v, dt):
-        # upload in the array's own type (uint8 images and labels are a
-        # quarter and an eighth of their converted size), convert on the
-        # device
-        return torch.as_tensor(v).to(device).to(dt)
-
-    mean = torch.from_numpy(IMAGENET_MEAN).to(device)
-    std = torch.from_numpy(IMAGENET_STD).to(device)
+    batch = to_device(batch, device)
     out = {}
     for k in IMAGE_KEYS:
         if k in batch:
-            x = put(batch[k], torch.float32) / 255.0
-            out[k] = ((x - mean) / std).to(dtype)
+            out[k] = encodings.preprocess_image(batch[k], hw).to(dtype)
     if "seg_labels" in batch:
-        out["seg_labels"] = put(batch["seg_labels"], torch.int64)
+        out["seg_labels"] = encodings.resize_labels(
+            batch["seg_labels"].long(), hw)
     if "flow_gt" in batch:
-        out["flow_gt"] = put(batch["flow_gt"], torch.float32)
-        out["flow_valid"] = (put(batch["flow_valid"], torch.float32)
-                             if "flow_valid" in batch else
-                             torch.ones(out["flow_gt"].shape[:3], device=device))
+        flow = batch["flow_gt"].float()
+        valid = (batch["flow_valid"].float() if "flow_valid" in batch
+                 else torch.ones(flow.shape[:3], device=flow.device))
+        out["flow_gt"], out["flow_valid"] = encodings.resize_flow(
+            flow, valid, hw)
     if "disp_gt" in batch:
-        out["disp_gt"] = put(batch["disp_gt"], torch.float32)
-        out["disp_valid"] = (put(batch["disp_valid"], torch.float32)
-                             if "disp_valid" in batch else
-                             (out["disp_gt"] > 0).float())
+        disp = batch["disp_gt"].float()
+        valid = (batch["disp_valid"].float() if "disp_valid" in batch
+                 else (disp > 0).float())
+        out["disp_gt"], out["disp_valid"] = encodings.resize_disparity(
+            disp, valid, hw)
     return out

@@ -6,12 +6,22 @@ Each sample is a geometrically consistent triplet: a smooth scene image as
 the left view, a right view shifted by a smooth disparity field, a
 temporal frame warped by a smooth flow field, segmentation labels that are
 a fixed function of the scene's colour, and dense or sparse ground truth.
-The reference's KITTI fixture writer is not copied (ROADMAP A6).
+
+``write_kitti_fixture`` writes samples in the KITTI-2015 layout with
+16-bit ground truth (a copy of the reference's writer, through the port's
+PNG writer), ``write_cityscapes_fixture`` in the Cityscapes layout
+(labelIds and the 16-bit disparity): the datasets of ``data/kitti.py`` and
+``data/cityscapes.py`` read them back.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+
+from cerberusnet_torch.data import encodings
 
 
 def _smooth_field(rng, h, w, channels, scale, smoothness=8):
@@ -31,6 +41,14 @@ def _smooth_field(rng, h, w, channels, scale, smoothness=8):
         for dx in (-k, 0, k):
             out += pad[k + dy : k + dy + h, k + dx : k + dx + w]
     return out / 9.0
+
+
+def _each(fn, n: int, workers: int):
+    """fn(i) for i < n on ``workers`` threads (numpy and zlib drop the
+    GIL); raises the first error."""
+    with ThreadPoolExecutor(max(workers, 1)) as pool:
+        for _ in pool.map(fn, range(n)):
+            pass
 
 
 class SyntheticPerceptionDataset:
@@ -102,3 +120,68 @@ class SyntheticPerceptionDataset:
             "disp_gt": disp * mask,
             "disp_valid": mask,
         }
+
+    # -- fixture writers -----------------------------------------------------
+
+    def write_kitti_fixture(self, root: str, n: int = 2, workers: int = 1):
+        """Writes the first ``n`` samples under ``root`` in the KITTI-2015
+        layout: left as image_2/_10, temporal as image_2/_11 (KITTI's flow
+        maps _10 -> _11), right as image_3/_10, and the 16-bit flow_occ and
+        disp_occ_0 ground truth anchored at _10; ``workers`` threads make
+        and write the samples."""
+        from cerberusnet_torch.data import io as data_io
+
+        for sub in ("image_2", "image_3", "flow_occ", "disp_occ_0"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+
+        def write(i):
+            s = self[i]
+            name, name11 = f"{i:06d}_10.png", f"{i:06d}_11.png"
+            data_io.write_image_u8(os.path.join(root, "image_2", name),
+                                   s["left"])
+            data_io.write_image_u8(os.path.join(root, "image_2", name11),
+                                   s["temporal"])
+            data_io.write_image_u8(os.path.join(root, "image_3", name),
+                                   s["right"])
+            data_io.write_png16(
+                os.path.join(root, "flow_occ", name),
+                encodings.encode_kitti_flow(s["flow_gt"], s["flow_valid"]))
+            data_io.write_png16(
+                os.path.join(root, "disp_occ_0", name),
+                encodings.encode_kitti_disparity(s["disp_gt"],
+                                                 s["disp_valid"]))
+
+        _each(write, n, workers)
+
+    def write_cityscapes_fixture(self, root: str, n: int = 2,
+                                 split: str = "train", workers: int = 1):
+        """Writes the first ``n`` samples under ``root`` in the Cityscapes
+        layout of ``split`` (city "synthcity", sequence 000000, frame i):
+        leftImg8bit, rightImg8bit, gtFine labelIds (each trainId's
+        labelId) and the 16-bit disparity, ``workers`` threads making and
+        writing them. No sequence package, so the dataset's temporal frame
+        is the left one."""
+        from cerberusnet_torch.data import io as data_io
+
+        city = "synthcity"
+
+        def write(i):
+            s = self[i]
+            base = f"{city}_000000_{i:06d}"
+            for kind, suffix, img, save in (
+                    ("leftImg8bit", "leftImg8bit", s["left"],
+                     data_io.write_image_u8),
+                    ("rightImg8bit", "rightImg8bit", s["right"],
+                     data_io.write_image_u8),
+                    ("gtFine", "gtFine_labelIds",
+                     encodings.trainids_to_labelids(s["seg_labels"]),
+                     data_io.write_image_u8),
+                    ("disparity", "disparity",
+                     encodings.encode_cityscapes_disparity(
+                         s["disp_gt"], s["disp_valid"]),
+                     data_io.write_png16)):
+                d = os.path.join(root, kind, split, city)
+                os.makedirs(d, exist_ok=True)
+                save(os.path.join(d, f"{base}_{suffix}.png"), img)
+
+        _each(write, n, workers)

@@ -21,13 +21,14 @@ from cerberusnet_torch.models.common import nhwc
 from cerberusnet_torch.models.disparity import DisparityDecoder
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.models.flow import FlowDecoder
-from cerberusnet_torch.models.segmentation import SegmentationHead
+from cerberusnet_torch.models.segmentation import make_seg_head
 
 
 class CerberusNet(nn.Module):
     """``encoder``, ``disparity``, ``flow`` and ``segmentation`` are the
     reference's ``PyramidEncoder_0``, ``DisparityDecoder_0``,
-    ``FlowDecoder_0`` and ``SegmentationHead_0``. ``corr_impl="plain"``
+    ``FlowDecoder_0`` and ``SegmentationHead_0`` (``ASPPSegmentationHead_0``
+    with ``seg_head="aspp"``). ``corr_impl="plain"``
     runs the plain correlations on any device (a yardstick for the
     kernels); None runs the CUDA kernels on a GPU. ``pallas_levels`` and
     ``pallas_grad`` go to the encoder (``PyramidEncoder``): the first N
@@ -38,7 +39,8 @@ class CerberusNet(nn.Module):
                  flow_max_disp: int = 4,
                  est_channels: Sequence[int] = (128, 128, 96, 64, 32),
                  ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
-                 fpn_channels: int = 96, corr_impl: str | None = None,
+                 fpn_channels: int = 96, seg_head: str = "fpn",
+                 corr_impl: str | None = None,
                  dtype: torch.dtype = torch.float32, pallas_levels: int = 0,
                  pallas_grad: str = "xla"):
         super().__init__()
@@ -50,8 +52,8 @@ class CerberusNet(nn.Module):
                                           corr_impl=corr_impl)
         self.flow = FlowDecoder(encoder_channels, flow_max_disp, est_channels,
                                 ctx_channels, corr_impl=corr_impl)
-        self.segmentation = SegmentationHead(encoder_channels, num_classes,
-                                             fpn_channels)
+        self.segmentation = make_seg_head(seg_head, encoder_channels,
+                                          num_classes, fpn_channels)
         self.to(dtype=dtype, memory_format=torch.channels_last)
         self.segmentation.classifier.float()
 

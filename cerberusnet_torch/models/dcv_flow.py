@@ -35,7 +35,8 @@ from cerberusnet_torch.models.common import (
     upsample2x,
 )
 from cerberusnet_torch.models.encoder import PyramidEncoder
-from cerberusnet_torch.models.segmentation import SegmentationHead
+from cerberusnet_torch.models.flow import nhwc_outputs
+from cerberusnet_torch.models.segmentation import make_seg_head
 from cerberusnet_torch.ops.correlation import correlation1d, correlation2d
 
 ENCODER_CHANNELS = (16, 32, 64, 96, 128, 196)
@@ -127,11 +128,6 @@ class DCVStereoDecoder(DCVDecoder):
                              impl=self.corr_impl)
 
 
-def _nhwc_out(out):
-    return {k: ({l: nhwc(t) for l, t in v.items()} if isinstance(v, dict)
-                else nhwc(v)) for k, v in out.items()}
-
-
 class DCVFlowNet(nn.Module):
     """Encoder + DCV flow decoder (single task). ``encoder`` and ``flow``
     are the reference's ``PyramidEncoder_0`` and ``DCVFlowDecoder_0``."""
@@ -153,7 +149,7 @@ class DCVFlowNet(nn.Module):
     def forward(self, im1, im2):
         """(B,H,W,3) x2 -> {"flow": (B,H,W,2), "flow_pyramid": {level:
         ...}} in the model's type, as the reference returns them."""
-        return _nhwc_out(self.flow(*self.encoder.encode(im1, im2)))
+        return nhwc_outputs(self.flow(*self.encoder.encode(im1, im2)))
 
 
 class DCVStereoNet(nn.Module):
@@ -178,16 +174,17 @@ class DCVStereoNet(nn.Module):
     def forward(self, left, right):
         """(B,H,W,3) x2 -> {"disp": (B,H,W,1), "disp_pyramid": {level:
         ...}} in the model's type, as the reference returns them."""
-        return _nhwc_out(self.disparity(*self.encoder.encode(left, right)))
+        return nhwc_outputs(self.disparity(*self.encoder.encode(left, right)))
 
 
 class CerberusDCV(nn.Module):
     """The joint three-head model on the DCV decoders: one shared encoder,
     the DCV stereo (left, right) and flow (left, temporal) heads and the
-    FPN segmentation head (left). ``encoder``, ``disparity``, ``flow`` and
-    ``segmentation`` are the reference's ``PyramidEncoder_0``,
+    segmentation head of ``seg_head`` (left). ``encoder``, ``disparity``,
+    ``flow`` and ``segmentation`` are the reference's ``PyramidEncoder_0``,
     ``DCVStereoDecoder_0``, ``DCVFlowDecoder_0`` and
-    ``SegmentationHead_0``; the segmentation classifier stays float32."""
+    ``SegmentationHead_0`` (or ``ASPPSegmentationHead_0``); the
+    segmentation classifier stays float32."""
 
     def __init__(self, encoder_channels: Sequence[int] = ENCODER_CHANNELS,
                  num_classes: int = 19, level: int = 3,
@@ -197,7 +194,8 @@ class CerberusDCV(nn.Module):
                  disp_dilations: Sequence[int] = (1, 2, 3),
                  est_channels: Sequence[int] = EST_CHANNELS,
                  ctx_channels: Sequence[int] = CTX_CHANNELS,
-                 fpn_channels: int = 96, corr_impl: str | None = None,
+                 fpn_channels: int = 96, seg_head: str = "fpn",
+                 corr_impl: str | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.encoder = PyramidEncoder(encoder_channels)
@@ -208,8 +206,8 @@ class CerberusDCV(nn.Module):
         self.flow = DCVFlowDecoder(encoder_channels, level, flow_max_disp,
                                    flow_dilations, est_channels, ctx_channels,
                                    corr_impl)
-        self.segmentation = SegmentationHead(encoder_channels, num_classes,
-                                             fpn_channels)
+        self.segmentation = make_seg_head(seg_head, encoder_channels,
+                                          num_classes, fpn_channels)
         self.to(dtype=dtype, memory_format=torch.channels_last)
         self.segmentation.classifier.float()
 
@@ -223,8 +221,8 @@ class CerberusDCV(nn.Module):
         """
         f_left, f_right, f_temporal = self.encoder.encode(left, right,
                                                           temporal)
-        disp = _nhwc_out(self.disparity(f_left, f_right))
-        flow = _nhwc_out(self.flow(f_left, f_temporal))
+        disp = nhwc_outputs(self.disparity(f_left, f_right))
+        flow = nhwc_outputs(self.flow(f_left, f_temporal))
         seg = self.segmentation(f_left, left.shape[1:3])
         return {
             "seg_logits": nhwc(seg),

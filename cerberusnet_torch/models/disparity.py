@@ -12,7 +12,15 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from cerberusnet_torch.models.flow import LEVELS, CoarseToFineDecoder
+import torch
+import torch.nn as nn
+
+from cerberusnet_torch.models.encoder import PyramidEncoder
+from cerberusnet_torch.models.flow import (
+    LEVELS,
+    CoarseToFineDecoder,
+    nhwc_outputs,
+)
 from cerberusnet_torch.ops.correlation import correlation1d
 from cerberusnet_torch.ops.warp import warp1d
 
@@ -41,3 +49,28 @@ class DisparityDecoder(CoarseToFineDecoder):
 
     def warp(self, f2, up):
         return warp1d(f2, up)
+
+
+class StereoNet(nn.Module):
+    """Encoder + disparity decoder (single task), port of ``StereoNet`` in
+    ``cerberusnet_tpu/models/disparity.py``. ``encoder`` and ``disparity``
+    are the reference's ``PyramidEncoder_0`` and ``DisparityDecoder_0``; a
+    frame whose sides are not multiples of 64 raises, as ``FlowNet``."""
+
+    def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
+                 max_disp_full: int = 96,
+                 est_channels: Sequence[int] = (128, 128, 96, 64, 32),
+                 ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
+                 corr_impl: str | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = PyramidEncoder(encoder_channels)
+        self.disparity = DisparityDecoder(encoder_channels, max_disp_full,
+                                          est_channels, ctx_channels,
+                                          corr_impl=corr_impl)
+        self.to(dtype=dtype, memory_format=torch.channels_last)
+
+    def forward(self, left, right):
+        """(B,H,W,3) x2 -> {"disp": (B,H,W,1), "disp_pyramid": {level:
+        ...}} in the model's type, as the reference returns them."""
+        return nhwc_outputs(self.disparity(*self.encoder.encode(left, right)))

@@ -30,6 +30,7 @@ from cerberusnet_torch.models.common import (
     nhwc,
     upsample2x,
 )
+from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.ops.correlation import correlation2d
 from cerberusnet_torch.ops.warp import warp2d
 
@@ -126,3 +127,34 @@ class FlowDecoder(CoarseToFineDecoder):
 
     def warp(self, f2, up):
         return warp2d(f2, up)
+
+
+class FlowNet(nn.Module):
+    """Encoder + flow decoder (single task), port of ``FlowNet`` in
+    ``cerberusnet_tpu/models/flow.py``. ``encoder`` and ``flow`` are the
+    reference's ``PyramidEncoder_0`` and ``FlowDecoder_0``. A frame whose
+    sides are not multiples of 64 raises in the warp, as in the reference:
+    a level's upsampled flow then misses the next level's extent."""
+
+    def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
+                 max_disp: int = 4,
+                 est_channels: Sequence[int] = (128, 128, 96, 64, 32),
+                 ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
+                 corr_impl: str | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = PyramidEncoder(encoder_channels)
+        self.flow = FlowDecoder(encoder_channels, max_disp, est_channels,
+                                ctx_channels, corr_impl=corr_impl)
+        self.to(dtype=dtype, memory_format=torch.channels_last)
+
+    def forward(self, im1, im2):
+        """(B,H,W,3) x2 -> {"flow": (B,H,W,2), "flow_pyramid": {level:
+        ...}} in the model's type, as the reference returns them."""
+        return nhwc_outputs(self.flow(*self.encoder.encode(im1, im2)))
+
+
+def nhwc_outputs(out: dict) -> dict:
+    """A decoder's NCHW outputs (maps and {level: map} pyramids) as NHWC."""
+    return {k: ({l: nhwc(t) for l, t in v.items()} if isinstance(v, dict)
+                else nhwc(v)) for k, v in out.items()}

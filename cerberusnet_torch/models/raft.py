@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from cerberusnet_torch.models.common import leaky, nchw, nhwc
 from cerberusnet_torch.models.encoder import PyramidEncoder
-from cerberusnet_torch.models.segmentation import SegmentationHead
+from cerberusnet_torch.models.segmentation import make_seg_head
 
 ENCODER_CHANNELS = (16, 32, 64, 96, 128, 196)
 LOOKUPS = ("gather", "onehot")
@@ -76,11 +76,16 @@ def allpairs_correlation(f1, f2):
 
 def correlation_pyramid(corr, num_levels: int):
     """Average-pools the last two dims (the frame-2 grid) 2x2 num_levels - 1
-    times; an odd extent drops its last row or column ("VALID"). A list of
+    times; an odd extent drops its last row or column ("VALID"), so an
+    extent of 1 pools to an empty level, as in the reference. A list of
     (B, N, hk, wk) volumes."""
     pyramid = [corr]
     for _ in range(num_levels - 1):
-        pyramid.append(F.avg_pool2d(pyramid[-1], 2))
+        x = pyramid[-1]
+        b, n, h, w = x.shape
+        h, w = h // 2, w // 2
+        x = x[..., :2 * h, :2 * w].reshape(b, n, h, 2, w, 2)
+        pyramid.append(x.sum(dim=(3, 5)) * 0.25)
     return pyramid
 
 
@@ -139,6 +144,9 @@ def corr_lookup(pyramid, coords, radius: int, impl: str = "gather"):
     outs = []
     for k, vol in enumerate(pyramid):
         hk, wk = vol.shape[2], vol.shape[3]
+        if hk * wk == 0:  # an empty level reads zero, as in the reference
+            outs.append(cf.new_zeros(b, n, p * p))
+            continue
         pts = cf / 2.0**k + delta  # (B, N, P*P, 2)
         xs, ys = pts[..., 0], pts[..., 1]
         x0, y0 = torch.floor(xs), torch.floor(ys)
@@ -172,10 +180,14 @@ def allpairs_correlation_1d(f1, f2):
 
 def correlation_pyramid_1d(corr, num_levels: int):
     """Average-pools the last dim (the candidates) by 2, num_levels - 1
-    times ("VALID"); a list of (B, N, wk) volumes."""
+    times ("VALID", an extent of 1 pools to an empty level); a list of
+    (B, N, wk) volumes."""
     pyramid = [corr]
     for _ in range(num_levels - 1):
-        pyramid.append(F.avg_pool1d(pyramid[-1], 2))
+        x = pyramid[-1]
+        b, n, w = x.shape
+        w //= 2
+        pyramid.append(x[..., :2 * w].reshape(b, n, w, 2).sum(dim=3) * 0.5)
     return pyramid
 
 
@@ -198,6 +210,9 @@ def corr_lookup_1d(pyramid, coords_x, radius: int, impl: str = "gather"):
     cf = coords_x.float().reshape(b, n, 1)
     for k, vol in enumerate(pyramid):
         wk = vol.shape[2]
+        if wk == 0:  # an empty level reads zero, as in the reference
+            outs.append(cf.new_zeros(b, n, p))
+            continue
         xs = cf / 2.0**k + delta  # (B, N, P)
         x0 = torch.floor(xs)
         wx = xs - x0
@@ -484,21 +499,22 @@ class RAFTStereoNet(nn.Module):
 class CerberusRAFT(nn.Module):
     """The joint three-head model on the iterative decoders: one shared
     encoder, RAFT flow (left, temporal), RAFT-Stereo (left, right) and the
-    FPN segmentation head (left). ``encoder``, ``flow``, ``disparity`` and
-    ``segmentation`` are the reference's ``PyramidEncoder_0``,
-    ``RAFTFlowDecoder_0``, ``RAFTStereoDecoder_0`` and
-    ``SegmentationHead_0``; the segmentation classifier stays float32.
-    ``decoder`` holds the keywords both decoders take."""
+    segmentation head of ``seg_head`` (left). ``encoder``, ``flow``,
+    ``disparity`` and ``segmentation`` are the reference's
+    ``PyramidEncoder_0``, ``RAFTFlowDecoder_0``, ``RAFTStereoDecoder_0`` and
+    ``SegmentationHead_0`` (or ``ASPPSegmentationHead_0``); the
+    segmentation classifier stays float32. ``decoder`` holds the keywords both decoders take."""
 
     def __init__(self, encoder_channels: Sequence[int] = ENCODER_CHANNELS,
                  num_classes: int = 19, fpn_channels: int = 96,
-                 dtype: torch.dtype = torch.float32, **decoder):
+                 seg_head: str = "fpn", dtype: torch.dtype = torch.float32,
+                 **decoder):
         super().__init__()
         self.encoder = PyramidEncoder(encoder_channels)
         self.flow = RAFTFlowDecoder(encoder_channels, **decoder)
         self.disparity = RAFTStereoDecoder(encoder_channels, **decoder)
-        self.segmentation = SegmentationHead(encoder_channels, num_classes,
-                                             fpn_channels)
+        self.segmentation = make_seg_head(seg_head, encoder_channels,
+                                          num_classes, fpn_channels)
         self.to(dtype=dtype, memory_format=torch.channels_last)
         self.segmentation.classifier.float()
 

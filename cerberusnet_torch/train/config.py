@@ -8,7 +8,11 @@ unknown key raises ``ValueError`` as in the reference.
 Parsing accepts every value. ``ExperimentConfig.check_supported()``, which
 the ``Trainer`` calls, raises ``NotImplementedError`` naming the ROADMAP
 item for a value the port does not run yet; it builds the model variants
-in ``VARIANTS``. ``model.pallas_levels`` runs CerberusNet's first N
+in ``VARIANTS`` (``seg_head`` "fpn" or "aspp" for the joint models and
+``seg``) and reads the datasets in ``DATASETS`` (``data.root``), with the
+augmentation (``crop_hw``, ``scales``, ``flip_lr_prob``, ``brightness``,
+``contrast``) and ``data.num_workers`` decode threads; ``train.tensorboard``
+writes event files under ``ckpt_dir/tb``. ``model.pallas_levels`` runs CerberusNet's first N
 encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
 their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
 plain convolutions recomputed; the DCV and RAFT variants ignore both, as
@@ -23,9 +27,9 @@ their value, are accepted and have no effect here:
 ``s2d_levels`` (for CerberusNet each raises ``ValueError`` beside
 ``pallas_levels``, as the reference's encoder does), ``entry_grad``,
 ``est_input``, ``raft_unroll`` (``nn.scan`` or an unrolled loop over one
-parameter tree) and ``optim.flatten``. So are the keys of parts the port
-does not have yet, which nothing here reads: ``data.num_workers`` (the
-worker pool, A6) and ``train.qat_calib_batches`` (A10).
+parameter tree) and ``optim.flatten``. So is the key of a part the port
+does not have yet, which nothing here reads: ``train.qat_calib_batches``
+(A10).
 """
 
 from __future__ import annotations
@@ -37,8 +41,10 @@ from typing import Optional, Tuple
 import torch
 
 # model.variant values the port builds (train/trainer.py ``build_model``)
-VARIANTS = ("cerberus", "cerberus_dcv", "dcv_flow", "dcv_stereo", "raft",
-            "raft_stereo", "cerberus_raft")
+VARIANTS = ("cerberus", "flow", "stereo", "seg", "cerberus_dcv", "dcv_flow",
+            "dcv_stereo", "raft", "raft_stereo", "cerberus_raft")
+# data.dataset values the port reads (train/trainer.py ``_build_dataset``)
+DATASETS = ("synthetic", "kitti", "cityscapes")
 
 
 @dataclasses.dataclass
@@ -239,10 +245,7 @@ class ExperimentConfig:
                 f"got {o.grads_dtype!r}")
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
-            (m.seg_head != "fpn", f"model.seg_head={m.seg_head!r}", "A8"),
-            (d.dataset != "synthetic", f"data.dataset={d.dataset!r}", "A6"),
-            (bool(d.crop_hw or d.flip_lr_prob or d.brightness or d.contrast
-                  or d.scales), "data augmentation", "A6"),
+            (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
             (bool(l.rmi_weight), f"loss.rmi_weight={l.rmi_weight}", "A4"),
             (bool(l.photometric_weight),
              f"loss.photometric_weight={l.photometric_weight}", "A4"),
@@ -252,7 +255,6 @@ class ExperimentConfig:
             (t.num_data_devices > 1 or t.num_spatial_devices > 1,
              "more than one device", "A11"),
             (t.debug_nans, "train.debug_nans", "A5"),
-            (t.tensorboard, "train.tensorboard", "A12"),
         )
         for bad, what, item in checks:
             if bad:

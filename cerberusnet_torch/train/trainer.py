@@ -14,14 +14,21 @@ parameters and bf16 compute: its gradient of a float32 parameter is the
 bf16 gradient of the cast, converted.
 
 The model is ``build_model``'s for ``model.variant``: the joint
-``CerberusNet``, ``CerberusDCV`` or ``CerberusRAFT``, or the single-task
-``DCVFlowNet``, ``DCVStereoNet``, ``RAFTFlowNet`` or ``RAFTStereoNet``
-(a RAFT model's losses are the sequence losses over its iterates).
-``Trainer.fit`` runs the reference's epochs over the
-synthetic dataset, evaluates on ``data.eval_split`` with the EMA weights,
-logs to ``train_log.csv`` and checkpoints under ``train.ckpt_dir`` in the
-port's own format (one ``torch.save`` file per step; the reference's is
-Orbax's).
+``CerberusNet``, ``CerberusDCV`` or ``CerberusRAFT`` (each with the
+``seg_head`` "fpn" or "aspp"), or the single-task ``FlowNet``,
+``StereoNet``, ``SegNet``, ``DCVFlowNet``, ``DCVStereoNet``,
+``RAFTFlowNet`` or ``RAFTStereoNet`` (a RAFT model's losses are the
+sequence losses over its iterates). The data is ``data.dataset``'s: the
+synthetic set, or KITTI-2015 or Cityscapes under ``data.root``; a train
+step augments its batch on the device (``data.crop_hw``, ``scales``,
+``flip_lr_prob``, ``brightness``, ``contrast``) before ``preprocess``
+resizes it to ``data.hw``, as the reference's does. ``Trainer.fit`` runs
+the reference's epochs through the prefetching loader
+(``data.num_workers`` decode threads), evaluates on ``data.eval_split``
+with the EMA weights, logs to ``train_log.csv`` (and, with
+``train.tensorboard``, to event files under ``ckpt_dir/tb``) and
+checkpoints under ``train.ckpt_dir`` in the port's own format (one
+``torch.save`` file per step; the reference's is Orbax's).
 """
 
 from __future__ import annotations
@@ -37,7 +44,16 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from cerberusnet_torch.data.loader import DataLoader, pad_batch, preprocess
+from cerberusnet_torch.data import augment
+from cerberusnet_torch.data.cityscapes import CityscapesDataset
+from cerberusnet_torch.data.encodings import resize_bilinear
+from cerberusnet_torch.data.kitti import Kitti2015Dataset
+from cerberusnet_torch.data.loader import (
+    DataLoader,
+    pad_batch,
+    preprocess,
+    to_device,
+)
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.models.dcv_flow import (
@@ -45,12 +61,15 @@ from cerberusnet_torch.models.dcv_flow import (
     DCVFlowNet,
     DCVStereoNet,
 )
+from cerberusnet_torch.models.disparity import StereoNet
+from cerberusnet_torch.models.flow import FlowNet
 from cerberusnet_torch.models.raft import (
     CerberusRAFT,
     RAFTFlowNet,
     RAFTStereoNet,
     keep_tied_float32,
 )
+from cerberusnet_torch.models.segmentation import SegNet
 from cerberusnet_torch.train import losses
 from cerberusnet_torch.train.config import (
     ExperimentConfig,
@@ -59,6 +78,7 @@ from cerberusnet_torch.train.config import (
 )
 from cerberusnet_torch.train.metrics import METRICS, MetricState
 from cerberusnet_torch.utils import visualization as vis
+from cerberusnet_torch.utils.tblogger import TBLogger
 from cerberusnet_torch.weights import init_params
 
 # ----------------------------------------------------------------- model
@@ -75,27 +95,36 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
     """(model, input keys) for ``cfg.variant``, with the arguments the
     reference's ``build_model`` passes: the DCV models keep their default
     level, dilations and (stereo) max_disp, as there, the RAFT models take
-    every ``raft_*`` key, and both ignore ``pallas_levels`` and
-    ``pallas_grad``, which only CerberusNet's encoder takes (and the RAFT
-    models ``corr_impl``: they have no correlation kernel). The model's
-    forward takes the batch's tensors under the input keys, in order."""
+    every ``raft_*`` key, the joint models and ``SegNet`` take
+    ``seg_head``, and only CerberusNet's encoder takes ``pallas_levels``
+    and ``pallas_grad`` (the RAFT models and ``SegNet`` have no
+    correlation kernel, so no ``corr_impl`` either). The model's forward
+    takes the batch's tensors under the input keys, in order, and returns
+    the output dict of its heads."""
     common = dict(encoder_channels=tuple(cfg.encoder_channels),
                   est_channels=tuple(cfg.est_channels),
                   ctx_channels=tuple(cfg.ctx_channels), corr_impl=corr_impl,
                   dtype=dtype)
+    seg = dict(num_classes=cfg.num_classes, fpn_channels=cfg.fpn_channels,
+               seg_head=cfg.seg_head)
     if cfg.variant == "cerberus":
-        return CerberusNet(num_classes=cfg.num_classes,
-                           max_disp_full=cfg.max_disp_full,
+        return CerberusNet(max_disp_full=cfg.max_disp_full,
                            flow_max_disp=cfg.flow_max_disp,
-                           fpn_channels=cfg.fpn_channels,
                            pallas_levels=cfg.pallas_levels,
-                           pallas_grad=cfg.pallas_grad, **common), (
+                           pallas_grad=cfg.pallas_grad, **seg, **common), (
                                "left", "right", "temporal")
     if cfg.variant == "cerberus_dcv":
-        return CerberusDCV(num_classes=cfg.num_classes,
-                           flow_max_disp=cfg.flow_max_disp,
-                           fpn_channels=cfg.fpn_channels, **common), (
-                               "left", "right", "temporal")
+        return CerberusDCV(flow_max_disp=cfg.flow_max_disp, **seg,
+                           **common), ("left", "right", "temporal")
+    if cfg.variant == "flow":
+        return FlowNet(max_disp=cfg.flow_max_disp, **common), (
+            "left", "temporal")
+    if cfg.variant == "stereo":
+        return StereoNet(max_disp_full=cfg.max_disp_full, **common), (
+            "left", "right")
+    if cfg.variant == "seg":
+        return SegNet(encoder_channels=tuple(cfg.encoder_channels),
+                      dtype=dtype, **seg), ("left",)
     if cfg.variant == "dcv_flow":
         return DCVFlowNet(max_disp=cfg.flow_max_disp, **common), (
             "left", "temporal")
@@ -103,9 +132,6 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
         return DCVStereoNet(**common), ("left", "right")
     if cfg.variant in RAFT_VARIANTS:
         model, keys = RAFT_VARIANTS[cfg.variant]
-        seg = ({"num_classes": cfg.num_classes,
-                "fpn_channels": cfg.fpn_channels}
-               if model is CerberusRAFT else {})
         # the weights used at every iteration stay float32, so the
         # gradients of their uses sum in float32, as the reference's do
         return keep_tied_float32(model(
@@ -113,8 +139,8 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
             level=cfg.raft_level, fdim=cfg.raft_fdim, hdim=cfg.raft_hdim,
             cdim=cfg.raft_cdim, corr_levels=cfg.raft_corr_levels,
             radius=cfg.raft_radius, iters=cfg.raft_iters,
-            lookup_impl=cfg.raft_lookup,
-            dtype=dtype, **seg)), keys
+            lookup_impl=cfg.raft_lookup, dtype=dtype,
+            **(seg if model is CerberusRAFT else {}))), keys
     raise ValueError(f"unknown model variant {cfg.variant!r}")
 
 
@@ -310,6 +336,14 @@ class Trainer:
         self.eval_dataset = (self._build_dataset(d.eval_split)
                              if d.eval_split else None)
 
+        self.augment_config = augment.AugmentConfig(
+            crop_hw=tuple(d.crop_hw) if d.crop_hw else None,
+            flip_lr_prob=d.flip_lr_prob, brightness=d.brightness,
+            contrast=d.contrast, scales=tuple(d.scales))
+        # the augmentation's draws, seeded as the reference's key
+        self.augment_generator = torch.Generator().manual_seed(
+            config.train.seed + 1)
+
         self.model, self.input_keys = build_model(m, self.corr_impl,
                                                   self.dtype)
         self.model = self.model.to(device).train()
@@ -332,11 +366,27 @@ class Trainer:
             self._maybe_restore()
 
     def _build_dataset(self, split):
+        """``data.dataset``'s split: the synthetic one (seed 1 for "val"),
+        or KITTI-2015 or Cityscapes under ``data.root``."""
         d = self.config.data
-        return SyntheticPerceptionDataset(
-            length=d.synthetic_length, hw=tuple(d.hw),
-            num_classes=self.config.model.num_classes,
-            sparse=d.synthetic_sparse, seed=1 if split == "val" else 0)
+        if d.dataset == "synthetic":
+            return SyntheticPerceptionDataset(
+                length=d.synthetic_length, hw=tuple(d.hw),
+                # labels in the model's class range
+                num_classes=self.config.model.num_classes,
+                sparse=d.synthetic_sparse, seed=1 if split == "val" else 0)
+        if d.dataset == "kitti":
+            return Kitti2015Dataset(d.root, split)
+        if d.dataset == "cityscapes":
+            return CityscapesDataset(d.root, split)
+        raise ValueError(f"unknown dataset {d.dataset!r}")
+
+    def _loader(self, dataset, batch_size, **kw):
+        """A DataLoader of ``dataset`` with ``data.num_workers`` decode
+        threads, page-locked on a GPU."""
+        return DataLoader(dataset, batch_size,
+                          num_workers=self.config.data.num_workers,
+                          pin_memory=self.device.type == "cuda", **kw)
 
     # -- weights -----------------------------------------------------------
 
@@ -416,12 +466,26 @@ class Trainer:
             comps = {**comps, "total": total}
         return total, comps
 
+    def _augmented(self, batch):
+        """The batch on the device, augmented by ``data``'s augmentation
+        (when any) with the next draws of ``augment_generator``, before
+        ``preprocess``, as the reference's ``train_step`` does: a crop is
+        then resized to ``data.hw``."""
+        batch = to_device(batch, self.device)
+        cfg = self.augment_config
+        if not cfg.enabled:
+            return batch
+        b, h, w = batch["left"].shape[:3]
+        draws = augment.draw(cfg, b, (h, w), self.augment_generator)
+        return augment.apply(batch, draws, cfg)
+
     def loss_and_grads(self, batch):
-        """Forward and backward on a batch as the dataset gives it; returns
+        """Forward and backward on a batch as the dataset gives it (the
+        augmentation, when configured, draws anew at each call); returns
         (loss components, {parameter name: float32 gradient}). Changes no
         weight."""
-        batch = preprocess(batch, self.config.data.hw, self.dtype,
-                           self.device)
+        batch = preprocess(self._augmented(batch), self.config.data.hw,
+                           self.dtype, self.device)
         for p in self._params:
             p.grad = None
         bf16 = self.config.optim.grads_dtype == "bfloat16"
@@ -508,8 +572,9 @@ class Trainer:
         held-out dataset (the training one without ``data.eval_split``),
         the last batch padded and masked."""
         if loader is None:
-            loader = DataLoader(self.eval_dataset or self.dataset,
-                                self.config.data.batch_size, drop_last=False)
+            loader = self._loader(self.eval_dataset or self.dataset,
+                                  self.config.data.batch_size,
+                                  drop_last=False)
         metrics = MetricState.zeros(self.config.model.num_classes,
                                     self.device)
         with self._eval_weights():
@@ -521,13 +586,20 @@ class Trainer:
     @torch.no_grad()
     def render_panel(self):
         """The predictions of the evaluation weights on the training
-        dataset's first sample as an (H, W, 3) uint8 panel: the image, then
-        the segmentation overlay, flow and disparity, as present."""
-        batch = next(iter(DataLoader(self.dataset, batch_size=1)))
+        dataset's first sample as an (H, W, 3) uint8 panel at ``data.hw``:
+        the image (resized bilinearly, as the reference's
+        ``predict_images`` resizes it, when the dataset's frames have
+        another size), then the segmentation overlay, flow and disparity,
+        as present."""
+        batch = next(iter(self._loader(self.dataset, 1)))
         prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
         with self._eval_weights():
             out = self._forward(prep)
-        inputs = {"image": batch["left"][0]}
+        image = torch.as_tensor(batch["left"][:1])
+        if tuple(image.shape[1:3]) != tuple(self.config.data.hw):
+            image = resize_bilinear(image.float(), self.config.data.hw).clamp(
+                0, 255).to(torch.uint8)
+        inputs = {"image": image[0].numpy()}
         if "seg_logits" in out:
             inputs["seg"] = out["seg_logits"][0].argmax(-1).cpu().numpy()
         if "flow" in out:
@@ -610,15 +682,30 @@ class Trainer:
         checkpoint (to the seeded weights without one), up to
         ``max_nan_recoveries`` times within ``nan_recovery_reset_steps``
         healthy steps. Losses are read on the host only at ``log_every``, at
-        an epoch's end and, under ``recover_on_nan``, every step."""
+        an epoch's end and, under ``recover_on_nan``, every step. With
+        ``train.tensorboard`` and a ``ckpt_dir``, an event file under
+        ``ckpt_dir/tb`` gets the loss components at ``log_every``
+        ("loss/..."), each epoch's row and, at each evaluation, the panel
+        ("eval/panel"), where the reference logs them."""
         cfg = self.config
         t = cfg.train
-        loader = DataLoader(self.dataset, cfg.data.batch_size,
-                            shuffle=cfg.data.shuffle, seed=t.seed)
-        log_path = None
+        loader = self._loader(self.dataset, cfg.data.batch_size,
+                              shuffle=cfg.data.shuffle, seed=t.seed)
+        log_path = tb = None
         if t.ckpt_dir:
             os.makedirs(t.ckpt_dir, exist_ok=True)
             log_path = os.path.join(t.ckpt_dir, "train_log.csv")
+            if t.tensorboard:
+                tb = TBLogger(os.path.join(t.ckpt_dir, "tb"))
+        try:
+            return self._fit(loader, log_path, tb)
+        finally:
+            if tb:
+                tb.close()
+
+    def _fit(self, loader, log_path, tb):
+        cfg = self.config
+        t = cfg.train
         nan_recoveries = 0
         steps_since_recovery = 0
         if t.recover_on_nan and t.ckpt_dir and not self._checkpoints():
@@ -658,6 +745,8 @@ class Trainer:
                 if (i + 1) % t.log_every == 0:
                     vals = {k: float(v) for k, v in comps.items()}
                     print(f"[epoch {epoch} step {i + 1}] {vals}")
+                    if tb:
+                        tb.scalars(vals, self.step, prefix="loss/")
             # the losses' read waits for the device, so epoch_seconds holds
             # the epoch's device work
             losses_row = {f"loss_{k}": float(v) for k, v in comps.items()}
@@ -670,6 +759,11 @@ class Trainer:
                 if t.ckpt_dir:
                     self.dump_visualization(os.path.join(
                         t.ckpt_dir, f"predictions_epoch{epoch}.png"))
+                if tb:
+                    tb.image("eval/panel", self.render_panel(), self.step)
+            if tb:
+                tb.scalars(row, self.step)
+                tb.flush()
             self.history.append(row)
             print(f"[epoch {epoch}] {row}")
             if log_path:

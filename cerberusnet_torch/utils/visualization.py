@@ -1,9 +1,10 @@
 """Visualisation, a copy of the numpy-only
 ``cerberusnet_tpu/utils/visualization.py`` (flow-to-colour HSV wheel,
 disparity colour map, segmentation overlay, summary panel), and a PNG
-writer and reader built on ``zlib`` and ``struct`` alone: the reference
-writes its panels with ``cv2.imwrite``, and the port needs neither cv2 nor
-PIL. These run on the host, on outputs already read from the device."""
+codec built on ``zlib`` and ``struct`` alone (8- and 16-bit gray, gray +
+alpha, RGB and RGBA; the reader takes every row filter): the reference
+writes its panels with ``cv2.imwrite`` and reads what its native decoder
+refuses with OpenCV, and the port needs neither cv2 nor PIL. These run on the host, on outputs already read from the device."""
 
 from __future__ import annotations
 
@@ -109,6 +110,9 @@ def summary_panel(sample_outputs: dict) -> np.ndarray:
 # ---------------------------------------------------------------------- PNG
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# IHDR colour type by channel count, and back: gray, gray + alpha, RGB, RGBA
+_COLOR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}
+_CHANNELS = {v: k for k, v in _COLOR_TYPES.items()}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -116,34 +120,84 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png_u8(path: str, image: np.ndarray) -> str:
-    """Writes an (H, W, 3) uint8 RGB image as an 8-bit PNG (every row
-    filter 0, one IDAT chunk); returns ``path``."""
-    image = np.ascontiguousarray(image, np.uint8)
-    if image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"expected an (H, W, 3) image, got {image.shape}")
-    h, w, _ = image.shape
+def encode_png(image: np.ndarray) -> bytes:
+    """The 8- or 16-bit PNG file of an (H, W) or (H, W, C) uint8 or uint16
+    image (C = 1, 2, 3 or 4: gray, gray + alpha, RGB, RGBA), every row
+    filter 0 in one IDAT chunk."""
+    image = np.asarray(image)
+    if image.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"expected uint8 or uint16 samples, got {image.dtype}")
+    if image.ndim == 2:
+        image = image[..., None]
+    if image.ndim != 3 or image.shape[2] not in _COLOR_TYPES:
+        raise ValueError(f"expected an (H, W) or (H, W, 1-4) image, got "
+                         f"{image.shape}")
+    h, w, c = image.shape
+    depth = 8 * image.dtype.itemsize
+    samples = np.ascontiguousarray(image, image.dtype.newbyteorder(">"))
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           image.reshape(h, w * 3)], axis=1)
-    data = (_PNG_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                           samples.view(np.uint8).reshape(h, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPES[c], 0, 0, 0)
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, image: np.ndarray) -> str:
+    """Writes ``encode_png(image)`` to ``path``; returns ``path``."""
+    data = encode_png(image)
     with open(path, "wb") as f:
         f.write(data)
     return path
 
 
-def read_png_u8(path: str) -> np.ndarray:
-    """Reads a PNG that ``write_png_u8`` wrote (8-bit RGB, no interlace,
-    filter 0 on every row) back into an (H, W, 3) uint8 array; raises on
-    anything else."""
+def _unfilter(raw: bytes, h: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """Undoes the PNG row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth)
+    of ``h`` rows of ``rowbytes`` bytes, ``bpp`` bytes a pixel."""
+    out = np.empty((h, rowbytes), np.uint8)
+    prior = np.zeros(rowbytes, np.uint8)
+    stride = rowbytes + 1
+    for y in range(h):
+        kind = raw[y * stride]
+        line = np.frombuffer(raw, np.uint8, rowbytes, y * stride + 1)
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # wraps mod 256 in uint8
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = line + prior
+        elif kind in (3, 4):
+            cur, up = bytearray(line.tobytes()), prior.tobytes()
+            for i in range(rowbytes):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"bad PNG row filter {kind}")
+        out[y] = cur
+        prior = out[y]
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """Reads a non-interlaced 8- or 16-bit gray, gray + alpha, RGB or RGBA
+    PNG, any row filters, into an (H, W) (one channel) or (H, W, C) uint8
+    or uint16 array; raises ValueError on anything else (palette images,
+    interlacing, other bit depths) and on a bad chunk CRC."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = len(_PNG_SIGNATURE), None, b""
-    while pos < len(data):
+    pos, header, idat = len(_PNG_SIGNATURE), None, []
+    while pos + 12 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
         (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
@@ -152,12 +206,41 @@ def read_png_u8(path: str) -> np.ndarray:
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
-            idat += body
+            idat.append(body)
+        elif kind == b"IEND":
+            break
         pos += 12 + n
-    if header is None or header[2:] != (8, 2, 0, 0, 0):
-        raise ValueError(f"{path}: not 8-bit RGB without interlace: {header}")
-    w, h = header[:2]
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * 3)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: a row uses a filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3).copy()
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth not in (8, 16) or color not in _CHANNELS or interlace:
+        raise ValueError(f"{path}: not an 8- or 16-bit gray/RGB(A) PNG "
+                         f"without interlace: {header}")
+    c = _CHANNELS[color]
+    bpp = c * depth // 8
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < h * (w * bpp + 1):
+        raise ValueError(f"{path}: truncated image data")
+    rows = _unfilter(raw, h, w * bpp, bpp)
+    img = rows.view(">u2").astype(np.uint16) if depth == 16 else rows
+    img = img.reshape(h, w, c)
+    return img[..., 0] if c == 1 else img
+
+
+def write_png_u8(path: str, image: np.ndarray) -> str:
+    """Writes an (H, W, 3) uint8 RGB image as an 8-bit PNG; returns
+    ``path``."""
+    image = np.asarray(image)
+    if image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {image.shape}")
+    return write_png(path, image.astype(np.uint8))
+
+
+def read_png_u8(path: str) -> np.ndarray:
+    """Reads an 8-bit RGB PNG into an (H, W, 3) uint8 array; raises on any
+    other kind."""
+    img = read_png(path)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"{path}: not an 8-bit RGB PNG: {img.dtype} "
+                         f"{img.shape}")
+    return img

@@ -4,11 +4,11 @@ initialiser with flax's defaults.
 ``load_flax_params(module, params)`` takes the flax ``variables["params"]``
 tree (numpy or array leaves) of the matching reference module and fills a
 port module in place: a whole ``CerberusNet``, ``CerberusDCV``,
-``DCVFlowNet``, ``DCVStereoNet``, ``CerberusRAFT``, ``RAFTFlowNet`` or
-``RAFTStereoNet``, or one of their parts (``PyramidEncoder``,
-``FlowDecoder``, ``DisparityDecoder``, ``DCVFlowDecoder``,
-``DCVStereoDecoder``, ``RAFTFlowDecoder``, ``RAFTStereoDecoder``,
-``SegmentationHead``). A RAFT decoder's update block has one parameter tree
+``DCVFlowNet``, ``DCVStereoNet``, ``CerberusRAFT``, ``RAFTFlowNet``,
+``RAFTStereoNet``, ``FlowNet``, ``StereoNet`` or ``SegNet``, or one of their
+parts (``PyramidEncoder``, ``FlowDecoder``, ``DisparityDecoder``,
+``DCVFlowDecoder``, ``DCVStereoDecoder``, ``RAFTFlowDecoder``,
+``RAFTStereoDecoder``, ``SegmentationHead``, ``ASPPSegmentationHead``). A RAFT decoder's update block has one parameter tree
 whether the reference scans or unrolls its iterations. Layouts:
   * flax Conv kernel HWIO -> torch Conv2d weight OIHW
   * flax ConvTranspose kernel (kh, kw, cin, cout) -> torch ConvTranspose2d
@@ -36,15 +36,20 @@ from cerberusnet_torch.models.dcv_flow import (
     DCVFlowNet,
     DCVStereoNet,
 )
+from cerberusnet_torch.models.disparity import StereoNet
 from cerberusnet_torch.models.encoder import PyramidEncoder
-from cerberusnet_torch.models.flow import CoarseToFineDecoder
+from cerberusnet_torch.models.flow import CoarseToFineDecoder, FlowNet
 from cerberusnet_torch.models.raft import (
     CerberusRAFT,
     RAFTDecoder,
     RAFTFlowNet,
     RAFTStereoNet,
 )
-from cerberusnet_torch.models.segmentation import SegmentationHead
+from cerberusnet_torch.models.segmentation import (
+    ASPPSegmentationHead,
+    SegmentationHead,
+    SegNet,
+)
 
 # flax's truncated normal is cut at +-2 std and rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -115,34 +120,39 @@ def _segmentation(seg, p, done):
     _conv(seg.classifier, p[f"Conv_{len(seg.laterals)}"], done)
 
 
-# the reference's names of a whole model's parts, by the port's attribute
+def _aspp(seg, p, done):
+    _blocks(seg.branches, p, done)
+    _conv(seg.pool, p["Conv_0"], done)
+    _conv(seg.project, p["Conv_1"], done)
+    _conv(seg.skip, p["Conv_2"], done)
+    n = len(seg.branches)
+    for j, block in enumerate(seg.refine):
+        _conv(block.conv, p[f"ConvBlock_{n + j}"]["Conv_0"], done)
+    _conv(seg.classifier, p["Conv_3"], done)
+
+
+# a whole model's parts, by the port's attribute; the reference names each
+# part by its class, which the port's part shares, as "<class>_0"
 _PARTS = {
-    CerberusNet: {"encoder": "PyramidEncoder_0",
-                  "disparity": "DisparityDecoder_0",
-                  "flow": "FlowDecoder_0",
-                  "segmentation": "SegmentationHead_0"},
-    CerberusDCV: {"encoder": "PyramidEncoder_0",
-                  "disparity": "DCVStereoDecoder_0",
-                  "flow": "DCVFlowDecoder_0",
-                  "segmentation": "SegmentationHead_0"},
-    DCVFlowNet: {"encoder": "PyramidEncoder_0", "flow": "DCVFlowDecoder_0"},
-    DCVStereoNet: {"encoder": "PyramidEncoder_0",
-                   "disparity": "DCVStereoDecoder_0"},
-    CerberusRAFT: {"encoder": "PyramidEncoder_0",
-                   "flow": "RAFTFlowDecoder_0",
-                   "disparity": "RAFTStereoDecoder_0",
-                   "segmentation": "SegmentationHead_0"},
-    RAFTFlowNet: {"encoder": "PyramidEncoder_0", "flow": "RAFTFlowDecoder_0"},
-    RAFTStereoNet: {"encoder": "PyramidEncoder_0",
-                    "disparity": "RAFTStereoDecoder_0"},
+    CerberusNet: ("encoder", "disparity", "flow", "segmentation"),
+    CerberusDCV: ("encoder", "disparity", "flow", "segmentation"),
+    CerberusRAFT: ("encoder", "flow", "disparity", "segmentation"),
+    DCVFlowNet: ("encoder", "flow"),
+    DCVStereoNet: ("encoder", "disparity"),
+    RAFTFlowNet: ("encoder", "flow"),
+    RAFTStereoNet: ("encoder", "disparity"),
+    FlowNet: ("encoder", "flow"),
+    StereoNet: ("encoder", "disparity"),
+    SegNet: ("encoder", "segmentation"),
 }
 
 
 def _load(module, p, done):
     parts = _PARTS.get(type(module))
     if parts:
-        for attr, name in parts.items():
-            _load(getattr(module, attr), p[name], done)
+        for attr in parts:
+            part = getattr(module, attr)
+            _load(part, p[f"{type(part).__name__}_0"], done)
     elif isinstance(module, DCVDecoder):
         _dcv_decoder(module, p, done)
     elif isinstance(module, RAFTDecoder):
@@ -153,6 +163,8 @@ def _load(module, p, done):
         _decoder(module, p, done)
     elif isinstance(module, SegmentationHead):
         _segmentation(module, p, done)
+    elif isinstance(module, ASPPSegmentationHead):
+        _aspp(module, p, done)
     else:
         raise TypeError(f"no flax mapping for {type(module).__name__}")
 

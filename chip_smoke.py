@@ -124,16 +124,56 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            metrics, no hand-kernel launch, evaluate() changing no master, a
            resumed trainer bit-equal and its next two steps' losses within
            1e-3, the EMA rule, the panel decoded; ms per fit step
+  data     writes a KITTI-2015 fixture (375x1242, 16 samples, sparse 16-bit
+           flow and disparity) and a Cityscapes one (1024x2048, 8 train and
+           2 val samples, labelIds and the 16-bit disparity) with the
+           port's writers from a seed, reads them back through the port's
+           datasets (every PNG through the native decoder, else it fails;
+           ms per sample decoded), holds preprocess (resizing to 384x1280
+           and 512x1024) on the card to the CPU's (images within 1e-5, the
+           ground truth equal) and the augmentation with the same draws
+           (seg_aspp_cityscapes's set, and each zoom of a scales set): the
+           crops and flips equal, resampled or jittered uint8 images within
+           one level
+  train_flow_kitti, train_stereo_kitti  configs/flow_kitti.json and
+           stereo_kitti.json on the KITTI fixture as train runs
+           CerberusNet's: FlowNet (StereoNet) at default widths, bf16,
+           batch 2, 5 launches of each of K1-K3 (K4-K6) a step, the
+           gradients and correlation taps against the float32 yardstick,
+           zeroed controls, ms per step; at 384x1280, after showing that
+           the configured 384x1248 raises (the reference's warp refuses it
+           too)
+  train_seg_aspp  Trainer.fit of configs/seg_aspp_cityscapes.json on the
+           Cityscapes fixture, 3 epochs (batch 8, 384x768 crops with flips
+           and jitter resized to 512x1024, bf16, EMA, evaluation on val,
+           TensorBoard on): no hand-kernel launch, finite history, the
+           event file's records and tags read back; ms per step, the
+           loader's wait and the peak memory; the ASPP SegNet on the card
+           against the CPU in float32 at 128x256 within 1e-4
+  fit_dcv_kitti  Trainer.fit of configs/dcv_flow_kitti.json as it stands
+           (384x1248, batch 4, its 4 decode threads) over the 16 KITTI
+           samples, 2 epochs: 4 launches of each of K1-K3 a step, all on
+           the tensor cores, every correlation call of one more step held
+           to its plain version (fit's rule); ms per step beside the
+           prefetching loader's next() wait
+  serve_flow, serve_stereo, serve_seg_aspp  entry(variant="flow" |
+           "stereo" | "seg", seg_head="aspp"), bf16, 512x1024, 3 requests:
+           5 K1 (K4) launches a request, none for SegNet, the kernels
+           against the plain correlations by serve's rule, ms per frame in
+           turns, peak memory
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve and fit paths'
-beside them and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
+beside them, the data slice's paths (train_flow_kitti,
+train_stereo_kitti, fit_dcv_kitti, serve_flow, serve_stereo) where the
+kernel runs, and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
 K9's serve numbers beside them, each with its time over the cuDNN level's
 (vs_plain) per level, and K10's weight-gradient partial bytes per step as
 its wrapper counted them in train_pallas_levels), a {"phase": "done"} line
 with the
 script's seconds, the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
-no result.
+no result. ``--only a,b,...`` runs env, build and the named phases alone
+(the data slice's run after data), with no summary and no result line.
 """
 
 from __future__ import annotations
@@ -433,6 +473,7 @@ def phase_kernels(peaks, spin_rate):
     odd_gen = torch.Generator(device="cuda").manual_seed(1)
     wide_gen = torch.Generator(device="cuda").manual_seed(2)
     fit_gen = torch.Generator(device="cuda").manual_seed(3)
+    kitti_gen = torch.Generator(device="cuda").manual_seed(4)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
@@ -461,6 +502,16 @@ def phase_kernels(peaks, spin_rate):
                    level_shape(batch, level, FIT_HW))
                   for batch in ((FIT_BATCH,) if backward else (1, FIT_BATCH))
                   for level in LEVELS for dt in dtypes]
+        # the KITTI paths: FlowNet's and StereoNet's levels at 384x1280,
+        # batch 2; DCVFlowNet's level 3 of 384x1248 at batch 4
+        cases += [("kitti", TRAIN_BATCH, level, dt, 1, disp_of(level),
+                   level_shape(TRAIN_BATCH, level, KITTI_HW))
+                  for level in LEVELS for dt in dtypes]
+        if name.startswith("corr2d"):
+            cases += [("dcv_kitti", DCV_KITTI_BATCH, DCV_LEVEL, dt, dil,
+                       DCV_MAX_DISP, level_shape(DCV_KITTI_BATCH, DCV_LEVEL,
+                                                 DCV_KITTI_HW))
+                      for dil in flow_dils for dt in dtypes]
         for path, batch, level, dt, dil, d, shape in cases:
             nk = nk_of(d)
             # bf16 kernels must run on the tensor cores, float32 on the
@@ -470,8 +521,8 @@ def phase_kernels(peaks, spin_rate):
             # the odd, wide and fit shapes draw from their own generators,
             # so every other check keeps the inputs it had before they were
             # added
-            g_ = {"odd": odd_gen, "wide": wide_gen,
-                  "fit": fit_gen}.get(path, gen)
+            g_ = {"odd": odd_gen, "wide": wide_gen, "fit": fit_gen,
+                  "kitti": kitti_gen, "dcv_kitti": kitti_gen}.get(path, gen)
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             cc.reset_design_launches()
@@ -893,16 +944,25 @@ BACKWARDS = ("corr2d_bwd_f1", "corr2d_bwd_f2", "corr1d_bwd_f1",
 FUSED = {"pallas_levels": PALLAS_LEVELS, "pallas_grad": "pallas"}
 # phase: (config, the model's correlation calls per step (2-D, 1-D), the
 # zeroed-backward controls, the model's overrides, the encoder levels whose
-# input gradient is tapped, the path timed beside it)
+# input gradient is tapped, the path timed beside it, the data overrides:
+# "root" names a fixture of phase_data, and the config's own size, which
+# the model cannot take, is first shown to raise)
+KITTI_DATA = {"root": "kitti", "hw": [384, 1280]}
 TRAIN = {
     "train": ("configs/cerberus_synthetic.json", (len(LEVELS), len(LEVELS)),
-              [(k,) for k in BACKWARDS] + [BACKWARDS], {}, (), "plain"),
+              [(k,) for k in BACKWARDS] + [BACKWARDS], {}, (), "plain", {}),
     "train_dcv": ("configs/cerberus_dcv.json",
                   (len(DCV_FLOW_DILATIONS), len(DCV_DISP_DILATIONS)),
-                  [BACKWARDS], {}, (), "plain"),
+                  [BACKWARDS], {}, (), "plain", {}),
     "train_pallas_levels": (
         "configs/cerberus_synthetic.json", (len(LEVELS), len(LEVELS)),
-        [("encoder_level_bwd",)], FUSED, (2, 3), "pallas_levels_0"),
+        [("encoder_level_bwd",)], FUSED, (2, 3), "pallas_levels_0", {}),
+    "train_flow_kitti": ("configs/flow_kitti.json", (len(LEVELS), 0),
+                         [(k,) for k in BACKWARDS[:2]] + [BACKWARDS[:2]],
+                         {}, (), "plain", KITTI_DATA),
+    "train_stereo_kitti": ("configs/stereo_kitti.json", (0, len(LEVELS)),
+                           [(k,) for k in BACKWARDS[2:]] + [BACKWARDS[2:]],
+                           {}, (), "plain", KITTI_DATA),
 }
 
 
@@ -1037,7 +1097,21 @@ def phase_train(phase):
     from cerberusnet_torch.ops.cuda import encoder_level as cl
     from cerberusnet_torch.train.trainer import UNCERTAINTY
 
-    config, (n2d, n1d), control_sets, model, levels, base = TRAIN[phase]
+    config, (n2d, n1d), control_sets, model, levels, base, data = TRAIN[phase]
+    raises_at = None
+    if data:
+        data = {**data, "root": FIXTURES[data["root"]]}
+        # the config's own size: a ValueError from the model's warp
+        tr, (b,) = train_entry(config, batch_size=TRAIN_BATCH,
+                               data={"root": data["root"]})
+        try:
+            tr.train_step(b)
+        except ValueError as e:
+            raises_at = {"hw": list(tr.config.data.hw), "error": str(e)}
+        else:
+            fail(phase, f"{config} trained at {tr.config.data.hw}, where "
+                        f"the reference raises")
+        del tr
     fused = model.get("pallas_levels", 0)
     want_rise = {k: n2d if k.startswith("corr2d") else n1d
                  for k in launch_counts()}
@@ -1049,7 +1123,7 @@ def phase_train(phase):
     constant = {"schedule": "constant"}
     trainer, batches = train_entry(config, batch_size=TRAIN_BATCH,
                                    n_batches=TRAIN_STEPS, optim=constant,
-                                   model=model)
+                                   model=model, data=data)
     setup_s = time.perf_counter() - t0
     errors = []
     before = {n: m.clone() for n, m in trainer.masters.items()}
@@ -1079,10 +1153,10 @@ def phase_train(phase):
     # one step's gradients from the same weights and batch: kernels (bf16)
     # against the plain correlations in bf16 and in float32 (the yardstick)
     plain16, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
-                             corr_impl="plain", optim=constant)
+                             corr_impl="plain", optim=constant, data=data)
     plain32, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
                              corr_impl="plain", optim=constant,
-                             model={"dtype": "float32"})
+                             model={"dtype": "float32"}, data=data)
     batch = batches[0]
     plain16.load_masters(trainer.masters)
     plain32.load_masters(trainer.masters)
@@ -1221,8 +1295,9 @@ def phase_train(phase):
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
     ok = not errors
     emit({"phase": phase, "ok": ok, "config": config,
-          "hw": list(HW), "batch": TRAIN_BATCH, "dtype": "bfloat16",
-          "steps": steps, "launches": launches,
+          "hw": list(trainer.config.data.hw), "batch": TRAIN_BATCH,
+          "dtype": "bfloat16", "dataset": trainer.config.data.dataset,
+          "config_hw_raises": raises_at, "steps": steps, "launches": launches,
           "launches_per_step": {k: v / TRAIN_STEPS
                                 for k, v in launches.items()},
           "partial_bytes_per_step": partial_bytes // TRAIN_STEPS,
@@ -1939,6 +2014,461 @@ def phase_fit_raft(card):
     return launches
 
 
+# The data slice's phases. Fixtures the port's writers make from a seed in
+# a temporary directory: KITTI-2015 at its frame size with sparse 16-bit
+# ground truth, Cityscapes at its frame size with labelIds and the 16-bit
+# disparity (train and val); every PNG must go through the native decoder.
+KITTI_FRAME = (375, 1242)
+KITTI_SAMPLES = 16
+CITY_FRAME = (1024, 2048)
+CITY_SAMPLES, CITY_VAL = 8, 2
+# flow_kitti's and stereo_kitti's data.hw, [384, 1248], raises in both
+# packages (level 6 is 20 wide, level 5 39, and the warp refuses the 40-wide
+# upsampled flow); the card runs them at the next width that is a multiple
+# of 64
+KITTI_HW = (384, 1280)
+# dcv_flow_kitti as it stands: 384x1248 at batch 4 (its level 3 is 48x156)
+DCV_KITTI_HW, DCV_KITTI_BATCH = (384, 1248), 4
+CITY_HW = (512, 1024)
+SEG_ASPP_CONFIG = "configs/seg_aspp_cityscapes.json"
+DCV_KITTI_CONFIG = "configs/dcv_flow_kitti.json"
+SEG_EPOCHS = 3
+SEG_TIMED_STEPS = 5
+# the ASPP SegNet's forward on the card against the CPU in float32, the same
+# seeded weights and frames (TF32 off): summation order alone
+SEG_PARITY_HW = (128, 256)
+SEG_DEVICE_RTOL = 1e-4
+# preprocess on the card against the CPU: images (normalised) within this,
+# the nearest-resized ground truth exactly
+PREPROCESS_ATOL = 1e-5
+FIXTURES = {}
+
+
+def phase_data(card, root):
+    from cerberusnet_torch.data import augment, native_io
+    from cerberusnet_torch.data.cityscapes import CityscapesDataset
+    from cerberusnet_torch.data.kitti import Kitti2015Dataset
+    from cerberusnet_torch.data.loader import collate, preprocess, to_device
+    from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
+
+    errors = []
+    FIXTURES.update(kitti=f"{root}/kitti", cityscapes=f"{root}/cityscapes")
+    t0 = time.perf_counter()
+    SyntheticPerceptionDataset(
+        length=KITTI_SAMPLES, hw=KITTI_FRAME, sparse=True).write_kitti_fixture(
+            FIXTURES["kitti"] + "/training", KITTI_SAMPLES, workers=8)
+    for split, n, seed in (("train", CITY_SAMPLES, 0), ("val", CITY_VAL, 1)):
+        SyntheticPerceptionDataset(length=n, hw=CITY_FRAME, seed=seed
+                                   ).write_cityscapes_fixture(
+            FIXTURES["cityscapes"], n, split, workers=8)
+    write_s = time.perf_counter() - t0
+
+    # read back through the port's datasets, one sample at a time
+    datasets = {"kitti": Kitti2015Dataset(FIXTURES["kitti"], "training"),
+                "cityscapes": CityscapesDataset(FIXTURES["cityscapes"],
+                                                "train")}
+    decode = {}
+    for name, ds in datasets.items():
+        ms, decoders = [], set()
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            s = ds[i]
+            ms.append((time.perf_counter() - t0) * 1e3)
+            decoders.add(s["decoder"])
+        if decoders != {"native"}:
+            errors.append(f"{name}: decoded by {sorted(decoders)}")
+        decode[name] = {"samples": len(ds), "ms_per_sample": statistics.median(
+            ms), "ms_all": ms, "decoders": sorted(decoders),
+            "frame": list(s["left"].shape[:2]),
+            "pngs_per_sample": 5 if name == "kitti" else 4}
+    if native_io.library() is None:
+        errors.append("the native PNG decoder did not load")
+
+    # preprocess on the card against the CPU
+    batches_ = {name: collate([ds[0], ds[1]]) for name, ds in datasets.items()}
+    prep = {}
+    for name, hw in (("kitti", KITTI_HW), ("cityscapes", CITY_HW)):
+        gpu = preprocess(batches_[name], hw, torch.float32, "cuda")
+        cpu = preprocess(batches_[name], hw, torch.float32, "cpu")
+        diffs = {k: (gpu[k].cpu().double() - cpu[k].double()).abs().max().item()
+                 for k in cpu}
+        prep[name] = {"hw": list(hw), "max_abs_diff": diffs}
+        for k, d in diffs.items():
+            limit = PREPROCESS_ATOL if k in ("left", "right", "temporal") else 0
+            if not d <= limit:
+                errors.append(f"preprocess {name} {k}: {d} > {limit}")
+
+    # augmentation on the card against the CPU with the same draws:
+    # seg_aspp_cityscapes's set on the Cityscapes batch, and each zoom of a
+    # scales set on the KITTI batch (whose disparity turns the flip off)
+    cases = [("cityscapes", augment.AugmentConfig(
+        crop_hw=(384, 768), flip_lr_prob=0.5, brightness=0.2, contrast=0.2),
+        0)]
+    zoom = augment.AugmentConfig(crop_hw=(320, 960), scales=(0.8, 1.0, 1.25),
+                                 flip_lr_prob=0.5)
+    seen = set()
+    for seed in range(1, 100):
+        d = augment.draw(zoom, 2, KITTI_FRAME, torch.Generator().manual_seed(
+            seed))
+        if d["scale_index"] not in seen:
+            seen.add(d["scale_index"])
+            cases.append(("kitti", zoom, seed))
+    aug = []
+    for name, config, seed in cases:
+        batch = batches_[name]
+        draws = augment.draw(config, 2, batch["left"].shape[1:3],
+                             torch.Generator().manual_seed(seed))
+        gpu = augment.apply(to_device(batch, "cuda"), draws, config)
+        cpu = augment.apply(to_device(batch, "cpu"), draws, config)
+        rescaled = (config.brightness > 0 or config.contrast > 0 or (
+            config.scales and config.crop_size(draws["scale_index"],
+                                               KITTI_FRAME) != config.crop_hw))
+        row = {"dataset": name, "draws": {k: torch.as_tensor(v).tolist()
+                                          for k, v in draws.items()}}
+        for k, v in cpu.items():
+            if not isinstance(v, torch.Tensor):
+                continue
+            diff = (gpu[k].cpu().double() - v.double()).abs()
+            image = k in ("left", "right", "temporal")
+            row[k] = {"max_abs_diff": diff.max().item(),
+                      "share_differing": (diff > 0).double().mean().item()}
+            limit = 1 if image and rescaled else 0
+            if not diff.max().item() <= limit or tuple(
+                    gpu[k].shape) != tuple(v.shape):
+                errors.append(f"augment {name} seed {seed} {k}: "
+                              f"{diff.max().item()} > {limit}")
+        aug.append(row)
+    ok = not errors
+    emit({"phase": "data", "ok": ok, "card": card,
+          "native_library": native_io.library(), "fixture_write_s": write_s,
+          "decode": decode,
+          "decode_timing": "host clock around one dataset[i] (every PNG of "
+                           "the sample decoded and the ground truth decoded), "
+                           "one thread",
+          "preprocess_gpu_vs_cpu": prep, "preprocess_atol": PREPROCESS_ATOL,
+          "augment_gpu_vs_cpu": aug, "errors": errors})
+    if not ok:
+        sys.exit(1)
+
+
+def event_records(path):
+    """The payloads of a TensorBoard event file, each record's length and
+    payload CRCs checked (the TFRecord framing)."""
+    import struct
+
+    from cerberusnet_torch.utils.tblogger import _masked_crc
+
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos = [], 0
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        (n,) = struct.unpack("<Q", header)
+        payload = data[pos + 12:pos + 12 + n]
+        if (struct.unpack("<I", data[pos + 8:pos + 12])[0]
+                != _masked_crc(header) or struct.unpack(
+                    "<I", data[pos + 12 + n:pos + 16 + n])[0]
+                != _masked_crc(payload)):
+            raise ValueError(f"{path}: bad CRC in the record at {pos}")
+        out.append(payload)
+        pos += 16 + n
+    return out
+
+
+def phase_train_seg_aspp(card):
+    import contextlib
+    import os
+    import tempfile
+
+    from cerberusnet_torch.data.loader import batches
+    from cerberusnet_torch.entry import REPO_ROOT, make_frames
+    from cerberusnet_torch.models.segmentation import SegNet
+    from cerberusnet_torch.train import trainer as trainer_module
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.trainer import Trainer
+    from cerberusnet_torch.weights import init_params
+
+    raw = json.loads((REPO_ROOT / SEG_ASPP_CONFIG).read_text())
+    errors = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        raw["data"]["root"] = FIXTURES["cityscapes"]
+        raw["train"].update(epochs=SEG_EPOCHS, ckpt_dir=ckpt_dir, log_every=1,
+                            resume=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            tr = Trainer(ExperimentConfig.from_dict(raw))
+        setup_s = time.perf_counter() - t0
+        cfg = tr.config
+        steps, load_s = [], {}
+        real_step = timed_calls(tr, "train_step", steps)
+        real_loader = timed_loader(load_s)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            history = tr.fit()
+        fit_s = time.perf_counter() - t0
+        trainer_module.DataLoader = real_loader
+        tr.train_step = real_step
+        launches = launch_counts()
+        if any(launches.values()):
+            errors.append(f"hand kernels launched on the seg path: {launches}")
+        n_steps = SEG_EPOCHS * (CITY_SAMPLES // cfg.data.batch_size)
+        if len(history) != SEG_EPOCHS or tr.step != n_steps:
+            errors.append(f"{len(history)} history rows, step {tr.step}")
+        for row in history:
+            vals = [row.get(k, math.nan) for k in ("loss_seg", "loss_total",
+                                                   "miou")]
+            if not all(map(math.isfinite, vals)):
+                errors.append(f"epoch {row['epoch']}: {row}")
+        # the event file reads back: its framing, and the scalars and
+        # panels fit wrote
+        (name,) = os.listdir(os.path.join(ckpt_dir, "tb"))
+        records = event_records(os.path.join(ckpt_dir, "tb", name))
+        tags = {t: sum(t.encode() in r for r in records)
+                for t in ("loss/seg", "loss_seg", "miou", "eval/panel")}
+        if tags != {"loss/seg": n_steps, "loss_seg": SEG_EPOCHS,
+                    "miou": SEG_EPOCHS, "eval/panel": SEG_EPOCHS}:
+            errors.append(f"event file tags {tags}")
+        if not all(b"\x89PNG" in r for r in records if b"eval/panel" in r):
+            errors.append("a panel record holds no PNG")
+
+    # ms per train step on one batch (each call draws new augmentation),
+    # as fit's loader hands it over (page-locked) and as a numpy batch
+    # (pageable), in turns
+    pinned = next(iter(tr._loader(tr.dataset, cfg.data.batch_size)))
+    given = {"pinned": pinned,
+             "pageable": batches(tr.dataset, cfg.data.batch_size, 1)[0]}
+    step_ms = {k: [] for k in given}
+    for which in ("pinned", "pageable") * (SEG_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(given[which])
+        torch.cuda.synchronize()
+        step_ms[which].append((time.perf_counter() - t0) * 1e3)
+    del given, pinned
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del tr
+
+    # the ASPP SegNet on the card against the CPU in float32
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = init_params(SegNet(seg_head="aspp"),
+                            torch.Generator().manual_seed(0)).to(device)
+        with torch.no_grad():
+            outs[device] = model(make_frames(1, SEG_PARITY_HW, device=device,
+                                             dtype=torch.float32)[0])
+    device_rel = rel_l2(outs["cuda"]["seg_logits"].cpu(),
+                        outs["cpu"]["seg_logits"])
+    if not device_rel <= SEG_DEVICE_RTOL:
+        errors.append(f"card against CPU: rel L2 {device_rel} > "
+                      f"{SEG_DEVICE_RTOL}")
+    fit_ms = [dt * 1e3 for _, dt, _ in steps]
+    ok = not errors
+    emit({"phase": "train_seg_aspp", "ok": ok, "config": SEG_ASPP_CONFIG,
+          "frame": list(CITY_FRAME), "crop_hw": list(cfg.data.crop_hw),
+          "hw": list(cfg.data.hw), "batch": cfg.data.batch_size,
+          "dtype": cfg.model.dtype, "ema_decay": cfg.optim.ema_decay,
+          "history": history, "launches": launches, "event_tags": tags,
+          "event_records": len(records), "setup_s": setup_s, "fit_s": fit_s,
+          "ms_per_fit_step_all": fit_ms,
+          "ms_per_step": {k: statistics.median(v[1:])
+                          for k, v in step_ms.items()},
+          "ms_per_step_all": step_ms,
+          "load_s_per_batch": {k: statistics.median(v)
+                               for k, v in load_s.items()},
+          "load_s_all": load_s,
+          "max_memory_allocated_gib": peak,
+          "device_vs_cpu_f32": {"hw": list(SEG_PARITY_HW),
+                                "rel_l2": device_rel,
+                                "limit": SEG_DEVICE_RTOL},
+          "timing": "host clock around train_step(batch) and a synchronize "
+                    "(host batch in: upload, augmentation, preprocessing, "
+                    "the optimizer and the EMA), median after the first; "
+                    "the batch page-locked as the loader gives it, or numpy, "
+                    "in turns",
+          "card": card, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+def phase_fit_dcv_kitti(card):
+    import contextlib
+    import tempfile
+
+    from collections import Counter
+
+    from cerberusnet_torch.data.loader import batches
+    from cerberusnet_torch.entry import REPO_ROOT
+    from cerberusnet_torch.ops.cuda import correlation as cc
+    from cerberusnet_torch.train import trainer as trainer_module
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.trainer import Trainer
+
+    raw = json.loads((REPO_ROOT / DCV_KITTI_CONFIG).read_text())
+    errors = []
+    if (tuple(raw["data"]["hw"]) != DCV_KITTI_HW
+            or raw["data"]["batch_size"] != DCV_KITTI_BATCH):
+        errors.append(f"{DCV_KITTI_CONFIG} is no longer {DCV_KITTI_HW} at "
+                      f"batch {DCV_KITTI_BATCH}, the kernels phase's shapes")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        raw["data"]["root"] = FIXTURES["kitti"]
+        raw["train"].update(epochs=FIT_EPOCHS, ckpt_dir=ckpt_dir,
+                            resume=False)
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(sys.stderr):
+            tr = Trainer(ExperimentConfig.from_dict(raw))
+        bs = tr.config.data.batch_size
+        steps, load_s = [], {}
+        real_step = timed_calls(tr, "train_step", steps)
+        real_loader = timed_loader(load_s)
+        reset_launch_counts()
+        cc.reset_design_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            history = tr.fit()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts()
+        design = cc.launched_design()
+        trainer_module.DataLoader = real_loader
+        tr.train_step = real_step
+    n_steps = FIT_EPOCHS * (KITTI_SAMPLES // bs)
+    per_step = {k: len(DCV_FLOW_DILATIONS) if k.startswith("corr2d") else 0
+                for k in launches}
+    errors += [f"step {i}: kernel launches rose by {r}"
+               for i, (r, _, _) in enumerate(steps) if r != per_step]
+    if launches != {k: n_steps * v for k, v in per_step.items()}:
+        errors.append(f"fit launched {launches}")
+    if design != "tc":
+        errors.append(f"the bf16 correlations ran on {design!r}, not tc")
+    if len(history) != FIT_EPOCHS or tr.step != n_steps:
+        errors.append(f"{len(history)} history rows, step {tr.step}")
+    for row in history:
+        if not all(map(math.isfinite, (row["loss_flow"], row["loss_total"]))):
+            errors.append(f"epoch {row['epoch']}: {row}")
+
+    # every correlation call of one more step against its plain version on
+    # the same tensors
+    calls = []
+    real_corr = checked_corr_calls(calls)
+    cc.reset_design_launches()
+    tr.train_step(batches(tr.dataset, bs, 1)[0])
+    call_design = cc.launched_design()
+    for name, wrapper in real_corr.items():
+        setattr(cc, name, wrapper)
+    got_calls = dict(Counter(c["kernel"] for c in calls))
+    want_calls = {k: v for k, v in per_step.items() if v}
+    if got_calls != want_calls:
+        errors.append(f"checked calls {got_calls}, not {want_calls}")
+    if call_design != "tc":
+        errors.append(f"the checked calls ran on {call_design!r}, not tc")
+    errors += [f"{c['kernel']} at {c['shape']}: {c['err_of_limit']} of its "
+               f"limit" for c in calls if not c["ok"]]
+    step_ms = [dt * 1e3 for _, dt, _ in steps]
+    ok = not errors
+    emit({"phase": "fit_dcv_kitti", "ok": ok, "config": DCV_KITTI_CONFIG,
+          "frame": list(KITTI_FRAME), "hw": list(tr.config.data.hw),
+          "batch": bs, "dtype": tr.config.model.dtype,
+          "num_workers": tr.config.data.num_workers, "epochs": FIT_EPOCHS,
+          "samples": KITTI_SAMPLES, "history": history, "launches": launches,
+          "launches_per_step": per_step, "design": design,
+          "corr_calls_vs_plain": {
+              "rule": f"|kernel - plain| <= 2^-7 |plain| + {FIT_CALL_SLACK}"
+                      " plain(|a|, |f|)", "design": call_design,
+              "calls": calls},
+          "fit_s": fit_s, "ms_per_fit_step": statistics.median(step_ms[1:]),
+          "ms_per_fit_step_all": step_ms,
+          "load_s_per_batch": {k: statistics.median(v)
+                               for k, v in load_s.items()},
+          "load_s_all": load_s,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "timing": "host clock around train_step and a synchronize; the "
+                    "loader's wait: host clock around the prefetching "
+                    "DataLoader's next() in fit",
+          "card": card, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+# phase: (entry variant, the entry's keywords, kernel launches per request,
+# the outputs a request must have)
+SERVE_SINGLE = {
+    "serve_flow": ("flow", {}, {"corr2d_fwd": len(LEVELS)},
+                   {"flow": (1, *HW, 2)}),
+    "serve_stereo": ("stereo", {}, {"corr1d_fwd": len(LEVELS)},
+                     {"disp": (1, *HW, 1)}),
+    "serve_seg_aspp": ("seg", {"seg_head": "aspp"}, {},
+                       {"seg_logits": (1, *HW, 19)}),
+}
+
+
+def phase_serve_single(phase, card):
+    from cerberusnet_torch.entry import entry, make_frames
+
+    variant, kw, per_request, want = SERVE_SINGLE[phase]
+    errors = []
+    forward, _ = entry(variant=variant, **kw)
+    requests = [make_frames(seed, HW) for seed in range(1, N_REQUESTS + 1)]
+    want_rise = {k: per_request.get(k, 0) for k in launch_counts()}
+    reset_launch_counts()
+    answers = []
+    for i, req in enumerate(requests):
+        out, rise = launch_rise(lambda: forward(*req))
+        if rise != want_rise:
+            errors.append(f"request {i}: kernel launches rose by {rise}")
+        answers.append(out)
+    launches = launch_counts()
+    for i, out in enumerate(answers):
+        for key, shape in want.items():
+            v = out[key]
+            if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
+                errors.append(f"request {i}: {key} {tuple(v.shape)}")
+    # the kernels (bf16) against the plain correlations in bf16 and in
+    # float32 (the yardstick), as serve holds them; SegNet has no kernel,
+    # so its bf16 distance from float32 is reported alone
+    corr = variant != "seg"
+    plain = {"plain_bf16": entry(variant=variant, corr_impl="plain", **kw)[0]
+             } if corr else {}
+    ref = entry(variant=variant, dtype=torch.float32,
+                **({"corr_impl": "plain"} if corr else {}), **kw)[0]
+    distances = []
+    for i, req in enumerate(requests):
+        want_f32 = ref(*req)
+        for key in want:
+            d = {"request": i, "head": key, "kernel_bf16_vs_f32": rel_l2(
+                answers[i][key], want_f32[key].float())}
+            if corr:
+                d["plain_bf16_vs_f32"] = rel_l2(plain["plain_bf16"](*req)[key],
+                                                want_f32[key].float())
+                d["limit"] = 1.5 * d["plain_bf16_vs_f32"] + 1e-3
+                if not d["kernel_bf16_vs_f32"] <= d["limit"]:
+                    errors.append(f"request {i}: {key} {d}")
+            distances.append(d)
+    req = requests[0]
+    fwds = {"kernel": forward, **plain}
+    if corr:
+        times = turns(fwds, lambda f: f(*req), runs=20, warmup=3)
+    else:
+        t = cuda_times(lambda: forward(*req), runs=20, warmup=3)
+        times = {"kernel": {"ms": t["median"], "ms_min": t["min"],
+                            "ms_max": t["max"], "runs": t["runs"]}}
+    peak = peak_gib(lambda: forward(*req))
+    ok = not errors
+    emit({"phase": phase, "ok": ok, "variant": variant, **kw, "hw": list(HW),
+          "dtype": "bfloat16", "requests": N_REQUESTS, "launches": launches,
+          "distances": distances,
+          "forward": {k: {**v, "frames_per_s": 1e3 / v["ms"]}
+                      for k, v in times.items()},
+          "max_memory_allocated_gib": peak, "card": card,
+          "timing": "CUDA events around one eager forward after warmup, the "
+                    "kernel and plain paths in turns", "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
 REPLACES = {
     "corr2d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:86 "
                   "(_corr2d_fwd_kernel, pallas_call at :153)",
@@ -2051,6 +2581,17 @@ def summary(checks, counts):
         fit = path_numbers(checks, name, "fit", FIT_BATCH,
                            counts["fit"][name])
         paths["fit"] = {k: v for k, v in fit.items() if k != "shapes"}
+        # the data slice's paths where the kernel runs: the shapes the
+        # kernels phase checked for each, the launches from its run
+        for phase, path, batch in (
+                ("train_flow_kitti", "kitti", TRAIN_BATCH),
+                ("train_stereo_kitti", "kitti", TRAIN_BATCH),
+                ("fit_dcv_kitti", "dcv_kitti", DCV_KITTI_BATCH),
+                ("serve_flow", "cerberus", 1),
+                ("serve_stereo", "cerberus", 1)):
+            if counts[phase][name]:
+                paths[phase] = path_numbers(checks, name, path, batch,
+                                            counts[phase][name])
         dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
                 else DCV_DISP_DILATIONS)
         entries.append({
@@ -2077,7 +2618,15 @@ def summary(checks, counts):
     emit({"kernels": entries})
 
 
-def main():
+def main(argv):
+    # --only a,b,...: env, build and the named phases alone (the data
+    # slice's need "data", which writes their fixtures and runs with them),
+    # no summary and no result line: for working on a phase
+    only = set(argv[1].split(",")) if argv[:1] == ["--only"] else None
+
+    def wanted(phase):
+        return only is None or phase in only
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2095,15 +2644,23 @@ def main():
         fail("env", f"no published peaks known for {name!r}")
     phase_build()
     spin_rate = sleep_cycles_per_ms()
-    checks = phase_kernels(peaks, spin_rate)
+    checks = phase_kernels(peaks, spin_rate) if wanted("kernels") else []
     counts = {}
     for phase in ("serve", "train", "serve_dcv", "train_dcv",
                   "serve_pallas_levels", "train_pallas_levels"):
-        run = phase_serve if phase in SERVE else phase_train
-        counts[phase] = run(phase)
-    counts["fit"] = phase_fit(card)
+        if wanted(phase):
+            run = phase_serve if phase in SERVE else phase_train
+            counts[phase] = run(phase)
+    if wanted("fit"):
+        counts["fit"] = phase_fit(card)
     for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
-        phase(card)
+        if wanted(phase.__name__[len("phase_"):]):
+            phase(card)
+    data_phases(card, counts, wanted)
+    if only is not None:
+        emit({"phase": "done", "only": sorted(only),
+              "seconds": time.perf_counter() - t0})
+        return 0
     summary(checks, counts)
     emit({"phase": "done", "ok": True,
           "seconds": time.perf_counter() - t0})
@@ -2113,5 +2670,33 @@ def main():
     return 0
 
 
+def data_phases(card, counts, wanted):
+    """The data slice's phases on fixtures written to a temporary directory
+    (removed at the end): data first, which writes them."""
+    import shutil
+    import tempfile
+
+    names = ("train_flow_kitti", "train_stereo_kitti", "train_seg_aspp",
+             "fit_dcv_kitti", *SERVE_SINGLE)
+    if not any(wanted(n) for n in ("data", *names)):
+        return
+    root = tempfile.mkdtemp(prefix="cerberus_fixtures_")
+    try:
+        phase_data(card, root)
+        for phase in names:
+            if not wanted(phase):
+                continue
+            if phase in TRAIN:
+                counts[phase] = phase_train(phase)
+            elif phase in SERVE_SINGLE:
+                counts[phase] = phase_serve_single(phase, card)
+            elif phase == "train_seg_aspp":
+                counts[phase] = phase_train_seg_aspp(card)
+            else:
+                counts[phase] = phase_fit_dcv_kitti(card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

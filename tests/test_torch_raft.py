@@ -160,6 +160,37 @@ def test_lookup_matches_jax(op, impl, spread):
     assert_rel_max(got, want, what=f"{op} {impl} spread {spread}")
 
 
+@pytest.mark.parametrize("impl", LOOKUPS)
+@pytest.mark.parametrize("op", ["2d", "1d"])
+def test_empty_volume_level_reads_zero_as_jax(op, impl):
+    """A 4x4 latent with 4 volume levels: "VALID" pooling leaves the fourth
+    level (of 4, 2, 1 and then 0 cells along each pooled extent) empty,
+    which both packages' lookups read as zero features."""
+    rng = np.random.RandomState(4)
+    b, h, w, radius, levels = 1, 4, 4, 4, 4
+    if op == "2d":
+        corr = rng.randn(b, h * w, h, w).astype(np.float32)
+        pos = np.asarray(jr.base_grid(b, h, w))
+        jpyr, jlook = jr.correlation_pyramid, jr.corr_lookup
+        tpyr, tlook = tr.correlation_pyramid, tr.corr_lookup
+    else:
+        corr = rng.randn(b, h * w, w).astype(np.float32)
+        pos = np.broadcast_to(np.arange(w, dtype=np.float32), (b, h, w))
+        jpyr, jlook = jr.correlation_pyramid_1d, jr.corr_lookup_1d
+        tpyr, tlook = tr.correlation_pyramid_1d, tr.corr_lookup_1d
+    pos = (pos + rng.uniform(-2.5, 2.5, pos.shape)).astype(np.float32)
+    pyr = tpyr(t(corr), levels)
+    assert [v.shape[2:] for v in pyr][-1] == ((0, 0) if op == "2d" else (0,))
+    want = np.asarray(jlook(jpyr(jnp.asarray(corr), levels), jnp.asarray(pos),
+                            radius, impl=impl))
+    got = tlook(pyr, t(pos), radius, impl=impl).numpy()
+    window = (2 * radius + 1) ** (2 if op == "2d" else 1)
+    assert got.shape == want.shape == (b, h, w, levels * window)
+    assert np.isfinite(want).all()
+    assert not got[..., 3 * window:].any() and not want[..., 3 * window:].any()
+    assert_rel_max(got, want, what=f"{op} {impl}")
+
+
 @pytest.mark.parametrize("spread", [2.5, 50.0])
 @pytest.mark.parametrize("op", ["2d", "1d"])
 def test_port_onehot_equals_gather(op, spread):
@@ -534,6 +565,67 @@ def test_bf16_train_step_gradients_match_jax(raft_bf16_step):
             continue
         modules[mod] = (rel(cat(j16, members), cat(j32, members)),
                         rel(cat(p16, members), cat(j32, members)))
+    assert len(modules) == 46
+    limit = 1.5 * max(j for j, _ in modules.values())
+    far = {m: r for m, r in modules.items() if not r[1] <= limit}
+    assert not far, (limit, far)
+
+
+@pytest.fixture(scope="module")
+def raft_bf16_grads_step(raft_bf16_step):
+    """raft_bf16_step's SGD step with ``optim.grads_dtype="bfloat16"`` on
+    the bf16 model, in the JAX Trainer (the gradients of bf16 casts of its
+    float32 leaves) and in the port: {package: {port name: float64
+    gradient}}, beside raft_bf16_step's float32 gradients."""
+    ds = JaxSynthetic(length=2, hw=HW, num_classes=19)
+    batch = jax_collate([ds[0], ds[1]])
+    raw = raft_config_dict()
+    raw["model"]["dtype"] = "bfloat16"
+    raw["optim"] = {"optimizer": "sgd", "lr": SGD_LR, "schedule": "constant",
+                    "grad_clip": 0.0, "grads_dtype": "bfloat16"}
+    jt = JaxTrainer(JaxConfig.from_dict(raw))
+    init = draw_params(jt.state.params, 6)
+    jt.state = jt.state.replace(params=jax.tree.map(jnp.asarray, init))
+    jt.train_step(batch)
+    port = Trainer(ExperimentConfig.from_dict(raw), device="cpu")
+    p0 = port_masters(port.config, init)
+    p1 = port_masters(port.config, numpy_tree(jt.state.params))
+    port.load_masters(p0)
+    _, grads = port.loss_and_grads(batch)
+    return {"jax": {n: (p0[n].double() - p1[n].double()).numpy() / SGD_LR
+                    for n in p0},
+            "port": {n: g.double().numpy() for n, g in grads.items()}}
+
+
+def test_bf16_gradients_dtype_step_matches_jax(raft_bf16_step,
+                                               raft_bf16_grads_step):
+    """optim.grads_dtype="bfloat16" on CerberusRAFT: every port gradient a
+    bf16 value, as the reference's gradients of bf16 leaves are; against
+    the float32 step's gradients, the whole within twice JAX's distance
+    plus 1e-3 and each module within 1.5 times JAX's farthest module, the
+    rule of test_bf16_train_step_gradients_match_jax."""
+    j32 = raft_bf16_step["jax", "float32"][1]
+    jg, pg = raft_bf16_grads_step["jax"], raft_bf16_grads_step["port"]
+    assert sorted(pg) == sorted(jg) == sorted(j32)
+    for n, g in pg.items():
+        g32 = torch.from_numpy(g).float()
+        assert torch.equal(g32, g32.bfloat16().float()), n
+
+    def cat(g, names):
+        return np.concatenate([g[n].ravel() for n in names])
+
+    names = sorted(j32)
+    whole = {"jax": rel(cat(jg, names), cat(j32, names)),
+             "port": rel(cat(pg, names), cat(j32, names))}
+    assert whole["port"] <= 2 * whole["jax"] + 1e-3, whole
+    modules = {}
+    for mod in sorted({module_of(n) for n in names}):
+        members = [n for n in names if module_of(n) == mod]
+        if not np.any(cat(j32, members)):
+            assert not np.any(cat(pg, members)), mod
+            continue
+        modules[mod] = (rel(cat(jg, members), cat(j32, members)),
+                        rel(cat(pg, members), cat(j32, members)))
     assert len(modules) == 46
     limit = 1.5 * max(j for j, _ in modules.values())
     far = {m: r for m, r in modules.items() if not r[1] <= limit}
