@@ -4,10 +4,15 @@ train or evaluate a model from a JSON experiment config.
     python -m cerberusnet_torch.cli --config configs/cerberus_evidence.json
     python -m cerberusnet_torch.cli --config cfg.json --eval-only
     python -m cerberusnet_torch.cli --config cfg.json --device cpu
+    python -m cerberusnet_torch.cli --config cfg.json --infer l.png,r.png,t.png
+    python -m cerberusnet_torch.cli --config cfg.json --predict-dir preds/
 
-``--config``, ``--eval-only``, ``--ckpt-dir``, ``--print-config`` and
-``--device`` (``cuda`` unless given) run. The reference's other flags are
-accepted and raise ``NotImplementedError`` naming their ROADMAP item.
+``--import-torch`` (a PyTorch ``TorchCerberus`` checkpoint, loaded before
+any other action), ``--profile``, ``--infer`` with ``--infer-out``,
+``--predict-dir``, ``--eval-only`` and training run in the reference's
+order; ``--device`` is ``cuda`` unless given. The export flags
+(``--export-dir``, ``--export-stacked``) and ``--quant`` are accepted and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,11 +22,7 @@ import json
 import sys
 
 # flag (argparse dest) -> the ROADMAP item that ports it
-UNPORTED = {
-    "infer": "A7", "infer_out": "A7", "predict_dir": "A7",
-    "import_torch": "A7", "profile": "A7", "export_dir": "A9",
-    "export_stacked": "A9", "quant": "A10",
-}
+UNPORTED = {"export_dir": "A9", "export_stacked": "A9", "quant": "A10"}
 
 
 def main(argv=None):
@@ -39,11 +40,27 @@ def main(argv=None):
                     help="dump the parsed config and exit")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
-    ap.add_argument("--infer", default=None, metavar="IMG[,IMG...]")
-    ap.add_argument("--infer-out", default=None, metavar="DIR")
-    ap.add_argument("--predict-dir", default=None, metavar="DIR")
-    ap.add_argument("--import-torch", default=None, metavar="CKPT")
-    ap.add_argument("--profile", default=None, metavar="DIR")
+    ap.add_argument(
+        "--infer", default=None, metavar="IMG[,IMG...]",
+        help="one sample's inference on image files (comma-separated, in "
+             "the variant's input order, e.g. left.png,right.png,"
+             "temporal.png): writes the raw .npz, the benchmark PNGs and a "
+             "panel, then exits")
+    ap.add_argument("--infer-out", default="predictions", metavar="DIR",
+                    help="output directory of --infer (default: "
+                         "predictions/)")
+    ap.add_argument(
+        "--predict-dir", default=None, metavar="DIR",
+        help="inference over the held-out split, written as benchmark "
+             "files (KITTI 16-bit flow and disparity PNGs, Cityscapes "
+             "labelIds) into DIR, then exit")
+    ap.add_argument(
+        "--import-torch", default=None, metavar="CKPT",
+        help="load a PyTorch TorchCerberus checkpoint into the model before "
+             "any other action (the joint variant)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of a few train steps "
+                         "into DIR and exit")
     ap.add_argument("--export-dir", default=None, metavar="DIR")
     ap.add_argument("--export-stacked", action="store_true")
     ap.add_argument("--quant", default=None, choices=["int8"])
@@ -66,6 +83,24 @@ def main(argv=None):
     from cerberusnet_torch.train.trainer import Trainer
 
     trainer = Trainer(config, device=args.device)
+    if args.import_torch:
+        trainer.import_torch_weights(args.import_torch)
+    if args.profile:
+        print(f"trace written to {trainer.profile(args.profile)}")
+        return 0
+    if args.infer:
+        imgs = [p for p in args.infer.split(",") if p]
+        if len(imgs) != len(trainer.input_keys):
+            ap.error(f"--infer needs {len(trainer.input_keys)} images "
+                     f"({','.join(trainer.input_keys)}), got {len(imgs)}")
+        made = trainer.predict_images(dict(zip(trainer.input_keys, imgs)),
+                                      args.infer_out)
+        print("\n".join(made))
+        return 0
+    if args.predict_dir:
+        made = trainer.predict_to_dir(args.predict_dir)
+        print(f"wrote {len(made)} prediction files to {args.predict_dir}")
+        return 0
     if args.eval_only:
         print(json.dumps(trainer.evaluate(), indent=2))
         return 0

@@ -4,10 +4,13 @@
 PNGs decode through the native decoder (``data/native_io.py``); what it
 refuses (palette, interlaced) or where it does not load, the port's own
 zlib reader (``utils/visualization.read_png``) takes, in place of the
-reference's OpenCV. Each reader takes an optional list ``decoded_by`` and
-appends to it the decoder that ran, "native" or "zlib". The writers are
-the port's PNG writer, ``.flo`` (Middlebury) and ``.pfm`` (FlyingThings3D)
-as the reference writes them. All images come back in RGB order.
+reference's OpenCV. Binary PPM and PGM files (P6 and P5 with a maxval of
+255, FlyingChairs' frames) are read by ``read_pnm``, chosen by the
+extension. Each reader takes an optional list ``decoded_by`` and appends
+to it the decoder that ran, "native", "zlib" or "pnm". The writers are the
+port's PNG writer (or ``write_pnm`` for a ``.ppm``/``.pgm`` name),
+``.flo`` (Middlebury) and ``.pfm`` (FlyingThings3D) as the reference
+writes them. All images come back in RGB order.
 """
 
 from __future__ import annotations
@@ -18,9 +21,53 @@ from cerberusnet_torch.data import native_io
 from cerberusnet_torch.utils.visualization import read_png, write_png
 
 
+PNM_EXTENSIONS = (".ppm", ".pgm")
+
+
+def read_pnm(path: str) -> np.ndarray:
+    """A binary PPM (P6, (H, W, 3) RGB) or PGM (P5, (H, W)) with a maxval
+    of 255, as uint8. The header is the magic, the width, the height and
+    the maxval, separated by whitespace and ``#`` comments, then one
+    whitespace byte before the samples."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.find(b"\n", pos) + 1 or len(data)
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace():
+            end += 1
+        if end == pos:
+            raise ValueError(f"{path}: truncated PNM header")
+        fields.append(data[pos:end])
+        pos = end
+    magic, w, h, maxval = fields[0], *(int(x) for x in fields[1:])
+    if magic not in (b"P6", b"P5") or maxval != 255:
+        raise ValueError(f"{path}: not a binary 8-bit PPM or PGM "
+                         f"({magic!r}, maxval {maxval})")
+    shape = (h, w, 3) if magic == b"P6" else (h, w)
+    pixels = np.frombuffer(data, np.uint8, int(np.prod(shape)), pos + 1)
+    return pixels.reshape(shape).copy()
+
+
+def write_pnm(path: str, img: np.ndarray) -> None:
+    """An (H, W, 3) RGB image as a binary PPM, an (H, W) one as a PGM."""
+    img = np.asarray(img, np.uint8)
+    magic = b"P6" if img.ndim == 3 else b"P5"
+    with open(path, "wb") as f:
+        f.write(b"%s\n%d %d\n255\n" % (magic, img.shape[1], img.shape[0]))
+        f.write(np.ascontiguousarray(img).tobytes())
+
+
 def _decode(path: str, decoded_by: list | None) -> np.ndarray:
     img, how = None, "zlib"
-    if str(path).lower().endswith(".png") and native_io.available():
+    if str(path).lower().endswith(PNM_EXTENSIONS):
+        img, how = read_pnm(path), "pnm"
+    elif str(path).lower().endswith(".png") and native_io.available():
         try:
             img, how = native_io.decode_png(path), "native"
         except ValueError:
@@ -128,8 +175,12 @@ def write_pfm(path: str, img: np.ndarray) -> None:
 
 
 def write_image_u8(path: str, img: np.ndarray) -> None:
-    """An (H, W, 3) RGB or (H, W) gray image as an 8-bit PNG."""
-    write_png(path, np.asarray(img, np.uint8))
+    """An (H, W, 3) RGB or (H, W) gray image as an 8-bit PNG, or as a
+    binary PPM or PGM where ``path`` ends so."""
+    if str(path).lower().endswith(PNM_EXTENSIONS):
+        write_pnm(path, img)
+    else:
+        write_png(path, np.asarray(img, np.uint8))
 
 
 def write_png16(path: str, img: np.ndarray) -> None:

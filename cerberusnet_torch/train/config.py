@@ -9,7 +9,9 @@ Parsing accepts every value. ``ExperimentConfig.check_supported()``, which
 the ``Trainer`` calls, raises ``NotImplementedError`` naming the ROADMAP
 item for a value the port does not run yet; it builds the model variants
 in ``VARIANTS`` (``seg_head`` "fpn" or "aspp" for the joint models and
-``seg``) and reads the datasets in ``DATASETS`` (``data.root``), with the
+``seg``) and reads the datasets in ``DATASETS`` (``data.root``; Sintel's
+pass ``data.render_pass``), with every loss term (``loss.rmi_weight``,
+``photometric_weight``, ``smoothness_weight`` among them) and the
 augmentation (``crop_hw``, ``scales``, ``flip_lr_prob``, ``brightness``,
 ``contrast``) and ``data.num_workers`` decode threads; ``train.tensorboard``
 writes event files under ``ckpt_dir/tb``. ``model.pallas_levels`` runs CerberusNet's first N
@@ -44,7 +46,8 @@ import torch
 VARIANTS = ("cerberus", "flow", "stereo", "seg", "cerberus_dcv", "dcv_flow",
             "dcv_stereo", "raft", "raft_stereo", "cerberus_raft")
 # data.dataset values the port reads (train/trainer.py ``_build_dataset``)
-DATASETS = ("synthetic", "kitti", "cityscapes")
+DATASETS = ("synthetic", "kitti", "cityscapes", "sintel", "flyingchairs",
+            "flyingthings3d")
 
 
 @dataclasses.dataclass
@@ -234,7 +237,7 @@ class ExperimentConfig:
         run yet, naming its ROADMAP item, and ValueError for CerberusNet's
         fused levels beside the s2d knobs and for an unknown
         ``optim.grads_dtype``."""
-        m, d, o, l, t = self.model, self.data, self.optim, self.loss, self.train
+        m, d, o, t = self.model, self.data, self.optim, self.train
         if m.variant == "cerberus" and m.pallas_levels and (
                 m.s2d_levels or m.s2d_stem or m.stem_pad_channels):
             raise ValueError("model.pallas_levels is mutually exclusive with "
@@ -246,11 +249,6 @@ class ExperimentConfig:
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
-            (bool(l.rmi_weight), f"loss.rmi_weight={l.rmi_weight}", "A4"),
-            (bool(l.photometric_weight),
-             f"loss.photometric_weight={l.photometric_weight}", "A4"),
-            (bool(l.smoothness_weight),
-             f"loss.smoothness_weight={l.smoothness_weight}", "A4"),
             (t.qat, "train.qat", "A10"),
             (t.num_data_devices > 1 or t.num_spatial_devices > 1,
              "more than one device", "A11"),

@@ -1,10 +1,11 @@
-"""Losses of the joint models, port of ``cerberusnet_tpu/train/losses.py``
-(``joint_loss`` without its RMI, photometric and smoothness terms).
+"""Losses of the joint models, port of ``cerberusnet_tpu/train/losses.py``.
 
 Tensors are NHWC, as the model's outputs; everything reduces in float32.
 Each loss is a masked mean over valid pixels (sparse ground truth):
 
-  * segmentation: cross-entropy with ignore index 255, optionally focal
+  * segmentation: cross-entropy with ignore index 255, optionally focal,
+    optionally mixed with RMI as (1 - w) CE + w RMI (``rmi_loss``, region
+    mutual information)
   * flow: per-level weighted EPE (or the robust (|.|_1 + eps)^q variant)
     over the prediction pyramid, against ground truth averaged over the
     valid pixels of each 2^l x 2^l cell and scaled by 1/2^l
@@ -12,12 +13,14 @@ Each loss is a masked mean over valid pixels (sparse ground truth):
   * RAFT's sequence loss, for a model that returns ``*_iterates``: the
     gamma-weighted L1 over every iterate, at the operating level, against
     the same valid-aware ground truth at that level
+  * unsupervised terms for sparse ground truth: ``photometric_loss``
+    (SSIM and L1 between the left frame and the temporal frame warped back
+    by the flow) and ``smoothness_loss`` (edge-aware first-order flow
+    smoothness)
   * joint: the weighted sum
 
 ``uncertainty_weighted_total`` replaces the weighted sum with Kendall's
-weighting by learned log-variances. The RMI, photometric and smoothness
-terms are not ported yet (ROADMAP A4): ``joint_loss`` raises
-``NotImplementedError`` when asked for them.
+weighting by learned log-variances.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+
+from cerberusnet_torch.ops.warp import warp2d
 
 # PWC-Net multi-scale weights, levels 6..2.
 DEFAULT_LEVEL_WEIGHTS: Mapping[int, float] = {6: 0.32, 5: 0.08, 4: 0.02,
@@ -54,6 +59,57 @@ def segmentation_loss(logits, labels, ignore_index: int = 255,
     if focal_gamma is not None:
         ce = ce * (1.0 - torch.exp(ll)) ** focal_gamma
     return _masked_mean(ce, valid)
+
+
+def rmi_loss(logits, labels, ignore_index: int = 255, pool_stride: int = 4,
+             radius: int = 3, eps: float = 5e-4):
+    """Region mutual information (Zhao et al., NeurIPS 2019): each pixel
+    with its radius x radius neighbourhood is one sample of a R = radius^2
+    dimensional distribution; the loss is the log-determinant of the
+    conditional covariance of the one-hot ground truth's regions given the
+    predicted probabilities' regions, per (batch, class), a lower bound on
+    -I(Y; P). logits (B,H,W,C), labels (B,H,W) (255 = ignore). Before the
+    regions are cut the probabilities are average-pooled and the one-hot
+    ground truth max-pooled by ``pool_stride`` (VALID: a remainder is
+    dropped). The 9x9 solve and Cholesky run batched; a matrix that is not
+    positive definite gives NaN, as JAX's Cholesky does (``cholesky_ex``:
+    no raise and, on the card, no synchronisation to check)."""
+    logits = logits.float()
+    num_classes = logits.shape[-1]
+    valid = (labels != ignore_index).float()[..., None]
+    safe = torch.where(labels == ignore_index, 0, labels).long()
+    y = F.one_hot(safe, num_classes).float() * valid
+    p = torch.softmax(logits, dim=-1) * valid
+    p, y = p.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2)  # NCHW
+    if pool_stride > 1:
+        p = F.avg_pool2d(p, pool_stride)
+        y = F.max_pool2d(y, pool_stride)
+    b, c, h, w = p.shape
+    hh, ww = h - radius + 1, w - radius + 1
+    r = radius * radius
+
+    def regions(x):  # (B, C, R, N), the shifts in row-major order
+        crops = [x[:, :, i:i + hh, j:j + ww] for i in range(radius)
+                 for j in range(radius)]
+        m = torch.stack(crops, 2).reshape(b, c, r, hh * ww)
+        return m - m.mean(-1, keepdim=True)
+
+    ym, pm = regions(y), regions(p)
+    n = ym.shape[-1]
+    cov_yy = ym @ ym.transpose(-1, -2) / n
+    cov_yp = ym @ pm.transpose(-1, -2) / n
+    cov_pp = pm @ pm.transpose(-1, -2) / n
+    eye = torch.eye(r, device=logits.device)
+    # sigma_{y|p} = cov_yy - cov_yp (cov_pp + eps I)^-1 cov_yp^T
+    inv_term = torch.linalg.solve_ex(cov_pp + eps * eye,
+                                     cov_yp.transpose(-1, -2))[0]
+    sigma = cov_yy - cov_yp @ inv_term + eps * eye
+    chol, info = torch.linalg.cholesky_ex(sigma)
+    chol = torch.where((info == 0)[..., None, None], chol, float("nan"))
+    logdet = 2.0 * torch.log(
+        torch.diagonal(chol, dim1=-2, dim2=-1).clamp_min(1e-8)).sum(-1)
+    # 0.5 logdet per (b, c), normalised by the region's size
+    return (0.5 * logdet).mean() / float(r)
 
 
 def _sumpool2(x):
@@ -131,6 +187,51 @@ def raft_sequence_loss(iterates, gt_flow, valid=None, level: int = 3,
     return (weights * per_iter).sum()
 
 
+def photometric_loss(im1, im2, flow, alpha: float = 0.85):
+    """Unsupervised photometric term: alpha (1 - SSIM) / 2 + (1 - alpha) L1
+    between ``im1`` and ``im2`` warped back by ``flow`` (which maps im1's
+    pixels into im2), in float32 after the warp (which runs in im2's
+    type)."""
+    im2w = warp2d(im2, flow).float()
+    im1 = im1.float()
+    l1 = (im1 - im2w).abs().mean()
+    return alpha * (1.0 - _ssim(im1, im2w)) * 0.5 + (1.0 - alpha) * l1
+
+
+def _ssim(a, b, c1: float = 0.01**2, c2: float = 0.03**2):
+    """Mean SSIM with 3x3 mean-pool windows (VALID) over NHWC tensors."""
+
+    def pool(x):
+        return F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=1).permute(
+            0, 2, 3, 1)
+
+    mu_a, mu_b = pool(a), pool(b)
+    var_a = pool(a * a) - mu_a**2
+    var_b = pool(b * b) - mu_b**2
+    cov = pool(a * b) - mu_a * mu_b
+    num = (2 * mu_a * mu_b + c1) * (2 * cov + c2)
+    den = (mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2)
+    return (num / den).mean()
+
+
+def smoothness_loss(field, image):
+    """First-order edge-aware smoothness: the mean of |d field| exp(-|d
+    image|) along x plus along y, |d image| averaged over the channels."""
+    field = field.float()
+    image = image.float()
+
+    def grad_x(x):
+        return x[:, :, 1:] - x[:, :, :-1]
+
+    def grad_y(x):
+        return x[:, 1:] - x[:, :-1]
+
+    wx = torch.exp(-grad_x(image).abs().mean(-1, keepdim=True))
+    wy = torch.exp(-grad_y(image).abs().mean(-1, keepdim=True))
+    return ((grad_x(field).abs() * wx).mean()
+            + (grad_y(field).abs() * wy).mean())
+
+
 def berhu_loss(pred, gt, valid=None, c_frac: float = 0.2):
     """berHu: L1 below c, (d^2 + c^2) / (2c) above, c = c_frac * the batch's
     largest error. ``amax`` shares the gradient among tied maxima, as JAX's
@@ -173,11 +274,12 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
     present: seg_labels (B,H,W), flow_gt (B,H,W,2) with flow_valid, disp_gt
     (B,H,W) with disp_valid. A RAFT model's ``flow_iterates`` and
     ``disp_iterates`` take the sequence loss with ``seq_gamma`` at their
-    one pyramid level in place of the multi-scale terms."""
-    if rmi_weight or photometric_weight or smoothness_weight:
-        raise NotImplementedError(
-            "the RMI, photometric and smoothness terms are not ported yet "
-            "(ROADMAP A4)")
+    one pyramid level in place of the multi-scale terms. ``rmi_weight`` w
+    makes the seg term (1 - w) CE + w RMI (``comps["rmi"]`` the RMI);
+    ``photometric_weight`` and ``smoothness_weight`` add the unsupervised
+    terms on the full-resolution ``flow`` and the batch's ``left`` (and
+    ``temporal``) frames, ``comps["photometric"]`` and
+    ``comps["smoothness"]``."""
     weights = weights or {"seg": 1.0, "flow": 1.0, "disp": 1.0}
     comps = {}
     total = 0.0
@@ -185,6 +287,10 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
         comps["seg"] = segmentation_loss(outputs["seg_logits"],
                                          batch["seg_labels"],
                                          focal_gamma=focal_gamma)
+        if rmi_weight:
+            comps["rmi"] = rmi_loss(outputs["seg_logits"], batch["seg_labels"])
+            comps["seg"] = ((1.0 - rmi_weight) * comps["seg"]
+                            + rmi_weight * comps["rmi"])
         total = total + weights.get("seg", 1.0) * comps["seg"]
     if "flow_gt" in batch and "flow_iterates" in outputs:
         (level,) = outputs["flow_pyramid"].keys()
@@ -208,6 +314,13 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
         comps["disp"] = multiscale_disparity_loss(
             outputs["disp_pyramid"], batch["disp_gt"], batch.get("disp_valid"))
         total = total + weights.get("disp", 1.0) * comps["disp"]
+    if photometric_weight and "flow" in outputs and "temporal" in batch:
+        comps["photometric"] = photometric_loss(
+            batch["left"], batch["temporal"], outputs["flow"])
+        total = total + photometric_weight * comps["photometric"]
+    if smoothness_weight and "flow" in outputs and "left" in batch:
+        comps["smoothness"] = smoothness_loss(outputs["flow"], batch["left"])
+        total = total + smoothness_weight * comps["smoothness"]
     comps["total"] = total
     return total, comps
 

@@ -28,7 +28,19 @@ the reference's epochs through the prefetching loader
 with the EMA weights, logs to ``train_log.csv`` (and, with
 ``train.tensorboard``, to event files under ``ckpt_dir/tb``) and
 checkpoints under ``train.ckpt_dir`` in the port's own format (one
-``torch.save`` file per step; the reference's is Orbax's).
+``torch.save`` file per step; the reference's is Orbax's). Sintel,
+FlyingChairs and FlyingThings3D (``data/flow_datasets.py``) are the other
+datasets.
+
+Evaluation and prediction, with the EMA weights when kept:
+``evaluate_tta`` (multi-scale and mirrored test-time augmentation,
+``eval/tta.py``), ``predict_to_dir`` (the held-out split's KITTI and
+Cityscapes submission files at each batch's native size,
+``eval/submission.py``) and ``predict_images`` (image files in, the raw
+outputs, the benchmark PNGs and a panel out). ``import_torch_weights``
+loads a PyTorch ``TorchCerberus`` checkpoint into the masters;
+``profile`` writes a ``torch.profiler`` trace of a few train steps (the
+reference's is an XProf trace).
 """
 
 from __future__ import annotations
@@ -41,19 +53,29 @@ import re
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from cerberusnet_torch.data import augment
+from cerberusnet_torch.data import io as data_io
 from cerberusnet_torch.data.cityscapes import CityscapesDataset
 from cerberusnet_torch.data.encodings import resize_bilinear
+from cerberusnet_torch.data.flow_datasets import (
+    FlyingChairsDataset,
+    FlyingThings3DDataset,
+    SintelDataset,
+)
 from cerberusnet_torch.data.kitti import Kitti2015Dataset
 from cerberusnet_torch.data.loader import (
     DataLoader,
+    batches,
     pad_batch,
     preprocess,
     to_device,
 )
+from cerberusnet_torch.eval.submission import to_numpy, write_predictions
+from cerberusnet_torch.eval.tta import tta_forward
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.models.dcv_flow import (
@@ -79,7 +101,7 @@ from cerberusnet_torch.train.config import (
 from cerberusnet_torch.train.metrics import METRICS, MetricState
 from cerberusnet_torch.utils import visualization as vis
 from cerberusnet_torch.utils.tblogger import TBLogger
-from cerberusnet_torch.weights import init_params
+from cerberusnet_torch.weights import init_params, load_torch_cerberus
 
 # ----------------------------------------------------------------- model
 
@@ -367,7 +389,8 @@ class Trainer:
 
     def _build_dataset(self, split):
         """``data.dataset``'s split: the synthetic one (seed 1 for "val"),
-        or KITTI-2015 or Cityscapes under ``data.root``."""
+        or KITTI-2015, Cityscapes, Sintel (``data.render_pass``),
+        FlyingChairs or FlyingThings3D under ``data.root``."""
         d = self.config.data
         if d.dataset == "synthetic":
             return SyntheticPerceptionDataset(
@@ -379,6 +402,12 @@ class Trainer:
             return Kitti2015Dataset(d.root, split)
         if d.dataset == "cityscapes":
             return CityscapesDataset(d.root, split)
+        if d.dataset == "sintel":
+            return SintelDataset(d.root, split, render_pass=d.render_pass)
+        if d.dataset == "flyingchairs":
+            return FlyingChairsDataset(d.root, split)
+        if d.dataset == "flyingthings3d":
+            return FlyingThings3DDataset(d.root, split)
         raise ValueError(f"unknown dataset {d.dataset!r}")
 
     def _loader(self, dataset, batch_size, **kw):
@@ -565,52 +594,178 @@ class Trainer:
         prep["_sample_mask"] = torch.from_numpy(mask).to(self.device)
         return prep
 
+    def _eval_loader(self, loader=None):
+        """``loader``, or else one over every sample of the held-out dataset
+        (the training one without ``data.eval_split``), in order, the last
+        batch partial."""
+        if loader is not None:
+            return loader
+        return self._loader(self.eval_dataset or self.dataset,
+                            self.config.data.batch_size, drop_last=False)
+
     @torch.no_grad()
     def evaluate(self, loader=None):
         """Metrics (``MetricState.compute()``) of the EMA weights, or the
         masters without EMA, over ``loader`` or else every sample of the
-        held-out dataset (the training one without ``data.eval_split``),
-        the last batch padded and masked."""
-        if loader is None:
-            loader = self._loader(self.eval_dataset or self.dataset,
-                                  self.config.data.batch_size,
-                                  drop_last=False)
+        held-out dataset, the last batch padded and masked."""
         metrics = MetricState.zeros(self.config.model.num_classes,
                                     self.device)
         with self._eval_weights():
-            for batch in loader:
+            for batch in self._eval_loader(loader):
                 prep = self._prep_eval_batch(batch)
                 metrics = metrics.update(self._forward(prep), prep)
         return metrics.compute()
 
     @torch.no_grad()
-    def render_panel(self):
-        """The predictions of the evaluation weights on the training
-        dataset's first sample as an (H, W, 3) uint8 panel at ``data.hw``:
-        the image (resized bilinearly, as the reference's
-        ``predict_images`` resizes it, when the dataset's frames have
-        another size), then the segmentation overlay, flow and disparity,
-        as present."""
-        batch = next(iter(self._loader(self.dataset, 1)))
+    def evaluate_tta(self, scales=(0.75, 1.0, 1.25), flip: bool = True,
+                     loader=None, per_class: bool = False):
+        """``evaluate`` with multi-scale and mirrored test-time
+        augmentation (``eval/tta.py``: each batch's predictions averaged
+        over ``scales`` and, with ``flip``, their mirrored passes);
+        ``per_class`` adds each class's IoU (``iou/<name>``)."""
+        metrics = MetricState.zeros(self.config.model.num_classes,
+                                    self.device)
+        with self._eval_weights():
+            for batch in self._eval_loader(loader):
+                prep = self._prep_eval_batch(batch)
+                out = tta_forward(self._forward,
+                                  {k: prep[k] for k in self.input_keys},
+                                  scales=tuple(scales), flip=flip)
+                metrics = metrics.update(out, prep)
+        return metrics.compute(per_class=per_class)
+
+    @torch.no_grad()
+    def predict_to_dir(self, out_dir: str, loader=None):
+        """The evaluation weights' predictions over ``loader`` or the
+        held-out split as benchmark files under ``out_dir``
+        (``eval/submission.py``: KITTI 16-bit flow and disparity PNGs,
+        Cityscapes labelIds), named ``{index:06d}_10`` and resized to the
+        batch's own (native) frame size; the rows that pad the last batch
+        are dropped. Returns the files written."""
+        made, idx = [], 0
+        with self._eval_weights():
+            for batch in self._eval_loader(loader):
+                n = len(batch["left"])
+                native_hw = tuple(batch["left"].shape[1:3])
+                out = self._forward(self._prep_eval_batch(batch))
+                out = {k: v[:n] for k, v in out.items()
+                       if isinstance(v, torch.Tensor)}
+                names = [f"{idx + i:06d}_10" for i in range(n)]
+                idx += n
+                made += write_predictions(out, out_dir, names,
+                                          native_hw=native_hw)
+        return made
+
+    @torch.no_grad()
+    def predict_images(self, paths: dict, out_dir: str, name: str = "sample"):
+        """One sample's predictions from image files: ``paths`` maps each
+        of the model's input keys (``input_keys``, e.g. left / right /
+        temporal) to an image, resized to ``data.hw``. Writes the raw
+        outputs (``<name>.npz``), the benchmark PNGs (``eval/submission.py``'s
+        layout) and a panel (``<name>_panel.png``) under ``out_dir``;
+        returns the files written."""
+        missing = [k for k in self.input_keys if k not in paths]
+        if missing:
+            raise ValueError(
+                f"variant {self.config.model.variant!r} needs images for "
+                f"{missing} (got {sorted(paths)})")
+        batch = {k: data_io.read_image_u8(paths[k])[None]
+                 for k in self.input_keys}
         prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
         with self._eval_weights():
             out = self._forward(prep)
-        image = torch.as_tensor(batch["left"][:1])
+        out = {k: to_numpy(v) for k, v in out.items()
+               if isinstance(v, torch.Tensor)}
+        os.makedirs(out_dir, exist_ok=True)
+        npz_path = os.path.join(out_dir, f"{name}.npz")
+        np.savez(npz_path, **{k: v[0] for k, v in out.items()})
+        made = [npz_path] + write_predictions(out, out_dir, [name])
+        panel_path = os.path.join(out_dir, f"{name}_panel.png")
+        vis.write_png_u8(panel_path, self._panel(batch["left"], out))
+        return made + [panel_path]
+
+    def _panel(self, image, out):
+        """The first sample's (H, W, 3) uint8 panel at ``data.hw``: the
+        image (uint8 (B, H, W, 3), resized bilinearly when it has another
+        size), then the segmentation overlay, flow and disparity of
+        ``out``, as present."""
+        image = torch.as_tensor(image[:1])
         if tuple(image.shape[1:3]) != tuple(self.config.data.hw):
             image = resize_bilinear(image.float(), self.config.data.hw).clamp(
                 0, 255).to(torch.uint8)
         inputs = {"image": image[0].numpy()}
         if "seg_logits" in out:
-            inputs["seg"] = out["seg_logits"][0].argmax(-1).cpu().numpy()
+            inputs["seg"] = to_numpy(out["seg_logits"][0]).argmax(-1)
         if "flow" in out:
-            inputs["flow"] = out["flow"][0].float().cpu().numpy()
+            inputs["flow"] = to_numpy(out["flow"][0])
         if "disp" in out:
-            inputs["disp"] = out["disp"][0, ..., 0].float().cpu().numpy()
+            inputs["disp"] = to_numpy(out["disp"][0, ..., 0])
         return vis.summary_panel(inputs)
+
+    @torch.no_grad()
+    def render_panel(self):
+        """The predictions of the evaluation weights on the training
+        dataset's first sample as an (H, W, 3) uint8 panel at ``data.hw``
+        (``predict_images``'s panel)."""
+        batch = next(iter(self._loader(self.dataset, 1)))
+        prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
+        with self._eval_weights():
+            out = self._forward(prep)
+        return self._panel(batch["left"], out)
 
     def dump_visualization(self, path: str) -> str:
         """Writes ``render_panel()`` to ``path`` as a PNG."""
         return vis.write_png_u8(path, self.render_panel())
+
+    # -- weights from elsewhere, and a trace ------------------------------
+
+    @torch.no_grad()
+    def import_torch_weights(self, path: str):
+        """Loads a PyTorch checkpoint of the reference's ``TorchCerberus``
+        mirror (a ``torch.save`` of its state_dict, bare or under
+        "state_dict" or "model") into the masters at this config's widths,
+        and into the EMA when kept, as the reference's import does; the
+        optimizer and the step stay. The joint "cerberus" variant with the
+        FPN head only, as there."""
+        m = self.config.model
+        if m.variant != "cerberus":
+            raise ValueError("torch import maps the joint CerberusNet mirror; "
+                             f"got variant {m.variant!r}")
+        if m.seg_head != "fpn":
+            raise ValueError("torch import maps the FPN seg head (the "
+                             f"mirror's); got seg_head {m.seg_head!r}")
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        for key in ("state_dict", "model"):
+            if isinstance(sd, dict) and key in sd and not hasattr(
+                    sd[key], "shape"):
+                sd = sd[key]
+        ref, _ = build_model(m, self.corr_impl, torch.float32)
+        load_torch_cerberus(ref, sd)
+        for n, p in ref.named_parameters():
+            self.masters[n].copy_(p)
+            if self.ema is not None:
+                self.ema[n].copy_(p)
+        self._sync(self.masters)
+        print(f"[trainer] imported torch weights from {path}")
+
+    def profile(self, log_dir: str, steps: int = 5) -> str:
+        """A ``torch.profiler`` trace (host and, on a GPU, device activity)
+        of ``steps`` train steps on the training set's first batch, after
+        one step outside the trace, written to ``log_dir/trace.json``;
+        returns its path. The steps update the weights."""
+        batch = batches(self.dataset, self.config.data.batch_size, 1)[0]
+        self.train_step(batch)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(steps):
+                comps = self.train_step(batch)
+            float(comps["total"])  # waits for the device
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        return path
 
     # -- checkpoints -------------------------------------------------------
 

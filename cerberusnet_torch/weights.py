@@ -16,6 +16,15 @@ whether the reference scans or unrolls its iterations. Layouts:
     stride 2 and padding 1 it equals flax's "SAME" transposed conv
 Every parameter of the module must be filled, or it raises.
 
+``load_torch_cerberus(model, state_dict)`` fills a port ``CerberusNet``
+(FPN head) from the ``state_dict`` of ``tools/torch_baseline.py``'s
+``TorchCerberus``, the architecture's PyTorch mirror in the reference
+repository: both hold OIHW convolutions and (cin, cout, kh, kw) transposed
+convolutions, so the map renames and copies; every parameter must be
+filled from a key of the same shape and every key used, or it raises.
+``torch_cerberus_state_dict(model)`` is its inverse: the mirror's
+state_dict of a port CerberusNet.
+
 ``init_params(module, generator)`` draws what flax's initialisers draw
 (lecun-normal kernels, zero biases) from a seeded ``torch.Generator``, so
 the model runs at realistic activation scales without the reference.
@@ -178,6 +187,109 @@ def load_flax_params(module: nn.Module, params) -> nn.Module:
     if missed:
         raise ValueError(f"parameters not in the flax tree: {missed}")
     return module
+
+
+# TorchCerberus's pyramid levels, in the order the port's lists hold them
+_TORCH_LEVELS = ("6", "5", "4", "3", "2")
+# an encoder stage's Sequential: the padded strided conv, then two convs
+_TORCH_STAGE = {"0": 0, "2": 1, "4": 2}
+_TORCH_HEADS = {"flow": "flow", "disp": "disparity"}
+
+
+def torch_cerberus_name(key: str, names) -> str:
+    """The port CerberusNet's parameter name for a ``TorchCerberus``
+    state_dict key; ``names`` are the port model's parameter names (a
+    context network's last conv is its ``out``)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if parts[0] == "enc" and parts[1] == "stages":
+        block = 3 * int(parts[2]) + _TORCH_STAGE[parts[3]]
+        return f"encoder.blocks.{block}.conv.{leaf}"
+    if parts[0] in _TORCH_HEADS:
+        head = _TORCH_HEADS[parts[0]]
+        if parts[1] == "est" and parts[3] == "convs":
+            k = _TORCH_LEVELS.index(parts[2])
+            return f"{head}.estimators.{k}.blocks.{parts[4]}.conv.{leaf}"
+        if parts[1] == "est" and parts[3] == "pred":
+            return f"{head}.predictors.{_TORCH_LEVELS.index(parts[2])}.{leaf}"
+        if parts[1] == "upfeat":
+            return f"{head}.upfeats.{_TORCH_LEVELS.index(parts[2])}.{leaf}"
+        if parts[1] == "ctx":  # net.{2j}: conv j, a LeakyReLU between
+            block = f"{head}.context.blocks.{int(parts[3]) // 2}.conv.{leaf}"
+            return block if block in names else f"{head}.context.out.{leaf}"
+    if parts[0] == "seg":
+        if parts[1] == "lat":
+            k = _TORCH_LEVELS.index(parts[2])
+            return f"segmentation.laterals.{k}.{leaf}"
+        if parts[1] == "smooth":
+            k = _TORCH_LEVELS[1:].index(parts[2])
+            return f"segmentation.smooth.{k}.conv.{leaf}"
+        if parts[1] == "final":
+            return f"segmentation.final.conv.{leaf}"
+        if parts[1] == "cls":
+            return f"segmentation.classifier.{leaf}"
+    raise ValueError(f"{key!r} is no TorchCerberus parameter")
+
+
+@torch.no_grad()
+def load_torch_cerberus(model: CerberusNet, state_dict) -> CerberusNet:
+    """Fills ``model`` in place from a ``TorchCerberus`` state_dict;
+    returns it."""
+    if not isinstance(model, CerberusNet) or not isinstance(
+            model.segmentation, SegmentationHead):
+        raise TypeError("TorchCerberus maps onto CerberusNet with the FPN "
+                        f"head, not {type(model).__name__}")
+    params = dict(model.named_parameters())
+    done: set = set()
+    for key, value in state_dict.items():
+        name = torch_cerberus_name(key, params)
+        if name not in params:
+            raise ValueError(f"{key!r} maps to {name!r}, which the model "
+                             "does not have")
+        _fill(params[name], value.detach().float().cpu().numpy(), done)
+    missed = [n for n, t in params.items() if id(t) not in done]
+    if missed:
+        raise ValueError(f"parameters not in the state_dict: {missed}")
+    return model
+
+
+def torch_cerberus_state_dict(model: CerberusNet) -> dict:
+    """The ``TorchCerberus`` state_dict (float32 CPU copies) holding the
+    weights of a port ``CerberusNet`` with the FPN head."""
+    params = dict(model.named_parameters())
+    # an encoder stage's padded strided conv is the Sequential's "0.1"
+    stage = {0: "0.1", 1: "2", 2: "4"}
+    out = {}
+    for name, p in params.items():
+        parts = name.split(".")
+        leaf = parts[-1]
+        if parts[0] == "encoder":
+            b = int(parts[2])
+            key = f"enc.stages.{b // 3}.{stage[b % 3]}.{leaf}"
+        elif parts[0] == "segmentation":
+            kind = parts[1]
+            if kind == "laterals":
+                key = f"seg.lat.{_TORCH_LEVELS[int(parts[2])]}.{leaf}"
+            elif kind == "smooth":
+                key = f"seg.smooth.{_TORCH_LEVELS[1 + int(parts[2])]}.{leaf}"
+            else:
+                key = f"seg.{'cls' if kind == 'classifier' else kind}.{leaf}"
+        else:
+            head = "disp" if parts[0] == "disparity" else parts[0]
+            kind = parts[1]
+            if kind == "context":
+                j = (int(parts[3]) if parts[2] == "blocks" else
+                     len(getattr(model, parts[0]).context.blocks))
+                key = f"{head}.ctx.net.{2 * j}.{leaf}"
+            else:
+                level = _TORCH_LEVELS[int(parts[2])]
+                key = {"estimators": f"{head}.est.{level}.convs.{parts[-3]}",
+                       "predictors": f"{head}.est.{level}.pred",
+                       "upfeats": f"{head}.upfeat.{level}"}[kind] + f".{leaf}"
+        if torch_cerberus_name(key, params) != name:
+            raise ValueError(f"{name!r} has no TorchCerberus key")
+        out[key] = p.detach().float().cpu().clone()
+    return out
 
 
 @torch.no_grad()

@@ -24,7 +24,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            block stages only a group of the residue classes, and all six at
            the five level shapes of fit's 128x256 frame (forwards at batch 1
            and 4, backwards at 4; level 6 is (B, 2, 4, C), narrower than a
-           tile and shorter than the 2-D window); each check
+           tile and shorter than the 2-D window), and in bf16 at the
+           evaluation slice's shapes: all six at the levels of 384x768,
+           batch 2 (FlyingThings3D), the forwards at the levels of TTA's
+           384x768, 512x1024 and 640x1280 frames, batch 1, and of the 3 x 3
+           tiles of 512x1024 in one batch of 9; each check
            names the design that ran, as the library counted its launches
            ("tc": every bf16 correlation kernel on the tensor cores;
            "cuda_cores": float32), and fails on any other; and the
@@ -161,11 +165,63 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            5 K1 (K4) launches a request, none for SegNet, the kernels
            against the plain correlations by serve's rule, ms per frame in
            turns, peak memory
+  flow_data  writes Sintel (436x1024, 2 scenes of 4 frames, invalid
+           masks), FlyingChairs (384x512 .ppm, 8 ids, a split file flagging
+           2 val) and FlyingThings3D (540x960, one sequence of 11 frames,
+           .pfm flow and disparity with inf, NaN, >= 1000 and non-positive
+           values) from a seed, reads each training split back through the
+           port's datasets and holds every sample to the values the writer
+           keeps (the bad ground truth masked and zeroed); ms per sample
+  train_flyingthings3d  configs/cerberus_synthetic.json on the
+           FlyingThings3D fixture at 384x768 with loss.photometric_weight
+           and smoothness_weight 0.1, as train runs it: 5 launches of each
+           of the six kernels a step, every master the losses reach moved
+           (the segmentation head's gradients zero: the set has no labels),
+           the gradients and correlation taps against the float32
+           yardstick, a zeroed control, one more step's correlation calls
+           held to their plain versions, ms per step
+  train_losses  rmi_loss, photometric_loss and smoothness_loss on the card
+           against the CPU in float32 at 512x1024, batch 2, 19 classes
+           (values within 1e-4, gradients within 1e-3 relative L2), ms of
+           each forward and backward; 2 bf16 steps of CerberusNet with
+           the three weights set (the seven loss components finite, 5
+           launches of each kernel a step, every master moved) and ms per
+           step beside steps without them
+  eval_tta  Trainer.evaluate_tta of CerberusNet (bf16, 512x1024, batch 1,
+           2 synthetic samples) at scales 0.75, 1, 1.25 with flip: 30
+           launches of each forward kernel a frame, 19 per-class IoUs; one
+           frame's TTA with the kernels against the plain correlations in
+           bf16 and float32 by serve's rule, its 60 correlation calls held
+           to their plain versions; ms per TTA frame in turns with the
+           plain path beside one forward; at 384x1280 the 0.75 scale raises
+           the reference's ValueError
+  tiled    CerberusNet over a 1024x2048 frame in 3 x 3 tiles of 512x1024
+           (overlap 0.25), one tile at a time and all 9 in one batch: 45
+           and 5 launches of each forward kernel, every correlation call
+           held to its plain version, the two blends within the plain bf16
+           blend's distance from float32 of each other (serve's rule), ms
+           per frame and peak memory of each
+  predict  Trainer.predict_to_dir of configs/dcv_flow_kitti.json on the
+           KITTI fixture (4 dilated K1 launches a batch, the flow files at
+           the native 375x1242) and of configs/seg_cityscapes.json on the
+           Cityscapes fixture (labelIds at 1024x2048): every file decoded
+           and held to the same prediction made on the CPU in float32 with
+           the plain path (flow: within 1.5 x the card's plain bf16 path's
+           distance + 1e-3 + one code; labelIds differing on at most 1e-3
+           of the pixels); Trainer.predict_images of CerberusNet on three
+           PNGs (the npz, the benchmark PNGs and the panel)
+  cli      python -m cerberusnet_torch.cli --device cuda in two processes:
+           --import-torch of a TorchCerberus checkpoint (tiny widths) with
+           --infer on three PNGs (the printed files, the npz against this
+           process's forward of the same weights within 1e-3), and
+           --profile (the trace holds the correlation kernels)
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve and fit paths'
 beside them, the data slice's paths (train_flow_kitti,
-train_stereo_kitti, fit_dcv_kitti, serve_flow, serve_stereo) where the
-kernel runs, and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
+train_stereo_kitti, fit_dcv_kitti, serve_flow, serve_stereo) and the
+evaluation slice's (train_flyingthings3d, train_losses, eval_tta,
+tiled_sequential, tiled, predict, predict_images) where the kernel runs,
+and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
 K9's serve numbers beside them, each with its time over the cuDNN level's
 (vs_plain) per level, and K10's weight-gradient partial bytes per step as
 its wrapper counted them in train_pallas_levels), a {"phase": "done"} line
@@ -173,7 +229,9 @@ with the
 script's seconds, the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. ``--only a,b,...`` runs env, build and the named phases alone
-(the data slice's run after data), with no summary and no result line.
+(the data slice's run after data, and the evaluation slice's after
+flow_data where they need its fixtures), with no summary and no result
+line.
 """
 
 from __future__ import annotations
@@ -227,6 +285,14 @@ SOURCES = ("correlation", "encoder_level")
 N_REQUESTS = 3
 TRAIN_STEPS = 5
 TRAIN_BATCH = 2
+FORWARDS = ("corr2d_fwd", "corr1d_fwd")
+# The evaluation slice's shapes: FlyingThings3D's frames (540x960) trained
+# at 384x768; TTA's frames of a 512x1024 request at Trainer.evaluate_tta's
+# scales 0.75, 1, 1.25; a 1024x2048 frame in 3 x 3 tiles of 512x1024
+THINGS_HW = (384, 768)
+TTA_FRAMES_HW = ((384, 768), (512, 1024), (640, 1280))
+TILE_FRAME, TILE_HW = (1024, 2048), (512, 1024)
+TILE_OVERLAP, N_TILES = 0.25, 9
 TIMED_RUNS = 30
 # f32: only the summation order differs. bf16: both sides sum in f32 and
 # round once, so they differ by at most one bf16 ulp (inputs unit-normal).
@@ -474,6 +540,7 @@ def phase_kernels(peaks, spin_rate):
     wide_gen = torch.Generator(device="cuda").manual_seed(2)
     fit_gen = torch.Generator(device="cuda").manual_seed(3)
     kitti_gen = torch.Generator(device="cuda").manual_seed(4)
+    eval_gen = torch.Generator(device="cuda").manual_seed(5)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
@@ -512,6 +579,20 @@ def phase_kernels(peaks, spin_rate):
                        DCV_MAX_DISP, level_shape(DCV_KITTI_BATCH, DCV_LEVEL,
                                                  DCV_KITTI_HW))
                       for dil in flow_dils for dt in dtypes]
+        # the evaluation slice's paths, in bf16 as they run: FlyingThings3D
+        # steps at 384x768, batch 2 (all six); the forwards at TTA's three
+        # frames of a 512x1024 request, batch 1, and at the 3x3 tiles of a
+        # 1024x2048 frame in one batch
+        cases += [("things", TRAIN_BATCH, level, torch.bfloat16, 1,
+                   disp_of(level), level_shape(TRAIN_BATCH, level, THINGS_HW))
+                  for level in LEVELS]
+        if not backward:
+            cases += [("tta", 1, level, torch.bfloat16, 1, disp_of(level),
+                       level_shape(1, level, hw))
+                      for hw in TTA_FRAMES_HW for level in LEVELS]
+            cases += [("tiles", N_TILES, level, torch.bfloat16, 1,
+                       disp_of(level), level_shape(N_TILES, level, TILE_HW))
+                      for level in LEVELS]
         for path, batch, level, dt, dil, d, shape in cases:
             nk = nk_of(d)
             # bf16 kernels must run on the tensor cores, float32 on the
@@ -522,7 +603,9 @@ def phase_kernels(peaks, spin_rate):
             # so every other check keeps the inputs it had before they were
             # added
             g_ = {"odd": odd_gen, "wide": wide_gen, "fit": fit_gen,
-                  "kitti": kitti_gen, "dcv_kitti": kitti_gen}.get(path, gen)
+                  "kitti": kitti_gen, "dcv_kitti": kitti_gen,
+                  "things": eval_gen, "tta": eval_gen,
+                  "tiles": eval_gen}.get(path, gen)
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             cc.reset_design_launches()
@@ -963,6 +1046,23 @@ TRAIN = {
     "train_stereo_kitti": ("configs/stereo_kitti.json", (0, len(LEVELS)),
                            [(k,) for k in BACKWARDS[2:]] + [BACKWARDS[2:]],
                            {}, (), "plain", KITTI_DATA),
+    "train_flyingthings3d": (
+        "configs/cerberus_synthetic.json", (len(LEVELS), len(LEVELS)),
+        [BACKWARDS], {}, (), "plain",
+        {"dataset": "flyingthings3d", "root": "flyingthings3d",
+         "hw": list(THINGS_HW)}),
+}
+# the phases whose config's own size the model cannot take
+CONFIG_HW_RAISES = ("train_flow_kitti", "train_stereo_kitti")
+# phase: the loss overrides of every trainer it builds, the prefix of the
+# masters no loss reaches (their gradients must be zero, and they are not
+# held to move), and whether one more step holds every correlation call to
+# its plain version (fit's rule)
+TRAIN_EXTRA = {
+    "train_flyingthings3d": {
+        "loss": {"photometric_weight": 0.1, "smoothness_weight": 0.1},
+        # FlyingThings3D has no segmentation labels
+        "unreached": "segmentation.", "checked_calls": True},
 }
 
 
@@ -1098,9 +1198,12 @@ def phase_train(phase):
     from cerberusnet_torch.train.trainer import UNCERTAINTY
 
     config, (n2d, n1d), control_sets, model, levels, base, data = TRAIN[phase]
+    extra = TRAIN_EXTRA.get(phase, {})
+    loss = extra.get("loss", {})
     raises_at = None
     if data:
         data = {**data, "root": FIXTURES[data["root"]]}
+    if phase in CONFIG_HW_RAISES:
         # the config's own size: a ValueError from the model's warp
         tr, (b,) = train_entry(config, batch_size=TRAIN_BATCH,
                                data={"root": data["root"]})
@@ -1123,7 +1226,7 @@ def phase_train(phase):
     constant = {"schedule": "constant"}
     trainer, batches = train_entry(config, batch_size=TRAIN_BATCH,
                                    n_batches=TRAIN_STEPS, optim=constant,
-                                   model=model, data=data)
+                                   model=model, data=data, loss=loss)
     setup_s = time.perf_counter() - t0
     errors = []
     before = {n: m.clone() for n, m in trainer.masters.items()}
@@ -1139,10 +1242,12 @@ def phase_train(phase):
         steps.append(vals)
     launches = launch_counts()
     partial_bytes = cl.encoder_level_bwd_partial_bytes
-    moved = sum(not torch.equal(m, before[n])
-                for n, m in trainer.masters.items())
-    if moved != len(before):
-        errors.append(f"{len(before) - moved} of {len(before)} weights did "
+    unreached = [n for n in before
+                 if extra.get("unreached") and n.startswith(extra["unreached"])]
+    reached = [n for n in before if n not in unreached]
+    moved = sum(not torch.equal(trainer.masters[n], before[n]) for n in reached)
+    if moved != len(reached):
+        errors.append(f"{len(reached) - moved} of {len(reached)} weights did "
                       f"not move in {TRAIN_STEPS} steps")
     log_vars = {n: m.item() for n, m in trainer.masters.items()
                 if n.startswith(UNCERTAINTY)}
@@ -1153,10 +1258,11 @@ def phase_train(phase):
     # one step's gradients from the same weights and batch: kernels (bf16)
     # against the plain correlations in bf16 and in float32 (the yardstick)
     plain16, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
-                             corr_impl="plain", optim=constant, data=data)
+                             corr_impl="plain", optim=constant, data=data,
+                             loss=loss)
     plain32, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
                              corr_impl="plain", optim=constant,
-                             model={"dtype": "float32"}, data=data)
+                             model={"dtype": "float32"}, data=data, loss=loss)
     batch = batches[0]
     plain16.load_masters(trainer.masters)
     plain32.load_masters(trainer.masters)
@@ -1202,6 +1308,9 @@ def phase_train(phase):
             kernel_grads, batch_ref = got["kernel_bf16"][0], (ref, ref_taps)
         del got
     ref, ref_taps = batch_ref
+    # the masters no loss reaches: zero gradients on both paths
+    errors += [f"{n}: a gradient where no loss reaches" for n in unreached
+               if kernel_grads[n].any() or ref[n].any()]
 
     # Each distance is the median over the batches. bf16: within 1.5x the
     # plain bf16 path's + 1e-3; float32: within FUSED_F32_RTOL. Behind fused
@@ -1270,12 +1379,29 @@ def phase_train(phase):
         if rise != {**want_rise, "encoder_level_bwd": 0}:
             errors.append(f"pallas_grad='xla' step: launches rose by {rise}")
 
+    # every correlation call of one more step against its plain version on
+    # the same tensors (fit's rule)
+    checked = None
+    if extra.get("checked_calls"):
+        calls = []
+        real_corr = checked_corr_calls(calls)
+        try:
+            trainer.train_step(batch)
+        finally:
+            restore_corr(real_corr)
+        checked = calls_summary(calls)
+        want_calls = {k: v for k, v in want_rise.items() if v}
+        if checked["calls"] != want_calls:
+            errors.append(f"checked calls {checked['calls']}, not "
+                          f"{want_calls}")
+        errors += checked["errors"]
+
     # ms per train step, this path and the baseline in turns on one card
     if base == "plain":
         baseline = plain16
     else:
         baseline, _ = train_entry(config, batch_size=TRAIN_BATCH,
-                                  n_batches=0, optim=constant)
+                                  n_batches=0, optim=constant, loss=loss)
         baseline.load_masters(trainer.masters)
     paths = {"kernel": trainer, base: baseline}
     times = {base: [], "kernel": []}
@@ -1301,8 +1427,9 @@ def phase_train(phase):
           "launches_per_step": {k: v / TRAIN_STEPS
                                 for k, v in launches.items()},
           "partial_bytes_per_step": partial_bytes // TRAIN_STEPS,
-          "weights_moved": moved, "weights": len(before),
-          "log_variances": log_vars,
+          "weights_moved": moved, "weights": len(reached),
+          "unreached": len(unreached), "loss_overrides": loss,
+          "corr_calls_vs_plain": checked, "log_variances": log_vars,
           "setup_s": setup_s, "distances": distances, "controls": controls,
           "model": model, "pallas_grad_xla_step": xla_step,
           "train_step": step,
@@ -1421,6 +1548,29 @@ def checked_corr_calls(calls):
     for name in plain:
         setattr(cc, name, checked(name))
     return real
+
+
+def restore_corr(real):
+    """Puts back the wrappers ``checked_corr_calls`` replaced."""
+    from cerberusnet_torch.ops.cuda import correlation as cc
+
+    for name, wrapper in real.items():
+        setattr(cc, name, wrapper)
+
+
+def calls_summary(calls):
+    """The rows of ``checked_corr_calls`` with their count by kernel, the
+    largest share of its limit any call used and the failures."""
+    from collections import Counter
+
+    return {"rule": f"|kernel - plain| <= 2^-7 |plain| + {FIT_CALL_SLACK} "
+                    "plain(|a|, |f|)",
+            "calls": dict(Counter(c["kernel"] for c in calls)),
+            "max_err_of_limit": max((c["err_of_limit"] for c in calls),
+                                    default=None),
+            "errors": [f"{c['kernel']} at {c['shape']}: {c['err_of_limit']} "
+                       f"of its limit" for c in calls if not c["ok"]],
+            "rows": calls}
 
 
 def resume_checks(tr, resumed, errors):
@@ -1603,8 +1753,7 @@ def phase_fit(card):
         tr.train_step(batches(tr.dataset, bs, 1)[0])
         tr.evaluate(batches(tr.eval_dataset, bs, 1))
         call_design = cc.launched_design()
-        for name, wrapper in real_corr.items():
-            setattr(cc, name, wrapper)
+        restore_corr(real_corr)
         want_calls = {k: want_step[k] + want_eval[k] // eval_batches
                       for k in REPLACES}
         got_calls = dict(Counter(c["kernel"] for c in calls))
@@ -2355,8 +2504,7 @@ def phase_fit_dcv_kitti(card):
     cc.reset_design_launches()
     tr.train_step(batches(tr.dataset, bs, 1)[0])
     call_design = cc.launched_design()
-    for name, wrapper in real_corr.items():
-        setattr(cc, name, wrapper)
+    restore_corr(real_corr)
     got_calls = dict(Counter(c["kernel"] for c in calls))
     want_calls = {k: v for k, v in per_step.items() if v}
     if got_calls != want_calls:
@@ -2467,6 +2615,744 @@ def phase_serve_single(phase, card):
     if not ok:
         sys.exit(1)
     return launches
+
+
+# The evaluation slice: the flow sets' fixtures at their published frame
+# sizes, written from a seed; FlyingThings3D's steps at 384x768; TTA,
+# tiling and prediction at the sizes users run them.
+SINTEL_FRAME, SINTEL_SCENES, SINTEL_FRAMES = (436, 1024), 2, 4
+CHAIRS_FRAME, CHAIRS_IDS, CHAIRS_VAL = (384, 512), 8, (3, 7)
+THINGS_FRAME = (540, 960)
+# one sequence whose consecutive pairs fill train_flyingthings3d's batches
+THINGS_FRAMES = tuple(range(6, 7 + TRAIN_STEPS * TRAIN_BATCH))
+# where FlyingThings3D's fixture holds ground truth the dataset must mask:
+# flow (row, col, channel, value), disparity (row, col, value); the unused
+# third flow channel's inf at THINGS_UNUSED_INF changes nothing
+THINGS_BAD_FLOW = ((0, 0, 0, float("inf")), (0, 1, 1, float("nan")),
+                   (1, 0, 0, 1000.0), (1, 1, 1, -1500.0))
+THINGS_UNUSED_INF = (2, 2)
+THINGS_BAD_DISP = ((0, 0, -4.0), (0, 1, float("inf")), (0, 2, 1000.0),
+                   (0, 3, 0.0))
+# train_losses: the three losses on the card against the CPU in float32 at
+# a 512x1024 batch of 2 with 19 classes: values within AUX_VALUE_RTOL,
+# gradients within AUX_GRAD_RTOL relative L2 (sums over 2^20 to 2^21 terms
+# and the 9x9 solves run in another order on the card; TF32 off)
+AUX_LOSS = {"rmi_weight": 0.5, "photometric_weight": 0.1,
+            "smoothness_weight": 0.1}
+AUX_VALUE_RTOL, AUX_GRAD_RTOL = 1e-4, 1e-3
+AUX_STEPS = 2
+# eval_tta: Trainer.evaluate_tta's defaults on CerberusNet at 512x1024
+TTA_SCALES = (0.75, 1.0, 1.25)
+TTA_SAMPLES = 2
+# a KITTI-wide frame, where the reference's warp refuses scale 0.75
+TTA_RAISES_HW = (384, 1280)
+# predict: the share of labelIds the card's float32 SegNet may disagree on
+# with the CPU's (an argmax of two near-equal logits flips)
+LABEL_SHARE = 1e-3
+SEG_CONFIG = "configs/seg_cityscapes.json"
+# cli: the TorchCerberus checkpoint's widths, and the CLI's frame
+CLI_MODEL = {"encoder_channels": [8, 12, 16, 16, 16, 16],
+             "est_channels": [16, 16, 12], "ctx_channels": [16, 16],
+             "fpn_channels": 16, "dtype": "float32"}
+CLI_HW = (128, 256)
+# the CLI's float32 forward on the card in a process of its own (cuDNN's
+# default TF32 convolutions) against this process's with TF32 on again
+CLI_RTOL = 1e-3
+SUBMISSION_FILES = ["sample.npz", "flow/sample.png", "disp_0/sample.png",
+                    "semantic/sample.png", "sample_panel.png"]
+
+
+def write_flow_fixtures(root):
+    """Sintel (436x1024, scenes of 4 frames, invalid masks), FlyingChairs
+    (384x512 .ppm, 8 ids, CHAIRS_VAL flagged val in the split file) and
+    FlyingThings3D (540x960, one sequence, .pfm flow and disparity with the
+    bad values of THINGS_BAD_*) under ``root``, their frames and ground
+    truth SyntheticPerceptionDataset's scenes. Returns {dataset: (its root,
+    the samples its training split must give, in order)}."""
+    import os
+
+    import numpy as np
+
+    from cerberusnet_torch.data import io as data_io
+    from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
+
+    out = {}
+    n = SINTEL_FRAMES
+    ds = SyntheticPerceptionDataset(length=SINTEL_SCENES * n,
+                                    hw=SINTEL_FRAME, seed=5)
+    base = f"{root}/sintel/training"
+    want = []
+    for s in range(SINTEL_SCENES):
+        scene = f"scene_{s}"
+        for kind in ("clean", "flow", "invalid"):
+            os.makedirs(f"{base}/{kind}/{scene}")
+        frames = [ds[s * n + t] for t in range(n)]
+        for t, smp in enumerate(frames, 1):
+            data_io.write_image_u8(f"{base}/clean/{scene}/frame_{t:04d}.png",
+                                   smp["left"])
+            if t == n:
+                continue
+            data_io.write_flo(f"{base}/flow/{scene}/frame_{t:04d}.flo",
+                              smp["flow_gt"])
+            invalid = smp["seg_labels"] % 5 == 0  # some of the regions
+            data_io.write_image_u8(
+                f"{base}/invalid/{scene}/frame_{t:04d}.png",
+                invalid.astype(np.uint8) * 255)
+            want.append({"left": smp["left"], "temporal": frames[t]["left"],
+                         "flow_gt": smp["flow_gt"],
+                         "flow_valid": (~invalid).astype(np.float32)})
+    out["sintel"] = (f"{root}/sintel", want)
+
+    ds = SyntheticPerceptionDataset(length=CHAIRS_IDS, hw=CHAIRS_FRAME,
+                                    seed=6)
+    os.makedirs(f"{root}/chairs/data")
+    want = []
+    for i in range(1, CHAIRS_IDS + 1):
+        smp = ds[i - 1]
+        stem = f"{root}/chairs/data/{i:05d}"
+        data_io.write_image_u8(stem + "_img1.ppm", smp["left"])
+        data_io.write_image_u8(stem + "_img2.ppm", smp["temporal"])
+        data_io.write_flo(stem + "_flow.flo", smp["flow_gt"])
+        if i not in CHAIRS_VAL:
+            want.append({"left": smp["left"], "temporal": smp["temporal"],
+                         "flow_gt": smp["flow_gt"],
+                         "flow_valid": np.ones(CHAIRS_FRAME, np.float32)})
+    with open(f"{root}/chairs/FlyingChairs_train_val.txt", "w") as f:
+        f.write("".join("2\n" if i in CHAIRS_VAL else "1\n"
+                        for i in range(1, CHAIRS_IDS + 1)))
+    out["flyingchairs"] = (f"{root}/chairs", want)
+
+    ds = SyntheticPerceptionDataset(length=len(THINGS_FRAMES),
+                                    hw=THINGS_FRAME, seed=7)
+    things = f"{root}/things"
+    dirs = {k: f"{things}/{sub}" for k, sub in (
+        ("left", "frames_cleanpass/TRAIN/A/0000/left"),
+        ("right", "frames_cleanpass/TRAIN/A/0000/right"),
+        ("flow", "optical_flow/TRAIN/A/0000/into_future/left"),
+        ("disp", "disparity/TRAIN/A/0000/left"))}
+    for d in dirs.values():
+        os.makedirs(d)
+    samples = [ds[i] for i in range(len(THINGS_FRAMES))]
+    for t, smp in zip(THINGS_FRAMES, samples):
+        data_io.write_image_u8(f"{dirs['left']}/{t:04d}.png", smp["left"])
+        data_io.write_image_u8(f"{dirs['right']}/{t:04d}.png", smp["right"])
+        flow = np.concatenate([smp["flow_gt"], np.zeros(
+            (*THINGS_FRAME, 1), np.float32)], -1)
+        for y, x, ch, v in THINGS_BAD_FLOW:
+            flow[y, x, ch] = v
+        flow[THINGS_UNUSED_INF + (2,)] = np.inf
+        data_io.write_pfm(
+            f"{dirs['flow']}/OpticalFlowIntoFuture_{t:04d}_L.pfm", flow)
+        disp = smp["disp_gt"].copy()
+        for y, x, v in THINGS_BAD_DISP:
+            disp[y, x] = v
+        data_io.write_pfm(f"{dirs['disp']}/{t:04d}.pfm", disp)
+    want = []
+    for i, smp in enumerate(samples[:-1]):
+        flow_valid = np.ones(THINGS_FRAME, np.float32)
+        for y, x, _, _ in THINGS_BAD_FLOW:
+            flow_valid[y, x] = 0
+        disp_valid = (smp["disp_gt"] > 0).astype(np.float32)
+        for y, x, _ in THINGS_BAD_DISP:
+            disp_valid[y, x] = 0
+        want.append({
+            "left": smp["left"], "right": smp["right"],
+            "temporal": samples[i + 1]["left"],
+            "flow_gt": smp["flow_gt"] * flow_valid[..., None],
+            "flow_valid": flow_valid,
+            "disp_gt": smp["disp_gt"] * disp_valid,
+            "disp_valid": disp_valid})
+    out["flyingthings3d"] = (things, want)
+    return out
+
+
+def phase_flow_data(card, root):
+    import numpy as np
+
+    from cerberusnet_torch.data.flow_datasets import (
+        FlyingChairsDataset,
+        FlyingThings3DDataset,
+        SintelDataset,
+    )
+
+    t0 = time.perf_counter()
+    fixtures = write_flow_fixtures(root)
+    write_s = time.perf_counter() - t0
+    errors, decode = [], {}
+    for name, cls in (("sintel", SintelDataset),
+                      ("flyingchairs", FlyingChairsDataset),
+                      ("flyingthings3d", FlyingThings3DDataset)):
+        path, want = fixtures[name]
+        FIXTURES[name] = path
+        ds = cls(path, "training")
+        if len(ds) != len(want):
+            errors.append(f"{name}: {len(ds)} samples, not {len(want)}")
+        ms = []
+        for i, w in enumerate(want[:len(ds)]):
+            t0 = time.perf_counter()
+            s = ds[i]
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if sorted(s) != sorted(w):
+                errors.append(f"{name}[{i}]: keys {sorted(s)}")
+                continue
+            errors += [f"{name}[{i}]: {k} differs" for k in w
+                       if s[k].dtype != w[k].dtype
+                       or not np.array_equal(s[k], w[k])]
+        decode[name] = {"samples": len(ds),
+                        "frame": list(want[0]["left"].shape[:2]),
+                        "ms_per_sample": statistics.median(ms), "ms_all": ms}
+    ok = not errors
+    emit({"phase": "flow_data", "ok": ok, "card": card,
+          "fixture_write_s": write_s, "decode": decode,
+          "decode_timing": "host clock around one dataset[i] (frames and "
+                           "ground truth decoded), one thread",
+          "errors": errors})
+    if not ok:
+        sys.exit(1)
+
+
+def phase_train_losses(card):
+    from cerberusnet_torch.entry import train_entry
+    from cerberusnet_torch.train import losses as tl
+
+    gen = torch.Generator().manual_seed(8)
+    b, (h, w), c = TRAIN_BATCH, HW, 19
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    labels = torch.randint(0, c, (b, h, w), generator=gen)
+    labels[torch.rand((b, h, w), generator=gen) < 0.1] = 255
+    # loss: (its differentiated inputs, its other inputs)
+    cases = {
+        "rmi_loss": ({"logits": randn(b, h, w, c, scale=2.0)},
+                     {"labels": labels}),
+        "photometric_loss": ({"im1": randn(b, h, w, 3),
+                              "im2": randn(b, h, w, 3),
+                              "flow": randn(b, h, w, 2, scale=3.0)}, {}),
+        "smoothness_loss": ({"field": randn(b, h, w, 2),
+                             "image": randn(b, h, w, 3)}, {}),
+    }
+    errors, rows = [], []
+    for name, (diff, fixed) in cases.items():
+        fn = getattr(tl, name)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            xs = {k: v.to(dev).clone().requires_grad_()
+                  for k, v in diff.items()}
+            rest = {k: v.to(dev) for k, v in fixed.items()}
+            value = fn(**xs, **rest)
+            value.backward()
+            res[dev] = (value.item(), {k: x.grad.cpu() for k, x in xs.items()})
+        (cv, cg), (gv, gg) = res["cpu"], res["cuda"]
+        row = {"loss": name, "value_cpu": cv, "value_cuda": gv,
+               "value_rel_err": abs(gv - cv) / max(abs(cv), 1e-30),
+               "grad_rel_l2": {k: rel_l2(gg[k], cg[k]) for k in cg}}
+        t = cuda_times(lambda: fn(**xs, **rest).backward(), runs=10, warmup=2)
+        row.update(ms_fwd_bwd=t["median"], ms_min=t["min"], ms_max=t["max"])
+        rows.append(row)
+        if not (math.isfinite(gv) and row["value_rel_err"] <= AUX_VALUE_RTOL):
+            errors.append(f"{name}: {gv} on the card, {cv} on the CPU")
+        errors += [f"{name} d{k}: rel L2 {v} > {AUX_GRAD_RTOL}"
+                   for k, v in row["grad_rel_l2"].items()
+                   if not v <= AUX_GRAD_RTOL]
+
+    # bf16 steps of CerberusNet with the three terms, timed beside steps
+    # without them on the same weights
+    constant = {"schedule": "constant"}
+    tr, batches = train_entry(batch_size=TRAIN_BATCH, n_batches=AUX_STEPS,
+                              optim=constant, loss=AUX_LOSS)
+    base, _ = train_entry(batch_size=TRAIN_BATCH, n_batches=0, optim=constant)
+    base.load_masters(tr.masters)
+    before = {n: m.clone() for n, m in tr.masters.items()}
+    want_rise = {k: len(LEVELS) if k.startswith("corr") else 0
+                 for k in launch_counts()}
+    reset_launch_counts()
+    steps = []
+    for i, batch in enumerate(batches):
+        comps, rise = launch_rise(lambda: tr.train_step(batch))
+        vals = {k: v.item() for k, v in comps.items()}
+        steps.append(vals)
+        if rise != want_rise:
+            errors.append(f"step {i}: kernel launches rose by {rise}")
+        if sorted(vals) != ["disp", "flow", "photometric", "rmi", "seg",
+                            "smoothness", "total"] or not all(
+                                map(math.isfinite, vals.values())):
+            errors.append(f"step {i}: loss components {vals}")
+    launches = launch_counts()
+    moved = sum(not torch.equal(m, before[n]) for n, m in tr.masters.items())
+    if moved != len(before):
+        errors.append(f"{len(before) - moved} of {len(before)} weights did "
+                      f"not move in {AUX_STEPS} steps")
+    step = turns({"with_aux_terms": tr, "without": base},
+                 lambda t: t.train_step(batches[0]), runs=5, warmup=1)
+    ok = not errors
+    emit({"phase": "train_losses", "ok": ok, "hw": list(HW), "batch": b,
+          "classes": c, "losses": rows, "value_rtol": AUX_VALUE_RTOL,
+          "grad_rtol": AUX_GRAD_RTOL, "loss_weights": AUX_LOSS,
+          "steps": steps, "launches": launches, "weights_moved": moved,
+          "weights": len(before), "train_step": step, "card": card,
+          "timing": "CUDA events around one loss's forward and backward, "
+                    "and around one train_step(batch) (host batch in), the "
+                    "two trainers in turns", "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+def phase_eval_tta(card):
+    from cerberusnet_torch.data.loader import batches as first_batches
+    from cerberusnet_torch.data.loader import preprocess
+    from cerberusnet_torch.entry import train_entry
+    from cerberusnet_torch.eval import tta_forward
+
+    errors = []
+    data = {"synthetic_length": TTA_SAMPLES}
+    tr, _ = train_entry(batch_size=1, n_batches=0, data=data)
+    passes = 2 * len(TTA_SCALES)  # each scale and its mirror
+    per_frame = {k: passes * len(LEVELS) if k in FORWARDS else 0
+                 for k in launch_counts()}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = tr.evaluate_tta(scales=TTA_SCALES, flip=True, per_class=True)
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches != {k: TTA_SAMPLES * v for k, v in per_frame.items()}:
+        errors.append(f"evaluate_tta launched {launches}")
+    ious = [k for k in metrics if k.startswith("iou/")]
+    if len(ious) != 19 or not all(math.isfinite(metrics[k]) for k in (
+            "miou", "flow_epe", "disp_mae")):
+        errors.append(f"metrics {metrics}")
+
+    # one frame's TTA with the kernels against the plain correlations in
+    # bf16 and in float32 (the yardstick), by serve's rule; every
+    # correlation call held to its plain version
+    plain16, _ = train_entry(batch_size=1, n_batches=0, corr_impl="plain",
+                             data=data)
+    plain32, _ = train_entry(batch_size=1, n_batches=0, corr_impl="plain",
+                             model={"dtype": "float32"}, data=data)
+    plain16.load_masters(tr.masters)
+    plain32.load_masters(tr.masters)
+    batch = first_batches(tr.dataset, 1, 1)[0]
+
+    def inputs(dtype):
+        prep = preprocess(batch, HW, dtype, "cuda")
+        return {k: prep[k] for k in tr.input_keys}
+
+    x16, x32 = inputs(torch.bfloat16), inputs(torch.float32)
+
+    def tta(t, x):
+        with torch.no_grad():
+            return tta_forward(t._forward, x, scales=TTA_SCALES, flip=True)
+
+    calls = []
+    real_corr = checked_corr_calls(calls)
+    try:
+        got, rise = launch_rise(lambda: tta(tr, x16))
+    finally:
+        restore_corr(real_corr)
+    checked = calls_summary(calls)
+    errors += checked["errors"]
+    if rise != per_frame or checked["calls"] != {
+            k: v for k, v in per_frame.items() if v}:
+        errors.append(f"one frame: launches {rise}, checked "
+                      f"{checked['calls']}")
+    ref, base = tta(plain32, x32), tta(plain16, x16)
+    distances = []
+    for key in ("seg_logits", "flow", "disp"):
+        d = {"head": key, "shape": list(got[key].shape),
+             "kernel_bf16_vs_f32": rel_l2(got[key], ref[key]),
+             "plain_bf16_vs_f32": rel_l2(base[key], ref[key])}
+        d["limit"] = 1.5 * d["plain_bf16_vs_f32"] + 1e-3
+        distances.append(d)
+        if not (tuple(got[key].shape[1:3]) == HW
+                and d["kernel_bf16_vs_f32"] <= d["limit"]):
+            errors.append(f"{key}: {d}")
+    times = turns({"kernel": tr, "plain": plain16},
+                  lambda t: tta(t, x16), runs=5, warmup=1)
+    with torch.no_grad():
+        one = cuda_times(lambda: tr._forward(x16), runs=10, warmup=2)
+
+    # a KITTI-wide frame: the 0.75 scale's 288x960 breaks the warp
+    wide = {k: torch.randn((1, *TTA_RAISES_HW, 3), device="cuda").to(
+        torch.bfloat16) for k in tr.input_keys}
+    try:
+        with torch.no_grad():
+            tta_forward(tr._forward, wide, scales=(0.75,))
+    except ValueError as e:
+        raises_at = {"hw": list(TTA_RAISES_HW), "scale": 0.75,
+                     "error": str(e)}
+    else:
+        raises_at = None
+        errors.append(f"TTA at scale 0.75 of {TTA_RAISES_HW} ran")
+    ok = not errors
+    emit({"phase": "eval_tta", "ok": ok, "hw": list(HW), "dtype": "bfloat16",
+          "scales": list(TTA_SCALES), "flip": True,
+          "frames_hw": [list(f) for f in TTA_FRAMES_HW],
+          "samples": TTA_SAMPLES, "evaluate_tta_s": eval_s,
+          "metrics": metrics, "launches": launches,
+          "launches_per_frame": per_frame, "distances": distances,
+          "corr_calls_vs_plain": checked, "tta_frame": times,
+          "one_forward": {"ms": one["median"], "ms_min": one["min"],
+                          "ms_max": one["max"]},
+          "scale_raises": raises_at, "card": card,
+          "timing": "CUDA events around one frame's tta_forward (6 forwards, "
+                    "the resizes and the averaging), the kernel and plain "
+                    "paths in turns; one_forward: one forward of the same "
+                    "model with the kernels", "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+def phase_tiled(card):
+    from cerberusnet_torch.entry import FRAMES, entry, make_frames
+    from cerberusnet_torch.eval import tiled_forward
+
+    errors = []
+    models = {"kernel": entry()[0], "plain_bf16": entry(corr_impl="plain")[0],
+              "plain_f32": entry(dtype=torch.float32, corr_impl="plain")[0]}
+    frame = dict(zip(FRAMES, make_frames(9, TILE_FRAME)))
+    frame32 = {k: v.float() for k, v in frame.items()}
+
+    def blend(which, batch_tiles=False):
+        f = models[which]
+        x = frame32 if which == "plain_f32" else frame
+        return tiled_forward(lambda b: f(*[b[k] for k in FRAMES]), x,
+                             TILE_HW, TILE_OVERLAP, batch_tiles=batch_tiles)
+
+    want = {"sequential": N_TILES * len(LEVELS), "batched": len(LEVELS)}
+    runs = {}
+    for mode, batched in (("sequential", False), ("batched", True)):
+        calls = []
+        real_corr = checked_corr_calls(calls)
+        try:
+            out, rise = launch_rise(lambda: blend("kernel", batched))
+        finally:
+            restore_corr(real_corr)
+        runs[mode] = {"out": out, "launches": rise,
+                      "checked": calls_summary(calls)}
+        errors += runs[mode]["checked"]["errors"]
+        if rise != {k: want[mode] if k in FORWARDS else 0 for k in rise}:
+            errors.append(f"{mode}: launches rose by {rise}")
+    ref, base = blend("plain_f32"), blend("plain_bf16")
+    seq, bat = runs["sequential"].pop("out"), runs["batched"].pop("out")
+    distances = []
+    for key in ("seg_logits", "flow", "disp"):
+        d = {"head": key, "shape": list(seq[key].shape),
+             "batched_vs_sequential": rel_l2(bat[key], seq[key]),
+             "sequential_vs_f32": rel_l2(seq[key], ref[key]),
+             "plain_bf16_vs_f32": rel_l2(base[key], ref[key])}
+        # within bf16 rounding: the two blends no farther apart, and the
+        # sequential one no farther from float32, than serve's rule allows
+        # the plain bf16 blend
+        d["limit"] = 1.5 * d["plain_bf16_vs_f32"] + 1e-3
+        distances.append(d)
+        if tuple(seq[key].shape[1:3]) != TILE_FRAME or not (
+                d["batched_vs_sequential"] <= d["limit"]
+                and d["sequential_vs_f32"] <= d["limit"]):
+            errors.append(f"{key}: {d}")
+    del seq, bat, ref, base
+    timing = {}
+    for mode, batched in (("sequential", False), ("batched", True)):
+        t = cuda_times(lambda: blend("kernel", batched), runs=3, warmup=1)
+        timing[mode] = {"ms_per_frame": t["median"], "ms_min": t["min"],
+                        "ms_max": t["max"],
+                        "max_memory_allocated_gib": peak_gib(
+                            lambda: blend("kernel", batched))}
+    ok = not errors
+    emit({"phase": "tiled", "ok": ok, "frame": list(TILE_FRAME),
+          "tile": list(TILE_HW), "overlap": TILE_OVERLAP, "tiles": N_TILES,
+          "dtype": "bfloat16",
+          "launches": {m: r["launches"] for m, r in runs.items()},
+          "corr_calls_vs_plain": {m: r["checked"] for m, r in runs.items()},
+          "distances": distances, "blend": timing, "card": card,
+          "timing": "CUDA events around one tiled_forward of the frame; "
+                    "peak memory over another", "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return {m: r["launches"] for m, r in runs.items()}
+
+
+def decoded_files(out_dir):
+    """{relative path: decoded file} of the submission files under
+    ``out_dir``: (flow (H, W, 2), valid), (disparity, valid), (labelIds,)."""
+    import os
+
+    from cerberusnet_torch.data import encodings
+    from cerberusnet_torch.data import io as data_io
+
+    out = {}
+    for sub in ("flow", "disp_0", "semantic"):
+        d = os.path.join(out_dir, sub)
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+            path = os.path.join(d, name)
+            if sub == "flow":
+                v = encodings.decode_kitti_flow(data_io.read_png16(path))
+            elif sub == "disp_0":
+                v = encodings.decode_kitti_disparity(data_io.read_png16(path))
+            else:
+                v = (data_io.read_image_gray_u8(path),)
+            out[f"{sub}/{name}"] = v
+    return out
+
+
+def files_against_cpu(files):
+    """Each kernel-path file against the CPU's float32 plain prediction's:
+    flow and disparity decoded, rel L2 within 1.5 x the card's plain bf16
+    path's + 1e-3 (serve's rule; both paths' files hold the same 16-bit
+    quantisation, the largest difference is reported in codes); labelIds
+    differing on at most LABEL_SHARE of the pixels. Returns (rows,
+    errors)."""
+    import numpy as np
+
+    rows, errors = [], []
+    for rel, got in files["kernel"].items():
+        want = files["cpu_f32"][rel]
+        if rel.startswith("semantic"):
+            row = {"file": rel, "label_share_differing": float(
+                (got[0] != want[0]).mean())}
+            ok = row["label_share_differing"] <= LABEL_SHARE
+        else:
+            rms = float(np.sqrt((want[0].astype(np.float64) ** 2).mean()))
+            step = 1 / 64 if rel.startswith("flow") else 1 / 256
+
+            def dist(a):
+                return rel_l2(torch.from_numpy(a), torch.from_numpy(want[0]))
+
+            row = {"file": rel, "kernel_vs_cpu_f32": dist(got[0]),
+                   "plain_bf16_vs_cpu_f32": dist(files["plain_bf16"][rel][0]),
+                   "rms_cpu": rms, "max_abs_diff_codes": float(
+                       np.abs(got[0] - want[0]).max() / step)}
+            row["limit"] = 1.5 * row["plain_bf16_vs_cpu_f32"] + 1e-3
+            ok = row["kernel_vs_cpu_f32"] <= row["limit"] and got[1].all()
+        rows.append(row)
+        if not ok:
+            errors.append(f"{rel}: {row}")
+    return rows, errors
+
+
+def phase_predict(card, root):
+    import contextlib
+
+    import numpy as np
+
+    from cerberusnet_torch.entry import REPO_ROOT, train_entry
+    from cerberusnet_torch.eval import submission
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.trainer import Trainer
+    from cerberusnet_torch.utils.visualization import read_png_u8
+
+    errors, counts, rows = [], {}, {}
+    # name: (config, fixture, its frame, the files' head directory)
+    for name, config, fixture, frame, head in (
+            ("dcv_flow_kitti", DCV_KITTI_CONFIG, "kitti", KITTI_FRAME,
+             "flow"),
+            ("seg_cityscapes", SEG_CONFIG, "cityscapes", CITY_FRAME,
+             "semantic")):
+        raw = json.loads((REPO_ROOT / config).read_text())
+        raw["data"]["root"] = FIXTURES[fixture]
+        raw["train"]["ckpt_dir"] = ""
+        plain = {**raw, "model": {**raw["model"], "corr_impl": "plain"}}
+        paths = {"kernel": (raw, "cuda"), "cpu_f32": (
+            {**plain, "model": {**plain["model"], "dtype": "float32"}},
+            "cpu")}
+        if raw["model"]["variant"] != "seg":  # SegNet has no correlation
+            paths["plain_bf16"] = (plain, "cuda")
+        with contextlib.redirect_stdout(sys.stderr):
+            trainers = {which: Trainer(ExperimentConfig.from_dict(r), device)
+                        for which, (r, device) in paths.items()}
+        masters = trainers["kernel"].masters
+        for which, t in trainers.items():
+            if which != "kernel":
+                t.load_masters({n: m.to(t.device) for n, m in masters.items()})
+        dirs = {which: f"{root}/predict/{name}/{which}" for which in trainers}
+        calls = []
+        real_corr = checked_corr_calls(calls)
+        reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            made = trainers["kernel"].predict_to_dir(dirs["kernel"])
+            predict_s = time.perf_counter() - t0
+        finally:
+            restore_corr(real_corr)
+        counts[name] = launch_counts()
+        checked = calls_summary(calls)
+        errors += checked["errors"]
+        for which, t in trainers.items():
+            if which != "kernel":
+                t.predict_to_dir(dirs[which])
+        files = {which: decoded_files(d) for which, d in dirs.items()}
+        n = len(trainers["kernel"].dataset)
+        per_file, bad = files_against_cpu(files)
+        errors += [f"{name} {e}" for e in bad]
+        names = sorted(files["kernel"])
+        if names != [f"{head}/{i:06d}_10.png" for i in range(n)] or len(
+                made) != n or names != sorted(files["cpu_f32"]):
+            errors.append(f"{name}: files {names[:3]}... for {n} samples")
+        errors += [f"{name} {rel}: {v[0].shape}" for rel, v in
+                   files["kernel"].items() if v[0].shape[:2] != frame]
+        if head == "semantic":
+            ids = np.unique(np.concatenate(
+                [v[0].ravel() for v in files["kernel"].values()]))
+            if not set(ids.tolist()) <= set(
+                    submission.TRAINID_TO_LABELID.tolist()):
+                errors.append(f"{name}: labelIds {ids}")
+        batches_ = -(-n // trainers["kernel"].config.data.batch_size)
+        want_launch = {k: len(DCV_FLOW_DILATIONS) * batches_
+                       if head == "flow" and k == "corr2d_fwd" else 0
+                       for k in counts[name]}
+        if counts[name] != want_launch:
+            errors.append(f"{name}: launches {counts[name]}")
+        rows[name] = {"config": config, "samples": n, "native": list(frame),
+                      "hw": list(trainers["kernel"].config.data.hw),
+                      "files": len(made), "predict_s": predict_s,
+                      "launches": counts[name],
+                      "corr_calls_vs_plain": checked,
+                      "files_vs_cpu": per_file}
+        del trainers
+
+    # predict_images: CerberusNet (the synthetic config, 512x1024) on three
+    # of the KITTI fixture's frames
+    tr, _ = train_entry(batch_size=1, n_batches=0)
+    k = FIXTURES["kitti"] + "/training"
+    paths = {"left": f"{k}/image_2/000000_10.png",
+             "right": f"{k}/image_3/000000_10.png",
+             "temporal": f"{k}/image_2/000000_11.png"}
+    out_dir = f"{root}/predict/images"
+    calls = []
+    real_corr = checked_corr_calls(calls)
+    reset_launch_counts()
+    try:
+        made = tr.predict_images(paths, out_dir)
+    finally:
+        restore_corr(real_corr)
+    counts["predict_images"] = launch_counts()
+    checked = calls_summary(calls)
+    errors += checked["errors"]
+    names = [p[len(out_dir) + 1:] for p in made]
+    if names != SUBMISSION_FILES:
+        errors.append(f"predict_images wrote {names}")
+    arrays = np.load(made[0])
+    shapes = {key: list(arrays[key].shape) for key in arrays.files}
+    if shapes != {"seg_logits": [*HW, 19], "flow": [*HW, 2],
+                  "disp": [*HW, 1]} or not all(
+                      np.isfinite(arrays[key]).all() for key in arrays.files):
+        errors.append(f"predict_images npz {shapes}")
+    panel = read_png_u8(made[-1])
+    if panel.shape[1] != HW[1]:
+        errors.append(f"panel {panel.shape}")
+    if counts["predict_images"] != {k: len(LEVELS) if k in FORWARDS else 0
+                                    for k in counts["predict_images"]}:
+        errors.append(f"predict_images launched {counts['predict_images']}")
+    ok = not errors
+    emit({"phase": "predict", "ok": ok, "predict_to_dir": rows,
+          "label_share_limit": LABEL_SHARE,
+          "predict_images": {"files": names, "npz_shapes": shapes,
+                             "panel": list(panel.shape),
+                             "launches": counts["predict_images"],
+                             "corr_calls_vs_plain": checked},
+          "timing": "host clock around predict_to_dir (decode, forward, "
+                    "resize and PNG encode of every sample), the checked "
+                    "calls' plain versions included", "card": card,
+          "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return counts
+
+
+def phase_cli(card, root):
+    import os
+
+    import numpy as np
+
+    from cerberusnet_torch.data import io as data_io
+    from cerberusnet_torch.data.loader import preprocess
+    from cerberusnet_torch.entry import REPO_ROOT
+    from cerberusnet_torch.models.cerberus import CerberusNet
+    from cerberusnet_torch.weights import init_params, torch_cerberus_state_dict
+
+    errors = []
+    d = f"{root}/cli"
+    os.makedirs(d)
+    widths = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in CLI_MODEL.items() if k != "dtype"}
+    model = init_params(CerberusNet(**widths),
+                        torch.Generator().manual_seed(9))
+    ckpt = f"{d}/torch_cerberus.pt"
+    torch.save({"state_dict": torch_cerberus_state_dict(model)}, ckpt)
+    cfg = f"{d}/cli.json"
+    with open(cfg, "w") as f:
+        json.dump({"name": "cli-smoke", "model": CLI_MODEL,
+                   "data": {"hw": list(CLI_HW), "batch_size": TRAIN_BATCH,
+                            "synthetic_length": 4, "num_workers": 2},
+                   "optim": {"schedule": "constant"},
+                   "train": {"log_every": 1000}}, f)
+    k = FIXTURES["kitti"] + "/training"
+    imgs = {"left": f"{k}/image_2/000000_10.png",
+            "right": f"{k}/image_3/000000_10.png",
+            "temporal": f"{k}/image_2/000000_11.png"}
+    base = [sys.executable, "-m", "cerberusnet_torch.cli", "--config", cfg,
+            "--device", "cuda"]
+    procs = {}
+    for name, args in (
+            ("infer", ["--import-torch", ckpt, "--infer",
+                       ",".join(imgs.values()), "--infer-out", f"{d}/infer"]),
+            ("profile", ["--profile", f"{d}/trace"])):
+        t0 = time.perf_counter()
+        p = subprocess.run(base + args, cwd=str(REPO_ROOT),
+                           capture_output=True, text=True, timeout=600)
+        procs[name] = {"args": args, "rc": p.returncode,
+                       "s": time.perf_counter() - t0,
+                       "stdout": p.stdout[-2000:], "stderr": p.stderr[-2000:]}
+        if p.returncode:
+            errors.append(f"{name}: exit {p.returncode}: {p.stderr[-500:]}")
+    printed = [ln for ln in procs["infer"]["stdout"].splitlines()
+               if ln.startswith(f"{d}/infer/")]
+    files = [p[len(d) + len("/infer/"):] for p in printed]
+    if files != SUBMISSION_FILES or not all(map(os.path.getsize, printed)):
+        errors.append(f"--infer printed {files}")
+    distances = {}
+    if files == SUBMISSION_FILES:
+        # the same weights in this process, TF32 on as in a fresh process
+        frames = {key: data_io.read_image_u8(p)[None]
+                  for key, p in imgs.items()}
+        prep = preprocess(frames, CLI_HW, torch.float32, "cuda")
+        model = model.cuda().eval()
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                want = model(*[prep[key] for key in imgs])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        got = np.load(printed[0])
+        for key in ("seg_logits", "flow", "disp"):
+            distances[key] = rel_l2(torch.from_numpy(got[key]),
+                                    want[key][0].float().cpu())
+            if not distances[key] <= CLI_RTOL:
+                errors.append(f"--infer {key}: rel L2 {distances[key]}")
+    trace = f"{d}/trace/trace.json"
+    kernels = {}
+    if f"trace written to {trace}" not in procs["profile"]["stdout"]:
+        errors.append(f"--profile printed {procs['profile']['stdout'][-300:]}")
+    else:
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+        if not any("corr" in n for n in kernels):
+            errors.append(f"the trace holds no correlation kernel: "
+                          f"{sorted(kernels)[:20]}")
+    ok = not errors
+    emit({"phase": "cli", "ok": ok, "processes": procs,
+          "infer_files": files, "infer_vs_in_process": distances,
+          "rtol": CLI_RTOL, "trace_kernel_names": len(kernels),
+          "trace_corr_kernels": {n: c for n, c in kernels.items()
+                                 if "corr" in n},
+          "card": card, "errors": errors})
+    if not ok:
+        sys.exit(1)
 
 
 REPLACES = {
@@ -2588,7 +3474,17 @@ def summary(checks, counts):
                 ("train_stereo_kitti", "kitti", TRAIN_BATCH),
                 ("fit_dcv_kitti", "dcv_kitti", DCV_KITTI_BATCH),
                 ("serve_flow", "cerberus", 1),
-                ("serve_stereo", "cerberus", 1)):
+                ("serve_stereo", "cerberus", 1),
+                # the evaluation slice's: the launches of each phase's run
+                # beside the shapes the kernels phase timed for it (TTA's
+                # three frames once each, a run making two passes of each)
+                ("train_flyingthings3d", "things", TRAIN_BATCH),
+                ("train_losses", "cerberus", TRAIN_BATCH),
+                ("eval_tta", "tta", 1),
+                ("tiled_sequential", "cerberus", 1),
+                ("tiled", "tiles", N_TILES),
+                ("predict", "dcv_kitti", DCV_KITTI_BATCH),
+                ("predict_images", "cerberus", 1)):
             if counts[phase][name]:
                 paths[phase] = path_numbers(checks, name, path, batch,
                                             counts[phase][name])
@@ -2678,7 +3574,12 @@ def data_phases(card, counts, wanted):
 
     names = ("train_flow_kitti", "train_stereo_kitti", "train_seg_aspp",
              "fit_dcv_kitti", *SERVE_SINGLE)
-    if not any(wanted(n) for n in ("data", *names)):
+    # the evaluation slice's, after flow_data (which writes the flow sets'
+    # fixtures)
+    evaluation = ("train_flyingthings3d", "train_losses", "eval_tta",
+                  "tiled", "predict", "cli")
+    if not any(wanted(n) for n in ("data", *names, "flow_data",
+                                   *evaluation)):
         return
     root = tempfile.mkdtemp(prefix="cerberus_fixtures_")
     try:
@@ -2694,6 +3595,27 @@ def data_phases(card, counts, wanted):
                 counts[phase] = phase_train_seg_aspp(card)
             else:
                 counts[phase] = phase_fit_dcv_kitti(card)
+        if wanted("flow_data") or wanted("train_flyingthings3d"):
+            phase_flow_data(card, root)
+        for phase in evaluation:
+            if not wanted(phase):
+                continue
+            if phase in TRAIN:
+                counts[phase] = phase_train(phase)
+            elif phase == "train_losses":
+                counts[phase] = phase_train_losses(card)
+            elif phase == "eval_tta":
+                counts[phase] = phase_eval_tta(card)
+            elif phase == "tiled":
+                runs = phase_tiled(card)
+                counts["tiled_sequential"] = runs["sequential"]
+                counts["tiled"] = runs["batched"]
+            elif phase == "predict":
+                runs = phase_predict(card, root)
+                counts["predict"] = runs["dcv_flow_kitti"]
+                counts["predict_images"] = runs["predict_images"]
+            else:
+                phase_cli(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -579,9 +579,8 @@ def test_heldout_table(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--infer", "a.png"], "A7"), (["--predict-dir", "d"], "A7"),
-    (["--import-torch", "c.pt"], "A7"), (["--profile", "d"], "A7"),
-    (["--export-dir", "d"], "A9"), (["--quant", "int8"], "A10"),
+    (["--export-dir", "d"], "A9"), (["--export-stacked"], "A9"),
+    (["--quant", "int8"], "A10"),
 ])
 def test_cli_unported_flags_raise(flag, item):
     cfg = str(REPO_ROOT / "configs" / "cerberus_evidence_cpu.json")
