@@ -6,13 +6,15 @@ train or evaluate a model from a JSON experiment config.
     python -m cerberusnet_torch.cli --config cfg.json --device cpu
     python -m cerberusnet_torch.cli --config cfg.json --infer l.png,r.png,t.png
     python -m cerberusnet_torch.cli --config cfg.json --predict-dir preds/
+    python -m cerberusnet_torch.cli --config cfg.json --export-dir art/ \
+        [--quant int8] [--export-stacked]
 
 ``--import-torch`` (a PyTorch ``TorchCerberus`` checkpoint, loaded before
-any other action), ``--profile``, ``--infer`` with ``--infer-out``,
-``--predict-dir``, ``--eval-only`` and training run in the reference's
-order; ``--device`` is ``cuda`` unless given. The export flags
-(``--export-dir``, ``--export-stacked``) and ``--quant`` are accepted and
-raise ``NotImplementedError`` naming their ROADMAP item.
+any other action), ``--profile``, ``--export-dir`` (with ``--quant`` and
+``--export-stacked``), ``--infer`` with ``--infer-out``, ``--predict-dir``,
+``--eval-only`` and training run in the reference's order; ``--device`` is
+``cuda`` unless given. ``--quant`` and ``--export-stacked`` without
+``--export-dir`` are refused (the reference ignores them and trains).
 """
 
 from __future__ import annotations
@@ -20,9 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-# flag (argparse dest) -> the ROADMAP item that ports it
-UNPORTED = {"export_dir": "A9", "export_stacked": "A9", "quant": "A10"}
 
 
 def main(argv=None):
@@ -61,10 +60,19 @@ def main(argv=None):
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of a few train steps "
                          "into DIR and exit")
-    ap.add_argument("--export-dir", default=None, metavar="DIR")
-    ap.add_argument("--export-stacked", action="store_true")
-    ap.add_argument("--quant", default=None, choices=["int8"])
+    ap.add_argument("--export-dir", default=None, metavar="DIR",
+                    help="export the (restored) model to DIR as a "
+                         "torch.export artifact (model.pt2, manifest.json) "
+                         "and exit")
+    ap.add_argument("--quant", default=None, choices=["int8"],
+                    help="with --export-dir: calibration-based int8 PTQ of "
+                         "the exported graph (the TensorRT-int8 analogue)")
+    ap.add_argument("--export-stacked", action="store_true",
+                    help="with --export-dir (cerberus variant): export the "
+                         "producer-stacked signature, one (3B,H,W,3) input")
     args = ap.parse_args(argv)
+    if not args.export_dir and (args.quant or args.export_stacked):
+        ap.error("--quant and --export-stacked need --export-dir")
 
     from cerberusnet_torch.train.config import ExperimentConfig
 
@@ -74,11 +82,6 @@ def main(argv=None):
     if args.print_config:
         print(config.to_json())
         return 0
-    for dest, item in UNPORTED.items():
-        if getattr(args, dest):
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
 
     from cerberusnet_torch.train.trainer import Trainer
 
@@ -87,6 +90,11 @@ def main(argv=None):
         trainer.import_torch_weights(args.import_torch)
     if args.profile:
         print(f"trace written to {trainer.profile(args.profile)}")
+        return 0
+    if args.export_dir:
+        out = trainer.export(args.export_dir, quant=args.quant,
+                             stacked=args.export_stacked)
+        print(f"exported AOT artifact to {out}")
         return 0
     if args.infer:
         imgs = [p for p in args.infer.split(",") if p]

@@ -32,7 +32,12 @@ class CerberusNet(nn.Module):
     runs the plain correlations on any device (a yardstick for the
     kernels); None runs the CUDA kernels on a GPU. ``pallas_levels`` and
     ``pallas_grad`` go to the encoder (``PyramidEncoder``): the first N
-    levels as fused kernels."""
+    levels as fused kernels.
+
+    ``stacked_input=True`` (the reference's producer-stacked signature)
+    makes the forward take one (3B, H, W, 3) tensor holding [left; right;
+    temporal] along the batch: the encoder's batch as it is, with the
+    same weights and arithmetic."""
 
     def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
                  num_classes: int = 19, max_disp_full: int = 96,
@@ -42,8 +47,9 @@ class CerberusNet(nn.Module):
                  fpn_channels: int = 96, seg_head: str = "fpn",
                  corr_impl: str | None = None,
                  dtype: torch.dtype = torch.float32, pallas_levels: int = 0,
-                 pallas_grad: str = "xla"):
+                 pallas_grad: str = "xla", stacked_input: bool = False):
         super().__init__()
+        self.stacked_input = stacked_input
         self.encoder = PyramidEncoder(encoder_channels,
                                       pallas_levels=pallas_levels,
                                       pallas_grad=pallas_grad)
@@ -61,16 +67,31 @@ class CerberusNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.encoder.blocks[0].conv.weight.dtype
 
-    def forward(self, left, right, temporal):
-        """left/right/temporal: (B, H, W, 3) frames. Returns a dict:
+    def forward(self, left, right=None, temporal=None):
+        """left/right/temporal: (B, H, W, 3) frames (with ``stacked_input``,
+        ``left`` alone: the (3B, H, W, 3) stack). Returns a dict:
           seg_logits    (B, H, W, classes) float32
           flow          (B, H, W, 2) float32, left -> temporal
           disp          (B, H, W, 1) float32, left image
           flow_pyramid  {level: (B, H/2^l, W/2^l, 2)} for levels 6..2
           disp_pyramid  {level: (B, H/2^l, W/2^l, 1)} for levels 6..2
         """
-        f_left, f_right, f_temporal = self.encoder.encode(left, right,
-                                                          temporal)
+        if self.stacked_input:
+            if right is not None or temporal is not None:
+                raise ValueError(
+                    "stacked_input=True takes one (3B,H,W,3) tensor")
+            if left.shape[0] % 3 != 0:
+                raise ValueError(
+                    "stacked_input=True expects a (3B,H,W,3) tensor whose "
+                    f"leading dim is divisible by 3, got {tuple(left.shape)}")
+            f_left, f_right, f_temporal = self.encoder.encode_stacked(left, 3)
+        elif right is None or temporal is None:
+            raise ValueError(
+                "right/temporal are required unless stacked_input=True "
+                "(pass one (3B,H,W,3) tensor in that mode)")
+        else:
+            f_left, f_right, f_temporal = self.encoder.encode(left, right,
+                                                              temporal)
         disp = self.disparity(f_left, f_right)
         flow = self.flow(f_left, f_temporal)
         seg = self.segmentation(f_left, left.shape[1:3])

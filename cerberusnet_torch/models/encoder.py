@@ -58,8 +58,12 @@ class PyramidEncoder(nn.Module):
         levels 1..6) per frame. The frames run as one batch in the
         encoder's type; the reference encodes them one at a time or
         batched, with the same arithmetic per sample."""
-        b = frames[0].shape[0]
-        x = torch.cat(frames, dim=0).to(self.blocks[0].conv.weight.dtype)
+        return self.encode_stacked(torch.cat(frames, dim=0), len(frames))
+
+    def encode_stacked(self, x, n: int):
+        """``n`` NHWC frames stacked along the batch, (n B, H, W, 3) ->
+        one pyramid per frame, as ``encode``."""
+        b = x.shape[0] // n
+        x = x.to(self.blocks[0].conv.weight.dtype)
         feats = self(nchw(x.contiguous()))
-        return [[f[i * b : (i + 1) * b] for f in feats]
-                for i in range(len(frames))]
+        return [[f[i * b : (i + 1) * b] for f in feats] for i in range(n)]

@@ -28,7 +28,6 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from cerberusnet_torch.models.common import ConvBlock, leaky, nhwc, upsample_to
 from cerberusnet_torch.models.encoder import PyramidEncoder
@@ -39,10 +38,9 @@ SEG_HEADS = ("fpn", "aspp")
 
 
 def _classify(classifier: nn.Conv2d, x, out_hw):
-    """The 3x3 classifier in float32, resized to ``out_hw``."""
-    logits = F.conv2d(x.float(), classifier.weight.float(),
-                      classifier.bias.float(), padding=1)
-    return upsample_to(logits, out_hw)
+    """The 3x3 classifier (a float32 module) in float32, resized to
+    ``out_hw``."""
+    return upsample_to(classifier(x.float()), out_hw)
 
 
 class SegmentationHead(nn.Module):

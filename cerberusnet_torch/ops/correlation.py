@@ -23,10 +23,11 @@ Their gradients, for the cost volume's gradient g (the formulas of
 with offsets scaled by the dilation, out-of-frame terms zero, sums in
 float32, one division by C and one cast.
 
-Dispatch: a CUDA tensor goes through ``Correlation2d`` / ``Correlation1d``,
-whose forward and backward are the hand-written kernels
-(``ops/cuda/correlation.py``), or the call raises; a CPU tensor goes to the
-plain forward below, and autograd differentiates it. ``impl="plain"`` asks
+Dispatch: a CUDA tensor goes through the operators ``cerberus::corr2d_fwd``
+/ ``cerberus::corr1d_fwd`` (``ops/library.py``), whose forward and backward
+are the hand-written kernels (``ops/cuda/correlation.py``), or the call
+raises; a CPU tensor goes to the plain forward below, and autograd
+differentiates it. ``impl="plain"`` asks
 for the plain forward on any device, as a yardstick for the kernels.
 """
 
@@ -35,7 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cerberusnet_torch.ops.cuda import correlation as cuda_correlation
+from cerberusnet_torch.ops import library
 
 IMPLS = (None, "plain")
 
@@ -140,51 +141,6 @@ def _correlation1d_bwd_plain(g, f1, f2, max_disp: int, dilation: int = 1):
             _correlation1d_bwd_f2_plain(g, f1, max_disp, dilation))
 
 
-def _kernel_backward(ctx, g, bwd_f1, bwd_f2):
-    """(df1, df2, None, None) from the backward kernels. The incoming
-    gradient may be laid out in any order (its consumer is a channels_last
-    LeakyReLU and concatenation), so it is made NHWC-contiguous first; a
-    gradient nobody needs is not computed."""
-    f1, f2 = ctx.saved_tensors
-    g = g.contiguous()
-    df1 = df2 = None
-    if ctx.needs_input_grad[0]:
-        df1 = bwd_f1(g, f2, ctx.max_disp, ctx.dilation)
-    if ctx.needs_input_grad[1]:
-        df2 = bwd_f2(g, f1, ctx.max_disp, ctx.dilation)
-    return df1, df2, None, None
-
-
-class Correlation2d(torch.autograd.Function):
-    """The 2-D op on K1 (forward) and K2 + K3 (backward)."""
-
-    @staticmethod
-    def forward(ctx, f1, f2, max_disp: int, dilation: int):
-        ctx.save_for_backward(f1, f2)
-        ctx.max_disp, ctx.dilation = max_disp, dilation
-        return cuda_correlation.corr2d_fwd(f1, f2, max_disp, dilation)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _kernel_backward(ctx, g, cuda_correlation.corr2d_bwd_f1,
-                                cuda_correlation.corr2d_bwd_f2)
-
-
-class Correlation1d(torch.autograd.Function):
-    """The 1-D op on K4 (forward) and K5 + K6 (backward)."""
-
-    @staticmethod
-    def forward(ctx, f1, f2, max_disp: int, dilation: int):
-        ctx.save_for_backward(f1, f2)
-        ctx.max_disp, ctx.dilation = max_disp, dilation
-        return cuda_correlation.corr1d_fwd(f1, f2, max_disp, dilation)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _kernel_backward(ctx, g, cuda_correlation.corr1d_bwd_f1,
-                                cuda_correlation.corr1d_bwd_f2)
-
-
 def _dispatch(f1, f2, impl):
     if f1.shape != f2.shape:
         raise ValueError(f"f1/f2 shape mismatch: {tuple(f1.shape)} vs "
@@ -199,7 +155,7 @@ def correlation2d(f1, f2, max_disp: int = 4, dilation: int = 1,
     """2-D correlation. (B,H,W,C) x2 -> (B,H,W,(2*max_disp+1)**2)."""
     if _dispatch(f1, f2, impl):
         return _correlation2d_plain(f1, f2, max_disp, dilation)
-    return Correlation2d.apply(f1, f2, max_disp, dilation)
+    return library.corr2d_fwd(f1, f2, max_disp, dilation)
 
 
 def correlation1d(f1, f2, max_disp: int = 24, dilation: int = 1,
@@ -209,4 +165,4 @@ def correlation1d(f1, f2, max_disp: int = 24, dilation: int = 1,
     ``f1`` holds the left-image features and ``f2`` the right-image ones."""
     if _dispatch(f1, f2, impl):
         return _correlation1d_plain(f1, f2, max_disp, dilation)
-    return Correlation1d.apply(f1, f2, max_disp, dilation)
+    return library.corr1d_fwd(f1, f2, max_disp, dilation)

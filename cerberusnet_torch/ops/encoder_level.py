@@ -8,10 +8,11 @@ the kernels HWIO (3, 3, C, F) and (3, 3, F, F), the biases (F,), and the
 output NHWC (B, H/2, W/2, F); the kernels and biases are cast to x's type.
 
 Dispatch: ``encoder_level`` takes the plain version below for a CPU tensor,
-and autograd differentiates it. For a CUDA tensor it goes through
-``EncoderLevel``, whose forward is the hand-written kernel K9
-(``ops/cuda/encoder_level.py``), or the call raises. Its backward is the
-reverse-sweep kernel K10 with ``grad="pallas"``; with ``grad="xla"`` it
+and autograd differentiates it. For a CUDA tensor it goes through the
+operator ``cerberus::encoder_level_fwd`` (``ops/library.py``), whose
+forward is the hand-written kernel K9 (``ops/cuda/encoder_level.py``), or
+the call raises. Its backward is the reverse-sweep kernel K10
+(``cerberus::encoder_level_bwd``) with ``grad="pallas"``; with ``grad="xla"`` it
 recomputes the level with the plain convs and differentiates them, as the
 reference's ``_enc_bwd`` does. The two gradients are the same math.
 
@@ -28,9 +29,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from cerberusnet_torch.ops.cuda import encoder_level as cuda_level
+from cerberusnet_torch.ops import library
 
-GRADS = ("xla", "pallas")
+GRADS = library.LEVEL_GRADS
 
 
 def _conv_block(x, k, b, stride: int):
@@ -57,40 +58,10 @@ def encoder_level_bwd_plain(x, y3, g, k1, b1, k2, b2, k3, b3):
     level's output, which the reverse-sweep kernel reads for its last mask)
     is not needed here. Each gradient has its input's type."""
     del y3
-    inputs = [t.detach().requires_grad_() for t in (x, k1, b1, k2, b2, k3, b3)]
-    with torch.enable_grad():
-        y = encoder_level_plain(*inputs)
-        return torch.autograd.grad(y, inputs, g.to(y.dtype))
-
-
-class EncoderLevel(torch.autograd.Function):
-    """The level on K9 (forward) and K10 (backward, ``grad="pallas"``) or
-    the plain recompute (``grad="xla"``)."""
-
-    @staticmethod
-    def forward(ctx, x, k1, b1, k2, b2, k3, b3, grad: str):
-        params = (k1, b1, k2, b2, k3, b3)
-        kernels = [t.to(x.dtype).contiguous() for t in params]
-        out = cuda_level.level_fwd(x.contiguous(), *kernels)
-        ctx.grad = grad
-        ctx.save_for_backward(x, *params,
-                              *((out,) if grad == "pallas" else ()))
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, k1, b1, k2, b2, k3, b3, *y3 = ctx.saved_tensors
-        params = (k1, b1, k2, b2, k3, b3)
-        if ctx.grad == "pallas":
-            kernels = [t.to(x.dtype).contiguous() for t in params]
-            grads = cuda_level.level_bwd(
-                x.contiguous(), y3[0], g.to(x.dtype).contiguous(), *kernels,
-                need_dx=ctx.needs_input_grad[0])
-        else:
-            grads = encoder_level_bwd_plain(x, None, g, *params)
-        grads = [None if d is None else d.to(t.dtype)
-                 for d, t in zip(grads, (x, *params))]
-        return (*grads, None)
+    # torch.func rather than autograd: it also differentiates inside an
+    # operator's implementation, below autograd
+    y, vjp = torch.func.vjp(encoder_level_plain, x, k1, b1, k2, b2, k3, b3)
+    return vjp(g.to(y.dtype))
 
 
 def encoder_level(x, k1, b1, k2, b2, k3, b3, *, grad: str = "xla"):
@@ -103,4 +74,7 @@ def encoder_level(x, k1, b1, k2, b2, k3, b3, *, grad: str = "xla"):
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return encoder_level_plain(x, k1, b1, k2, b2, k3, b3)
-    return EncoderLevel.apply(x, k1, b1, k2, b2, k3, b3, grad)
+    # the casts and copies stay outside the operator, so autograd carries
+    # the gradients back through them
+    params = [t.to(x.dtype).contiguous() for t in (k1, b1, k2, b2, k3, b3)]
+    return library.encoder_level_fwd(x.contiguous(), *params, grad)

@@ -14,7 +14,9 @@ pass ``data.render_pass``), with every loss term (``loss.rmi_weight``,
 ``photometric_weight``, ``smoothness_weight`` among them) and the
 augmentation (``crop_hw``, ``scales``, ``flip_lr_prob``, ``brightness``,
 ``contrast``) and ``data.num_workers`` decode threads; ``train.tensorboard``
-writes event files under ``ckpt_dir/tb``. ``model.pallas_levels`` runs CerberusNet's first N
+writes event files under ``ckpt_dir/tb``; ``train.qat`` (its ranges from
+``qat_calib_batches`` batches) trains with fake-quantized convs and
+``train.debug_nans`` stops at the first NaN. ``model.pallas_levels`` runs CerberusNet's first N
 encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
 their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
 plain convolutions recomputed; the DCV and RAFT variants ignore both, as
@@ -29,9 +31,7 @@ their value, are accepted and have no effect here:
 ``s2d_levels`` (for CerberusNet each raises ``ValueError`` beside
 ``pallas_levels``, as the reference's encoder does), ``entry_grad``,
 ``est_input``, ``raft_unroll`` (``nn.scan`` or an unrolled loop over one
-parameter tree) and ``optim.flatten``. So is the key of a part the port
-does not have yet, which nothing here reads: ``train.qat_calib_batches``
-(A10).
+parameter tree) and ``optim.flatten``.
 """
 
 from __future__ import annotations
@@ -249,10 +249,8 @@ class ExperimentConfig:
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
-            (t.qat, "train.qat", "A10"),
             (t.num_data_devices > 1 or t.num_spatial_devices > 1,
              "more than one device", "A11"),
-            (t.debug_nans, "train.debug_nans", "A5"),
         )
         for bad, what, item in checks:
             if bad:

@@ -41,12 +41,21 @@ outputs, the benchmark PNGs and a panel out). ``import_torch_weights``
 loads a PyTorch ``TorchCerberus`` checkpoint into the masters;
 ``profile`` writes a ``torch.profiler`` trace of a few train steps (the
 reference's is an XProf trace).
+
+Deployment: ``export`` writes the evaluation weights' inference graph as a
+``torch.export`` artifact (``export/aot.py``), as a float graph, the
+stacked signature or, with ``quant="int8"``, the int8 graph of
+``quant/ptq.py``. ``train.qat`` trains with fake-quantized convs
+(``quant/qat.py``) against fixed ranges; ``train.debug_nans`` runs the
+steps and evaluations under ``DebugNans`` (``train/debug_nans.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
+import itertools
 import math
 import os
 import re
@@ -76,6 +85,11 @@ from cerberusnet_torch.data.loader import (
 )
 from cerberusnet_torch.eval.submission import to_numpy, write_predictions
 from cerberusnet_torch.eval.tta import tta_forward
+from cerberusnet_torch.export.aot import (
+    DeployOutputs,
+    export_inference,
+    save_exported,
+)
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.models.dcv_flow import (
@@ -92,12 +106,14 @@ from cerberusnet_torch.models.raft import (
     keep_tied_float32,
 )
 from cerberusnet_torch.models.segmentation import SegNet
+from cerberusnet_torch.quant import ptq, qat
 from cerberusnet_torch.train import losses
 from cerberusnet_torch.train.config import (
     ExperimentConfig,
     ModelConfig,
     OptimConfig,
 )
+from cerberusnet_torch.train.debug_nans import DebugNans
 from cerberusnet_torch.train.metrics import METRICS, MetricState
 from cerberusnet_torch.utils import visualization as vis
 from cerberusnet_torch.utils.tblogger import TBLogger
@@ -338,10 +354,24 @@ class Trainer:
     parameter of a float32 one, the log-variances), as the reference does.
     ``train.remat`` recomputes the forward in the backward
     (``torch.utils.checkpoint``, as ``jax.checkpoint`` of the loss), so
-    the forward kernels launch twice a step."""
+    the forward kernels launch twice a step.
+
+    ``train.qat``, as the reference's: the activation ranges are
+    calibrated (``ptq.calibrate`` on ``train.qat_calib_batches`` batches)
+    on the weights the trainer starts from, restored or imported, and stay
+    fixed; every forward of the trainer (the loss, evaluation, TTA, the
+    panels) runs the convs fake-quantized against them. CerberusNet's
+    fused levels rebuild as plain ones (``model.pallas_levels`` becomes 0
+    in the config, as there): the fake quantization replaces the convs'
+    forwards, which the fused levels do not call.
+    ``train.debug_nans`` raises ``FloatingPointError`` at the first
+    operator that outputs a NaN in a step (forward, backward, update) or
+    an evaluation forward."""
 
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
+        if config.train.qat and config.model.pallas_levels:
+            config.model.pallas_levels = 0
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -386,6 +416,8 @@ class Trainer:
         self._start()
         if config.train.ckpt_dir and config.train.resume:
             self._maybe_restore()
+        self._qat_ema = (self._calibrate_qat_ranges() if config.train.qat
+                         else None)
 
     def _build_dataset(self, split):
         """``data.dataset``'s split: the synthetic one (seed 1 for "val"),
@@ -473,8 +505,37 @@ class Trainer:
 
     # -- steps -------------------------------------------------------------
 
+    def _nan_check(self):
+        """The ``DebugNans`` mode under ``train.debug_nans``."""
+        return (DebugNans() if self.config.train.debug_nans
+                else contextlib.nullcontext())
+
     def _forward(self, batch):
-        return self.model(*[batch[k] for k in self.input_keys])
+        inputs = [batch[k] for k in self.input_keys]
+        if self._qat_ema is None:
+            return self.model(*inputs)
+        with qat.qat_interception(self.model, self._qat_ema):
+            return self.model(*inputs)
+
+    def _calib_batches(self, batch_size: int, n: int) -> list:
+        """The training dataset's first ``n`` batches (or as many as it
+        has), preprocessed, as model-input tuples: QAT's ranges and int8
+        export calibrate on them."""
+        loader = DataLoader(self.dataset, batch_size, num_workers=1)
+        out = []
+        for b in itertools.islice(loader, n):
+            prep = preprocess(b, self.config.data.hw, self.dtype, self.device)
+            out.append(tuple(prep[k] for k in self.input_keys))
+        return out
+
+    def _calibrate_qat_ranges(self) -> dict:
+        """QAT's fixed ranges: each conv's input absmax on the current
+        weights, as ``qat.init_ema`` holds them."""
+        batches_ = self._calib_batches(self.config.data.batch_size,
+                                       self.config.train.qat_calib_batches)
+        scales = ptq.calibrate(self.model, batches_)
+        print(f"[trainer] QAT: calibrated {len(scales)} conv ranges")
+        return qat.init_ema(scales, self.device)
 
     def _loss_fn(self, batch):
         outputs = self._forward(batch)
@@ -513,6 +574,10 @@ class Trainer:
         augmentation, when configured, draws anew at each call); returns
         (loss components, {parameter name: float32 gradient}). Changes no
         weight."""
+        with self._nan_check():
+            return self._loss_and_grads(batch)
+
+    def _loss_and_grads(self, batch):
         batch = preprocess(self._augmented(batch), self.config.data.hw,
                            self.dtype, self.device)
         for p in self._params:
@@ -544,12 +609,15 @@ class Trainer:
             grads[n] = (g.to(torch.bfloat16) if bf16 else g).float()
         return {k: v.detach() for k, v in comps.items()}, grads
 
-    @torch.no_grad()
     def apply_grads(self, grads: dict):
         """One call of the reference's optimizer: clips, updates the masters
         and copies them into the model; with ``optim.accum_steps`` = k,
         adds the gradients to the running mean and updates by it every k
         calls. Then moves the EMA and counts the step."""
+        with torch.no_grad(), self._nan_check():
+            self._apply_grads(grads)
+
+    def _apply_grads(self, grads: dict):
         g = [grads[n] for n in self.names]
         k = self.config.optim.accum_steps
         if k > 1:
@@ -612,8 +680,10 @@ class Trainer:
                                     self.device)
         with self._eval_weights():
             for batch in self._eval_loader(loader):
-                prep = self._prep_eval_batch(batch)
-                metrics = metrics.update(self._forward(prep), prep)
+                with self._nan_check():
+                    prep = self._prep_eval_batch(batch)
+                    out = self._forward(prep)
+                metrics = metrics.update(out, prep)
         return metrics.compute()
 
     @torch.no_grad()
@@ -747,6 +817,9 @@ class Trainer:
                 self.ema[n].copy_(p)
         self._sync(self.masters)
         print(f"[trainer] imported torch weights from {path}")
+        if self._qat_ema is not None:
+            # the ranges calibrated at construction saw other weights
+            self._qat_ema = self._calibrate_qat_ranges()
 
     def profile(self, log_dir: str, steps: int = 5) -> str:
         """A ``torch.profiler`` trace (host and, on a GPU, device activity)
@@ -766,6 +839,76 @@ class Trainer:
         path = os.path.join(log_dir, "trace.json")
         prof.export_chrome_trace(path)
         return path
+
+    # -- deployment --------------------------------------------------------
+
+    def export(self, out_dir: str, batch: int = 1, quant: str | None = None,
+               calib_batches: int = 2, quant_skip: tuple = (),
+               stacked: bool = False) -> str:
+        """Exports the evaluation weights (the EMA when kept, else the
+        masters; not the log-variances) as a deployment artifact
+        (``export/aot.py``): NHWC frames of ``batch`` at ``data.hw`` in the
+        compute type in, (seg_logits, flow, disp) out, those the variant
+        has. Every variant exports. Returns ``out_dir``.
+
+        ``quant="int8"`` is the reference's TensorRT int8 build: the model
+        rebuilt with plain encoder levels (its fused levels do not call
+        the convs' forwards) is calibrated on ``calib_batches`` training
+        batches of ``batch`` (or, after QAT, takes its trained ranges),
+        quantized from the float32 weights with ``quant_skip`` left float
+        and the float weights stripped, and exported with its int8 convs.
+
+        ``stacked=True`` (CerberusNet only) exports the producer-stacked
+        signature: one (3 batch, H, W, 3) input holding [left; right;
+        temporal]."""
+        m = self.config.model
+        if stacked and m.variant != "cerberus":
+            raise ValueError("stacked export needs the 3-frame cerberus "
+                             f"variant, got {m.variant!r}")
+        model = self.deploy_model(quant, batch, calib_batches, quant_skip)
+        h, w = self.config.data.hw
+        n_inputs = len(self.input_keys)
+        if stacked:
+            model.stacked_input = True
+            batch, n_inputs = 3 * batch, 1
+        example = tuple(torch.zeros((batch, h, w, 3), dtype=self.dtype,
+                                    device=self.device)
+                        for _ in range(n_inputs))
+        with (ptq.quant_interception(model) if quant
+              else contextlib.nullcontext()):
+            exported = export_inference(DeployOutputs(model), example)
+        return save_exported(exported, out_dir)
+
+    def deploy_model(self, quant: str | None = None, batch: int = 1,
+                     calib_batches: int = 2, quant_skip: tuple = ()):
+        """The model ``export`` exports, in evaluation mode: a new one of
+        this config's with the evaluation weights and, with
+        ``quant="int8"``, plain encoder levels and the ``quant`` entries
+        (the float weights of the quantized convs stripped)."""
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant mode {quant!r} (expected "
+                             "'int8')")
+        m = self.config.model
+        model, _ = build_model(
+            dataclasses.replace(m, pallas_levels=0) if quant else m,
+            self.corr_impl, self.dtype)
+        model = model.to(self.device).eval()
+        values = self.ema if self.ema is not None else self.masters
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(values[n])
+        if not quant:
+            return model
+        kernels = {n[:-len(".weight")]: v for n, v in values.items()
+                   if n.endswith(".weight")}
+        if self._qat_ema is not None:
+            # the ranges the weights trained against
+            return qat.finalize(model, self._qat_ema, skip=quant_skip,
+                                strip=True, weights=kernels)
+        scales = ptq.calibrate(model, self._calib_batches(batch,
+                                                          calib_batches))
+        return ptq.quantize(model, scales, skip=quant_skip, strip=True,
+                            weights=kernels)
 
     # -- checkpoints -------------------------------------------------------
 

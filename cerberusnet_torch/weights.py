@@ -73,71 +73,69 @@ def _fill(param: torch.Tensor, value: np.ndarray, done: set):
     done.add(id(param))
 
 
-def _conv(conv: nn.Conv2d, p, done):
-    _fill(conv.weight, np.asarray(p["kernel"]).transpose(3, 2, 0, 1), done)
-    _fill(conv.bias, np.asarray(p["bias"]), done)
+# The walk below visits each conv of a port module with its subtree of the
+# flax tree: ``visit(conv, p)``. Loading copies the subtree's kernel and
+# bias; ``flax_conv_paths`` hands it a _FlaxPath and records the path.
 
 
-def _conv_transpose(conv: nn.ConvTranspose2d, p, done):
-    k = np.asarray(p["kernel"])[::-1, ::-1]
-    _fill(conv.weight, k.transpose(2, 3, 0, 1), done)
-    _fill(conv.bias, np.asarray(p["bias"]), done)
+def _conv(conv: nn.Module, p, visit):
+    visit(conv, p)
 
 
-def _blocks(blocks, p, done):
+def _blocks(blocks, p, visit):
     for j, block in enumerate(blocks):
-        _conv(block.conv, p[f"ConvBlock_{j}"]["Conv_0"], done)
+        _conv(block.conv, p[f"ConvBlock_{j}"]["Conv_0"], visit)
 
 
-def _decoder(dec, p, done):
+def _decoder(dec, p, visit):
     for i, est in enumerate(dec.estimators):
-        _blocks(est.blocks, p[f"DenseEstimator_{i}"], done)
-        _conv(dec.predictors[i], p[f"Conv_{i}"], done)
+        _blocks(est.blocks, p[f"DenseEstimator_{i}"], visit)
+        _conv(dec.predictors[i], p[f"Conv_{i}"], visit)
     for i, up in enumerate(dec.upfeats):
-        _conv_transpose(up, p[f"ConvTranspose_{i}"], done)
+        _conv(up, p[f"ConvTranspose_{i}"], visit)
     ctx = p["ContextNetwork_0"]
-    _blocks(dec.context.blocks, ctx, done)
-    _conv(dec.context.out, ctx["Conv_0"], done)
+    _blocks(dec.context.blocks, ctx, visit)
+    _conv(dec.context.out, ctx["Conv_0"], visit)
 
 
-def _dcv_decoder(dec, p, done):
-    _blocks(dec.estimator.blocks, p["DenseEstimator_0"], done)
-    _conv(dec.predictor, p["Conv_0"], done)
+def _dcv_decoder(dec, p, visit):
+    _blocks(dec.estimator.blocks, p["DenseEstimator_0"], visit)
+    _conv(dec.predictor, p["Conv_0"], visit)
     ctx = p["ContextNetwork_0"]
-    _blocks(dec.context.blocks, ctx, done)
-    _conv(dec.context.out, ctx["Conv_0"], done)
+    _blocks(dec.context.blocks, ctx, visit)
+    _conv(dec.context.out, ctx["Conv_0"], visit)
 
 
-def _raft_decoder(dec, p, done):
-    _conv(dec.corr_proj, p["corr_proj"], done)
-    _conv(dec.context_proj, p["context_proj"], done)
+def _raft_decoder(dec, p, visit):
+    _conv(dec.corr_proj, p["corr_proj"], visit)
+    _conv(dec.context_proj, p["context_proj"], visit)
     update, pu = dec.update, p["update"]
     for part, names in (("motion", ("convc1", "convc2", "convf1", "convf2",
                                     "conv")),
                         ("gru", ("convz", "convr", "convq"))):
         for name in names:
-            _conv(getattr(getattr(update, part), name), pu[part][name], done)
+            _conv(getattr(getattr(update, part), name), pu[part][name], visit)
     for name in ("flow_head1", "flow_head2", "mask_head1", "mask_head2"):
-        _conv(getattr(update, name), pu[name], done)
+        _conv(getattr(update, name), pu[name], visit)
 
 
-def _segmentation(seg, p, done):
+def _segmentation(seg, p, visit):
     for i, lat in enumerate(seg.laterals):
-        _conv(lat, p[f"Conv_{i}"], done)
-    _blocks(seg.smooth, p, done)
-    _conv(seg.final.conv, p[f"ConvBlock_{len(seg.smooth)}"]["Conv_0"], done)
-    _conv(seg.classifier, p[f"Conv_{len(seg.laterals)}"], done)
+        _conv(lat, p[f"Conv_{i}"], visit)
+    _blocks(seg.smooth, p, visit)
+    _conv(seg.final.conv, p[f"ConvBlock_{len(seg.smooth)}"]["Conv_0"], visit)
+    _conv(seg.classifier, p[f"Conv_{len(seg.laterals)}"], visit)
 
 
-def _aspp(seg, p, done):
-    _blocks(seg.branches, p, done)
-    _conv(seg.pool, p["Conv_0"], done)
-    _conv(seg.project, p["Conv_1"], done)
-    _conv(seg.skip, p["Conv_2"], done)
+def _aspp(seg, p, visit):
+    _blocks(seg.branches, p, visit)
+    _conv(seg.pool, p["Conv_0"], visit)
+    _conv(seg.project, p["Conv_1"], visit)
+    _conv(seg.skip, p["Conv_2"], visit)
     n = len(seg.branches)
     for j, block in enumerate(seg.refine):
-        _conv(block.conv, p[f"ConvBlock_{n + j}"]["Conv_0"], done)
-    _conv(seg.classifier, p["Conv_3"], done)
+        _conv(block.conv, p[f"ConvBlock_{n + j}"]["Conv_0"], visit)
+    _conv(seg.classifier, p["Conv_3"], visit)
 
 
 # a whole model's parts, by the port's attribute; the reference names each
@@ -156,24 +154,24 @@ _PARTS = {
 }
 
 
-def _load(module, p, done):
+def _load(module, p, visit):
     parts = _PARTS.get(type(module))
     if parts:
         for attr in parts:
             part = getattr(module, attr)
-            _load(part, p[f"{type(part).__name__}_0"], done)
+            _load(part, p[f"{type(part).__name__}_0"], visit)
     elif isinstance(module, DCVDecoder):
-        _dcv_decoder(module, p, done)
+        _dcv_decoder(module, p, visit)
     elif isinstance(module, RAFTDecoder):
-        _raft_decoder(module, p, done)
+        _raft_decoder(module, p, visit)
     elif isinstance(module, PyramidEncoder):
-        _blocks(module.blocks, p, done)
+        _blocks(module.blocks, p, visit)
     elif isinstance(module, CoarseToFineDecoder):
-        _decoder(module, p, done)
+        _decoder(module, p, visit)
     elif isinstance(module, SegmentationHead):
-        _segmentation(module, p, done)
+        _segmentation(module, p, visit)
     elif isinstance(module, ASPPSegmentationHead):
-        _aspp(module, p, done)
+        _aspp(module, p, visit)
     else:
         raise TypeError(f"no flax mapping for {type(module).__name__}")
 
@@ -182,11 +180,47 @@ def _load(module, p, done):
 def load_flax_params(module: nn.Module, params) -> nn.Module:
     """Fills ``module`` in place from a flax param tree; returns it."""
     done: set = set()
-    _load(module, params, done)
+
+    def fill(conv, p):
+        k = np.asarray(p["kernel"])
+        if isinstance(conv, nn.ConvTranspose2d):
+            k = k[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            k = k.transpose(3, 2, 0, 1)
+        _fill(conv.weight, k, done)
+        _fill(conv.bias, np.asarray(p["bias"]), done)
+
+    _load(module, params, fill)
     missed = [n for n, t in module.named_parameters() if id(t) not in done]
     if missed:
         raise ValueError(f"parameters not in the flax tree: {missed}")
     return module
+
+
+class _FlaxPath:
+    """A stand-in for a flax tree that records the keys it is read by."""
+
+    def __init__(self, path=()):
+        self.path = path
+
+    def __getitem__(self, key):
+        return _FlaxPath((*self.path, key))
+
+
+def flax_conv_paths(module: nn.Module) -> dict:
+    """{qualified name of each conv of ``module``: the path of its flax
+    module in the reference's tree}, e.g. ``"encoder.blocks.0.conv"`` ->
+    ``("PyramidEncoder_0", "ConvBlock_0", "Conv_0")``, by the walk that
+    ``load_flax_params`` takes; the paths key the reference's calibration
+    scales and ``quant`` entries."""
+    names = {id(m): n for n, m in module.named_modules()}
+    paths = {}
+
+    def record(conv, p):
+        paths[names[id(conv)]] = p.path
+
+    _load(module, _FlaxPath(), record)
+    return paths
 
 
 # TorchCerberus's pyramid levels, in the order the port's lists hold them

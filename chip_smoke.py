@@ -210,19 +210,55 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            distance + 1e-3 + one code; labelIds differing on at most 1e-3
            of the pixels); Trainer.predict_images of CerberusNet on three
            PNGs (the npz, the benchmark PNGs and the panel)
-  cli      python -m cerberusnet_torch.cli --device cuda in two processes:
+  cli      python -m cerberusnet_torch.cli --device cuda in five processes:
            --import-torch of a TorchCerberus checkpoint (tiny widths) with
            --infer on three PNGs (the printed files, the npz against this
-           process's forward of the same weights within 1e-3), and
-           --profile (the trace holds the correlation kernels)
+           process's forward of the same weights within 1e-3),
+           --profile (the trace holds the correlation kernels), and
+           --export-dir alone, with --quant int8 and with --export-stacked
+           (model.pt2 and manifest.json written, the inputs' shapes; the
+           float artifact called here against a trainer's forward of the
+           same config within 1e-5)
+  export   CerberusNet (default widths, bf16, 512x1024, batch 1) through
+           torch.export (cerberusnet_torch.export), saved and loaded back:
+           one call of the loaded program launches K1 and K4 5 times each
+           and its graph holds as many operators; its heads against the
+           eager forward (bit-equal reported, within 1e-2 held) and by the
+           plain bf16 rule against the float32 plain path; the same
+           artifact in a fresh process that imports only torch and the
+           operators (ops/library.py); the stacked artifact (one (3, 512,
+           1024, 3) input) against the separate-frame one; the
+           pallas_levels=3 artifact (3 K9 launches a call) and
+           CerberusDCV's (4 K7 and 3 K8); each manifest's signature;
+           export and load seconds, ms per frame loaded against eager
+  quant_int8  the same CerberusNet calibrated on 2 batches, quantized from
+           its float32 weights with strip: the int8 heads against
+           simulate=True within 1e-2 (a control with one conv's scale_w
+           doubled must break it), against float32 beside the reference's
+           limits, 5 + 5 correlation launches a frame, the im2col bytes of
+           each int8 conv, ms per frame and peak memory against bf16 in
+           turns, and the int8 artifact against quantized_apply
+  train_qat  5 steps of configs/cerberus_synthetic.json with train.qat as
+           train runs its steps (launches, masters moved, gradients and
+           correlation taps against the float32 yardstick with the same
+           ranges, zeroed controls), ms per step beside the float step;
+           then Trainer.export(quant="int8") (qat.finalize) against
+           quantized_apply
+  debug_nans  train.debug_nans: a step on a batch with one NaN pixel
+           raises FloatingPointError naming an operator and moves no
+           master, the clean step runs, an inf pixel through the stem
+           block does not raise; ms per step with the mode and without
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve and fit paths'
 beside them, the data slice's paths (train_flow_kitti,
 train_stereo_kitti, fit_dcv_kitti, serve_flow, serve_stereo) and the
 evaluation slice's (train_flyingthings3d, train_losses, eval_tta,
-tiled_sequential, tiled, predict, predict_images) where the kernel runs,
-and the DCV paths' under "dcv"; K9's and K10's on train_pallas_levels,
-K9's serve numbers beside them, each with its time over the cuDNN level's
+tiled_sequential, tiled, predict, predict_images) and the deployment
+slice's (a call of each loaded artifact: export_cerberus, export_stacked,
+export_pallas_levels; quant_int8's forward; train_qat) where the kernel
+runs, and the DCV paths' under "dcv" (export_cerberus_dcv among them);
+K9's and K10's on train_pallas_levels, K9's serve and
+export_pallas_levels numbers beside them, each with its time over the cuDNN level's
 (vs_plain) per level, and K10's weight-gradient partial bytes per step as
 its wrapper counted them in train_pallas_levels), a {"phase": "done"} line
 with the
@@ -231,7 +267,8 @@ script's seconds, the card's nvidia-smi line and, last,
 no result. ``--only a,b,...`` runs env, build and the named phases alone
 (the data slice's run after data, and the evaluation slice's after
 flow_data where they need its fixtures), with no summary and no result
-line.
+line. The deployment phases (export, quant_int8, train_qat, debug_nans)
+run after the RAFT phases, the cli phase last.
 """
 
 from __future__ import annotations
@@ -1051,18 +1088,27 @@ TRAIN = {
         [BACKWARDS], {}, (), "plain",
         {"dataset": "flyingthings3d", "root": "flyingthings3d",
          "hw": list(THINGS_HW)}),
+    "train_qat": ("configs/cerberus_synthetic.json",
+                  (len(LEVELS), len(LEVELS)),
+                  [(k,) for k in BACKWARDS] + [BACKWARDS], {}, (), "float",
+                  {}),
 }
 # the phases whose config's own size the model cannot take
 CONFIG_HW_RAISES = ("train_flow_kitti", "train_stereo_kitti")
-# phase: the loss overrides of every trainer it builds, the prefix of the
-# masters no loss reaches (their gradients must be zero, and they are not
-# held to move), and whether one more step holds every correlation call to
-# its plain version (fit's rule)
+# phase: the loss and train overrides of every trainer it builds but the
+# timed baseline, the prefix of the masters no loss reaches (their
+# gradients must be zero, and they are not held to move), whether one more
+# step holds every correlation call to its plain version (fit's rule), and
+# whether the weights are then exported as int8 (qat_int8_export)
 TRAIN_EXTRA = {
     "train_flyingthings3d": {
         "loss": {"photometric_weight": 0.1, "smoothness_weight": 0.1},
         # FlyingThings3D has no segmentation labels
         "unreached": "segmentation.", "checked_calls": True},
+    # QAT: the plain paths of the comparison take the kernel path's
+    # ranges, so all three run one fake-quantized function; the baseline
+    # timed beside it is the float step
+    "train_qat": {"train": {"qat": True}, "export_int8": True},
 }
 
 
@@ -1200,6 +1246,7 @@ def phase_train(phase):
     config, (n2d, n1d), control_sets, model, levels, base, data = TRAIN[phase]
     extra = TRAIN_EXTRA.get(phase, {})
     loss = extra.get("loss", {})
+    train = extra.get("train", {})
     raises_at = None
     if data:
         data = {**data, "root": FIXTURES[data["root"]]}
@@ -1226,7 +1273,8 @@ def phase_train(phase):
     constant = {"schedule": "constant"}
     trainer, batches = train_entry(config, batch_size=TRAIN_BATCH,
                                    n_batches=TRAIN_STEPS, optim=constant,
-                                   model=model, data=data, loss=loss)
+                                   model=model, data=data, loss=loss,
+                                   train=train)
     setup_s = time.perf_counter() - t0
     errors = []
     before = {n: m.clone() for n, m in trainer.masters.items()}
@@ -1259,13 +1307,16 @@ def phase_train(phase):
     # against the plain correlations in bf16 and in float32 (the yardstick)
     plain16, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
                              corr_impl="plain", optim=constant, data=data,
-                             loss=loss)
+                             loss=loss, train=train)
     plain32, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
                              corr_impl="plain", optim=constant,
-                             model={"dtype": "float32"}, data=data, loss=loss)
+                             model={"dtype": "float32"}, data=data, loss=loss,
+                             train=train)
     batch = batches[0]
     plain16.load_masters(trainer.masters)
     plain32.load_masters(trainer.masters)
+    if trainer._qat_ema is not None:
+        plain16._qat_ema = plain32._qat_ema = trainer._qat_ema
     # per module (and per fused encoder block), per correlation input and
     # per tapped encoder level input
     n_taps = len(levels) + 2 * (n2d + n1d)
@@ -1419,6 +1470,13 @@ def phase_train(phase):
             "block_medians": [p["median"] for p in parts],
             "runs": sum(p["runs"] for p in parts)}
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    int8_export = None
+    if extra.get("export_int8"):
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            int8_export, export_errors = qat_int8_export(trainer, d)
+        errors += export_errors
     ok = not errors
     emit({"phase": phase, "ok": ok, "config": config,
           "hw": list(trainer.config.data.hw), "batch": TRAIN_BATCH,
@@ -1431,8 +1489,9 @@ def phase_train(phase):
           "unreached": len(unreached), "loss_overrides": loss,
           "corr_calls_vs_plain": checked, "log_variances": log_vars,
           "setup_s": setup_s, "distances": distances, "controls": controls,
-          "model": model, "pallas_grad_xla_step": xla_step,
-          "train_step": step,
+          "model": model, "train_overrides": train,
+          "pallas_grad_xla_step": xla_step, "train_step": step,
+          "qat_int8_export": int8_export,
           "timing": "CUDA events around one train_step(batch) call, host "
                     "batch in, preprocessing and optimizer included",
           "max_memory_allocated_gib": peak_mem, "errors": errors})
@@ -3261,6 +3320,57 @@ def phase_predict(card, root):
     return counts
 
 
+# the CLI's export processes: their flags, and the artifact's inputs
+CLI_EXPORTS = {"export": [], "export_int8": ["--quant", "int8"],
+               "export_stacked": ["--export-stacked"]}
+CLI_EXPORT_INPUTS = {"export": [[1, *CLI_HW, 3]] * 3,
+                     "export_int8": [[1, *CLI_HW, 3]] * 3,
+                     "export_stacked": [[3, *CLI_HW, 3]]}
+# the float32 artifact of the CLI's process against this process's trainer
+# forward on the same frames (TF32 off in both calls): the same operators
+CLI_EXPORT_RTOL = 1e-5
+
+
+def cli_exports(d, procs, cfg, errors):
+    """What the CLI's export processes wrote: each artifact's files and
+    inputs, and the float one called here against the forward of a trainer
+    of the same config (the same seeded weights)."""
+    import os
+
+    from cerberusnet_torch.export import load_exported
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.trainer import Trainer
+
+    out = {}
+    for name, inputs in CLI_EXPORT_INPUTS.items():
+        art = f"{d}/{name}"
+        if f"exported AOT artifact to {art}" not in procs[name]["stdout"]:
+            errors.append(f"{name}: printed {procs[name]['stdout'][-300:]}")
+            continue
+        files = sorted(os.listdir(art))
+        with open(f"{art}/manifest.json") as f:
+            manifest = json.load(f)
+        got = [i["shape"] for i in manifest["inputs"]]
+        out[name] = {"files": files, "inputs": got,
+                     "platforms": manifest["platforms"],
+                     "bytes": os.path.getsize(f"{art}/model.pt2")}
+        if files != ["manifest.json", "model.pt2"] or got != inputs:
+            errors.append(f"{name}: files {files}, inputs {got}")
+    if "export" in out:
+        gen = torch.Generator().manual_seed(3)
+        frames = [torch.rand((1, *CLI_HW, 3), generator=gen).cuda()
+                  for _ in range(3)]
+        trainer = Trainer(ExperimentConfig.from_json(cfg), device="cuda")
+        with torch.no_grad():
+            got = load_exported(f"{d}/export").module()(*frames)
+            want = trainer.model.eval()(*frames)
+        dist = frame_distances(got, want)
+        out["export"]["vs_trainer_forward"] = dist
+        if beyond(dist, CLI_EXPORT_RTOL):
+            errors.append(f"CLI artifact against the trainer: {dist}")
+    return out
+
+
 def phase_cli(card, root):
     import os
 
@@ -3298,7 +3408,9 @@ def phase_cli(card, root):
     for name, args in (
             ("infer", ["--import-torch", ckpt, "--infer",
                        ",".join(imgs.values()), "--infer-out", f"{d}/infer"]),
-            ("profile", ["--profile", f"{d}/trace"])):
+            ("profile", ["--profile", f"{d}/trace"]),
+            *((name, ["--export-dir", f"{d}/{name}", *flags])
+              for name, flags in CLI_EXPORTS.items())):
         t0 = time.perf_counter()
         p = subprocess.run(base + args, cwd=str(REPO_ROOT),
                            capture_output=True, text=True, timeout=600)
@@ -3344,13 +3456,479 @@ def phase_cli(card, root):
         if not any("corr" in n for n in kernels):
             errors.append(f"the trace holds no correlation kernel: "
                           f"{sorted(kernels)[:20]}")
+    exports = cli_exports(d, procs, cfg, errors)
     ok = not errors
     emit({"phase": "cli", "ok": ok, "processes": procs,
           "infer_files": files, "infer_vs_in_process": distances,
+          "exports": exports, "export_rtol": CLI_EXPORT_RTOL,
           "rtol": CLI_RTOL, "trace_kernel_names": len(kernels),
           "trace_corr_kernels": {n: c for n, c in kernels.items()
                                  if "corr" in n},
           "card": card, "errors": errors})
+    if not ok:
+        sys.exit(1)
+
+
+# ------------------------------------------------------------ deployment
+#
+# The deployment slice's phases. export: CerberusNet (default widths, bf16,
+# 512x1024, batch 1) through torch.export, saved, loaded here and in a
+# fresh process that imports only torch and the operators, then the stacked,
+# pallas_levels=3 and CerberusDCV artifacts; quant_int8: the int8 path;
+# train_qat (a TRAIN phase): QAT steps, then an int8 export of the QAT
+# weights; debug_nans: train.debug_nans.
+
+HEADS = ("seg_logits", "flow", "disp")
+# the artifact's signature at 512x1024, batch 1
+EXPORT_INPUTS = [{"shape": [1, *HW, 3], "dtype": "bfloat16"}] * 3
+EXPORT_OUTPUTS = [{"shape": [1, *HW, c], "dtype": "float32"}
+                  for c in (19, 2, 1)]
+# a call of each artifact: the operators it launches
+EXPORT_LAUNCHES = {
+    "cerberus": {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)},
+    "stacked": {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)},
+    "pallas_levels": {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS),
+                      "encoder_level_fwd": PALLAS_LEVELS},
+    "cerberus_dcv": {"corr2d_fwd": len(DCV_FLOW_DILATIONS),
+                     "corr1d_fwd": len(DCV_DISP_DILATIONS)},
+}
+# the cerberusnet_torch modules a process that loads an artifact imports
+OPERATOR_MODULES = {"cerberusnet_torch", "cerberusnet_torch.ops",
+                    "cerberusnet_torch.ops.build",
+                    "cerberusnet_torch.ops.library",
+                    "cerberusnet_torch.ops.cuda",
+                    "cerberusnet_torch.ops.cuda.correlation",
+                    "cerberusnet_torch.ops.cuda.encoder_level"}
+FRESH_LOAD = r"""
+import json, sys, time
+import torch
+import cerberusnet_torch.ops.library  # the kernels' operators
+from cerberusnet_torch.ops.cuda import correlation as cc
+from cerberusnet_torch.ops.cuda import encoder_level as cl
+art, inputs, outputs = sys.argv[1:4]
+# float32 convolutions in full float32, as the process that compares
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+program = torch.export.load(art + "/model.pt2").module()
+load_s = time.perf_counter() - t0
+frames = [f.cuda() for f in torch.load(inputs)]
+cc.reset_launches()
+cl.reset_launches()
+with torch.no_grad():
+    outs = program(*frames)
+torch.cuda.synchronize()
+torch.save([o.cpu() for o in outs], outputs)
+print(json.dumps({"load_s": load_s, "launches": {**cc.launches(),
+                                                  **cl.launches()},
+                  "modules": sorted(m for m in sys.modules
+                                    if m.startswith("cerberusnet_torch"))}))
+"""
+# int8 against its plain version (quantize, dequantize, a float32 conv),
+# per head, relative L2: the bound derived in PERF.md (§6) before the
+# first run; the control doubles one conv's scale_w, which must break it
+INT8_SIM_BOUND = 1e-2
+INT8_CONTROL_CONV = "encoder.blocks.6.conv"
+# the reference's own limits of int8 against float32 (tests/test_quant.py),
+# reported beside the card's distances
+INT8_REF_LIMITS = {"seg_logits": 0.2, "flow": 0.35, "disp": 0.35}
+CALIB_SEEDS = (11, 12)
+# a loaded artifact against the eager forward (or quantized_apply) in this
+# process, per head: the same operators on the same inputs, so bit-equal is
+# expected and reported; held within 1e-2 relative L2, above what one
+# operator rounding otherwise in bf16 moves a head and far below what a
+# wrong or missing operator does (a zeroed cost volume moves a head by
+# 0.1-1); the float artifacts are also held to the plain bf16 rule
+ARTIFACT_RTOL = 1e-2
+
+
+def seeded_model(variant="cerberus", dtype=torch.bfloat16, **kwargs):
+    """entry()'s default-width model (seed 0) of ``variant``, in eval mode
+    on the card."""
+    from cerberusnet_torch.models.cerberus import CerberusNet
+    from cerberusnet_torch.models.dcv_flow import CerberusDCV
+    from cerberusnet_torch.weights import init_params
+
+    cls = CerberusNet if variant == "cerberus" else CerberusDCV
+    model = init_params(cls(dtype=dtype, **kwargs),
+                        torch.Generator().manual_seed(0))
+    return model.cuda().eval()
+
+
+def held_operators(program):
+    """{operator: calls} of the cerberus operators in a program's graph."""
+    held = {}
+    for node in program.graph.nodes:
+        if str(node.target).startswith("cerberus."):
+            op = str(node.target).split(".")[1]
+            held[op] = held.get(op, 0) + 1
+    return held
+
+
+def export_and_load(model, example, out_dir):
+    """(artifact dir, loaded program, export s, load s, manifest)."""
+    from cerberusnet_torch.export import (
+        export_inference,
+        load_exported,
+        save_exported,
+    )
+    from cerberusnet_torch.export.aot import DeployOutputs
+
+    t0 = time.perf_counter()
+    save_exported(export_inference(DeployOutputs(model), example), out_dir)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = load_exported(out_dir)
+    load_s = time.perf_counter() - t0
+    with open(f"{out_dir}/manifest.json") as f:
+        manifest = json.load(f)
+    return program, export_s, load_s, manifest
+
+
+def frame_distances(got, want):
+    """{head: relative L2 of got[i] to want[head]} over the three heads,
+    and "bit_equal": whether every head is equal."""
+    dist = {k: rel_l2(g, want[k].float()) for g, k in zip(got, HEADS)}
+    dist["bit_equal"] = all(torch.equal(g, want[k])
+                            for g, k in zip(got, HEADS))
+    return dist
+
+
+def beyond(dist, limit=ARTIFACT_RTOL):
+    """The heads of ``frame_distances`` farther than ``limit``."""
+    return {k: v for k, v in dist.items() if k in HEADS and not v <= limit}
+
+
+def phase_export(card, root):
+    import os
+
+    from cerberusnet_torch.entry import REPO_ROOT, entry, make_frames
+
+    errors = []
+    d = f"{root}/export"
+    os.makedirs(d)
+    frames = make_frames(1, HW)
+    model = seeded_model()
+    with torch.no_grad():
+        eager = model(*frames)
+    runs = {}
+    artifacts = {}
+    for name, kwargs in (("cerberus", {}), ("stacked", {}),
+                         ("pallas_levels", {"pallas_levels": PALLAS_LEVELS}),
+                         ("cerberus_dcv", {})):
+        m = (model if name in ("cerberus", "stacked") else
+             seeded_model("cerberus_dcv" if name == "cerberus_dcv"
+                          else "cerberus", **kwargs))
+        m.stacked_input = name == "stacked"
+        example = ((torch.cat(frames),) if name == "stacked" else frames)
+        program, export_s, load_s, manifest = export_and_load(
+            m, example, f"{d}/{name}")
+        m.stacked_input = False
+        module = program.module()
+        with torch.no_grad():
+            got, rise = launch_rise(lambda: module(*example))
+            want = eager if m is model else m(*frames)
+        rise = {k: v for k, v in rise.items() if v}
+        held = held_operators(program)
+        dist = frame_distances(got, want)
+        if rise != EXPORT_LAUNCHES[name] or held != EXPORT_LAUNCHES[name]:
+            errors.append(f"{name}: launches {rise}, operators {held}")
+        if beyond(dist):
+            errors.append(f"{name}: loaded against eager {dist}")
+        inputs = ([{"shape": [3, *HW, 3], "dtype": "bfloat16"}]
+                  if name == "stacked" else EXPORT_INPUTS)
+        if manifest != {"platforms": ["cuda"], "inputs": inputs,
+                        "outputs": EXPORT_OUTPUTS}:
+            errors.append(f"{name}: manifest {manifest}")
+        runs[name] = {"export_s": export_s, "load_s": load_s,
+                      "launches_per_call": rise, "operators": held,
+                      "loaded_vs_eager_rel_l2": dist,
+                      "manifest_inputs": manifest["inputs"]}
+        artifacts[name] = (module, got)
+        if name != "cerberus":
+            del m
+    # the stacked artifact answers as the separate-frame one
+    stacked = frame_distances(artifacts["stacked"][1],
+                              dict(zip(HEADS, artifacts["cerberus"][1])))
+    if beyond(stacked):
+        errors.append(f"stacked against separate frames: {stacked}")
+
+    # the plain bf16 rule: the loaded program, the plain correlations in
+    # bf16 and in float32 (the yardstick) on the same weights and frames
+    plain16, _ = entry(corr_impl="plain")
+    plain32, _ = entry(dtype=torch.float32, corr_impl="plain")
+    ref, base = plain32(*frames), plain16(*frames)
+    rule = {}
+    for g, k in zip(artifacts["cerberus"][1], HEADS):
+        d_art, d_plain = rel_l2(g, ref[k]), rel_l2(base[k], ref[k])
+        rule[k] = {"loaded_bf16_vs_f32": d_art, "plain_bf16_vs_f32": d_plain,
+                   "limit": 1.5 * d_plain + 1e-3}
+        if not d_art <= rule[k]["limit"]:
+            errors.append(f"loaded {k}: rel L2 {d_art} > {rule[k]['limit']}")
+    del plain16, plain32, ref, base
+
+    # a fresh process: torch and the operators alone
+    inputs, outputs = f"{d}/frames.pt", f"{d}/fresh_out.pt"
+    torch.save([f.cpu() for f in frames], inputs)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", FRESH_LOAD, f"{d}/cerberus",
+                        inputs, outputs], cwd=str(REPO_ROOT),
+                       capture_output=True, text=True, timeout=600)
+    fresh = {"rc": p.returncode, "s": time.perf_counter() - t0,
+             "stderr": p.stderr[-1500:]}
+    if p.returncode:
+        errors.append(f"fresh process: exit {p.returncode}: "
+                      f"{p.stderr[-500:]}")
+    else:
+        report = json.loads(p.stdout.strip().splitlines()[-1])
+        fresh.update(report)
+        got = [t.cuda() for t in torch.load(outputs)]
+        fresh["vs_eager_rel_l2"] = frame_distances(got, eager)
+        launched = {k: v for k, v in report["launches"].items() if v}
+        if launched != EXPORT_LAUNCHES["cerberus"]:
+            errors.append(f"fresh process launched {launched}")
+        if beyond(fresh["vs_eager_rel_l2"]):
+            errors.append(f"fresh process: {fresh['vs_eager_rel_l2']}")
+        if not set(report["modules"]) <= OPERATOR_MODULES:
+            errors.append(f"fresh process imported {report['modules']}")
+
+    # ms per frame: the loaded program and the eager forward in turns
+    module = artifacts["cerberus"][0]
+    with torch.no_grad():
+        times = turns({"eager": model, "loaded": module},
+                      lambda f: f(*frames), runs=20, warmup=3)
+    ok = not errors
+    emit({"phase": "export", "ok": ok, "hw": list(HW), "batch": 1,
+          "dtype": "bfloat16", "artifacts": runs,
+          "stacked_vs_separate_rel_l2": stacked, "plain_bf16_rule": rule,
+          "fresh_process": fresh, "ms_per_frame": times,
+          "timing": "CUDA events around one call of the loaded program or "
+                    "the eager forward, in turns; export_s: torch.export "
+                    "and save, load_s: torch.export.load",
+          "card": card, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return {name: run["launches_per_call"] for name, run in runs.items()}
+
+
+def phase_quant_int8(card, root):
+    import os
+
+    from cerberusnet_torch.entry import entry, make_frames
+    from cerberusnet_torch.quant import calibrate, quantize, quantized_apply
+    from cerberusnet_torch.quant import ptq
+
+    errors = []
+    model = seeded_model()
+    kernels = {n[:-len(".weight")]: p.detach() for n, p in
+               seeded_model(dtype=torch.float32).named_parameters()
+               if n.endswith(".weight")}
+    float32, _ = entry(dtype=torch.float32)
+    frames = make_frames(1, HW)
+    with torch.no_grad():
+        bf16_out = model(*frames)
+        f32_out = float32(*frames)
+    del float32
+    t0 = time.perf_counter()
+    scales = calibrate(model, [make_frames(s, HW) for s in CALIB_SEEDS])
+    calib_s = time.perf_counter() - t0
+    before = torch.cuda.memory_allocated()
+    float_bytes = sum(model.get_submodule(n).weight.nbytes for n in scales)
+    quantize(model, scales, strip=True, weights=kernels)
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    del kernels
+    names = ptq.quantized_convs(model)
+
+    # im2col of each int8 conv in one forward: its int8 bytes
+    cols = []
+    real = ptq.int8_conv2d
+
+    def recorded(x, kq, stride, padding, dilation):
+        out = real(x, kq, stride, padding, dilation)
+        k = kq.shape[1] * kq.shape[2] * kq.shape[3]
+        cols.append({"rows": out.shape[0] * out.shape[2] * out.shape[3],
+                     "taps": k, "bytes": out.shape[0] * out.shape[2]
+                     * out.shape[3] * (-(-k // 8) * 8)})
+        return out
+
+    ptq.int8_conv2d = recorded
+    try:
+        with torch.no_grad():
+            out, rise = launch_rise(lambda: quantized_apply(model, *frames))
+    finally:
+        ptq.int8_conv2d = real
+    rise = {k: v for k, v in rise.items() if v}
+    if rise != EXPORT_LAUNCHES["cerberus"]:
+        errors.append(f"int8 forward launched {rise}")
+    if len(cols) != len(names):
+        errors.append(f"{len(cols)} int8 convs ran, {len(names)} quantized")
+    with torch.no_grad():
+        sim = quantized_apply(model, *frames, simulate=True)
+    vs_sim = {k: rel_l2(out[k], sim[k].float()) for k in HEADS}
+    errors += [f"int8 {k} against simulate: {v} > {INT8_SIM_BOUND}"
+               for k, v in vs_sim.items() if not v <= INT8_SIM_BOUND]
+    # the control: one conv's weight scale doubled must break the bound
+    conv = model.get_submodule(INT8_CONTROL_CONV)
+    conv.scale_w.mul_(2)
+    try:
+        with torch.no_grad():
+            bad = quantized_apply(model, *frames)
+    finally:
+        conv.scale_w.div_(2)
+    control = {k: rel_l2(bad[k], sim[k].float()) for k in HEADS}
+    if all(v <= INT8_SIM_BOUND for v in control.values()):
+        errors.append(f"doubled scale_w of {INT8_CONTROL_CONV} stays within "
+                      f"the bound: {control}")
+    vs_f32 = {k: rel_l2(out[k], f32_out[k]) for k in HEADS}
+    bf16_vs_f32 = {k: rel_l2(bf16_out[k], f32_out[k]) for k in HEADS}
+    if not all(torch.isfinite(out[k]).all() for k in HEADS):
+        errors.append("int8 outputs not finite")
+
+    # ms per frame and peak memory, int8 and bf16 in turns
+    bf16 = seeded_model()
+
+    def int8(*f):
+        return quantized_apply(model, *f)
+
+    with torch.no_grad():
+        times = turns({"bf16": bf16, "int8": int8}, lambda f: f(*frames),
+                      runs=20, warmup=3)
+        peaks = {"int8": peak_gib(lambda: int8(*frames)),
+                 "bf16": peak_gib(lambda: bf16(*frames))}
+    del bf16
+
+    # the int8 artifact: exported under quant_interception, loaded back
+    with ptq.quant_interception(model):
+        program, export_s, load_s, manifest = export_and_load(
+            model, frames, f"{root}/int8")
+    with torch.no_grad():
+        got, art_rise = launch_rise(lambda: program.module()(*frames))
+    art_rise = {k: v for k, v in art_rise.items() if v}
+    round_trip = frame_distances(got, out)
+    if beyond(round_trip):
+        errors.append(f"int8 artifact against quantized_apply: {round_trip}")
+    if art_rise != EXPORT_LAUNCHES["cerberus"]:
+        errors.append(f"int8 artifact launched {art_rise}")
+    int_mm = sum(1 for n in program.graph.nodes
+                 if "_int_mm" in str(n.target))
+    if int_mm != len(names):
+        errors.append(f"int8 artifact holds {int_mm} int8 products, "
+                      f"{len(names)} quantized convs")
+    ok = not errors
+    widest = max(cols, key=lambda c: c["bytes"]) if cols else None
+    emit({"phase": "quant_int8", "ok": ok, "hw": list(HW), "batch": 1,
+          "compute_dtype": "bfloat16", "quantized_convs": len(names),
+          "calibration_batches": len(CALIB_SEEDS), "calibrate_s": calib_s,
+          "float_weight_bytes_stripped": float_bytes,
+          "memory_freed_by_quantize": freed,
+          "launches_per_frame": rise, "int8_vs_simulate_rel_l2": vs_sim,
+          "bound": INT8_SIM_BOUND,
+          "control": {"conv": INT8_CONTROL_CONV, "scale_w": "doubled",
+                      "int8_vs_simulate_rel_l2": control},
+          "int8_vs_f32_rel_l2": vs_f32, "reference_limits": INT8_REF_LIMITS,
+          "within_reference_limits": all(
+              vs_f32[k] <= v for k, v in INT8_REF_LIMITS.items()),
+          "bf16_vs_f32_rel_l2": bf16_vs_f32, "ms_per_frame": times,
+          "peak_gib": peaks, "im2col_widest": widest,
+          "im2col_bytes_per_frame": sum(c["bytes"] for c in cols),
+          "artifact": {"export_s": export_s, "load_s": load_s,
+                       "launches_per_call": art_rise, "int_mm_nodes": int_mm,
+                       "vs_quantized_apply_rel_l2": round_trip,
+                       "manifest": manifest},
+          "timing": "CUDA events around one forward (quantized_apply for "
+                    "int8), the two in turns",
+          "card": card, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return {"quant_int8": rise}
+
+
+def qat_int8_export(trainer, root):
+    """Trainer.export(quant="int8") after QAT (qat.finalize with the
+    trained ranges): the artifact's call against quantized_apply of the
+    trainer's int8 model on the same frame, and its launches."""
+    from cerberusnet_torch.entry import make_frames
+    from cerberusnet_torch.export import load_exported
+    from cerberusnet_torch.quant import quantized_apply
+
+    frames = make_frames(21, HW)
+    t0 = time.perf_counter()
+    out_dir = trainer.export(f"{root}/qat_int8", quant="int8")
+    export_s = time.perf_counter() - t0
+    module = load_exported(out_dir).module()
+    with torch.no_grad():
+        got, rise = launch_rise(lambda: module(*frames))
+        want = quantized_apply(trainer.deploy_model("int8"), *frames)
+    rise = {k: v for k, v in rise.items() if v}
+    dist = frame_distances(got, want)
+    errors = []
+    if rise != EXPORT_LAUNCHES["cerberus"]:
+        errors.append(f"QAT int8 artifact launched {rise}")
+    if beyond(dist):
+        errors.append(f"QAT int8 artifact against quantized_apply: {dist}")
+    return {"export_s": export_s, "launches_per_call": rise,
+            "vs_quantized_apply_rel_l2": dist}, errors
+
+
+DEBUG_NANS_PIXEL = (0, 100, 200, 1)
+
+
+def phase_debug_nans(card):
+    import numpy as np
+
+    from cerberusnet_torch.entry import train_entry
+    from cerberusnet_torch.train.debug_nans import DebugNans
+
+    errors = []
+    constant = {"schedule": "constant"}
+    trainer, (batch,) = train_entry(
+        "configs/cerberus_synthetic.json", batch_size=TRAIN_BATCH,
+        optim=constant, train={"debug_nans": True})
+    bad = dict(batch, left=batch["left"].astype(np.float32))
+    bad["left"][DEBUG_NANS_PIXEL] = np.nan
+    before = {n: m.clone() for n, m in trainer.masters.items()}
+    raised = None
+    try:
+        trainer.train_step(bad)
+    except FloatingPointError as e:
+        raised = str(e)
+    if raised is None or "encountered in" not in raised:
+        errors.append(f"a NaN pixel raised {raised!r}")
+    if any(not torch.equal(m, before[n]) for n, m in trainer.masters.items()):
+        errors.append("the failed step moved a master")
+    clean = {k: v.item() for k, v in trainer.train_step(batch).items()}
+    if not all(map(math.isfinite, clean.values())):
+        errors.append(f"clean step: {clean}")
+    # an inf is not a NaN: the stem block on a frame with one inf pixel
+    # sums one inf term into each output, which holds infs and no NaN
+    x = torch.rand(1, 3, *HW, device="cuda", dtype=trainer.dtype)
+    x[0, 1, 100, 200] = float("inf")
+    inf_raised = None
+    try:
+        with torch.no_grad(), DebugNans():
+            y = trainer.model.encoder.blocks[0](
+                x.contiguous(memory_format=torch.channels_last))
+        inf_out = {"inf": bool(torch.isinf(y).any()),
+                   "nan": bool(torch.isnan(y).any())}
+    except FloatingPointError as e:
+        inf_raised, inf_out = str(e), None
+    if inf_raised or not inf_out["inf"] or inf_out["nan"]:
+        errors.append(f"inf input: raised {inf_raised!r}, {inf_out}")
+    # ms per step with the mode and without, in turns, the same masters
+    plain_tr, _ = train_entry("configs/cerberus_synthetic.json",
+                              batch_size=TRAIN_BATCH, n_batches=0,
+                              optim=constant)
+    plain_tr.load_masters(trainer.masters)
+    times = turns({"off": plain_tr, "on": trainer},
+                  lambda tr: tr.train_step(batch), runs=3, warmup=1)
+    ok = not errors
+    emit({"phase": "debug_nans", "ok": ok, "hw": list(HW),
+          "batch": TRAIN_BATCH, "nan_pixel": list(DEBUG_NANS_PIXEL),
+          "raised": raised, "clean_step": clean,
+          "inf_input": {"raised": inf_raised, "output": inf_out},
+          "ms_per_step": times,
+          "timing": "CUDA events around one train_step, the mode on and "
+                    "off in turns", "card": card, "errors": errors})
     if not ok:
         sys.exit(1)
 
@@ -3484,10 +4062,20 @@ def summary(checks, counts):
                 ("tiled_sequential", "cerberus", 1),
                 ("tiled", "tiles", N_TILES),
                 ("predict", "dcv_kitti", DCV_KITTI_BATCH),
-                ("predict_images", "cerberus", 1)):
+                ("predict_images", "cerberus", 1),
+                # the deployment slice's: a call of each loaded artifact,
+                # the int8 forward, the QAT run's steps
+                ("export_cerberus", "cerberus", 1),
+                ("export_stacked", "cerberus", 1),
+                ("export_pallas_levels", "cerberus", 1),
+                ("quant_int8", "cerberus", 1),
+                ("train_qat", "cerberus", TRAIN_BATCH)):
             if counts[phase][name]:
                 paths[phase] = path_numbers(checks, name, path, batch,
                                             counts[phase][name])
+        if counts["export_cerberus_dcv"][name]:
+            dcv["export_cerberus_dcv"] = path_numbers(
+                checks, name, "dcv", 1, counts["export_cerberus_dcv"][name])
         dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
                 else DCV_DISP_DILATIONS)
         entries.append({
@@ -3506,6 +4094,8 @@ def summary(checks, counts):
             serve = level_numbers(checks, name, SERVE_FRAMES,
                                   counts["serve_pallas_levels"])
             paths["serve_pallas_levels"] = serve
+            paths["export_pallas_levels"] = level_numbers(
+                checks, name, SERVE_FRAMES, counts["export_pallas_levels"])
         entries.append({
             "name": name, "route": "cuda",
             "source": "cerberusnet_torch/csrc/encoder_level.cu",
@@ -3552,6 +4142,7 @@ def main(argv):
     for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
         if wanted(phase.__name__[len("phase_"):]):
             phase(card)
+    deployment_phases(card, counts, wanted)
     data_phases(card, counts, wanted)
     if only is not None:
         emit({"phase": "done", "only": sorted(only),
@@ -3564,6 +4155,35 @@ def main(argv):
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def deployment_phases(card, counts, wanted):
+    """The deployment slice's phases, their artifacts in a temporary
+    directory (removed at the end); counts gains each path's launches by
+    kernel (a loaded artifact's per call)."""
+    import shutil
+    import tempfile
+
+    if not any(wanted(n) for n in ("export", "quant_int8", "train_qat",
+                                   "debug_nans")):
+        return
+    root = tempfile.mkdtemp(prefix="cerberus_deploy_")
+    kernels = list(launch_counts())
+    try:
+        runs = {}
+        if wanted("export"):
+            runs.update({f"export_{k}": v
+                         for k, v in phase_export(card, root).items()})
+        if wanted("quant_int8"):
+            runs.update(phase_quant_int8(card, root))
+        if wanted("train_qat"):
+            runs["train_qat"] = phase_train("train_qat")
+        if wanted("debug_nans"):
+            phase_debug_nans(card)
+        counts.update({phase: {k: launches.get(k, 0) for k in kernels}
+                       for phase, launches in runs.items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def data_phases(card, counts, wanted):

@@ -33,8 +33,8 @@ from cerberusnet_torch.entry import entry
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.ops.cuda import encoder_level as cuda_level
+from cerberusnet_torch.ops import library
 from cerberusnet_torch.ops.encoder_level import (
-    EncoderLevel,
     encoder_level,
     encoder_level_bwd_plain,
     encoder_level_plain,
@@ -131,7 +131,8 @@ def test_plain_backward_matches_pallas_reverse_sweep(shape):
 @pytest.fixture
 def level_on_cpu(monkeypatch):
     """The CUDA wrappers, counters included, with each launch replaced by
-    its kernel's plain version, so EncoderLevel runs on CPU tensors. A
+    its kernel's plain version, so the level's operator runs on CPU
+    tensors. A
     launch checks the layouts the kernels need: NHWC-contiguous
     activations, HWIO-contiguous kernels, one type."""
     seen = []
@@ -175,7 +176,7 @@ def test_function_gradients_match_jax(grad, level_on_cpu):
 
     want = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(x, *kb)
     inputs = [t(v).requires_grad_() for v in (x, *kb)]
-    out = EncoderLevel.apply(*inputs, grad)
+    out = library.encoder_level_fwd(*inputs, grad)
     np.testing.assert_allclose(out.detach().numpy(),
                                np.asarray(encoder_level_xla(x, *kb)),
                                rtol=2e-5, atol=2e-5)
@@ -191,14 +192,14 @@ def test_function_gradients_match_jax(grad, level_on_cpu):
 def test_function_skips_dx_nobody_needs(level_on_cpu):
     x, kb = level_inputs(2, 16, 16, 3, 8, seed=8)
     kernels = [t(v).requires_grad_() for v in kb]
-    out = EncoderLevel.apply(t(x), *kernels, "pallas")
+    out = library.encoder_level_fwd(t(x), *kernels, "pallas")
     weighted_loss(out).backward()
     assert level_on_cpu == [False]
     assert all(k.grad is not None for k in kernels)
 
 
 def test_function_takes_layouts_as_the_model_hands_them(level_on_cpu):
-    """The encoder hands the Function an NHWC view of a channels_last bf16
+    """The encoder hands the operator an NHWC view of a channels_last bf16
     activation and HWIO views of OIHW conv weights; the gradients come
     back in the weights' layout and type."""
     torch.manual_seed(0)
@@ -210,7 +211,7 @@ def test_function_takes_layouts_as_the_model_hands_them(level_on_cpu):
     params = [v for c in convs for v in (c.weight.permute(2, 3, 1, 0),
                                          c.bias)]
     xv = x.permute(0, 2, 3, 1)
-    out = EncoderLevel.apply(xv, *params, "pallas")
+    out = library.encoder_level_fwd(xv, *params, "pallas")
     torch.testing.assert_close(out, encoder_level_plain(xv, *params))
     weighted_loss(out.float()).backward()
     for c in convs:

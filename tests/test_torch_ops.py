@@ -24,9 +24,8 @@ from cerberusnet_tpu.ops.pallas.correlation import (
 )
 from cerberusnet_tpu.ops.warp import warp1d as jax_warp1d
 from cerberusnet_tpu.ops.warp import warp2d as jax_warp2d
+from cerberusnet_torch.ops import library
 from cerberusnet_torch.ops.correlation import (
-    Correlation1d,
-    Correlation2d,
     _correlation1d_bwd_f1_plain,
     _correlation1d_bwd_f2_plain,
     _correlation1d_bwd_plain,
@@ -325,7 +324,7 @@ PLAIN_KERNELS = {
 @pytest.fixture
 def kernels_on_cpu(monkeypatch):
     """The CUDA wrappers, counters included, with each launch replaced by
-    the kernel's plain version, so the autograd Functions run on CPU
+    the kernel's plain version, so the operators run on CPU
     tensors. A launch checks that its operands are NHWC-contiguous, as the
     kernels need."""
 
@@ -345,11 +344,12 @@ def kernels_on_cpu(monkeypatch):
 @pytest.mark.parametrize("op,dilation", [("2d", 1), ("2d", 2), ("1d", 1),
                                          ("1d", 2)])
 class TestAutogradFunction:
-    """Correlation2d / Correlation1d, the ops' path for CUDA tensors: the
-    forward and both gradients go through the kernel wrappers."""
+    """The operators cerberus::corr2d_fwd / corr1d_fwd, the ops' path for
+    CUDA tensors: the forward and both gradients go through the kernel
+    wrappers."""
 
-    FUNCS = {"2d": (Correlation2d, _correlation2d_plain, 3),
-             "1d": (Correlation1d, _correlation1d_plain, 6)}
+    FUNCS = {"2d": (library.corr2d_fwd, _correlation2d_plain, 3),
+             "1d": (library.corr1d_fwd, _correlation1d_plain, 6)}
 
     def _inputs(self, op):
         rng = np.random.RandomState(12)
@@ -361,7 +361,7 @@ class TestAutogradFunction:
                                             kernels_on_cpu):
         fn, plain, d = self.FUNCS[op]
         f1, f2 = self._inputs(op)
-        out = fn.apply(f1, f2, d, dilation)
+        out = fn(f1, f2, d, dilation)
         ref = plain(f1, f2, d, dilation)
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
         # a gradient laid out as the model's consumer leaves it: a channel
@@ -379,7 +379,7 @@ class TestAutogradFunction:
         fn, _, d = self.FUNCS[op]
         f1, f2 = self._inputs(op)
         for call in (1, 2):
-            out = fn.apply(f1, f2, d, dilation)
+            out = fn(f1, f2, d, dilation)
             out.square().sum().backward()
             counts = cuda_correlation.launches()
             for name, n in counts.items():
@@ -389,7 +389,7 @@ class TestAutogradFunction:
     def test_only_the_needed_gradient(self, op, dilation, kernels_on_cpu):
         fn, _, d = self.FUNCS[op]
         f1, f2 = self._inputs(op)
-        out = fn.apply(f1.detach(), f2, d, dilation)
+        out = fn(f1.detach(), f2, d, dilation)
         out.sum().backward()
         counts = cuda_correlation.launches()
         assert counts[f"corr{op}_bwd_f1"] == 0
@@ -399,7 +399,7 @@ class TestAutogradFunction:
         fn, plain, d = self.FUNCS[op]
         f1, f2 = (t.detach() for t in self._inputs(op))
         with torch.inference_mode():
-            out = fn.apply(f1, f2, d, dilation)
+            out = fn(f1, f2, d, dilation)
         torch.testing.assert_close(out, plain(f1, f2, d, dilation))
         assert cuda_correlation.launches()[f"corr{op}_fwd"] == 1
 

@@ -140,9 +140,7 @@ def test_unknown_key_raises():
 
 @pytest.mark.parametrize("section,key,value,item", [
     ("model", "variant", "pwc", "A8"),
-    ("train", "debug_nans", True, "A5"),
     ("train", "num_spatial_devices", 2, "A11"),
-    ("train", "qat", True, "A10"),
     ("train", "num_data_devices", 4, "A11"),
     ("train", "num_data_devices", 8, "A11"),
 ])
@@ -163,6 +161,14 @@ def test_flow_datasets_and_auxiliary_losses_are_supported(section, key,
                                                           value):
     raw = tiny_config_dict()
     raw[section][key] = value
+    ExperimentConfig.from_dict(raw).check_supported()
+
+
+@pytest.mark.parametrize("key", ["debug_nans", "qat"])
+def test_deployment_values_are_supported(key):
+    """train.debug_nans (A5) and train.qat (A10) are ported."""
+    raw = tiny_config_dict()
+    raw["train"][key] = True
     ExperimentConfig.from_dict(raw).check_supported()
 
 
