@@ -50,7 +50,7 @@
 // Two designs, chosen by the wrapper from the type and the widths alone,
 // never on a failure:
 //
-// (1) bfloat16 at the widths in TC_LEVELS below (the encoder's levels 1-3:
+// (1) bfloat16 at the widths in TC_LEVELS (the encoder's levels 1-3:
 // (C, F) = (3, 16), (16, 32), (32, 64)): tensor cores. The first design
 // (kept as (2)) ran every product as a scalar fmaf on the CUDA cores, each
 // multiply-add loading its operand from shared memory and its weight from
@@ -87,7 +87,7 @@
 //  - The input patch is staged by cp.async in 16-byte pieces (level 1's
 //    rows of three channels in 4-byte pieces) whose source size 0
 //    zero-fills the SAME padding, and the tiles are as large as
-//    shared memory allows, which cuts the halo recompute (TC_LEVELS below
+//    shared memory allows, which cuts the halo recompute (tc_levels.cuh
 //    lists the tiles). Nothing prefetches the next tile and TMA is not
 //    used: where two blocks share an SM (the forward at every level, the
 //    reverse sweep at level 1) one block's staging overlaps the other's
@@ -114,6 +114,8 @@
 #include <stdint.h>
 
 #include "ptx.cuh"
+#include "tc_levels.cuh"
+#include "tc_pack.cuh"
 
 // Measurement builds (cerberusnet_torch/level_phases.py), off by default.
 // -DLEVEL_PHASES: thread 0 of each tensor-core block reads clock64() at
@@ -1168,18 +1170,16 @@ dim3 grid_of(int B, int H, int W, int t) {
   return dim3((W / 2 + t - 1) / t, (H / 2 + t - 1) / t, B);
 }
 
-// The tensor-core instantiations, one row per level: (C, F, forward tile
-// rows, columns, reverse-sweep tile rows, columns, reverse-sweep blocks per
-// SM, threads, and whether its weight gradients stay in registers (KEEP)).
-// The wrapper reads its TC_LEVELS from these rows (ops/cuda/encoder_level.py),
-// so keep one X(...) per line. Where one reverse-sweep block fills an SM it
-// runs 16 warps, to hide the latency of its loads. KEEP holds a block's dk
-// (20 KB at level 1, 92 KB at level 2) in its registers; level 3's (369 KB)
-// does not fit, so its slot is updated in device memory.
-#define TC_LEVELS(X)                    \
-  X(3, 16, 16, 32, 16, 16, 2, 256, 1)   \
-  X(16, 32, 16, 16, 16, 16, 1, 512, 1)  \
-  X(32, 64, 8, 8, 8, 16, 1, 512, 0)
+bool is_tc_level(int C, int F) {
+#define TC_IS(c, f, fth, ftw, bth, btw, minb, nt, keep) \
+  if (C == c && F == f) return true;
+  TC_LEVELS(TC_IS)
+#undef TC_IS
+  return false;
+}
+
+// The tensor-core instantiations: TC_LEVELS, one row per level, in
+// tc_levels.cuh.
 
 template <int C, int F, int TH, int TW>
 cudaError_t launch_tc_fwd(const void* x, const void* k1, const void* b1,
@@ -1300,22 +1300,55 @@ extern "C" int encoder_level_bwd(
   return cudaGetLastError();
 }
 
+// Bytes of the workspace of encoder_level_tc_fwd for (C, F) in TC_LEVELS
+// (the packed k1, k2, k3), -1 for other widths.
+extern "C" int64_t encoder_level_tc_fwd_workspace(int C, int F) {
+  return is_tc_level(C, F) ? (int64_t)sizeof(bf16) * tc_fwd_packed_elems(C, F)
+                           : -1;
+}
+
+// Packs the HWIO kernels k1, k2, k3 (bfloat16) into `packed`
+// (encoder_level_tc_fwd_workspace bytes, 16-byte aligned) in mma fragment
+// order, k1 then k2 then k3, on `stream`.
+extern "C" int encoder_level_tc_fwd_pack(const void* k1, const void* k2,
+                                         const void* k3, void* packed, int C,
+                                         int F, void* stream) {
+  if (!is_tc_level(C, F)) return cudaErrorInvalidValue;
+  const TcFwdOperands ops = tc_fwd_operands(k1, k2, k3, packed, C, F);
+  int64_t most = 0;
+  for (const PackedMatrix& m : ops.m) {
+    const int64_t n = packed_elems(m.T, m.K, m.N);
+    most = n > most ? n : most;
+  }
+  const int threads = 256;
+  const dim3 grid((unsigned)((most + threads - 1) / threads), 3);
+  tc_pack_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ops);
+  return cudaGetLastError();
+}
+
 // Tensor cores, bfloat16: (th, tw) is the tile of TC_LEVELS for (C, F);
-// any other (C, F, th, tw) is refused. The weights come packed in mma
-// fragment order (the wrapper's pack_b): k1 (9 taps of C rows, or one of
-// 32 im2col rows), k2, k3 (9 of F).
+// any other (C, F, th, tw) is refused. k1, k2, k3 are the HWIO kernels:
+// they are packed into `workspace` (encoder_level_tc_fwd_workspace bytes,
+// 16-byte aligned, on the device) before the level runs, both on `stream`.
 extern "C" int encoder_level_tc_fwd(const void* x, const void* k1,
                                     const void* b1, const void* k2,
                                     const void* b2, const void* k3,
-                                    const void* b3, void* out, int B, int H,
-                                    int W, int C, int F, int th, int tw,
+                                    const void* b3, void* out,
+                                    void* workspace, int B, int H, int W,
+                                    int C, int F, int th, int tw,
                                     void* stream) {
   if (bad_shape(B, H, W, C, F, 1)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TC_FWD(c, f, fth, ftw, bth, btw, minb, nt, keep)                  \
-  if (C == c && F == f && th == fth && tw == ftw)                           \
-    return launch_tc_fwd<c, f, fth, ftw>(x, k1, b1, k2, b2, k3, b3, out, B, \
-                                         H, W, s);
+#define TC_FWD(c, f, fth, ftw, bth, btw, minb, nt, keep)                     \
+  if (C == c && F == f && th == fth && tw == ftw) {                            \
+    const int err = encoder_level_tc_fwd_pack(k1, k2, k3, workspace, C, F, s); \
+    if (err != cudaSuccess) return err;                                        \
+    const TcFwdOperands ops = tc_fwd_operands(k1, k2, k3, workspace, C, F);    \
+    return launch_tc_fwd<c, f, fth, ftw>(x, ops.m[0].out, b1, ops.m[1].out,    \
+                                         b2, ops.m[2].out, b3, out, B, H, W,   \
+                                         s);                                   \
+  }
   TC_LEVELS(TC_FWD)
 #undef TC_FWD
   return cudaErrorInvalidValue;

@@ -15,17 +15,26 @@ reference's fields: ``platforms`` (``["cuda"]`` or ``["cpu"]``), and
 ``inputs`` and ``outputs`` as ``{"shape": [...], "dtype": "bfloat16"}``,
 dtypes as numpy spells them. The reference's ``model.mlir`` (StableHLO
 text) and ``compile_options.pb`` (the C++ PJRT runner's compile options)
-have no counterpart; a C++ runner of the ``.pt2`` artifact is ROADMAP A9b.
+have no counterpart.
 
-Consumer: ``load_exported(dir)`` needs only torch and this package's
+Consumers: ``load_exported(dir)`` needs only torch and this package's
 operator registrations (``ops/library.py``, imported here); call
 ``load_exported(dir).module()(*inputs)`` under ``torch.no_grad()``.
+``package_for_runner(dir)`` compiles the program ahead of time with
+AOTInductor into ``<dir>/model_aoti.pt2``, which the C++ runner
+(``csrc/runner.cc``, built by ``export/runner.py``) runs without Python,
+and which ``torch._inductor.aoti_load_package`` loads into a Python
+process, where its operators are ``ops/library.py``'s. An export does not
+package itself: the Inductor compile costs minutes at full width.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import subprocess
+import tempfile
 
 import torch
 import torch.nn as nn
@@ -113,3 +122,44 @@ def export_cerberus(model: nn.Module, hw=(512, 1024), batch: int = 1,
                     for _ in range(3))
     return save_exported(export_inference(DeployOutputs(model), example),
                          out_dir)
+
+
+RUNNER_PACKAGE = "model_aoti.pt2"
+
+
+def openmp_cxx() -> str:
+    """A C++ compiler that links OpenMP, which the C++ wrapper of an
+    AOTInductor package links: ``$CXX`` (the one Inductor takes by
+    default) where it can, else ``g++`` on the PATH. A ``$CXX`` built
+    without libgomp fails that link."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "omp.cc")
+        with open(src, "w") as f:
+            f.write("int main() { return 0; }\n")
+        tried = []
+        for cxx in (os.environ.get("CXX"), "g++"):
+            path = shutil.which(cxx) if cxx else None
+            if path is None:
+                continue
+            tried.append(path)
+            proc = subprocess.run([path, "-fopenmp", src, "-o",
+                                   os.path.join(tmp, "a.out")],
+                                  capture_output=True)
+            if proc.returncode == 0:
+                return path
+    raise RuntimeError(f"no C++ compiler here links OpenMP (-fopenmp), "
+                       f"which an AOTInductor package needs; tried {tried}")
+
+
+def package_for_runner(export_dir: str) -> str:
+    """Compiles the artifact's program with AOTInductor on the device it
+    was exported on (its weights inside) into
+    ``<export_dir>/model_aoti.pt2``; returns that path. The
+    ``cerberus::`` operators stay calls of the operators, which the loading
+    process provides."""
+    program = load_exported(export_dir)
+    path = os.path.join(export_dir, RUNNER_PACKAGE)
+    with torch.no_grad():
+        return torch._inductor.aoti_compile_and_package(
+            program, package_path=path,
+            inductor_configs={"cpp.cxx": (None, openmp_cxx())})

@@ -12,10 +12,11 @@ Each wrapper replaces one TPU kernel of
 
 Two designs sit behind each wrapper, chosen by the type and the widths
 alone, never on a failure: bfloat16 at the widths of ``TC_LEVELS`` (the
-encoder's levels 1-3) runs the tensor-core kernels, whose weights this
-module packs into mma fragment order (``tc_operands``) and whose reverse
-sweep walks a fixed schedule of tiles (``schedule``), one weight-gradient
-slot per block; float32, and bfloat16 at other widths, run the CUDA-core
+encoder's levels 1-3) runs the tensor-core kernels, whose weights are packed
+into mma fragment order (the forward's by the library on the device, the
+reverse sweep's by this module, ``tc_operands``) and whose reverse sweep
+walks a fixed schedule of tiles (``schedule``), one weight-gradient slot per
+block; float32, and bfloat16 at other widths, run the CUDA-core
 kernels, one partial per tile. The source note in ``csrc/encoder_level.cu``
 gives their bound on an H100 and what each design does about it. Their
 plain PyTorch versions are ``encoder_level_plain`` and
@@ -55,11 +56,16 @@ REPLACES = {
 }
 
 
+# the header that holds TC_LEVELS, which csrc/encoder_level.cu and the C++
+# operators (csrc/cerberus_ops.cc) include
+TC_LEVELS_HEADER = build.CSRC_DIR / "tc_levels.cuh"
+
+
 def _tc_rows() -> list:
-    """The X(...) rows of the source's TC_LEVELS table, from which the
-    kernels are instantiated: (C, F, forward tile rows, cols, reverse-sweep
-    tile rows, cols, reverse-sweep blocks per SM, threads, keep)."""
-    text = (build.CSRC_DIR / "encoder_level.cu").read_text()
+    """The X(...) rows of the TC_LEVELS table, from which the kernels are
+    instantiated: (C, F, forward tile rows, cols, reverse-sweep tile rows,
+    cols, reverse-sweep blocks per SM, threads, keep)."""
+    text = TC_LEVELS_HEADER.read_text()
     table = text[text.index("#define TC_LEVELS(X)"):].splitlines()[1:]
     rows = []
     for line in table:
@@ -72,7 +78,7 @@ def _tc_rows() -> list:
 
 # (C, F): (forward tile (rows, cols), reverse-sweep tile (rows, cols),
 # reverse-sweep blocks per SM) of the bfloat16 tensor-core kernels, read
-# from the source. A tile is as large as shared memory allows with two
+# from the table. A tile is as large as shared memory allows with two
 # forward blocks on an SM; the reverse sweep's takes most of an SM at levels
 # 2-3, so one block runs there. TC_KEPT: the widths whose reverse sweep
 # keeps a block's weight gradients in registers across its tiles (the rest
@@ -106,7 +112,11 @@ def _library() -> ctypes.CDLL:
     if lib.encoder_level_fwd.argtypes is None:
         lib.encoder_level_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_P]
         lib.encoder_level_bwd.argtypes = [_P] * 19 + [_I] * 7 + [_P]
-        lib.encoder_level_tc_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+        lib.encoder_level_tc_fwd.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+        lib.encoder_level_tc_fwd_pack.argtypes = [_P] * 4 + [_I] * 2 + [_P]
+        lib.encoder_level_tc_fwd_pack.restype = ctypes.c_int
+        lib.encoder_level_tc_fwd_workspace.argtypes = [_I] * 2
+        lib.encoder_level_tc_fwd_workspace.restype = ctypes.c_int64
         lib.encoder_level_tc_bwd.argtypes = [_P] * 13 + [_I] * 8 + [_P]
         for fn in (lib.encoder_level_fwd, lib.encoder_level_bwd,
                    lib.encoder_level_tc_fwd, lib.encoder_level_tc_bwd,
@@ -281,6 +291,28 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _tc_fwd_workspace(lib, c, f, x):
+    """The device bytes the tensor-core forward packs its weights into."""
+    return torch.empty(lib.encoder_level_tc_fwd_workspace(c, f),
+                       dtype=torch.uint8, device=x.device)
+
+
+def tc_fwd_device_operands(k1, k2, k3) -> torch.Tensor:
+    """The forward's k1, k2, k3 as the library packs them on the device
+    (``encoder_level_tc_fwd_pack``), one after another, flat bfloat16: the
+    check that keeps the library's forward packing and ``pack_b`` in step
+    holds it equal to ``tc_operands``' k1, k2, k3 flattened."""
+    c, f = k1.shape[2], k1.shape[3]
+    lib = _library()
+    ws = _tc_fwd_workspace(lib, c, f, k1)
+    with torch.cuda.device(k1.device):
+        err = lib.encoder_level_tc_fwd_pack(
+            k1.data_ptr(), k2.data_ptr(), k3.data_ptr(), ws.data_ptr(), c, f,
+            _stream(k1))
+    _raise_on(lib, err, "encoder_level_tc_fwd_pack", k1, f)
+    return ws.view(torch.bfloat16)
+
+
 def _fwd(x, kernels):
     """Checks and launches the forward kernel; returns its output."""
     b, h, w, c, f = _check(x, kernels)
@@ -289,13 +321,12 @@ def _fwd(x, kernels):
     k1, b1, k2, b2, k3, b3 = kernels
     with torch.cuda.device(x.device):
         if uses_tensor_cores(x.dtype, c, f):
-            ops = packed_operands(k1, k2, k3, ("k1", "k2", "k3"))
+            # the library packs the weights into mma fragment order here
             (th, tw), _, _ = TC_LEVELS[(c, f)]
             err = lib.encoder_level_tc_fwd(
-                x.data_ptr(), ops["k1"].data_ptr(), b1.data_ptr(),
-                ops["k2"].data_ptr(), b2.data_ptr(), ops["k3"].data_ptr(),
-                b3.data_ptr(), out.data_ptr(), b, h, w, c, f, th, tw,
-                _stream(x))
+                x.data_ptr(), *(k.data_ptr() for k in kernels),
+                out.data_ptr(), _tc_fwd_workspace(lib, c, f, x).data_ptr(),
+                b, h, w, c, f, th, tw, _stream(x))
         else:
             t = _cuda_core_tile(c, f, x.dtype, "fwd")
             err = lib.encoder_level_fwd(

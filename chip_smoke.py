@@ -40,7 +40,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            the level shapes at batch 6 and the odd shapes, in bfloat16 and
            float32, against the plain level (cuDNN; K10 against it in
            float64, within limits that allow for LeakyReLU mask flips),
-           K10's dk and db bit-identical over two runs; CUDA-event times of
+           K10's dk and db bit-identical over two runs, K9's weights as the
+           library packs them on the device bit-equal to pack_b's (which
+           packs K10's); CUDA-event times of
            kernel and plain version in turns beside the kernel's bound
   serve    the default-width CerberusNet through cerberusnet_torch.entry,
            bf16 at 512x1024, answering 3 seeded requests: output shapes,
@@ -248,6 +250,25 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            raises FloatingPointError naming an operator and moves no
            master, the clean step runs, an inf pixel through the stem
            block does not raise; ms per step with the mode and without
+  runner   the C++ runner of the exported program: cerberus_runner and
+           libcerberus_ops built with g++ (their seconds; ldd shows no
+           libpython); the export phase's four artifacts (exported here
+           when it did not run) compiled with AOTInductor (package
+           seconds each), loaded into this process (a call launches what
+           the export phase's does on the Python counters) and run by the
+           runner on seeded inputs (--inputs, --dump-outputs): the launches
+           on the operator library's own counters whole calls of the same,
+           the outputs held bit-equal to the Python-loaded package's;
+           each artifact's outputs by the plain bf16 rule against the
+           float32 eager forward (CerberusNet's for pallas_levels); ms per
+           frame of the runner, the Python-loaded package and eager in
+           turns; --serve (3 INFER and 1 PNGS requests to one process, each
+           bit-equal to the Python path, wall ms each, QUIT exits 0);
+           --pngs on seeded 512x1024 PNGs, separate and stacked, bit-equal
+           to data/io decode, preprocess_image and the package in Python,
+           and stacked bit-equal to separate; refusals: the CerberusNet
+           package without the operator library (naming the operator) and
+           a CPU export with --device cuda
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve and fit paths'
 beside them, the data slice's paths (train_flow_kitti,
@@ -255,10 +276,14 @@ train_stereo_kitti, fit_dcv_kitti, serve_flow, serve_stereo) and the
 evaluation slice's (train_flyingthings3d, train_losses, eval_tta,
 tiled_sequential, tiled, predict, predict_images) and the deployment
 slice's (a call of each loaded artifact: export_cerberus, export_stacked,
-export_pallas_levels; quant_int8's forward; train_qat) where the kernel
-runs, and the DCV paths' under "dcv" (export_cerberus_dcv among them);
-K9's and K10's on train_pallas_levels, K9's serve and
-export_pallas_levels numbers beside them, each with its time over the cuDNN level's
+export_pallas_levels; quant_int8's forward; train_qat) and the C++
+runner's (a call of each package: runner_cerberus, runner_stacked,
+runner_pallas_levels, the launches from the operator library's counters)
+where the kernel runs, and the DCV paths' under "dcv" (export_cerberus_dcv
+and runner_cerberus_dcv among them);
+K9's and K10's on train_pallas_levels, K9's serve, export_pallas_levels
+and runner_pallas_levels numbers beside them, each with its time over the
+cuDNN level's
 (vs_plain) per level, and K10's weight-gradient partial bytes per step as
 its wrapper counted them in train_pallas_levels), a {"phase": "done"} line
 with the
@@ -267,8 +292,8 @@ script's seconds, the card's nvidia-smi line and, last,
 no result. ``--only a,b,...`` runs env, build and the named phases alone
 (the data slice's run after data, and the evaluation slice's after
 flow_data where they need its fixtures), with no summary and no result
-line. The deployment phases (export, quant_int8, train_qat, debug_nans)
-run after the RAFT phases, the cli phase last.
+line. The deployment phases (export, quant_int8, train_qat, debug_nans,
+runner) run after the RAFT phases, the cli phase last.
 """
 
 from __future__ import annotations
@@ -792,7 +817,9 @@ def level_checks(peaks, spin_rate, gen):
     the witness; see LEVEL_F32_FWD_RTOL), with CUDA-event times (kernel and
     plain level in turns) and bounds; K10 runs twice and must give
     bit-identical dk and db, and reports the partial bytes its wrapper
-    counted in the first run."""
+    counted in the first run; at the tensor-core widths the forward's
+    weights as the library packs them on the device must equal pack_b's
+    bit for bit."""
     from cerberusnet_torch import level_witness as lw
     from cerberusnet_torch.ops import encoder_level as elv
     from cerberusnet_torch.ops.cuda import encoder_level as cl
@@ -869,6 +896,19 @@ def level_checks(peaks, spin_rate, gen):
                     "kernel_rel_l2_to_f32_plain": to_f32}
                 del ref64
             ok = all(dist[n] <= limits[n] for n in outs)
+            tc = cl.uses_tensor_cores(dt, c, f)
+            # the forward's weights as the library packs them on the device,
+            # bit-equal to pack_b's, which packs the reverse sweep's
+            packed_equal = None
+            if kind == "fwd" and tc:
+                want = cl.tc_operands(params[0], params[2], params[4])
+                packed_equal = torch.equal(
+                    cl.tc_fwd_device_operands(params[0], params[2],
+                                              params[4]),
+                    torch.cat([want[n].flatten() for n in ("k1", "k2",
+                                                           "k3")]))
+                ok = ok and packed_equal
+                del want
             # dk, db of a second run: the same bits, whatever order the
             # blocks ran in
             same = None
@@ -903,7 +943,6 @@ def level_checks(peaks, spin_rate, gen):
                 flops = 3 * fwd_flops - inner
             peak = peaks["bf16" if dt == torch.bfloat16 else "f32"]
             t_bytes, t_ops = nbytes / peaks["bytes"], flops / peak
-            tc = cl.uses_tensor_cores(dt, c, f)
             del x, params, y3, g, got, plain, ref
             checks.append({
                 "kernel": f"encoder_level_{kind}", "path": "levels",
@@ -912,6 +951,8 @@ def level_checks(peaks, spin_rate, gen):
                 "design": "tensor cores" if tc else "cuda cores",
                 "ok": ok, "max_abs_err": max_abs,
                 **({"rel_l2_to_f32_plain": dist} if kind == "fwd" else {}),
+                **({"packed_bit_equal": packed_equal}
+                   if packed_equal is not None else {}),
                 "limits": limits, **witness,
                 "ms": k_t["median"], "ms_min": k_t["min"],
                 "ms_max": k_t["max"], "plain_ms": p_t["median"],
@@ -3933,6 +3974,274 @@ def phase_debug_nans(card):
         sys.exit(1)
 
 
+# The C++ runner (runner): the artifacts of the export phase, compiled with
+# AOTInductor and run by cerberus_runner; the operators its library defines
+RUNNER_OPERATORS = ("corr2d_fwd", "corr1d_fwd", "encoder_level_fwd")
+RUNNER_ITERS = 20
+# timed calls of the runner on the smaller artifacts (DCV, pallas_levels)
+RUNNER_ITERS_SHORT = 5
+RUNNER_ARTIFACTS = ("cerberus", "stacked", "pallas_levels", "cerberus_dcv")
+
+
+def runner_launches(run, name):
+    """{kernel: launches per call} from a runner's JSON line; errors of
+    counts that are not whole calls of EXPORT_LAUNCHES[name]."""
+    per_call = {k: v / run["calls"] for k, v in run["launches"].items()}
+    want = {k: EXPORT_LAUNCHES[name].get(k, 0) for k in RUNNER_OPERATORS}
+    errors = [] if per_call == want else [
+        f"{name}: the runner's launches {run['launches']} over "
+        f"{run['calls']} calls, want {want} a call"]
+    return {k: int(v) for k, v in per_call.items() if v}, errors
+
+
+def held(report, what, errors):
+    """A runner_io comparison, held bit-equal: both sides run one compiled
+    package on the same kernel libraries, so any difference is a fault of
+    a C++ operator (the relative L2 of each output is reported)."""
+    if not (report["ok"] and report["bit_equal"]):
+        errors.append(f"{what}: {report['outputs']}")
+
+
+class _TinyFrames(torch.nn.Module):
+    """The deployment signature on three small frames, no weights: the CPU
+    artifact of the refusal."""
+
+    def forward(self, a, b, c):
+        return {"seg_logits": a.float() * 2, "flow": b.float(),
+                "disp": c.float()}
+
+
+def runner_exports(root):
+    """The export phase's four artifacts (exported here where it did not
+    run): {name: (dir, export s or None)}; and a small CPU export, which
+    is not packaged: the runner refuses it from its manifest before it
+    opens a package."""
+    import os
+
+    from cerberusnet_torch.export.aot import (
+        DeployOutputs,
+        export_inference,
+        save_exported,
+    )
+
+    out = {}
+    for name in RUNNER_ARTIFACTS:
+        art = f"{root}/export/{name}"
+        export_s = None
+        if not os.path.exists(f"{art}/model.pt2"):
+            kwargs = ({"pallas_levels": PALLAS_LEVELS}
+                      if name == "pallas_levels" else {})
+            m = seeded_model("cerberus_dcv" if name == "cerberus_dcv"
+                             else "cerberus", **kwargs)
+            m.stacked_input = name == "stacked"
+            shapes = [(3, *HW, 3)] if name == "stacked" else [(1, *HW, 3)] * 3
+            example = tuple(torch.zeros(s, dtype=torch.bfloat16,
+                                        device="cuda") for s in shapes)
+            t0 = time.perf_counter()
+            save_exported(export_inference(DeployOutputs(m), example), art)
+            export_s = time.perf_counter() - t0
+            del m
+        out[name] = (art, export_s)
+    cpu = f"{root}/runner_cpu"
+    example = tuple(torch.zeros((1, 8, 8, 3), dtype=torch.bfloat16)
+                    for _ in range(3))
+    save_exported(export_inference(DeployOutputs(_TinyFrames()), example), cpu)
+    return out, cpu
+
+
+def package_all(dirs):
+    """Each artifact compiled with AOTInductor in a process of its own, all
+    started together (the compiles are mostly serial Python and g++):
+    {name: wall seconds}; fails the phase if one fails."""
+    from cerberusnet_torch.entry import REPO_ROOT
+
+    def package(art):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m",
+                            "cerberusnet_torch.export.runner_io", "package",
+                            art], cwd=str(REPO_ROOT), capture_output=True,
+                           text=True, timeout=900)
+        return p, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        done = dict(zip(dirs, pool.map(package, dirs.values())))
+    failed = {n: p.stderr[-2000:] for n, (p, _) in done.items()
+              if p.returncode}
+    if failed:
+        fail("runner", f"AOTInductor packaging failed: {failed}")
+    return {n: s for n, (_, s) in done.items()}
+
+
+def runner_refusals(runner, art, cpu_dir):
+    """The runner's refusals: the CerberusNet package without the operator
+    library (the load names the missing operator) and the CPU export with
+    --device cuda (the manifest's platform). {case: {rc, stderr}},
+    errors."""
+    cases = {"no_ops": ([runner, "--model", art], ("cerberus::corr2d_fwd",
+                                                   "cerberus::corr1d_fwd")),
+             "cpu_package_on_cuda": ([runner, "--model", cpu_dir, "--device",
+                                      "cuda"], ("compiled for [cpu]",))}
+    out, errors = {}, []
+    for case, (cmd, causes) in cases.items():
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        out[case] = {"rc": p.returncode, "stderr": p.stderr[:600]}
+        if p.returncode == 0 or not any(c in p.stderr for c in causes):
+            errors.append(f"refusal {case}: exit {p.returncode}, "
+                          f"{p.stderr[:400]}")
+    return out, errors
+
+
+def phase_runner(card, root):
+    from cerberusnet_torch.entry import entry
+    from cerberusnet_torch.export import runner as runner_build
+    from cerberusnet_torch.export import runner_io
+
+    errors = []
+    t_phase = time.perf_counter()
+    # build: both g++ runs together (the kernel libraries are built)
+    with ThreadPoolExecutor(2) as pool:
+        built = [pool.submit(runner_build.build_runner),
+                 pool.submit(runner_build.build_ops)]
+        (runner, runner_s), (ops, ops_s) = [f.result() for f in built]
+    ldd = {}
+    for path in (runner, ops):
+        p = subprocess.run(["ldd", str(path)], capture_output=True, text=True)
+        ldd[path.name] = p.stdout.split("\n")
+        if p.returncode or "libpython" in p.stdout:
+            errors.append(f"ldd {path.name}: rc {p.returncode}, "
+                          f"{p.stdout[-800:]}")
+    emit({"phase": "runner_build", "ok": not errors, "runner": runner.name,
+          "runner_g++_s": runner_s, "ops": ops.name, "ops_g++_s": ops_s,
+          "ldd": ldd, "errors": errors})
+    if errors:
+        sys.exit(1)
+
+    exports, cpu_export = runner_exports(root)
+    t0 = time.perf_counter()
+    package_s = package_all({n: d for n, (d, _) in exports.items()})
+    packaging_s = time.perf_counter() - t0
+    runs, counts, packages = {}, {}, {}
+    for name in RUNNER_ARTIFACTS:
+        art, export_s = exports[name]
+        t0 = time.perf_counter()
+        package = packages[name] = runner_io.load_package(art)
+        load_s = time.perf_counter() - t0
+        # a Python call of the package: its operators are ops/library.py's
+        specs = runner_io.manifest(art)["inputs"]
+        frames = [t.to(torch.bfloat16).cuda()
+                  for t in runner_io.random_inputs(specs, 0)]
+        with torch.no_grad():
+            _, rise = launch_rise(lambda: package(*frames))
+        rise = {k: v for k, v in rise.items() if v}
+        if rise != EXPORT_LAUNCHES[name]:
+            errors.append(f"{name}: the Python-loaded package launched "
+                          f"{rise}, want {EXPORT_LAUNCHES[name]}")
+        iters = RUNNER_ITERS if name == "cerberus" else RUNNER_ITERS_SHORT
+        report = runner_io.verify(art, runner, ops, "cuda", seed=0,
+                                  iters=iters, package=package)
+        held(report, f"{name}: runner against the Python-loaded package",
+             errors)
+        per_call, errs = runner_launches(report["runner"], name)
+        errors += errs
+        counts[f"runner_{name}"] = per_call
+        runs[name] = {"export_s": export_s, "package_s": package_s[name],
+                      "python_load_s": load_s,
+                      "python_launches_per_call": rise,
+                      "runner": report["runner"],
+                      "runner_launches_per_call": per_call,
+                      "vs_python_package": report}
+
+    # the plain bf16 rule against the float32 eager forward, on each float
+    # artifact's runner inputs (its outputs dumped by verify); the fused
+    # levels are CerberusNet's encoder convs, so pallas_levels is held to
+    # CerberusNet's plain forwards
+    rule = {}
+    for variant, names in (("cerberus", ("cerberus", "pallas_levels")),
+                           ("cerberus_dcv", ("cerberus_dcv",))):
+        plain16, _ = entry(variant=variant, corr_impl="plain")
+        plain32, _ = entry(variant=variant, dtype=torch.float32,
+                           corr_impl="plain")
+        for name in names:
+            art = f"{root}/export/{name}"
+            frames = [t.to(torch.bfloat16).cuda() for t in
+                      runner_io.random_inputs(
+                          runner_io.manifest(art)["inputs"], 0)]
+            got = [t.cuda() for t in
+                   runner_io.read_outputs(f"{art}/_verify")]
+            with torch.no_grad():
+                ref, base = plain32(*frames), plain16(*frames)
+            rule[name] = {}
+            for g, k in zip(got, HEADS):
+                d_run, d_plain = rel_l2(g, ref[k]), rel_l2(base[k], ref[k])
+                lim = 1.5 * d_plain + 1e-3
+                rule[name][k] = {"runner_bf16_vs_f32": d_run,
+                                 "plain_bf16_vs_f32": d_plain, "limit": lim}
+                if not d_run <= lim:
+                    errors.append(f"runner {name} {k}: rel L2 {d_run} > "
+                                  f"{lim}")
+            del ref, base
+        del plain16, plain32
+
+    art = f"{root}/export/cerberus"
+    specs = runner_io.manifest(art)["inputs"]
+    frames = [t.to(torch.bfloat16).cuda()
+              for t in runner_io.random_inputs(specs, 0)]
+
+    # ms per frame: the runner, the Python-loaded package and the eager
+    # forward, in turns (runner, the two in Python, runner)
+    model = seeded_model()
+    with torch.no_grad():
+        python_ms = turns({"python_package": packages["cerberus"],
+                           "eager": model}, lambda f: f(*frames), runs=20,
+                          warmup=3)
+    again = runner_io.run_runner(art, runner, ops, "cuda",
+                                 [f"{art}/_verify/in_{i}.bin"
+                                  for i in range(len(specs))],
+                                 f"{art}/_verify_again", iters=RUNNER_ITERS)
+    ms_per_frame = {"runner": [runs["cerberus"]["runner"]["avg_exec_ms"],
+                               again["avg_exec_ms"]], **python_ms}
+    del model
+
+    # --serve: three INFER requests and one PNGS to one warm process
+    serve = runner_io.verify_serve(art, runner, ops, "cuda", seed=1,
+                                   requests=N_REQUESTS,
+                                   package=packages["cerberus"])
+    if not (serve["ok"] and serve["bit_equal"]):
+        errors.append(f"serve: rc {serve['rc']}, {serve['requests']}")
+    # --pngs: separate frames and the stacked signature on the same files
+    pngs = {name: runner_io.verify_pngs(f"{root}/export/{name}", runner, ops,
+                                        "cuda", seed=2,
+                                        package=packages[name])
+            for name in ("cerberus", "stacked")}
+    for name, report in pngs.items():
+        held(report, f"--pngs {name}", errors)
+    stacked_vs_separate = runner_io.compare(
+        runner_io.read_outputs(f"{root}/export/stacked/_verify_png"),
+        runner_io.read_outputs(f"{root}/export/cerberus/_verify_png"))
+    held(stacked_vs_separate, "--pngs stacked against separate", errors)
+
+    refusals, errs = runner_refusals(runner, art, cpu_export)
+    errors += errs
+    ok = not errors
+    emit({"phase": "runner", "ok": ok, "hw": list(HW), "batch": 1,
+          "dtype": "bfloat16", "artifacts": runs, "plain_bf16_rule": rule,
+          "ms_per_frame": ms_per_frame, "serve": serve, "pngs": pngs,
+          "pngs_stacked_vs_separate": stacked_vs_separate,
+          "refusals": refusals, "packaging_s": packaging_s,
+          "seconds": time.perf_counter() - t_phase,
+          "timing": "runner: host clock around each call and a stream "
+                    "synchronise, mean of its timed calls (two runs, before "
+                    "and after the Python pair); python_package and eager: "
+                    "CUDA events around one call, in turns; package_s: "
+                    "a process's AOTInductor compile and package, the four "
+                    "processes together (packaging_s their wall time); "
+                    "serve wall_ms: host clock around a request",
+          "card": card, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return counts
+
+
 REPLACES = {
     "corr2d_fwd": "cerberusnet_tpu/ops/pallas/correlation.py:86 "
                   "(_corr2d_fwd_kernel, pallas_call at :153)",
@@ -4069,13 +4378,19 @@ def summary(checks, counts):
                 ("export_stacked", "cerberus", 1),
                 ("export_pallas_levels", "cerberus", 1),
                 ("quant_int8", "cerberus", 1),
-                ("train_qat", "cerberus", TRAIN_BATCH)):
+                ("train_qat", "cerberus", TRAIN_BATCH),
+                # the C++ runner's: a call of each package, the launches
+                # as its operator library counted them
+                ("runner_cerberus", "cerberus", 1),
+                ("runner_stacked", "cerberus", 1),
+                ("runner_pallas_levels", "cerberus", 1)):
             if counts[phase][name]:
                 paths[phase] = path_numbers(checks, name, path, batch,
                                             counts[phase][name])
-        if counts["export_cerberus_dcv"][name]:
-            dcv["export_cerberus_dcv"] = path_numbers(
-                checks, name, "dcv", 1, counts["export_cerberus_dcv"][name])
+        for phase in ("export_cerberus_dcv", "runner_cerberus_dcv"):
+            if counts[phase][name]:
+                dcv[phase] = path_numbers(checks, name, "dcv", 1,
+                                          counts[phase][name])
         dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
                 else DCV_DISP_DILATIONS)
         entries.append({
@@ -4094,8 +4409,9 @@ def summary(checks, counts):
             serve = level_numbers(checks, name, SERVE_FRAMES,
                                   counts["serve_pallas_levels"])
             paths["serve_pallas_levels"] = serve
-            paths["export_pallas_levels"] = level_numbers(
-                checks, name, SERVE_FRAMES, counts["export_pallas_levels"])
+            for phase in ("export_pallas_levels", "runner_pallas_levels"):
+                paths[phase] = level_numbers(checks, name, SERVE_FRAMES,
+                                             counts[phase])
         entries.append({
             "name": name, "route": "cuda",
             "source": "cerberusnet_torch/csrc/encoder_level.cu",
@@ -4165,7 +4481,7 @@ def deployment_phases(card, counts, wanted):
     import tempfile
 
     if not any(wanted(n) for n in ("export", "quant_int8", "train_qat",
-                                   "debug_nans")):
+                                   "debug_nans", "runner")):
         return
     root = tempfile.mkdtemp(prefix="cerberus_deploy_")
     kernels = list(launch_counts())
@@ -4180,6 +4496,8 @@ def deployment_phases(card, counts, wanted):
             runs["train_qat"] = phase_train("train_qat")
         if wanted("debug_nans"):
             phase_debug_nans(card)
+        if wanted("runner"):
+            runs.update(phase_runner(card, root))
         counts.update({phase: {k: launches.get(k, 0) for k in kernels}
                        for phase, launches in runs.items()})
     finally:

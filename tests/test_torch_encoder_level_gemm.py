@@ -16,8 +16,14 @@ within 1.5x the plain bf16 level's distance to the float32 one plus 1e-3,
 the rule chip_smoke.py holds the kernels to. Also the persistent reverse
 sweep's schedule and slot count at the 512x1024 level shapes, the tile
 table the wrapper reads from the source, and the source's measurement
-builds (cerberusnet_torch/level_phases.py).
+builds (cerberusnet_torch/level_phases.py). The forward's weights are
+packed by the library on the device (csrc/tc_pack.cuh): that kernel,
+compiled here with g++ and run one thread at a time, must pack as pack_b
+does, bit for bit.
 """
+
+import ctypes
+import subprocess
 
 import numpy as np
 import pytest
@@ -207,6 +213,61 @@ def test_one_gather_packs_as_tc_operands(widths):
             assert torch.equal(got[n], want[n]), n
 
 
+# tc_pack.cuh on the CPU: the kernel's qualifiers dropped and its grid
+# walked by a loop, one thread at a time
+PACK_HARNESS = r"""
+#include <stdint.h>
+#define __global__
+#define __host__
+#define __device__
+struct Dim3 { unsigned x, y, z; };
+static Dim3 blockIdx, gridDim, blockDim, threadIdx;
+#include "tc_pack.cuh"
+extern "C" int64_t packed_elems_of(int C, int F) {
+  return tc_fwd_packed_elems(C, F);
+}
+extern "C" void pack(const void* k1, const void* k2, const void* k3,
+                     void* out, int C, int F) {
+  const TcFwdOperands ops = tc_fwd_operands(k1, k2, k3, out, C, F);
+  blockDim = {64, 1, 1};
+  gridDim = {3, 3, 1};  // fewer threads than values: the stride loop runs
+  for (blockIdx.y = 0; blockIdx.y < 3; ++blockIdx.y)
+    for (blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)
+      for (threadIdx.x = 0; threadIdx.x < blockDim.x; ++threadIdx.x)
+        tc_pack_kernel(ops);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def cpu_pack(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tc_pack")
+    (d / "harness.cc").write_text(PACK_HARNESS)
+    subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-I",
+                    str(build.CSRC_DIR), "-o", str(d / "pack.so"),
+                    str(d / "harness.cc")], check=True)
+    lib = ctypes.CDLL(str(d / "pack.so"))
+    lib.packed_elems_of.restype = ctypes.c_int64
+    lib.packed_elems_of.argtypes = [ctypes.c_int] * 2
+    lib.pack.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    return lib
+
+
+@pytest.mark.parametrize("widths", WIDTHS, ids=str)
+def test_device_forward_packing_is_pack_b(cpu_pack, widths):
+    c, f = widths
+    _, params, _ = level_inputs(1, 4, 4, c, f, seed=7)
+    k1, k2, k3 = (params[i].bfloat16() for i in (0, 2, 4))
+    want = cl.tc_operands(k1, k2, k3)
+    want = torch.cat([want[n].flatten() for n in ("k1", "k2", "k3")])
+    got = torch.full((cpu_pack.packed_elems_of(c, f),), float("nan"),
+                     dtype=torch.bfloat16)
+    cpu_pack.pack(k1.data_ptr(), k2.data_ptr(), k3.data_ptr(),
+                  got.data_ptr(), c, f)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("extent", EXTENTS, ids=str)
 @pytest.mark.parametrize("widths", WIDTHS, ids=str)
 def test_emulated_level_f32_matches_plain(widths, extent):
@@ -292,7 +353,10 @@ def test_partial_bytes_counter_resets_with_the_launches():
 
 
 def test_tile_table_is_read_from_the_source():
-    text = (build.CSRC_DIR / "encoder_level.cu").read_text()
+    # the table lives in a header that the kernels' source includes
+    text = cl.TC_LEVELS_HEADER.read_text()
+    assert '#include "tc_levels.cuh"' in (
+        build.CSRC_DIR / "encoder_level.cu").read_text()
     rows = cl._tc_rows()
     assert [r[:2] for r in rows] == [(3, 16), (16, 32), (32, 64)]
     for row in rows:

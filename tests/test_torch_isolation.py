@@ -1,6 +1,7 @@
 """The port stands alone: cerberusnet_torch and chip_smoke.py import nothing
-of JAX, flax, optax, the JAX package or tools/, and refuse to run where they
-must not (no CUDA device, no nvcc, no port beside chip_smoke.py)."""
+of JAX, flax, optax, ml_dtypes, the JAX package or tools/, and refuse to run
+where they must not (no CUDA device, no nvcc, no port beside
+chip_smoke.py)."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "cerberusnet_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "cerberusnet_tpu", "tools")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "cerberusnet_tpu",
+           "tools")
 
 IMPORT_ALL_BLOCKED = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -46,14 +48,14 @@ def test_every_module_imports_with_jax_blocked():
     proc = run_python(IMPORT_ALL_BLOCKED)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 37  # every module was imported
+    assert len(names) >= 39  # every module was imported
     assert {f"cerberusnet_torch.{m}" for m in (
         "models.dcv_flow", "models.segmentation", "data.augment",
         "data.cityscapes", "data.encodings", "data.io", "data.kitti",
         "data.native_io", "utils.tblogger", "data.flow_datasets", "eval",
         "eval.tta", "eval.tiled", "eval.submission", "ops.library", "export",
-        "export.aot", "quant", "quant.ptq", "quant.qat",
-        "train.debug_nans")} <= set(names)
+        "export.aot", "export.runner", "export.runner_io", "quant",
+        "quant.ptq", "quant.qat", "train.debug_nans")} <= set(names)
 
 
 def _imported_roots(path):
