@@ -15,16 +15,28 @@ any other action), ``--profile``, ``--export-dir`` (with ``--quant`` and
 ``--eval-only`` and training run in the reference's order; ``--device`` is
 ``cuda`` unless given. ``--quant`` and ``--export-stacked`` without
 ``--export-dir`` are refused (the reference ignores them and trains).
+
+Data parallelism: with ``train.num_data_devices`` N > 1 (or 0 on a host
+with several cards) the command starts N ranks itself, one a card
+(``parallel.launch``, NCCL; gloo on the CPU), each running the same
+action; rank 0 alone prints and writes. A host with fewer cards than N
+raises ValueError. A process started by ``torchrun`` (``WORLD_SIZE`` set)
+joins that group instead:
+
+    python -m cerberusnet_torch.cli --config configs/cerberus_dp_v4_8.json
+    torchrun --nproc-per-node 8 -m cerberusnet_torch.cli \
+        --config configs/cerberus_dp_v4_8.json
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser(
         prog="python -m cerberusnet_torch.cli",
         description="Train or evaluate cerberusnet_torch models from a "
@@ -70,6 +82,12 @@ def main(argv=None):
     ap.add_argument("--export-stacked", action="store_true",
                     help="with --export-dir (cerberus variant): export the "
                          "producer-stacked signature, one (3B,H,W,3) input")
+    return ap
+
+
+def _parse(argv):
+    """(parser, arguments, config) of a command line."""
+    ap = _parser()
     args = ap.parse_args(argv)
     if not args.export_dir and (args.quant or args.export_stacked):
         ap.error("--quant and --export-stacked need --export-dir")
@@ -79,22 +97,60 @@ def main(argv=None):
     config = ExperimentConfig.from_json(args.config)
     if args.ckpt_dir is not None:
         config.train.ckpt_dir = args.ckpt_dir
+    return ap, args, config
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap, args, config = _parse(argv)
     if args.print_config:
         print(config.to_json())
         return 0
 
+    import torch
+    import torch.distributed as dist
+
+    from cerberusnet_torch.parallel.mesh import data_ranks, launch
+
+    device = torch.device(args.device)
+    # NCCL takes a card a rank; ranks sharing one card or the CPU, gloo
+    backend = ("nccl" if device.type == "cuda" and device.index is None
+               else "gloo")
+    if os.environ.get("WORLD_SIZE") and not dist.is_initialized():
+        # a rank torchrun started: join its group (env://)
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+        try:
+            return _run(ap, args, config)
+        finally:
+            dist.destroy_process_group()
+    ranks = data_ranks(config.train.num_data_devices, device)
+    if ranks > 1:
+        launch(_rank, ranks, args=(argv,), backend=backend)
+        return 0
+    return _run(ap, args, config)
+
+
+def _rank(argv):
+    """A rank the command started: the same action in its group."""
+    return _run(*_parse(argv))
+
+
+def _run(ap, args, config):
     from cerberusnet_torch.train.trainer import Trainer
 
     trainer = Trainer(config, device=args.device)
+    say = print if trainer.writer else (lambda *a, **k: None)
     if args.import_torch:
         trainer.import_torch_weights(args.import_torch)
     if args.profile:
-        print(f"trace written to {trainer.profile(args.profile)}")
+        say(f"trace written to {trainer.profile(args.profile)}")
         return 0
     if args.export_dir:
         out = trainer.export(args.export_dir, quant=args.quant,
                              stacked=args.export_stacked)
-        print(f"exported AOT artifact to {out}")
+        say(f"exported AOT artifact to {out}")
         return 0
     if args.infer:
         imgs = [p for p in args.infer.split(",") if p]
@@ -103,14 +159,14 @@ def main(argv=None):
                      f"({','.join(trainer.input_keys)}), got {len(imgs)}")
         made = trainer.predict_images(dict(zip(trainer.input_keys, imgs)),
                                       args.infer_out)
-        print("\n".join(made))
+        say("\n".join(made))
         return 0
     if args.predict_dir:
         made = trainer.predict_to_dir(args.predict_dir)
-        print(f"wrote {len(made)} prediction files to {args.predict_dir}")
+        say(f"wrote {len(made)} prediction files to {args.predict_dir}")
         return 0
     if args.eval_only:
-        print(json.dumps(trainer.evaluate(), indent=2))
+        say(json.dumps(trainer.evaluate(), indent=2))
         return 0
     trainer.fit()
     return 0

@@ -85,6 +85,19 @@ def draw(config: AugmentConfig, batch_size: int, hw, generator) -> dict:
     return out
 
 
+def shard_draws(draws: dict, rows: slice) -> dict:
+    """The draws of a global batch's ``rows`` (a data-parallel rank's
+    slice): the per-sample ones sliced, the batch's scale kept."""
+    out = {}
+    for k, v in draws.items():
+        if k in ("y0", "x0", "flip"):
+            v = v[rows]
+        elif k in ("contrast", "brightness"):
+            v = v[:, rows]
+        out[k] = v
+    return out
+
+
 def _crop(x, y0, x0, ch, cw):
     """Per-sample crops (B, ch, cw, ...) of x (B, H, W, ...) at the
     offsets (B,) on the host."""

@@ -7,7 +7,11 @@ iteration, shuffles with ``np.random.RandomState(seed + e)``). As the
 reference's, a producer thread decodes each batch's samples on a pool of
 ``num_workers`` threads (the decoders drop the GIL) and queues up to
 ``prefetch`` batches ahead of the consumer; a consumer that leaves early
-stops it, and an error in a worker reaches the consumer. With
+stops it, and an error in a worker reaches the consumer. Under data
+parallelism (``mesh``, ``parallel/mesh.py``) ``batch_size`` is the global
+batch's: every rank shuffles alike and decodes only its own rows of each
+global batch, so the ranks' batches together are the single process's,
+in order. With
 ``pin_memory`` the producer copies each numeric array into page-locked
 memory, so ``to_device`` uploads it without blocking the host: the torch
 form of the reference's ``device_put`` in its producer. ``pad_batch`` pads
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from cerberusnet_torch.data import encodings
+from cerberusnet_torch.parallel.mesh import SINGLE
 
 IMAGE_KEYS = ("left", "right", "temporal")
 
@@ -84,11 +89,20 @@ def _pinned(batch: dict) -> dict:
 class DataLoader:
     """Batches of ``dataset`` as numpy dicts (or, with ``pin_memory``,
     dicts of page-locked tensors), in the order of the reference's
-    ``DataLoader``; each iteration is one epoch."""
+    ``DataLoader``; each iteration is one epoch.
+
+    With a ``mesh`` of N ranks each batch is this rank's rows of the global
+    batch of ``batch_size`` (which N must divide), and every rank yields
+    as many batches. Without ``drop_last`` the last global batch is padded
+    to ``batch_size`` by repeating its last sample before it is sliced,
+    and each batch carries ``"_sample_mask"`` ((B / N,) float32, 0 for the
+    padding), as the reference pads and then shards."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = True, seed: int = 0,
-                 prefetch: int = 2, pin_memory: bool = False):
+                 prefetch: int = 2, pin_memory: bool = False, mesh=SINGLE):
+        self.rows = mesh.shard(batch_size)
+        self.mesh = mesh
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -110,9 +124,22 @@ class DataLoader:
         for i in range(len(self)):
             yield idx[i * self.batch_size:(i + 1) * self.batch_size]
 
+    def _rank_parts(self):
+        """(this rank's indices, its sample mask or None) per batch."""
+        for part in self._batch_indices():
+            if self.mesh.size == 1:
+                yield part, None
+                continue
+            n = len(part)
+            part = np.concatenate([part, np.repeat(part[-1:],
+                                                   self.batch_size - n)])
+            mask = (np.arange(self.batch_size) < n).astype(np.float32)
+            yield part[self.rows], (None if self.drop_last
+                                    else mask[self.rows])
+
     def __iter__(self):
         self._epoch += 1
-        indices = list(self._batch_indices())
+        parts = list(self._rank_parts())
         pool = ThreadPoolExecutor(self.num_workers)
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -129,11 +156,13 @@ class DataLoader:
 
         def produce():
             try:
-                for part in indices:
+                for part, mask in parts:
                     if stop.is_set():
                         return
                     batch = collate(list(pool.map(
                         self.dataset.__getitem__, (int(j) for j in part))))
+                    if mask is not None:
+                        batch["_sample_mask"] = mask
                     put(_pinned(batch) if self.pin_memory else batch)
                 put(done)
             except Exception as e:  # handed to the consumer, raised there

@@ -16,7 +16,9 @@ augmentation (``crop_hw``, ``scales``, ``flip_lr_prob``, ``brightness``,
 ``contrast``) and ``data.num_workers`` decode threads; ``train.tensorboard``
 writes event files under ``ckpt_dir/tb``; ``train.qat`` (its ranges from
 ``qat_calib_batches`` batches) trains with fake-quantized convs and
-``train.debug_nans`` stops at the first NaN. ``model.pallas_levels`` runs CerberusNet's first N
+``train.debug_nans`` stops at the first NaN; ``train.num_data_devices``
+trains on that many ranks, one a card (``parallel/mesh.py``), the spatial
+axis (``num_spatial_devices``) waiting on ROADMAP A11b. ``model.pallas_levels`` runs CerberusNet's first N
 encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
 their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
 plain convolutions recomputed; the DCV and RAFT variants ignore both, as
@@ -249,8 +251,9 @@ class ExperimentConfig:
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
-            (t.num_data_devices > 1 or t.num_spatial_devices > 1,
-             "more than one device", "A11"),
+            (t.num_spatial_devices > 1,
+             f"train.num_spatial_devices={t.num_spatial_devices} (spatial "
+             f"H-sharding)", "A11b"),
         )
         for bad, what, item in checks:
             if bad:

@@ -21,6 +21,14 @@ Each loss is a masked mean over valid pixels (sparse ground truth):
 
 ``uncertainty_weighted_total`` replaces the weighted sum with Kendall's
 weighting by learned log-variances.
+
+Under data parallelism (``parallel/mesh.py``) each rank holds a slice of
+the global batch, and every reduction over the batch goes through the
+``mesh`` a loss takes: the masked means' numerator and denominator and
+the plain means are sums over every rank (``DataMesh.sum``, ``mean``),
+berHu's c comes from the global batch's largest error (``DataMesh.max``),
+so each rank's value is the global batch's. The default mesh is one
+process, whose reductions are these functions' own ops.
 """
 
 from __future__ import annotations
@@ -31,21 +39,23 @@ import torch
 import torch.nn.functional as F
 
 from cerberusnet_torch.ops.warp import warp2d
+from cerberusnet_torch.parallel.mesh import SINGLE
 
 # PWC-Net multi-scale weights, levels 6..2.
 DEFAULT_LEVEL_WEIGHTS: Mapping[int, float] = {6: 0.32, 5: 0.08, 4: 0.02,
                                               3: 0.01, 2: 0.005}
 
 
-def _masked_mean(x, mask):
-    """Mean of x over mask (float 0/1); 0 if the mask is empty."""
-    num = (x * mask).sum()
-    den = mask.sum()
+def _masked_mean(x, mask, mesh=SINGLE):
+    """Mean of x over mask (float 0/1) on every rank; 0 if the mask is
+    empty."""
+    num = mesh.sum((x * mask).sum())
+    den = mesh.sum(mask.sum())
     return torch.where(den > 0, num / den.clamp_min(1.0), 0.0)
 
 
 def segmentation_loss(logits, labels, ignore_index: int = 255,
-                      focal_gamma=None):
+                      focal_gamma=None, mesh=SINGLE):
     """Cross-entropy over valid pixels. logits (B,H,W,C), labels (B,H,W)
     integers (255 = ignore); ``focal_gamma`` adds the (1-p)^gamma factor.
     The reference's one-hot dot picks the label's log-probability exactly,
@@ -58,11 +68,11 @@ def segmentation_loss(logits, labels, ignore_index: int = 255,
     ce = -ll
     if focal_gamma is not None:
         ce = ce * (1.0 - torch.exp(ll)) ** focal_gamma
-    return _masked_mean(ce, valid)
+    return _masked_mean(ce, valid, mesh)
 
 
 def rmi_loss(logits, labels, ignore_index: int = 255, pool_stride: int = 4,
-             radius: int = 3, eps: float = 5e-4):
+             radius: int = 3, eps: float = 5e-4, mesh=SINGLE):
     """Region mutual information (Zhao et al., NeurIPS 2019): each pixel
     with its radius x radius neighbourhood is one sample of a R = radius^2
     dimensional distribution; the loss is the log-determinant of the
@@ -109,7 +119,7 @@ def rmi_loss(logits, labels, ignore_index: int = 255, pool_stride: int = 4,
     logdet = 2.0 * torch.log(
         torch.diagonal(chol, dim1=-2, dim2=-1).clamp_min(1e-8)).sum(-1)
     # 0.5 logdet per (b, c), normalised by the region's size
-    return (0.5 * logdet).mean() / float(r)
+    return mesh.mean(0.5 * logdet) / float(r)
 
 
 def _sumpool2(x):
@@ -150,7 +160,7 @@ def gt_pyramid(gt, valid, levels, scale_values: bool):
 
 def multiscale_flow_loss(flow_pyramid, gt_flow, valid=None,
                          level_weights=DEFAULT_LEVEL_WEIGHTS, robust_q=None,
-                         robust_eps: float = 0.01):
+                         robust_eps: float = 0.01, mesh=SINGLE):
     """Sum over levels of the weighted masked flow error. gt_flow is
     (B,H,W,2) at full resolution in full-resolution pixels."""
     if valid is None:
@@ -164,13 +174,13 @@ def multiscale_flow_loss(flow_pyramid, gt_flow, valid=None,
             err = (diff.abs().sum(-1) + robust_eps) ** robust_q
         else:
             err = torch.sqrt((diff * diff).sum(-1) + 1e-12)
-        total = total + level_weights.get(level, 0.0) * _masked_mean(err,
-                                                                     valid_l)
+        total = total + level_weights.get(level, 0.0) * _masked_mean(
+            err, valid_l, mesh)
     return total
 
 
 def raft_sequence_loss(iterates, gt_flow, valid=None, level: int = 3,
-                       gamma: float = 0.8):
+                       gamma: float = 0.8, mesh=SINGLE):
     """RAFT's sequence loss: sum over the T iterates (T, B, h, w, C), in
     level pixels, of gamma^(T-1-t) times the masked mean over valid cells
     of the L1 error against ``gt_flow`` (B, H, W, C) brought to ``level``
@@ -180,25 +190,26 @@ def raft_sequence_loss(iterates, gt_flow, valid=None, level: int = 3,
     gt_l, valid_l = gt_pyramid(gt_flow, valid, (level,), True)[level]
     t = iterates.shape[0]
     err = (iterates.float() - gt_l[None]).abs().sum(-1)  # (T, B, h, w)
-    per_iter = (err * valid_l[None]).sum(dim=(1, 2, 3)) / valid_l.sum(
-    ).clamp_min(1.0)
+    per_iter = mesh.sum((err * valid_l[None]).sum(dim=(1, 2, 3))) / mesh.sum(
+        valid_l.sum()).clamp_min(1.0)
     weights = gamma ** torch.arange(t - 1, -1, -1, dtype=torch.float32,
                                     device=iterates.device)
     return (weights * per_iter).sum()
 
 
-def photometric_loss(im1, im2, flow, alpha: float = 0.85):
+def photometric_loss(im1, im2, flow, alpha: float = 0.85, mesh=SINGLE):
     """Unsupervised photometric term: alpha (1 - SSIM) / 2 + (1 - alpha) L1
     between ``im1`` and ``im2`` warped back by ``flow`` (which maps im1's
     pixels into im2), in float32 after the warp (which runs in im2's
     type)."""
     im2w = warp2d(im2, flow).float()
     im1 = im1.float()
-    l1 = (im1 - im2w).abs().mean()
-    return alpha * (1.0 - _ssim(im1, im2w)) * 0.5 + (1.0 - alpha) * l1
+    l1 = mesh.mean((im1 - im2w).abs())
+    return (alpha * (1.0 - _ssim(im1, im2w, mesh=mesh)) * 0.5
+            + (1.0 - alpha) * l1)
 
 
-def _ssim(a, b, c1: float = 0.01**2, c2: float = 0.03**2):
+def _ssim(a, b, c1: float = 0.01**2, c2: float = 0.03**2, mesh=SINGLE):
     """Mean SSIM with 3x3 mean-pool windows (VALID) over NHWC tensors."""
 
     def pool(x):
@@ -211,10 +222,10 @@ def _ssim(a, b, c1: float = 0.01**2, c2: float = 0.03**2):
     cov = pool(a * b) - mu_a * mu_b
     num = (2 * mu_a * mu_b + c1) * (2 * cov + c2)
     den = (mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2)
-    return (num / den).mean()
+    return mesh.mean(num / den)
 
 
-def smoothness_loss(field, image):
+def smoothness_loss(field, image, mesh=SINGLE):
     """First-order edge-aware smoothness: the mean of |d field| exp(-|d
     image|) along x plus along y, |d image| averaged over the channels."""
     field = field.float()
@@ -228,14 +239,14 @@ def smoothness_loss(field, image):
 
     wx = torch.exp(-grad_x(image).abs().mean(-1, keepdim=True))
     wy = torch.exp(-grad_y(image).abs().mean(-1, keepdim=True))
-    return ((grad_x(field).abs() * wx).mean()
-            + (grad_y(field).abs() * wy).mean())
+    return (mesh.mean(grad_x(field).abs() * wx)
+            + mesh.mean(grad_y(field).abs() * wy))
 
 
-def berhu_loss(pred, gt, valid=None, c_frac: float = 0.2):
-    """berHu: L1 below c, (d^2 + c^2) / (2c) above, c = c_frac * the batch's
-    largest error. ``amax`` shares the gradient among tied maxima, as JAX's
-    max does."""
+def berhu_loss(pred, gt, valid=None, c_frac: float = 0.2, mesh=SINGLE):
+    """berHu: L1 below c, (d^2 + c^2) / (2c) above, c = c_frac * the
+    (global) batch's largest error. ``amax`` shares the gradient among tied
+    maxima, as JAX's max does."""
     pred = pred.float()
     gt = gt.float()
     if pred.dim() == gt.dim() + 1:
@@ -243,13 +254,14 @@ def berhu_loss(pred, gt, valid=None, c_frac: float = 0.2):
     if valid is None:
         valid = torch.ones_like(gt)
     err = (pred - gt).abs() * valid
-    c = (c_frac * err.amax()).clamp_min(1e-6)
+    c = (c_frac * mesh.max(err)).clamp_min(1e-6)
     loss = torch.where(err <= c, err, (err * err + c * c) / (2.0 * c))
-    return _masked_mean(loss, valid)
+    return _masked_mean(loss, valid, mesh)
 
 
 def multiscale_disparity_loss(disp_pyramid, gt_disp, valid=None,
-                              level_weights=DEFAULT_LEVEL_WEIGHTS):
+                              level_weights=DEFAULT_LEVEL_WEIGHTS,
+                              mesh=SINGLE):
     """Per-level berHu over the disparity pyramid, with the flow loss's
     ground-truth pyramid."""
     if gt_disp.dim() == 3:
@@ -261,13 +273,14 @@ def multiscale_disparity_loss(disp_pyramid, gt_disp, valid=None,
     for level, disp_l in disp_pyramid.items():
         gt_l, valid_l = pyr[level]
         total = total + level_weights.get(level, 0.0) * berhu_loss(
-            disp_l, gt_l[..., 0], valid_l)
+            disp_l, gt_l[..., 0], valid_l, mesh=mesh)
     return total
 
 
 def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
                photometric_weight: float = 0.0, smoothness_weight: float = 0.0,
-               rmi_weight: float = 0.0, seq_gamma: float = 0.8):
+               rmi_weight: float = 0.0, seq_gamma: float = 0.8,
+               mesh=SINGLE):
     """Weighted multi-task loss; returns (total, components).
 
     A task contributes when the model output and its ground truth are both
@@ -279,16 +292,18 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
     ``photometric_weight`` and ``smoothness_weight`` add the unsupervised
     terms on the full-resolution ``flow`` and the batch's ``left`` (and
     ``temporal``) frames, ``comps["photometric"]`` and
-    ``comps["smoothness"]``."""
+    ``comps["smoothness"]``. ``mesh`` makes every term the global
+    batch's under data parallelism."""
     weights = weights or {"seg": 1.0, "flow": 1.0, "disp": 1.0}
     comps = {}
     total = 0.0
     if "seg_labels" in batch and "seg_logits" in outputs:
         comps["seg"] = segmentation_loss(outputs["seg_logits"],
                                          batch["seg_labels"],
-                                         focal_gamma=focal_gamma)
+                                         focal_gamma=focal_gamma, mesh=mesh)
         if rmi_weight:
-            comps["rmi"] = rmi_loss(outputs["seg_logits"], batch["seg_labels"])
+            comps["rmi"] = rmi_loss(outputs["seg_logits"], batch["seg_labels"],
+                                    mesh=mesh)
             comps["seg"] = ((1.0 - rmi_weight) * comps["seg"]
                             + rmi_weight * comps["rmi"])
         total = total + weights.get("seg", 1.0) * comps["seg"]
@@ -296,30 +311,32 @@ def joint_loss(outputs, batch, weights=None, focal_gamma=None, robust_q=None,
         (level,) = outputs["flow_pyramid"].keys()
         comps["flow"] = raft_sequence_loss(
             outputs["flow_iterates"], batch["flow_gt"],
-            batch.get("flow_valid"), level=level, gamma=seq_gamma)
+            batch.get("flow_valid"), level=level, gamma=seq_gamma, mesh=mesh)
         total = total + weights.get("flow", 1.0) * comps["flow"]
     elif "flow_gt" in batch and "flow_pyramid" in outputs:
         comps["flow"] = multiscale_flow_loss(
             outputs["flow_pyramid"], batch["flow_gt"],
-            batch.get("flow_valid"), robust_q=robust_q)
+            batch.get("flow_valid"), robust_q=robust_q, mesh=mesh)
         total = total + weights.get("flow", 1.0) * comps["flow"]
     if "disp_gt" in batch and "disp_iterates" in outputs:
         (level,) = outputs["disp_pyramid"].keys()
         gt = batch["disp_gt"]
         comps["disp"] = raft_sequence_loss(
             outputs["disp_iterates"], gt[..., None] if gt.dim() == 3 else gt,
-            batch.get("disp_valid"), level=level, gamma=seq_gamma)
+            batch.get("disp_valid"), level=level, gamma=seq_gamma, mesh=mesh)
         total = total + weights.get("disp", 1.0) * comps["disp"]
     elif "disp_gt" in batch and "disp_pyramid" in outputs:
         comps["disp"] = multiscale_disparity_loss(
-            outputs["disp_pyramid"], batch["disp_gt"], batch.get("disp_valid"))
+            outputs["disp_pyramid"], batch["disp_gt"], batch.get("disp_valid"),
+            mesh=mesh)
         total = total + weights.get("disp", 1.0) * comps["disp"]
     if photometric_weight and "flow" in outputs and "temporal" in batch:
         comps["photometric"] = photometric_loss(
-            batch["left"], batch["temporal"], outputs["flow"])
+            batch["left"], batch["temporal"], outputs["flow"], mesh=mesh)
         total = total + photometric_weight * comps["photometric"]
     if smoothness_weight and "flow" in outputs and "left" in batch:
-        comps["smoothness"] = smoothness_loss(outputs["flow"], batch["left"])
+        comps["smoothness"] = smoothness_loss(outputs["flow"], batch["left"],
+                                              mesh=mesh)
         total = total + smoothness_weight * comps["smoothness"]
     comps["total"] = total
     return total, comps
@@ -329,7 +346,8 @@ def uncertainty_weighted_total(comps, log_vars):
     """Kendall et al.'s homoscedastic multi-task weighting: the sum over
     the tasks present in ``comps`` of exp(-s_t) * L_t + 0.5 * s_t, with
     ``log_vars`` {task: learnable float32 scalar s_t}. The config's task
-    weights do not enter it, as in the reference."""
+    weights do not enter it, as in the reference. Under data parallelism it
+    is the global batch's because its inputs are."""
     total = 0.0
     for task, s in log_vars.items():
         if task in comps:

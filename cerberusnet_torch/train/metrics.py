@@ -4,7 +4,9 @@ segmentation mIoU, flow EPE and Fl-all, disparity MAE and D1-all.
 The accumulators are small float32 tensors on the device (a confusion
 matrix and two triples of running sums). ``MetricState.update`` adds one
 batch to them without a host read; ``compute`` reads them once, at the
-end of an evaluation, as the reference's on-device accumulators do.
+end of an evaluation, as the reference's on-device accumulators do. Under
+data parallelism each rank adds its slices, and ``summed`` adds up the
+ranks' states before ``compute``.
 """
 
 from __future__ import annotations
@@ -141,6 +143,19 @@ class MetricState:
             new = dataclasses.replace(
                 new, disp_sums=new.disp_sums + torch.stack(s))
         return new
+
+    def summed(self, mesh):
+        """The state summed over the data mesh's ranks in one all-reduce
+        (``DataMesh.sum_``): the accumulators are linear in the data, as
+        the reference's are, so the sum is the whole dataset's state. The
+        state itself outside a process group."""
+        if not mesh.distributed:
+            return self
+        c = self.confusion.numel()
+        flat = mesh.sum_(torch.cat([self.confusion.reshape(-1),
+                                    self.flow_sums, self.disp_sums]))
+        return MetricState(flat[:c].reshape(self.confusion.shape),
+                           flat[c:c + 3], flat[c + 3:])
 
     def merge(self, other: "MetricState"):
         return MetricState(self.confusion + other.confusion,

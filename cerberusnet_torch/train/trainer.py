@@ -48,6 +48,12 @@ stacked signature or, with ``quant="int8"``, the int8 graph of
 ``quant/ptq.py``. ``train.qat`` trains with fake-quantized convs
 (``quant/qat.py``) against fixed ranges; ``train.debug_nans`` runs the
 steps and evaluations under ``DebugNans`` (``train/debug_nans.py``).
+
+Data parallelism (``train.num_data_devices``, ``parallel/mesh.py``): one
+process a rank, each holding its slice of every global batch of
+``data.batch_size``, as the reference's ``data`` mesh axis shards it.
+The losses and metrics are the global batch's, the gradients are
+all-reduced, and every rank makes the same update; rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -106,6 +112,7 @@ from cerberusnet_torch.models.raft import (
     keep_tied_float32,
 )
 from cerberusnet_torch.models.segmentation import SegNet
+from cerberusnet_torch.parallel.mesh import make_mesh, shard_batch
 from cerberusnet_torch.quant import ptq, qat
 from cerberusnet_torch.train import losses
 from cerberusnet_torch.train.config import (
@@ -366,7 +373,27 @@ class Trainer:
     forwards, which the fused levels do not call.
     ``train.debug_nans`` raises ``FloatingPointError`` at the first
     operator that outputs a NaN in a step (forward, backward, update) or
-    an evaluation forward."""
+    an evaluation forward.
+
+    Data parallelism: the trainer is one rank of ``self.mesh``
+    (``make_mesh(train.num_data_devices, device)``: the process group it
+    runs in, one process a mesh of one; "cuda" a card a rank). Rank r
+    trains on rows [r B/N, (r+1) B/N) of each global batch of B =
+    ``data.batch_size``: its loader decodes only those, and ``train_step``
+    and ``loss_and_grads`` take this rank's slice (``shard_batch``). Each
+    step draws the global batch's augmentation from the same generator on
+    every rank and keeps its rows of the draws; the losses reduce over the
+    global batch (``losses.joint_loss``'s ``mesh``), so the loss components
+    a step returns are the global ones on every rank; the float32
+    gradients are all-reduced (a mean: ``parallel/mesh.py``'s convention),
+    also under bf16 gradients, before clipping, accumulation, the update
+    and the EMA, which every rank makes alike. ``evaluate`` sums the
+    ranks' metric states. Rank 0 alone writes checkpoints,
+    ``train_log.csv``, TensorBoard, the panels, exports and predictions;
+    every rank restores the same checkpoint after a barrier. With more
+    than one rank CerberusNet's fused levels are off
+    (``model.pallas_levels`` becomes 0), as the reference turns them off
+    under a data mesh of more than one device."""
 
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
@@ -376,6 +403,10 @@ class Trainer:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to train on the CPU")
+        self.mesh = make_mesh(config.train.num_data_devices, device)
+        if self.mesh.size > 1 and config.model.pallas_levels:
+            config.model.pallas_levels = 0
+        device = self.mesh.device
         self.config = config
         self.device = device
         m, d = config.model, config.data
@@ -442,12 +473,19 @@ class Trainer:
             return FlyingThings3DDataset(d.root, split)
         raise ValueError(f"unknown dataset {d.dataset!r}")
 
-    def _loader(self, dataset, batch_size, **kw):
+    def _loader(self, dataset, batch_size, sharded=True, **kw):
         """A DataLoader of ``dataset`` with ``data.num_workers`` decode
-        threads, page-locked on a GPU."""
+        threads, page-locked on a GPU; ``sharded``: this rank's rows of
+        each global batch, else every sample."""
         return DataLoader(dataset, batch_size,
                           num_workers=self.config.data.num_workers,
-                          pin_memory=self.device.type == "cuda", **kw)
+                          pin_memory=self.device.type == "cuda",
+                          **({"mesh": self.mesh} if sharded else {}), **kw)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes files: rank 0's."""
+        return self.mesh.rank == 0
 
     # -- weights -----------------------------------------------------------
 
@@ -544,7 +582,8 @@ class Trainer:
             outputs, batch, weights=cfg.weights, focal_gamma=cfg.focal_gamma,
             robust_q=cfg.robust_q, photometric_weight=cfg.photometric_weight,
             smoothness_weight=cfg.smoothness_weight,
-            rmi_weight=cfg.rmi_weight, seq_gamma=cfg.seq_gamma)
+            rmi_weight=cfg.rmi_weight, seq_gamma=cfg.seq_gamma,
+            mesh=self.mesh)
         if self.log_vars:
             log_vars = self.log_vars
             if self.config.optim.grads_dtype == "bfloat16":
@@ -560,24 +599,33 @@ class Trainer:
         """The batch on the device, augmented by ``data``'s augmentation
         (when any) with the next draws of ``augment_generator``, before
         ``preprocess``, as the reference's ``train_step`` does: a crop is
-        then resized to ``data.hw``."""
+        then resized to ``data.hw``. The draws are the global batch's on
+        every rank (the generator moves alike), this rank keeping its
+        rows."""
         batch = to_device(batch, self.device)
         cfg = self.augment_config
         if not cfg.enabled:
             return batch
         b, h, w = batch["left"].shape[:3]
-        draws = augment.draw(cfg, b, (h, w), self.augment_generator)
+        draws = augment.draw(cfg, b * self.mesh.size, (h, w),
+                             self.augment_generator)
+        draws = augment.shard_draws(draws, self.mesh.shard(b * self.mesh.size))
         return augment.apply(batch, draws, cfg)
 
     def loss_and_grads(self, batch):
         """Forward and backward on a batch as the dataset gives it (the
         augmentation, when configured, draws anew at each call); returns
-        (loss components, {parameter name: float32 gradient}). Changes no
-        weight."""
+        (loss components, {parameter name: float32 gradient}), the global
+        batch's under data parallelism. Changes no weight."""
         with self._nan_check():
-            return self._loss_and_grads(batch)
+            comps, grads = self._rank_loss_and_grads(batch)
+            self.mesh.mean_grads(list(grads.values()))
+            return comps, grads
 
-    def _loss_and_grads(self, batch):
+    def _rank_loss_and_grads(self, batch):
+        """``loss_and_grads`` before the gradients' all-reduce: each
+        rank's own gradients (N times its rows' share of the global batch's
+        gradient under a mesh of N)."""
         batch = preprocess(self._augmented(batch), self.config.data.hw,
                            self.dtype, self.device)
         for p in self._params:
@@ -653,29 +701,38 @@ class Trainer:
 
     # -- evaluation --------------------------------------------------------
 
-    def _prep_eval_batch(self, batch):
-        """Pads a partial batch to ``data.batch_size``, preprocesses it on
-        the device and attaches the (B,) sample mask that keeps the padding
-        out of the metrics."""
-        batch, mask = pad_batch(batch, self.config.data.batch_size)
+    def _prep_eval_batch(self, batch, sharded=True):
+        """Pads a partial batch to ``data.batch_size`` (``sharded``: this
+        rank's share of it), preprocesses it on the device and attaches the
+        (B,) sample mask that keeps the padding out of the metrics. A
+        data-parallel loader's batch comes padded, its mask under
+        "_sample_mask"."""
+        batch = dict(batch)
+        mask = batch.pop("_sample_mask", None)
+        if mask is None:
+            rows = self.mesh.size if sharded else 1
+            batch, mask = pad_batch(batch, self.config.data.batch_size // rows)
         prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
-        prep["_sample_mask"] = torch.from_numpy(mask).to(self.device)
+        prep["_sample_mask"] = torch.as_tensor(mask).to(self.device)
         return prep
 
-    def _eval_loader(self, loader=None):
+    def _eval_loader(self, loader=None, sharded=True):
         """``loader``, or else one over every sample of the held-out dataset
         (the training one without ``data.eval_split``), in order, the last
-        batch partial."""
+        batch partial (``sharded``: this rank's rows of each)."""
         if loader is not None:
             return loader
         return self._loader(self.eval_dataset or self.dataset,
-                            self.config.data.batch_size, drop_last=False)
+                            self.config.data.batch_size, sharded=sharded,
+                            drop_last=False)
 
     @torch.no_grad()
     def evaluate(self, loader=None):
         """Metrics (``MetricState.compute()``) of the EMA weights, or the
         masters without EMA, over ``loader`` or else every sample of the
-        held-out dataset, the last batch padded and masked."""
+        held-out dataset, the last batch padded and masked. Under data
+        parallelism each rank runs its rows of each batch (a ``loader``
+        given is this rank's) and the ranks' states are summed."""
         metrics = MetricState.zeros(self.config.model.num_classes,
                                     self.device)
         with self._eval_weights():
@@ -684,7 +741,7 @@ class Trainer:
                     prep = self._prep_eval_batch(batch)
                     out = self._forward(prep)
                 metrics = metrics.update(out, prep)
-        return metrics.compute()
+        return metrics.summed(self.mesh).compute()
 
     @torch.no_grad()
     def evaluate_tta(self, scales=(0.75, 1.0, 1.25), flip: bool = True,
@@ -702,7 +759,7 @@ class Trainer:
                                   {k: prep[k] for k in self.input_keys},
                                   scales=tuple(scales), flip=flip)
                 metrics = metrics.update(out, prep)
-        return metrics.compute(per_class=per_class)
+        return metrics.summed(self.mesh).compute(per_class=per_class)
 
     @torch.no_grad()
     def predict_to_dir(self, out_dir: str, loader=None):
@@ -711,13 +768,17 @@ class Trainer:
         (``eval/submission.py``: KITTI 16-bit flow and disparity PNGs,
         Cityscapes labelIds), named ``{index:06d}_10`` and resized to the
         batch's own (native) frame size; the rows that pad the last batch
-        are dropped. Returns the files written."""
+        are dropped. Returns the files written; rank 0 alone writes (and
+        runs) under data parallelism, the other ranks return []."""
         made, idx = [], 0
+        if not self.writer:
+            return made
         with self._eval_weights():
-            for batch in self._eval_loader(loader):
+            for batch in self._eval_loader(loader, sharded=False):
                 n = len(batch["left"])
                 native_hw = tuple(batch["left"].shape[1:3])
-                out = self._forward(self._prep_eval_batch(batch))
+                out = self._forward(self._prep_eval_batch(batch,
+                                                          sharded=False))
                 out = {k: v[:n] for k, v in out.items()
                        if isinstance(v, torch.Tensor)}
                 names = [f"{idx + i:06d}_10" for i in range(n)]
@@ -733,7 +794,9 @@ class Trainer:
         temporal) to an image, resized to ``data.hw``. Writes the raw
         outputs (``<name>.npz``), the benchmark PNGs (``eval/submission.py``'s
         layout) and a panel (``<name>_panel.png``) under ``out_dir``;
-        returns the files written."""
+        returns the files written (rank 0 alone writes; [] elsewhere)."""
+        if not self.writer:
+            return []
         missing = [k for k in self.input_keys if k not in paths]
         if missing:
             raise ValueError(
@@ -777,7 +840,7 @@ class Trainer:
         """The predictions of the evaluation weights on the training
         dataset's first sample as an (H, W, 3) uint8 panel at ``data.hw``
         (``predict_images``'s panel)."""
-        batch = next(iter(self._loader(self.dataset, 1)))
+        batch = next(iter(self._loader(self.dataset, 1, sharded=False)))
         prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
         with self._eval_weights():
             out = self._forward(prep)
@@ -824,9 +887,12 @@ class Trainer:
     def profile(self, log_dir: str, steps: int = 5) -> str:
         """A ``torch.profiler`` trace (host and, on a GPU, device activity)
         of ``steps`` train steps on the training set's first batch, after
-        one step outside the trace, written to ``log_dir/trace.json``;
+        one step outside the trace, written to ``log_dir/trace.json`` (by
+        rank 0, each rank tracing its steps on its rows of the batch);
         returns its path. The steps update the weights."""
-        batch = batches(self.dataset, self.config.data.batch_size, 1)[0]
+        batch = shard_batch(
+            batches(self.dataset, self.config.data.batch_size, 1)[0],
+            self.mesh)
         self.train_step(batch)
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -835,9 +901,10 @@ class Trainer:
             for _ in range(steps):
                 comps = self.train_step(batch)
             float(comps["total"])  # waits for the device
-        os.makedirs(log_dir, exist_ok=True)
         path = os.path.join(log_dir, "trace.json")
-        prof.export_chrome_trace(path)
+        if self.writer:
+            os.makedirs(log_dir, exist_ok=True)
+            prof.export_chrome_trace(path)
         return path
 
     # -- deployment --------------------------------------------------------
@@ -860,7 +927,12 @@ class Trainer:
 
         ``stacked=True`` (CerberusNet only) exports the producer-stacked
         signature: one (3 batch, H, W, 3) input holding [left; right;
-        temporal]."""
+        temporal].
+
+        Rank 0 alone exports under data parallelism; the other ranks
+        return None."""
+        if not self.writer:
+            return None
         m = self.config.model
         if stacked and m.variant != "cerberus":
             raise ValueError("stacked export needs the 3-frame cerberus "
@@ -926,9 +998,10 @@ class Trainer:
         update count, accumulated gradients, step) to one file under
         ``train.ckpt_dir``, through a temporary file and ``os.replace``,
         and keeps the newest ``train.keep_checkpoints``. Returns its path,
-        or None without a ``ckpt_dir``."""
+        or None without a ``ckpt_dir``; rank 0 alone writes (None
+        elsewhere), the ranks' states being equal."""
         d = self.config.train.ckpt_dir
-        if not d:
+        if not d or not self.writer:
             return None
         os.makedirs(d, exist_ok=True)
         state = {"step": self.step, "masters": self.masters, "ema": self.ema,
@@ -945,7 +1018,9 @@ class Trainer:
     @torch.no_grad()
     def _maybe_restore(self):
         """Restores the newest checkpoint under ``train.ckpt_dir``; returns
-        its step, or None when there is none."""
+        its step, or None when there is none. Every rank of a mesh calls it
+        together: it waits for rank 0's writes first."""
+        self.mesh.barrier()
         ckpts = self._checkpoints()
         if not ckpts:
             return None
@@ -984,13 +1059,15 @@ class Trainer:
         ``train.tensorboard`` and a ``ckpt_dir``, an event file under
         ``ckpt_dir/tb`` gets the loss components at ``log_every``
         ("loss/..."), each epoch's row and, at each evaluation, the panel
-        ("eval/panel"), where the reference logs them."""
+        ("eval/panel"), where the reference logs them. Under data
+        parallelism every rank runs the loop on its rows and keeps the same
+        history; rank 0 alone prints and writes."""
         cfg = self.config
         t = cfg.train
         loader = self._loader(self.dataset, cfg.data.batch_size,
                               shuffle=cfg.data.shuffle, seed=t.seed)
         log_path = tb = None
-        if t.ckpt_dir:
+        if t.ckpt_dir and self.writer:
             os.makedirs(t.ckpt_dir, exist_ok=True)
             log_path = os.path.join(t.ckpt_dir, "train_log.csv")
             if t.tensorboard:
@@ -1040,7 +1117,7 @@ class Trainer:
                         >= t.nan_recovery_reset_steps):
                     # a long healthy stretch forgets old transient NaNs
                     nan_recoveries = 0
-                if (i + 1) % t.log_every == 0:
+                if (i + 1) % t.log_every == 0 and self.writer:
                     vals = {k: float(v) for k, v in comps.items()}
                     print(f"[epoch {epoch} step {i + 1}] {vals}")
                     if tb:
@@ -1054,7 +1131,7 @@ class Trainer:
             if (self.eval_dataset is not None
                     and (epoch + 1) % t.eval_every_epochs == 0):
                 row.update(self.evaluate())
-                if t.ckpt_dir:
+                if t.ckpt_dir and self.writer:
                     self.dump_visualization(os.path.join(
                         t.ckpt_dir, f"predictions_epoch{epoch}.png"))
                 if tb:
@@ -1063,7 +1140,8 @@ class Trainer:
                 tb.scalars(row, self.step)
                 tb.flush()
             self.history.append(row)
-            print(f"[epoch {epoch}] {row}")
+            if self.writer:
+                print(f"[epoch {epoch}] {row}")
             if log_path:
                 self._append_log(log_path, row)
             if ((epoch + 1) % t.ckpt_every_epochs == 0

@@ -212,7 +212,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            distance + 1e-3 + one code; labelIds differing on at most 1e-3
            of the pixels); Trainer.predict_images of CerberusNet on three
            PNGs (the npz, the benchmark PNGs and the panel)
-  cli      python -m cerberusnet_torch.cli --device cuda in five processes:
+  cli      python -m cerberusnet_torch.cli --device cuda in five processes
+           at once:
            --import-torch of a TorchCerberus checkpoint (tiny widths) with
            --infer on three PNGs (the printed files, the npz against this
            process's forward of the same weights within 1e-3),
@@ -250,6 +251,29 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            raises FloatingPointError naming an operator and moves no
            master, the clean step runs, an inf pixel through the stem
            block does not raise; ms per step with the mode and without
+  train_dp  CerberusNet's step through data parallelism
+           (cerberusnet_torch/parallel/mesh.py; default widths, bf16 over
+           float32 masters, 512x1024, configs/cerberus_synthetic.json) in
+           spawned ranks (parallel.launch): (a) one NCCL rank against one
+           process at batch 2, both under deterministic algorithms, each
+           loss component and module gradient within 1e-6 relative; (b)
+           two gloo ranks sharing the card at a global batch of 4 against
+           one process at 4: the loss components within 1e-3, every
+           module's gradient by train's rule against the float32 plain
+           path, the float32 DP path's within 1e-4 of it and its masters
+           after one AdamW step within 1e-4 of the single process's (the
+           ranks' bit-equal), each rank's own gradient before the
+           all-reduce failing train's rule (the control), every K1-K6 call
+           of a rank held to its plain version, 5 launches of each a rank,
+           the all-reduce's bytes and ms; (c) the same with two NCCL ranks
+           on two cards where there are two (else a line says why not);
+           (d) configs/cerberus_dp_v4_8.json through the CLI raising the
+           card-count ValueError on one card, then through the launcher on
+           2 gloo ranks sharing the card, cut (global batch 4, 8 samples, 1
+           epoch): one checkpoint and one train_log.csv row, rank 0's, the
+           ranks' masters equal, ms per step (gloo stages through the
+           host: not a multi-card time); ``--only train_dp_cards`` runs
+           (c) and its references alone, for a machine with several cards
   runner   the C++ runner of the exported program: cerberus_runner and
            libcerberus_ops built with g++ (their seconds; ldd shows no
            libpython); the export phase's four artifacts (exported here
@@ -279,6 +303,7 @@ slice's (a call of each loaded artifact: export_cerberus, export_stacked,
 export_pallas_levels; quant_int8's forward; train_qat) and the C++
 runner's (a call of each package: runner_cerberus, runner_stacked,
 runner_pallas_levels, the launches from the operator library's counters)
+and train_dp's (the ranks of its part (b), their launches summed)
 where the kernel runs, and the DCV paths' under "dcv" (export_cerberus_dcv
 and runner_cerberus_dcv among them);
 K9's and K10's on train_pallas_levels, K9's serve, export_pallas_levels
@@ -292,8 +317,9 @@ script's seconds, the card's nvidia-smi line and, last,
 no result. ``--only a,b,...`` runs env, build and the named phases alone
 (the data slice's run after data, and the evaluation slice's after
 flow_data where they need its fixtures), with no summary and no result
-line. The deployment phases (export, quant_int8, train_qat, debug_nans,
-runner) run after the RAFT phases, the cli phase last.
+line. train_dp runs after fit; the deployment phases (export,
+quant_int8, train_qat, debug_nans, runner) after the RAFT phases, the cli
+phase last.
 """
 
 from __future__ import annotations
@@ -3446,20 +3472,29 @@ def phase_cli(card, root):
     base = [sys.executable, "-m", "cerberusnet_torch.cli", "--config", cfg,
             "--device", "cuda"]
     procs = {}
-    for name, args in (
-            ("infer", ["--import-torch", ckpt, "--infer",
+    runs = (("infer", ["--import-torch", ckpt, "--infer",
                        ",".join(imgs.values()), "--infer-out", f"{d}/infer"]),
             ("profile", ["--profile", f"{d}/trace"]),
             *((name, ["--export-dir", f"{d}/{name}", *flags])
-              for name, flags in CLI_EXPORTS.items())):
+              for name, flags in CLI_EXPORTS.items()))
+
+    def run(item):
+        name, args = item
         t0 = time.perf_counter()
         p = subprocess.run(base + args, cwd=str(REPO_ROOT),
                            capture_output=True, text=True, timeout=600)
-        procs[name] = {"args": args, "rc": p.returncode,
-                       "s": time.perf_counter() - t0,
-                       "stdout": p.stdout[-2000:], "stderr": p.stderr[-2000:]}
-        if p.returncode:
-            errors.append(f"{name}: exit {p.returncode}: {p.stderr[-500:]}")
+        return name, args, p, time.perf_counter() - t0
+
+    # the five processes at once: they write apart, and each is mostly its
+    # own host work (imports, tracing, export)
+    with ThreadPoolExecutor(len(runs)) as pool:
+        for name, args, p, seconds in pool.map(run, runs):
+            procs[name] = {"args": args, "rc": p.returncode, "s": seconds,
+                           "stdout": p.stdout[-2000:],
+                           "stderr": p.stderr[-2000:]}
+            if p.returncode:
+                errors.append(f"{name}: exit {p.returncode}: "
+                              f"{p.stderr[-500:]}")
     printed = [ln for ln in procs["infer"]["stdout"].splitlines()
                if ln.startswith(f"{d}/infer/")]
     files = [p[len(d) + len("/infer/"):] for p in printed]
@@ -4266,6 +4301,420 @@ DCV_REPLACES = {
 }
 
 
+# The train_dp phase: CerberusNet's step through data parallelism
+# (cerberusnet_torch/parallel/mesh.py) at full width, bf16 over float32
+# masters, 512x1024, configs/cerberus_synthetic.json's synthetic data. Its
+# ranks are spawned processes (parallel.launch), which import this script
+# as their main module and run the dp_* functions below.
+DP_CONFIG = "configs/cerberus_synthetic.json"
+DP_RANKS = 2
+DP_BATCH = DP_RANKS * TRAIN_BATCH  # the global batch of (b) to (d)
+# (a): one NCCL rank against one process, both under deterministic
+# algorithms, the same weights and batch
+DP_ONE_RTOL = 1e-6
+# (b), (c): the loss components against one process at the global batch;
+# the float32 DP path's gradients against the float32 plain path; its
+# masters after one AdamW step against the single process's
+DP_COMPS_RTOL = 1e-3
+DP_F32_RTOL = 1e-4
+DP_MASTERS_RTOL = 1e-4
+# (d): configs/cerberus_dp_v4_8.json cut to a global batch of 4, 8
+# synthetic samples, 1 epoch, on 2 gloo ranks sharing the card
+DP_FIT_CONFIG = "configs/cerberus_dp_v4_8.json"
+DP_FIT_CUT = {"data": {"batch_size": DP_BATCH, "synthetic_length": 8},
+              "train": {"epochs": 1, "num_data_devices": DP_RANKS}}
+DP_TIMEOUT_S = 600
+# cuBLAS's setting for deterministic algorithms
+DETERMINISTIC_CUBLAS = ":4096:8"
+
+
+def dp_setup():
+    """A spawned rank's settings: the parent's float32 rules (no TF32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def cpu_grads(grads):
+    return {n: g.detach().float().cpu() for n, g in grads.items()}
+
+
+def as_numpy(tensors):
+    """Host copies as numpy arrays: a rank's arguments pickle by value."""
+    return {n: t.numpy() for n, t in tensors.items()}
+
+
+def as_tensors(arrays):
+    return {n: torch.from_numpy(a) for n, a in arrays.items()}
+
+
+def masters_digest(trainer):
+    """A SHA-256 of the masters' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in trainer.names:
+        h.update(trainer.masters[n].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_one_rank(batch):
+    """(a) in a one-rank NCCL group: the loss components and gradients of
+    one step through the DP path, under deterministic algorithms."""
+    import os
+
+    from cerberusnet_torch.entry import train_entry
+    from cerberusnet_torch.parallel.mesh import shard_batch
+
+    dp_setup()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = DETERMINISTIC_CUBLAS
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tr, _ = train_entry(DP_CONFIG, batch_size=TRAIN_BATCH, n_batches=0,
+                        optim={"schedule": "constant"},
+                        train={"num_data_devices": 1})
+    comps, grads = tr.loss_and_grads(shard_batch(batch, tr.mesh))
+    return {"mesh": [tr.mesh.rank, tr.mesh.size, str(tr.mesh.device),
+                     tr.mesh.distributed],
+            "comps": {k: v.item() for k, v in comps.items()},
+            "grads": cpu_grads(grads)}
+
+
+def dp_rank(job):
+    """A rank of (b) or (c): this rank's rows of the global batch through
+    the DP path in bf16 with the kernels (every correlation call held to
+    its plain version, the launches counted), its own gradients before the
+    all-reduce (the control), and the float32 DP path's gradients and
+    masters after one AdamW step; each held to the single process's
+    references in ``job``."""
+    from cerberusnet_torch.entry import train_entry
+    from cerberusnet_torch.parallel.mesh import shard_batch
+
+    dp_setup()
+    kw = dict(batch_size=DP_BATCH, n_batches=0, device=job["device"],
+              optim={"schedule": "constant"},
+              train={"num_data_devices": DP_RANKS})
+    tr, _ = train_entry(DP_CONFIG, **kw)
+    local = shard_batch(job["batch"], tr.mesh)
+    ref, limits = as_tensors(job["ref"]), job["limits"]
+    _, own = tr._rank_loss_and_grads(local)
+    own = module_rel_l2(cpu_grads(own), ref)
+    calls = []
+    real = checked_corr_calls(calls)
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        comps, grads = tr.loss_and_grads(local)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        restore_corr(real)
+    kernel = module_rel_l2(cpu_grads(grads), ref)
+    # the gradients' all-reduce alone, on a copy: its bytes and time
+    flat = [g.clone() for g in grads.values()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buckets = tr.mesh.mean_grads(flat)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = 4 * sum(g.numel() for g in flat)
+    del tr, grads, flat
+    torch.cuda.empty_cache()
+    f32, _ = train_entry(DP_CONFIG, model={"dtype": "float32"}, **kw)
+    _, g32 = f32.loss_and_grads(local)
+    f32.apply_grads(g32)
+    return {
+        "rank": f32.mesh.rank, "device": str(f32.mesh.device),
+        "comps": {k: v.item() for k, v in comps.items()},
+        "kernel_bf16_vs_f32": kernel, "own_vs_f32": own,
+        "kernel_f32_vs_f32": module_rel_l2(cpu_grads(g32), ref),
+        "masters_f32_vs_single": module_rel_l2(
+            cpu_grads(f32.masters), as_tensors(job["masters"])),
+        "masters_sha256": masters_digest(f32),
+        "launches": launches, "calls": calls_summary(calls),
+        "step_s_with_checks": step_s,
+        "allreduce": {"bytes": nbytes, "buckets": buckets,
+                      "ms": allreduce_ms},
+        "limits": limits}
+
+
+def dp_fit_rank(job):
+    """A rank of (d): ``Trainer.fit`` of the cut dp_v4_8 config, the masters'
+    digest, what ``save_checkpoint`` returns here, and ms per step."""
+    from cerberusnet_torch.data.loader import batches
+    from cerberusnet_torch.entry import REPO_ROOT
+    from cerberusnet_torch.parallel.mesh import shard_batch
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.trainer import Trainer
+
+    dp_setup()
+    with open(REPO_ROOT / DP_FIT_CONFIG) as f:
+        raw = json.load(f)
+    for section, values in DP_FIT_CUT.items():
+        raw[section] = {**raw[section], **values}
+    raw["train"]["ckpt_dir"] = job["ckpt_dir"]
+    tr = Trainer(ExperimentConfig.from_dict(raw), device=job["device"])
+    t0 = time.perf_counter()
+    history = tr.fit()
+    fit_s = time.perf_counter() - t0
+    steps = tr.step
+    saved = tr.save_checkpoint()
+    digest = masters_digest(tr)
+    local = shard_batch(batches(tr.dataset, DP_BATCH, 1)[0], tr.mesh)
+    times = cuda_times(lambda: tr.train_step(local), runs=5, warmup=1)
+    return {"rank": tr.mesh.rank, "history": history, "fit_s": fit_s,
+            "steps": steps, "saved": saved, "masters_sha256": digest,
+            "ms_per_step": times}
+
+
+def dp_single_refs(batch):
+    """The single-process references of (b) and (c) at the global batch:
+    the float32 plain path's gradients (the yardstick), the limits of the
+    train phase's rule (1.5 x the bf16 plain path's distance + 1e-3), the
+    bf16 kernel path's loss components and the float32 kernel path's
+    masters after one AdamW step, all on the host."""
+    from cerberusnet_torch.entry import train_entry
+
+    kw = dict(batch_size=DP_BATCH, n_batches=0,
+              optim={"schedule": "constant"})
+    tr, _ = train_entry(DP_CONFIG, corr_impl="plain",
+                        model={"dtype": "float32"}, **kw)
+    _, ref = tr.loss_and_grads(batch)
+    ref = cpu_grads(ref)
+    del tr
+    tr, _ = train_entry(DP_CONFIG, corr_impl="plain", **kw)
+    _, g = tr.loss_and_grads(batch)
+    limits = {m: 1.5 * d + 1e-3
+              for m, d in module_rel_l2(cpu_grads(g), ref).items()}
+    del tr, g
+    tr, _ = train_entry(DP_CONFIG, **kw)
+    comps = {k: v.item() for k, v in tr.loss_and_grads(batch)[0].items()}
+    del tr
+    tr, _ = train_entry(DP_CONFIG, model={"dtype": "float32"}, **kw)
+    tr.train_step(batch)
+    masters = cpu_grads(tr.masters)
+    del tr
+    torch.cuda.empty_cache()
+    return ref, limits, comps, masters
+
+
+def dp_rank_errors(res, comps, label):
+    """The checks of a (b) or (c) rank's result."""
+    errors = []
+    limits = res["limits"]
+    for k, want in comps.items():
+        got = res["comps"][k]
+        if not abs(got - want) <= DP_COMPS_RTOL * abs(want):
+            errors.append(f"{label}: loss {k} {got} against {want}")
+    errors += [f"{label}: {m} bf16 gradient rel L2 {d} > {limits[m]}"
+               for m, d in res["kernel_bf16_vs_f32"].items()
+               if not d <= limits[m]]
+    errors += [f"{label}: {m} float32 gradient rel L2 {d} > {DP_F32_RTOL}"
+               for m, d in res["kernel_f32_vs_f32"].items()
+               if not d <= DP_F32_RTOL]
+    errors += [f"{label}: {m} masters rel L2 {d} > {DP_MASTERS_RTOL}"
+               for m, d in res["masters_f32_vs_single"].items()
+               if not d <= DP_MASTERS_RTOL]
+    if all(d <= limits[m] for m, d in res["own_vs_f32"].items()):
+        errors.append(f"{label}: the rank's own gradients (before the "
+                      "all-reduce) pass the check")
+    want = {k: len(LEVELS) if k in REPLACES else 0
+            for k in res["launches"]}
+    if res["launches"] != want:
+        errors.append(f"{label}: launches {res['launches']}, not {want}")
+    errors += [f"{label}: {e}" for e in res["calls"]["errors"]]
+    return errors
+
+
+def dp_ranks_part(part, batch, refs, backend, device):
+    """(b) or (c): DP_RANKS ranks against the single process; emits the
+    part's line; returns (errors, the ranks' launches summed)."""
+    from cerberusnet_torch.parallel import launch
+
+    ref, limits, comps, masters = refs
+    job = {"batch": batch, "ref": as_numpy(ref), "limits": limits,
+           "masters": as_numpy(masters), "device": device}
+    t0 = time.perf_counter()
+    ranks = launch(dp_rank, DP_RANKS, args=(job,), backend=backend,
+                   timeout=DP_TIMEOUT_S)
+    errors = []
+    for res in ranks:
+        errors += dp_rank_errors(res, comps, f"({part}) rank {res['rank']}")
+    if len({r["masters_sha256"] for r in ranks}) != 1:
+        errors.append(f"({part}) the ranks' masters differ after the step")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    for res in ranks:
+        res["calls"] = {k: v for k, v in res["calls"].items() if k != "rows"}
+        emit({"phase": "train_dp", "part": part, "backend": backend,
+              "device": res["device"], "rank": res["rank"],
+              "comps": res["comps"],
+              "single_comps": comps,
+              **{k: res[k] for k in (
+                  "kernel_bf16_vs_f32", "limits", "own_vs_f32",
+                  "kernel_f32_vs_f32", "masters_f32_vs_single",
+                  "masters_sha256", "launches", "calls",
+                  "step_s_with_checks", "allreduce")}})
+    emit({"phase": "train_dp", "part": part, "ranks": DP_RANKS,
+          "global_batch": DP_BATCH, "seconds": time.perf_counter() - t0,
+          "launches_summed": launches, "errors": errors})
+    return errors, launches
+
+
+def dp_part_a():
+    """(a): one step of one NCCL rank against one process, both under
+    deterministic algorithms; emits its line, returns its errors."""
+    import os
+
+    from cerberusnet_torch.data.loader import batches
+    from cerberusnet_torch.entry import train_entry
+    from cerberusnet_torch.parallel import launch
+
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = DETERMINISTIC_CUBLAS
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one, _ = train_entry(DP_CONFIG, batch_size=TRAIN_BATCH, n_batches=0,
+                             optim={"schedule": "constant"})
+        batch2 = batches(one.dataset, TRAIN_BATCH, 1)[0]
+        runs = [one.loss_and_grads(batch2) for _ in range(2)]
+        want_comps = {k: v.item() for k, v in runs[0][0].items()}
+        want = cpu_grads(runs[0][1])
+        floor = module_rel_l2(cpu_grads(runs[1][1]), want)
+        del one, runs
+        torch.cuda.empty_cache()
+        (got,) = launch(dp_one_rank, 1, args=(batch2,), backend="nccl",
+                        timeout=DP_TIMEOUT_S)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    dist = module_rel_l2(got["grads"], want)
+    comps = {k: abs(got["comps"][k] - w) / abs(w)
+             for k, w in want_comps.items()}
+    emit({"phase": "train_dp", "part": "a", "backend": "nccl",
+          "mesh": got["mesh"], "batch": TRAIN_BATCH, "comps_rel": comps,
+          "module_rel_l2": dist, "single_process_run_to_run": floor,
+          "limit": DP_ONE_RTOL, "deterministic_algorithms": True})
+    return ([f"(a) {m} gradient rel L2 {d} > {DP_ONE_RTOL}"
+             for m, d in dist.items() if not d <= DP_ONE_RTOL]
+            + [f"(a) loss {k} rel {d} > {DP_ONE_RTOL}"
+               for k, d in comps.items() if not d <= DP_ONE_RTOL])
+
+
+def dp_part_d(card):
+    """(d): cerberus_dp_v4_8 through the CLI (refused on fewer than 8
+    cards), then cut and fitted on 2 gloo ranks sharing the card; emits
+    its lines, returns its errors."""
+    import os
+    import shutil
+    import tempfile
+
+    from cerberusnet_torch import cli
+    from cerberusnet_torch.entry import REPO_ROOT
+    from cerberusnet_torch.parallel import launch
+
+    errors = []
+    root = tempfile.mkdtemp(prefix="cerberus_dp_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        refused = None
+        try:
+            cli.main(["--config", str(REPO_ROOT / DP_FIT_CONFIG),
+                      "--ckpt-dir", ckpt])
+        except ValueError as e:
+            refused = str(e)
+        cards = torch.cuda.device_count()
+        if cards < 8 and not (refused and "8 CUDA devices" in refused):
+            errors.append(f"(d) the CLI did not refuse 8 ranks on {cards} "
+                          f"card(s): {refused}")
+        t0 = time.perf_counter()
+        ranks = launch(dp_fit_rank, DP_RANKS,
+                       args=({"ckpt_dir": ckpt, "device": "cuda:0"},),
+                       backend="gloo", timeout=DP_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        files = sorted(os.listdir(ckpt))
+        with open(os.path.join(ckpt, "train_log.csv")) as f:
+            rows = f.read().splitlines()[1:]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steps = DP_FIT_CUT["data"]["synthetic_length"] // DP_BATCH
+    if files != [f"ckpt_{steps:08d}.pt", "train_log.csv"]:
+        errors.append(f"(d) files written: {files}")
+    if len(rows) != 1:
+        errors.append(f"(d) train_log.csv rows: {rows}")
+    if [r["saved"] is None for r in ranks] != [False, True]:
+        errors.append(f"(d) save_checkpoint returned "
+                      f"{[r['saved'] for r in ranks]}")
+    if len({r["masters_sha256"] for r in ranks}) != 1:
+        errors.append("(d) the ranks' masters differ after the epoch")
+    for r in ranks:
+        losses = [v for row in r["history"] for k, v in row.items()
+                  if k.startswith("loss_")]
+        if (r["steps"] != steps or len(r["history"]) != 1
+                or not all(map(math.isfinite, losses))):
+            errors.append(f"(d) rank {r['rank']}: {r['steps']} steps, "
+                          f"history {r['history']}")
+    emit({"phase": "train_dp", "part": "d", "config": DP_FIT_CONFIG,
+          "cli_refused": refused, "reduced": DP_FIT_CUT, "backend": "gloo",
+          "device": "cuda:0", "files": files, "log_rows": len(rows),
+          "wall_s": wall_s,
+          "ranks": [{k: r[k] for k in (
+              "rank", "history", "fit_s", "steps", "saved",
+              "masters_sha256")} for r in ranks]})
+    for r in ranks:
+        emit({"phase": "train_dp", "part": "d", "rank": r["rank"],
+              "ms_per_step": r["ms_per_step"], "card": card,
+              "note": "2 gloo ranks sharing one card: gloo stages the "
+                      "all-reduces through the host; not a multi-card "
+                      "time"})
+    return errors
+
+
+def phase_train_dp(card, parts="abcd"):
+    """(a) one NCCL rank against one process, (b) two gloo ranks sharing
+    the card against one process at their global batch, (c) two NCCL
+    ranks on two cards where there are two, (d) cerberus_dp_v4_8 through
+    the CLI (refused on one card) and through the launcher, cut. ``parts``
+    "c" alone (``--only train_dp_cards``) runs (c) and its single-process
+    references: a run on several cards needs no other. Returns the
+    launches of (b)'s ranks, summed."""
+    from cerberusnet_torch.data.loader import batches
+    from cerberusnet_torch.entry import train_entry
+
+    torch.cuda.empty_cache()
+    errors = []
+    t_phase = time.perf_counter()
+    if "a" in parts:
+        errors += dp_part_a()
+    launches = None
+    dataset = train_entry(DP_CONFIG, batch_size=DP_BATCH, n_batches=0)[0]
+    batch = batches(dataset.dataset, DP_BATCH, 1)[0]
+    del dataset
+    refs = dp_single_refs(batch)
+    if "b" in parts:
+        part_errors, launches = dp_ranks_part("b", batch, refs, "gloo",
+                                              "cuda:0")
+        errors += part_errors
+    if torch.cuda.device_count() >= DP_RANKS:
+        errors += dp_ranks_part("c", batch, refs, "nccl", "cuda")[0]
+    else:
+        emit({"phase": "train_dp", "part": "c", "skipped": True,
+              "why": f"{torch.cuda.device_count()} CUDA device(s) visible; "
+                     f"two NCCL ranks need {DP_RANKS}"})
+    del refs
+    if "d" in parts:
+        errors += dp_part_d(card)
+    ok = not errors
+    emit({"phase": "train_dp", "ok": ok, "parts": parts, "config": DP_CONFIG,
+          "hw": list(HW), "dtype": "bfloat16",
+          "seconds": time.perf_counter() - t_phase, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
 def path_numbers(checks, name, path, batch, launches):
     """A kernel's numbers on one path: its calls there ("cerberus": the
     five levels; "dcv": the dilations) in bf16 at that path's batch,
@@ -4383,7 +4832,10 @@ def summary(checks, counts):
                 # as its operator library counted them
                 ("runner_cerberus", "cerberus", 1),
                 ("runner_stacked", "cerberus", 1),
-                ("runner_pallas_levels", "cerberus", 1)):
+                ("runner_pallas_levels", "cerberus", 1),
+                # the data-parallel step: each rank's calls at the train
+                # path's shapes, the launches of (b)'s ranks summed
+                ("train_dp", "cerberus", TRAIN_BATCH)):
             if counts[phase][name]:
                 paths[phase] = path_numbers(checks, name, path, batch,
                                             counts[phase][name])
@@ -4455,6 +4907,10 @@ def main(argv):
             counts[phase] = run(phase)
     if wanted("fit"):
         counts["fit"] = phase_fit(card)
+    if wanted("train_dp"):
+        counts["train_dp"] = phase_train_dp(card)
+    elif only is not None and "train_dp_cards" in only:
+        phase_train_dp(card, parts="c")
     for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
         if wanted(phase.__name__[len("phase_"):]):
             phase(card)

@@ -43,7 +43,7 @@ def draw_params(shapes, seed):
         if path[-1].key == "kernel":
             fan_in = int(np.prod(leaf.shape[:-1]))
             return (rng.randn(*leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
-        return (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        return np.asarray(0.1 * rng.randn(*leaf.shape), np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
 

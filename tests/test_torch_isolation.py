@@ -55,7 +55,8 @@ def test_every_module_imports_with_jax_blocked():
         "data.native_io", "utils.tblogger", "data.flow_datasets", "eval",
         "eval.tta", "eval.tiled", "eval.submission", "ops.library", "export",
         "export.aot", "export.runner", "export.runner_io", "quant",
-        "quant.ptq", "quant.qat", "train.debug_nans")} <= set(names)
+        "quant.ptq", "quant.qat", "train.debug_nans", "parallel",
+        "parallel.mesh")} <= set(names)
 
 
 def _imported_roots(path):

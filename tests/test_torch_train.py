@@ -140,15 +140,27 @@ def test_unknown_key_raises():
 
 @pytest.mark.parametrize("section,key,value,item", [
     ("model", "variant", "pwc", "A8"),
-    ("train", "num_spatial_devices", 2, "A11"),
-    ("train", "num_data_devices", 4, "A11"),
-    ("train", "num_data_devices", 8, "A11"),
+    ("train", "num_spatial_devices", 2, "A11b"),
 ])
 def test_unported_values_raise(section, key, value, item):
     raw = tiny_config_dict()
     raw[section][key] = value
     cfg = ExperimentConfig.from_dict(raw)
     with pytest.raises(NotImplementedError, match=item):
+        Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("ranks", [4, 8])
+def test_data_parallel_values_pass_and_need_their_ranks(ranks):
+    """train.num_data_devices > 1 (A11) passes the check; a Trainer in a
+    process that is not one of that many ranks raises ValueError naming
+    both counts (tests/test_torch_parallel.py trains on two)."""
+    raw = tiny_config_dict()
+    raw["train"]["num_data_devices"] = ranks
+    cfg = ExperimentConfig.from_dict(raw)
+    cfg.check_supported()
+    with pytest.raises(ValueError, match=f"asks for {ranks} data ranks, and "
+                                         f"this process is one of 1"):
         Trainer(cfg, device="cpu")
 
 
@@ -200,20 +212,19 @@ def test_raft_config_is_supported(name, level, iters):
 
 def test_raft_kitti_waits_on_the_data_pipeline():
     """raft_kitti waited on the KITTI dataset (A6); with the data pipeline
-    ported it is supported, and of the 23 configs only cerberus_dp_v4_8
-    (8 devices, A11) is refused."""
+    ported it is supported, and with data parallelism (A11) all 23 configs
+    pass the check, cerberus_dp_v4_8 (8 devices) among them."""
     cfg = ExperimentConfig.from_json(
         str(REPO_ROOT / "configs" / "raft_kitti.json"))
     assert cfg.model.variant == "raft"
     cfg.check_supported()
-    refused = {}
-    for path in sorted(glob.glob(str(REPO_ROOT / "configs" / "*.json"))):
-        try:
-            ExperimentConfig.from_json(path).check_supported()
-        except NotImplementedError as e:
-            refused[os.path.basename(path)] = str(e)
-    assert list(refused) == ["cerberus_dp_v4_8.json"]
-    assert "A11" in refused["cerberus_dp_v4_8.json"]
+    paths = sorted(glob.glob(str(REPO_ROOT / "configs" / "*.json")))
+    assert len(paths) == 23
+    for path in paths:
+        ExperimentConfig.from_json(path).check_supported()
+    dp = ExperimentConfig.from_json(
+        str(REPO_ROOT / "configs" / "cerberus_dp_v4_8.json"))
+    assert dp.train.num_data_devices == 8
 
 
 @pytest.mark.parametrize("name", ["cerberus_dcv.json"])
