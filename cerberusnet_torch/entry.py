@@ -54,13 +54,14 @@ SEGMENTING = ("cerberus", "cerberus_dcv", "cerberus_raft", "seg")
 
 
 def make_frames(seed: int, hw=(512, 1024), device="cuda",
-                dtype: torch.dtype = torch.bfloat16):
-    """A (left, right, temporal) triple of unit-normal (1, H, W, 3) frames,
-    drawn on the CPU from ``seed`` so every device sees the same values."""
+                dtype: torch.dtype = torch.bfloat16, batch: int = 1):
+    """A (left, right, temporal) triple of unit-normal (batch, H, W, 3)
+    frames, drawn on the CPU from ``seed`` so every device sees the same
+    values."""
     gen = torch.Generator().manual_seed(seed)
     return tuple(
-        torch.randn((1, *hw, 3), generator=gen).to(device=device,
-                                                       dtype=dtype)
+        torch.randn((batch, *hw, 3), generator=gen).to(device=device,
+                                                           dtype=dtype)
         for _ in range(3))
 
 
@@ -68,13 +69,16 @@ def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
           seed: int = 0, corr_impl: str | None = None,
           variant: str = "cerberus", pallas_levels: int = 0,
           raft_level: int = 3, raft_iters: int = 12,
-          raft_lookup: str = "onehot", seg_head: str = "fpn"):
+          raft_lookup: str = "onehot", seg_head: str = "fpn",
+          model_kw: dict | None = None):
     """Returns (forward, example_inputs) for the default-width model of
     ``variant`` (a key of ``SERVED``). ``pallas_levels`` runs
     CerberusNet's first N encoder levels as fused kernels; ``raft_level``,
     ``raft_iters`` and ``raft_lookup`` are CerberusRAFT's, which has no
     correlation kernel (``corr_impl``), nor has SegNet; ``seg_head`` is
-    the segmentation head of the models in ``SEGMENTING``."""
+    the segmentation head of the models in ``SEGMENTING``; ``model_kw``
+    gives the model's constructor other widths (the tests' narrow models).
+    ``forward.model`` is the module it serves."""
     if variant not in SERVED:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{tuple(SERVED)}")
@@ -100,7 +104,7 @@ def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the model on the CPU")
     cls, takes = SERVED[variant]
-    model = cls(dtype=dtype, **kw)
+    model = cls(dtype=dtype, **kw, **(model_kw or {}))
     init_params(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
 
@@ -109,6 +113,7 @@ def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
         frames = dict(zip(FRAMES, (left, right, temporal)))
         return model(*[frames[k] for k in takes])
 
+    forward.model = model
     return forward, make_frames(seed, hw, device=device, dtype=dtype)
 
 

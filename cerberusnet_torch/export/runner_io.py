@@ -10,12 +10,14 @@ operators of ``ops/library.py`` on the same nvcc-built libraries. bfloat16
 goes through torch (no numpy dtype holds it): written as the bits of
 ``tensor.to(torch.bfloat16)``, read back through an int16 view.
 
-    python -m cerberusnet_torch.export.runner_io package <export_dir>
+    python -m cerberusnet_torch.export.runner_io package <export_dir>...
     python -m cerberusnet_torch.export.runner_io verify <export_dir> [--pngs]
     python -m cerberusnet_torch.export.runner_io serve-verify <export_dir>
 
-``package`` compiles the export with AOTInductor (``export/aot.py``
-``package_for_runner``); the others build the runner (and, for
+``package`` compiles each export with AOTInductor (``export/aot.py``
+``package_for_runner``), one after the other in one process, so that the
+later ones reuse the kernels the earlier ones compiled, and prints a JSON
+line for each (its package and seconds); the others build the runner (and, for
 ``--device cuda``, the operator library) on first use
 (``export/runner.py``), run it on seeded inputs and compare its outputs
 with the Python-loaded package's, printing one JSON report.
@@ -74,6 +76,33 @@ def read_outputs(dump_dir: str) -> list:
 def manifest(export_dir: str) -> dict:
     with open(os.path.join(export_dir, "manifest.json")) as f:
         return json.load(f)
+
+
+def check_manifest(m: dict, device: str, pngs: bool = False) -> dict:
+    """Raises ValueError where ``cerberus_runner`` would refuse the
+    manifest ``m`` on ``device`` (``ReadManifest`` and its callers in
+    ``csrc/runner.cc``): a platform other than ``device``, no inputs or no
+    outputs, a dtype it does not read or write, and with ``pngs`` image
+    inputs it cannot decode into. Returns ``m``."""
+    if device not in m.get("platforms", []):
+        raise ValueError(f"the package was compiled for "
+                         f"{m.get('platforms')}, not {device}")
+    for key in ("inputs", "outputs"):
+        if not m.get(key):
+            raise ValueError(f"manifest lists no {key}")
+        for spec in m[key]:
+            if spec["dtype"] not in DTYPES:
+                raise ValueError(f"unsupported dtype {spec['dtype']}")
+            if not all(isinstance(d, int) and d > 0 for d in spec["shape"]):
+                raise ValueError(f"{key}: bad shape {spec['shape']}")
+    if pngs:
+        for spec in m["inputs"]:
+            if spec["dtype"] not in ("float32", "bfloat16"):
+                raise ValueError(f"PNG inputs take float32 or bfloat16, the "
+                                 f"manifest says {spec['dtype']}")
+            if len(spec["shape"]) != 4 or spec["shape"][3] != 3:
+                raise ValueError("PNG inputs need (K, H, W, 3) image inputs")
+    return m
 
 
 def read_response(stream) -> list:
@@ -229,7 +258,7 @@ def verify(export_dir: str, runner: str, ops: str | None = None,
            package=None) -> dict:
     """The runner on seeded inputs (``--inputs``) against the package loaded
     into this process on the same inputs."""
-    specs = manifest(export_dir)["inputs"]
+    specs = check_manifest(manifest(export_dir), device)["inputs"]
     tmp = os.path.join(export_dir, "_verify")
     os.makedirs(tmp, exist_ok=True)
     inputs = [t.to(DTYPES[s["dtype"]])
@@ -276,6 +305,7 @@ def verify_pngs(export_dir: str, runner: str, ops: str | None = None,
                 device: str = "cuda", seed: int = 0, package=None) -> dict:
     """The runner's own PNG path (``--pngs``: decode, normalise, cast in
     C++) against the Python path's on the same files."""
+    check_manifest(manifest(export_dir), device, pngs=True)
     paths, inputs = png_frames(export_dir, seed)
     tmp = os.path.dirname(paths[0])
     run = run_runner(export_dir, runner, ops, device, paths, tmp, pngs=True)
@@ -292,7 +322,7 @@ def verify_serve(export_dir: str, runner: str, ops: str | None = None,
     ``--serve`` process, each against the package loaded here; the wall ms
     of each request, and the process's exit code after QUIT."""
     package = package or load_package(export_dir)
-    specs = manifest(export_dir)["inputs"]
+    specs = check_manifest(manifest(export_dir), device, pngs=True)["inputs"]
     client = ServeClient(export_dir, runner, ops, device)
     rows = []
     try:
@@ -323,7 +353,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="runner_io")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    sub.add_parser("package").add_argument("export_dir")
+    sub.add_parser("package").add_argument("export_dir", nargs="+")
     for name in ("verify", "serve-verify"):
         p = sub.add_parser(name)
         p.add_argument("export_dir")
@@ -335,7 +365,12 @@ def main(argv=None) -> int:
                            help="the runner's PNG path instead of raw inputs")
     args = ap.parse_args(argv)
     if args.cmd == "package":
-        print(package_for_runner(args.export_dir))
+        for export_dir in args.export_dir:
+            t0 = time.perf_counter()
+            path = package_for_runner(export_dir)
+            print(json.dumps({"package": path,
+                              "seconds": time.perf_counter() - t0}),
+                  flush=True)
         return 0
     runner, ops = default_binaries(args.device)
     runner, ops = args.runner or runner, args.ops or ops

@@ -64,6 +64,12 @@ def encoder_level_bwd_plain(x, y3, g, k1, b1, k2, b2, k3, b3):
     return vjp(g.to(y.dtype))
 
 
+def _takes_plain(x) -> bool:
+    """A CPU tensor takes the plain level (``utils/flops.py``'s
+    ``plain_operators`` routes it through the operator instead)."""
+    return x.device.type == "cpu"
+
+
 def encoder_level(x, k1, b1, k2, b2, k3, b3, *, grad: str = "xla"):
     """One pyramid level, (B,H,W,C) -> (B,H/2,W/2,F); needs H%2==0 and
     W%4==0, as the reference does."""
@@ -72,7 +78,7 @@ def encoder_level(x, k1, b1, k2, b2, k3, b3, *, grad: str = "xla"):
     if x.shape[1] % 2 or x.shape[2] % 4:
         raise ValueError(f"encoder level needs H%2==0, W%4==0: "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if _takes_plain(x):
         return encoder_level_plain(x, k1, b1, k2, b2, k3, b3)
     # the casts and copies stay outside the operator, so autograd carries
     # the gradients back through them

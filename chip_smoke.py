@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failed check exits non-zero:
+Phases, each printing one JSON line (``at_s``: its seconds since the script
+started); any failed check exits non-zero:
   env      the card (nvidia-smi name and power limit), torch and CUDA
   build    nvcc builds every kernel of the path from cerberusnet_torch/csrc;
            each kernel's registers, spills and stack from ptxas, and for the
@@ -50,6 +51,16 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            request; then the same weights and inputs with the plain
            correlations in bf16 and in float32 (the yardstick), and the
            eager forward's CUDA-event time
+  bench    the headline of python -m cerberusnet_torch.bench (CerberusNet
+           through entry(), bf16, 512x1024, batch 1, three heads reduced;
+           two-point slopes of back-to-back calls between CUDA events,
+           n1 = 2, n2 = 12, 3 rounds): 5 + 5 kernel launches a call, fps
+           with its band, FLOPs per frame (FlopCounterMode, the cerberus::
+           operators by their formulas) equal to the same count with the
+           plain operators, the MFU against the bf16 peak; its control,
+           empty launches timed the same way, must raise
+           FloorLimitedTiming; its ms per frame within 0.5-2x of serve's
+           median eager forward
   train    5 steps of configs/cerberus_synthetic.json through
            cerberusnet_torch.entry.train_entry (bf16, batch 2, 512x1024,
            constant learning rate): finite losses, 5 launches of each of
@@ -276,9 +287,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            (c) and its references alone, for a machine with several cards
   runner   the C++ runner of the exported program: cerberus_runner and
            libcerberus_ops built with g++ (their seconds; ldd shows no
-           libpython); the export phase's four artifacts (exported here
-           when it did not run) compiled with AOTInductor (package
-           seconds each), loaded into this process (a call launches what
+           libpython); the export phase's four artifacts and quant_int8's
+           int8 one (exported here when they did not run) compiled with
+           AOTInductor in two processes at nice 19, int8's alone and the
+           float ones one after the other (package seconds each),
+           loaded into this process (a call launches what
            the export phase's does on the Python counters) and run by the
            runner on seeded inputs (--inputs, --dump-outputs): the launches
            on the operator library's own counters whole calls of the same,
@@ -292,7 +305,14 @@ Phases, each printing one JSON line; any failed check exits non-zero:
            to data/io decode, preprocess_image and the package in Python,
            and stacked bit-equal to separate; refusals: the CerberusNet
            package without the operator library (naming the operator) and
-           a CPU export with --device cuda
+           a CPU export with --device cuda; the int8 package against
+           quantized_apply of the same int8 model (bit equality and
+           distances reported: AOTInductor's fused bf16 arithmetic moves
+           values by an ulp and the int8 quantization turns some into whole
+           steps) and held by the int8 rule: its distance from the float32
+           eager forward within 1.5x quantized_apply's + 1e-3; one --serve
+           request to it, its ms per frame through the runner and in
+           Python in turns with the bf16 package
 Then a {"kernels": [...]} summary line (each correlation kernel's numbers
 on the train path, where all six run, with the serve and fit paths'
 beside them, the data slice's paths (train_flow_kitti,
@@ -302,7 +322,9 @@ tiled_sequential, tiled, predict, predict_images) and the deployment
 slice's (a call of each loaded artifact: export_cerberus, export_stacked,
 export_pallas_levels; quant_int8's forward; train_qat) and the C++
 runner's (a call of each package: runner_cerberus, runner_stacked,
-runner_pallas_levels, the launches from the operator library's counters)
+runner_pallas_levels, runner_int8, the launches from the operator
+library's counters) and the bench's (bench: every call of its headline's
+run)
 and train_dp's (the ranks of its part (b), their launches summed)
 where the kernel runs, and the DCV paths' under "dcv" (export_cerberus_dcv
 and runner_cerberus_dcv among them);
@@ -317,9 +339,13 @@ script's seconds, the card's nvidia-smi line and, last,
 no result. ``--only a,b,...`` runs env, build and the named phases alone
 (the data slice's run after data, and the evaluation slice's after
 flow_data where they need its fixtures), with no summary and no result
-line. train_dp runs after fit; the deployment phases (export,
-quant_int8, train_qat, debug_nans, runner) after the RAFT phases, the cli
-phase last.
+line. The order: env, build, kernels, serve, then bench, whose ms per
+frame it needs (``--only serve,bench``); the deployment phases but the
+runner (quant_int8, export, train_qat, debug_nans), whose artifacts start
+the runner's AOTInductor compiles and g++ builds, which run beside every
+later phase; train, the DCV and pallas_levels phases, fit, train_dp, the
+RAFT phases, the data slice's and the evaluation slice's (cli the last of
+them), and the runner last, which waits for the compiles.
 """
 
 from __future__ import annotations
@@ -382,35 +408,27 @@ TTA_FRAMES_HW = ((384, 768), (512, 1024), (640, 1280))
 TILE_FRAME, TILE_HW = (1024, 2048), (512, 1024)
 TILE_OVERLAP, N_TILES = 0.25, 9
 TIMED_RUNS = 30
+# the plain versions' timed runs in the kernels phase (cut from 20 for the
+# script's time limit)
+PLAIN_RUNS = 10
 # f32: only the summation order differs. bf16: both sides sum in f32 and
 # round once, so they differ by at most one bf16 ulp (inputs unit-normal).
 TOLERANCES = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2.0**-7, 1e-3)}
-# Published peaks (NVIDIA data sheets, dense): device memory bytes/s,
-# float32 FLOP/s on the CUDA cores and bf16 FLOP/s on the tensor cores, by
-# the name nvidia-smi reports.
-PEAKS = (
-    ("H100 PCIe", 2.0e12, 51.2e12, 756.0e12),
-    ("H100 NVL", 3.9e12, 60.0e12, 835.5e12),
-    ("H100", 3.35e12, 67.0e12, 989.4e12),  # SXM (HBM3)
-)
+
+
+# the script's start: each phase line carries its seconds since then
+STARTED = time.perf_counter()
 
 
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
 def fail(phase, msg):
     emit({"phase": phase, "ok": False, "error": msg})
     sys.exit(1)
-
-
-def card_peaks(name):
-    """{"bytes": bytes/s, "f32": FLOP/s, "bf16": FLOP/s} of the card, or
-    None."""
-    for key, bw, f32, bf16 in PEAKS:
-        if key in name:
-            return {"bytes": bw, "f32": f32, "bf16": bf16}
-    return None
 
 
 def sleep_cycles_per_ms():
@@ -464,23 +482,6 @@ def cuda_times(fn, runs=TIMED_RUNS, warmup=5, spin_rate=None):
 
 def level_max_disp(level):
     return max(MAX_DISP_FULL // 2**level, 4)
-
-
-def in_frame(n, offsets):
-    """Pixels of a line of n whose sample at each offset lies in the frame,
-    summed over the offsets."""
-    return sum(max(n - abs(o), 0) for o in offsets)
-
-
-def corr2d_flops(b, h, w, c, d, dil):
-    """Multiply-adds of the 2-D correlation with f2 in frame, times two:
-    an out-of-frame product is zero by definition, so none is needed."""
-    offsets = [o * dil for o in range(-d, d + 1)]
-    return 2 * b * c * in_frame(h, offsets) * in_frame(w, offsets)
-
-
-def corr1d_flops(b, h, w, c, d, dil):
-    return 2 * b * h * c * in_frame(w, [k * dil for k in range(d + 1)])
 
 
 def phase_env():
@@ -576,6 +577,7 @@ def phase_build():
 def phase_kernels(peaks, spin_rate):
     from cerberusnet_torch.ops import correlation as corr
     from cerberusnet_torch.ops.cuda import correlation as cc
+    from cerberusnet_torch.utils.flops import corr1d_flops, corr2d_flops
 
     def nk2d(d):
         return (2 * d + 1) ** 2
@@ -714,8 +716,9 @@ def phase_kernels(peaks, spin_rate):
 
             k_t = cuda_times(run_kernel, spin_rate=spin_rate)
             k_eager = cuda_times(run_kernel)
-            p_t = cuda_times(run_plain, runs=20, spin_rate=spin_rate)
-            p_eager = cuda_times(run_plain, runs=20)
+            p_t = cuda_times(run_plain, runs=PLAIN_RUNS, warmup=2,
+                             spin_rate=spin_rate)
+            p_eager = cuda_times(run_plain, runs=PLAIN_RUNS, warmup=2)
             b, h, w, c = shape
             nbytes = (2 * b * h * w * c + b * h * w * nk) * f.element_size()
             flops = flops_of(b, h, w, c, d, dil)
@@ -787,16 +790,6 @@ LEVEL_GRADS = ("dx", "dk1", "db1", "dk2", "db2", "dk3", "db3")
 FUSED_F32_RTOL = 3e-3
 
 
-def level_flops(b, h, w, c, f):
-    """(FLOPs of a level's three convolutions, FLOPs of one of its two
-    stride-1 convolutions), counting only taps whose input lies in the
-    image (a SAME-padding product is zero)."""
-    h2, w2 = h // 2, w // 2
-    entry = (3 * h2 - 1) * (3 * w2 - 1) * c  # stride 2 pads (0, 1)
-    inner = (3 * h2 - 2) * (3 * w2 - 2) * f  # stride 1 pads (1, 1)
-    return 2 * b * f * (entry + 2 * inner), 2 * b * f * inner
-
-
 def level_fwd_rounded_once(x, k1, b1, k2, b2, k3, b3):
     """K9's plain version with K9's rounding: each convolution of the level
     on cuDNN in float32 from working-type operands, its bias and LeakyReLU
@@ -848,6 +841,7 @@ def level_checks(peaks, spin_rate, gen):
     bit for bit."""
     from cerberusnet_torch import level_witness as lw
     from cerberusnet_torch.ops import encoder_level as elv
+    from cerberusnet_torch.utils.flops import level_bwd_flops, level_flops
     from cerberusnet_torch.ops.cuda import encoder_level as cl
 
     cases = [("fwd", batch, lv) for batch in (SERVE_FRAMES, TRAIN_FRAMES)
@@ -957,7 +951,7 @@ def level_checks(peaks, spin_rate, gen):
                          "min": min(t["min"] for t in parts),
                          "max": max(t["max"] for t in parts)}
                         for parts in (times["kernel"], times["plain"]))
-            fwd_flops, inner = level_flops(b, h, w, c, f)
+            fwd_flops = level_flops(b, h, w, c, f)[0]
             esize = x.element_size()
             acts = b * (h * w * c + (h // 2) * (w // 2) * f)
             if kind == "fwd":
@@ -966,7 +960,7 @@ def level_checks(peaks, spin_rate, gen):
                 # x, y3, g in, dx out; recompute of y1, y2, three input
                 # gradients and three weight gradients
                 nbytes = 2 * acts * esize
-                flops = 3 * fwd_flops - inner
+                flops = level_bwd_flops(b, h, w, c, f)
             peak = peaks["bf16" if dt == torch.bfloat16 else "f32"]
             t_bytes, t_ops = nbytes / peaks["bytes"], flops / peak
             del x, params, y3, g, got, plain, ref
@@ -1037,6 +1031,10 @@ SERVE = {
          "encoder_level_fwd": PALLAS_LEVELS},
         {"pallas_levels": PALLAS_LEVELS}, ("pallas_levels_0", {})),
 }
+
+
+# {serve phase: the kernel path's median eager ms per frame}
+SERVE_MS = {}
 
 
 def phase_serve(phase):
@@ -1114,6 +1112,7 @@ def phase_serve(phase):
             "block_medians": [p["median"] for p in parts],
             "runs": sum(p["runs"] for p in parts)}
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    SERVE_MS[phase] = fwd["kernel"]["ms_per_frame"]
     ok = not errors
     emit({"phase": phase, "ok": ok, "variant": variant, "hw": list(HW),
           "dtype": "bfloat16", "requests": N_REQUESTS, "launches": launches,
@@ -1121,6 +1120,83 @@ def phase_serve(phase):
                                    for k, v in launches.items()},
           "distances": distances, "forward": fwd,
           "max_memory_allocated_gib": peak_mem, "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
+# bench: the headline's timed calls beside n1 = 2 (the bench's default),
+# and the band its ms per frame must keep from serve's median eager forward
+BENCH_ITERS = 10
+BENCH_SERVE_RATIO = (0.5, 2.0)
+
+
+def empty_launches(n):
+    """``build`` of n empty kernel launches: the timing control."""
+    def run():
+        for _ in range(n):
+            torch.cuda._sleep(0)
+    return run
+
+
+def phase_bench(card, peaks):
+    """The headline of cerberusnet_torch.bench: its launches, fps, FLOPs
+    and MFU; the FLOP count against the plain operators'; the timing's
+    control; its ms per frame against serve's."""
+    from cerberusnet_torch import bench
+    from cerberusnet_torch.utils import benchutil, flops
+
+    errors = []
+    t0 = time.perf_counter()
+    row = bench.full3head()
+    reset_launch_counts()
+    st = bench.measure(row, BENCH_ITERS, "cuda", peaks=peaks)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if st["launches_per_call"] != EXPORT_LAUNCHES["cerberus"]:
+        errors.append(f"headline launches a call {st['launches_per_call']}")
+    # one forward's count with the kernels (the bench's) and with the plain
+    # operators: the formulas, not the implementations, count
+    kernel_flops = st["flops"] * row.frames
+    with flops.plain_operators():
+        plain_flops, plain_rise = launch_rise(
+            lambda: flops.count(lambda: row.fn(*row.args), "cuda"))
+    if kernel_flops != plain_flops:
+        errors.append(f"FLOPs with the kernels {kernel_flops}, with the "
+                      f"plain operators {plain_flops}")
+    if any(plain_rise.values()):
+        errors.append(f"the plain operators launched {plain_rise}")
+    # the control: empty launches cannot be told from the floor
+    floor = benchutil.roundtrip_floor()
+    try:
+        slopes = benchutil.time_fn_two_point_rounds(
+            None, (), iters=(2, 2 + BENCH_ITERS), build=empty_launches,
+            floor=floor)
+        control = {"raised": False, "slopes_ms": [x * 1e3 for x in slopes]}
+        errors.append(f"empty launches timed at {slopes} s a call, floor "
+                      f"{floor}: FloorLimitedTiming expected")
+    except benchutil.FloorLimitedTiming as e:
+        control = {"raised": True, "best_ms": e.best * 1e3,
+                   "floor_ms": e.floor * 1e3, "iters": e.iters}
+    ms = 1e3 / st["fps"]
+    ratio = ms / SERVE_MS["serve"]
+    lo, hi = BENCH_SERVE_RATIO
+    if not lo <= ratio <= hi:
+        errors.append(f"headline {ms} ms a frame, {ratio} x serve's "
+                      f"{SERVE_MS['serve']}")
+    del row
+    ok = not errors
+    emit({"phase": "bench", "ok": ok, "metric": bench.HEADLINE,
+          "fps": st["fps"], "fps_band": st["fps_band"],
+          "rounds": st["rounds"], "iters": BENCH_ITERS, "ms_per_frame": ms,
+          "serve_ms_per_frame": SERVE_MS["serve"], "vs_serve": ratio,
+          "vs_serve_band": list(BENCH_SERVE_RATIO),
+          "flops_per_frame": st["flops"], "plain_operators_flops":
+          plain_flops, "mfu": st["mfu"], "peak_bf16_flops_per_s":
+          peaks["bf16"], "launches_per_call": st["launches_per_call"],
+          "launches": launches, "floor_ms": floor * 1e3, "control": control,
+          "seconds": time.perf_counter() - t0, "card": card,
+          "errors": errors})
     if not ok:
         sys.exit(1)
     return launches
@@ -3567,6 +3643,7 @@ EXPORT_LAUNCHES = {
                       "encoder_level_fwd": PALLAS_LEVELS},
     "cerberus_dcv": {"corr2d_fwd": len(DCV_FLOW_DILATIONS),
                      "corr1d_fwd": len(DCV_DISP_DILATIONS)},
+    "int8": {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)},
 }
 # the cerberusnet_torch modules a process that loads an artifact imports
 OPERATOR_MODULES = {"cerberusnet_torch", "cerberusnet_torch.ops",
@@ -4015,7 +4092,13 @@ RUNNER_OPERATORS = ("corr2d_fwd", "corr1d_fwd", "encoder_level_fwd")
 RUNNER_ITERS = 20
 # timed calls of the runner on the smaller artifacts (DCV, pallas_levels)
 RUNNER_ITERS_SHORT = 5
-RUNNER_ARTIFACTS = ("cerberus", "stacked", "pallas_levels", "cerberus_dcv")
+RUNNER_ARTIFACTS = ("cerberus", "stacked", "pallas_levels", "cerberus_dcv",
+                    "int8")
+# the int8 package's distance from the float32 eager forward within this
+# multiple of quantized_apply's own (+ 1e-3): the plain bf16 rule's shape.
+# Both are int8 quantizations of one model; a wrong scale or product moves
+# a head 0.14-0.84 (quant_int8's control)
+INT8_PACKAGE_SLACK = 1.5
 
 
 def runner_launches(run, name):
@@ -4046,11 +4129,30 @@ class _TinyFrames(torch.nn.Module):
                 "disp": c.float()}
 
 
-def runner_exports(root):
-    """The export phase's four artifacts (exported here where it did not
-    run): {name: (dir, export s or None)}; and a small CPU export, which
-    is not packaged: the runner refuses it from its manifest before it
-    opens a package."""
+def runner_artifact(root, name):
+    """The directory of a runner artifact: the export phase's, or
+    quant_int8's int8 one."""
+    return f"{root}/int8" if name == "int8" else f"{root}/export/{name}"
+
+
+def int8_model():
+    """quant_int8's int8 CerberusNet: seed 0's model calibrated on the
+    CALIB_SEEDS frames and quantized from its float32 weights, stripped."""
+    from cerberusnet_torch.entry import make_frames
+    from cerberusnet_torch.quant import calibrate, quantize
+
+    model = seeded_model()
+    kernels = {n[:-len(".weight")]: p.detach() for n, p in
+               seeded_model(dtype=torch.float32).named_parameters()
+               if n.endswith(".weight")}
+    scales = calibrate(model, [make_frames(s, HW) for s in CALIB_SEEDS])
+    return quantize(model, scales, strip=True, weights=kernels)
+
+
+def runner_exports(root, names):
+    """The named runner artifacts, the export phase's and quant_int8's
+    (exported here where those phases did not run): {name: (dir, export s
+    or None)}."""
     import os
 
     from cerberusnet_torch.export.aot import (
@@ -4058,12 +4160,23 @@ def runner_exports(root):
         export_inference,
         save_exported,
     )
+    from cerberusnet_torch.quant import ptq
 
     out = {}
-    for name in RUNNER_ARTIFACTS:
-        art = f"{root}/export/{name}"
+    for name in names:
+        art = runner_artifact(root, name)
         export_s = None
-        if not os.path.exists(f"{art}/model.pt2"):
+        if name == "int8" and not os.path.exists(f"{art}/model.pt2"):
+            model = int8_model()
+            example = tuple(torch.zeros((1, *HW, 3), dtype=torch.bfloat16,
+                                        device="cuda") for _ in range(3))
+            t0 = time.perf_counter()
+            with ptq.quant_interception(model):
+                save_exported(export_inference(DeployOutputs(model), example),
+                              art)
+            export_s = time.perf_counter() - t0
+            del model
+        elif not os.path.exists(f"{art}/model.pt2"):
             kwargs = ({"pallas_levels": PALLAS_LEVELS}
                       if name == "pallas_levels" else {})
             m = seeded_model("cerberus_dcv" if name == "cerberus_dcv"
@@ -4077,34 +4190,81 @@ def runner_exports(root):
             export_s = time.perf_counter() - t0
             del m
         out[name] = (art, export_s)
+    return out
+
+
+def runner_cpu_export(root):
+    """A small CPU export, which is not packaged: the runner refuses it
+    from its manifest before it opens a package."""
+    from cerberusnet_torch.export.aot import (
+        DeployOutputs,
+        export_inference,
+        save_exported,
+    )
+
     cpu = f"{root}/runner_cpu"
     example = tuple(torch.zeros((1, 8, 8, 3), dtype=torch.bfloat16)
                     for _ in range(3))
     save_exported(export_inference(DeployOutputs(_TinyFrames()), example), cpu)
-    return out, cpu
+    return cpu
 
 
 def package_all(dirs):
-    """Each artifact compiled with AOTInductor in a process of its own, all
-    started together (the compiles are mostly serial Python and g++):
-    {name: wall seconds}; fails the phase if one fails."""
+    """The artifacts compiled with AOTInductor one after the other in one
+    process at the lowest CPU priority (nice 19: the phases that run
+    meanwhile keep the host), so that each reuses the kernels that the ones
+    before it compiled: {name: seconds of its own compile}; fails the phase
+    if the process fails."""
     from cerberusnet_torch.entry import REPO_ROOT
 
-    def package(art):
-        t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m",
-                            "cerberusnet_torch.export.runner_io", "package",
-                            art], cwd=str(REPO_ROOT), capture_output=True,
-                           text=True, timeout=900)
-        return p, time.perf_counter() - t0
+    p = subprocess.Popen(["nice", "-n", "19", sys.executable, "-m",
+                          "cerberusnet_torch.export.runner_io", "package",
+                          *dirs.values()], cwd=str(REPO_ROOT),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    PACKAGING.append(p)
+    try:
+        out, err = p.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        out, err = p.communicate()
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith("{")]
+    if p.returncode or len(lines) != len(dirs):
+        fail("runner", f"AOTInductor packaging of {list(dirs)} failed "
+                       f"(rc {p.returncode}): {err[-2000:]}")
+    return {n: line["seconds"] for n, line in zip(dirs, lines)}
 
-    with ThreadPoolExecutor(len(dirs)) as pool:
-        done = dict(zip(dirs, pool.map(package, dirs.values())))
-    failed = {n: p.stderr[-2000:] for n, (p, _) in done.items()
-              if p.returncode}
-    if failed:
-        fail("runner", f"AOTInductor packaging failed: {failed}")
-    return {n: s for n, (_, s) in done.items()}
+
+# the compile processes started (stopped where they still run when the
+# script ends) and the runner's two g++ builds, started with the first
+PACKAGING = []
+RUNNER_BUILD = []
+
+
+def start_packaging(root, names):
+    """Exports the named runner artifacts where they are missing and starts
+    their compiles (``package_all``) and, the first time, the runner's g++
+    builds in the background: (exports, a future of {name: package s},
+    the start)."""
+    from cerberusnet_torch.export import runner as runner_build
+
+    exports = runner_exports(root, names)
+    start = time.perf_counter()
+    pool = ThreadPoolExecutor(1 if RUNNER_BUILD else 3)
+    future = pool.submit(package_all, {n: d for n, (d, _) in exports.items()})
+    if not RUNNER_BUILD:
+        RUNNER_BUILD.extend([pool.submit(runner_build.build_runner),
+                             pool.submit(runner_build.build_ops)])
+    pool.shutdown(wait=False)
+    return exports, future, start
+
+
+def stop_packaging():
+    for p in PACKAGING:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def runner_refusals(runner, art, cpu_dir):
@@ -4126,18 +4286,20 @@ def runner_refusals(runner, art, cpu_dir):
     return out, errors
 
 
-def phase_runner(card, root):
+def phase_runner(card, root, batches=()):
+    """``batches``: ``start_packaging``'s, started by earlier phases; the
+    artifacts none of them started are exported and packaged here."""
     from cerberusnet_torch.entry import entry
-    from cerberusnet_torch.export import runner as runner_build
     from cerberusnet_torch.export import runner_io
 
     errors = []
     t_phase = time.perf_counter()
-    # build: both g++ runs together (the kernel libraries are built)
-    with ThreadPoolExecutor(2) as pool:
-        built = [pool.submit(runner_build.build_runner),
-                 pool.submit(runner_build.build_ops)]
-        (runner, runner_s), (ops, ops_s) = [f.result() for f in built]
+    started = {n for exports, _, _ in batches for n in exports}
+    rest = [n for n in RUNNER_ARTIFACTS if n not in started]
+    batches = [*batches, *([start_packaging(root, rest)] if rest else [])]
+    cpu_export = runner_cpu_export(root)
+    # both g++ runs, started with the first compiles
+    (runner, runner_s), (ops, ops_s) = [f.result() for f in RUNNER_BUILD]
     ldd = {}
     for path in (runner, ops):
         p = subprocess.run(["ldd", str(path)], capture_output=True, text=True)
@@ -4150,11 +4312,14 @@ def phase_runner(card, root):
           "ldd": ldd, "errors": errors})
     if errors:
         sys.exit(1)
-
-    exports, cpu_export = runner_exports(root)
-    t0 = time.perf_counter()
-    package_s = package_all({n: d for n, (d, _) in exports.items()})
-    packaging_s = time.perf_counter() - t0
+    exports, package_s = {}, {}
+    for batch_exports, future, _ in batches:
+        exports.update(batch_exports)
+        package_s.update(future.result())
+    # from the first compile's start to the last's end, and the part of it
+    # this phase waited
+    packaging_s = time.perf_counter() - min(t for _, _, t in batches)
+    packaging_wait_s = time.perf_counter() - t_phase
     runs, counts, packages = {}, {}, {}
     for name in RUNNER_ARTIFACTS:
         art, export_s = exports[name]
@@ -4185,6 +4350,42 @@ def phase_runner(card, root):
                       "runner": report["runner"],
                       "runner_launches_per_call": per_call,
                       "vs_python_package": report}
+
+    # int8: the package against quantized_apply of the same int8 model on
+    # the runner's inputs (bit equality reported: Inductor's fused bf16
+    # arithmetic moves a value by an ulp where eager's does not, and a
+    # conv's quantization can turn that into a whole int8 step), held by
+    # the int8 rule against the float32 eager forward; one --serve request
+    # (and its PNG request)
+    from cerberusnet_torch.quant import quantized_apply
+
+    art = exports["int8"][0]
+    frames = [t.to(torch.bfloat16).cuda() for t in runner_io.random_inputs(
+        runner_io.manifest(art)["inputs"], 0)]
+    model = int8_model()
+    f32, _ = entry(dtype=torch.float32, corr_impl="plain")
+    with torch.no_grad():
+        got = packages["int8"](*frames)
+        want = quantized_apply(model, *frames)
+        ref = f32(*frames)
+    del model, f32
+    rule = runs["int8"]["int8_rule"] = {}
+    for g, k in zip(got, HEADS):
+        d_pkg, d_eager = rel_l2(g, ref[k]), rel_l2(want[k], ref[k])
+        lim = INT8_PACKAGE_SLACK * d_eager + 1e-3
+        rule[k] = {"package_vs_f32": d_pkg, "quantized_apply_vs_f32": d_eager,
+                   "limit": lim}
+        if not d_pkg <= lim:
+            errors.append(f"int8 package {k}: rel L2 to float32 {d_pkg} > "
+                          f"{lim}")
+    runs["int8"]["package_vs_quantized_apply"] = frame_distances(got, want)
+    del got, want, ref
+    serve_int8 = runs["int8"]["serve"] = runner_io.verify_serve(
+        art, runner, ops, "cuda", seed=3, requests=1,
+        package=packages["int8"])
+    if not (serve_int8["ok"] and serve_int8["bit_equal"]):
+        errors.append(f"int8 serve: rc {serve_int8['rc']}, "
+                      f"{serve_int8['requests']}")
 
     # the plain bf16 rule against the float32 eager forward, on each float
     # artifact's runner inputs (its outputs dumped by verify); the fused
@@ -4229,12 +4430,17 @@ def phase_runner(card, root):
         python_ms = turns({"python_package": packages["cerberus"],
                            "eager": model}, lambda f: f(*frames), runs=20,
                           warmup=3)
+        int8_ms = turns({"python_package_int8": packages["int8"],
+                         "python_package_bf16": packages["cerberus"]},
+                        lambda f: f(*frames), runs=20, warmup=3)
     again = runner_io.run_runner(art, runner, ops, "cuda",
                                  [f"{art}/_verify/in_{i}.bin"
                                   for i in range(len(specs))],
                                  f"{art}/_verify_again", iters=RUNNER_ITERS)
     ms_per_frame = {"runner": [runs["cerberus"]["runner"]["avg_exec_ms"],
-                               again["avg_exec_ms"]], **python_ms}
+                               again["avg_exec_ms"]],
+                    "runner_int8": [runs["int8"]["runner"]["avg_exec_ms"]],
+                    **python_ms, **int8_ms}
     del model
 
     # --serve: three INFER requests and one PNGS to one warm process
@@ -4263,13 +4469,20 @@ def phase_runner(card, root):
           "ms_per_frame": ms_per_frame, "serve": serve, "pngs": pngs,
           "pngs_stacked_vs_separate": stacked_vs_separate,
           "refusals": refusals, "packaging_s": packaging_s,
+          "packaging_wait_s": packaging_wait_s,
           "seconds": time.perf_counter() - t_phase,
           "timing": "runner: host clock around each call and a stream "
                     "synchronise, mean of its timed calls (two runs, before "
-                    "and after the Python pair); python_package and eager: "
-                    "CUDA events around one call, in turns; package_s: "
-                    "a process's AOTInductor compile and package, the four "
-                    "processes together (packaging_s their wall time); "
+                    "and after the Python pair; runner_int8 one run); "
+                    "python_package and eager, python_package_int8 and "
+                    "python_package_bf16: CUDA events around one call, in "
+                    "turns; package_s: an artifact's own AOTInductor "
+                    "compile and package, in two processes at nice 19 "
+                    "(int8's started after quant_int8, the float ones one "
+                    "after the other after export) while the phases from "
+                    "quant_int8 to the data slice's ran (packaging_s from "
+                    "the first start to the last end, packaging_wait_s the "
+                    "part this phase waited); "
                     "serve wall_ms: host clock around a request",
           "card": card, "errors": errors})
     if not ok:
@@ -4833,6 +5046,9 @@ def summary(checks, counts):
                 ("runner_cerberus", "cerberus", 1),
                 ("runner_stacked", "cerberus", 1),
                 ("runner_pallas_levels", "cerberus", 1),
+                ("runner_int8", "cerberus", 1),
+                # the bench's headline: every call of its run
+                ("bench", "cerberus", 1),
                 # the data-parallel step: each rank's calls at the train
                 # path's shapes, the launches of (b)'s ranks summed
                 ("train_dp", "cerberus", TRAIN_BATCH)):
@@ -4886,11 +5102,16 @@ def main(argv):
         return 1
     import cerberusnet_torch  # noqa: F401  fails where the port is absent
 
+    import shutil
+    import tempfile
+
     t0 = time.perf_counter()
     # f32 results are compared on the card: keep cuDNN and cuBLAS in full
     # f32 (no TF32). bf16 runs are unaffected.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    from cerberusnet_torch.utils.flops import card_peaks
 
     card, name = phase_env()
     peaks = card_peaks(name)
@@ -4900,22 +5121,39 @@ def main(argv):
     spin_rate = sleep_cycles_per_ms()
     checks = phase_kernels(peaks, spin_rate) if wanted("kernels") else []
     counts = {}
-    for phase in ("serve", "train", "serve_dcv", "train_dcv",
-                  "serve_pallas_levels", "train_pallas_levels"):
-        if wanted(phase):
-            run = phase_serve if phase in SERVE else phase_train
-            counts[phase] = run(phase)
-    if wanted("fit"):
-        counts["fit"] = phase_fit(card)
-    if wanted("train_dp"):
-        counts["train_dp"] = phase_train_dp(card)
-    elif only is not None and "train_dp_cards" in only:
-        phase_train_dp(card, parts="c")
-    for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
-        if wanted(phase.__name__[len("phase_"):]):
-            phase(card)
-    deployment_phases(card, counts, wanted)
-    data_phases(card, counts, wanted)
+    if wanted("serve"):
+        counts["serve"] = phase_serve("serve")
+    if wanted("bench"):
+        if "serve" not in SERVE_MS:
+            fail("bench", "needs serve's ms per frame from the same run: "
+                          "--only serve,bench")
+        counts["bench"] = phase_bench(card, peaks)
+    # the deployment slice's artifacts, kept to the runner phase, which
+    # comes last: its AOTInductor compiles (minutes of host work) start as
+    # soon as their artifacts exist and run beside the phases in between
+    root = tempfile.mkdtemp(prefix="cerberus_deploy_")
+    try:
+        batches = deployment_phases(card, counts, wanted, root)
+        for phase in ("train", "serve_dcv", "train_dcv",
+                      "serve_pallas_levels", "train_pallas_levels"):
+            if wanted(phase):
+                run = phase_serve if phase in SERVE else phase_train
+                counts[phase] = run(phase)
+        if wanted("fit"):
+            counts["fit"] = phase_fit(card)
+        if wanted("train_dp"):
+            counts["train_dp"] = phase_train_dp(card)
+        elif only is not None and "train_dp_cards" in only:
+            phase_train_dp(card, parts="c")
+        for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
+            if wanted(phase.__name__[len("phase_"):]):
+                phase(card)
+        data_phases(card, counts, wanted)
+        if wanted("runner"):
+            record_launches(counts, phase_runner(card, root, batches))
+    finally:
+        stop_packaging()
+        shutil.rmtree(root, ignore_errors=True)
     if only is not None:
         emit({"phase": "done", "only": sorted(only),
               "seconds": time.perf_counter() - t0})
@@ -4929,35 +5167,37 @@ def main(argv):
     return 0
 
 
-def deployment_phases(card, counts, wanted):
-    """The deployment slice's phases, their artifacts in a temporary
-    directory (removed at the end); counts gains each path's launches by
-    kernel (a loaded artifact's per call)."""
-    import shutil
-    import tempfile
-
-    if not any(wanted(n) for n in ("export", "quant_int8", "train_qat",
-                                   "debug_nans", "runner")):
-        return
-    root = tempfile.mkdtemp(prefix="cerberus_deploy_")
+def record_launches(counts, runs):
+    """counts gains each run's launches by kernel (a loaded artifact's per
+    call)."""
     kernels = list(launch_counts())
-    try:
-        runs = {}
-        if wanted("export"):
-            runs.update({f"export_{k}": v
-                         for k, v in phase_export(card, root).items()})
-        if wanted("quant_int8"):
-            runs.update(phase_quant_int8(card, root))
-        if wanted("train_qat"):
-            runs["train_qat"] = phase_train("train_qat")
-        if wanted("debug_nans"):
-            phase_debug_nans(card)
+    counts.update({phase: {k: launches.get(k, 0) for k in kernels}
+                   for phase, launches in runs.items()})
+
+
+def deployment_phases(card, counts, wanted, root):
+    """The deployment slice's phases but the runner, their artifacts under
+    root; counts gains each path's launches. Starts the runner's
+    AOTInductor compiles as soon as their artifacts exist (int8's, the
+    longest, after quant_int8, the float ones after export) and returns
+    them (``start_packaging``'s)."""
+    runs, batches = {}, []
+    if wanted("quant_int8"):
+        runs.update(phase_quant_int8(card, root))
         if wanted("runner"):
-            runs.update(phase_runner(card, root))
-        counts.update({phase: {k: launches.get(k, 0) for k in kernels}
-                       for phase, launches in runs.items()})
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+            batches.append(start_packaging(root, ("int8",)))
+    if wanted("export"):
+        runs.update({f"export_{k}": v
+                     for k, v in phase_export(card, root).items()})
+        if wanted("runner"):
+            batches.append(start_packaging(
+                root, [n for n in RUNNER_ARTIFACTS if n != "int8"]))
+    if wanted("train_qat"):
+        runs["train_qat"] = phase_train("train_qat")
+    if wanted("debug_nans"):
+        phase_debug_nans(card)
+    record_launches(counts, runs)
+    return batches
 
 
 def data_phases(card, counts, wanted):

@@ -56,7 +56,8 @@ def test_every_module_imports_with_jax_blocked():
         "eval.tta", "eval.tiled", "eval.submission", "ops.library", "export",
         "export.aot", "export.runner", "export.runner_io", "quant",
         "quant.ptq", "quant.qat", "train.debug_nans", "parallel",
-        "parallel.mesh")} <= set(names)
+        "parallel.mesh", "bench", "utils.benchutil",
+        "utils.flops")} <= set(names)
 
 
 def _imported_roots(path):

@@ -155,3 +155,101 @@ def test_inputs_round_trip_through_the_manifest(tmp_path):
         back = runner_io.read_bin(got, spec["shape"], spec["dtype"])
         assert torch.equal(back, t.to(torch.bfloat16))
     assert os.path.getsize(tmp_path / "in_0.bin") == 1 * 4 * 6 * 3 * 2
+
+
+# ------------------------------------------- int8 artifacts for the runner
+
+INT8_HW = (64, 64)
+INT8_CONFIG = {
+    "name": "tiny-runner-int8",
+    "model": {"encoder_channels": [8, 12, 16, 16, 16, 16],
+              "est_channels": [16, 16, 12], "ctx_channels": [16, 16],
+              "fpn_channels": 16},
+    "data": {"hw": list(INT8_HW), "batch_size": 2, "num_workers": 1,
+             "synthetic_length": 4, "shuffle": False},
+    "optim": {"schedule": "constant"},
+    "train": {"log_every": 1000}}
+
+
+# case: (model variant, train.qat, the artifact's inputs, its outputs'
+# channels). The QAT artifact is the joint model's, which no run on the
+# card exports; PTQ's joint-model artifact runs through the runner on the
+# card (chip_smoke.py runner), so here PTQ exports the segmentation model,
+# whose program traces in a fifth of the time (the joint int8 model's
+# 7,535 nodes take about a minute on one thread)
+INT8_CASES = {"ptq": ("seg", False, 1, (19,)),
+              "qat": ("cerberus", True, 3, (19, 2, 1))}
+
+
+@pytest.fixture(scope="module")
+def int8_artifacts(tmp_path_factory):
+    """{case: (export dir, its deploy model's quantized convs)}:
+    Trainer.export(quant="int8") after calibration (PTQ) or with the
+    ranges QAT calibrated (finalize)."""
+    from cerberusnet_torch.quant import ptq
+    from cerberusnet_torch.train.config import ExperimentConfig
+    from cerberusnet_torch.train.trainer import Trainer
+
+    root = tmp_path_factory.mktemp("int8")
+    out = {}
+    for case, (variant, qat, _, _) in INT8_CASES.items():
+        cfg = {**INT8_CONFIG,
+               "model": {**INT8_CONFIG["model"], "variant": variant},
+               "train": {**INT8_CONFIG["train"], "qat": qat}}
+        tr = Trainer(ExperimentConfig.from_dict(cfg), device="cpu")
+        out[case] = (tr.export(str(root / case), quant="int8"),
+                     ptq.quantized_convs(tr.deploy_model("int8")))
+    return out
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_manifest_passes_the_runner_checks(case, int8_artifacts):
+    art, _ = int8_artifacts[case]
+    _, _, n_inputs, channels = INT8_CASES[case]
+    m = runner_io.manifest(art)
+    assert runner_io.check_manifest(m, "cpu") is m
+    assert runner_io.check_manifest(m, "cpu", pngs=True) is m
+    assert m["inputs"] == [{"shape": [1, *INT8_HW, 3],
+                            "dtype": "float32"}] * n_inputs
+    assert m["outputs"] == [{"shape": [1, *INT8_HW, c], "dtype": "float32"}
+                            for c in channels]
+    with pytest.raises(ValueError, match=r"compiled for \['cpu'\], not "
+                                         r"cuda"):
+        runner_io.check_manifest(m, "cuda")
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_program_holds_an_int_mm_a_quantized_conv(case,
+                                                       int8_artifacts):
+    from cerberusnet_torch.export import load_exported
+
+    art, convs = int8_artifacts[case]
+    program = load_exported(art)
+    int_mm = sum(1 for n in program.graph.nodes
+                 if "_int_mm" in str(n.target))
+    assert int_mm == len(convs) > 0
+
+
+@pytest.mark.parametrize("bad,match", [
+    ({"platforms": ["cuda"]}, "not cpu"),
+    ({"inputs": []}, "lists no inputs"),
+    ({"outputs": []}, "lists no outputs"),
+    ({"inputs": [{"shape": [1, 4, 4, 3], "dtype": "int8"}]},
+     "unsupported dtype int8"),
+    ({"outputs": [{"shape": [1, 0, 4], "dtype": "float32"}]}, "bad shape"),
+])
+def test_check_manifest_refuses_as_the_runner(bad, match):
+    good = {"platforms": ["cpu"],
+            "inputs": [{"shape": [1, 4, 4, 3], "dtype": "bfloat16"}],
+            "outputs": [{"shape": [1, 4, 4, 2], "dtype": "float32"}]}
+    with pytest.raises(ValueError, match=match):
+        runner_io.check_manifest({**good, **bad}, "cpu")
+
+
+def test_check_manifest_png_inputs():
+    m = {"platforms": ["cpu"],
+         "inputs": [{"shape": [1, 4, 4, 3], "dtype": "int32"}],
+         "outputs": [{"shape": [1, 4, 4, 2], "dtype": "float32"}]}
+    assert runner_io.check_manifest(m, "cpu") is m
+    with pytest.raises(ValueError, match="PNG inputs take float32"):
+        runner_io.check_manifest(m, "cpu", pngs=True)
