@@ -16,16 +16,20 @@ any other action), ``--profile``, ``--export-dir`` (with ``--quant`` and
 ``cuda`` unless given. ``--quant`` and ``--export-stacked`` without
 ``--export-dir`` are refused (the reference ignores them and trains).
 
-Data parallelism: with ``train.num_data_devices`` N > 1 (or 0 on a host
-with several cards) the command starts N ranks itself, one a card
-(``parallel.launch``, NCCL; gloo on the CPU), each running the same
-action; rank 0 alone prints and writes. A host with fewer cards than N
-raises ValueError. A process started by ``torchrun`` (``WORLD_SIZE`` set)
-joins that group instead:
+Data and spatial parallelism: with ``train.num_data_devices`` D and
+``train.num_spatial_devices`` S the command starts D x S ranks itself
+when that is more than one (D = 0: every card, divided by S), one a card
+(``parallel.launch``, NCCL; gloo on the CPU, or for ranks sharing the card
+``--device cuda:0`` names), each running the same action; rank 0 alone
+prints and writes. A host with fewer cards than ranks raises ValueError.
+A process started by ``torchrun`` (``WORLD_SIZE`` set) joins that group
+instead:
 
     python -m cerberusnet_torch.cli --config configs/cerberus_dp_v4_8.json
     torchrun --nproc-per-node 8 -m cerberusnet_torch.cli \
         --config configs/cerberus_dp_v4_8.json
+    python -m cerberusnet_torch.cli --config cfg.json --device cpu  # with
+        # "train": {"num_data_devices": 1, "num_spatial_devices": 2}
 """
 
 from __future__ import annotations
@@ -125,7 +129,8 @@ def main(argv=None):
             return _run(ap, args, config)
         finally:
             dist.destroy_process_group()
-    ranks = data_ranks(config.train.num_data_devices, device)
+    ranks = data_ranks(config.train.num_data_devices, device,
+                       config.train.num_spatial_devices)
     if ranks > 1:
         launch(_rank, ranks, args=(argv,), backend=backend)
         return 0

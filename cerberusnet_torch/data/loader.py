@@ -91,9 +91,10 @@ class DataLoader:
     dicts of page-locked tensors), in the order of the reference's
     ``DataLoader``; each iteration is one epoch.
 
-    With a ``mesh`` of N ranks each batch is this rank's rows of the global
-    batch of ``batch_size`` (which N must divide), and every rank yields
-    as many batches. Without ``drop_last`` the last global batch is padded
+    With a ``mesh`` of N data ranks each batch is this rank's samples of the
+    global batch of ``batch_size`` (which N must divide), whole frames (a
+    spatial mesh's peers decode the same samples, and each keeps its band
+    after preprocessing), and every rank yields as many batches. Without ``drop_last`` the last global batch is padded
     to ``batch_size`` by repeating its last sample before it is sliced,
     and each batch carries ``"_sample_mask"`` ((B / N,) float32, 0 for the
     padding), as the reference pads and then shards."""
@@ -127,7 +128,7 @@ class DataLoader:
     def _rank_parts(self):
         """(this rank's indices, its sample mask or None) per batch."""
         for part in self._batch_indices():
-            if self.mesh.size == 1:
+            if self.mesh.data_size == 1:
                 yield part, None
                 continue
             n = len(part)

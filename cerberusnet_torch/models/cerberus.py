@@ -8,6 +8,12 @@ and the segmentation head (left).
 Inputs and outputs are NHWC, as in the reference. Inside, the model runs
 NCHW tensors in ``torch.channels_last`` in the type given at construction;
 the segmentation classifier alone stays float32.
+
+On a spatial mesh (``models/common.py``'s ``set_spatial``) the frames are
+a rank's band of rows: the encoder, both decoders and the head take their
+halos, and the outputs are the band's (the segmentation resized to the
+band's rows). The fused encoder levels take no halo (the trainer turns
+them off under the axis).
 """
 
 from __future__ import annotations

@@ -3,6 +3,18 @@
 Modules take and return NCHW tensors; the model keeps them in
 ``torch.channels_last``, so the NHWC view the correlation kernels read costs
 nothing. LeakyReLU(0.1) follows every conv block, as in the reference.
+
+The spatial mesh axis (``parallel/mesh.py``): ``set_spatial(model, mesh)``
+gives every module of a model that reads across image rows (its class has
+a ``spatial`` attribute) the mesh that splits the rows into bands, one a
+rank. Such a module then runs on its band with the rows it reads across
+taken from the neighbouring bands (``parallel/halo.py``): a convolution's
+H padding becomes a halo of as many rows, zeros at the frame's top and
+bottom (``band_conv``, and the stride-2 block's row below), and a bilinear
+resize reads one edge-filled row each side and keeps its band of the
+output (``upsample2x``, ``upsample_to``). Without a mesh (``spatial`` None,
+one process) every module runs its own padding, as before the axis
+existed.
 """
 
 from __future__ import annotations
@@ -13,21 +25,74 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cerberusnet_torch.parallel.halo import halo_rows
+
 
 def leaky(x):
     return F.leaky_relu(x, 0.1)
 
 
-def upsample2x(x):
+def set_spatial(model: nn.Module, mesh) -> nn.Module:
+    """Gives every module of ``model`` that reads across rows the mesh
+    ``mesh`` when it splits rows over more than one rank, else None (each
+    module's own padding). Returns the model."""
+    band = mesh if mesh is not None and mesh.banded else None
+    for m in model.modules():
+        if hasattr(type(m), "spatial"):
+            m.spatial = band
+    return model
+
+
+def _band_resize(x, rows: int, width: int, spatial):
+    """Bilinear resize of a band of ``x`` to ``rows`` rows (an integer
+    multiple f of its own) and ``width`` columns: the band with one
+    edge-filled row each side, resized to f times as many rows, keeps the
+    f rows of each of its own. Each output row reads the input rows its
+    half-pixel position falls between, so the result is the whole frame's
+    resize, cut to the band."""
+    hb = x.shape[2]
+    if rows % hb:
+        raise ValueError(f"a band of {hb} rows resized to {rows}: not an "
+                         f"integer factor")
+    f = rows // hb
+    y = F.interpolate(halo_rows(x, 1, 1, spatial, "edge"),
+                      size=(f * (hb + 2), width), mode="bilinear",
+                      align_corners=False)
+    return y.narrow(2, f, rows)
+
+
+def upsample2x(x, spatial=None):
     """Bilinear x2 on the half-pixel grid with edge clamp: upsampling equal
-    to ``jax.image.resize(..., "bilinear")``."""
+    to ``jax.image.resize(..., "bilinear")``. ``spatial``: ``x`` is a band
+    of that mesh."""
+    if spatial is not None:
+        return _band_resize(x, 2 * x.shape[2], 2 * x.shape[3], spatial)
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=False)
 
 
-def upsample_to(x, hw):
+def upsample_to(x, hw, spatial=None):
+    """Bilinear resize to ``hw`` (with ``spatial``: the band's rows)."""
+    if spatial is not None:
+        return _band_resize(x, hw[0], hw[1], spatial)
     return F.interpolate(x, size=tuple(hw), mode="bilinear",
                          align_corners=False)
+
+
+def band_conv(conv: nn.Conv2d, x, spatial=None):
+    """``conv(x)``; with ``spatial``, on a band: the rows the convolution
+    pads in H come from the neighbouring bands (zeros at the frame's
+    borders), and the convolution's own forward (the one QAT and int8
+    interception replace) runs with its H padding off for the call."""
+    if spatial is None:
+        return conv(x)
+    ph, pw = conv.padding
+    x = halo_rows(x, ph, ph, spatial)
+    conv.padding = (0, pw)
+    try:
+        return conv(x)
+    finally:
+        conv.padding = (ph, pw)
 
 
 def same_pads(size: int, kernel: int, stride: int):
@@ -41,7 +106,12 @@ class ConvBlock(nn.Module):
     """Conv 3x3 with "SAME" padding + LeakyReLU(0.1).
 
     A stride-2 block pads (0, 1) on an even extent, as XLA does, so it pads
-    explicitly; a stride-1 block pads symmetrically inside the conv."""
+    explicitly; a stride-1 block pads symmetrically inside the conv. On a
+    band (``spatial``) the stride-2 block's row below is the next band's
+    first (a band starts on an even row), the stride-1 block's ``dilation``
+    rows each side are its neighbours'."""
+
+    spatial = None
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  dilation: int = 1):
@@ -52,11 +122,17 @@ class ConvBlock(nn.Module):
                               dilation=dilation)
 
     def forward(self, x):
-        if self.stride != 1:
+        if self.stride == 1:
+            return leaky(band_conv(self.conv, x, self.spatial))
+        pw = same_pads(x.shape[3], 3, self.stride)
+        if self.spatial is None:
             ph = same_pads(x.shape[2], 3, self.stride)
-            pw = same_pads(x.shape[3], 3, self.stride)
-            x = F.pad(x, (*pw, *ph))
-        return leaky(self.conv(x))
+        elif self.stride == 2 and x.shape[2] % 2 == 0:
+            x, ph = halo_rows(x, 0, 1, self.spatial), (0, 0)
+        else:
+            raise ValueError(f"a stride-{self.stride} block on a band of "
+                             f"{x.shape[2]} rows")
+        return leaky(self.conv(F.pad(x, (*pw, *ph))))
 
 
 class DenseEstimator(nn.Module):
@@ -84,6 +160,8 @@ class ContextNetwork(nn.Module):
     """Dilated refinement: conv blocks with the given dilations, then a
     plain 3x3 conv to ``out_channels``."""
 
+    spatial = None
+
     def __init__(self, in_channels: int, out_channels: int = 2,
                  channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
                  dilations: Sequence[int] = (1, 2, 4, 8, 16, 1)):
@@ -98,7 +176,7 @@ class ContextNetwork(nn.Module):
     def forward(self, x):
         for block in self.blocks:
             x = block(x)
-        return self.out(x)
+        return band_conv(self.out, x, self.spatial)
 
 
 def nhwc(x):

@@ -6,6 +6,10 @@ per level the right features are warped horizontally by the upsampled
 disparity (sampling to the left), then correlated with the left features
 over k in 0..D_l with D_l = max(max_disp_full // 2**l, 4), i.e. 5, 5, 7,
 13 and 25 channels at levels 6..2; the estimate has one channel.
+
+On a spatial mesh the correlation and the warp need no halo: both read
+along a row alone (the warp's vertical flow is 0), so each runs on the
+band as it is; the loop's other ops take theirs in ``CoarseToFineDecoder``.
 """
 
 from __future__ import annotations
@@ -44,10 +48,12 @@ class DisparityDecoder(CoarseToFineDecoder):
         return max(self.max_disp_full // (2**level), 4)
 
     def correlate(self, level, f1, f2):
+        # along W alone: a band's rows need no other band's
         return correlation1d(f1, f2, self.level_max_disp(level),
                              impl=self.corr_impl)
 
     def warp(self, f2, up):
+        # a horizontal warp: each output row reads its own row
         return warp1d(f2, up)
 
 

@@ -8,6 +8,12 @@ Six levels; each is a stride-2 conv block then two stride-1 conv blocks.
 fused kernel per level (K9; its backward K10 with ``pallas_grad="pallas"``,
 the plain recompute with ``"xla"``), with the same blocks' weights: the
 parameters and the math are those of the plain levels.
+
+On a spatial mesh (``spatial``, ``models/common.py``'s ``set_spatial``)
+the levels run through their ``ConvBlock``s alone, each on its band with
+its halo; a fused level cannot take a halo, so it raises there, and the
+trainer turns the fused levels off under the spatial axis, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from cerberusnet_torch.ops.encoder_level import encoder_level
 
 
 class PyramidEncoder(nn.Module):
+    spatial = None
+
     def __init__(self, channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
                  in_channels: int = 3, pallas_levels: int = 0,
                  pallas_grad: str = "xla"):
@@ -39,6 +47,9 @@ class PyramidEncoder(nn.Module):
 
     def forward(self, x):
         """(B, 3, H, W) image -> list of 6 feature maps, levels 1..6."""
+        if self.fused_levels and self.spatial is not None:
+            raise ValueError("fused encoder levels (pallas_levels) take no "
+                             "halo: set pallas_levels=0 on a spatial mesh")
         feats = []
         for i in range(self.fused_levels):
             convs = [b.conv for b in self.blocks[3 * i : 3 * i + 3]]

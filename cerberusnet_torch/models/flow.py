@@ -13,6 +13,13 @@ Coarse to fine over pyramid levels 6..2. At each level:
      make the next level's up_feat with a 4x4 stride-2 transposed conv.
 Estimates are in pixels at each level's own resolution; the full-resolution
 estimate is the level-2 one upsampled by two x2 steps and scaled by 4.
+
+On a spatial mesh (``spatial``, ``models/common.py``'s ``set_spatial``)
+each rank runs the loop on its band of rows: the upsamplings and the 3x3
+predictors take a halo of one row, the transposed conv one row of input
+each side (its output cut to the band), the flow decoder's correlation
+f2 haloed by its reach and its warp the whole frame of f2
+(``ops/correlation.py``, ``ops/warp.py``).
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ import torch.nn as nn
 from cerberusnet_torch.models.common import (
     ContextNetwork,
     DenseEstimator,
+    band_conv,
     leaky,
     nchw,
     nhwc,
     upsample2x,
 )
+from cerberusnet_torch.parallel.halo import halo_rows
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.ops.correlation import correlation2d
 from cerberusnet_torch.ops.warp import warp2d
@@ -49,6 +58,7 @@ class CoarseToFineDecoder(nn.Module):
     ``ContextNetwork_0``."""
 
     output = ""
+    spatial = None
 
     def __init__(self, encoder_channels: Sequence[int], out_channels: int,
                  cost_channels: Sequence[int], est_channels: Sequence[int],
@@ -77,32 +87,42 @@ class CoarseToFineDecoder(nn.Module):
     def warp(self, f2, up):
         raise NotImplementedError
 
+    def upfeat(self, i: int, x):
+        """``upfeats[i]`` (4x4, stride 2, padding 1); on a band, of the
+        band with one row of its neighbours each side (output row 2j + k -
+        1 reads input row j), the output cut to the band's rows."""
+        if self.spatial is None:
+            return self.upfeats[i](x)
+        y = self.upfeats[i](halo_rows(x, 1, 1, self.spatial))
+        return y.narrow(2, 2, 2 * x.shape[2])
+
     def forward(self, feats1, feats2):
         """Two pyramids (lists of NCHW maps, levels 1..6) -> {output:
         (B,C,H,W) at full resolution, output + "_pyramid": {level:
         (B,C,H/2^l,W/2^l)}}."""
         pyramid = {}
         est = up_feat = None
+        sp = self.spatial
         for i, level in enumerate(LEVELS):
             f1, f2 = feats1[level - 1], feats2[level - 1]
             if est is None:
                 f2w = nhwc(f2)
                 inputs = []
             else:
-                up = 2.0 * upsample2x(est)
+                up = 2.0 * upsample2x(est, sp)
                 f2w = self.warp(nhwc(f2), nhwc(up))
                 inputs = [up, up_feat]
             cost = leaky(nchw(self.correlate(level, nhwc(f1), f2w)))
             x = self.estimators[i](torch.cat([cost, f1] + inputs, dim=1))
-            est = self.predictors[i](x)
+            est = band_conv(self.predictors[i], x, sp)
             if inputs:
                 est = est + up
             if level == LEVELS[-1]:
                 est = est + self.context(x)
             else:
-                up_feat = leaky(self.upfeats[i](x))
+                up_feat = leaky(self.upfeat(i, x))
             pyramid[level] = est
-        full = 4.0 * upsample2x(upsample2x(est))
+        full = 4.0 * upsample2x(upsample2x(est, sp), sp)
         return {self.output: full, f"{self.output}_pyramid": pyramid}
 
 
@@ -123,10 +143,11 @@ class FlowDecoder(CoarseToFineDecoder):
                          est_channels, ctx_channels, corr_impl)
 
     def correlate(self, level, f1, f2):
-        return correlation2d(f1, f2, self.max_disp, impl=self.corr_impl)
+        return correlation2d(f1, f2, self.max_disp, impl=self.corr_impl,
+                             spatial=self.spatial)
 
     def warp(self, f2, up):
-        return warp2d(f2, up)
+        return warp2d(f2, up, spatial=self.spatial)
 
 
 class FlowNet(nn.Module):

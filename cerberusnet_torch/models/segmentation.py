@@ -20,6 +20,13 @@ projection upsampled to level 2; two conv blocks (``refine``,
 
 Either head's classifier runs in float32 whatever the trunk's type, so the
 logits keep full precision.
+
+On a spatial mesh (``spatial``, ``models/common.py``'s ``set_spatial``) a
+head runs on its band of rows: the conv blocks, the 3x3 classifier and the
+resizes take their halos (ASPP's rate-18 branch 18 rows, more than a
+level-3 band may hold, from as many bands as it reaches), and ASPP's image
+mean is the band's sum added over the spatial peers, over the frame's
+pixel count.
 """
 
 from __future__ import annotations
@@ -29,7 +36,13 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from cerberusnet_torch.models.common import ConvBlock, leaky, nhwc, upsample_to
+from cerberusnet_torch.models.common import (
+    ConvBlock,
+    band_conv,
+    leaky,
+    nhwc,
+    upsample_to,
+)
 from cerberusnet_torch.models.encoder import PyramidEncoder
 
 ENCODER_CHANNELS = (16, 32, 64, 96, 128, 196)
@@ -37,13 +50,16 @@ SEG_LEVELS = (6, 5, 4, 3, 2)
 SEG_HEADS = ("fpn", "aspp")
 
 
-def _classify(classifier: nn.Conv2d, x, out_hw):
+def _classify(classifier: nn.Conv2d, x, out_hw, spatial=None):
     """The 3x3 classifier (a float32 module) in float32, resized to
     ``out_hw``."""
-    return upsample_to(classifier(x.float()), out_hw)
+    return upsample_to(band_conv(classifier, x.float(), spatial), out_hw,
+                       spatial)
 
 
 class SegmentationHead(nn.Module):
+    spatial = None
+
     def __init__(self, encoder_channels: Sequence[int] = ENCODER_CHANNELS,
                  num_classes: int = 19, fpn_channels: int = 96):
         super().__init__()
@@ -57,14 +73,17 @@ class SegmentationHead(nn.Module):
 
     def forward(self, feats, out_hw):
         """feats: pyramid list (levels 1..6) -> (B, classes, H, W) float32."""
+        sp = self.spatial
         x = leaky(self.laterals[0](feats[SEG_LEVELS[0] - 1]))
         for i, level in enumerate(SEG_LEVELS[1:]):
             lat = leaky(self.laterals[i + 1](feats[level - 1]))
-            x = self.smooth[i](upsample_to(x, lat.shape[2:]) + lat)
-        return _classify(self.classifier, self.final(x), out_hw)
+            x = self.smooth[i](upsample_to(x, lat.shape[2:], sp) + lat)
+        return _classify(self.classifier, self.final(x), out_hw, sp)
 
 
 class ASPPSegmentationHead(nn.Module):
+    spatial = None
+
     def __init__(self, encoder_channels: Sequence[int] = ENCODER_CHANNELS,
                  num_classes: int = 19, channels: int = 128,
                  rates: Sequence[int] = (1, 6, 12, 18), level: int = 3,
@@ -85,17 +104,28 @@ class ASPPSegmentationHead(nn.Module):
 
     def forward(self, feats, out_hw):
         """feats: pyramid list (levels 1..6) -> (B, classes, H, W) float32."""
+        sp = self.spatial
         x = feats[self.level - 1]
         branches = [branch(x) for branch in self.branches]
         # image-level context: the global mean, a 1x1 conv, broadcast back
-        pooled = leaky(self.pool(x.mean(dim=(2, 3), keepdim=True)))
+        pooled = leaky(self.pool(self._image_mean(x)))
         branches.append(pooled.expand(-1, -1, *x.shape[2:]))
         y = leaky(self.project(torch.cat(branches, dim=1)))
         skip = leaky(self.skip(feats[self.skip_level - 1]))
-        y = torch.cat([upsample_to(y, skip.shape[2:]), skip], dim=1)
+        y = torch.cat([upsample_to(y, skip.shape[2:], sp), skip], dim=1)
         for block in self.refine:
             y = block(y)
-        return _classify(self.classifier, y, out_hw)
+        return _classify(self.classifier, y, out_hw, sp)
+
+    def _image_mean(self, x):
+        """The mean over the frame's pixels, (B, C, 1, 1); on a band, the
+        float32 sums of the spatial peers' bands over the frame's count."""
+        if self.spatial is None:
+            return x.mean(dim=(2, 3), keepdim=True)
+        sp = self.spatial
+        total = sp.spatial_sum(x.float().sum(dim=(2, 3), keepdim=True))
+        return (total / (x.shape[2] * sp.spatial_size * x.shape[3])).to(
+            x.dtype)
 
 
 def make_seg_head(kind: str, encoder_channels: Sequence[int],

@@ -29,6 +29,15 @@ are the hand-written kernels (``ops/cuda/correlation.py``), or the call
 raises; a CPU tensor goes to the plain forward below, and autograd
 differentiates it. ``impl="plain"`` asks
 for the plain forward on any device, as a yardstick for the kernels.
+
+On a spatial mesh (``spatial``, ``parallel/mesh.py``) f1 and f2 are a
+rank's band of rows. ``correlation2d`` reads f2 up to max_disp * dilation
+rows away: it runs on f2 with that many rows of halo from the neighbouring
+bands (``parallel/halo.py``; zeros outside the frame, as the plain op's
+padding) and f1 padded alike with zeros, and keeps the band's rows of the
+cost volume. The kernels stay as they are: K3's gradient of the halo rows
+goes back to their owners with the halo's backward. ``correlation1d``
+reads along W alone, so it runs on the band as it is.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from cerberusnet_torch.ops import library
+from cerberusnet_torch.parallel.halo import halo_rows
 
 IMPLS = (None, "plain")
 
@@ -151,8 +161,15 @@ def _dispatch(f1, f2, impl):
 
 
 def correlation2d(f1, f2, max_disp: int = 4, dilation: int = 1,
-                  impl: str | None = None):
-    """2-D correlation. (B,H,W,C) x2 -> (B,H,W,(2*max_disp+1)**2)."""
+                  impl: str | None = None, spatial=None):
+    """2-D correlation. (B,H,W,C) x2 -> (B,H,W,(2*max_disp+1)**2).
+    ``spatial``: f1 and f2 are bands of rows of that mesh."""
+    if spatial is not None:
+        reach, hb = max_disp * dilation, f1.shape[1]
+        f2 = halo_rows(f2, reach, reach, spatial, dim=1)
+        f1 = F.pad(f1, (0, 0, 0, 0, reach, reach))
+        return correlation2d(f1, f2, max_disp, dilation, impl).narrow(
+            1, reach, hb)
     if _dispatch(f1, f2, impl):
         return _correlation2d_plain(f1, f2, max_disp, dilation)
     return library.corr2d_fwd(f1, f2, max_disp, dilation)

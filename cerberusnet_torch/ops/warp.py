@@ -11,22 +11,40 @@ The four corner gathers follow the JAX formulation rather than
 ``grid_sample``: with ``align_corners=True`` that op maps a one-pixel-wide
 map through (w - 1) = 0 and ignores the flow there, where the reference
 does not.
+
+On a spatial mesh (``spatial``, ``parallel/mesh.py``) f and the flow are a
+rank's band of rows, and a flow may point at any row: ``warp2d`` samples
+the whole frame of f, gathered from the band's peers (``parallel/halo.py``;
+its backward sums their gradients and keeps the band's), at the band's own
+rows offset by its first. ``warp1d`` reads each output row's own row (its
+vertical flow is 0), so it runs on the band as it is.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cerberusnet_torch.parallel.halo import gather_rows
 
-def warp2d(f, flow):
-    """out(x) = f(x + flow(x)), bilinear. f (B,H,W,C), flow (B,H,W,2)."""
+
+def warp2d(f, flow, spatial=None):
+    """out(x) = f(x + flow(x)), bilinear. f (B,H,W,C), flow (B,H,W,2);
+    ``spatial``: both are bands of rows of that mesh."""
+    want = (*f.shape[:3], 2)
+    if tuple(flow.shape) != want:
+        raise ValueError(f"flow shape {tuple(flow.shape)} != {want}")
+    row0 = 0
+    if spatial is not None:
+        row0 = spatial.spatial_rank * f.shape[1]
+        f = gather_rows(f, spatial, dim=1)
     b, h, w, c = f.shape
-    if tuple(flow.shape) != (b, h, w, 2):
-        raise ValueError(f"flow shape {tuple(flow.shape)} != {(b, h, w, 2)}")
+    hb = flow.shape[1]
     fl = flow.float()
     xs = torch.arange(w, dtype=torch.float32, device=flow.device) + fl[..., 0]
-    ys = (torch.arange(h, dtype=torch.float32, device=flow.device)[:, None]
-          + fl[..., 1])
+    rows = torch.arange(hb, dtype=torch.float32, device=flow.device)
+    if row0:
+        rows = rows + row0
+    ys = rows[:, None] + fl[..., 1]
     x0 = torch.floor(xs)
     y0 = torch.floor(ys)
     wx = xs - x0
@@ -36,7 +54,7 @@ def warp2d(f, flow):
 
     # gather in f's own type and widen after: the same values, half the bytes
     flat = f.reshape(b, h * w, c)
-    out = torch.zeros((b, h, w, c), dtype=torch.float32, device=f.device)
+    out = torch.zeros((b, hb, w, c), dtype=torch.float32, device=f.device)
     for dy in (0, 1):
         for dx in (0, 1):
             ix = x0i + dx
@@ -46,8 +64,8 @@ def warp2d(f, flow):
             wgt = torch.where(valid, wgt, 0.0)
             idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
             corner = torch.gather(
-                flat, 1, idx.reshape(b, h * w, 1).expand(b, h * w, c))
-            out = out + wgt[..., None] * corner.reshape(b, h, w, c).float()
+                flat, 1, idx.reshape(b, hb * w, 1).expand(b, hb * w, c))
+            out = out + wgt[..., None] * corner.reshape(b, hb, w, c).float()
     return out.to(f.dtype)
 
 

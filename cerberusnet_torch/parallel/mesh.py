@@ -1,22 +1,28 @@
-"""Data parallelism across processes: the port's counterpart of the
-``data`` axis of ``cerberusnet_tpu/parallel/mesh.py``.
+"""Data and spatial parallelism across processes: the port's counterpart
+of the ``data`` and ``spatial`` axes of ``cerberusnet_tpu/parallel/mesh.py``.
 
 The reference builds a ('data', 'spatial') mesh of devices under one
-controller: ``shard_batch`` places the host's global batch over it, and
-GSPMD makes every reduction over the batch global and inserts the
-gradient psum. PyTorch's idiom is one process per card, so each process
-holds its slice of the batch and the reductions are made global by hand:
+controller: ``shard_batch`` places the host's global batch over it (the
+samples over 'data', image rows over 'spatial'), and GSPMD makes every
+reduction global, inserts the gradient psum and the convolutions' halo
+exchanges. PyTorch's idiom is one process per card, so each process holds
+its piece of the batch and the reductions and halos are made by hand:
 
 * ``make_mesh`` is this process's place in an initialised
-  ``torch.distributed`` group: rank, size and device (``DataMesh``). A
-  process outside any group is a mesh of one, whose collectives are the
-  identity, so a single process computes exactly what it did before.
-* ``shard_batch`` is rank r's samples [r B/N, (r+1) B/N) of a host batch
-  of B.
-* ``DataMesh.sum``, ``mean`` and ``max`` are the batch's reductions over
-  every rank, differentiable, for the losses; ``mean_grads`` all-reduces
-  the float32 gradients in a few flat buckets; ``sum_`` adds up metric
-  accumulators; ``barrier`` waits for every rank.
+  ``torch.distributed`` group (``DataMesh``): rank, size, device, and its
+  (data, spatial) coordinates on a D x S grid, rank = d S + s as the
+  reference's reshape lays them out, with a process group of its S
+  spatial peers for the halos (``parallel/halo.py``). A process outside
+  any group is a mesh of one, whose collectives are the identity, so a
+  single process computes exactly what it did before.
+* ``shard_batch`` is rank (d, s)'s samples [d B/D, (d+1) B/D) of a host
+  batch of B and, of every image-like entry (three dimensions or more),
+  its band of rows [s H/S, (s+1) H/S).
+* ``DataMesh.sum``, ``mean`` and ``max`` are reductions over every rank,
+  differentiable, for the losses; ``spatial_sum`` is the sum over the
+  spatial peers; ``mean_grads`` all-reduces the float32 gradients in a few
+  flat buckets; ``sum_`` adds up metric accumulators; ``barrier`` waits
+  for every rank.
 * ``launch`` starts N ranks (the ``spawn`` start method, a collective
   time limit) and returns their results; a rank that raises, or does not
   end in time, makes it raise.
@@ -25,11 +31,15 @@ The gradient convention. ``sum`` is an all-reduce, and its backward is the
 all-reduce of the upstream gradients, its adjoint. Every rank computes the
 same global loss and calls ``backward``, so the N ranks' upstream
 gradients are equal, the backward sums N copies of them, and each rank's
-gradient is N times its own samples' share. The all-reduce of the
-parameters' gradients is therefore a mean (``mean_grads``), not a sum.
-
-The spatial axis (H-sharding, ``train.num_spatial_devices > 1``) is not
-ported (ROADMAP A11b).
+gradient is N times its own share. The all-reduce of the parameters'
+gradients is therefore a mean (``mean_grads``), not a sum. The spatial
+axis keeps the convention when two rules hold: every global reduction runs
+over all D x S ranks, and every halo exchange sends the gradient of a
+borrowed row back to the rank that owns it, where it is added (a value
+computed alike on every spatial peer, such as ASPP's image mean, comes
+from ``spatial_sum``, whose backward is the same all-reduce). Then a
+rank's parameter gradient is N times its band's share, and the mean over
+all ranks is the whole frame's and the global batch's gradient.
 """
 
 from __future__ import annotations
@@ -61,66 +71,112 @@ def _group():
     return 1, 0
 
 
-def check_cards(n: int):
+def _setting(num_spatial: int) -> str:
+    """The config keys whose product is the ranks asked for."""
+    return ("train.num_data_devices" if num_spatial == 1 else
+            "train.num_data_devices x train.num_spatial_devices")
+
+
+def check_cards(n: int, num_spatial: int = 1):
     """Raises ValueError when ``n`` ranks, one a CUDA device, exceed the
     visible devices (the reference fails at ``make_mesh``'s reshape)."""
     cards = torch.cuda.device_count()
     if n > cards:
         raise ValueError(
-            f"train.num_data_devices={n} asks for {n} CUDA devices, one a "
+            f"{_setting(num_spatial)}={n} asks for {n} CUDA devices, one a "
             f"rank, and {cards} are visible")
 
 
-def data_ranks(num_data: int, device) -> int:
-    """The ranks a launcher starts for ``train.num_data_devices``: itself
-    when positive, else every visible CUDA device ("cuda", a card a rank,
-    which must exist) or one."""
+def data_ranks(num_data: int, device, num_spatial: int = 1) -> int:
+    """The ranks a launcher starts for ``train.num_data_devices`` x
+    ``train.num_spatial_devices``: their product when ``num_data`` is
+    positive, else every visible CUDA device ("cuda", a card a rank, which
+    must exist and be a multiple of ``num_spatial``) or ``num_spatial``."""
     device = torch.device(device)
     if device.type != "cuda" or device.index is not None:
-        return max(num_data, 1)
-    n = num_data if num_data > 0 else torch.cuda.device_count()
-    check_cards(n)
+        return max(num_data, 1) * num_spatial
+    if num_data > 0:
+        n = num_data * num_spatial
+    else:
+        n = torch.cuda.device_count()
+        if n % num_spatial:
+            raise ValueError(f"{n} CUDA devices not divisible by "
+                             f"train.num_spatial_devices={num_spatial}")
+    check_cards(n, num_spatial)
     return n
 
 
 class _AllSum(torch.autograd.Function):
-    """The sum over ranks; its backward sums the upstream gradients over
-    ranks (the module docstring's convention)."""
+    """The sum over the ranks of ``group`` (every rank: None); its backward
+    sums the upstream gradients over the same ranks (the module
+    docstring's convention)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = torch.clone(x, memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = torch.clone(g, memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class DataMesh:
-    """This process's place on the data axis: ``rank`` of ``size`` ranks,
-    its ``device``, and whether it is in a process group (``distributed``,
-    also for a group of one: the collectives then run on one rank)."""
+    """This process's place on the mesh: ``rank`` of ``size`` ranks, its
+    ``device``, whether it is in a process group (``distributed``, also for
+    a group of one: the collectives then run on one rank), the spatial
+    axis's extent S (``spatial_size``) and the process group of this
+    rank's S spatial peers (``spatial_group``, ranks d S .. d S + S - 1).
+    Its data coordinate is ``data_rank`` of ``data_size``, its spatial one
+    ``spatial_rank``."""
 
     rank: int = 0
     size: int = 1
     device: torch.device = torch.device("cpu")
     distributed: bool = False
+    spatial_size: int = 1
+    spatial_group: object = None
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.spatial_size
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.spatial_size
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.spatial_size
+
+    @property
+    def banded(self) -> bool:
+        """Whether image rows are split over more than one rank."""
+        return self.spatial_size > 1
 
     def sum(self, x):
         """The sum of ``x`` over ranks, differentiable."""
-        return _AllSum.apply(x) if self.distributed else x
+        return _AllSum.apply(x, None) if self.distributed else x
 
-    def mean(self, x):
-        """The mean of ``x`` over its elements on every rank (each rank
-        holds as many); ``x.mean()`` outside a group."""
+    def spatial_sum(self, x):
+        """The sum of ``x`` over this rank's spatial peers,
+        differentiable: a value of the whole frame, equal on each peer."""
+        return _AllSum.apply(x, self.spatial_group) if self.banded else x
+
+    def mean(self, x, count: int | None = None):
+        """The mean of ``x`` over its elements on every rank;
+        ``x.mean()`` outside a group. Each rank holds as many elements
+        unless ``count``, the number of elements on all ranks together,
+        is given."""
         if not self.distributed:
             return x.mean()
-        return self.sum(x.sum()) / (x.numel() * self.size)
+        return self.sum(x.sum()) / (x.numel() * self.size
+                                    if count is None else count)
 
     def max(self, x):
         """The largest element of ``x`` over ranks, ``x.amax()`` outside a
@@ -173,45 +229,94 @@ class DataMesh:
             dist.barrier()
 
     def shard(self, n: int) -> slice:
-        """This rank's rows of a global batch of ``n``."""
-        if n % self.size:
+        """This rank's samples of a global batch of ``n``."""
+        if n % self.data_size:
             raise ValueError(
                 f"batch size {n} is not divisible by the data-parallel mesh "
-                f"axis ({self.size} devices); adjust data.batch_size")
-        b = n // self.size
-        return slice(self.rank * b, (self.rank + 1) * b)
+                f"axis ({self.data_size} devices); adjust data.batch_size")
+        b = n // self.data_size
+        return slice(self.data_rank * b, (self.data_rank + 1) * b)
+
+    def rows(self, h: int) -> slice:
+        """This rank's band of ``h`` image rows."""
+        if h % self.spatial_size:
+            raise ValueError(
+                f"{h} rows do not split into {self.spatial_size} equal "
+                f"bands (the spatial mesh axis)")
+        hb = h // self.spatial_size
+        return slice(self.spatial_rank * hb, (self.spatial_rank + 1) * hb)
+
+    def band(self, batch: dict) -> dict:
+        """This rank's band of rows (dimension 1) of every entry of
+        ``batch`` with three dimensions or more (images, labels, flow,
+        disparity and their masks); the others as they are."""
+        if not self.banded:
+            return batch
+        return {k: v[:, self.rows(v.shape[1])] if getattr(v, "ndim", 0) >= 3
+                else v for k, v in batch.items()}
 
 
 SINGLE = DataMesh()
 
 
-def make_mesh(num_data: int = 0, device="cuda") -> DataMesh:
+def _spatial_groups(size: int, spatial: int):
+    """This rank's group of spatial peers, made on every rank of the
+    world (``dist.new_group`` is collective): one group per data
+    coordinate."""
+    rank = dist.get_rank()
+    mine = None
+    for d in range(size // spatial):
+        ranks = list(range(d * spatial, (d + 1) * spatial))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
+
+
+def make_mesh(num_data: int = 0, device="cuda",
+              num_spatial: int = 1) -> DataMesh:
     """This process's ``DataMesh`` for ``train.num_data_devices`` =
-    ``num_data`` ranks (0: every rank of the group; a process outside a
-    group is a mesh of one). ``device`` "cuda" without an index means a
-    card a rank, the rank's own (``LOCAL_RANK``, else the rank); with an
-    index the ranks share it. Raises ValueError when the ranks asked for
-    exceed the visible cards or differ from the group's size."""
+    ``num_data`` x ``train.num_spatial_devices`` = ``num_spatial`` ranks
+    (``num_data`` 0: every rank of the group, divided by ``num_spatial``; a
+    process outside a group is a mesh of one). ``device`` "cuda" without
+    an index means a card a rank, the rank's own (``LOCAL_RANK``, else the
+    rank); with an index the ranks share it. Raises ValueError when the
+    ranks asked for exceed the visible cards or differ from the group's
+    size."""
     device = torch.device(device)
     size, rank = _group()
     distributed = dist.is_available() and dist.is_initialized()
-    n = num_data if num_data > 0 else size
+    if num_data <= 0 and size % num_spatial:
+        raise ValueError(f"{size} ranks not divisible by "
+                         f"train.num_spatial_devices={num_spatial}")
+    n = num_data * num_spatial if num_data > 0 else size
     if device.type == "cuda" and device.index is None:
-        check_cards(n)
+        check_cards(n, num_spatial)
         if distributed:
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
                                                              rank)))
     if n != size:
         raise ValueError(
-            f"train.num_data_devices={n} asks for {n} data ranks, and this "
-            f"process is one of {size}: start the ranks with "
-            f"`python -m cerberusnet_torch.cli`, parallel.launch or torchrun")
-    return DataMesh(rank, size, device, distributed)
+            f"{_setting(num_spatial)}={n} asks for {n} "
+            f"{'data ranks' if num_spatial == 1 else 'ranks'}, and this "
+            f"process is one of {size}: start the ranks with `python -m cerberusnet_torch.cli`, "
+            f"parallel.launch or torchrun")
+    group = _spatial_groups(size, num_spatial) if num_spatial > 1 else None
+    return DataMesh(rank, size, device, distributed, num_spatial, group)
 
 
 def shard_batch(batch: dict, mesh: DataMesh) -> dict:
-    """This rank's slice (dim 0) of a host batch dict; raises the
-    reference's ValueError when the batch does not divide."""
+    """This rank's piece of a host batch dict: its samples (dim 0) and, on
+    a spatial mesh, its band of rows (dim 1) of every entry with three
+    dimensions or more, as the reference's ``shard_batch`` places them;
+    raises the reference's ValueError when the batch does not divide."""
+    return mesh.band(shard_samples(batch, mesh))
+
+
+def shard_samples(batch: dict, mesh: DataMesh) -> dict:
+    """This rank's samples (dim 0) of a host batch dict, whole frames: what
+    a trainer takes, which augments and preprocesses the frame before it
+    keeps its band."""
     rows = mesh.shard(len(next(iter(batch.values()))))
     return {k: v[rows] for k, v in batch.items()}
 

@@ -29,16 +29,30 @@ the plain means are sums over every rank (``DataMesh.sum``, ``mean``),
 berHu's c comes from the global batch's largest error (``DataMesh.max``),
 so each rank's value is the global batch's. The default mesh is one
 process, whose reductions are these functions' own ops.
+
+Under the spatial axis each rank holds a band of rows of every map, and the
+reductions above run over all ranks, so they are the whole frame's. The
+terms that read across rows take a halo (``parallel/halo.py``): SSIM's 3x3
+windows and RMI's 3x3 regions the two rows below the band, smoothness's
+row differences one, and the last band keeps the outputs whose window ends
+inside the frame; their means divide by the frame's count. RMI's region
+means and covariances are sums over the frame, added over the spatial
+peers, so every peer solves the same 9x9 systems. The photometric term
+warps the whole frame of the second image (``warp2d``'s ``spatial``). The
+ground-truth pyramid's 2x2 sum pools stay within the band: a band's rows
+are a multiple of 2^6.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 
 from cerberusnet_torch.ops.warp import warp2d
+from cerberusnet_torch.parallel.halo import halo_rows
 from cerberusnet_torch.parallel.mesh import SINGLE
 
 # PWC-Net multi-scale weights, levels 6..2.
@@ -52,6 +66,22 @@ def _masked_mean(x, mask, mesh=SINGLE):
     num = mesh.sum((x * mask).sum())
     den = mesh.sum(mask.sum())
     return torch.where(den > 0, num / den.clamp_min(1.0), 0.0)
+
+
+def _rows_below(x, k: int, mesh, dim: int = 1):
+    """A band ``x`` with the ``k`` rows below it (zeros past the frame),
+    and how many outputs of a (k + 1)-row VALID window over it lie in the
+    frame: all its rows, or k fewer on the last band."""
+    last = mesh.spatial_rank == mesh.spatial_size - 1
+    return (halo_rows(x, 0, k, mesh, dim=dim),
+            x.shape[dim] - (k if last else 0))
+
+
+def _frame_mean(x, rows: int, mesh):
+    """The mean of a band's ``x`` over every rank, whose dimension 1
+    spans ``rows`` rows over the whole frame."""
+    per_row = x.shape[0] * math.prod(x.shape[2:])
+    return mesh.mean(x, count=per_row * mesh.data_size * rows)
 
 
 def segmentation_loss(logits, labels, ignore_index: int = 255,
@@ -97,6 +127,8 @@ def rmi_loss(logits, labels, ignore_index: int = 255, pool_stride: int = 4,
     b, c, h, w = p.shape
     hh, ww = h - radius + 1, w - radius + 1
     r = radius * radius
+    if mesh.banded:
+        return _rmi_band(y, p, radius, eps, mesh)
 
     def regions(x):  # (B, C, R, N), the shifts in row-major order
         crops = [x[:, :, i:i + hh, j:j + ww] for i in range(radius)
@@ -109,7 +141,38 @@ def rmi_loss(logits, labels, ignore_index: int = 255, pool_stride: int = 4,
     cov_yy = ym @ ym.transpose(-1, -2) / n
     cov_yp = ym @ pm.transpose(-1, -2) / n
     cov_pp = pm @ pm.transpose(-1, -2) / n
-    eye = torch.eye(r, device=logits.device)
+    return _rmi_logdet(cov_yy, cov_yp, cov_pp, eps, mesh)
+
+
+def _rmi_band(y, p, radius: int, eps: float, mesh):
+    """``rmi_loss`` past its pooling on a band (NCHW): the regions that
+    start in the band, the rows below from the next band, and the region
+    means and covariances summed over the spatial peers."""
+    b, c, h, w = p.shape
+    ww, r = w - radius + 1, radius * radius
+    n = (h * mesh.spatial_size - radius + 1) * ww  # the frame's regions
+    y, hh = _rows_below(y, radius - 1, mesh, dim=2)
+    p, _ = _rows_below(p, radius - 1, mesh, dim=2)
+
+    def regions(x):  # (B, C, R, N_band), centred on the frame's means
+        crops = [x[:, :, i:i + hh, j:j + ww] for i in range(radius)
+                 for j in range(radius)]
+        m = torch.stack(crops, 2).reshape(b, c, r, hh * ww)
+        return m - mesh.spatial_sum(m.sum(-1, keepdim=True)) / n
+
+    ym, pm = regions(y), regions(p)
+
+    def cov(u, v):
+        return mesh.spatial_sum(u @ v.transpose(-1, -2)) / n
+
+    return _rmi_logdet(cov(ym, ym), cov(ym, pm), cov(pm, pm), eps, mesh)
+
+
+def _rmi_logdet(cov_yy, cov_yp, cov_pp, eps: float, mesh):
+    """RMI of the region covariances: the mean over (batch, class) of
+    0.5 logdet of the conditional covariance, over the region's size."""
+    r = cov_yy.shape[-1]
+    eye = torch.eye(r, device=cov_yy.device)
     # sigma_{y|p} = cov_yy - cov_yp (cov_pp + eps I)^-1 cov_yp^T
     inv_term = torch.linalg.solve_ex(cov_pp + eps * eye,
                                      cov_yp.transpose(-1, -2))[0]
@@ -202,7 +265,7 @@ def photometric_loss(im1, im2, flow, alpha: float = 0.85, mesh=SINGLE):
     between ``im1`` and ``im2`` warped back by ``flow`` (which maps im1's
     pixels into im2), in float32 after the warp (which runs in im2's
     type)."""
-    im2w = warp2d(im2, flow).float()
+    im2w = warp2d(im2, flow, spatial=mesh if mesh.banded else None).float()
     im1 = im1.float()
     l1 = mesh.mean((im1 - im2w).abs())
     return (alpha * (1.0 - _ssim(im1, im2w, mesh=mesh)) * 0.5
@@ -216,12 +279,17 @@ def _ssim(a, b, c1: float = 0.01**2, c2: float = 0.03**2, mesh=SINGLE):
         return F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=1).permute(
             0, 2, 3, 1)
 
+    if mesh.banded:
+        rows = a.shape[1] * mesh.spatial_size - 2
+        (a, n), (b, _) = _rows_below(a, 2, mesh), _rows_below(b, 2, mesh)
     mu_a, mu_b = pool(a), pool(b)
     var_a = pool(a * a) - mu_a**2
     var_b = pool(b * b) - mu_b**2
     cov = pool(a * b) - mu_a * mu_b
     num = (2 * mu_a * mu_b + c1) * (2 * cov + c2)
     den = (mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2)
+    if mesh.banded:
+        return _frame_mean((num / den).narrow(1, 0, n), rows, mesh)
     return mesh.mean(num / den)
 
 
@@ -238,9 +306,16 @@ def smoothness_loss(field, image, mesh=SINGLE):
         return x[:, 1:] - x[:, :-1]
 
     wx = torch.exp(-grad_x(image).abs().mean(-1, keepdim=True))
+    along_x = mesh.mean(grad_x(field).abs() * wx)
+    if mesh.banded:
+        rows = field.shape[1] * mesh.spatial_size - 1
+        (field, n), (image, _) = (_rows_below(field, 1, mesh),
+                                  _rows_below(image, 1, mesh))
     wy = torch.exp(-grad_y(image).abs().mean(-1, keepdim=True))
-    return (mesh.mean(grad_x(field).abs() * wx)
-            + mesh.mean(grad_y(field).abs() * wy))
+    along_y = grad_y(field).abs() * wy
+    if mesh.banded:
+        return along_x + _frame_mean(along_y.narrow(1, 0, n), rows, mesh)
+    return along_x + mesh.mean(along_y)
 
 
 def berhu_loss(pred, gt, valid=None, c_frac: float = 0.2, mesh=SINGLE):

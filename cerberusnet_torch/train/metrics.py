@@ -5,8 +5,9 @@ The accumulators are small float32 tensors on the device (a confusion
 matrix and two triples of running sums). ``MetricState.update`` adds one
 batch to them without a host read; ``compute`` reads them once, at the
 end of an evaluation, as the reference's on-device accumulators do. Under
-data parallelism each rank adds its slices, and ``summed`` adds up the
-ranks' states before ``compute``.
+data parallelism each rank adds its slices (on a spatial mesh, its band of
+their rows), and ``summed`` adds up every rank's state before
+``compute``.
 """
 
 from __future__ import annotations

@@ -54,6 +54,9 @@ process a rank, each holding its slice of every global batch of
 ``data.batch_size``, as the reference's ``data`` mesh axis shards it.
 The losses and metrics are the global batch's, the gradients are
 all-reduced, and every rank makes the same update; rank 0 alone writes.
+The spatial axis (``train.num_spatial_devices`` S): each frame's rows are
+split over S ranks, each running the model on its band with the halos of
+``parallel/halo.py``; D x S ranks train with D = ``num_data_devices``.
 """
 
 from __future__ import annotations
@@ -98,6 +101,7 @@ from cerberusnet_torch.export.aot import (
 )
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.models.cerberus import CerberusNet
+from cerberusnet_torch.models.common import set_spatial
 from cerberusnet_torch.models.dcv_flow import (
     CerberusDCV,
     DCVFlowNet,
@@ -112,7 +116,7 @@ from cerberusnet_torch.models.raft import (
     keep_tied_float32,
 )
 from cerberusnet_torch.models.segmentation import SegNet
-from cerberusnet_torch.parallel.mesh import make_mesh, shard_batch
+from cerberusnet_torch.parallel.mesh import make_mesh, shard_samples
 from cerberusnet_torch.quant import ptq, qat
 from cerberusnet_torch.train import losses
 from cerberusnet_torch.train.config import (
@@ -187,6 +191,21 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
             lookup_impl=cfg.raft_lookup, dtype=dtype,
             **(seg if model is CerberusRAFT else {}))), keys
     raise ValueError(f"unknown model variant {cfg.variant!r}")
+
+
+def check_spatial_mesh(config: ExperimentConfig):
+    """The reference's guard (its ``Trainer``): ValueError when
+    ``train.num_spatial_devices`` exceeds the coarsest pyramid level's
+    rows, where a spatial rank would hold no row."""
+    n = config.train.num_spatial_devices
+    levels = len(config.model.encoder_channels)
+    h = config.data.hw[0]
+    if n > 1 and h // 2**levels < n:
+        raise ValueError(
+            f"train.num_spatial_devices={n} exceeds the coarsest pyramid "
+            f"level's height {h // 2**levels} (input H {h} / 2^{levels}): "
+            f"a spatial rank would hold no row of it; use H >= "
+            f"{2**levels * n} or fewer spatial devices")
 
 
 # the reference's key for the log-variances in its parameter tree
@@ -380,7 +399,7 @@ class Trainer:
     runs in, one process a mesh of one; "cuda" a card a rank). Rank r
     trains on rows [r B/N, (r+1) B/N) of each global batch of B =
     ``data.batch_size``: its loader decodes only those, and ``train_step``
-    and ``loss_and_grads`` take this rank's slice (``shard_batch``). Each
+    and ``loss_and_grads`` take this rank's slice (``shard_samples``). Each
     step draws the global batch's augmentation from the same generator on
     every rank and keeps its rows of the draws; the losses reduce over the
     global batch (``losses.joint_loss``'s ``mesh``), so the loss components
@@ -393,17 +412,33 @@ class Trainer:
     every rank restores the same checkpoint after a barrier. With more
     than one rank CerberusNet's fused levels are off
     (``model.pallas_levels`` becomes 0), as the reference turns them off
-    under a data mesh of more than one device."""
+    under a data mesh of more than one device.
+
+    The spatial axis: with ``train.num_spatial_devices`` S > 1 the mesh is
+    D x S ranks, D = ``num_data_devices``, and rank (d, s) holds data
+    shard d's samples and rows [s H/S, (s+1) H/S) of every map
+    (``set_spatial``: the model's modules take their halos from the
+    neighbouring bands). The loader decodes shard d's samples, whole
+    frames; a step augments and preprocesses them, then keeps its band
+    (``DataMesh.band``); the losses, gradients and metrics are the global
+    batch's over the whole frame. ``evaluate_tta`` (whose resizes need the
+    whole frame) runs whole frames on every rank and counts spatial rank
+    0's; the forwards rank 0 makes alone (panels, predictions) and QAT's
+    calibration run whole frames. An H whose coarsest level has fewer rows
+    than S raises ValueError (``check_spatial_mesh``), as the
+    reference."""
 
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
+        check_spatial_mesh(config)
         if config.train.qat and config.model.pallas_levels:
             config.model.pallas_levels = 0
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to train on the CPU")
-        self.mesh = make_mesh(config.train.num_data_devices, device)
+        self.mesh = make_mesh(config.train.num_data_devices, device,
+                              config.train.num_spatial_devices)
         if self.mesh.size > 1 and config.model.pallas_levels:
             config.model.pallas_levels = 0
         device = self.mesh.device
@@ -429,7 +464,7 @@ class Trainer:
 
         self.model, self.input_keys = build_model(m, self.corr_impl,
                                                   self.dtype)
-        self.model = self.model.to(device).train()
+        self.model = set_spatial(self.model.to(device).train(), self.mesh)
         params = dict(self.model.named_parameters())
         # the log-variances are leaves of the loss, as the model's
         # parameters are, with masters of their own
@@ -548,6 +583,19 @@ class Trainer:
         return (DebugNans() if self.config.train.debug_nans
                 else contextlib.nullcontext())
 
+    @contextlib.contextmanager
+    def _whole_frames(self):
+        """The model without the spatial axis for the body: a forward of
+        whole frames on this rank alone (no halo exchange)."""
+        if not self.mesh.banded:
+            yield
+            return
+        set_spatial(self.model, None)
+        try:
+            yield
+        finally:
+            set_spatial(self.model, self.mesh)
+
     def _forward(self, batch):
         inputs = [batch[k] for k in self.input_keys]
         if self._qat_ema is None:
@@ -571,7 +619,8 @@ class Trainer:
         weights, as ``qat.init_ema`` holds them."""
         batches_ = self._calib_batches(self.config.data.batch_size,
                                        self.config.train.qat_calib_batches)
-        scales = ptq.calibrate(self.model, batches_)
+        with self._whole_frames():
+            scales = ptq.calibrate(self.model, batches_)
         print(f"[trainer] QAT: calibrated {len(scales)} conv ranges")
         return qat.init_ema(scales, self.device)
 
@@ -607,9 +656,9 @@ class Trainer:
         if not cfg.enabled:
             return batch
         b, h, w = batch["left"].shape[:3]
-        draws = augment.draw(cfg, b * self.mesh.size, (h, w),
-                             self.augment_generator)
-        draws = augment.shard_draws(draws, self.mesh.shard(b * self.mesh.size))
+        n = b * self.mesh.data_size
+        draws = augment.draw(cfg, n, (h, w), self.augment_generator)
+        draws = augment.shard_draws(draws, self.mesh.shard(n))
         return augment.apply(batch, draws, cfg)
 
     def loss_and_grads(self, batch):
@@ -625,9 +674,12 @@ class Trainer:
     def _rank_loss_and_grads(self, batch):
         """``loss_and_grads`` before the gradients' all-reduce: each
         rank's own gradients (N times its rows' share of the global batch's
-        gradient under a mesh of N)."""
-        batch = preprocess(self._augmented(batch), self.config.data.hw,
-                           self.dtype, self.device)
+        gradient under a mesh of N ranks). ``batch``: this rank's samples,
+        whole frames; on a spatial mesh it keeps its band after
+        preprocessing."""
+        batch = self.mesh.band(preprocess(
+            self._augmented(batch), self.config.data.hw, self.dtype,
+            self.device))
         for p in self._params:
             p.grad = None
         bf16 = self.config.optim.grads_dtype == "bfloat16"
@@ -706,11 +758,11 @@ class Trainer:
         rank's share of it), preprocesses it on the device and attaches the
         (B,) sample mask that keeps the padding out of the metrics. A
         data-parallel loader's batch comes padded, its mask under
-        "_sample_mask"."""
+        "_sample_mask". Whole frames, also on a spatial mesh."""
         batch = dict(batch)
         mask = batch.pop("_sample_mask", None)
         if mask is None:
-            rows = self.mesh.size if sharded else 1
+            rows = self.mesh.data_size if sharded else 1
             batch, mask = pad_batch(batch, self.config.data.batch_size // rows)
         prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
         prep["_sample_mask"] = torch.as_tensor(mask).to(self.device)
@@ -732,13 +784,14 @@ class Trainer:
         masters without EMA, over ``loader`` or else every sample of the
         held-out dataset, the last batch padded and masked. Under data
         parallelism each rank runs its rows of each batch (a ``loader``
-        given is this rank's) and the ranks' states are summed."""
+        given is this rank's) and the ranks' states are summed; on a
+        spatial mesh each rank its band of them."""
         metrics = MetricState.zeros(self.config.model.num_classes,
                                     self.device)
         with self._eval_weights():
             for batch in self._eval_loader(loader):
                 with self._nan_check():
-                    prep = self._prep_eval_batch(batch)
+                    prep = self.mesh.band(self._prep_eval_batch(batch))
                     out = self._forward(prep)
                 metrics = metrics.update(out, prep)
         return metrics.summed(self.mesh).compute()
@@ -749,16 +802,19 @@ class Trainer:
         """``evaluate`` with multi-scale and mirrored test-time
         augmentation (``eval/tta.py``: each batch's predictions averaged
         over ``scales`` and, with ``flip``, their mirrored passes);
-        ``per_class`` adds each class's IoU (``iou/<name>``)."""
+        ``per_class`` adds each class's IoU (``iou/<name>``). On a spatial
+        mesh (the resizes need the whole frame) every rank runs whole
+        frames of its samples and spatial rank 0's count."""
         metrics = MetricState.zeros(self.config.model.num_classes,
                                     self.device)
-        with self._eval_weights():
+        with self._eval_weights(), self._whole_frames():
             for batch in self._eval_loader(loader):
                 prep = self._prep_eval_batch(batch)
                 out = tta_forward(self._forward,
                                   {k: prep[k] for k in self.input_keys},
                                   scales=tuple(scales), flip=flip)
-                metrics = metrics.update(out, prep)
+                if self.mesh.spatial_rank == 0:
+                    metrics = metrics.update(out, prep)
         return metrics.summed(self.mesh).compute(per_class=per_class)
 
     @torch.no_grad()
@@ -773,7 +829,7 @@ class Trainer:
         made, idx = [], 0
         if not self.writer:
             return made
-        with self._eval_weights():
+        with self._eval_weights(), self._whole_frames():
             for batch in self._eval_loader(loader, sharded=False):
                 n = len(batch["left"])
                 native_hw = tuple(batch["left"].shape[1:3])
@@ -805,7 +861,7 @@ class Trainer:
         batch = {k: data_io.read_image_u8(paths[k])[None]
                  for k in self.input_keys}
         prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
-        with self._eval_weights():
+        with self._eval_weights(), self._whole_frames():
             out = self._forward(prep)
         out = {k: to_numpy(v) for k, v in out.items()
                if isinstance(v, torch.Tensor)}
@@ -842,7 +898,7 @@ class Trainer:
         (``predict_images``'s panel)."""
         batch = next(iter(self._loader(self.dataset, 1, sharded=False)))
         prep = preprocess(batch, self.config.data.hw, self.dtype, self.device)
-        with self._eval_weights():
+        with self._eval_weights(), self._whole_frames():
             out = self._forward(prep)
         return self._panel(batch["left"], out)
 
@@ -890,7 +946,7 @@ class Trainer:
         one step outside the trace, written to ``log_dir/trace.json`` (by
         rank 0, each rank tracing its steps on its rows of the batch);
         returns its path. The steps update the weights."""
-        batch = shard_batch(
+        batch = shard_samples(
             batches(self.dataset, self.config.data.batch_size, 1)[0],
             self.mesh)
         self.train_step(batch)

@@ -408,9 +408,9 @@ TTA_FRAMES_HW = ((384, 768), (512, 1024), (640, 1280))
 TILE_FRAME, TILE_HW = (1024, 2048), (512, 1024)
 TILE_OVERLAP, N_TILES = 0.25, 9
 TIMED_RUNS = 30
-# the plain versions' timed runs in the kernels phase (cut from 20 for the
-# script's time limit)
-PLAIN_RUNS = 10
+# the plain versions' timed runs in the kernels phase (cut from 20, then
+# from 10 when train_spatial came, for the script's time limit)
+PLAIN_RUNS = 5
 # f32: only the summation order differs. bf16: both sides sum in f32 and
 # round once, so they differ by at most one bf16 ulp (inputs unit-normal).
 TOLERANCES = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2.0**-7, 1e-3)}
@@ -675,6 +675,12 @@ def phase_kernels(peaks, spin_rate):
         # 1024x2048 frame in one batch
         cases += [("things", TRAIN_BATCH, level, torch.bfloat16, 1,
                    disp_of(level), level_shape(TRAIN_BATCH, level, THINGS_HW))
+                  for level in LEVELS]
+        # the spatial axis's bands (train_spatial: SP_RANKS bands of the
+        # train path's frame), bf16 as they run: the 2-D kernels on the
+        # band with max_disp rows of halo each side, the 1-D on the band
+        cases += [("spatial", TRAIN_BATCH, level, torch.bfloat16, 1,
+                   disp_of(level), sp_band_shape(name, level))
                   for level in LEVELS]
         if not backward:
             cases += [("tta", 1, level, torch.bfloat16, 1, disp_of(level),
@@ -4928,6 +4934,298 @@ def phase_train_dp(card, parts="abcd"):
     return launches
 
 
+# The train_spatial phase: CerberusNet's step with image rows split over
+# SP_RANKS gloo ranks sharing the card (train.num_spatial_devices,
+# cerberusnet_torch/parallel/halo.py) at full width, 512x1024, batch 2,
+# configs/cerberus_synthetic.json's data: SP_STEPS steps in float32 and in
+# bf16, each rank against one process on the card. Its ranks are spawned
+# processes that import this script as their main module (sp_rank).
+SP_RANKS = 2
+SP_STEPS = 2
+# float32: the masters after SP_STEPS steps against one process's (each
+# module's relative L2), and the gradient each correlation hands each
+# input's band (for the 2-D ones' f2 the kernel's own rows and the halo
+# rows' gradients its neighbour sends back) against one process's rows
+# there, by train_pallas_levels' float32 rule for correlation inputs (a
+# band's convolutions take other cuDNN algorithms than the frame's)
+SP_MASTERS_RTOL = 1e-5
+SP_TAP_RTOL = FUSED_F32_RTOL
+# a control's taps must miss by more than this
+SP_CONTROL_MISS = 1e-2
+SP_TIMEOUT_S = 600
+# the bf16 steps timed for ms per step, a rank's and one process's
+SP_TIMED_STEPS = 3
+
+
+def sp_band_shape(name, level):
+    """The tensors a correlation kernel of ``name`` gets on a spatial
+    rank's band of ``level``: (batch, rows, width, channels)."""
+    rows = (HW[0] >> level) // SP_RANKS
+    if name.startswith("corr2d"):
+        rows += 2 * FLOW_MAX_DISP
+    return (TRAIN_BATCH, rows, HW[1] >> level, ENCODER_CHANNELS[level - 1])
+
+
+def sp_trainer(dtype, corr_impl=None, spatial=1, device="cuda"):
+    from cerberusnet_torch.entry import train_entry
+
+    tr, _ = train_entry(DP_CONFIG, batch_size=TRAIN_BATCH, n_batches=0,
+                        device=device, corr_impl=corr_impl,
+                        model={"dtype": dtype},
+                        optim={"schedule": "constant"},
+                        train={"num_data_devices": 1,
+                               "num_spatial_devices": spatial})
+    return tr
+
+
+def band_taps(taps, rank):
+    """Rank ``rank``'s band of rows of each of one process's taps."""
+    out = {}
+    for k, t in taps.items():
+        hb = t.shape[1] // SP_RANKS
+        out[k] = t[:, rank * hb:(rank + 1) * hb]
+    return out
+
+
+def taps_rel_l2(taps, ref, ranks):
+    """Each tap of a rank, over the ranks (a rank's gradient is the mesh's
+    size times its share), against one process's."""
+    return {k: rel_l2(taps[k].cpu() / ranks, ref[k]) for k in ref}
+
+
+def sp_rank(job):
+    """A rank of train_spatial. float32: the two controls' and step 1's
+    correlation taps against one process's band (send-back dropped: the
+    halo's collective of gradients zeroed; K3 zeroed), then SP_STEPS steps
+    and the masters against one process's. bf16: SP_STEPS steps through
+    the kernels, every correlation call held to its plain version on the
+    same haloed tensors, the launches, the halo's exchanges and bytes and
+    this rank's peak memory; rank 0 saves the masters before each step and
+    the all-reduced gradients of each under ``job["dir"]`` for the
+    parent's yardsticks; then ms per step."""
+    import os
+
+    from cerberusnet_torch.parallel import halo
+
+    dp_setup()
+    batches_ = job["batches"]
+    out = {}
+    tr = sp_trainer("float32", spatial=SP_RANKS, device=job["device"])
+    rank = tr.mesh.spatial_rank
+    ref = band_taps(as_tensors(job["taps"]), rank)
+    # D = 1: every rank takes the whole batch and keeps its band
+    local = batches_
+    real = halo._all_reduce
+    halo._all_reduce = lambda t, mesh: t.zero_()
+    try:
+        _, taps = grads_and_taps(tr, local[0])
+    finally:
+        halo._all_reduce = real
+    out["control_send_back_dropped"] = taps_rel_l2(taps, ref, tr.mesh.size)
+    module, attr, zeros = zeroed_backward("corr2d_bwd_f2")
+    saved = getattr(module, attr)
+    setattr(module, attr, zeros)
+    try:
+        _, taps = grads_and_taps(tr, local[0])
+    finally:
+        setattr(module, attr, saved)
+    out["control_k3_zeroed"] = taps_rel_l2(taps, ref, tr.mesh.size)
+    grads, taps = grads_and_taps(tr, local[0])
+    out["f32_taps"] = taps_rel_l2(taps, ref, tr.mesh.size)
+    tr.apply_grads(grads)
+    for b in local[1:SP_STEPS]:
+        tr.train_step(b)
+    out["f32_masters"] = module_rel_l2(cpu_grads(tr.masters),
+                                       as_tensors(job["masters"]))
+    del tr, grads, taps
+    torch.cuda.empty_cache()
+
+    tr = sp_trainer("bfloat16", spatial=SP_RANKS, device=job["device"])
+    calls, launches, exchanges = [], [], []
+    torch.cuda.reset_peak_memory_stats(tr.device)
+    for step, b in enumerate(local[:SP_STEPS]):
+        if rank == 0:
+            torch.save(cpu_grads(tr.masters),
+                       os.path.join(job["dir"], f"masters_{step}.pt"))
+        real = checked_corr_calls(calls)
+        reset_launch_counts()
+        halo.reset_stats()
+        try:
+            _, grads = tr.loss_and_grads(b)
+            torch.cuda.synchronize()
+        finally:
+            restore_corr(real)
+        launches.append(launch_counts())
+        exchanges.append(halo.stats())
+        if rank == 0:
+            torch.save(cpu_grads(grads),
+                       os.path.join(job["dir"], f"grads_{step}.pt"))
+        tr.apply_grads(grads)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(tr.device) / 2**30
+    out["ms_per_step"] = cuda_times(lambda: tr.train_step(local[0]),
+                                    runs=SP_TIMED_STEPS, warmup=1)
+    out.update(rank=rank, device=str(tr.device), launches=launches,
+               exchanges=exchanges, calls=calls_summary(calls))
+    out["calls"].pop("rows")
+    return out
+
+
+def sp_single(batches_):
+    """One process's references on the card: step 1's correlation taps
+    and the masters after SP_STEPS steps in float32 through the kernels;
+    ms per step and the peak of the bf16 step."""
+    tr = sp_trainer("float32")
+    grads, taps = grads_and_taps(tr, batches_[0])
+    tr.apply_grads(grads)
+    for b in batches_[1:SP_STEPS]:
+        tr.train_step(b)
+    refs = {"taps": {k: t.cpu() for k, t in taps.items()},
+            "masters": cpu_grads(tr.masters)}
+    del tr, grads, taps
+    torch.cuda.empty_cache()
+    tr = sp_trainer("bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches_[:SP_STEPS]:
+        tr.train_step(b)
+    torch.cuda.synchronize()
+    refs["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    refs["ms_per_step"] = cuda_times(lambda: tr.train_step(batches_[0]),
+                                     runs=SP_TIMED_STEPS, warmup=1)
+    del tr
+    torch.cuda.empty_cache()
+    return refs
+
+
+def sp_yardsticks(batches_, root):
+    """Each bf16 step of the ranks against the float32 plain path at the
+    masters the ranks held before it (rank 0's, saved under ``root``):
+    {step: (the ranks' gradients' module distances, the limits of the
+    train phase's rule)}."""
+    out = {}
+    f32 = sp_trainer("float32", corr_impl="plain")
+    b16 = sp_trainer("bfloat16", corr_impl="plain")
+    for step, b in enumerate(batches_[:SP_STEPS]):
+        masters = torch.load(f"{root}/masters_{step}.pt")
+        got = torch.load(f"{root}/grads_{step}.pt")
+        f32.load_masters(masters)
+        b16.load_masters(masters)
+        ref = cpu_grads(f32.loss_and_grads(b)[1])
+        plain = module_rel_l2(cpu_grads(b16.loss_and_grads(b)[1]), ref)
+        out[step] = (module_rel_l2(got, ref),
+                     {m: 1.5 * d + 1e-3 for m, d in plain.items()})
+    del f32, b16
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_part(part, backend, device, batches_, refs):
+    """The ranks of one part (gloo ranks sharing the card, or NCCL ranks a
+    card each) and the parent's yardsticks of their bf16 steps; emits the
+    part's lines; returns (errors, the ranks' bf16 launches summed over
+    the ranks and steps)."""
+    import shutil
+    import tempfile
+
+    from cerberusnet_torch.parallel import launch
+
+    root = tempfile.mkdtemp(prefix="cerberus_sp_")
+    try:
+        job = {"batches": batches_, "taps": as_numpy(refs["taps"]),
+               "masters": as_numpy(refs["masters"]), "dir": root,
+               "device": device}
+        t0 = time.perf_counter()
+        ranks = launch(sp_rank, SP_RANKS, args=(job,), backend=backend,
+                       timeout=SP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        yard = sp_yardsticks(batches_, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    errors = []
+    for res in ranks:
+        label = f"({part}) rank {res['rank']}"
+        errors += [f"{label}: float32 tap {k} rel L2 {d} > {SP_TAP_RTOL}"
+                   for k, d in res["f32_taps"].items() if not d <= SP_TAP_RTOL]
+        errors += [f"{label}: float32 masters {m} rel L2 {d} > "
+                   f"{SP_MASTERS_RTOL}" for m, d in res["f32_masters"].items()
+                   if not d <= SP_MASTERS_RTOL]
+        for control in ("control_send_back_dropped", "control_k3_zeroed"):
+            worst = max(d for k, d in res[control].items()
+                        if k.startswith("corr2d") and k.endswith("df2"))
+            if not worst > SP_CONTROL_MISS:
+                errors.append(f"{label}: {control}: the f2 taps pass "
+                              f"(worst rel L2 {worst})")
+        for step, launches in enumerate(res["launches"]):
+            want = {k: len(LEVELS) if k in REPLACES else 0
+                    for k in launches}
+            if launches != want:
+                errors.append(f"{label} step {step}: launches {launches}, "
+                              f"not {want}")
+        errors += [f"{label}: {e}" for e in res["calls"]["errors"]]
+    for step, (dist, limits) in yard.items():
+        errors += [f"({part}) bf16 step {step}: {m} gradient rel L2 {d} > "
+                   f"{limits[m]}" for m, d in dist.items()
+                   if not d <= limits[m]]
+    launches = {k: sum(r["launches"][s][k] for r in ranks
+                       for s in range(SP_STEPS))
+                for k in ranks[0]["launches"][0]}
+    for res in ranks:
+        emit({"phase": "train_spatial", "part": part, "rank": res["rank"],
+              "device": res["device"], "backend": backend,
+              **{k: res[k] for k in (
+                  "f32_taps", "f32_masters", "control_send_back_dropped",
+                  "control_k3_zeroed", "launches", "exchanges", "calls",
+                  "peak_gib", "ms_per_step")}})
+    emit({"phase": "train_spatial", "part": part, "backend": backend,
+          "ranks_s": ranks_s,
+          "bf16_steps": {s: {"rel_l2": d, "limits": lim}
+                         for s, (d, lim) in yard.items()},
+          "rank_ms_per_step": [r["ms_per_step"] for r in ranks],
+          "rank_peak_gib": [r["peak_gib"] for r in ranks],
+          "exchanges_per_step": ranks[0]["exchanges"],
+          "launches_summed": launches, "errors": errors})
+    return errors, launches
+
+
+def phase_train_spatial(card, parts="ab"):
+    """train_spatial: (a) SP_RANKS gloo ranks sharing the card hold the two
+    bands of each frame (D = 1, S = SP_RANKS): float32 and bf16 steps
+    against one process, the K3 send-back control, the kernels' calls and
+    launches; (b) the same with NCCL ranks a card each where there are
+    SP_RANKS cards, skipped on one. ``parts`` "b" alone (``--only
+    train_spatial_cards``) runs (b) and its one-process references.
+    Returns (a)'s bf16 launches, summed over the ranks and steps."""
+    from cerberusnet_torch.data.loader import batches
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tr = sp_trainer("bfloat16")
+    batches_ = batches(tr.dataset, TRAIN_BATCH, SP_STEPS)
+    del tr
+    refs = sp_single(batches_)
+    emit({"phase": "train_spatial", "part": "one_process", "card": card,
+          "ms_per_step": refs["ms_per_step"], "peak_gib": refs["peak_gib"],
+          "note": f"the a part's ranks are {SP_RANKS} gloo ranks sharing "
+                  "one card: gloo stages the halo exchanges through the "
+                  "host; their ms per step is not a multi-card time"})
+    errors, launches = ([], None) if "a" not in parts else sp_part(
+        "a", "gloo", "cuda:0", batches_, refs)
+    if torch.cuda.device_count() >= SP_RANKS:
+        errors += sp_part("b", "nccl", "cuda", batches_, refs)[0]
+    else:
+        emit({"phase": "train_spatial", "part": "b", "skipped": True,
+              "why": f"{torch.cuda.device_count()} CUDA device(s) visible; "
+                     f"{SP_RANKS} NCCL ranks need {SP_RANKS}"})
+    ok = not errors
+    emit({"phase": "train_spatial", "ok": ok, "parts": parts,
+          "config": DP_CONFIG,
+          "hw": list(HW), "batch": TRAIN_BATCH, "ranks": SP_RANKS,
+          "steps": SP_STEPS, "seconds": time.perf_counter() - t_phase,
+          "errors": errors})
+    if not ok:
+        sys.exit(1)
+    return launches
+
+
 def path_numbers(checks, name, path, batch, launches):
     """A kernel's numbers on one path: its calls there ("cerberus": the
     five levels; "dcv": the dilations) in bf16 at that path's batch,
@@ -5051,7 +5349,10 @@ def summary(checks, counts):
                 ("bench", "cerberus", 1),
                 # the data-parallel step: each rank's calls at the train
                 # path's shapes, the launches of (b)'s ranks summed
-                ("train_dp", "cerberus", TRAIN_BATCH)):
+                ("train_dp", "cerberus", TRAIN_BATCH),
+                # the spatial axis: each rank's calls on its haloed band,
+                # the launches of both ranks' bf16 steps summed
+                ("train_spatial", "spatial", TRAIN_BATCH)):
             if counts[phase][name]:
                 paths[phase] = path_numbers(checks, name, path, batch,
                                             counts[phase][name])
@@ -5145,6 +5446,10 @@ def main(argv):
             counts["train_dp"] = phase_train_dp(card)
         elif only is not None and "train_dp_cards" in only:
             phase_train_dp(card, parts="c")
+        if wanted("train_spatial"):
+            counts["train_spatial"] = phase_train_spatial(card)
+        elif only is not None and "train_spatial_cards" in only:
+            phase_train_spatial(card, parts="b")
         for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
             if wanted(phase.__name__[len("phase_"):]):
                 phase(card)

@@ -1,22 +1,31 @@
-"""Rank bodies of ``tests/test_torch_parallel.py``: importable functions
-that ``cerberusnet_torch.parallel.launch`` runs in spawned ranks. They
-import torch and the port only (a rank never imports JAX); what they are
-held against is computed in the test process and handed in as numpy.
+"""Rank bodies of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_spatial.py``: importable functions that
+``cerberusnet_torch.parallel.launch`` runs in spawned ranks. They import
+torch and the port only (a rank never imports JAX); what they are held
+against is computed in the test process and handed in as numpy.
 
-``suite`` runs every case in one spawn, so the test file spawns its ranks
-once: each case is a function of (mesh, its payload) that returns numpy
-arrays and floats."""
+``suite`` and ``spatial_suite`` run every case of their test file in one
+spawn, so each file spawns its ranks once: each case is a function of
+(mesh, its payload) that returns numpy arrays and floats."""
 
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from cerberusnet_torch.models.cerberus import CerberusNet
+from cerberusnet_torch.models.common import set_spatial
 from cerberusnet_torch.models.disparity import StereoNet
 from cerberusnet_torch.models.flow import FlowNet
 from cerberusnet_torch.models.segmentation import SegNet
-from cerberusnet_torch.parallel.mesh import make_mesh, shard_batch
+from cerberusnet_torch.parallel.halo import gather_rows, halo_rows
+from cerberusnet_torch.parallel.mesh import (
+    make_mesh,
+    shard_batch,
+    shard_samples,
+)
 from cerberusnet_torch.train import losses as tl
 from cerberusnet_torch.train.config import ExperimentConfig
 from cerberusnet_torch.train.trainer import Trainer
@@ -62,6 +71,19 @@ MODELS = {
     "StereoNet": (lambda: StereoNet(encoder_channels=TINY_ENC, **DEC),
                   ("left", "right")),
 }
+# and tests/test_torch_spatial.py's: the ASPP head and the joint model
+SPATIAL_MODELS = {
+    **MODELS,
+    "SegNetASPP": (lambda: SegNet(encoder_channels=TINY_ENC, num_classes=5,
+                                  fpn_channels=16, seg_head="aspp"),
+                   ("left",)),
+    "CerberusNet": (lambda: CerberusNet(
+        encoder_channels=TINY_ENC, num_classes=5, fpn_channels=16, **DEC),
+        ("left", "right", "temporal")),
+    "CerberusNetASPP": (lambda: CerberusNet(
+        encoder_channels=TINY_ENC, num_classes=5, fpn_channels=16,
+        seg_head="aspp", **DEC), ("left", "right", "temporal")),
+}
 
 
 def torch_tree(tree, rows=slice(None), grad=False):
@@ -92,26 +114,35 @@ def as_numpy(tensors: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in tensors.items()}
 
 
-def model_grads(mesh, spec):
-    """The loss and the parameters' gradients of a ``MODELS`` entry on this
-    rank's rows, all-reduced as the trainer does."""
-    make, keys = MODELS[spec["model"]]
-    model = load_flax_params(make(), spec["params"])
-    batch = torch_tree(shard_batch(spec["batch"], mesh))
-    out = model(*(batch[k] for k in keys))
-    if spec["model"] == "SegNet":
-        loss = tl.segmentation_loss(out["seg_logits"], batch["seg_labels"],
+def model_loss(name, out, batch, mesh):
+    """The loss a model of ``SPATIAL_MODELS`` is held to: its head's, the
+    joint loss for CerberusNet."""
+    if name.startswith("SegNet"):
+        return tl.segmentation_loss(out["seg_logits"], batch["seg_labels"],
                                     mesh=mesh)
-    elif spec["model"] == "FlowNet":
-        loss = tl.multiscale_flow_loss(out["flow_pyramid"], batch["flow_gt"],
+    if name == "FlowNet":
+        return tl.multiscale_flow_loss(out["flow_pyramid"], batch["flow_gt"],
                                        batch["flow_valid"], mesh=mesh)
-    else:
-        loss = tl.multiscale_disparity_loss(
+    if name == "StereoNet":
+        return tl.multiscale_disparity_loss(
             out["disp_pyramid"], batch["disp_gt"], batch["disp_valid"],
             mesh=mesh)
+    return tl.joint_loss(out, batch, mesh=mesh)[0]
+
+
+def model_grads(mesh, spec):
+    """The loss and the parameters' gradients of a ``SPATIAL_MODELS`` entry
+    on this rank's rows (and, on a spatial mesh, its band), all-reduced as
+    the trainer does."""
+    make, keys = SPATIAL_MODELS[spec["model"]]
+    model = set_spatial(load_flax_params(make(), spec["params"]), mesh)
+    batch = torch_tree(shard_batch(spec["batch"], mesh))
+    out = model(*(batch[k] for k in keys))
+    loss = model_loss(spec["model"], out, batch, mesh)
     loss.backward()
     names = [n for n, _ in model.named_parameters()]
-    grads = [p.grad for p in model.parameters()]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in model.parameters()]
     mesh.mean_grads(grads)
     return float(loss.detach()), dict(zip(names, (g.numpy() for g in grads)))
 
@@ -136,6 +167,25 @@ def trainer_step(mesh, p):
     return {"comps": {k: float(v) for k, v in comps.items()},
             "grads": as_numpy(grads), "own_grads": own,
             "masters": as_numpy(tr.masters)}
+
+
+def trainer_bf16(mesh, p):
+    """The all-reduced gradients of one step with bf16 gradients."""
+    tr = trainer(p["raw"])
+    tr.load_masters({k: torch.from_numpy(v) for k, v in p["masters"].items()})
+    return {"grads": as_numpy(tr.loss_and_grads(shard_batch(p["batch"],
+                                                            mesh))[1])}
+
+
+def trainer_accum(mesh, p):
+    """Two calls with accum_steps=2: the masters after each."""
+    tr = trainer(p["raw"])
+    tr.load_masters({k: torch.from_numpy(v) for k, v in p["masters"].items()})
+    first, second = (shard_batch(b, mesh) for b in p["batches"])
+    tr.train_step(first)
+    out = {"first": {n: m.clone().numpy() for n, m in tr.masters.items()}}
+    tr.train_step(second)
+    return {**out, "masters": as_numpy(tr.masters)}
 
 
 def augmented_steps(mesh, p):
@@ -197,6 +247,8 @@ def suite(p):
         "models": {name: model_grads(mesh, spec)
                    for name, spec in p["models"].items()},
         "trainer_step": trainer_step(mesh, p["trainer_step"]),
+        "trainer_bf16": trainer_bf16(mesh, p["trainer_bf16"]),
+        "trainer_accum": trainer_accum(mesh, p["trainer_accum"]),
         "augmented": augmented_steps(mesh, p["augmented"]),
         "evaluate": evaluate(mesh, p["evaluate"]),
         "checkpoint": checkpoint(mesh, p["checkpoint"]),
@@ -215,3 +267,162 @@ def fail_on(rank):
 
 def sleep(seconds):
     time.sleep(seconds)
+
+
+# ------------------------------------------------------- the spatial axis
+
+SPATIAL_RANKS = 4
+# (data, spatial) shapes of the 4 ranks
+SPATIAL_MESHES = ((1, 4), (2, 2))
+# tests/test_torch_spatial.py's losses: each term of the joint loss alone,
+# SSIM as well (RAFT's sequence loss is not ported to the spatial axis)
+SPATIAL_LOSSES = {
+    **{k: v for k, v in LOSSES.items() if k != "raft_sequence"},
+    "ssim": ("left", lambda m, x: tl._ssim(x["left"], x["temporal"],
+                                           mesh=m)),
+}
+
+
+def band_tree(tree, mesh, grad_key=None):
+    """Tensors of this rank's samples and band of rows of numpy arrays
+    (``shard_batch``'s rule, within {level: array} dicts too); the entry
+    ``grad_key`` requires gradients."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = {lv: torch_tree(a, grad=k == grad_key) for lv, a in
+                      shard_batch(v, mesh).items()}
+        else:
+            out[k] = torch_tree(shard_batch({k: v}, mesh)[k],
+                                grad=k == grad_key)
+    return out
+
+
+def spatial_loss(name, mesh, inputs):
+    """(value, gradient of the differentiated input's band) of
+    ``SPATIAL_LOSSES[name]`` on this rank's band."""
+    key, fn = SPATIAL_LOSSES[name]
+    x = band_tree(inputs, mesh, key)
+    value = fn(mesh, x)
+    value.backward()
+    g = x[key]
+    grad = ({lv: t.grad.numpy() for lv, t in g.items()}
+            if isinstance(g, dict) else g.grad.numpy())
+    return float(value.detach()), grad
+
+
+class _Replicated(torch.autograd.Function):
+    """A tensor held alike by every spatial peer: the identity, whose
+    gradient is the peers' mean (each peer's is S times its share, the
+    mesh's convention)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.mesh.spatial_group)
+        return g / ctx.mesh.spatial_size, None
+
+
+# halo cases: (top, bottom, fill); 18 rows over bands of 8
+HALO_CASES = ((18, 18, "zero"), (18, 3, "edge"), (1, 1, "edge"),
+              (0, 1, "zero"), (20, 0, "edge"))
+HALO_H = 32
+
+
+def halo_checks(mesh):
+    """``halo_rows`` and ``gather_rows`` against slicing the whole frame
+    (values) and ``gradcheck`` in float64 of the whole frame's function
+    ``x -> the peers' outputs, gathered``, which every peer computes
+    alike."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 1, HALO_H, 1), dtype=torch.float64, generator=gen)
+    hb = HALO_H // mesh.spatial_size
+    s = mesh.spatial_rank
+    out = {}
+    for top, bottom, fill in HALO_CASES:
+        if fill == "zero":
+            padded = torch.nn.functional.pad(x, (0, 0, top, bottom))
+        else:
+            padded = x[:, :, torch.arange(-top, HALO_H + bottom).clamp(
+                0, HALO_H - 1)]
+
+        def fn(a, top=top, bottom=bottom, fill=fill):
+            band = _Replicated.apply(a, mesh)[:, :, mesh.rows(HALO_H)]
+            return gather_rows(halo_rows(band, top, bottom, mesh, fill),
+                               mesh)
+
+        got = halo_rows(x[:, :, mesh.rows(HALO_H)], top, bottom, mesh, fill)
+        out[f"halo {top} {bottom} {fill}"] = {
+            "values": bool(torch.equal(
+                got, padded[:, :, s * hb:s * hb + top + hb + bottom])),
+            "gradcheck": torch.autograd.gradcheck(
+                fn, (x.clone().requires_grad_(),), raise_exception=False)}
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+
+    def gathered(a):
+        return gather_rows(_Replicated.apply(a, mesh)[:, mesh.rows(HALO_H)],
+                           mesh, dim=1)
+
+    out["gather nhwc"] = {
+        "values": bool(torch.equal(gathered(nhwc), nhwc)),
+        "gradcheck": torch.autograd.gradcheck(
+            gathered, (nhwc.clone().requires_grad_(),),
+            raise_exception=False)}
+    return out
+
+
+def spatial_trainer(mesh, p):
+    """One step of the tiny CerberusNet's trainer on this rank's piece of
+    the global batch from the given masters, and ``evaluate`` after it;
+    on the 1 x 4 mesh also a checkpoint and a resumed trainer."""
+    d, s = p["shape"]
+    raw = {**p["raw"], "train": {**p["raw"]["train"], "num_data_devices": d,
+                                 "num_spatial_devices": s}}
+    tr = trainer(raw)
+    tr.load_masters({k: torch.from_numpy(v) for k, v in p["masters"].items()})
+    comps = tr.train_step(shard_samples(p["batch"], tr.mesh))
+    out = {"mesh": [tr.mesh.data_rank, tr.mesh.spatial_rank],
+           "comps": {k: float(v) for k, v in comps.items()},
+           "masters": as_numpy(tr.masters), "evaluate": tr.evaluate()}
+    if p.get("dir"):
+        tr.config.train.ckpt_dir = p["dir"]
+        out["path"] = tr.save_checkpoint()
+        tr.mesh.barrier()
+        out["files"] = sorted(os.listdir(p["dir"]))
+        resumed = trainer(raw, p["dir"])
+        out["resumed"] = as_numpy(resumed.masters)
+        out["step"] = resumed.step
+    return out
+
+
+def spatial_suite(p):
+    """Every case of tests/test_torch_spatial.py on this rank: the models
+    and the trainer on the 1 x 4 and 2 x 2 meshes, the losses and the
+    halo primitives on 1 x 4, and the fused levels under the axis."""
+    torch.set_num_threads(1)
+    out = {"rank": dist.get_rank()}
+    for shape in SPATIAL_MESHES:
+        mesh = make_mesh(shape[0], "cpu", shape[1])
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "coords": [mesh.data_rank, mesh.spatial_rank],
+            "models": {name: model_grads(mesh, spec)
+                       for name, spec in p["models"].items()},
+            "trainer": spatial_trainer(mesh, {
+                **p["trainer"], "shape": shape,
+                "dir": p["trainer"]["dir"] if shape == (1, 4) else None})}
+        if shape == (1, 4):
+            out["losses"] = {name: spatial_loss(name, mesh, p["losses"])
+                             for name in SPATIAL_LOSSES}
+            out["halo"] = halo_checks(mesh)
+    raw = p["trainer"]["raw"]
+    fused = trainer({**raw, "model": {**raw["model"], "pallas_levels": 3},
+                     "train": {**raw["train"], "num_data_devices": 1,
+                               "num_spatial_devices": SPATIAL_RANKS}})
+    out["pallas_levels"] = [fused.config.model.pallas_levels,
+                            fused.model.encoder.fused_levels]
+    return out

@@ -56,7 +56,7 @@ def test_every_module_imports_with_jax_blocked():
         "eval.tta", "eval.tiled", "eval.submission", "ops.library", "export",
         "export.aot", "export.runner", "export.runner_io", "quant",
         "quant.ptq", "quant.qat", "train.debug_nans", "parallel",
-        "parallel.mesh", "bench", "utils.benchutil",
+        "parallel.mesh", "parallel.halo", "bench", "utils.benchutil",
         "utils.flops")} <= set(names)
 
 

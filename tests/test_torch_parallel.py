@@ -17,7 +17,10 @@ test's (tests/test_parallel.py) for the DP gradients of SegNet, FlowNet
 and StereoNet (loss rtol 2e-5, gradients rtol 3e-4, atol 2e-6); the
 single-process parity rules of tests/test_torch_train.py for the
 Trainer's step against the JAX Trainer's with two devices (components
-1e-5, gradients and masters 1e-4 relative L2); 1e-5 against one port
+1e-5, gradients and masters 1e-4 relative L2), also with
+``optim.accum_steps=2`` (the masters after two calls); with
+``optim.grads_dtype="bfloat16"`` the gradients within one bf16 ulp (2^-7)
+of relative L2, tests/test_torch_fit.py's rule; 1e-5 against one port
 process.
 """
 
@@ -39,7 +42,9 @@ from cerberusnet_tpu.parallel import replicated_sharding
 from cerberusnet_tpu.parallel import shard_batch as jax_shard_batch
 from cerberusnet_tpu.train import losses as jl
 from cerberusnet_tpu.train.config import ExperimentConfig as JaxConfig
+from cerberusnet_tpu.train.config import OptimConfig as JaxOptimConfig
 from cerberusnet_tpu.train.trainer import Trainer as JaxTrainer
+from cerberusnet_tpu.train.trainer import build_optimizer as jax_optimizer
 from cerberusnet_torch.data.loader import DataLoader
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.parallel import DataMesh, launch, shard_batch
@@ -276,7 +281,9 @@ def jax_trainer_step():
     loss and one update of its optimizer (its ``train_step`` less the jit
     that fuses them, which would compile the model once more). Returns
     (port config, batch, initial masters, components, gradients, masters
-    after), the trees by the port's names."""
+    after, gradients with ``optim.grads_dtype="bfloat16"``, masters after
+    two calls with ``optim.accum_steps=2``, the first on ``batch`` and the
+    second on ``second_batch()``), the trees by the port's names."""
     raw = config(loss={"uncertainty_weighting": True})
     jt = JaxTrainer(JaxConfig.from_dict(raw))
     assert jt.mesh.shape["data"] == N
@@ -284,20 +291,46 @@ def jax_trainer_step():
     batch = skewed(synthetic_batch())
     prep = jt.preprocess(jax_shard_batch(batch, jt.mesh))
     params = jax.device_put(init, replicated_sharding(jt.mesh))
-    (_, comps), grads = jax.jit(jax.value_and_grad(jt._loss_fn, has_aux=True))(
-        params, prep)
+    value_and_grad = jax.jit(jax.value_and_grad(jt._loss_fn, has_aux=True))
+    (_, comps), grads = value_and_grad(params, prep)
 
     def update(p, g):
         upd, _ = jt.tx.update(g, jt.tx.init(p), p)
         return optax.apply_updates(p, upd)
 
     after = jax.jit(update)(params, grads)
+    # grads_dtype="bfloat16": the JAX step's gradient of the bf16 cast
+    p16 = jax.tree.map(lambda v: v.astype(jnp.bfloat16)
+                       if v.dtype == jnp.float32 else v, params)
+    g16 = jax.tree.map(lambda g: g.astype(jnp.float32),
+                       jax.jit(jax.value_and_grad(jt._loss_fn, has_aux=True))(
+                           p16, prep)[1])
+    # accum_steps=2: optax.MultiSteps over two calls, an update at the second
+    tx = jax_optimizer(JaxOptimConfig(**{**raw["optim"], "accum_steps": 2}))
+    (_, _), grads2 = value_and_grad(params, jt.preprocess(
+        jax_shard_batch(second_batch(), jt.mesh)))
+
+    def two_calls(p, g1, g2):
+        state = tx.init(p)
+        u1, state = tx.update(g1, state, p)
+        p = optax.apply_updates(p, u1)
+        u2, _ = tx.update(g2, state, p)
+        return optax.apply_updates(p, u2)
+
+    accum = jax.jit(two_calls)(params, grads, grads2)
     cfg = ExperimentConfig.from_dict(raw)
     np_tree = lambda d: {k: v.numpy() for k, v in d.items()}  # noqa: E731
     return (raw, batch, np_tree(port_masters(cfg, init)),
             {k: float(v) for k, v in comps.items()},
             np_tree(port_masters(cfg, numpy_tree(grads))),
-            np_tree(port_masters(cfg, numpy_tree(after))))
+            np_tree(port_masters(cfg, numpy_tree(after))),
+            np_tree(port_masters(cfg, numpy_tree(g16))),
+            np_tree(port_masters(cfg, numpy_tree(accum))))
+
+
+def second_batch():
+    """The accumulation case's second global batch."""
+    return skewed(synthetic_batch(seed=1), 1)
 
 
 # ------------------------------------------------------------ the ranks
@@ -327,6 +360,12 @@ def ranks(tmp_path_factory, jax_models, jax_trainer_step):
                           "batch": m[1]}
                    for name, m in jax_models.items()},
         "trainer_step": {"raw": raw, "batch": batch, "masters": masters},
+        "trainer_bf16": {"raw": {**raw, "optim": {
+            **raw["optim"], "grads_dtype": "bfloat16"}}, "batch": batch,
+            "masters": masters},
+        "trainer_accum": {"raw": {**raw, "optim": {
+            **raw["optim"], "accum_steps": 2}},
+            "batches": [batch, second_batch()], "masters": masters},
         "augmented": {"raw": config(data=AUGMENT),
                       "batches": augmented_batches()},
         "evaluate": {"raw": config(data={"eval_split": "val",
@@ -577,3 +616,40 @@ def test_launch_raises_a_ranks_error():
 def test_launch_raises_when_the_ranks_overrun():
     with pytest.raises(TimeoutError, match="did not end within 2 s"):
         launch(dp_ranks.sleep, N, args=(60,), timeout=2)
+
+
+class TestTrainerOptionsAgainstJaxTwoDevices:
+    """The data-parallel step's options against the JAX Trainer's
+    two-device step."""
+
+    def test_bf16_gradients(self, jax_trainer_step, ranks):
+        """grads_dtype="bfloat16": each rank's all-reduced gradients (the
+        mean of the ranks' bf16-rounded ones) within one bf16 ulp of
+        relative L2 of JAX's bf16-mode gradients, as one process's are
+        (tests/test_torch_fit.py); and they are not the float32 ones."""
+        want = jax_trainer_step[6]
+        for res in ranks:
+            grads = res["trainer_bf16"]["grads"]
+            assert sorted(grads) == sorted(want)
+            for n, g in grads.items():
+                assert rel(g, want[n]) <= 2**-7, (n, rel(g, want[n]))
+            f32 = res["trainer_step"]["grads"]
+            assert any(not np.array_equal(g, f32[n])
+                       for n, g in grads.items())
+
+    def test_accumulation_masters_after_two_calls(self, jax_trainer_step,
+                                                  ranks):
+        """accum_steps=2: no master moves at the first call; after the
+        second they are the JAX MultiSteps update of the two calls' mean
+        gradient, equal on both ranks."""
+        want = jax_trainer_step[7]
+        for res in ranks:
+            got = res["trainer_accum"]
+            for n, m in got["first"].items():
+                np.testing.assert_array_equal(
+                    m, jax_trainer_step[2][n], err_msg=n)
+            for n, m in got["masters"].items():
+                assert rel(m, want[n]) <= 1e-4, (n, rel(m, want[n]))
+        for n, m in ranks[0]["trainer_accum"]["masters"].items():
+            np.testing.assert_array_equal(
+                m, ranks[1]["trainer_accum"]["masters"][n], err_msg=n)

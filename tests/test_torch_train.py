@@ -138,13 +138,18 @@ def test_unknown_key_raises():
         ExperimentConfig.from_dict({"optim": {"lr_typo": 1.0}})
 
 
-@pytest.mark.parametrize("section,key,value,item", [
-    ("model", "variant", "pwc", "A8"),
-    ("train", "num_spatial_devices", 2, "A11b"),
-])
-def test_unported_values_raise(section, key, value, item):
+@pytest.mark.parametrize("values,item", [
+    ({"model": {"variant": "pwc"}}, "A8"),
+    # CerberusDCV under the spatial axis (tests/test_torch_spatial.py has
+    # the PWC family on it); the case keeps the id it had when the axis
+    # itself was refused as A11b
+    ({"model": {"variant": "cerberus_dcv"}, "data": {"hw": [128, 128]},
+      "train": {"num_spatial_devices": 2}}, "A11c"),
+], ids=["model-variant-pwc-A8", "train-num_spatial_devices-2-A11b"])
+def test_unported_values_raise(values, item):
     raw = tiny_config_dict()
-    raw[section][key] = value
+    for section, entries in values.items():
+        raw[section].update(entries)
     cfg = ExperimentConfig.from_dict(raw)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, device="cpu")
