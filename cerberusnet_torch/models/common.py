@@ -84,15 +84,26 @@ def band_conv(conv: nn.Conv2d, x, spatial=None):
     pads in H come from the neighbouring bands (zeros at the frame's
     borders), and the convolution's own forward (the one QAT and int8
     interception replace) runs with its H padding off for the call."""
+    return band_convs((conv,), x, spatial)[0]
+
+
+def band_convs(convs, x, spatial=None):
+    """``[conv(x) for conv in convs]``, convolutions of one H padding; with
+    ``spatial``, on a band, as ``band_conv`` does, the halo taken once for
+    all of them."""
     if spatial is None:
-        return conv(x)
-    ph, pw = conv.padding
+        return [conv(x) for conv in convs]
+    (ph,) = {conv.padding[0] for conv in convs}
     x = halo_rows(x, ph, ph, spatial)
-    conv.padding = (0, pw)
-    try:
-        return conv(x)
-    finally:
-        conv.padding = (ph, pw)
+    out = []
+    for conv in convs:
+        pw = conv.padding[1]
+        conv.padding = (0, pw)
+        try:
+            out.append(conv(x))
+        finally:
+            conv.padding = (ph, pw)
+    return out
 
 
 def same_pads(size: int, kernel: int, stride: int):

@@ -17,6 +17,14 @@ not a parameter.
 
 Inputs and outputs are NHWC, as in the reference; inside, NCHW tensors in
 ``torch.channels_last``, as ``CerberusNet`` runs them.
+
+On a spatial mesh (``spatial``, ``models/common.py``'s ``set_spatial``) a
+decoder runs on its band of the level's rows: the 2-D correlation takes f2
+with a halo of its reach, max_disp x dilation rows (32 at dilation 8, more
+than a band may hold, from as many bands as it reaches; ``correlation2d``'s
+``spatial``), the 1-D one reads along W alone and runs on the band as it
+is, the estimator's and context network's blocks and the 3x3 predictor
+take their halos, and the upsamplings one edge-filled row each side.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch.nn as nn
 from cerberusnet_torch.models.common import (
     ContextNetwork,
     DenseEstimator,
+    band_conv,
     leaky,
     nchw,
     nhwc,
@@ -52,6 +61,7 @@ class DCVDecoder(nn.Module):
     its ``Conv_0`` and ``context`` its ``ContextNetwork_0``."""
 
     output = ""
+    spatial = None
 
     def __init__(self, feat_channels: int, out_channels: int,
                  cost_channels: int, level: int, max_disp: int,
@@ -80,10 +90,10 @@ class DCVDecoder(nn.Module):
         a, b = nhwc(f1), nhwc(feats2[self.level - 1])
         volumes = [leaky(nchw(self.correlate(r, a, b))) for r in self.dilations]
         x = self.estimator(torch.cat(volumes + [f1], dim=1))
-        est = self.predictor(x) + self.context(x)
+        est = band_conv(self.predictor, x, self.spatial) + self.context(x)
         full = est
         for _ in range(self.level):
-            full = 2.0 * upsample2x(full)
+            full = 2.0 * upsample2x(full, self.spatial)
         return {self.output: full, f"{self.output}_pyramid": {self.level: est}}
 
 
@@ -104,7 +114,7 @@ class DCVFlowDecoder(DCVDecoder):
 
     def correlate(self, dilation, f1, f2):
         return correlation2d(f1, f2, self.max_disp, dilation,
-                             impl=self.corr_impl)
+                             impl=self.corr_impl, spatial=self.spatial)
 
 
 class DCVStereoDecoder(DCVDecoder):
@@ -124,6 +134,7 @@ class DCVStereoDecoder(DCVDecoder):
                          corr_impl)
 
     def correlate(self, dilation, f1, f2):
+        # along W alone: a band's rows need no other band's
         return correlation1d(f1, f2, self.max_disp, dilation,
                              impl=self.corr_impl)
 

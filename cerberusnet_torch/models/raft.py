@@ -24,6 +24,18 @@ Inputs and outputs are NHWC, as in the reference; inside, convolutions take
 NCHW tensors in ``torch.channels_last``, and the volumes, the lookups and
 the estimates are float32 NHWC tensors, as the reference keeps them.
 
+On a spatial mesh (``spatial``, ``models/common.py``'s ``set_spatial``) a
+decoder runs on its band of the level's rows. Its "SAME" convolutions
+take halos of k // 2 rows (``band_conv``: the 3x3 ``context_proj``, the
+GRU's, the motion encoder's 3x3s and 5x5 ``convf1``, the heads' 3x3s; the
+1x1s none), and the convex upsampling's edge-padded 3x3 neighbourhood one
+edge-filled row each side. The flow decoder correlates its band of f1 with
+the whole f2 at the level (the features gathered from the peers before
+``corr_proj``, ``gather_rows``), so the pyramid's pooling of the frame-2
+grid and the lookup read a whole frame, at absolute rows (the grid starts
+at the band's first row). The stereo volume correlates each row with its
+own row and needs no exchange; the iterates stay on the band.
+
 The weights a decoder uses more than once (``corr_proj`` on both frames,
 the update block at every iteration) are ``TiedConv2d``s, which cast their
 parameters to the input's type at each use. A model is built in one type;
@@ -43,9 +55,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cerberusnet_torch.models.common import leaky, nchw, nhwc
+from cerberusnet_torch.models.common import (
+    band_conv,
+    band_convs,
+    leaky,
+    nchw,
+    nhwc,
+)
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.models.segmentation import make_seg_head
+from cerberusnet_torch.parallel.halo import gather_rows, halo_rows
 
 ENCODER_CHANNELS = (16, 32, 64, 96, 128, 196)
 LOOKUPS = ("gather", "onehot")
@@ -62,16 +81,17 @@ def _check_impl(impl: str, what: str):
 
 
 def allpairs_correlation(f1, f2):
-    """(B, h, w, C) x2 -> (B, h*w, h, w) float32:
+    """(B, h, w, C) x (B, h2, w2, C) -> (B, h*w, h2, w2) float32:
     corr[b, n, y2, x2] = <f1[b, n], f2[b, y2, x2]> / sqrt(C). The product
     runs on float32 operands (a bf16 value is exact in float32), so a bf16
     model gets the float32 accumulation, as the reference asks with
     ``preferred_element_type``."""
     b, h, w, c = f1.shape
+    h2, w2 = f2.shape[1:3]
     a = f1.reshape(b, h * w, c).float()
-    bb = f2.reshape(b, h * w, c).float()
+    bb = f2.reshape(b, h2 * w2, c).float()
     corr = torch.matmul(a, bb.transpose(1, 2)) / math.sqrt(c)
-    return corr.reshape(b, h * w, h, w)
+    return corr.reshape(b, h * w, h2, w2)
 
 
 def correlation_pyramid(corr, num_levels: int):
@@ -230,24 +250,34 @@ def corr_lookup_1d(pyramid, coords_x, radius: int, impl: str = "gather"):
 # ------------------------------------------------------- grid, upsample
 
 
-def base_grid(b: int, h: int, w: int, device=None):
-    """(B, h, w, 2) float32 grid of absolute (x, y) pixel positions."""
-    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+def base_grid(b: int, h: int, w: int, device=None, row0: int = 0):
+    """(B, h, w, 2) float32 grid of absolute (x, y) pixel positions, its
+    rows from ``row0``."""
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + h, dtype=torch.float32,
+                                         device=device),
                             torch.arange(w, dtype=torch.float32, device=device),
                             indexing="ij")
     return torch.stack([xs, ys], dim=-1).expand(b, h, w, 2)
 
 
-def convex_upsample(flow, mask, factor: int):
+def convex_upsample(flow, mask, factor: int, spatial=None):
     """RAFT's convex upsampling: each fine pixel is a convex combination
     of its coarse pixel's 3x3 neighbourhood (edge-padded).
 
     flow: (B, h, w, C) in coarse pixels; mask: (B, h, w, factor^2 * 9)
     logits, softmaxed over the 9 taps in float32. Returns (B, h*factor,
-    w*factor, C) float32 in fine pixels (values scaled by ``factor``)."""
+    w*factor, C) float32 in fine pixels (values scaled by ``factor``).
+    ``spatial``: both are bands of that mesh, whose row above and below
+    come from the neighbouring bands (the frame's edge rows at its
+    borders)."""
     b, h, w, c = flow.shape
     m = mask.float().reshape(b, h, w, factor * factor, 9).softmax(dim=-1)
-    fp = F.pad(nchw(flow.float() * factor), (1, 1, 1, 1), mode="replicate")
+    x = nchw(flow.float() * factor)
+    if spatial is None:
+        fp = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    else:
+        fp = F.pad(halo_rows(x, 1, 1, spatial, "edge"), (1, 1, 0, 0),
+                   mode="replicate")
     fp = fp.permute(0, 2, 3, 1)
     neigh = torch.stack([fp[:, i:i + h, j:j + w, :]
                          for i in range(3) for j in range(3)], dim=3)
@@ -285,6 +315,8 @@ def _conv(cin: int, cout: int, k: int, cls=TiedConv2d):
 class ConvGRU(nn.Module):
     """3x3 convolutional GRU cell: ``convz``, ``convr``, ``convq``."""
 
+    spatial = None
+
     def __init__(self, hidden: int, input_channels: int):
         super().__init__()
         self.convz = _conv(hidden + input_channels, hidden, 3)
@@ -293,9 +325,10 @@ class ConvGRU(nn.Module):
 
     def forward(self, h, x):
         hx = torch.cat([h, x], dim=1)
-        z = torch.sigmoid(self.convz(hx))
-        r = torch.sigmoid(self.convr(hx))
-        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        z, r = (torch.sigmoid(y) for y in band_convs(
+            (self.convz, self.convr), hx, self.spatial))
+        q = torch.tanh(band_conv(self.convq, torch.cat([r * h, x], dim=1),
+                                 self.spatial))
         return (1.0 - z) * h + z * q
 
 
@@ -304,6 +337,7 @@ class MotionEncoder(nn.Module):
     appends the estimate."""
 
     out_channels = 80
+    spatial = None
 
     def __init__(self, corr_channels: int, pred_channels: int):
         super().__init__()
@@ -314,9 +348,11 @@ class MotionEncoder(nn.Module):
         self.conv = _conv(64 + 32, self.out_channels, 3)
 
     def forward(self, corr, flow):
-        c = leaky(self.convc2(leaky(self.convc1(corr))))
-        f = leaky(self.convf2(leaky(self.convf1(flow))))
-        out = leaky(self.conv(torch.cat([c, f], dim=1)))
+        sp = self.spatial
+        c = leaky(band_conv(self.convc2, leaky(self.convc1(corr)), sp))
+        f = leaky(band_conv(self.convf1, flow, sp))
+        f = leaky(band_conv(self.convf2, f, sp))
+        out = leaky(band_conv(self.conv, torch.cat([c, f], dim=1), sp))
         return torch.cat([out, flow], dim=1)
 
 
@@ -324,6 +360,8 @@ class UpdateBlock(nn.Module):
     """One refinement step: motion encoder, GRU, the delta of the estimate
     (``flow_head1/2``; 2 channels for flow, 1 for disparity) and the
     upsampling mask's logits (``mask_head1/2``)."""
+
+    spatial = None
 
     def __init__(self, hidden: int, context: int, corr_channels: int,
                  upsample_factor: int, pred_channels: int = 2):
@@ -343,8 +381,10 @@ class UpdateBlock(nn.Module):
         dtype = context.dtype
         motion = self.motion(nchw(corr_feat.to(dtype)), nchw(field.to(dtype)))
         hidden = self.gru(hidden, torch.cat([context, motion], dim=1))
-        delta = self.flow_head2(leaky(self.flow_head1(hidden)))
-        mask = self.mask_head2(leaky(self.mask_head1(hidden)))
+        flow1, mask1 = band_convs((self.flow_head1, self.mask_head1), hidden,
+                                  self.spatial)
+        delta = band_conv(self.flow_head2, leaky(flow1), self.spatial)
+        mask = self.mask_head2(leaky(mask1))
         return hidden, nhwc(delta).float(), mask
 
 
@@ -354,12 +394,14 @@ class UpdateBlock(nn.Module):
 class RAFTDecoder(nn.Module):
     """The iterative decoder shared by flow and stereo. A subclass sets
     ``output`` (the result's key) and ``channels`` (the estimate's) and
-    gives ``volume`` (the pyramid of two projected NHWC maps), ``grid`` and
-    ``lookup``. ``corr_proj``, ``context_proj`` and ``update`` are the
-    reference's parameters of those names."""
+    gives ``volume`` (the pyramid of the two frames' NCHW features at the
+    level, through ``corr_proj``), ``grid`` and ``lookup``. ``corr_proj``,
+    ``context_proj`` and ``update`` are the reference's parameters of those
+    names."""
 
     output = ""
     channels = 0
+    spatial = None
 
     def __init__(self, encoder_channels: Sequence[int] = ENCODER_CHANNELS,
                  level: int = 3, fdim: int = 128, hdim: int = 96,
@@ -379,8 +421,12 @@ class RAFTDecoder(nn.Module):
     def corr_channels(self) -> int:
         raise NotImplementedError
 
-    def volume(self, g1, g2):
+    def volume(self, f1, f2):
         raise NotImplementedError
+
+    def project(self, f):
+        """``corr_proj`` of NCHW features, NHWC."""
+        return nhwc(self.corr_proj(f))
 
     def grid(self, b: int, h: int, w: int, device):
         raise NotImplementedError
@@ -394,9 +440,8 @@ class RAFTDecoder(nn.Module):
         h, w, C) float32}, output + "_iterates": (iters, B, h, w, C)
         float32}."""
         f1 = feats1[self.level - 1]
-        pyramid = self.volume(nhwc(self.corr_proj(f1)),
-                              nhwc(self.corr_proj(feats2[self.level - 1])))
-        ctx = self.context_proj(f1)
+        pyramid = self.volume(f1, feats2[self.level - 1])
+        ctx = band_conv(self.context_proj, f1, self.spatial)
         hidden = torch.tanh(ctx[:, :self.hdim])
         context = torch.relu(ctx[:, self.hdim:])
         b, _, h, w = f1.shape
@@ -410,7 +455,7 @@ class RAFTDecoder(nn.Module):
                                               context)
             field = field + delta
             fields.append(field)
-        up = convex_upsample(field, nhwc(mask), 2**self.level)
+        up = convex_upsample(field, nhwc(mask), 2**self.level, self.spatial)
         return {self.output: up, f"{self.output}_pyramid": {self.level: field},
                 f"{self.output}_iterates": torch.stack(fields)}
 
@@ -425,12 +470,16 @@ class RAFTFlowDecoder(RAFTDecoder):
     def corr_channels(self):
         return self.corr_levels * (2 * self.radius + 1) ** 2
 
-    def volume(self, g1, g2):
-        return correlation_pyramid(allpairs_correlation(g1, g2),
-                                   self.corr_levels)
+    def volume(self, f1, f2):
+        if self.spatial is not None:  # the whole frame of f2
+            f2 = nchw(gather_rows(nhwc(f2), self.spatial, dim=1))
+        return correlation_pyramid(
+            allpairs_correlation(self.project(f1), self.project(f2)),
+            self.corr_levels)
 
     def grid(self, b, h, w, device):
-        return base_grid(b, h, w, device)
+        row0 = 0 if self.spatial is None else self.spatial.band_start(h)
+        return base_grid(b, h, w, device, row0)
 
     def lookup(self, pyramid, grid, field):
         return corr_lookup(pyramid, grid + field, self.radius,
@@ -447,9 +496,11 @@ class RAFTStereoDecoder(RAFTDecoder):
     def corr_channels(self):
         return self.corr_levels * (2 * self.radius + 1)
 
-    def volume(self, g1, g2):
-        return correlation_pyramid_1d(allpairs_correlation_1d(g1, g2),
-                                      self.corr_levels)
+    def volume(self, f1, f2):
+        # each row against its own row: a band's rows need no other band's
+        return correlation_pyramid_1d(
+            allpairs_correlation_1d(self.project(f1), self.project(f2)),
+            self.corr_levels)
 
     def grid(self, b, h, w, device):
         return base_grid(b, h, w, device)[..., 0]

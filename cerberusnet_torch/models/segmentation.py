@@ -51,10 +51,10 @@ SEG_HEADS = ("fpn", "aspp")
 
 
 def _classify(classifier: nn.Conv2d, x, out_hw, spatial=None):
-    """The 3x3 classifier (a float32 module) in float32, resized to
-    ``out_hw``."""
-    return upsample_to(band_conv(classifier, x.float(), spatial), out_hw,
-                       spatial)
+    """The 3x3 classifier in its own type (float32: the models keep it so
+    whatever theirs), resized to ``out_hw``."""
+    return upsample_to(band_conv(classifier, x.to(classifier.weight.dtype),
+                                 spatial), out_hw, spatial)
 
 
 class SegmentationHead(nn.Module):
@@ -124,7 +124,7 @@ class ASPPSegmentationHead(nn.Module):
             return x.mean(dim=(2, 3), keepdim=True)
         sp = self.spatial
         total = sp.spatial_sum(x.float().sum(dim=(2, 3), keepdim=True))
-        return (total / (x.shape[2] * sp.spatial_size * x.shape[3])).to(
+        return (total / (sp.frame_rows(x.shape[2]) * x.shape[3])).to(
             x.dtype)
 
 

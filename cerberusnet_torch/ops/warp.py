@@ -35,7 +35,7 @@ def warp2d(f, flow, spatial=None):
         raise ValueError(f"flow shape {tuple(flow.shape)} != {want}")
     row0 = 0
     if spatial is not None:
-        row0 = spatial.spatial_rank * f.shape[1]
+        row0 = spatial.band_start(f.shape[1])
         f = gather_rows(f, spatial, dim=1)
     b, h, w, c = f.shape
     hb = flow.shape[1]

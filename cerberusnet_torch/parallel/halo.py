@@ -3,10 +3,11 @@ the rows a rank borrows from the ranks that hold the neighbouring bands of
 an image, which GSPMD inserts for the reference.
 
 A rank of a spatial mesh (``parallel/mesh.py``'s ``DataMesh``, S peers)
-holds rows [s h, (s+1) h) of every map, h = H / S at that map's
-resolution. An op that reads r rows across its output row (a 3x3
-convolution at dilation r, a bilinear resize, a shifted difference) runs
-on the band with r rows of halo on each side:
+holds its band of rows of every map, the bands of one map of unequal
+heights where the coarsest level's rows do not split evenly
+(``DataMesh.band_heights``). An op that reads r rows across its output
+row (a 3x3 convolution at dilation r, a bilinear resize, a shifted
+difference) runs on the band with r rows of halo on each side:
 
 * ``halo_rows(x, top, bottom, mesh, fill)`` is the band with ``top`` rows
   above it and ``bottom`` below, taken from the peers that own them, from
@@ -25,8 +26,10 @@ ranks that share a card, stages them through the host; its ``send`` and
 ``recv`` take CPU tensors only). Each rank contributes its first and last
 rows, the peers' pieces are gathered, and each rank picks the rows it
 needs, so one exchange serves any halo height; with S = 2 it moves what a
-point-to-point exchange would. Gradients are summed in float32 and cast
-once. An exchange that fails raises: there is no fallback.
+point-to-point exchange would. ``all_gather`` takes pieces of one shape,
+so where the bands differ in height each piece is padded with zero rows
+to the largest and cut after the gather. Gradients are summed in float32
+and cast once. An exchange that fails raises: there is no fallback.
 
 On a mesh of one (no spatial axis) ``halo_rows`` is the local padding and
 ``gather_rows`` the identity, with no collective. The models do not call
@@ -62,6 +65,16 @@ def _count(t):
     STATS["bytes"] += t.numel() * t.element_size()
 
 
+def _pad_rows(t, dim: int, rows: int):
+    """``t`` with zero rows appended along ``dim`` up to ``rows``."""
+    short = rows - t.shape[dim]
+    if not short:
+        return t
+    shape = list(t.shape)
+    shape[dim] = short
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
 def _all_gather(t, mesh):
     """The S peers' ``t`` (equal shapes), by spatial rank."""
     t = t.contiguous()
@@ -82,15 +95,19 @@ def _all_reduce(t, mesh):
 
 
 @functools.lru_cache(maxsize=None)
-def _halo_index(hb: int, top: int, bottom: int, s: int, n: int, fill: str):
-    """(rows above, rows below) of band ``s`` of ``n`` bands of ``hb``
-    rows, as indices into the source ``_HaloRows`` builds: each peer's
-    piece (its last t and first b rows, t = min(top, hb), b = min(bottom,
-    hb)) in spatial order, then the band's own first and last rows, then a
-    row of zeros."""
-    t, b = min(top, hb), min(bottom, hb)
-    first, last, zero = n * (t + b), n * (t + b) + 1, n * (t + b) + 2
-    frame = n * hb
+def _halo_index(heights: tuple, top: int, bottom: int, s: int, fill: str):
+    """(rows above, rows below) of band ``s`` of bands of ``heights`` rows,
+    as indices into the source ``_HaloRows`` builds: each peer's piece (its
+    last t_r and first b_r rows, t_r = min(top, h_r), b_r = min(bottom,
+    h_r), each part padded to the largest peer's) in spatial order, then
+    the band's own first and last rows, then a row of zeros."""
+    tmax = min(top, max(heights))
+    bmax = min(bottom, max(heights))
+    n = len(heights)
+    pieces = n * (tmax + bmax)
+    first, last, zero = pieces, pieces + 1, pieces + 2
+    starts = [sum(heights[:r]) for r in range(n + 1)]
+    frame = starts[n]
 
     def source(g):
         if not 0 <= g < frame:
@@ -101,15 +118,18 @@ def _halo_index(hb: int, top: int, bottom: int, s: int, n: int, fill: str):
             if g >= frame and s == n - 1:
                 return last
             g = 0 if g < 0 else frame - 1
-        r, row = divmod(g, hb)
-        if r < s and row >= hb - t:  # in the tail of a band above
-            return r * (t + b) + row - (hb - t)
+        r = max(i for i in range(n) if starts[i] <= g)
+        row, hr = g - starts[r], heights[r]
+        t, b = min(top, hr), min(bottom, hr)
+        if r < s and row >= hr - t:  # in the tail of a band above
+            return r * (tmax + bmax) + row - (hr - t)
         if r > s and row < b:  # in the head of a band below
-            return r * (t + b) + t + row
+            return r * (tmax + bmax) + tmax + row
         raise AssertionError(f"row {g} is no peer's halo piece")
 
-    above = [source(g) for g in range(s * hb - top, s * hb)]
-    below = [source(g) for g in range((s + 1) * hb, (s + 1) * hb + bottom)]
+    above = [source(g) for g in range(starts[s] - top, starts[s])]
+    below = [source(g) for g in range(starts[s + 1],
+                                      starts[s + 1] + bottom)]
     return above, below
 
 
@@ -117,18 +137,22 @@ class _HaloRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, top, bottom, mesh, fill, dim):
         hb = x.shape[dim]
+        heights = mesh.band_heights(hb)
         t, b = min(top, hb), min(bottom, hb)
-        s, n = mesh.spatial_rank, mesh.spatial_size
-        pieces = _all_gather(torch.cat([x.narrow(dim, hb - t, t),
-                                        x.narrow(dim, 0, b)], dim), mesh)
+        tmax, bmax = min(top, max(heights)), min(bottom, max(heights))
+        piece = torch.cat([_pad_rows(x.narrow(dim, hb - t, t), dim, tmax),
+                           _pad_rows(x.narrow(dim, 0, b), dim, bmax)], dim)
+        pieces = _all_gather(piece, mesh)
         zero = torch.zeros_like(x.narrow(dim, 0, 1))
         src = torch.cat(pieces + [x.narrow(dim, 0, 1),
                                   x.narrow(dim, hb - 1, 1), zero], dim)
         above, below = (torch.tensor(i, dtype=torch.long, device=x.device)
-                        for i in _halo_index(hb, top, bottom, s, n, fill))
+                        for i in _halo_index(heights, top, bottom,
+                                             mesh.spatial_rank, fill))
         out = torch.cat([src.index_select(dim, above), x,
                          src.index_select(dim, below)], dim)
-        ctx.mesh, ctx.dim, ctx.sizes = mesh, dim, (top, hb, bottom, t, b)
+        ctx.mesh, ctx.dim = mesh, dim
+        ctx.sizes = (top, hb, bottom, t, b, tmax, bmax)
         ctx.src_shape = src.shape
         ctx.save_for_backward(above, below)
         if dim == 2 and x.dim() == 4 and x.is_contiguous(
@@ -140,18 +164,18 @@ class _HaloRows(torch.autograd.Function):
     def backward(ctx, g):
         above, below = ctx.saved_tensors
         mesh, dim = ctx.mesh, ctx.dim
-        top, hb, bottom, t, b = ctx.sizes
-        n = mesh.spatial_size * (t + b)
+        top, hb, bottom, t, b, tmax, bmax = ctx.sizes
+        n = mesh.spatial_size * (tmax + bmax)
         gsrc = torch.zeros(ctx.src_shape, dtype=torch.float32,
                            device=g.device)
         gsrc.index_add_(dim, above, g.narrow(dim, 0, top).float())
         gsrc.index_add_(dim, below, g.narrow(dim, top + hb, bottom).float())
         # every peer's gradient of every piece, summed: this rank's own
         mine = _all_reduce(gsrc.narrow(dim, 0, n).contiguous(), mesh).narrow(
-            dim, mesh.spatial_rank * (t + b), t + b)
+            dim, mesh.spatial_rank * (tmax + bmax), tmax + bmax)
         gx = g.narrow(dim, top, hb).float().clone()
         gx.narrow(dim, hb - t, t).add_(mine.narrow(dim, 0, t))
-        gx.narrow(dim, 0, b).add_(mine.narrow(dim, t, b))
+        gx.narrow(dim, 0, b).add_(mine.narrow(dim, tmax, b))
         gx.narrow(dim, 0, 1).add_(gsrc.narrow(dim, n, 1))
         gx.narrow(dim, hb - 1, 1).add_(gsrc.narrow(dim, n + 1, 1))
         return gx.to(g.dtype), None, None, None, None, None
@@ -176,15 +200,19 @@ def halo_rows(x, top: int, bottom: int, mesh, fill: str = "zero",
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim):
-        ctx.mesh, ctx.dim, ctx.hb = mesh, dim, x.shape[dim]
-        return torch.cat(_all_gather(x, mesh), dim)
+        hb = x.shape[dim]
+        heights = mesh.band_heights(hb)
+        ctx.mesh, ctx.dim, ctx.hb = mesh, dim, hb
+        ctx.start = mesh.band_start(hb)
+        pieces = _all_gather(_pad_rows(x, dim, max(heights)), mesh)
+        return torch.cat([p.narrow(dim, 0, h)
+                          for p, h in zip(pieces, heights)], dim)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, hb = ctx.mesh, ctx.hb
-        total = _all_reduce(g.float().contiguous(), mesh)
-        return (total.narrow(ctx.dim, mesh.spatial_rank * hb, hb).to(g.dtype),
-                None, None)
+        total = _all_reduce(g.float().contiguous(), ctx.mesh)
+        return (total.narrow(ctx.dim, ctx.start, ctx.hb).to(g.dtype), None,
+                None)
 
 
 def gather_rows(x, mesh, dim: int = 2):
@@ -194,4 +222,3 @@ def gather_rows(x, mesh, dim: int = 2):
     if not mesh.banded:
         return x
     return _GatherRows.apply(x, mesh, dim)
-

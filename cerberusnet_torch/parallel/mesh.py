@@ -17,7 +17,15 @@ its piece of the batch and the reductions and halos are made by hand:
   single process computes exactly what it did before.
 * ``shard_batch`` is rank (d, s)'s samples [d B/D, (d+1) B/D) of a host
   batch of B and, of every image-like entry (three dimensions or more),
-  its band of rows [s H/S, (s+1) H/S).
+  its band of rows (``DataMesh.rows``).
+* The bands. Given the coarsest pyramid level's R rows
+  (``coarsest_rows``, H / 2^L for an encoder of L levels), the first R mod
+  S spatial ranks hold ceil(R / S) of them and the others floor(R / S); a
+  map of h = f R rows (any level, f = 2^(L - l)) splits alike, f rows for
+  each coarsest one, so every band starts on a multiple of f and a
+  stride-2 block's band stays its input's band halved; a spatial mesh
+  cannot be made without R. ``band_heights``, ``band_start`` and
+  ``frame_rows`` read the split at the level of a band of given height.
 * ``DataMesh.sum``, ``mean`` and ``max`` are reductions over every rank,
   differentiable, for the losses; ``spatial_sum`` is the sum over the
   spatial peers; ``mean_grads`` all-reduces the float32 gradients in a few
@@ -133,7 +141,9 @@ class DataMesh:
     axis's extent S (``spatial_size``) and the process group of this
     rank's S spatial peers (``spatial_group``, ranks d S .. d S + S - 1).
     Its data coordinate is ``data_rank`` of ``data_size``, its spatial one
-    ``spatial_rank``."""
+    ``spatial_rank``. ``coarsest_rows``: the coarsest pyramid level's rows
+    R, which set the bands (the module docstring), at least one a spatial
+    rank when S > 1."""
 
     rank: int = 0
     size: int = 1
@@ -141,6 +151,14 @@ class DataMesh:
     distributed: bool = False
     spatial_size: int = 1
     spatial_group: object = None
+    coarsest_rows: int = 0
+
+    def __post_init__(self):
+        if self.banded and self.coarsest_rows < self.spatial_size:
+            raise ValueError(
+                f"a spatial mesh axis of {self.spatial_size} ranks needs the "
+                f"coarsest level's rows, at least one a rank "
+                f"(coarsest_rows={self.coarsest_rows})")
 
     @property
     def data_rank(self) -> int:
@@ -237,14 +255,41 @@ class DataMesh:
         b = n // self.data_size
         return slice(self.data_rank * b, (self.data_rank + 1) * b)
 
+    def split(self, h: int) -> tuple:
+        """The S spatial ranks' rows of a map of ``h`` rows, by spatial
+        rank (the module docstring's rule)."""
+        n, r = self.spatial_size, self.coarsest_rows
+        if n == 1:
+            return (h,)
+        if h % r:
+            raise ValueError(f"{h} rows are not a multiple of the coarsest "
+                             f"level's {r} (the spatial mesh axis)")
+        q, extra = divmod(r, n)
+        return tuple((q + (s < extra)) * (h // r) for s in range(n))
+
+    def band_heights(self, hb: int) -> tuple:
+        """The S ranks' rows at the level where this rank holds ``hb``."""
+        if not self.banded:
+            return (hb,)
+        own = self.split(self.coarsest_rows)[self.spatial_rank]
+        if hb % own:
+            raise ValueError(f"a band of {hb} rows on a rank of {own} "
+                             f"coarsest rows (the spatial mesh axis)")
+        return self.split(self.coarsest_rows * (hb // own))
+
+    def band_start(self, hb: int) -> int:
+        """The frame row where this rank's band of ``hb`` rows starts."""
+        return sum(self.band_heights(hb)[:self.spatial_rank])
+
+    def frame_rows(self, hb: int) -> int:
+        """The frame's rows at the level of this rank's band of ``hb``."""
+        return sum(self.band_heights(hb))
+
     def rows(self, h: int) -> slice:
         """This rank's band of ``h`` image rows."""
-        if h % self.spatial_size:
-            raise ValueError(
-                f"{h} rows do not split into {self.spatial_size} equal "
-                f"bands (the spatial mesh axis)")
-        hb = h // self.spatial_size
-        return slice(self.spatial_rank * hb, (self.spatial_rank + 1) * hb)
+        heights = self.split(h)
+        start = sum(heights[:self.spatial_rank])
+        return slice(start, start + heights[self.spatial_rank])
 
     def band(self, batch: dict) -> dict:
         """This rank's band of rows (dimension 1) of every entry of
@@ -273,8 +318,8 @@ def _spatial_groups(size: int, spatial: int):
     return mine
 
 
-def make_mesh(num_data: int = 0, device="cuda",
-              num_spatial: int = 1) -> DataMesh:
+def make_mesh(num_data: int = 0, device="cuda", num_spatial: int = 1,
+              coarsest_rows: int = 0) -> DataMesh:
     """This process's ``DataMesh`` for ``train.num_data_devices`` =
     ``num_data`` x ``train.num_spatial_devices`` = ``num_spatial`` ranks
     (``num_data`` 0: every rank of the group, divided by ``num_spatial``; a
@@ -282,7 +327,8 @@ def make_mesh(num_data: int = 0, device="cuda",
     an index means a card a rank, the rank's own (``LOCAL_RANK``, else the
     rank); with an index the ranks share it. Raises ValueError when the
     ranks asked for exceed the visible cards or differ from the group's
-    size."""
+    size. ``coarsest_rows``: the coarsest pyramid level's rows, which set
+    the spatial bands; required when ``num_spatial`` > 1."""
     device = torch.device(device)
     size, rank = _group()
     distributed = dist.is_available() and dist.is_initialized()
@@ -302,7 +348,8 @@ def make_mesh(num_data: int = 0, device="cuda",
             f"process is one of {size}: start the ranks with `python -m cerberusnet_torch.cli`, "
             f"parallel.launch or torchrun")
     group = _spatial_groups(size, num_spatial) if num_spatial > 1 else None
-    return DataMesh(rank, size, device, distributed, num_spatial, group)
+    return DataMesh(rank, size, device, distributed, num_spatial, group,
+                    coarsest_rows if num_spatial > 1 else 0)
 
 
 def shard_batch(batch: dict, mesh: DataMesh) -> dict:

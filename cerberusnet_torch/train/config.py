@@ -18,9 +18,10 @@ writes event files under ``ckpt_dir/tb``; ``train.qat`` (its ranges from
 ``qat_calib_batches`` batches) trains with fake-quantized convs and
 ``train.debug_nans`` stops at the first NaN; ``train.num_data_devices``
 trains on that many ranks, one a card (``parallel/mesh.py``), and
-``train.num_spatial_devices`` S splits each frame's rows over S of them
-(the PWC family: ``SPATIAL_VARIANTS``, with an H that every pyramid level
-splits into S equal bands; the rest waits on ROADMAP A11c). ``model.pallas_levels`` runs CerberusNet's first N
+``train.num_spatial_devices`` S splits each frame's rows over S of them,
+for every variant, with an H that is a multiple of 2^L for an encoder of L
+levels (the bands may differ in height, ``parallel/mesh.py``; another H
+waits on ROADMAP A11d). ``model.pallas_levels`` runs CerberusNet's first N
 encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
 their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
 plain convolutions recomputed; the DCV and RAFT variants ignore both, as
@@ -49,8 +50,6 @@ import torch
 # model.variant values the port builds (train/trainer.py ``build_model``)
 VARIANTS = ("cerberus", "flow", "stereo", "seg", "cerberus_dcv", "dcv_flow",
             "dcv_stereo", "raft", "raft_stereo", "cerberus_raft")
-# the variants whose image rows split over the spatial mesh axis
-SPATIAL_VARIANTS = ("cerberus", "flow", "stereo", "seg")
 # data.dataset values the port reads (train/trainer.py ``_build_dataset``)
 DATASETS = ("synthetic", "kitti", "cityscapes", "sintel", "flyingchairs",
             "flyingthings3d")
@@ -253,23 +252,19 @@ class ExperimentConfig:
                 f"optim.grads_dtype must be 'float32' or 'bfloat16', "
                 f"got {o.grads_dtype!r}")
         spatial = t.num_spatial_devices
-        # a band's rows at the coarsest level, and the H whose every level
-        # splits into equal bands (the reference pads uneven shards; an H
-        # with fewer coarsest rows than bands is the trainer's ValueError)
+        # the bands split the coarsest level's H / 2^L rows (an H with
+        # fewer of them than bands is the trainer's ValueError); an H that
+        # is no multiple of 2^L pads odd extents at some level ("SAME"),
+        # which shifts the band edges below it
         coarsest = 2 ** len(m.encoder_channels)
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
-            (spatial > 1 and m.variant not in SPATIAL_VARIANTS,
-             f"model.variant={m.variant!r} under train.num_spatial_devices="
-             f"{spatial} (CerberusDCV's 32-row halo of the dilated 2-D "
-             f"correlation, RAFT's all-pairs volumes over the whole f2)",
-             "A11c"),
             (spatial > 1 and d.hw[0] // coarsest >= spatial
-             and d.hw[0] % (coarsest * spatial),
+             and d.hw[0] % coarsest,
              f"data.hw[0]={d.hw[0]} under train.num_spatial_devices="
-             f"{spatial} (pyramid levels that do not split into equal "
-             f"bands: H not a multiple of {coarsest * spatial})", "A11c"),
+             f"{spatial} (H not a multiple of {coarsest}: SAME's padding of "
+             f"an odd extent shifts the band edges)", "A11d"),
         )
         for bad, what, item in checks:
             if bad:

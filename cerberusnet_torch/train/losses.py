@@ -40,7 +40,9 @@ means and covariances are sums over the frame, added over the spatial
 peers, so every peer solves the same 9x9 systems. The photometric term
 warps the whole frame of the second image (``warp2d``'s ``spatial``). The
 ground-truth pyramid's 2x2 sum pools stay within the band: a band's rows
-are a multiple of 2^6.
+are a multiple of 2^6. The bands may differ in height
+(``DataMesh.band_heights``): the means divide by the frame's count
+(``DataMesh.frame_rows``), not by S times a band's.
 """
 
 from __future__ import annotations
@@ -150,7 +152,7 @@ def _rmi_band(y, p, radius: int, eps: float, mesh):
     means and covariances summed over the spatial peers."""
     b, c, h, w = p.shape
     ww, r = w - radius + 1, radius * radius
-    n = (h * mesh.spatial_size - radius + 1) * ww  # the frame's regions
+    n = (mesh.frame_rows(h) - radius + 1) * ww  # the frame's regions
     y, hh = _rows_below(y, radius - 1, mesh, dim=2)
     p, _ = _rows_below(p, radius - 1, mesh, dim=2)
 
@@ -267,7 +269,7 @@ def photometric_loss(im1, im2, flow, alpha: float = 0.85, mesh=SINGLE):
     type)."""
     im2w = warp2d(im2, flow, spatial=mesh if mesh.banded else None).float()
     im1 = im1.float()
-    l1 = mesh.mean((im1 - im2w).abs())
+    l1 = _frame_mean((im1 - im2w).abs(), mesh.frame_rows(im1.shape[1]), mesh)
     return (alpha * (1.0 - _ssim(im1, im2w, mesh=mesh)) * 0.5
             + (1.0 - alpha) * l1)
 
@@ -280,7 +282,7 @@ def _ssim(a, b, c1: float = 0.01**2, c2: float = 0.03**2, mesh=SINGLE):
             0, 2, 3, 1)
 
     if mesh.banded:
-        rows = a.shape[1] * mesh.spatial_size - 2
+        rows = mesh.frame_rows(a.shape[1]) - 2
         (a, n), (b, _) = _rows_below(a, 2, mesh), _rows_below(b, 2, mesh)
     mu_a, mu_b = pool(a), pool(b)
     var_a = pool(a * a) - mu_a**2
@@ -306,9 +308,10 @@ def smoothness_loss(field, image, mesh=SINGLE):
         return x[:, 1:] - x[:, :-1]
 
     wx = torch.exp(-grad_x(image).abs().mean(-1, keepdim=True))
-    along_x = mesh.mean(grad_x(field).abs() * wx)
+    along_x = _frame_mean(grad_x(field).abs() * wx,
+                          mesh.frame_rows(field.shape[1]), mesh)
     if mesh.banded:
-        rows = field.shape[1] * mesh.spatial_size - 1
+        rows = mesh.frame_rows(field.shape[1]) - 1
         (field, n), (image, _) = (_rows_below(field, 1, mesh),
                                   _rows_below(image, 1, mesh))
     wy = torch.exp(-grad_y(image).abs().mean(-1, keepdim=True))

@@ -193,10 +193,11 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
     raise ValueError(f"unknown model variant {cfg.variant!r}")
 
 
-def check_spatial_mesh(config: ExperimentConfig):
+def check_spatial_mesh(config: ExperimentConfig) -> int:
     """The reference's guard (its ``Trainer``): ValueError when
     ``train.num_spatial_devices`` exceeds the coarsest pyramid level's
-    rows, where a spatial rank would hold no row."""
+    rows, where a spatial rank would hold no row. Returns those rows, which
+    set the bands (``make_mesh``'s ``coarsest_rows``)."""
     n = config.train.num_spatial_devices
     levels = len(config.model.encoder_channels)
     h = config.data.hw[0]
@@ -206,6 +207,7 @@ def check_spatial_mesh(config: ExperimentConfig):
             f"level's height {h // 2**levels} (input H {h} / 2^{levels}): "
             f"a spatial rank would hold no row of it; use H >= "
             f"{2**levels * n} or fewer spatial devices")
+    return h // 2**levels
 
 
 # the reference's key for the log-variances in its parameter tree
@@ -416,8 +418,10 @@ class Trainer:
 
     The spatial axis: with ``train.num_spatial_devices`` S > 1 the mesh is
     D x S ranks, D = ``num_data_devices``, and rank (d, s) holds data
-    shard d's samples and rows [s H/S, (s+1) H/S) of every map
-    (``set_spatial``: the model's modules take their halos from the
+    shard d's samples and its band s of the rows of every map, the
+    coarsest level's H / 2^L rows split as evenly as they go, the first
+    ones a row taller where they do not divide (``parallel/mesh.py``;
+    ``set_spatial``: the model's modules take their halos from the
     neighbouring bands). The loader decodes shard d's samples, whole
     frames; a step augments and preprocesses them, then keeps its band
     (``DataMesh.band``); the losses, gradients and metrics are the global
@@ -430,7 +434,7 @@ class Trainer:
 
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
-        check_spatial_mesh(config)
+        coarsest_rows = check_spatial_mesh(config)
         if config.train.qat and config.model.pallas_levels:
             config.model.pallas_levels = 0
         device = torch.device(device)
@@ -438,7 +442,8 @@ class Trainer:
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to train on the CPU")
         self.mesh = make_mesh(config.train.num_data_devices, device,
-                              config.train.num_spatial_devices)
+                              config.train.num_spatial_devices,
+                              coarsest_rows)
         if self.mesh.size > 1 and config.model.pallas_levels:
             config.model.pallas_levels = 0
         device = self.mesh.device

@@ -29,7 +29,11 @@ started); any failed check exits non-zero:
            evaluation slice's shapes: all six at the levels of 384x768,
            batch 2 (FlyingThings3D), the forwards at the levels of TTA's
            384x768, 512x1024 and 640x1280 frames, batch 1, and of the 3 x 3
-           tiles of 512x1024 in one batch of 9; each check
+           tiles of 512x1024 in one batch of 9, and all six on the bands of
+           train_spatial: CerberusNet's five levels and CerberusDCV's level
+           3 on the 256-row band of 2 ranks (the 2-D kernels on f1 and f2
+           haloed by their reach), the 2-D kernels also on the 8-row band
+           of 384x1248's level 3 on 4 ranks, at the DCV dilations; each check
            names the design that ran, as the library counted its launches
            ("tc": every bf16 correlation kernel on the tensor cores;
            "cuda_cores": float32), and fails on any other; and the
@@ -264,8 +268,8 @@ started); any failed check exits non-zero:
            block does not raise; ms per step with the mode and without
   train_dp  CerberusNet's step through data parallelism
            (cerberusnet_torch/parallel/mesh.py; default widths, bf16 over
-           float32 masters, 512x1024, configs/cerberus_synthetic.json) in
-           spawned ranks (parallel.launch): (a) one NCCL rank against one
+           float32 masters, 512x1024, configs/cerberus_synthetic.json):
+           (a) one NCCL rank (this process in a one-rank group) against one
            process at batch 2, both under deterministic algorithms, each
            loss component and module gradient within 1e-6 relative; (b)
            two gloo ranks sharing the card at a global batch of 4 against
@@ -284,7 +288,31 @@ started); any failed check exits non-zero:
            epoch): one checkpoint and one train_log.csv row, rank 0's, the
            ranks' masters equal, ms per step (gloo stages through the
            host: not a multi-card time); ``--only train_dp_cards`` runs
-           (c) and its references alone, for a machine with several cards
+           (c) and its references alone, for a machine with several cards;
+           (b) to (d) in spawned ranks (parallel.launch)
+  train_spatial  image rows split over ranks (train.num_spatial_devices,
+           cerberusnet_torch/parallel/halo.py), batch 2, each rank against
+           one process on the card: (a) 2 gloo ranks sharing the card, 256
+           rows of 512x1024 each, train CerberusNet
+           (configs/cerberus_synthetic.json), CerberusDCV
+           (configs/cerberus_dcv.json) and CerberusRAFT
+           (configs/cerberus_raft.json, level 3, 12 iterations) in turn:
+           one float32 step's correlation taps (RAFT: its volume's f1 and
+           the gathered f2) against one process's band within 3e-3, its
+           all-reduced gradients against one process's, each module (the
+           names' first three parts) within 1e-4 (DCV, RAFT) or 1e-3,
+           and the masters after it within 1e-5, controls whose taps and gradients must miss (the
+           halos' gradient all-reduces zeroed, K3 zeroed, RAFT's gather
+           reduce dropped), two bf16 steps by train's rule against the
+           float32 plain path, every K1-K8 call held to its plain version,
+           the launches a step, halo exchanges and bytes, a rank's peak and
+           ms per step beside one process's; (b) the same on NCCL ranks a
+           card each where there are two cards (``--only
+           train_spatial_cards`` runs it alone); (c) 4 gloo ranks on
+           unequal bands (128/128/64/64 rows) of DCVFlowNet at
+           configs/dcv_flow_kitti.json's 384x1248, synthetic data: taps,
+           gradients and masters of one float32 step as in (a), the
+           halos' send-back control
   runner   the C++ runner of the exported program: cerberus_runner and
            libcerberus_ops built with g++ (their seconds; ldd shows no
            libpython); the export phase's four artifacts and quant_int8's
@@ -325,9 +353,10 @@ runner's (a call of each package: runner_cerberus, runner_stacked,
 runner_pallas_levels, runner_int8, the launches from the operator
 library's counters) and the bench's (bench: every call of its headline's
 run)
-and train_dp's (the ranks of its part (b), their launches summed)
-where the kernel runs, and the DCV paths' under "dcv" (export_cerberus_dcv
-and runner_cerberus_dcv among them);
+and train_dp's (the ranks of its part (b), their launches summed) and
+train_spatial's (CerberusNet's bands in its part (a))
+where the kernel runs, and the DCV paths' under "dcv" (export_cerberus_dcv,
+runner_cerberus_dcv and train_spatial, CerberusDCV's bands, among them);
 K9's and K10's on train_pallas_levels, K9's serve, export_pallas_levels
 and runner_pallas_levels numbers beside them, each with its time over the
 cuDNN level's
@@ -343,8 +372,8 @@ line. The order: env, build, kernels, serve, then bench, whose ms per
 frame it needs (``--only serve,bench``); the deployment phases but the
 runner (quant_int8, export, train_qat, debug_nans), whose artifacts start
 the runner's AOTInductor compiles and g++ builds, which run beside every
-later phase; train, the DCV and pallas_levels phases, fit, train_dp, the
-RAFT phases, the data slice's and the evaluation slice's (cli the last of
+later phase; train, the DCV and pallas_levels phases, fit, train_dp,
+train_spatial, the RAFT phases, the data slice's and the evaluation slice's (cli the last of
 them), and the runner last, which waits for the compiles.
 """
 
@@ -371,6 +400,8 @@ DCV_LEVEL = 3
 DCV_MAX_DISP = 4
 DCV_FLOW_DILATIONS = (1, 2, 4, 8)
 DCV_DISP_DILATIONS = (1, 2, 3)
+# the kernels phase's paths on a spatial rank's band (train_spatial)
+SPATIAL_PATHS = ("spatial", "spatial_dcv", "spatial_dcv_unequal")
 # The odd shapes of the correlation kernels, (H, W, C) at batch 1 and 2: a
 # row no multiple of a tile, fewer rows than the 2-D window's height, and
 # 40-byte pixel rows (8-byte aligned, no multiple of 16) or 42-byte ones
@@ -631,6 +662,7 @@ def phase_kernels(peaks, spin_rate):
     fit_gen = torch.Generator(device="cuda").manual_seed(3)
     kitti_gen = torch.Generator(device="cuda").manual_seed(4)
     eval_gen = torch.Generator(device="cuda").manual_seed(5)
+    sp_gen = torch.Generator(device="cuda").manual_seed(6)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
@@ -682,6 +714,21 @@ def phase_kernels(peaks, spin_rate):
         cases += [("spatial", TRAIN_BATCH, level, torch.bfloat16, 1,
                    disp_of(level), sp_band_shape(name, level))
                   for level in LEVELS]
+        # the DCV decoders' calls on a band, bf16 as they run: level 3 of
+        # 512x1024 on SP_RANKS ranks (train_spatial (a)), and the 2-D ones
+        # also on the 8-row band of 384x1248's level 3 on SP_UNEQUAL_RANKS
+        # ranks (part (c)), the 2-D kernels haloed by their reach
+        lv3 = (HW[0] >> DCV_LEVEL, HW[1] >> DCV_LEVEL)
+        cases += [("spatial_dcv", TRAIN_BATCH, DCV_LEVEL, torch.bfloat16,
+                   dil, DCV_MAX_DISP,
+                   sp_dcv_band_shape(name, dil, lv3[0] // SP_RANKS, lv3[1]))
+                  for dil in dcv_dilations]
+        if name.startswith("corr2d"):
+            cases += [("spatial_dcv_unequal", TRAIN_BATCH, DCV_LEVEL,
+                       torch.bfloat16, dil, DCV_MAX_DISP,
+                       sp_dcv_band_shape(name, dil, 8,
+                                         DCV_KITTI_HW[1] >> DCV_LEVEL))
+                      for dil in dcv_dilations]
         if not backward:
             cases += [("tta", 1, level, torch.bfloat16, 1, disp_of(level),
                        level_shape(1, level, hw))
@@ -701,7 +748,8 @@ def phase_kernels(peaks, spin_rate):
             g_ = {"odd": odd_gen, "wide": wide_gen, "fit": fit_gen,
                   "kitti": kitti_gen, "dcv_kitti": kitti_gen,
                   "things": eval_gen, "tta": eval_gen,
-                  "tiles": eval_gen}.get(path, gen)
+                  "tiles": eval_gen, "spatial_dcv": sp_gen,
+                  "spatial_dcv_unequal": sp_gen}.get(path, gen)
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             cc.reset_design_launches()
@@ -726,10 +774,25 @@ def phase_kernels(peaks, spin_rate):
                              spin_rate=spin_rate)
             p_eager = cuda_times(run_plain, runs=PLAIN_RUNS, warmup=2)
             b, h, w, c = shape
-            nbytes = (2 * b * h * w * c + b * h * w * nk) * f.element_size()
-            flops = flops_of(b, h, w, c, d, dil)
+            # a band's 2-D call runs on f1 zero-padded and f2 haloed by the
+            # reach, and writes every padded row: the work the band needs is
+            # f1 and the output at its own rows, f2 with its halo
+            reach = (d * dil if path in SPATIAL_PATHS
+                     and name.startswith("corr2d") else 0)
             peak_flops = peaks["bf16" if dt == torch.bfloat16 else "f32"]
-            bound_ms = max(nbytes / peak_bw, flops / peak_flops) * 1e3
+            bounds = []
+            for hb in dict.fromkeys((h, h - 2 * reach)):
+                nbytes = ((b * hb * w * c + b * h * w * c + b * hb * w * nk)
+                          * f.element_size())
+                flops = flops_of(b, hb, w, c, d, dil)
+                bounds.append({
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": max(nbytes / peak_bw,
+                                    flops / peak_flops) * 1e3,
+                    "bound_by": "bytes" if nbytes / peak_bw
+                    >= flops / peak_flops else "operations"})
+            padded = {f"padded_{k}": v for k, v in bounds[0].items()
+                      } if reach else {}
             checks.append({
                 "kernel": name, "path": path, "batch": batch, "level": level,
                 "shape": list(shape),
@@ -741,11 +804,7 @@ def phase_kernels(peaks, spin_rate):
                 "plain_ms": p_t["median"], "plain_ms_min": p_t["min"],
                 "plain_ms_max": p_t["max"], "eager_ms": k_eager["median"],
                 "eager_ms_min": k_eager["min"], "eager_ms_max": k_eager["max"],
-                "plain_eager_ms": p_eager["median"],
-                "bytes": nbytes, "flops": flops,
-                "bound_ms": bound_ms,
-                "bound_by": "bytes" if nbytes / peak_bw >= flops / peak_flops
-                else "operations",
+                "plain_eager_ms": p_eager["median"], **bounds[-1], **padded,
             })
     checks += level_checks(peaks, spin_rate, gen)
     ok = all(c["ok"] for c in checks)
@@ -1319,7 +1378,11 @@ def grads_and_taps(trainer, batch, levels=()):
     df1": tensor, ...} (CerberusNet's decoders, by level) or {"corr2d
     dilation 8 df1": tensor, ...} (the DCV decoders, by dilation), and the
     gradient each encoder level in ``levels`` hands its input ({"encoder
-    level 2 dx": ...}). An input goes through an identity view whose hook
+    level 2 dx": ...}). A RAFT flow decoder's two feature maps at its
+    level, as its all-pairs volume reads them ({"raft flow df1": ..., "raft
+    flow df2": ...}, NHWC): on a spatial mesh f2's gradient is the sum of
+    every peer's volume's share, which the gather sends back. An input goes
+    through an identity view whose hook
     reads its gradient, so the hook sees that call's share alone: within a
     module's whole gradient a correlation's share is too small to show."""
     from cerberusnet_torch.models.dcv_flow import (
@@ -1328,6 +1391,7 @@ def grads_and_taps(trainer, batch, levels=()):
     )
     from cerberusnet_torch.models.disparity import DisparityDecoder
     from cerberusnet_torch.models.flow import FlowDecoder
+    from cerberusnet_torch.models.raft import RAFTFlowDecoder
 
     taps = {}
 
@@ -1349,11 +1413,24 @@ def grads_and_taps(trainer, batch, levels=()):
     saved = {cls: cls.correlate for cls in kinds}
     for cls, kind in kinds.items():
         cls.correlate = tapped(kind, saved[cls])
+    volume = RAFTFlowDecoder.volume
+
+    def raft_volume(self, f1, f2):
+        views = []
+        for which, f in (("df1", f1), ("df2", f2)):
+            v = f.view_as(f)
+            v.register_hook(lambda g, key=f"raft flow {which}": (
+                taps.__setitem__(key, g.permute(0, 2, 3, 1).float())))
+            views.append(v)
+        return volume(self, *views)
+
+    RAFTFlowDecoder.volume = raft_volume
     untap = level_taps(trainer.model.encoder, levels, taps)
     try:
         _, grads = trainer.loss_and_grads(batch)
     finally:
         untap()
+        RAFTFlowDecoder.volume = volume
         for cls, fn in saved.items():
             cls.correlate = fn
     return grads, taps
@@ -4934,27 +5011,78 @@ def phase_train_dp(card, parts="abcd"):
     return launches
 
 
-# The train_spatial phase: CerberusNet's step with image rows split over
-# SP_RANKS gloo ranks sharing the card (train.num_spatial_devices,
-# cerberusnet_torch/parallel/halo.py) at full width, 512x1024, batch 2,
-# configs/cerberus_synthetic.json's data: SP_STEPS steps in float32 and in
-# bf16, each rank against one process on the card. Its ranks are spawned
-# processes that import this script as their main module (sp_rank).
+# The train_spatial phase: each model's step with image rows split over
+# ranks sharing the card (train.num_spatial_devices,
+# cerberusnet_torch/parallel/halo.py) at full width, batch 2, synthetic data,
+# each rank against one process on the card. (a) SP_RANKS gloo ranks, 256
+# rows of 512x1024 a rank: CerberusNet (configs/cerberus_synthetic.json),
+# CerberusDCV (configs/cerberus_dcv.json) and CerberusRAFT
+# (configs/cerberus_raft.json: level 3, 12 iterations), float32 and bf16
+# steps; (c) SP_UNEQUAL_RANKS gloo ranks on unequal bands: DCVFlowNet at
+# configs/dcv_flow_kitti.json's 384x1248 (bands of 128/128/64/64 rows, the
+# 2-D correlation's 32-row reach at dilation 8 crossing every peer), float32
+# steps. Its ranks are spawned processes that import this script as their
+# main module (sp_rank).
 SP_RANKS = 2
+SP_UNEQUAL_RANKS = 4
+# one float32 step (its gradients, taps and the masters after it); bf16
+# steps, each held to the plain rule
 SP_STEPS = 2
-# float32: the masters after SP_STEPS steps against one process's (each
-# module's relative L2), and the gradient each correlation hands each
-# input's band (for the 2-D ones' f2 the kernel's own rows and the halo
-# rows' gradients its neighbour sends back) against one process's rows
-# there, by train_pallas_levels' float32 rule for correlation inputs (a
-# band's convolutions take other cuDNN algorithms than the frame's)
+# (config, config overrides, bf16 steps or None, a bf16 step's kernel
+# launches on a rank, the taps whose gradient the controls must spoil)
+SP_MODELS = {
+    "cerberus": (DP_CONFIG, {}, SP_STEPS,
+                 {k: len(LEVELS) for k in REPLACES}, "corr2d"),
+    "cerberus_dcv": ("configs/cerberus_dcv.json", {}, SP_STEPS,
+                     {k: (len(DCV_FLOW_DILATIONS) if k.startswith("corr2d")
+                          else len(DCV_DISP_DILATIONS)) for k in REPLACES},
+                     "corr2d"),
+    "cerberus_raft": (RAFT_CONFIG, {}, SP_STEPS, {}, "raft flow"),
+    "dcv_flow_kitti": (DCV_KITTI_CONFIG, {"data": {
+        "dataset": "synthetic", "root": "", "hw": list(DCV_KITTI_HW)}},
+        None, {}, "corr2d"),
+}
+# the models of each part, and the controls each model's f2 taps and
+# gradients must fail: the halos' and the gather's gradient all-reduces
+# zeroed ("send-back"), K3 zeroed, the gather's all-reduce alone dropped
+# (each rank keeps its own volume's share of RAFT's whole-frame f2
+# gradient, not the peers' sum; zeroed, the band's own share would go too)
+SP_PARTS = {"a": ("cerberus", "cerberus_dcv", "cerberus_raft"),
+            "b": ("cerberus", "cerberus_dcv", "cerberus_raft"),
+            "c": ("dcv_flow_kitti",)}
+SP_CONTROLS = {"cerberus": ("send_back_dropped", "k3_zeroed"),
+               "cerberus_dcv": ("send_back_dropped", "k3_zeroed"),
+               "cerberus_raft": ("gather_reduce_dropped",),
+               "dcv_flow_kitti": ("send_back_dropped",)}
+# float32: the all-reduced gradients of one step against one process's
+# (each module's relative L2, a module the names' first SP_GRAD_PARTS
+# parts: RAFT's GRU, motion encoder and heads each on their own), the
+# masters after it (each module's relative L2), and the gradient each
+# correlation hands each input's band (for the 2-D ones' f2 the kernel's
+# own rows and the halo rows' gradients its neighbours send back; RAFT's
+# f2 at the level, whose gradient every peer's volume adds to) against one
+# process's rows there, by train_pallas_levels' float32 rule for
+# correlation inputs (a band's convolutions take other cuDNN algorithms
+# than the frame's). The gradients' limit is each model's: 5-40x its
+# largest sound reading over two runs (CerberusNet 7.6e-5, CerberusDCV
+# 2.6e-6, CerberusRAFT 7.3e-6, DCVFlowNet's unequal bands 2.0e-4, run to
+# run as much as 1.1e-4 there) and at least 9x under the smallest miss of
+# a control that spoils the gradients (RAFT's gather reduce dropped 9.6e-4,
+# the send-back 0.25-0.80; an NVIDIA H100 80GB HBM3, 700 W)
+SP_GRAD_PARTS = 3
+SP_GRAD_RTOL = {"cerberus": 1e-3, "cerberus_dcv": 1e-4,
+                "cerberus_raft": 1e-4, "dcv_flow_kitti": 1e-3}
 SP_MASTERS_RTOL = 1e-5
 SP_TAP_RTOL = FUSED_F32_RTOL
-# a control's taps must miss by more than this
+# a control's taps must miss by more than this, and its gradients by more
+# than the model's SP_GRAD_RTOL where it spoils an all-reduce (K3 zeroed does not: a
+# correlation's share of a module's gradient is too small to show, which
+# the taps are for)
 SP_CONTROL_MISS = 1e-2
-SP_TIMEOUT_S = 600
+SP_GRAD_CONTROLS = ("send_back_dropped", "gather_reduce_dropped")
+SP_TIMEOUT_S = 900
 # the bf16 steps timed for ms per step, a rank's and one process's
-SP_TIMED_STEPS = 3
+SP_TIMED_STEPS = 2
 
 
 def sp_band_shape(name, level):
@@ -4966,25 +5094,32 @@ def sp_band_shape(name, level):
     return (TRAIN_BATCH, rows, HW[1] >> level, ENCODER_CHANNELS[level - 1])
 
 
-def sp_trainer(dtype, corr_impl=None, spatial=1, device="cuda"):
+def sp_dcv_band_shape(name, dilation, rows, width):
+    """The same for a DCV decoder's call at ``dilation`` on a band of
+    ``rows`` rows of level DCV_LEVEL: the 2-D kernels' f1 and f2 haloed by
+    the reach, DCV_MAX_DISP x dilation rows each side."""
+    if name.startswith("corr2d"):
+        rows += 2 * DCV_MAX_DISP * dilation
+    return (TRAIN_BATCH, rows, width, ENCODER_CHANNELS[DCV_LEVEL - 1])
+
+
+def sp_trainer(model, dtype, corr_impl=None, spatial=1, device="cuda"):
     from cerberusnet_torch.entry import train_entry
 
-    tr, _ = train_entry(DP_CONFIG, batch_size=TRAIN_BATCH, n_batches=0,
-                        device=device, corr_impl=corr_impl,
-                        model={"dtype": dtype},
-                        optim={"schedule": "constant"},
-                        train={"num_data_devices": 1,
-                               "num_spatial_devices": spatial})
+    config, overrides, *_ = SP_MODELS[model]
+    sections = {"model": {"dtype": dtype}, "optim": {"schedule": "constant"},
+                "train": {"num_data_devices": 1,
+                          "num_spatial_devices": spatial}}
+    for k, v in overrides.items():
+        sections[k] = {**v, **sections.get(k, {})}
+    tr, _ = train_entry(config, batch_size=TRAIN_BATCH, n_batches=0,
+                        device=device, corr_impl=corr_impl, **sections)
     return tr
 
 
-def band_taps(taps, rank):
-    """Rank ``rank``'s band of rows of each of one process's taps."""
-    out = {}
-    for k, t in taps.items():
-        hb = t.shape[1] // SP_RANKS
-        out[k] = t[:, rank * hb:(rank + 1) * hb]
-    return out
+def band_taps(taps, mesh):
+    """The mesh's rank's band of rows of each of one process's taps."""
+    return {k: t[:, mesh.rows(t.shape[1])] for k, t in taps.items()}
 
 
 def taps_rel_l2(taps, ref, ranks):
@@ -4993,60 +5128,87 @@ def taps_rel_l2(taps, ref, ranks):
     return {k: rel_l2(taps[k].cpu() / ranks, ref[k]) for k in ref}
 
 
-def sp_rank(job):
-    """A rank of train_spatial. float32: the two controls' and step 1's
-    correlation taps against one process's band (send-back dropped: the
-    halo's collective of gradients zeroed; K3 zeroed), then SP_STEPS steps
-    and the masters against one process's. bf16: SP_STEPS steps through
-    the kernels, every correlation call held to its plain version on the
-    same haloed tensors, the launches, the halo's exchanges and bytes and
-    this rank's peak memory; rank 0 saves the masters before each step and
-    the all-reduced gradients of each under ``job["dir"]`` for the
-    parent's yardsticks; then ms per step."""
+def sp_control(name):
+    """A context manager that spoils what the control ``name`` tests."""
+    import contextlib
+
+    from cerberusnet_torch.parallel import halo
+
+    @contextlib.contextmanager
+    def swapped(owner, attr, value):
+        saved = getattr(owner, attr)
+        setattr(owner, attr, value)
+        try:
+            yield
+        finally:
+            setattr(owner, attr, saved)
+
+    if name == "send_back_dropped":
+        return swapped(halo, "_all_reduce", lambda t, mesh: t.zero_())
+    if name == "k3_zeroed":
+        return swapped(*zeroed_backward("corr2d_bwd_f2"))
+    if name == "gather_reduce_dropped":
+        real = halo._GatherRows.backward
+
+        def backward(ctx, g):
+            with swapped(halo, "_all_reduce", lambda t, mesh: t):
+                return real(ctx, g)
+        return swapped(halo._GatherRows, "backward", staticmethod(backward))
+    raise ValueError(name)
+
+
+def sp_rank_model(name, job, tr_device):
+    """One model of a train_spatial rank: float32 (the controls' and one
+    step's taps against one process's band, that step's all-reduced
+    gradients and the masters after it against one process's); bf16 where
+    the model has bf16 steps
+    (every correlation call held to its plain version on the same haloed
+    tensors, the launches, the halo's exchanges and bytes, this rank's
+    peak; rank 0 saves the masters before each step and the all-reduced
+    gradients of each under ``job["dir"]`` for the parent's yardsticks;
+    then ms per step)."""
     import os
 
     from cerberusnet_torch.parallel import halo
 
-    dp_setup()
-    batches_ = job["batches"]
+    sub = job["models"][name]
+    batches_ = sub["batches"]
     out = {}
-    tr = sp_trainer("float32", spatial=SP_RANKS, device=job["device"])
-    rank = tr.mesh.spatial_rank
-    ref = band_taps(as_tensors(job["taps"]), rank)
-    # D = 1: every rank takes the whole batch and keeps its band
-    local = batches_
-    real = halo._all_reduce
-    halo._all_reduce = lambda t, mesh: t.zero_()
-    try:
-        _, taps = grads_and_taps(tr, local[0])
-    finally:
-        halo._all_reduce = real
-    out["control_send_back_dropped"] = taps_rel_l2(taps, ref, tr.mesh.size)
-    module, attr, zeros = zeroed_backward("corr2d_bwd_f2")
-    saved = getattr(module, attr)
-    setattr(module, attr, zeros)
-    try:
-        _, taps = grads_and_taps(tr, local[0])
-    finally:
-        setattr(module, attr, saved)
-    out["control_k3_zeroed"] = taps_rel_l2(taps, ref, tr.mesh.size)
-    grads, taps = grads_and_taps(tr, local[0])
+    t0 = time.perf_counter()
+    tr = sp_trainer(name, "float32", spatial=job["ranks"], device=tr_device)
+    ref = band_taps(as_tensors(sub["taps"]), tr.mesh)
+    ref_grads = as_tensors(sub["grads"])
+    for control in SP_CONTROLS[name]:
+        with sp_control(control):
+            grads, taps = grads_and_taps(tr, batches_[0])
+        out[f"control_{control}"] = taps_rel_l2(taps, ref, tr.mesh.size)
+        out[f"control_{control}_grads"] = module_rel_l2(
+            cpu_grads(grads), ref_grads, SP_GRAD_PARTS)
+    grads, taps = grads_and_taps(tr, batches_[0])
     out["f32_taps"] = taps_rel_l2(taps, ref, tr.mesh.size)
+    out["f32_grads"] = module_rel_l2(cpu_grads(grads), ref_grads,
+                                     SP_GRAD_PARTS)
     tr.apply_grads(grads)
-    for b in local[1:SP_STEPS]:
-        tr.train_step(b)
     out["f32_masters"] = module_rel_l2(cpu_grads(tr.masters),
-                                       as_tensors(job["masters"]))
+                                       as_tensors(sub["masters"]))
+    out.update(rank=tr.mesh.spatial_rank, device=str(tr.device),
+               rows=[tr.mesh.rows(tr.config.data.hw[0]).start,
+                     tr.mesh.rows(tr.config.data.hw[0]).stop])
     del tr, grads, taps
     torch.cuda.empty_cache()
+    out["f32_s"] = time.perf_counter() - t0
+    steps = SP_MODELS[name][2]
+    if not steps:
+        return out
 
-    tr = sp_trainer("bfloat16", spatial=SP_RANKS, device=job["device"])
+    tr = sp_trainer(name, "bfloat16", spatial=job["ranks"], device=tr_device)
+    rank = tr.mesh.spatial_rank
     calls, launches, exchanges = [], [], []
     torch.cuda.reset_peak_memory_stats(tr.device)
-    for step, b in enumerate(local[:SP_STEPS]):
+    for step, b in enumerate(batches_[:steps]):
         if rank == 0:
             torch.save(cpu_grads(tr.masters),
-                       os.path.join(job["dir"], f"masters_{step}.pt"))
+                       os.path.join(job["dir"], f"{name}_masters_{step}.pt"))
         real = checked_corr_calls(calls)
         reset_launch_counts()
         halo.reset_stats()
@@ -5059,54 +5221,68 @@ def sp_rank(job):
         exchanges.append(halo.stats())
         if rank == 0:
             torch.save(cpu_grads(grads),
-                       os.path.join(job["dir"], f"grads_{step}.pt"))
+                       os.path.join(job["dir"], f"{name}_grads_{step}.pt"))
         tr.apply_grads(grads)
     out["peak_gib"] = torch.cuda.max_memory_allocated(tr.device) / 2**30
-    out["ms_per_step"] = cuda_times(lambda: tr.train_step(local[0]),
+    out["ms_per_step"] = cuda_times(lambda: tr.train_step(batches_[0]),
                                     runs=SP_TIMED_STEPS, warmup=1)
-    out.update(rank=rank, device=str(tr.device), launches=launches,
-               exchanges=exchanges, calls=calls_summary(calls))
+    out.update(launches=launches, exchanges=exchanges,
+               calls=calls_summary(calls))
     out["calls"].pop("rows")
+    del tr, grads
+    torch.cuda.empty_cache()
+    out["bf16_s"] = time.perf_counter() - t0 - out["f32_s"]
     return out
 
 
-def sp_single(batches_):
-    """One process's references on the card: step 1's correlation taps
-    and the masters after SP_STEPS steps in float32 through the kernels;
-    ms per step and the peak of the bf16 step."""
-    tr = sp_trainer("float32")
+def sp_rank(job):
+    """A rank of train_spatial: each model of its part in turn
+    (``sp_rank_model``)."""
+    dp_setup()
+    return {name: sp_rank_model(name, job, job["device"])
+            for name in job["models"]}
+
+
+def sp_single(name, batches_):
+    """One process's references on the card for ``name``: one step's taps
+    and gradients and the masters after it in float32 through the
+    kernels; where the model has bf16 steps, ms per step and the peak of
+    the bf16 step."""
+    tr = sp_trainer(name, "float32")
     grads, taps = grads_and_taps(tr, batches_[0])
-    tr.apply_grads(grads)
-    for b in batches_[1:SP_STEPS]:
-        tr.train_step(b)
     refs = {"taps": {k: t.cpu() for k, t in taps.items()},
-            "masters": cpu_grads(tr.masters)}
+            "grads": cpu_grads(grads)}
+    tr.apply_grads(grads)
+    refs["masters"] = cpu_grads(tr.masters)
     del tr, grads, taps
     torch.cuda.empty_cache()
-    tr = sp_trainer("bfloat16")
-    torch.cuda.reset_peak_memory_stats()
-    for b in batches_[:SP_STEPS]:
-        tr.train_step(b)
-    torch.cuda.synchronize()
-    refs["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    refs["ms_per_step"] = cuda_times(lambda: tr.train_step(batches_[0]),
-                                     runs=SP_TIMED_STEPS, warmup=1)
-    del tr
-    torch.cuda.empty_cache()
+    steps = SP_MODELS[name][2]
+    if steps:
+        tr = sp_trainer(name, "bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches_[:steps]:
+            tr.train_step(b)
+        torch.cuda.synchronize()
+        refs["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        refs["ms_per_step"] = cuda_times(
+            lambda: tr.train_step(batches_[0]), runs=SP_TIMED_STEPS,
+            warmup=1)
+        del tr
+        torch.cuda.empty_cache()
     return refs
 
 
-def sp_yardsticks(batches_, root):
+def sp_yardsticks(name, batches_, root):
     """Each bf16 step of the ranks against the float32 plain path at the
     masters the ranks held before it (rank 0's, saved under ``root``):
     {step: (the ranks' gradients' module distances, the limits of the
     train phase's rule)}."""
     out = {}
-    f32 = sp_trainer("float32", corr_impl="plain")
-    b16 = sp_trainer("bfloat16", corr_impl="plain")
-    for step, b in enumerate(batches_[:SP_STEPS]):
-        masters = torch.load(f"{root}/masters_{step}.pt")
-        got = torch.load(f"{root}/grads_{step}.pt")
+    f32 = sp_trainer(name, "float32", corr_impl="plain")
+    b16 = sp_trainer(name, "bfloat16", corr_impl="plain")
+    for step, b in enumerate(batches_[:SP_MODELS[name][2]]):
+        masters = torch.load(f"{root}/{name}_masters_{step}.pt")
+        got = torch.load(f"{root}/{name}_grads_{step}.pt")
         f32.load_masters(masters)
         b16.load_masters(masters)
         ref = cpu_grads(f32.loss_and_grads(b)[1])
@@ -5118,107 +5294,151 @@ def sp_yardsticks(batches_, root):
     return out
 
 
-def sp_part(part, backend, device, batches_, refs):
+def sp_rank_errors(name, res, label):
+    """The checks of one model's result on a rank."""
+    errors = [f"{label}: float32 tap {k} rel L2 {d} > {SP_TAP_RTOL}"
+              for k, d in res["f32_taps"].items() if not d <= SP_TAP_RTOL]
+    grad_rtol = SP_GRAD_RTOL[name]
+    errors += [f"{label}: float32 gradient {m} rel L2 {d} > {grad_rtol}"
+               for m, d in res["f32_grads"].items() if not d <= grad_rtol]
+    errors += [f"{label}: float32 masters {m} rel L2 {d} > "
+               f"{SP_MASTERS_RTOL}" for m, d in res["f32_masters"].items()
+               if not d <= SP_MASTERS_RTOL]
+    spoiled = SP_MODELS[name][4]
+    for control in SP_CONTROLS[name]:
+        worst = max(d for k, d in res[f"control_{control}"].items()
+                    if k.startswith(spoiled) and k.endswith("df2"))
+        if not worst > SP_CONTROL_MISS:
+            errors.append(f"{label}: {control}: the f2 taps pass (worst "
+                          f"rel L2 {worst})")
+        worst = max(res[f"control_{control}_grads"].values())
+        if control in SP_GRAD_CONTROLS and not worst > grad_rtol:
+            errors.append(f"{label}: {control}: the gradients pass (worst "
+                          f"rel L2 {worst})")
+    want_launches = SP_MODELS[name][3]
+    for step, launches in enumerate(res.get("launches", ())):
+        want = {k: want_launches.get(k, 0) for k in launches}
+        if launches != want:
+            errors.append(f"{label} step {step}: launches {launches}, not "
+                          f"{want}")
+    if "calls" in res:
+        errors += [f"{label}: {e}" for e in res["calls"]["errors"]]
+    return errors
+
+
+def sp_part(part, backend, device, data, refs):
     """The ranks of one part (gloo ranks sharing the card, or NCCL ranks a
     card each) and the parent's yardsticks of their bf16 steps; emits the
-    part's lines; returns (errors, the ranks' bf16 launches summed over
-    the ranks and steps)."""
+    part's lines; returns (errors, {model: the ranks' bf16 launches summed
+    over the ranks and steps})."""
     import shutil
     import tempfile
 
     from cerberusnet_torch.parallel import launch
 
+    names = SP_PARTS[part]
+    ranks_n = SP_UNEQUAL_RANKS if part == "c" else SP_RANKS
     root = tempfile.mkdtemp(prefix="cerberus_sp_")
     try:
-        job = {"batches": batches_, "taps": as_numpy(refs["taps"]),
-               "masters": as_numpy(refs["masters"]), "dir": root,
-               "device": device}
+        job = {"models": {n: {"batches": data[n],
+                              "taps": as_numpy(refs[n]["taps"]),
+                              "grads": as_numpy(refs[n]["grads"]),
+                              "masters": as_numpy(refs[n]["masters"])}
+                          for n in names},
+               "dir": root, "device": device, "ranks": ranks_n}
         t0 = time.perf_counter()
-        ranks = launch(sp_rank, SP_RANKS, args=(job,), backend=backend,
+        ranks = launch(sp_rank, ranks_n, args=(job,), backend=backend,
                        timeout=SP_TIMEOUT_S)
         ranks_s = time.perf_counter() - t0
-        yard = sp_yardsticks(batches_, root)
+        yard = {n: sp_yardsticks(n, data[n], root) for n in names
+                if SP_MODELS[n][2]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    errors = []
-    for res in ranks:
-        label = f"({part}) rank {res['rank']}"
-        errors += [f"{label}: float32 tap {k} rel L2 {d} > {SP_TAP_RTOL}"
-                   for k, d in res["f32_taps"].items() if not d <= SP_TAP_RTOL]
-        errors += [f"{label}: float32 masters {m} rel L2 {d} > "
-                   f"{SP_MASTERS_RTOL}" for m, d in res["f32_masters"].items()
-                   if not d <= SP_MASTERS_RTOL]
-        for control in ("control_send_back_dropped", "control_k3_zeroed"):
-            worst = max(d for k, d in res[control].items()
-                        if k.startswith("corr2d") and k.endswith("df2"))
-            if not worst > SP_CONTROL_MISS:
-                errors.append(f"{label}: {control}: the f2 taps pass "
-                              f"(worst rel L2 {worst})")
-        for step, launches in enumerate(res["launches"]):
-            want = {k: len(LEVELS) if k in REPLACES else 0
-                    for k in launches}
-            if launches != want:
-                errors.append(f"{label} step {step}: launches {launches}, "
-                              f"not {want}")
-        errors += [f"{label}: {e}" for e in res["calls"]["errors"]]
-    for step, (dist, limits) in yard.items():
-        errors += [f"({part}) bf16 step {step}: {m} gradient rel L2 {d} > "
-                   f"{limits[m]}" for m, d in dist.items()
-                   if not d <= limits[m]]
-    launches = {k: sum(r["launches"][s][k] for r in ranks
-                       for s in range(SP_STEPS))
-                for k in ranks[0]["launches"][0]}
-    for res in ranks:
-        emit({"phase": "train_spatial", "part": part, "rank": res["rank"],
-              "device": res["device"], "backend": backend,
-              **{k: res[k] for k in (
-                  "f32_taps", "f32_masters", "control_send_back_dropped",
-                  "control_k3_zeroed", "launches", "exchanges", "calls",
-                  "peak_gib", "ms_per_step")}})
-    emit({"phase": "train_spatial", "part": part, "backend": backend,
-          "ranks_s": ranks_s,
-          "bf16_steps": {s: {"rel_l2": d, "limits": lim}
-                         for s, (d, lim) in yard.items()},
-          "rank_ms_per_step": [r["ms_per_step"] for r in ranks],
-          "rank_peak_gib": [r["peak_gib"] for r in ranks],
-          "exchanges_per_step": ranks[0]["exchanges"],
-          "launches_summed": launches, "errors": errors})
-    return errors, launches
+    errors, summed = [], {}
+    for name in names:
+        for r, res in enumerate(ranks):
+            res = res[name]
+            errors += sp_rank_errors(name, res, f"({part}) {name} rank {r}")
+            emit({"phase": "train_spatial", "part": part, "model": name,
+                  "rank": res["rank"], "device": res["device"],
+                  "backend": backend, "rows": res["rows"],
+                  **{k: res[k] for k in (
+                      "f32_taps", "f32_grads", "f32_masters", *(
+                          f"control_{c}{g}" for c in SP_CONTROLS[name]
+                          for g in ("", "_grads")),
+                      "launches", "exchanges", "calls", "peak_gib",
+                      "ms_per_step", "f32_s", "bf16_s") if k in res}})
+        for step, (dist, limits) in yard.get(name, {}).items():
+            errors += [f"({part}) {name} bf16 step {step}: {m} gradient rel "
+                       f"L2 {d} > {limits[m]}" for m, d in dist.items()
+                       if not d <= limits[m]]
+        bf16 = [r[name] for r in ranks if "launches" in r[name]]
+        if bf16:
+            summed[name] = {k: sum(r["launches"][s][k] for r in bf16
+                                   for s in range(len(r["launches"])))
+                            for k in bf16[0]["launches"][0]}
+        emit({"phase": "train_spatial", "part": part, "model": name,
+              "backend": backend, "ranks_s": ranks_s,
+              "bf16_steps": {s: {"rel_l2": d, "limits": lim}
+                             for s, (d, lim) in yard.get(name, {}).items()},
+              "rank_ms_per_step": [r[name].get("ms_per_step") for r in ranks],
+              "rank_peak_gib": [r[name].get("peak_gib") for r in ranks],
+              "one_process_ms_per_step": refs[name].get("ms_per_step"),
+              "one_process_peak_gib": refs[name].get("peak_gib"),
+              "exchanges_per_step": ranks[0][name].get("exchanges"),
+              "launches_summed": summed.get(name)})
+    emit({"phase": "train_spatial", "part": part, "ranks_s": ranks_s,
+          "errors": errors})
+    return errors, summed
 
 
-def phase_train_spatial(card, parts="ab"):
+def phase_train_spatial(card, parts="ac"):
     """train_spatial: (a) SP_RANKS gloo ranks sharing the card hold the two
-    bands of each frame (D = 1, S = SP_RANKS): float32 and bf16 steps
-    against one process, the K3 send-back control, the kernels' calls and
-    launches; (b) the same with NCCL ranks a card each where there are
-    SP_RANKS cards, skipped on one. ``parts`` "b" alone (``--only
+    bands of each frame (D = 1, S = SP_RANKS) of CerberusNet, CerberusDCV
+    and CerberusRAFT: float32 and bf16 steps against one process, the
+    controls, the kernels' calls and launches; (b) the same with NCCL ranks
+    a card each where there are SP_RANKS cards, skipped on one; (c)
+    SP_UNEQUAL_RANKS gloo ranks on unequal bands of DCVFlowNet at
+    384x1248, float32 against one process. ``parts`` "b" alone (``--only
     train_spatial_cards``) runs (b) and its one-process references.
-    Returns (a)'s bf16 launches, summed over the ranks and steps."""
+    Returns (a)'s bf16 launches by model, summed over the ranks and
+    steps."""
     from cerberusnet_torch.data.loader import batches
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    tr = sp_trainer("bfloat16")
-    batches_ = batches(tr.dataset, TRAIN_BATCH, SP_STEPS)
-    del tr
-    refs = sp_single(batches_)
-    emit({"phase": "train_spatial", "part": "one_process", "card": card,
-          "ms_per_step": refs["ms_per_step"], "peak_gib": refs["peak_gib"],
-          "note": f"the a part's ranks are {SP_RANKS} gloo ranks sharing "
-                  "one card: gloo stages the halo exchanges through the "
-                  "host; their ms per step is not a multi-card time"})
-    errors, launches = ([], None) if "a" not in parts else sp_part(
-        "a", "gloo", "cuda:0", batches_, refs)
+    names = [n for p in parts for n in SP_PARTS[p]]
     if torch.cuda.device_count() >= SP_RANKS:
-        errors += sp_part("b", "nccl", "cuda", batches_, refs)[0]
+        names += [n for n in SP_PARTS["b"] if n not in names]
+    data, refs = {}, {}
+    for name in dict.fromkeys(names):
+        tr = sp_trainer(name, "bfloat16")
+        data[name] = batches(tr.dataset, TRAIN_BATCH,
+                             SP_MODELS[name][2] or 1)
+        del tr
+        refs[name] = sp_single(name, data[name])
+        emit({"phase": "train_spatial", "part": "one_process", "model": name,
+              "card": card, "ms_per_step": refs[name].get("ms_per_step"),
+              "peak_gib": refs[name].get("peak_gib"),
+              "note": "the ranks of parts a and c are gloo ranks sharing "
+                      "one card: gloo stages the halo exchanges through the "
+                      "host; their ms per step is not a multi-card time"})
+    errors, launches = [], None
+    if "a" in parts:
+        errors, launches = sp_part("a", "gloo", "cuda:0", data, refs)
+    if "c" in parts:
+        errors += sp_part("c", "gloo", "cuda:0", data, refs)[0]
+    if torch.cuda.device_count() >= SP_RANKS:
+        errors += sp_part("b", "nccl", "cuda", data, refs)[0]
     else:
         emit({"phase": "train_spatial", "part": "b", "skipped": True,
               "why": f"{torch.cuda.device_count()} CUDA device(s) visible; "
                      f"{SP_RANKS} NCCL ranks need {SP_RANKS}"})
     ok = not errors
     emit({"phase": "train_spatial", "ok": ok, "parts": parts,
-          "config": DP_CONFIG,
+          "models": {n: SP_MODELS[n][0] for n in data},
           "hw": list(HW), "batch": TRAIN_BATCH, "ranks": SP_RANKS,
+          "unequal_ranks": SP_UNEQUAL_RANKS, "f32_steps": 1,
           "steps": SP_STEPS, "seconds": time.perf_counter() - t_phase,
           "errors": errors})
     if not ok:
@@ -5235,6 +5455,9 @@ def path_numbers(checks, name, path, batch, launches):
             and c["batch"] == batch and c["dtype"] == "bfloat16"]
     bound = sum(r["bound_ms"] for r in rows)
     by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    padded = ({"padded_bound_ms": sum(r.get("padded_bound_ms", r["bound_ms"])
+                                      for r in rows)}
+              if any("padded_bound_ms" in r for r in rows) else {})
     return {
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -5242,13 +5465,15 @@ def path_numbers(checks, name, path, batch, launches):
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": bound,
         "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
+        **padded,
         "batch": batch,
         "eager_ms": sum(r["eager_ms"] for r in rows),
         "plain_eager_ms": sum(r["plain_eager_ms"] for r in rows),
         "shapes": [{k: r[k] for k in (
             "level", "shape", "max_disp", "dilation", "design", "ms", "ms_min",
             "ms_max", "eager_ms", "plain_ms", "plain_eager_ms", "bound_ms",
-            "bound_by", "max_abs_err") if k in r} for r in rows],
+            "bound_by", "padded_bound_ms", "max_abs_err") if k in r}
+            for r in rows],
     }
 
 
@@ -5360,6 +5585,12 @@ def summary(checks, counts):
             if counts[phase][name]:
                 dcv[phase] = path_numbers(checks, name, "dcv", 1,
                                           counts[phase][name])
+        # CerberusDCV's calls on a rank's (haloed) band of level 3, the
+        # launches of both ranks' bf16 steps summed
+        if counts["train_spatial_dcv"][name]:
+            dcv["train_spatial"] = path_numbers(
+                checks, name, "spatial_dcv", TRAIN_BATCH,
+                counts["train_spatial_dcv"][name])
         dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
                 else DCV_DISP_DILATIONS)
         entries.append({
@@ -5447,7 +5678,9 @@ def main(argv):
         elif only is not None and "train_dp_cards" in only:
             phase_train_dp(card, parts="c")
         if wanted("train_spatial"):
-            counts["train_spatial"] = phase_train_spatial(card)
+            launches = phase_train_spatial(card)
+            counts["train_spatial"] = launches["cerberus"]
+            counts["train_spatial_dcv"] = launches["cerberus_dcv"]
         elif only is not None and "train_spatial_cards" in only:
             phase_train_spatial(card, parts="b")
         for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):

@@ -1,12 +1,14 @@
-"""Rank bodies of ``tests/test_torch_parallel.py`` and
-``tests/test_torch_spatial.py``: importable functions that
-``cerberusnet_torch.parallel.launch`` runs in spawned ranks. They import
+"""Rank bodies of ``tests/test_torch_parallel.py``,
+``tests/test_torch_spatial.py`` and ``tests/test_torch_spatial_dcv_raft.py``:
+importable functions that ``cerberusnet_torch.parallel.launch`` runs in
+spawned ranks. They import
 torch and the port only (a rank never imports JAX); what they are held
 against is computed in the test process and handed in as numpy.
 
-``suite`` and ``spatial_suite`` run every case of their test file in one
-spawn, so each file spawns its ranks once: each case is a function of
-(mesh, its payload) that returns numpy arrays and floats."""
+``suite``, ``spatial_suite`` and ``dcv_raft_suite`` run every case of
+their test file in one spawn, so each file spawns its ranks once: each
+case is a function of (mesh, its payload) that returns numpy arrays and
+floats."""
 
 import os
 import time
@@ -17,8 +19,18 @@ import torch.distributed as dist
 
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.models.common import set_spatial
+from cerberusnet_torch.models.dcv_flow import (
+    CerberusDCV,
+    DCVFlowNet,
+    DCVStereoNet,
+)
 from cerberusnet_torch.models.disparity import StereoNet
 from cerberusnet_torch.models.flow import FlowNet
+from cerberusnet_torch.models.raft import (
+    CerberusRAFT,
+    RAFTFlowNet,
+    RAFTStereoNet,
+)
 from cerberusnet_torch.models.segmentation import SegNet
 from cerberusnet_torch.parallel.halo import gather_rows, halo_rows
 from cerberusnet_torch.parallel.mesh import (
@@ -130,13 +142,16 @@ def model_loss(name, out, batch, mesh):
     return tl.joint_loss(out, batch, mesh=mesh)[0]
 
 
-def model_grads(mesh, spec):
-    """The loss and the parameters' gradients of a ``SPATIAL_MODELS`` entry
-    on this rank's rows (and, on a spatial mesh, its band), all-reduced as
-    the trainer does."""
-    make, keys = SPATIAL_MODELS[spec["model"]]
-    model = set_spatial(load_flax_params(make(), spec["params"]), mesh)
-    batch = torch_tree(shard_batch(spec["batch"], mesh))
+def model_grads(mesh, spec, models=None, dtype=torch.float32):
+    """The loss and the parameters' gradients of a ``models`` entry
+    (``SPATIAL_MODELS`` by default) on this rank's rows (and, on a spatial
+    mesh, its band), all-reduced as the trainer does; ``dtype``: the
+    model's parameters and the batch's floats."""
+    make, keys = (models or SPATIAL_MODELS)[spec["model"]]
+    model = set_spatial(load_flax_params(make(), spec["params"]).to(dtype),
+                        mesh)
+    batch = {k: v.to(dtype) if v.dtype.is_floating_point else v
+             for k, v in torch_tree(shard_batch(spec["batch"], mesh)).items()}
     out = model(*(batch[k] for k in keys))
     loss = model_loss(spec["model"], out, batch, mesh)
     loss.backward()
@@ -334,39 +349,43 @@ HALO_CASES = ((18, 18, "zero"), (18, 3, "edge"), (1, 1, "edge"),
 HALO_H = 32
 
 
-def halo_checks(mesh):
-    """``halo_rows`` and ``gather_rows`` against slicing the whole frame
-    (values) and ``gradcheck`` in float64 of the whole frame's function
-    ``x -> the peers' outputs, gathered``, which every peer computes
-    alike."""
+def halo_checks(mesh, h=HALO_H):
+    """``halo_rows`` and ``gather_rows`` against slicing the whole frame of
+    ``h`` rows (values) and ``gradcheck`` in float64 of the whole frame's
+    function ``x -> the peers' outputs, gathered``, which every peer
+    computes alike. The bands are ``mesh.rows``', equal or not."""
     gen = torch.Generator().manual_seed(5)
-    x = torch.randn((1, 1, HALO_H, 1), dtype=torch.float64, generator=gen)
-    hb = HALO_H // mesh.spatial_size
-    s = mesh.spatial_rank
+    x = torch.randn((1, 1, h, 1), dtype=torch.float64, generator=gen)
+    rows = mesh.rows(h)
+    hb = rows.stop - rows.start
     out = {}
     for top, bottom, fill in HALO_CASES:
         if fill == "zero":
             padded = torch.nn.functional.pad(x, (0, 0, top, bottom))
         else:
-            padded = x[:, :, torch.arange(-top, HALO_H + bottom).clamp(
-                0, HALO_H - 1)]
+            padded = x[:, :, torch.arange(-top, h + bottom).clamp(0, h - 1)]
 
         def fn(a, top=top, bottom=bottom, fill=fill):
-            band = _Replicated.apply(a, mesh)[:, :, mesh.rows(HALO_H)]
-            return gather_rows(halo_rows(band, top, bottom, mesh, fill),
-                               mesh)
+            band = _Replicated.apply(a, mesh)[:, :, rows]
+            out = halo_rows(band, top, bottom, mesh, fill)
+            # every peer's output padded to the tallest, in its own slot of
+            # a stack that the peers' sum fills
+            tall = max(mesh.split(h)) + top + bottom
+            out = torch.nn.functional.pad(out, (0, 0, 0, tall - out.shape[2]))
+            return mesh.spatial_sum(torch.stack([
+                out if r == mesh.spatial_rank else torch.zeros_like(out)
+                for r in range(mesh.spatial_size)]))
 
-        got = halo_rows(x[:, :, mesh.rows(HALO_H)], top, bottom, mesh, fill)
+        got = halo_rows(x[:, :, rows], top, bottom, mesh, fill)
         out[f"halo {top} {bottom} {fill}"] = {
             "values": bool(torch.equal(
-                got, padded[:, :, s * hb:s * hb + top + hb + bottom])),
+                got, padded[:, :, rows.start:rows.start + top + hb + bottom])),
             "gradcheck": torch.autograd.gradcheck(
                 fn, (x.clone().requires_grad_(),), raise_exception=False)}
     nhwc = x.permute(0, 2, 3, 1).contiguous()
 
     def gathered(a):
-        return gather_rows(_Replicated.apply(a, mesh)[:, mesh.rows(HALO_H)],
-                           mesh, dim=1)
+        return gather_rows(_Replicated.apply(a, mesh)[:, rows], mesh, dim=1)
 
     out["gather nhwc"] = {
         "values": bool(torch.equal(gathered(nhwc), nhwc)),
@@ -407,7 +426,7 @@ def spatial_suite(p):
     torch.set_num_threads(1)
     out = {"rank": dist.get_rank()}
     for shape in SPATIAL_MESHES:
-        mesh = make_mesh(shape[0], "cpu", shape[1])
+        mesh = make_mesh(shape[0], "cpu", shape[1], p["coarsest_rows"])
         out[f"{shape[0]}x{shape[1]}"] = {
             "coords": [mesh.data_rank, mesh.spatial_rank],
             "models": {name: model_grads(mesh, spec)
@@ -425,4 +444,68 @@ def spatial_suite(p):
                                "num_spatial_devices": SPATIAL_RANKS}})
     out["pallas_levels"] = [fused.config.model.pallas_levels,
                             fused.model.encoder.fused_levels]
+    out["built"] = {}
+    for case, raw in p["built"].items():
+        tr = trainer(raw)
+        rows = tr.mesh.rows(tr.config.data.hw[0])
+        out["built"][case] = {"variant": tr.config.model.variant,
+                              "rows": [rows.start, rows.stop]}
     return out
+
+
+# ------------------------------------- the spatial axis: DCV, RAFT, bands
+
+# the DCV decoders' estimator at the tiny widths, their context network
+# deep enough for its dilation-16 block; the RAFT decoders at
+# tests/jax_pairs.py's tiny widths with 2 iterations over 2 volume levels
+# of radius 2
+DCV_DEC = dict(est_channels=(16, 16, 12), ctx_channels=(8, 8, 8, 8, 8))
+RAFT_DEC = dict(fdim=16, hdim=16, cdim=8, corr_levels=2, radius=2, iters=2)
+DCV_RAFT_MODELS = {
+    "DCVFlowNet": (lambda: DCVFlowNet(encoder_channels=TINY_ENC, **DCV_DEC),
+                   ("left", "temporal")),
+    "DCVStereoNet": (lambda: DCVStereoNet(encoder_channels=TINY_ENC,
+                                          **DCV_DEC), ("left", "right")),
+    "CerberusDCV": (lambda: CerberusDCV(
+        encoder_channels=TINY_ENC, num_classes=5, fpn_channels=16,
+        **DCV_DEC), ("left", "right", "temporal")),
+    "RAFTFlowNet": (lambda: RAFTFlowNet(encoder_channels=TINY_ENC,
+                                        **RAFT_DEC), ("left", "temporal")),
+    "RAFTStereoNet": (lambda: RAFTStereoNet(encoder_channels=TINY_ENC,
+                                            **RAFT_DEC), ("left", "right")),
+    "CerberusRAFT": (lambda: CerberusRAFT(
+        encoder_channels=TINY_ENC, num_classes=5, fpn_channels=16,
+        **RAFT_DEC), ("left", "right", "temporal")),
+    "CerberusNet": SPATIAL_MODELS["CerberusNet"],
+}
+# the unequal bands: the coarsest level's 5 rows of a 320-row frame
+UNEQUAL_H = 320
+UNEQUAL_HALO_H = 40
+
+
+def dcv_raft_suite(p):
+    """Every case of tests/test_torch_spatial_dcv_raft.py on this rank:
+    the models of ``p["models"]`` (equal bands) and ``p["unequal"]``
+    (``UNEQUAL_H`` rows) on the 1 x 4 and 2 x 2 meshes, and on the unequal
+    bands of 1 x 4 the halo primitives and the trainers of
+    ``p["trainers"]`` (``spatial_trainer``)."""
+    torch.set_num_threads(1)
+    out = {"rank": dist.get_rank()}
+    for d, s in SPATIAL_MESHES:
+        key = f"{d}x{s}"
+        equal = make_mesh(d, "cpu", s, p["coarsest_rows"])
+        unequal = make_mesh(d, "cpu", s, UNEQUAL_H // 2**len(TINY_ENC))
+        out[key] = {
+            "models": {name: model_grads(equal, spec, DCV_RAFT_MODELS)
+                       for name, spec in p["models"].items()},
+            "unequal": {name: model_grads(unequal, spec, DCV_RAFT_MODELS)
+                        for name, spec in p["unequal"].items()},
+            "rows": [unequal.rows(UNEQUAL_H).start,
+                     unequal.rows(UNEQUAL_H).stop]}
+        if (d, s) == (1, SPATIAL_RANKS):
+            out["halo"] = halo_checks(unequal, UNEQUAL_HALO_H)
+            out["trainers"] = {
+                v: spatial_trainer(unequal, {**tp, "shape": (d, s)})
+                for v, tp in p["trainers"].items()}
+    return out
+

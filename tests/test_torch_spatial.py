@@ -64,6 +64,9 @@ N = dp_ranks.SPATIAL_RANKS
 B = 2
 HW = (256, 64)
 MESHES = [f"{d}x{s}" for d, s in dp_ranks.SPATIAL_MESHES]
+# the settings refused as ROADMAP A11c until the axis took them all
+A11C_SETTINGS = [("cerberus_dcv", (256, 64)), ("cerberus_raft", (256, 64)),
+                 ("raft", (256, 64)), ("cerberus", (320, 64))]
 
 # the JAX side: model -> the mesh it runs on (each model once, both
 # meshes used: a JAX compile of these takes 3-35 s on the CPU)
@@ -256,7 +259,10 @@ def world(tmp_path_factory):
                        "dir": str(tmp_path_factory.mktemp("spatial_ckpt"))}
     del tr
     payload = {"models": specs, "trainer": trainer_payload,
-               "losses": loss_inputs()}
+               "coarsest_rows": HW[0] // 2**len(dp_ranks.TINY_ENC),
+               "losses": loss_inputs(),
+               "built": {f"{v} {hw[0]}": spatial_raw(v, N, hw)
+                         for v, hw in A11C_SETTINGS}}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(launch, dp_ranks.spatial_suite, N,
                             args=(payload,), timeout=900)
@@ -460,12 +466,17 @@ def _leaves(out):
 # --------------------------------------------------------------- refusals
 
 
-def spatial_config(variant="cerberus", spatial=2, hw=(256, 64), **model):
+def spatial_raw(variant="cerberus", spatial=2, hw=(256, 64), **model):
     raw = tiny_config_dict()
     raw["model"].update(variant=variant, **model)
     raw["data"]["hw"] = list(hw)
     raw["train"]["num_spatial_devices"] = spatial
-    return ExperimentConfig.from_dict(raw)
+    return raw
+
+
+def spatial_config(variant="cerberus", spatial=2, hw=(256, 64), **model):
+    return ExperimentConfig.from_dict(spatial_raw(variant, spatial, hw,
+                                                  **model))
 
 
 @pytest.mark.parametrize("spatial", [2, 4])
@@ -476,13 +487,28 @@ def test_the_pwc_family_passes_the_check(variant, head, spatial):
     spatial_config(variant, spatial, seg_head=head).check_supported()
 
 
-@pytest.mark.parametrize("variant,hw", [
-    ("cerberus_dcv", (256, 64)), ("cerberus_raft", (256, 64)),
-    ("raft", (256, 64)), ("cerberus", (320, 64))])
-def test_unported_spatial_settings_name_a11c(variant, hw):
-    cfg = spatial_config(variant, 4, hw)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        Trainer(cfg, device="cpu")
+@pytest.mark.parametrize("variant,hw", A11C_SETTINGS)
+def test_unported_spatial_settings_name_a11c(variant, hw, world):
+    """The settings the check refused as ROADMAP A11c until it was ported
+    (CerberusDCV, the RAFT family, an H not a multiple of 64 S) pass it,
+    and each of the 4 ranks builds its Trainer on them, with its band of
+    the rule's (320 rows: the coarsest level's 5 split 2/1/1/1)."""
+    spatial_config(variant, N, hw).check_supported()
+    bands = [0, 128, 192, 256, 320] if hw[0] == 320 else [0, 64, 128, 192,
+                                                          256]
+    for s, res in enumerate(world[1]):
+        assert res["built"][f"{variant} {hw[0]}"] == {
+            "variant": variant, "rows": bands[s:s + 2]}
+
+
+@pytest.mark.parametrize("variant,spatial,hw", [
+    ("cerberus_dcv", 2, (200, 64)), ("raft", 2, (200, 64)),
+    ("cerberus", 4, (352, 64)), ("dcv_flow", 4, (400, 128))])
+def test_h_off_the_pyramid_names_a11d(variant, spatial, hw):
+    """An H that is no multiple of 2^6 under the spatial axis: SAME's
+    padding of an odd extent shifts the band edges (ROADMAP A11d)."""
+    with pytest.raises(NotImplementedError, match="A11d"):
+        Trainer(spatial_config(variant, spatial, hw), device="cpu")
 
 
 def test_trainer_rejects_degenerate_spatial_mesh():

@@ -140,11 +140,12 @@ def test_unknown_key_raises():
 
 @pytest.mark.parametrize("values,item", [
     ({"model": {"variant": "pwc"}}, "A8"),
-    # CerberusDCV under the spatial axis (tests/test_torch_spatial.py has
-    # the PWC family on it); the case keeps the id it had when the axis
-    # itself was refused as A11b
-    ({"model": {"variant": "cerberus_dcv"}, "data": {"hw": [128, 128]},
-      "train": {"num_spatial_devices": 2}}, "A11c"),
+    # CerberusDCV under the spatial axis at an H that is no multiple of
+    # 2^6 (tests/test_torch_spatial.py and test_torch_spatial_dcv_raft.py
+    # run every variant on the axis); the case keeps the id it had when
+    # the axis itself was refused as A11b
+    ({"model": {"variant": "cerberus_dcv"}, "data": {"hw": [200, 128]},
+      "train": {"num_spatial_devices": 2}}, "A11d"),
 ], ids=["model-variant-pwc-A8", "train-num_spatial_devices-2-A11b"])
 def test_unported_values_raise(values, item):
     raw = tiny_config_dict()
