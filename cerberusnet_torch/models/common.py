@@ -11,14 +11,16 @@ rank. Such a module then runs on its band with the rows it reads across
 taken from the neighbouring bands (``parallel/halo.py``): a convolution's
 H padding becomes a halo of as many rows, zeros at the frame's top and
 bottom (``band_conv``, and the stride-2 block's row below), and a bilinear
-resize reads one edge-filled row each side and keeps its band of the
-output (``upsample2x``, ``upsample_to``). Without a mesh (``spatial`` None,
+resize keeps its band of the frame's output, reading the rows it needs
+edge-filled (``upsample2x``, ``upsample_to``; one row each side at an
+integer ratio). Without a mesh (``spatial`` None,
 one process) every module runs its own padding, as before the axis
 existed.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -43,36 +45,79 @@ def set_spatial(model: nn.Module, mesh) -> nn.Module:
     return model
 
 
-def _band_resize(x, rows: int, width: int, spatial):
-    """Bilinear resize of a band of ``x`` to ``rows`` rows (an integer
-    multiple f of its own) and ``width`` columns: the band with one
-    edge-filled row each side, resized to f times as many rows, keeps the
-    f rows of each of its own. Each output row reads the input rows its
-    half-pixel position falls between, so the result is the whole frame's
-    resize, cut to the band."""
+def _band_resize(x, rows: int, width: int, spatial, factor: int = 0,
+                 heights: tuple = ()):
+    """Bilinear resize of a band of ``x`` to ``width`` columns and
+    ``rows`` rows, the whole frame's resize cut to this rank's band.
+
+    ``factor`` f, or a frame f times as tall as ``x``'s whose every band is
+    f times the peer's at ``x``'s level: the band with one edge-filled row
+    each side, resized to f times as many rows, keeps the f rows of each of
+    its own (``heights``: the peers' bands of ``x``'s map, by default its
+    level's). Else ``rows`` is this rank's band at another level of the
+    frame, and output row j samples (j + 0.5) h / h' - 0.5 of the frame's h
+    rows (h' the target frame's; clamped at its edges, as ``F.interpolate``
+    and ``jax.image.resize`` upsample): the rows it reads come through
+    ``halo_rows`` ("edge"), weighed by the frame's scale in float32
+    (float64 for a float64 ``x``), which the result is rounded from once."""
     hb = x.shape[2]
-    if rows % hb:
-        raise ValueError(f"a band of {hb} rows resized to {rows}: not an "
-                         f"integer factor")
-    f = rows // hb
-    y = F.interpolate(halo_rows(x, 1, 1, spatial, "edge"),
-                      size=(f * (hb + 2), width), mode="bilinear",
-                      align_corners=False)
-    return y.narrow(2, f, rows)
+    if not factor:
+        src = spatial.band_heights(hb)
+        dst = spatial.band_heights(rows)
+        hs, s0 = sum(src), spatial.band_start(hb)
+        hd, d0 = sum(dst), spatial.band_start(rows)
+        # every peer's band f times its own, or every peer the general way
+        if all(b * hs == a * hd for a, b in zip(src, dst)) and hd % hs == 0:
+            factor = hd // hs
+    if factor:
+        y = F.interpolate(halo_rows(x, 1, 1, spatial, "edge",
+                                    heights=heights),
+                          size=(factor * (hb + 2), width), mode="bilinear",
+                          align_corners=False)
+        return y.narrow(2, factor, rows)
+
+    def source(j):  # the frame row output row j reads first
+        return max(math.floor((j + 0.5) * (hs / hd) - 0.5), 0)
+
+    # one halo for every peer (an exchange takes pieces of one shape): the
+    # most rows any band reads above and below its own
+    top = bottom = 0
+    for r in range(spatial.spatial_size):
+        a, b = sum(src[:r]), sum(dst[:r])
+        top = max(top, a - source(b))
+        bottom = max(bottom, min(source(b + dst[r] - 1) + 1, hs - 1)
+                     - (a + src[r] - 1))
+    pos = torch.arange(d0, d0 + rows, dtype=torch.float64)
+    pos = ((pos + 0.5) * (hs / hd) - 0.5).clamp_min(0.0)
+    lo = pos.floor().long()
+    hi = (lo + 1).clamp_max(hs - 1)
+    work = torch.promote_types(x.dtype, torch.float32)
+    y = halo_rows(x, top, bottom, spatial, "edge").to(work)
+    lam = (pos - lo).to(device=x.device, dtype=work)[:, None]
+    lo, hi = ((i - s0 + top).to(x.device) for i in (lo, hi))
+    y = (y.index_select(2, lo) * (1.0 - lam) + y.index_select(2, hi) * lam)
+    y = F.interpolate(y, size=(rows, width), mode="bilinear",
+                      align_corners=False).to(x.dtype)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        y = y.contiguous(memory_format=torch.channels_last)
+    return y
 
 
-def upsample2x(x, spatial=None):
+def upsample2x(x, spatial=None, heights: tuple = ()):
     """Bilinear x2 on the half-pixel grid with edge clamp: upsampling equal
     to ``jax.image.resize(..., "bilinear")``. ``spatial``: ``x`` is a band
-    of that mesh."""
+    of that mesh, of the peers' ``heights`` (by default its level's); the
+    result is the band of twice its rows of the frame's x2."""
     if spatial is not None:
-        return _band_resize(x, 2 * x.shape[2], 2 * x.shape[3], spatial)
+        return _band_resize(x, 2 * x.shape[2], 2 * x.shape[3], spatial, 2,
+                            heights)
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=False)
 
 
 def upsample_to(x, hw, spatial=None):
-    """Bilinear resize to ``hw`` (with ``spatial``: the band's rows)."""
+    """Bilinear resize to ``hw`` (with ``spatial``: this rank's band of
+    rows at a level of the frame)."""
     if spatial is not None:
         return _band_resize(x, hw[0], hw[1], spatial)
     return F.interpolate(x, size=tuple(hw), mode="bilinear",
@@ -116,11 +161,13 @@ def same_pads(size: int, kernel: int, stride: int):
 class ConvBlock(nn.Module):
     """Conv 3x3 with "SAME" padding + LeakyReLU(0.1).
 
-    A stride-2 block pads (0, 1) on an even extent, as XLA does, so it pads
-    explicitly; a stride-1 block pads symmetrically inside the conv. On a
-    band (``spatial``) the stride-2 block's row below is the next band's
-    first (a band starts on an even row), the stride-1 block's ``dilation``
-    rows each side are its neighbours'."""
+    A stride-2 block pads as XLA does, (0, 1) on an even extent and (1, 1)
+    on an odd one, so it pads explicitly; a stride-1 block pads
+    symmetrically inside the conv. On a band (``spatial``) the stride-2
+    block's row below is the next band's first (``parallel/mesh.py``'s
+    nested bands), and at an odd extent rank 0 pads the frame's zero row
+    above; the stride-1 block's ``dilation`` rows each side are its
+    neighbours'."""
 
     spatial = None
 
@@ -136,13 +183,15 @@ class ConvBlock(nn.Module):
         if self.stride == 1:
             return leaky(band_conv(self.conv, x, self.spatial))
         pw = same_pads(x.shape[3], 3, self.stride)
-        if self.spatial is None:
+        sp = self.spatial
+        if sp is None:
             ph = same_pads(x.shape[2], 3, self.stride)
-        elif self.stride == 2 and x.shape[2] % 2 == 0:
-            x, ph = halo_rows(x, 0, 1, self.spatial), (0, 0)
+        elif self.stride == 2:
+            odd = sp.frame_rows(x.shape[2]) % 2
+            x = halo_rows(x, 0, 1, sp)
+            ph = (int(odd and sp.spatial_rank == 0), 0)
         else:
-            raise ValueError(f"a stride-{self.stride} block on a band of "
-                             f"{x.shape[2]} rows")
+            raise ValueError(f"a stride-{self.stride} block on a band")
         return leaky(self.conv(F.pad(x, (*pw, *ph))))
 
 

@@ -92,8 +92,13 @@ class DCVDecoder(nn.Module):
         x = self.estimator(torch.cat(volumes + [f1], dim=1))
         est = band_conv(self.predictor, x, self.spatial) + self.context(x)
         full = est
+        # on a band, the peers' rows of each x2 map: twice the last's (off
+        # the pyramid's extents where H is no multiple of 2^level)
+        heights = () if self.spatial is None else self.spatial.band_heights(
+            est.shape[2])
         for _ in range(self.level):
-            full = 2.0 * upsample2x(full, self.spatial)
+            full = 2.0 * upsample2x(full, self.spatial, heights)
+            heights = tuple(2 * h for h in heights)
         return {self.output: full, f"{self.output}_pyramid": {self.level: est}}
 
 

@@ -19,7 +19,9 @@ each rank runs the loop on its band of rows: the upsamplings and the 3x3
 predictors take a halo of one row, the transposed conv one row of input
 each side (its output cut to the band), the flow decoder's correlation
 f2 haloed by its reach and its warp the whole frame of f2
-(``ops/correlation.py``, ``ops/warp.py``).
+(``ops/correlation.py``, ``ops/warp.py``). Where the frame's upsampled
+flow misses the next level's frame (an H that is no multiple of 64), every
+rank raises the warp's ValueError, as one process does.
 """
 
 from __future__ import annotations
@@ -110,6 +112,8 @@ class CoarseToFineDecoder(nn.Module):
                 inputs = []
             else:
                 up = 2.0 * upsample2x(est, sp)
+                if sp is not None:
+                    _check_frames(up, f2, est.shape[2], sp)
                 f2w = self.warp(nhwc(f2), nhwc(up))
                 inputs = [up, up_feat]
             cost = leaky(nchw(self.correlate(level, nhwc(f1), f2w)))
@@ -124,6 +128,18 @@ class CoarseToFineDecoder(nn.Module):
             pyramid[level] = est
         full = 4.0 * upsample2x(upsample2x(est, sp), sp)
         return {self.output: full, f"{self.output}_pyramid": pyramid}
+
+
+def _check_frames(up, f2, coarse: int, spatial):
+    """Raises the warp's ValueError, on every rank, where the frame of the
+    flow upsampled from a band of ``coarse`` rows misses the frame of
+    ``f2``'s level (an H that is no multiple of 64, ROADMAP C10): the
+    bands' own shapes may agree on some ranks."""
+    b, _, h, w = f2.shape
+    up_rows, rows = 2 * spatial.frame_rows(coarse), spatial.frame_rows(h)
+    if up_rows != rows:
+        raise ValueError(f"flow shape {(b, up_rows, up.shape[3], 2)} != "
+                         f"{(b, rows, w, 2)}")
 
 
 class FlowDecoder(CoarseToFineDecoder):

@@ -292,11 +292,19 @@ def convex_upsample(flow, mask, factor: int, spatial=None):
 class TiedConv2d(nn.Conv2d):
     """A convolution whose parameters are cast to the input's type at each
     use (no copy when they are of that type); kept float32
-    (``keep_tied_float32``), the gradients of its uses sum in float32."""
+    (``keep_tied_float32``), the gradients of its uses sum in float32.
+
+    Below float32 it rounds as the reference's ``nn.Conv`` does: the
+    product is rounded to the input's type, then the bias is added in it
+    (two roundings; with the bias fused, which rounds once, 12-34% of the
+    update block's bf16 conv outputs differ from JAX's,
+    scripts/raft_bf16_op_compare.py)."""
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if x.dtype == torch.float32:
+            return self._conv_forward(x, weight, bias)
+        return self._conv_forward(x, weight, None) + bias[:, None, None]
 
 
 def keep_tied_float32(module: nn.Module):

@@ -135,9 +135,9 @@ def _halo_index(heights: tuple, top: int, bottom: int, s: int, fill: str):
 
 class _HaloRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, top, bottom, mesh, fill, dim):
+    def forward(ctx, x, top, bottom, mesh, fill, dim, heights):
         hb = x.shape[dim]
-        heights = mesh.band_heights(hb)
+        heights = heights or mesh.band_heights(hb)
         t, b = min(top, hb), min(bottom, hb)
         tmax, bmax = min(top, max(heights)), min(bottom, max(heights))
         piece = torch.cat([_pad_rows(x.narrow(dim, hb - t, t), dim, tmax),
@@ -178,23 +178,25 @@ class _HaloRows(torch.autograd.Function):
         gx.narrow(dim, 0, b).add_(mine.narrow(dim, tmax, b))
         gx.narrow(dim, 0, 1).add_(gsrc.narrow(dim, n, 1))
         gx.narrow(dim, hb - 1, 1).add_(gsrc.narrow(dim, n + 1, 1))
-        return gx.to(g.dtype), None, None, None, None, None
+        return gx.to(g.dtype), None, None, None, None, None, None
 
 
 def halo_rows(x, top: int, bottom: int, mesh, fill: str = "zero",
-              dim: int = 2):
+              dim: int = 2, heights: tuple = ()):
     """The band ``x`` with ``top`` rows above and ``bottom`` below along
     ``dim`` (2: NCHW, 1: NHWC), taken from the spatial peers of ``mesh``;
     outside the frame, zeros (``fill="zero"``) or the frame's edge row
-    (``"edge"``). Differentiable: a borrowed row's gradient is added to
-    its owner's."""
+    (``"edge"``). ``heights``: the peers' bands of ``x``'s map, by default
+    those of the pyramid level where this rank holds ``x.shape[dim]`` rows
+    (``DataMesh.band_heights``). Differentiable: a borrowed row's gradient
+    is added to its owner's."""
     if fill not in FILLS:
         raise ValueError(f"unknown fill {fill!r}; expected one of {FILLS}")
     if top < 0 or bottom < 0:
         raise ValueError(f"halo of {top} and {bottom} rows")
     if top == bottom == 0:
         return x
-    return _HaloRows.apply(x, top, bottom, mesh, fill, dim)
+    return _HaloRows.apply(x, top, bottom, mesh, fill, dim, tuple(heights))
 
 
 class _GatherRows(torch.autograd.Function):

@@ -18,14 +18,21 @@ its piece of the batch and the reductions and halos are made by hand:
 * ``shard_batch`` is rank (d, s)'s samples [d B/D, (d+1) B/D) of a host
   batch of B and, of every image-like entry (three dimensions or more),
   its band of rows (``DataMesh.rows``).
-* The bands. Given the coarsest pyramid level's R rows
-  (``coarsest_rows``, H / 2^L for an encoder of L levels), the first R mod
-  S spatial ranks hold ceil(R / S) of them and the others floor(R / S); a
-  map of h = f R rows (any level, f = 2^(L - l)) splits alike, f rows for
-  each coarsest one, so every band starts on a multiple of f and a
-  stride-2 block's band stays its input's band halved; a spatial mesh
-  cannot be made without R. ``band_heights``, ``band_start`` and
-  ``frame_rows`` read the split at the level of a band of given height.
+* The bands. A frame's rows at pyramid level l are XLA's "SAME" stride-2
+  chain h_0 = H, h_l = ceil(h_(l-1) / 2) (``level_extents``; a spatial
+  mesh cannot be made without them). The coarsest level's h_L rows split
+  as evenly as they go, the first h_L mod S ranks holding a row more; a
+  finer level's band is the rows whose parent lies in the coarser band,
+  parent(i) = floor((i + pt) / 2) with pt the stride-2 block's top pad at
+  that extent (1 where it is odd): band [a, b) at level l owns rows
+  [max(0, 2a - pt), min(h, 2b - pt)) at level l - 1 (``nested_bands``).
+  So a stride-2 block's band is its input's band with one row below (and
+  rank 0's zero row above at an odd extent), every rank holds a row at
+  every level, and where H is a multiple of 2^L every level's band is f
+  times the coarsest one's, f = 2^(L - l). Each rank's heights differ
+  from level to level (checked when the mesh is made), so
+  ``band_heights``, ``band_start`` and ``frame_rows`` find a band's level
+  from its height in this rank's table.
 * ``DataMesh.sum``, ``mean`` and ``max`` are reductions over every rank,
   differentiable, for the losses; ``spatial_sum`` is the sum over the
   spatial peers; ``mean_grads`` all-reduces the float32 gradients in a few
@@ -54,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import multiprocessing
 import os
 import pickle
@@ -70,6 +78,36 @@ import torch.distributed as dist
 COLLECTIVE_TIMEOUT_S = 1800.0
 # the gradients' all-reduce: flat float32 buckets of at most this size
 BUCKET_BYTES = 32 * 2**20
+
+
+# the depth of the chain a mesh given only its coarsest level's rows R
+# stands for: an H that is a multiple of 2^6 (the encoder's six levels)
+GRID_LEVELS = 6
+
+
+def level_extents(h: int, levels: int) -> tuple:
+    """A frame's rows at each of ``levels`` + 1 pyramid levels, full
+    resolution first: XLA's "SAME" stride-2 chain, h_l = ceil(h_(l-1) /
+    2)."""
+    out = [h]
+    for _ in range(levels):
+        out.append(-(-out[-1] // 2))
+    return tuple(out)
+
+
+def nested_bands(extents: tuple, n: int) -> tuple:
+    """The ``n`` ranks' rows at each level of ``extents`` (full
+    resolution first): the coarsest split as evenly as it goes, the first
+    ranks a row more, and each finer band the rows whose parent lies in
+    the coarser band (the module docstring's rule)."""
+    q, extra = divmod(extents[-1], n)
+    heights = tuple(q + (s < extra) for s in range(n))
+    ends = list(itertools.accumulate(heights))
+    table = [heights]
+    for h in reversed(extents[:-1]):
+        ends = [min(h, 2 * e - h % 2) for e in ends]
+        table.append(tuple(e - a for a, e in zip([0] + ends[:-1], ends)))
+    return tuple(reversed(table))
 
 
 def _group():
@@ -141,9 +179,12 @@ class DataMesh:
     axis's extent S (``spatial_size``) and the process group of this
     rank's S spatial peers (``spatial_group``, ranks d S .. d S + S - 1).
     Its data coordinate is ``data_rank`` of ``data_size``, its spatial one
-    ``spatial_rank``. ``coarsest_rows``: the coarsest pyramid level's rows
-    R, which set the bands (the module docstring), at least one a spatial
-    rank when S > 1."""
+    ``spatial_rank``. ``extents``: the frame's rows at each pyramid level,
+    full resolution first (``level_extents``), which set the bands (the
+    module docstring), the coarsest's (``coarsest_rows``) at least one a
+    spatial rank when S > 1; given ``coarsest_rows`` R alone, the chain of
+    an H that is a multiple of 2^``GRID_LEVELS``, R 2^k rows at level
+    ``GRID_LEVELS`` - k. ``bands``: the S ranks' rows at each level."""
 
     rank: int = 0
     size: int = 1
@@ -152,13 +193,32 @@ class DataMesh:
     spatial_size: int = 1
     spatial_group: object = None
     coarsest_rows: int = 0
+    extents: tuple = ()
+    bands: tuple = dataclasses.field(default=(), init=False, repr=False)
 
     def __post_init__(self):
-        if self.banded and self.coarsest_rows < self.spatial_size:
+        if not self.banded:
+            return
+        extents = tuple(self.extents) or tuple(
+            self.coarsest_rows << k for k in range(GRID_LEVELS, -1, -1))
+        if self.extents and self.coarsest_rows not in (0, extents[-1]):
+            raise ValueError(f"coarsest_rows={self.coarsest_rows} is not the "
+                             f"coarsest of the extents {extents}")
+        if extents[-1] < self.spatial_size:
             raise ValueError(
                 f"a spatial mesh axis of {self.spatial_size} ranks needs the "
                 f"coarsest level's rows, at least one a rank "
-                f"(coarsest_rows={self.coarsest_rows})")
+                f"(coarsest_rows={extents[-1]})")
+        bands = nested_bands(extents, self.spatial_size)
+        for s, own in enumerate(zip(*bands)):
+            if len(set(own)) < len(own):
+                raise ValueError(
+                    f"spatial rank {s} holds bands of {own} rows at the "
+                    f"levels of {extents}: a band's height does not name "
+                    f"its level")
+        object.__setattr__(self, "extents", extents)
+        object.__setattr__(self, "coarsest_rows", extents[-1])
+        object.__setattr__(self, "bands", bands)
 
     @property
     def data_rank(self) -> int:
@@ -256,26 +316,28 @@ class DataMesh:
         return slice(self.data_rank * b, (self.data_rank + 1) * b)
 
     def split(self, h: int) -> tuple:
-        """The S spatial ranks' rows of a map of ``h`` rows, by spatial
-        rank (the module docstring's rule)."""
-        n, r = self.spatial_size, self.coarsest_rows
-        if n == 1:
+        """The S spatial ranks' rows of a map of ``h`` rows, one of the
+        frame's level extents, by spatial rank (the module docstring's
+        rule)."""
+        if not self.banded:
             return (h,)
-        if h % r:
-            raise ValueError(f"{h} rows are not a multiple of the coarsest "
-                             f"level's {r} (the spatial mesh axis)")
-        q, extra = divmod(r, n)
-        return tuple((q + (s < extra)) * (h // r) for s in range(n))
+        if h not in self.extents:
+            raise ValueError(
+                f"{h} rows are no level of the frame's {self.extents} (the "
+                f"coarsest level's {self.coarsest_rows}, the spatial mesh "
+                f"axis)")
+        return self.bands[self.extents.index(h)]
 
     def band_heights(self, hb: int) -> tuple:
         """The S ranks' rows at the level where this rank holds ``hb``."""
         if not self.banded:
             return (hb,)
-        own = self.split(self.coarsest_rows)[self.spatial_rank]
-        if hb % own:
-            raise ValueError(f"a band of {hb} rows on a rank of {own} "
-                             f"coarsest rows (the spatial mesh axis)")
-        return self.split(self.coarsest_rows * (hb // own))
+        own = [heights[self.spatial_rank] for heights in self.bands]
+        if hb not in own:
+            raise ValueError(
+                f"a band of {hb} rows on a rank of {own[-1]} coarsest rows "
+                f"(the spatial mesh axis: this rank's bands {tuple(own)})")
+        return self.bands[own.index(hb)]
 
     def band_start(self, hb: int) -> int:
         """The frame row where this rank's band of ``hb`` rows starts."""
@@ -319,7 +381,7 @@ def _spatial_groups(size: int, spatial: int):
 
 
 def make_mesh(num_data: int = 0, device="cuda", num_spatial: int = 1,
-              coarsest_rows: int = 0) -> DataMesh:
+              coarsest_rows: int = 0, extents: tuple = ()) -> DataMesh:
     """This process's ``DataMesh`` for ``train.num_data_devices`` =
     ``num_data`` x ``train.num_spatial_devices`` = ``num_spatial`` ranks
     (``num_data`` 0: every rank of the group, divided by ``num_spatial``; a
@@ -327,8 +389,10 @@ def make_mesh(num_data: int = 0, device="cuda", num_spatial: int = 1,
     an index means a card a rank, the rank's own (``LOCAL_RANK``, else the
     rank); with an index the ranks share it. Raises ValueError when the
     ranks asked for exceed the visible cards or differ from the group's
-    size. ``coarsest_rows``: the coarsest pyramid level's rows, which set
-    the spatial bands; required when ``num_spatial`` > 1."""
+    size. ``extents``: the frame's rows at each pyramid level
+    (``level_extents``), which set the spatial bands, or
+    ``coarsest_rows`` alone for an H that is a multiple of 2^6; one of them
+    is required when ``num_spatial`` > 1."""
     device = torch.device(device)
     size, rank = _group()
     distributed = dist.is_available() and dist.is_initialized()
@@ -348,8 +412,10 @@ def make_mesh(num_data: int = 0, device="cuda", num_spatial: int = 1,
             f"process is one of {size}: start the ranks with `python -m cerberusnet_torch.cli`, "
             f"parallel.launch or torchrun")
     group = _spatial_groups(size, num_spatial) if num_spatial > 1 else None
+    if num_spatial == 1:
+        coarsest_rows, extents = 0, ()
     return DataMesh(rank, size, device, distributed, num_spatial, group,
-                    coarsest_rows if num_spatial > 1 else 0)
+                    coarsest_rows, tuple(extents))
 
 
 def shard_batch(batch: dict, mesh: DataMesh) -> dict:

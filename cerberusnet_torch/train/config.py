@@ -19,9 +19,9 @@ writes event files under ``ckpt_dir/tb``; ``train.qat`` (its ranges from
 ``train.debug_nans`` stops at the first NaN; ``train.num_data_devices``
 trains on that many ranks, one a card (``parallel/mesh.py``), and
 ``train.num_spatial_devices`` S splits each frame's rows over S of them,
-for every variant, with an H that is a multiple of 2^L for an encoder of L
-levels (the bands may differ in height, ``parallel/mesh.py``; another H
-waits on ROADMAP A11d). ``model.pallas_levels`` runs CerberusNet's first N
+for every variant, at every H the reference runs there (the bands may
+differ in height, ``parallel/mesh.py``), but RMI at an H that is no
+multiple of 4 (ROADMAP C14). ``model.pallas_levels`` runs CerberusNet's first N
 encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
 their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
 plain convolutions recomputed; the DCV and RAFT variants ignore both, as
@@ -251,20 +251,17 @@ class ExperimentConfig:
             raise ValueError(
                 f"optim.grads_dtype must be 'float32' or 'bfloat16', "
                 f"got {o.grads_dtype!r}")
-        spatial = t.num_spatial_devices
-        # the bands split the coarsest level's H / 2^L rows (an H with
-        # fewer of them than bands is the trainer's ValueError); an H that
-        # is no multiple of 2^L pads odd extents at some level ("SAME"),
-        # which shifts the band edges below it
-        coarsest = 2 ** len(m.encoder_channels)
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
-            (spatial > 1 and d.hw[0] // coarsest >= spatial
-             and d.hw[0] % coarsest,
-             f"data.hw[0]={d.hw[0]} under train.num_spatial_devices="
-             f"{spatial} (H not a multiple of {coarsest}: SAME's padding of "
-             f"an odd extent shifts the band edges)", "A11d"),
+            # RMI's 4x4 VALID pool straddles the bands where H is no
+            # multiple of 4 (their edges then fall on rows 2 mod 4)
+            (t.num_spatial_devices > 1 and self.loss.rmi_weight
+             and d.hw[0] % 4,
+             f"loss.rmi_weight under train.num_spatial_devices="
+             f"{t.num_spatial_devices} at data.hw[0]={d.hw[0]} (RMI's "
+             f"4x4 pool across the bands of an H that is no multiple of 4)",
+             "C14"),
         )
         for bad, what, item in checks:
             if bad:

@@ -39,9 +39,11 @@ inside the frame; their means divide by the frame's count. RMI's region
 means and covariances are sums over the frame, added over the spatial
 peers, so every peer solves the same 9x9 systems. The photometric term
 warps the whole frame of the second image (``warp2d``'s ``spatial``). The
-ground-truth pyramid's 2x2 sum pools stay within the band: a band's rows
-are a multiple of 2^6. The bands may differ in height
-(``DataMesh.band_heights``): the means divide by the frame's count
+ground-truth pyramid's 2x2 sum pools stay within the band: where the
+frame's extent is even a band starts on an even row and holds an even
+number of them (``parallel/mesh.py``'s nested bands), and an odd one
+raises on every rank, as one process's reshape. The bands may differ in
+height (``DataMesh.band_heights``): the means divide by the frame's count
 (``DataMesh.frame_rows``), not by S times a band's.
 """
 
@@ -187,13 +189,22 @@ def _rmi_logdet(cov_yy, cov_yp, cov_pp, eps: float, mesh):
     return mesh.mean(0.5 * logdet) / float(r)
 
 
-def _sumpool2(x):
-    """2x2 stride-2 sum pool of an NHWC tensor."""
+def _sumpool2(x, mesh=SINGLE):
+    """2x2 stride-2 sum pool of an NHWC tensor. On a band, the pairs are
+    the frame's: a frame of an odd extent raises on every rank the error
+    its reshape raises in one process (the bands of an even extent start
+    on even rows, ``parallel/mesh.py``)."""
     b, h, w, c = x.shape
+    if mesh.banded and mesh.frame_rows(h) % 2:
+        frame = mesh.frame_rows(h)
+        raise RuntimeError(
+            f"shape '{[b, frame // 2, 2, w // 2, 2, c]}' is invalid for "
+            f"input of size {b * frame * w * c} (the frame's {frame} rows "
+            f"on the spatial mesh axis)")
     return x.reshape(b, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4))
 
 
-def _gt_sums_cascade(gt, valid, levels):
+def _gt_sums_cascade(gt, valid, levels, mesh=SINGLE):
     """Yields (level, gsum, vsum) per level, each from the previous level's
     sums by one 2x2 sum pool, so the full-resolution GT is read once."""
     vm = valid[..., None].float()
@@ -202,8 +213,8 @@ def _gt_sums_cascade(gt, valid, levels):
     cur = 0
     for level in sorted(levels):
         while cur < level:
-            gsum = _sumpool2(gsum)
-            vsum = _sumpool2(vsum)
+            gsum = _sumpool2(gsum, mesh)
+            vsum = _sumpool2(vsum, mesh)
             cur += 1
         yield level, gsum, vsum
 
@@ -215,12 +226,13 @@ def _finalize_gt(gsum, vsum, level, scale_values: bool):
     return gt_l, (vsum[..., 0] > 0).float()
 
 
-def gt_pyramid(gt, valid, levels, scale_values: bool):
+def gt_pyramid(gt, valid, levels, scale_values: bool, mesh=SINGLE):
     """{level: (gt_l, valid_l)}: the valid pixels' mean over each
     2^l x 2^l cell (divided by 2^l if ``scale_values``), and whether the
-    cell has any valid pixel."""
+    cell has any valid pixel. ``mesh``: ``gt`` is a band of its frame."""
     return {level: _finalize_gt(gsum, vsum, level, scale_values)
-            for level, gsum, vsum in _gt_sums_cascade(gt, valid, levels)}
+            for level, gsum, vsum in _gt_sums_cascade(gt, valid, levels,
+                                                      mesh)}
 
 
 def multiscale_flow_loss(flow_pyramid, gt_flow, valid=None,
@@ -230,7 +242,8 @@ def multiscale_flow_loss(flow_pyramid, gt_flow, valid=None,
     (B,H,W,2) at full resolution in full-resolution pixels."""
     if valid is None:
         valid = torch.ones(gt_flow.shape[:3], device=gt_flow.device)
-    pyr = gt_pyramid(gt_flow, valid, flow_pyramid.keys(), scale_values=True)
+    pyr = gt_pyramid(gt_flow, valid, flow_pyramid.keys(), scale_values=True,
+                     mesh=mesh)
     total = 0.0
     for level, flow_l in flow_pyramid.items():
         gt_l, valid_l = pyr[level]
@@ -252,7 +265,7 @@ def raft_sequence_loss(iterates, gt_flow, valid=None, level: int = 3,
     by ``gt_pyramid`` (the reference's ``downsample_gt``)."""
     if valid is None:
         valid = torch.ones(gt_flow.shape[:3], device=gt_flow.device)
-    gt_l, valid_l = gt_pyramid(gt_flow, valid, (level,), True)[level]
+    gt_l, valid_l = gt_pyramid(gt_flow, valid, (level,), True, mesh)[level]
     t = iterates.shape[0]
     err = (iterates.float() - gt_l[None]).abs().sum(-1)  # (T, B, h, w)
     per_iter = mesh.sum((err * valid_l[None]).sum(dim=(1, 2, 3))) / mesh.sum(
@@ -346,7 +359,8 @@ def multiscale_disparity_loss(disp_pyramid, gt_disp, valid=None,
         gt_disp = gt_disp[..., None]
     if valid is None:
         valid = torch.ones(gt_disp.shape[:3], device=gt_disp.device)
-    pyr = gt_pyramid(gt_disp, valid, disp_pyramid.keys(), scale_values=True)
+    pyr = gt_pyramid(gt_disp, valid, disp_pyramid.keys(), scale_values=True,
+                     mesh=mesh)
     total = 0.0
     for level, disp_l in disp_pyramid.items():
         gt_l, valid_l = pyr[level]

@@ -116,7 +116,11 @@ from cerberusnet_torch.models.raft import (
     keep_tied_float32,
 )
 from cerberusnet_torch.models.segmentation import SegNet
-from cerberusnet_torch.parallel.mesh import make_mesh, shard_samples
+from cerberusnet_torch.parallel.mesh import (
+    level_extents,
+    make_mesh,
+    shard_samples,
+)
 from cerberusnet_torch.quant import ptq, qat
 from cerberusnet_torch.train import losses
 from cerberusnet_torch.train.config import (
@@ -193,11 +197,14 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
     raise ValueError(f"unknown model variant {cfg.variant!r}")
 
 
-def check_spatial_mesh(config: ExperimentConfig) -> int:
-    """The reference's guard (its ``Trainer``): ValueError when
-    ``train.num_spatial_devices`` exceeds the coarsest pyramid level's
-    rows, where a spatial rank would hold no row. Returns those rows, which
-    set the bands (``make_mesh``'s ``coarsest_rows``)."""
+def check_spatial_mesh(config: ExperimentConfig) -> tuple:
+    """The reference's refusals of a spatial axis of S =
+    ``train.num_spatial_devices`` ranks, before any rank or band is made:
+    ValueError when S exceeds the coarsest pyramid level's H // 2^L rows
+    (its ``Trainer``'s guard: a spatial rank would hold no row) or does not
+    divide H (its ``shard_batch``'s ``device_put`` places H / S rows a
+    device). Returns the frame's rows at each level (``level_extents``),
+    which set the bands (``make_mesh``'s ``extents``)."""
     n = config.train.num_spatial_devices
     levels = len(config.model.encoder_channels)
     h = config.data.hw[0]
@@ -207,7 +214,12 @@ def check_spatial_mesh(config: ExperimentConfig) -> int:
             f"level's height {h // 2**levels} (input H {h} / 2^{levels}): "
             f"a spatial rank would hold no row of it; use H >= "
             f"{2**levels * n} or fewer spatial devices")
-    return h // 2**levels
+    if n > 1 and h % n:
+        raise ValueError(
+            f"data.hw[0]={h} rows split over train.num_spatial_devices={n}: "
+            f"the global size of dimension 1 should be divisible by {n}, "
+            f"but it is equal to {h}")
+    return level_extents(h, levels)
 
 
 # the reference's key for the log-variances in its parameter tree
@@ -419,9 +431,10 @@ class Trainer:
     The spatial axis: with ``train.num_spatial_devices`` S > 1 the mesh is
     D x S ranks, D = ``num_data_devices``, and rank (d, s) holds data
     shard d's samples and its band s of the rows of every map, the
-    coarsest level's H / 2^L rows split as evenly as they go, the first
-    ones a row taller where they do not divide (``parallel/mesh.py``;
-    ``set_spatial``: the model's modules take their halos from the
+    coarsest level's rows split as evenly as they go, the first ones a row
+    taller where they do not divide, and each finer level's band the rows
+    under the coarser band at the frame's "SAME" extents
+    (``parallel/mesh.py``; ``set_spatial``: the model's modules take their halos from the
     neighbouring bands). The loader decodes shard d's samples, whole
     frames; a step augments and preprocesses them, then keeps its band
     (``DataMesh.band``); the losses, gradients and metrics are the global
@@ -429,12 +442,12 @@ class Trainer:
     whole frame) runs whole frames on every rank and counts spatial rank
     0's; the forwards rank 0 makes alone (panels, predictions) and QAT's
     calibration run whole frames. An H whose coarsest level has fewer rows
-    than S raises ValueError (``check_spatial_mesh``), as the
-    reference."""
+    than S, or that S does not divide, raises ValueError
+    (``check_spatial_mesh``), as the reference."""
 
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
-        coarsest_rows = check_spatial_mesh(config)
+        extents = check_spatial_mesh(config)
         if config.train.qat and config.model.pallas_levels:
             config.model.pallas_levels = 0
         device = torch.device(device)
@@ -443,7 +456,7 @@ class Trainer:
                 "no CUDA device: pass device='cpu' to train on the CPU")
         self.mesh = make_mesh(config.train.num_data_devices, device,
                               config.train.num_spatial_devices,
-                              coarsest_rows)
+                              extents=extents)
         if self.mesh.size > 1 and config.model.pallas_levels:
             config.model.pallas_levels = 0
         device = self.mesh.device

@@ -33,7 +33,9 @@ started); any failed check exits non-zero:
            train_spatial: CerberusNet's five levels and CerberusDCV's level
            3 on the 256-row band of 2 ranks (the 2-D kernels on f1 and f2
            haloed by their reach), the 2-D kernels also on the 8-row band
-           of 384x1248's level 3 on 4 ranks, at the DCV dilations; each check
+           of 384x1248's level 3 on 4 ranks, at the DCV dilations, and all
+           six on rank 0's 22-row band of 368x768's level 3 (part (d)); each
+           check
            names the design that ran, as the library counted its launches
            ("tc": every bf16 correlation kernel on the tensor cores;
            "cuda_cores": float32), and fails on any other; and the
@@ -228,7 +230,8 @@ started); any failed check exits non-zero:
            of the pixels); Trainer.predict_images of CerberusNet on three
            PNGs (the npz, the benchmark PNGs and the panel)
   cli      python -m cerberusnet_torch.cli --device cuda in five processes
-           at once:
+           at once, started at nice 19 right after data and running beside
+           the phases up to cli:
            --import-torch of a TorchCerberus checkpoint (tiny widths) with
            --infer on three PNGs (the printed files, the npz against this
            process's forward of the same weights within 1e-3),
@@ -244,8 +247,9 @@ started); any failed check exits non-zero:
            eager forward (bit-equal reported, within 1e-2 held) and by the
            plain bf16 rule against the float32 plain path; the same
            artifact in a fresh process that imports only torch and the
-           operators (ops/library.py); the stacked artifact (one (3, 512,
-           1024, 3) input) against the separate-frame one; the
+           operators (ops/library.py), beside the other exports; the
+           stacked artifact (one (3, 512, 1024, 3) input) against the
+           separate-frame one; the
            pallas_levels=3 artifact (3 K9 launches a call) and
            CerberusDCV's (4 K7 and 3 K8); each manifest's signature;
            export and load seconds, ms per frame loaded against eager
@@ -289,7 +293,10 @@ started); any failed check exits non-zero:
            ranks' masters equal, ms per step (gloo stages through the
            host: not a multi-card time); ``--only train_dp_cards`` runs
            (c) and its references alone, for a machine with several cards;
-           (b) to (d) in spawned ranks (parallel.launch)
+           (a) to (d) in spawned ranks (parallel.launch); (b) and (d) in
+           one spawn of two ranks with train_spatial's (a) and (d), which
+           starts before the references are computed and waits for its
+           jobs; (a) beside train_spatial's (c) after it
   train_spatial  image rows split over ranks (train.num_spatial_devices,
            cerberusnet_torch/parallel/halo.py), batch 2, each rank against
            one process on the card: (a) 2 gloo ranks sharing the card, 256
@@ -312,13 +319,18 @@ started); any failed check exits non-zero:
            unequal bands (128/128/64/64 rows) of DCVFlowNet at
            configs/dcv_flow_kitti.json's 384x1248, synthetic data: taps,
            gradients and masters of one float32 step as in (a), the
-           halos' send-back control
+           halos' send-back control; (d) as (a) for CerberusDCV and
+           CerberusRAFT at 368x768 (RAFT's Sintel crop, an H that is no
+           multiple of 64: bands of 176/192 rows, level 4 split 11/12), the
+           send-back control (DCV) and the gather-reduce control (RAFT);
+           (a) and (d) in one spawn with train_dp's (b) and (d)
   runner   the C++ runner of the exported program: cerberus_runner and
            libcerberus_ops built with g++ (their seconds; ldd shows no
            libpython); the export phase's four artifacts and quant_int8's
            int8 one (exported here when they did not run) compiled with
-           AOTInductor in two processes at nice 19, int8's alone and the
-           float ones one after the other (package seconds each),
+           AOTInductor (deterministic mode) in two processes at nice 19,
+           the float ones one after the other and int8's alone (package
+           seconds each),
            loaded into this process (a call launches what
            the export phase's does on the Python counters) and run by the
            runner on seeded inputs (--inputs, --dump-outputs): the launches
@@ -331,7 +343,8 @@ started); any failed check exits non-zero:
            bit-equal to the Python path, wall ms each, QUIT exits 0);
            --pngs on seeded 512x1024 PNGs, separate and stacked, bit-equal
            to data/io decode, preprocess_image and the package in Python,
-           and stacked bit-equal to separate; refusals: the CerberusNet
+           and stacked against separate within 1e-2 (two packages compiled
+           apart; bit equality reported); refusals: the CerberusNet
            package without the operator library (naming the operator) and
            a CPU export with --device cuda; the int8 package against
            quantized_apply of the same int8 model (bit equality and
@@ -356,7 +369,8 @@ run)
 and train_dp's (the ranks of its part (b), their launches summed) and
 train_spatial's (CerberusNet's bands in its part (a))
 where the kernel runs, and the DCV paths' under "dcv" (export_cerberus_dcv,
-runner_cerberus_dcv and train_spatial, CerberusDCV's bands, among them);
+runner_cerberus_dcv, train_spatial, CerberusDCV's bands, and
+train_spatial_offgrid, its bands of part (d), among them);
 K9's and K10's on train_pallas_levels, K9's serve, export_pallas_levels
 and runner_pallas_levels numbers beside them, each with its time over the
 cuDNN level's
@@ -370,7 +384,7 @@ no result. ``--only a,b,...`` runs env, build and the named phases alone
 flow_data where they need its fixtures), with no summary and no result
 line. The order: env, build, kernels, serve, then bench, whose ms per
 frame it needs (``--only serve,bench``); the deployment phases but the
-runner (quant_int8, export, train_qat, debug_nans), whose artifacts start
+runner (export, quant_int8, train_qat, debug_nans), whose artifacts start
 the runner's AOTInductor compiles and g++ builds, which run beside every
 later phase; train, the DCV and pallas_levels phases, fit, train_dp,
 train_spatial, the RAFT phases, the data slice's and the evaluation slice's (cli the last of
@@ -401,7 +415,8 @@ DCV_MAX_DISP = 4
 DCV_FLOW_DILATIONS = (1, 2, 4, 8)
 DCV_DISP_DILATIONS = (1, 2, 3)
 # the kernels phase's paths on a spatial rank's band (train_spatial)
-SPATIAL_PATHS = ("spatial", "spatial_dcv", "spatial_dcv_unequal")
+SPATIAL_PATHS = ("spatial", "spatial_dcv", "spatial_dcv_unequal",
+                 "spatial_dcv_offgrid")
 # The odd shapes of the correlation kernels, (H, W, C) at batch 1 and 2: a
 # row no multiple of a tile, fewer rows than the 2-D window's height, and
 # 40-byte pixel rows (8-byte aligned, no multiple of 16) or 42-byte ones
@@ -663,6 +678,7 @@ def phase_kernels(peaks, spin_rate):
     kitti_gen = torch.Generator(device="cuda").manual_seed(4)
     eval_gen = torch.Generator(device="cuda").manual_seed(5)
     sp_gen = torch.Generator(device="cuda").manual_seed(6)
+    offgrid_gen = torch.Generator(device="cuda").manual_seed(7)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
@@ -729,6 +745,13 @@ def phase_kernels(peaks, spin_rate):
                        sp_dcv_band_shape(name, dil, 8,
                                          DCV_KITTI_HW[1] >> DCV_LEVEL))
                       for dil in dcv_dilations]
+        # and part (d)'s: rank 0's band of level 3 of 368x768 (22 of its
+        # 46 rows), every DCV kernel
+        cases += [("spatial_dcv_offgrid", TRAIN_BATCH, DCV_LEVEL,
+                   torch.bfloat16, dil, DCV_MAX_DISP,
+                   sp_dcv_band_shape(name, dil, SP_OFFGRID_DCV_ROWS,
+                                     SP_OFFGRID_HW[1] >> DCV_LEVEL))
+                  for dil in dcv_dilations]
         if not backward:
             cases += [("tta", 1, level, torch.bfloat16, 1, disp_of(level),
                        level_shape(1, level, hw))
@@ -749,7 +772,8 @@ def phase_kernels(peaks, spin_rate):
                   "kitti": kitti_gen, "dcv_kitti": kitti_gen,
                   "things": eval_gen, "tta": eval_gen,
                   "tiles": eval_gen, "spatial_dcv": sp_gen,
-                  "spatial_dcv_unequal": sp_gen}.get(path, gen)
+                  "spatial_dcv_unequal": sp_gen,
+                  "spatial_dcv_offgrid": offgrid_gen}.get(path, gen)
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             cc.reset_design_launches()
@@ -3597,18 +3621,19 @@ def cli_exports(d, procs, cfg, errors):
     return out
 
 
-def phase_cli(card, root):
+def start_cli(root):
+    """cli's first half, run after data (which writes the KITTI fixture):
+    the checkpoint and config under ``root``/cli, and the five CLI
+    processes started at once in the background at nice 19, so that they
+    run beside the phases up to cli: (the directory, the model, the
+    config, the PNGs, a future of each process's (name, args, rc, stdout,
+    stderr, seconds))."""
     import os
 
-    import numpy as np
-
-    from cerberusnet_torch.data import io as data_io
-    from cerberusnet_torch.data.loader import preprocess
     from cerberusnet_torch.entry import REPO_ROOT
     from cerberusnet_torch.models.cerberus import CerberusNet
     from cerberusnet_torch.weights import init_params, torch_cerberus_state_dict
 
-    errors = []
     d = f"{root}/cli"
     os.makedirs(d)
     widths = {k: tuple(v) if isinstance(v, list) else v
@@ -3628,9 +3653,8 @@ def phase_cli(card, root):
     imgs = {"left": f"{k}/image_2/000000_10.png",
             "right": f"{k}/image_3/000000_10.png",
             "temporal": f"{k}/image_2/000000_11.png"}
-    base = [sys.executable, "-m", "cerberusnet_torch.cli", "--config", cfg,
-            "--device", "cuda"]
-    procs = {}
+    base = ["nice", "-n", "19", sys.executable, "-m", "cerberusnet_torch.cli",
+            "--config", cfg, "--device", "cuda"]
     runs = (("infer", ["--import-torch", ckpt, "--infer",
                        ",".join(imgs.values()), "--infer-out", f"{d}/infer"]),
             ("profile", ["--profile", f"{d}/trace"]),
@@ -3640,20 +3664,45 @@ def phase_cli(card, root):
     def run(item):
         name, args = item
         t0 = time.perf_counter()
-        p = subprocess.run(base + args, cwd=str(REPO_ROOT),
-                           capture_output=True, text=True, timeout=600)
-        return name, args, p, time.perf_counter() - t0
+        p = subprocess.Popen(base + args, cwd=str(REPO_ROOT),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+        BACKGROUND.append(p)
+        try:
+            out, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        return name, args, p.returncode, out, err, time.perf_counter() - t0
 
     # the five processes at once: they write apart, and each is mostly its
     # own host work (imports, tracing, export)
-    with ThreadPoolExecutor(len(runs)) as pool:
-        for name, args, p, seconds in pool.map(run, runs):
-            procs[name] = {"args": args, "rc": p.returncode, "s": seconds,
-                           "stdout": p.stdout[-2000:],
-                           "stderr": p.stderr[-2000:]}
-            if p.returncode:
-                errors.append(f"{name}: exit {p.returncode}: "
-                              f"{p.stderr[-500:]}")
+    pool = ThreadPoolExecutor(len(runs))
+    futures = [pool.submit(run, item) for item in runs]
+    pool.shutdown(wait=False)
+    return d, model, cfg, imgs, futures
+
+
+def phase_cli(card, started):
+    """cli's second half: the checks of ``start_cli``'s processes."""
+    import os
+
+    import numpy as np
+
+    from cerberusnet_torch.data import io as data_io
+    from cerberusnet_torch.data.loader import preprocess
+
+    errors = []
+    d, model, cfg, imgs, futures = started
+    procs = {}
+    t0 = time.perf_counter()
+    for future in futures:
+        name, args, rc, out, err, seconds = future.result()
+        procs[name] = {"args": args, "rc": rc, "s": seconds,
+                       "stdout": out[-2000:], "stderr": err[-2000:]}
+        if rc:
+            errors.append(f"{name}: exit {rc}: {err[-500:]}")
+    waited_s = time.perf_counter() - t0
     printed = [ln for ln in procs["infer"]["stdout"].splitlines()
                if ln.startswith(f"{d}/infer/")]
     files = [p[len(d) + len("/infer/"):] for p in printed]
@@ -3693,7 +3742,7 @@ def phase_cli(card, root):
                           f"{sorted(kernels)[:20]}")
     exports = cli_exports(d, procs, cfg, errors)
     ok = not errors
-    emit({"phase": "cli", "ok": ok, "processes": procs,
+    emit({"phase": "cli", "ok": ok, "processes": procs, "waited_s": waited_s,
           "infer_files": files, "infer_vs_in_process": distances,
           "exports": exports, "export_rtol": CLI_EXPORT_RTOL,
           "rtol": CLI_RTOL, "trace_kernel_names": len(kernels),
@@ -3834,10 +3883,27 @@ def beyond(dist, limit=ARTIFACT_RTOL):
     return {k: v for k, v in dist.items() if k in HEADS and not v <= limit}
 
 
+def start_fresh_load(art, frames, d):
+    """A fresh process that imports only torch and the operators, loads the
+    artifact ``art`` and calls it on ``frames`` (FRESH_LOAD), started in the
+    background: (the process, its start, the file of its outputs)."""
+    from cerberusnet_torch.entry import REPO_ROOT
+
+    inputs, outputs = f"{d}/frames.pt", f"{d}/fresh_out.pt"
+    torch.save([f.cpu() for f in frames], inputs)
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-c", FRESH_LOAD, art, inputs,
+                          outputs], cwd=str(REPO_ROOT),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    BACKGROUND.append(p)
+    return p, t0, outputs
+
+
 def phase_export(card, root):
     import os
 
-    from cerberusnet_torch.entry import REPO_ROOT, entry, make_frames
+    from cerberusnet_torch.entry import entry, make_frames
 
     errors = []
     d = f"{root}/export"
@@ -3880,7 +3946,9 @@ def phase_export(card, root):
                       "loaded_vs_eager_rel_l2": dist,
                       "manifest_inputs": manifest["inputs"]}
         artifacts[name] = (module, got)
-        if name != "cerberus":
+        if name == "cerberus":
+            fresh_proc = start_fresh_load(f"{d}/cerberus", frames, d)
+        else:
             del m
     # the stacked artifact answers as the separate-frame one
     stacked = frame_distances(artifacts["stacked"][1],
@@ -3902,20 +3970,20 @@ def phase_export(card, root):
             errors.append(f"loaded {k}: rel L2 {d_art} > {rule[k]['limit']}")
     del plain16, plain32, ref, base
 
-    # a fresh process: torch and the operators alone
-    inputs, outputs = f"{d}/frames.pt", f"{d}/fresh_out.pt"
-    torch.save([f.cpu() for f in frames], inputs)
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-c", FRESH_LOAD, f"{d}/cerberus",
-                        inputs, outputs], cwd=str(REPO_ROOT),
-                       capture_output=True, text=True, timeout=600)
+    # the fresh process, started after the first artifact was saved
+    p, t0, outputs = fresh_proc
+    try:
+        stdout, stderr = p.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        stdout, stderr = p.communicate()
     fresh = {"rc": p.returncode, "s": time.perf_counter() - t0,
-             "stderr": p.stderr[-1500:]}
+             "stderr": stderr[-1500:]}
     if p.returncode:
         errors.append(f"fresh process: exit {p.returncode}: "
-                      f"{p.stderr[-500:]}")
+                      f"{stderr[-500:]}")
     else:
-        report = json.loads(p.stdout.strip().splitlines()[-1])
+        report = json.loads(stdout.strip().splitlines()[-1])
         fresh.update(report)
         got = [t.cuda() for t in torch.load(outputs)]
         fresh["vs_eager_rel_l2"] = frame_distances(got, eager)
@@ -4305,7 +4373,7 @@ def package_all(dirs):
                           *dirs.values()], cwd=str(REPO_ROOT),
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                          text=True)
-    PACKAGING.append(p)
+    BACKGROUND.append(p)
     try:
         out, err = p.communicate(timeout=900)
     except subprocess.TimeoutExpired:
@@ -4319,9 +4387,10 @@ def package_all(dirs):
     return {n: line["seconds"] for n, line in zip(dirs, lines)}
 
 
-# the compile processes started (stopped where they still run when the
-# script ends) and the runner's two g++ builds, started with the first
-PACKAGING = []
+# the processes started in the background (the compiles, cli's, export's
+# fresh process), stopped where they still run when the script ends, and
+# the runner's two g++ builds, started with the first compiles
+BACKGROUND = []
 RUNNER_BUILD = []
 
 
@@ -4343,8 +4412,8 @@ def start_packaging(root, names):
     return exports, future, start
 
 
-def stop_packaging():
-    for p in PACKAGING:
+def stop_background():
+    for p in BACKGROUND:
         if p.poll() is None:
             p.kill()
             p.wait()
@@ -4539,10 +4608,18 @@ def phase_runner(card, root, batches=()):
             for name in ("cerberus", "stacked")}
     for name, report in pngs.items():
         held(report, f"--pngs {name}", errors)
+    # the two packages, compiled apart, against each other: their flow
+    # heads differ by a relative 1.0e-4 in some compiles and not in others
+    # (ROADMAP C15), so the pair is held as the export phase holds it
+    # (ARTIFACT_RTOL), its bit equality reported; the runner's own decoding
+    # and stacking are held bit-equal by --pngs stacked above
     stacked_vs_separate = runner_io.compare(
         runner_io.read_outputs(f"{root}/export/stacked/_verify_png"),
-        runner_io.read_outputs(f"{root}/export/cerberus/_verify_png"))
-    held(stacked_vs_separate, "--pngs stacked against separate", errors)
+        runner_io.read_outputs(f"{root}/export/cerberus/_verify_png"),
+        rtol=ARTIFACT_RTOL)
+    if not stacked_vs_separate["ok"]:
+        errors.append(f"--pngs stacked against separate: "
+                      f"{stacked_vs_separate['outputs']}")
 
     refusals, errs = runner_refusals(runner, art, cpu_export)
     errors += errs
@@ -4561,9 +4638,9 @@ def phase_runner(card, root, batches=()):
                     "python_package_bf16: CUDA events around one call, in "
                     "turns; package_s: an artifact's own AOTInductor "
                     "compile and package, in two processes at nice 19 "
-                    "(int8's started after quant_int8, the float ones one "
-                    "after the other after export) while the phases from "
-                    "quant_int8 to the data slice's ran (packaging_s from "
+                    "(the float ones one after the other after export, "
+                    "int8's after quant_int8) while the phases from "
+                    "export to the data slice's ran (packaging_s from "
                     "the first start to the last end, packaging_wait_s the "
                     "part this phase waited); "
                     "serve wall_ms: host clock around a request",
@@ -4821,17 +4898,17 @@ def dp_rank_errors(res, comps, label):
     return errors
 
 
-def dp_ranks_part(part, batch, refs, backend, device):
-    """(b) or (c): DP_RANKS ranks against the single process; emits the
-    part's line; returns (errors, the ranks' launches summed)."""
-    from cerberusnet_torch.parallel import launch
+def dp_job(batch, refs, device):
+    """The job of a (b) or (c) rank (``dp_rank``)."""
+    ref, limits, _, masters = refs
+    return {"batch": batch, "ref": as_numpy(ref), "limits": limits,
+            "masters": as_numpy(masters), "device": device}
 
-    ref, limits, comps, masters = refs
-    job = {"batch": batch, "ref": as_numpy(ref), "limits": limits,
-           "masters": as_numpy(masters), "device": device}
-    t0 = time.perf_counter()
-    ranks = launch(dp_rank, DP_RANKS, args=(job,), backend=backend,
-                   timeout=DP_TIMEOUT_S)
+
+def dp_ranks_report(part, ranks, seconds, comps, backend):
+    """(b) or (c)'s checks of its DP_RANKS ranks' results against the single
+    process; emits the part's lines; returns (errors, the ranks' launches
+    summed)."""
     errors = []
     for res in ranks:
         errors += dp_rank_errors(res, comps, f"({part}) rank {res['rank']}")
@@ -4851,19 +4928,31 @@ def dp_ranks_part(part, batch, refs, backend, device):
                   "masters_sha256", "launches", "calls",
                   "step_s_with_checks", "allreduce")}})
     emit({"phase": "train_dp", "part": part, "ranks": DP_RANKS,
-          "global_batch": DP_BATCH, "seconds": time.perf_counter() - t0,
+          "global_batch": DP_BATCH, "seconds": seconds,
           "launches_summed": launches, "errors": errors})
     return errors, launches
 
 
-def dp_part_a():
-    """(a): one step of one NCCL rank against one process, both under
-    deterministic algorithms; emits its line, returns its errors."""
+def dp_ranks_part(part, batch, refs, backend, device):
+    """(c): DP_RANKS NCCL ranks against the single process
+    (``dp_ranks_report``)."""
+    from cerberusnet_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(dp_rank, DP_RANKS, args=(dp_job(batch, refs, device),),
+                   backend=backend, timeout=DP_TIMEOUT_S)
+    return dp_ranks_report(part, ranks, time.perf_counter() - t0, refs[2],
+                           backend)
+
+
+def dp_part_a_reference():
+    """(a)'s single process: one step at batch 2, run twice, under
+    deterministic algorithms: (the batch, the loss components, the
+    gradients, the two runs' module distances)."""
     import os
 
     from cerberusnet_torch.data.loader import batches
     from cerberusnet_torch.entry import train_entry
-    from cerberusnet_torch.parallel import launch
 
     cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = DETERMINISTIC_CUBLAS
@@ -4878,14 +4967,20 @@ def dp_part_a():
         floor = module_rel_l2(cpu_grads(runs[1][1]), want)
         del one, runs
         torch.cuda.empty_cache()
-        (got,) = launch(dp_one_rank, 1, args=(batch2,), backend="nccl",
-                        timeout=DP_TIMEOUT_S)
     finally:
         torch.use_deterministic_algorithms(False)
         if cublas is None:
             del os.environ["CUBLAS_WORKSPACE_CONFIG"]
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    return batch2, want_comps, want, floor
+
+
+def dp_part_a_report(reference, got):
+    """(a): the one NCCL rank's step (``dp_one_rank``, which sets the same
+    deterministic algorithms) against the single process's; emits its
+    line, returns its errors."""
+    _, want_comps, want, floor = reference
     dist = module_rel_l2(got["grads"], want)
     comps = {k: abs(got["comps"][k] - w) / abs(w)
              for k, w in want_comps.items()}
@@ -4899,42 +4994,35 @@ def dp_part_a():
                for k, d in comps.items() if not d <= DP_ONE_RTOL])
 
 
-def dp_part_d(card):
-    """(d): cerberus_dp_v4_8 through the CLI (refused on fewer than 8
-    cards), then cut and fitted on 2 gloo ranks sharing the card; emits
-    its lines, returns its errors."""
-    import os
-    import shutil
-    import tempfile
-
+def dp_part_d_refusal(ckpt):
+    """(d)'s first half: cerberus_dp_v4_8 through the CLI, which must
+    refuse its 8 ranks on fewer cards: (the ValueError's text, errors)."""
     from cerberusnet_torch import cli
     from cerberusnet_torch.entry import REPO_ROOT
-    from cerberusnet_torch.parallel import launch
+
+    refused = None
+    try:
+        cli.main(["--config", str(REPO_ROOT / DP_FIT_CONFIG),
+                  "--ckpt-dir", ckpt])
+    except ValueError as e:
+        refused = str(e)
+    cards = torch.cuda.device_count()
+    if cards < 8 and not (refused and "8 CUDA devices" in refused):
+        return refused, [f"(d) the CLI did not refuse 8 ranks on {cards} "
+                         f"card(s): {refused}"]
+    return refused, []
+
+
+def dp_part_d_report(card, refused, ckpt, ranks, wall_s):
+    """(d)'s second half: the cut config fitted on 2 gloo ranks sharing the
+    card (``dp_fit_rank``), its files under ``ckpt``; emits its lines,
+    returns its errors."""
+    import os
 
     errors = []
-    root = tempfile.mkdtemp(prefix="cerberus_dp_")
-    try:
-        ckpt = os.path.join(root, "ckpt")
-        refused = None
-        try:
-            cli.main(["--config", str(REPO_ROOT / DP_FIT_CONFIG),
-                      "--ckpt-dir", ckpt])
-        except ValueError as e:
-            refused = str(e)
-        cards = torch.cuda.device_count()
-        if cards < 8 and not (refused and "8 CUDA devices" in refused):
-            errors.append(f"(d) the CLI did not refuse 8 ranks on {cards} "
-                          f"card(s): {refused}")
-        t0 = time.perf_counter()
-        ranks = launch(dp_fit_rank, DP_RANKS,
-                       args=({"ckpt_dir": ckpt, "device": "cuda:0"},),
-                       backend="gloo", timeout=DP_TIMEOUT_S)
-        wall_s = time.perf_counter() - t0
-        files = sorted(os.listdir(ckpt))
-        with open(os.path.join(ckpt, "train_log.csv")) as f:
-            rows = f.read().splitlines()[1:]
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    files = sorted(os.listdir(ckpt))
+    with open(os.path.join(ckpt, "train_log.csv")) as f:
+        rows = f.read().splitlines()[1:]
     steps = DP_FIT_CUT["data"]["synthetic_length"] // DP_BATCH
     if files != [f"ckpt_{steps:08d}.pt", "train_log.csv"]:
         errors.append(f"(d) files written: {files}")
@@ -4968,49 +5056,6 @@ def dp_part_d(card):
     return errors
 
 
-def phase_train_dp(card, parts="abcd"):
-    """(a) one NCCL rank against one process, (b) two gloo ranks sharing
-    the card against one process at their global batch, (c) two NCCL
-    ranks on two cards where there are two, (d) cerberus_dp_v4_8 through
-    the CLI (refused on one card) and through the launcher, cut. ``parts``
-    "c" alone (``--only train_dp_cards``) runs (c) and its single-process
-    references: a run on several cards needs no other. Returns the
-    launches of (b)'s ranks, summed."""
-    from cerberusnet_torch.data.loader import batches
-    from cerberusnet_torch.entry import train_entry
-
-    torch.cuda.empty_cache()
-    errors = []
-    t_phase = time.perf_counter()
-    if "a" in parts:
-        errors += dp_part_a()
-    launches = None
-    dataset = train_entry(DP_CONFIG, batch_size=DP_BATCH, n_batches=0)[0]
-    batch = batches(dataset.dataset, DP_BATCH, 1)[0]
-    del dataset
-    refs = dp_single_refs(batch)
-    if "b" in parts:
-        part_errors, launches = dp_ranks_part("b", batch, refs, "gloo",
-                                              "cuda:0")
-        errors += part_errors
-    if torch.cuda.device_count() >= DP_RANKS:
-        errors += dp_ranks_part("c", batch, refs, "nccl", "cuda")[0]
-    else:
-        emit({"phase": "train_dp", "part": "c", "skipped": True,
-              "why": f"{torch.cuda.device_count()} CUDA device(s) visible; "
-                     f"two NCCL ranks need {DP_RANKS}"})
-    del refs
-    if "d" in parts:
-        errors += dp_part_d(card)
-    ok = not errors
-    emit({"phase": "train_dp", "ok": ok, "parts": parts, "config": DP_CONFIG,
-          "hw": list(HW), "dtype": "bfloat16",
-          "seconds": time.perf_counter() - t_phase, "errors": errors})
-    if not ok:
-        sys.exit(1)
-    return launches
-
-
 # The train_spatial phase: each model's step with image rows split over
 # ranks sharing the card (train.num_spatial_devices,
 # cerberusnet_torch/parallel/halo.py) at full width, batch 2, synthetic data,
@@ -5021,10 +5066,18 @@ def phase_train_dp(card, parts="abcd"):
 # steps; (c) SP_UNEQUAL_RANKS gloo ranks on unequal bands: DCVFlowNet at
 # configs/dcv_flow_kitti.json's 384x1248 (bands of 128/128/64/64 rows, the
 # 2-D correlation's 32-row reach at dilation 8 crossing every peer), float32
-# steps. Its ranks are spawned processes that import this script as their
-# main module (sp_rank).
+# steps; (d) SP_RANKS gloo ranks at an H that is no multiple of 64, RAFT's
+# Sintel crop of 368x768 (extents 368/184/92/46/23/12/6, bands of 176/192
+# rows, level 4 split 11/12 under the stride-2 block's top pad): CerberusDCV
+# and CerberusRAFT at their configs' widths, float32 and bf16 steps. Its
+# ranks are spawned processes that import this script as their main module
+# (sp_rank).
 SP_RANKS = 2
 SP_UNEQUAL_RANKS = 4
+SP_OFFGRID_HW = (368, 768)
+# the DCV decoders' band of part (d) a kernels-phase case runs on: rank 0's
+# rows of level 3 (46 rows split 22/24)
+SP_OFFGRID_DCV_ROWS = 22
 # one float32 step (its gradients, taps and the masters after it); bf16
 # steps, each held to the plain rule
 SP_STEPS = 2
@@ -5038,6 +5091,12 @@ SP_MODELS = {
                           else len(DCV_DISP_DILATIONS)) for k in REPLACES},
                      "corr2d"),
     "cerberus_raft": (RAFT_CONFIG, {}, SP_STEPS, {}, "raft flow"),
+    "cerberus_dcv_offgrid": ("configs/cerberus_dcv.json", {"data": {
+        "hw": list(SP_OFFGRID_HW)}}, SP_STEPS,
+        {k: (len(DCV_FLOW_DILATIONS) if k.startswith("corr2d")
+             else len(DCV_DISP_DILATIONS)) for k in REPLACES}, "corr2d"),
+    "cerberus_raft_offgrid": (RAFT_CONFIG, {"data": {
+        "hw": list(SP_OFFGRID_HW)}}, SP_STEPS, {}, "raft flow"),
     "dcv_flow_kitti": (DCV_KITTI_CONFIG, {"data": {
         "dataset": "synthetic", "root": "", "hw": list(DCV_KITTI_HW)}},
         None, {}, "corr2d"),
@@ -5049,11 +5108,14 @@ SP_MODELS = {
 # gradient, not the peers' sum; zeroed, the band's own share would go too)
 SP_PARTS = {"a": ("cerberus", "cerberus_dcv", "cerberus_raft"),
             "b": ("cerberus", "cerberus_dcv", "cerberus_raft"),
-            "c": ("dcv_flow_kitti",)}
+            "c": ("dcv_flow_kitti",),
+            "d": ("cerberus_dcv_offgrid", "cerberus_raft_offgrid")}
 SP_CONTROLS = {"cerberus": ("send_back_dropped", "k3_zeroed"),
                "cerberus_dcv": ("send_back_dropped", "k3_zeroed"),
                "cerberus_raft": ("gather_reduce_dropped",),
-               "dcv_flow_kitti": ("send_back_dropped",)}
+               "dcv_flow_kitti": ("send_back_dropped",),
+               "cerberus_dcv_offgrid": ("send_back_dropped",),
+               "cerberus_raft_offgrid": ("gather_reduce_dropped",)}
 # float32: the all-reduced gradients of one step against one process's
 # (each module's relative L2, a module the names' first SP_GRAD_PARTS
 # parts: RAFT's GRU, motion encoder and heads each on their own), the
@@ -5071,7 +5133,8 @@ SP_CONTROLS = {"cerberus": ("send_back_dropped", "k3_zeroed"),
 # the send-back 0.25-0.80; an NVIDIA H100 80GB HBM3, 700 W)
 SP_GRAD_PARTS = 3
 SP_GRAD_RTOL = {"cerberus": 1e-3, "cerberus_dcv": 1e-4,
-                "cerberus_raft": 1e-4, "dcv_flow_kitti": 1e-3}
+                "cerberus_raft": 1e-4, "dcv_flow_kitti": 1e-3,
+                "cerberus_dcv_offgrid": 1e-4, "cerberus_raft_offgrid": 1e-4}
 SP_MASTERS_RTOL = 1e-5
 SP_TAP_RTOL = FUSED_F32_RTOL
 # a control's taps must miss by more than this, and its gradients by more
@@ -5326,36 +5389,25 @@ def sp_rank_errors(name, res, label):
     return errors
 
 
-def sp_part(part, backend, device, data, refs):
-    """The ranks of one part (gloo ranks sharing the card, or NCCL ranks a
-    card each) and the parent's yardsticks of their bf16 steps; emits the
-    part's lines; returns (errors, {model: the ranks' bf16 launches summed
-    over the ranks and steps})."""
-    import shutil
-    import tempfile
+def sp_job(names, data, refs, root, device, ranks_n):
+    """The job of a train_spatial rank (``sp_rank``) for the models
+    ``names``: rank 0 saves its bf16 steps' masters and gradients under
+    ``root``."""
+    return {"models": {n: {"batches": data[n],
+                           "taps": as_numpy(refs[n]["taps"]),
+                           "grads": as_numpy(refs[n]["grads"]),
+                           "masters": as_numpy(refs[n]["masters"])}
+                       for n in names},
+            "dir": root, "device": device, "ranks": ranks_n}
 
-    from cerberusnet_torch.parallel import launch
 
-    names = SP_PARTS[part]
-    ranks_n = SP_UNEQUAL_RANKS if part == "c" else SP_RANKS
-    root = tempfile.mkdtemp(prefix="cerberus_sp_")
-    try:
-        job = {"models": {n: {"batches": data[n],
-                              "taps": as_numpy(refs[n]["taps"]),
-                              "grads": as_numpy(refs[n]["grads"]),
-                              "masters": as_numpy(refs[n]["masters"])}
-                          for n in names},
-               "dir": root, "device": device, "ranks": ranks_n}
-        t0 = time.perf_counter()
-        ranks = launch(sp_rank, ranks_n, args=(job,), backend=backend,
-                       timeout=SP_TIMEOUT_S)
-        ranks_s = time.perf_counter() - t0
-        yard = {n: sp_yardsticks(n, data[n], root) for n in names
-                if SP_MODELS[n][2]}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def sp_report(part, ranks, ranks_s, yard, refs, backend):
+    """One part's checks of its ranks' results ({model: result} a rank)
+    and of the yardsticks of their bf16 steps; emits the part's lines;
+    returns (errors, {model: the ranks' bf16 launches summed over the ranks
+    and steps})."""
     errors, summed = [], {}
-    for name in names:
+    for name in SP_PARTS[part]:
         for r, res in enumerate(ranks):
             res = res[name]
             errors += sp_rank_errors(name, res, f"({part}) {name} rank {r}")
@@ -5392,26 +5444,37 @@ def sp_part(part, backend, device, data, refs):
     return errors, summed
 
 
-def phase_train_spatial(card, parts="ac"):
-    """train_spatial: (a) SP_RANKS gloo ranks sharing the card hold the two
-    bands of each frame (D = 1, S = SP_RANKS) of CerberusNet, CerberusDCV
-    and CerberusRAFT: float32 and bf16 steps against one process, the
-    controls, the kernels' calls and launches; (b) the same with NCCL ranks
-    a card each where there are SP_RANKS cards, skipped on one; (c)
-    SP_UNEQUAL_RANKS gloo ranks on unequal bands of DCVFlowNet at
-    384x1248, float32 against one process. ``parts`` "b" alone (``--only
-    train_spatial_cards``) runs (b) and its one-process references.
-    Returns (a)'s bf16 launches by model, summed over the ranks and
-    steps."""
+def sp_part(part, backend, device, data, refs):
+    """(b): the models on SP_RANKS NCCL ranks a card each, and the
+    yardsticks of their bf16 steps (``sp_report``)."""
+    import shutil
+    import tempfile
+
+    from cerberusnet_torch.parallel import launch
+
+    names = SP_PARTS[part]
+    root = tempfile.mkdtemp(prefix="cerberus_sp_")
+    try:
+        t0 = time.perf_counter()
+        ranks = launch(sp_rank, SP_RANKS,
+                       args=(sp_job(names, data, refs, root, device,
+                                    SP_RANKS),),
+                       backend=backend, timeout=SP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        yard = {n: sp_yardsticks(n, data[n], root) for n in names
+                if SP_MODELS[n][2]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return sp_report(part, ranks, ranks_s, yard, refs, backend)
+
+
+def sp_references(names, card):
+    """Each model's batches and one process's references
+    (``sp_single``); emits a line a model."""
     from cerberusnet_torch.data.loader import batches
 
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    names = [n for p in parts for n in SP_PARTS[p]]
-    if torch.cuda.device_count() >= SP_RANKS:
-        names += [n for n in SP_PARTS["b"] if n not in names]
     data, refs = {}, {}
-    for name in dict.fromkeys(names):
+    for name in names:
         tr = sp_trainer(name, "bfloat16")
         data[name] = batches(tr.dataset, TRAIN_BATCH,
                              SP_MODELS[name][2] or 1)
@@ -5420,30 +5483,235 @@ def phase_train_spatial(card, parts="ac"):
         emit({"phase": "train_spatial", "part": "one_process", "model": name,
               "card": card, "ms_per_step": refs[name].get("ms_per_step"),
               "peak_gib": refs[name].get("peak_gib"),
-              "note": "the ranks of parts a and c are gloo ranks sharing "
+              "note": "the ranks of parts a, c and d are gloo ranks sharing "
                       "one card: gloo stages the halo exchanges through the "
                       "host; their ms per step is not a multi-card time"})
-    errors, launches = [], None
-    if "a" in parts:
-        errors, launches = sp_part("a", "gloo", "cuda:0", data, refs)
-    if "c" in parts:
-        errors += sp_part("c", "gloo", "cuda:0", data, refs)[0]
-    if torch.cuda.device_count() >= SP_RANKS:
-        errors += sp_part("b", "nccl", "cuda", data, refs)[0]
-    else:
+    return data, refs
+
+
+# The parts of train_dp and train_spatial on 2 gloo ranks sharing the card
+# (train_dp (b) and (d), train_spatial (a) and (d)) run in one spawn of
+# PAIR_RANKS ranks, in that order: a spawn's process start and its first
+# model's warm-up cost 30-45 s each time. train_dp (a)'s one NCCL rank and
+# train_spatial (c)'s four gloo ranks run at once after the pair (neither
+# is timed) while this process holds the pair's bf16 steps to their
+# yardsticks. All three spawns start before this process computes the
+# references, and each waits for its jobs in a file (waiting_rank) that
+# this process writes when they are ready and the card is theirs.
+PAIR_RANKS = 2
+# the longest a spawn waits for its jobs
+JOBS_WAIT_S = 900
+
+
+def waiting_rank(path, warm=True):
+    """A rank that waits for the jobs at ``path`` (an empty list where the
+    parent failed before it wrote them) and runs each (key, function, job)
+    in turn: {"wait_s": s, key: (result, seconds)}. ``warm``: the card's
+    context, cuBLAS and cuDNN first (not for train_dp (a), whose job sets
+    cuBLAS's deterministic workspace before cuBLAS starts)."""
+    import os
+    import pickle
+
+    from cerberusnet_torch.entry import train_entry  # noqa: F401  imports
+
+    dp_setup()
+    if warm:
+        x = torch.ones(1, 8, 16, 16, device="cuda:0")
+        torch.nn.functional.conv2d(x, x[:, :, :3, :3].expand(8, 8, 3, 3))
+        (x[0, 0] @ x[0, 0]).sum().item()
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > JOBS_WAIT_S:
+            raise TimeoutError(f"no jobs at {path} in {JOBS_WAIT_S} s")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        jobs = pickle.load(f)
+    out = {"wait_s": time.perf_counter() - t0}
+    for key, fn, job in jobs:
+        t0 = time.perf_counter()
+        out[key] = (fn(job), time.perf_counter() - t0)
+    return out
+
+
+def start_ranks(fn, nprocs, args, backend, timeout):
+    """``parallel.launch`` in a thread: a future of (the ranks' results, the
+    launch's seconds)."""
+    from cerberusnet_torch.parallel import launch
+
+    def run():
+        t0 = time.perf_counter()
+        ranks = launch(fn, nprocs, args=args, backend=backend,
+                       timeout=timeout)
+        return ranks, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
+
+
+def write_jobs(path, jobs):
+    import os
+    import pickle
+
+    with open(f"{path}.part", "wb") as f:
+        pickle.dump(jobs, f)
+    os.replace(f"{path}.part", path)
+
+
+def phase_ranks(card, dp_parts="abd", sp_parts="acd"):
+    """The train_dp and train_spatial phases: the parts of each named
+    (train_dp's (c) and train_spatial's (b), on NCCL ranks a card each,
+    run wherever there are two cards); each phase's lines, and its
+    closing line, then exit 1 if either failed. Returns the counts of
+    train_dp (b)'s ranks and of train_spatial's bf16 launches by part and
+    model."""
+    import shutil
+    import tempfile
+
+    from cerberusnet_torch.data.loader import batches
+    from cerberusnet_torch.entry import train_entry
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    two_cards = torch.cuda.device_count() >= DP_RANKS
+    pair_keys = ([f"dp_{p}" for p in "bd" if p in dp_parts]
+                 + [f"sp_{p}" for p in "ad" if p in sp_parts])
+    pair_sp = [n for p in "ad" if p in sp_parts for n in SP_PARTS[p]]
+    sp_names = list(dict.fromkeys(
+        [n for p in sp_parts for n in SP_PARTS[p]]
+        + (list(SP_PARTS["b"]) if sp_parts and two_cards else [])))
+    root = tempfile.mkdtemp(prefix="cerberus_ranks_")
+    paths = {k: f"{root}/{k}_jobs.pkl" for k in ("pair", "dp_a", "sp_c")}
+    dp_errors, sp_errors, counts = [], [], {}
+    spawns, written = {}, set()
+
+    def write(key, jobs):
+        if key in spawns and key not in written:
+            write_jobs(paths[key], jobs)
+            written.add(key)
+
+    try:
+        # before the spawns: it sets the environment the ranks inherit
+        if "a" in dp_parts:
+            dp_a = dp_part_a_reference()
+        timeout = JOBS_WAIT_S + SP_TIMEOUT_S
+        if pair_keys:
+            spawns["pair"] = start_ranks(waiting_rank, PAIR_RANKS,
+                                         (paths["pair"],), "gloo", timeout)
+        if "a" in dp_parts:
+            spawns["dp_a"] = start_ranks(waiting_rank, 1,
+                                         (paths["dp_a"], False), "nccl",
+                                         timeout)
+        if "c" in sp_parts:
+            spawns["sp_c"] = start_ranks(waiting_rank, SP_UNEQUAL_RANKS,
+                                         (paths["sp_c"],), "gloo", timeout)
+        jobs = []
+        if "b" in dp_parts or (dp_parts and two_cards):
+            dataset = train_entry(DP_CONFIG, batch_size=DP_BATCH,
+                                  n_batches=0)[0]
+            batch = batches(dataset.dataset, DP_BATCH, 1)[0]
+            del dataset
+            dp_refs = dp_single_refs(batch)
+        if "b" in dp_parts:
+            jobs.append(("dp_b", dp_rank,
+                         dp_job(batch, dp_refs, "cuda:0")))
+        if "d" in dp_parts:
+            ckpt = f"{root}/dp_ckpt"
+            refused, errs = dp_part_d_refusal(ckpt)
+            dp_errors += errs
+            jobs.append(("dp_d", dp_fit_rank,
+                         {"ckpt_dir": ckpt, "device": "cuda:0"}))
+        data, refs = sp_references(sp_names, card)
+        if pair_sp:
+            jobs.append(("sp", sp_rank, sp_job(
+                pair_sp, data, refs, root, "cuda:0", PAIR_RANKS)))
+        if pair_keys:
+            write("pair", jobs)
+            pair_ranks, pair_s = spawns["pair"].result()
+            emit({"phase": "train_spatial", "part": "pair", "ranks":
+                  PAIR_RANKS, "backend": "gloo", "device": "cuda:0",
+                  "seconds": pair_s, "jobs": pair_keys,
+                  "wait_s": [r["wait_s"] for r in pair_ranks],
+                  "job_s": {k: [r[k][1] for r in pair_ranks]
+                            for k, *_ in jobs}})
+        # the card is theirs now: (a) and (c), the yardsticks meanwhile
+        if "a" in dp_parts:
+            write("dp_a", [("dp_a", dp_one_rank, dp_a[0])])
+        if "c" in sp_parts:
+            write("sp_c", [("sp_c", sp_rank, sp_job(
+                SP_PARTS["c"], data, refs, root, "cuda:0",
+                SP_UNEQUAL_RANKS))])
+        yard = {n: sp_yardsticks(n, data[n], root) for n in pair_sp
+                if SP_MODELS[n][2]}
+        side = {k: spawns[k].result() for k in ("dp_a", "sp_c")
+                if k in spawns}
+
+        if "a" in dp_parts:
+            (rank,), _ = side["dp_a"]
+            dp_errors += dp_part_a_report(dp_a, rank["dp_a"][0])
+        if "b" in dp_parts:
+            ranks = [r["dp_b"][0] for r in pair_ranks]
+            errs, counts["train_dp"] = dp_ranks_report(
+                "b", ranks, max(r["dp_b"][1] for r in pair_ranks),
+                dp_refs[2], "gloo")
+            dp_errors += errs
+        if dp_parts and two_cards:
+            dp_errors += dp_ranks_part("c", batch, dp_refs, "nccl",
+                                       "cuda")[0]
+        elif dp_parts:
+            emit({"phase": "train_dp", "part": "c", "skipped": True,
+                  "why": f"{torch.cuda.device_count()} CUDA device(s) "
+                         f"visible; two NCCL ranks need {DP_RANKS}"})
+        if "d" in dp_parts:
+            dp_errors += dp_part_d_report(
+                card, refused, ckpt, [r["dp_d"][0] for r in pair_ranks],
+                max(r["dp_d"][1] for r in pair_ranks))
+    finally:
+        # a spawn whose jobs were never written (this process failed
+        # first) gets none and ends; every spawn has ended before its
+        # files go
+        for key in spawns:
+            write(key, [])
+        for future in spawns.values():
+            future.exception()
+        shutil.rmtree(root, ignore_errors=True)
+    if dp_parts:
+        emit({"phase": "train_dp", "ok": not dp_errors, "parts": dp_parts,
+              "config": DP_CONFIG, "hw": list(HW), "dtype": "bfloat16",
+              "seconds": time.perf_counter() - t_phase,
+              "errors": dp_errors})
+
+    for part in "adc" if sp_parts else "":
+        if part not in sp_parts:
+            continue
+        if part == "c":
+            ranks = [r["sp_c"][0] for r in side["sp_c"][0]]
+            ranks_s = max(r["sp_c"][1] for r in side["sp_c"][0])
+        else:
+            ranks = [r["sp"][0] for r in pair_ranks]
+            ranks_s = max(r["sp"][1] for r in pair_ranks)
+        errs, counts[f"sp_{part}"] = sp_report(part, ranks, ranks_s, yard,
+                                               refs, "gloo")
+        sp_errors += errs
+    if sp_parts and two_cards:
+        sp_errors += sp_part("b", "nccl", "cuda", data, refs)[0]
+    elif sp_parts:
         emit({"phase": "train_spatial", "part": "b", "skipped": True,
               "why": f"{torch.cuda.device_count()} CUDA device(s) visible; "
                      f"{SP_RANKS} NCCL ranks need {SP_RANKS}"})
-    ok = not errors
-    emit({"phase": "train_spatial", "ok": ok, "parts": parts,
-          "models": {n: SP_MODELS[n][0] for n in data},
-          "hw": list(HW), "batch": TRAIN_BATCH, "ranks": SP_RANKS,
-          "unequal_ranks": SP_UNEQUAL_RANKS, "f32_steps": 1,
-          "steps": SP_STEPS, "seconds": time.perf_counter() - t_phase,
-          "errors": errors})
-    if not ok:
+    if sp_parts:
+        emit({"phase": "train_spatial", "ok": not sp_errors,
+              "parts": sp_parts,
+              "models": {n: SP_MODELS[n][0] for n in data},
+              "hw": list(HW), "offgrid_hw": list(SP_OFFGRID_HW),
+              "batch": TRAIN_BATCH, "ranks": SP_RANKS,
+              "unequal_ranks": SP_UNEQUAL_RANKS, "f32_steps": 1,
+              "steps": SP_STEPS, "seconds": time.perf_counter() - t_phase,
+              "errors": sp_errors})
+    if dp_errors or sp_errors:
         sys.exit(1)
-    return launches
+    return counts
 
 
 def path_numbers(checks, name, path, batch, launches):
@@ -5591,6 +5859,12 @@ def summary(checks, counts):
             dcv["train_spatial"] = path_numbers(
                 checks, name, "spatial_dcv", TRAIN_BATCH,
                 counts["train_spatial_dcv"][name])
+        # part (d)'s: rank 0's calls on its haloed band of 368x768's level
+        # 3, the launches of both ranks' bf16 steps summed
+        if counts["train_spatial_offgrid"][name]:
+            dcv["train_spatial_offgrid"] = path_numbers(
+                checks, name, "spatial_dcv_offgrid", TRAIN_BATCH,
+                counts["train_spatial_offgrid"][name])
         dils = (DCV_FLOW_DILATIONS if name.startswith("corr2d")
                 else DCV_DISP_DILATIONS)
         entries.append({
@@ -5673,16 +5947,21 @@ def main(argv):
                 counts[phase] = run(phase)
         if wanted("fit"):
             counts["fit"] = phase_fit(card)
-        if wanted("train_dp"):
-            counts["train_dp"] = phase_train_dp(card)
-        elif only is not None and "train_dp_cards" in only:
-            phase_train_dp(card, parts="c")
-        if wanted("train_spatial"):
-            launches = phase_train_spatial(card)
-            counts["train_spatial"] = launches["cerberus"]
-            counts["train_spatial_dcv"] = launches["cerberus_dcv"]
-        elif only is not None and "train_spatial_cards" in only:
-            phase_train_spatial(card, parts="b")
+        dp_parts = ("abd" if wanted("train_dp") else "c"
+                    if only is not None and "train_dp_cards" in only else "")
+        sp_parts = ("acd" if wanted("train_spatial") else "b"
+                    if only is not None and "train_spatial_cards" in only
+                    else "")
+        if dp_parts or sp_parts:
+            runs = phase_ranks(card, dp_parts, sp_parts)
+            if "train_dp" in runs:
+                counts["train_dp"] = runs["train_dp"]
+            if "sp_a" in runs:
+                counts["train_spatial"] = runs["sp_a"]["cerberus"]
+                counts["train_spatial_dcv"] = runs["sp_a"]["cerberus_dcv"]
+            if "sp_d" in runs:
+                counts["train_spatial_offgrid"] = runs["sp_d"][
+                    "cerberus_dcv_offgrid"]
         for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
             if wanted(phase.__name__[len("phase_"):]):
                 phase(card)
@@ -5690,7 +5969,7 @@ def main(argv):
         if wanted("runner"):
             record_launches(counts, phase_runner(card, root, batches))
     finally:
-        stop_packaging()
+        stop_background()
         shutil.rmtree(root, ignore_errors=True)
     if only is not None:
         emit({"phase": "done", "only": sorted(only),
@@ -5716,20 +5995,20 @@ def record_launches(counts, runs):
 def deployment_phases(card, counts, wanted, root):
     """The deployment slice's phases but the runner, their artifacts under
     root; counts gains each path's launches. Starts the runner's
-    AOTInductor compiles as soon as their artifacts exist (int8's, the
-    longest, after quant_int8, the float ones after export) and returns
-    them (``start_packaging``'s)."""
+    AOTInductor compiles as soon as their artifacts exist (the four float
+    ones, one after the other and the longer chain, after export, int8's
+    after quant_int8) and returns them (``start_packaging``'s)."""
     runs, batches = {}, []
-    if wanted("quant_int8"):
-        runs.update(phase_quant_int8(card, root))
-        if wanted("runner"):
-            batches.append(start_packaging(root, ("int8",)))
     if wanted("export"):
         runs.update({f"export_{k}": v
                      for k, v in phase_export(card, root).items()})
         if wanted("runner"):
             batches.append(start_packaging(
                 root, [n for n in RUNNER_ARTIFACTS if n != "int8"]))
+    if wanted("quant_int8"):
+        runs.update(phase_quant_int8(card, root))
+        if wanted("runner"):
+            batches.append(start_packaging(root, ("int8",)))
     if wanted("train_qat"):
         runs["train_qat"] = phase_train("train_qat")
     if wanted("debug_nans"):
@@ -5756,6 +6035,7 @@ def data_phases(card, counts, wanted):
     root = tempfile.mkdtemp(prefix="cerberus_fixtures_")
     try:
         phase_data(card, root)
+        cli = start_cli(root) if wanted("cli") else None
         for phase in names:
             if not wanted(phase):
                 continue
@@ -5787,7 +6067,7 @@ def data_phases(card, counts, wanted):
                 counts["predict"] = runs["dcv_flow_kitti"]
                 counts["predict_images"] = runs["predict_images"]
             else:
-                phase_cli(card, root)
+                phase_cli(card, cli)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,0 +1,233 @@
+#!/usr/bin/env python3
+"""Where the port's bf16 RAFT first rounds otherwise than the JAX package:
+each op of the flow decoder's first iterations, from the volume lookup
+through the motion encoder, the GRU and the flow head, fed the same inputs
+in both packages on the CPU.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/raft_bf16_op_compare.py [--seeds 3] [--iters 2]
+
+The tiny ``cerberus_raft`` experiment of tests/jax_pairs.py in bfloat16
+(encoder (8, 12, 16, 16, 16, 16), fdim/hdim/cdim 16/16/8, 64x64, batch 2
+of the synthetic dataset), one set of random float32 parameters a seed for
+both packages. The JAX model runs once, jitted and unrolled, with its
+intermediates captured (each conv's output, the motion encoder's, the
+GRU's, each update's). Then every op of iteration t is computed alone in
+both packages from JAX's captured inputs (an activation of a captured
+conv output is taken in bf16, as either package computes it alone):
+
+* ``lookup``: the pyramid of the all-pairs volume of the captured
+  ``corr_proj`` outputs, sampled at grid + flow (float32);
+* the motion encoder's ``convc1``, ``convc2``, ``convf1``, ``convf2``,
+  ``conv``; the GRU's ``convz``, ``convr``, ``convq`` and its update
+  ``(1 - z) h + z q``; ``flow_head1``, ``flow_head2``.
+
+One JSON line an (seed, iteration, op): ``port_vs_jax`` compares the port's
+op with JAX's op run alone, ``model_vs_jax`` JAX's value inside its jitted
+model with JAX's op run alone (what XLA's fusion changes around the op);
+each gives the share of elements that differ, the largest difference in
+bf16 units in the last place of the larger value, and the sign share
+(|mean sign| of the differences: 0 where they cancel, 1 where every one
+points the same way). A last line sums the shares per op over the seeds.
+
+A measurement for the port's record (ROADMAP C7), not a test.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+if "--no-excess-precision" in sys.argv:  # before JAX reads its flags
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_allow_excess_precision=false").strip()
+
+import flax.linen as nn  # noqa: E402
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from cerberusnet_torch.models import raft as tr  # noqa: E402
+from cerberusnet_torch.train.config import ExperimentConfig  # noqa: E402
+from cerberusnet_torch.train.trainer import build_model  # noqa: E402
+from cerberusnet_torch.weights import load_flax_params  # noqa: E402
+from cerberusnet_tpu.data.loader import collate, make_preprocess_fn  # noqa: E402
+from cerberusnet_tpu.data.synthetic import SyntheticPerceptionDataset  # noqa: E402
+from cerberusnet_tpu.models import raft as jr  # noqa: E402
+from cerberusnet_tpu.train.config import ExperimentConfig as JaxConfig  # noqa: E402
+from cerberusnet_tpu.train.trainer import build_model as jax_build_model  # noqa: E402
+from tests.jax_pairs import RAFT_HW, draw_params, raft_config_dict  # noqa: E402
+
+BF16 = jnp.bfloat16
+# the update block's convs: (name, path under "update", kernel size)
+CONVS = {"convc1": ("motion", 1), "convc2": ("motion", 3),
+         "convf1": ("motion", 5), "convf2": ("motion", 3),
+         "conv": ("motion", 3), "convz": ("gru", 3), "convr": ("gru", 3),
+         "convq": ("gru", 3), "flow_head1": (None, 3),
+         "flow_head2": (None, 3)}
+
+
+def ulp(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    x = np.abs(np.asarray(x, np.float64))
+    e = np.floor(np.log2(np.maximum(x, 2.0**-126)))
+    return 2.0 ** (e - 7)
+
+
+def compare(got, want) -> dict:
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    d = got - want
+    nz = d != 0
+    # in units of the larger value's last place (at least a thousandth of
+    # the tensor's largest: a sum that cancels to near 0 has no scale)
+    scale = np.maximum(np.maximum(np.abs(got), np.abs(want)),
+                       1e-3 * np.abs(want).max())
+    return {"differ": float(nz.mean()),
+            "max_ulp": float((np.abs(d) / ulp(scale)).max()),
+            "sign_share": float(abs(np.sign(d[nz]).mean())) if nz.any()
+            else 0.0}
+
+
+def leaky(x):
+    return jnp.where(x > 0, x, x * jnp.asarray(0.1, x.dtype))
+
+
+def to_torch(x):
+    """An NHWC JAX array as an NCHW tensor of its type."""
+    a = np.asarray(jnp.asarray(x, jnp.float32))
+    t = torch.from_numpy(a).permute(0, 3, 1, 2)
+    return t.to(torch.bfloat16 if x.dtype == BF16 else torch.float32)
+
+
+def to_numpy(t):
+    return t.float().permute(0, 2, 3, 1).numpy()
+
+
+def jax_conv(params, feat, k, x):
+    return jax.jit(lambda p, v: nn.Conv(feat, (k, k), padding="SAME",
+                                        dtype=BF16).apply({"params": p}, v))(
+        params, x)
+
+
+def run(seed: int, iters: int):
+    raw = raft_config_dict()
+    raw["model"].update(dtype="bfloat16", raft_unroll=True)
+    cfg = JaxConfig.from_dict(raw)
+    model, _, _ = jax_build_model(cfg.model)
+    ds = SyntheticPerceptionDataset(length=2, hw=RAFT_HW, num_classes=19,
+                                    seed=seed)
+    prep = make_preprocess_fn(RAFT_HW)(collate([ds[0], ds[1]]))
+    ins = [prep[k] for k in ("left", "right", "temporal")]
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *ins)
+    params = draw_params(shapes["params"], seed + 20)
+    _, state = jax.jit(lambda p, *x: model.apply(
+        {"params": p}, *x, capture_intermediates=True,
+        mutable=["intermediates"]))(params, *ins)
+    cap = state["intermediates"]["RAFTFlowDecoder_0"]
+    jp = params["RAFTFlowDecoder_0"]
+    port, _ = build_model(ExperimentConfig.from_dict(raw).model, "plain",
+                          torch.bfloat16)
+    load_flax_params(port, params)
+    dec = port.flow
+    m = cfg.model
+    hdim = m.raft_hdim
+
+    def captured(name, t):
+        where = CONVS[name][0]
+        node = cap["update"] if where is None else cap["update"][where]
+        return node[name]["__call__"][t]
+
+    def port_conv(name, x):
+        where = CONVS[name][0]
+        mod = dec.update if where is None else getattr(dec.update, where)
+        with torch.no_grad():
+            return to_numpy(getattr(mod, name)(to_torch(x)))
+
+    def op_conv(name, x, t):
+        where, k = CONVS[name]
+        sub = jp["update"] if where is None else jp["update"][where]
+        want = jax_conv(sub[name], captured(name, t).shape[-1], k, x)
+        return {"port_vs_jax": compare(port_conv(name, x), want),
+                "model_vs_jax": compare(captured(name, t), want)}
+
+    g1, g2 = cap["corr_proj"]["__call__"]
+    ctx = cap["context_proj"]["__call__"][0]
+    hidden = jax.jit(lambda c: jnp.tanh(c[..., :hdim]))(ctx)
+    context = jax.jit(lambda c: nn.relu(c[..., hdim:]))(ctx)
+    b, h, w, _ = g1.shape
+    grid = jr.base_grid(b, h, w)
+    flow = jnp.zeros((b, h, w, 2), jnp.float32)
+    pyr_j = jr.correlation_pyramid(jr.allpairs_correlation(g1, g2),
+                                   m.raft_corr_levels)
+    with torch.no_grad():
+        pyr_t = tr.correlation_pyramid(tr.allpairs_correlation(
+            torch.from_numpy(np.asarray(g1.astype(jnp.float32))).to(
+                torch.bfloat16),
+            torch.from_numpy(np.asarray(g2.astype(jnp.float32))).to(
+                torch.bfloat16)), m.raft_corr_levels)
+    rows = []
+    for t in range(iters):
+        coords = grid + flow
+        cf = jr.corr_lookup(pyr_j, coords, m.raft_radius, impl=m.raft_lookup)
+        with torch.no_grad():
+            cf_t = tr.corr_lookup(pyr_t, torch.from_numpy(np.asarray(coords)),
+                                  m.raft_radius, impl=m.raft_lookup)
+        ops = {"lookup": {"port_vs_jax": compare(cf_t.numpy(), cf)}}
+        cfb, fb = cf.astype(BF16), flow.astype(BF16)
+        ops["convc1"] = op_conv("convc1", cfb, t)
+        ops["convc2"] = op_conv("convc2", leaky(captured("convc1", t)), t)
+        ops["convf1"] = op_conv("convf1", fb, t)
+        ops["convf2"] = op_conv("convf2", leaky(captured("convf1", t)), t)
+        ops["conv"] = op_conv("conv", jnp.concatenate(
+            [leaky(captured("convc2", t)), leaky(captured("convf2", t))],
+            -1), t)
+        motion = cap["update"]["motion"]["__call__"][t]
+        hx = jnp.concatenate([hidden, context, motion], -1)
+        ops["convz"] = op_conv("convz", hx, t)
+        ops["convr"] = op_conv("convr", hx, t)
+        z = jax.nn.sigmoid(captured("convz", t))
+        r = jax.nn.sigmoid(captured("convr", t))
+        ops["convq"] = op_conv("convq", jnp.concatenate(
+            [r * hidden, context, motion], -1), t)
+        q = jnp.tanh(captured("convq", t))
+        want = jax.jit(lambda z, h, q: (1.0 - z) * h + z * q)(z, hidden, q)
+        with torch.no_grad():
+            zt, ht, qt = (to_torch(v) for v in (z, hidden, q))
+            got = to_numpy((1.0 - zt) * ht + zt * qt)
+        new_hidden = cap["update"]["gru"]["__call__"][t]
+        ops["gru_update"] = {"port_vs_jax": compare(got, want),
+                             "model_vs_jax": compare(new_hidden, want)}
+        ops["flow_head1"] = op_conv("flow_head1", new_hidden, t)
+        ops["flow_head2"] = op_conv("flow_head2",
+                                    leaky(captured("flow_head1", t)), t)
+        for op, res in ops.items():
+            rows.append({"seed": seed, "iter": t, "op": op, **res})
+        hidden = new_hidden
+        flow = flow + cap["update"]["__call__"][t][1]
+    return rows
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--iters", type=int, default=2)
+    ap.add_argument("--no-excess-precision", action="store_true",
+                    help="JAX with --xla_allow_excess_precision=false")
+    args = ap.parse_args()
+    total = {}
+    for seed in range(args.seeds):
+        for row in run(seed, args.iters):
+            print(json.dumps(row), flush=True)
+            acc = total.setdefault(row["op"], {})
+            for side in ("port_vs_jax", "model_vs_jax"):
+                if side in row:
+                    acc.setdefault(side, []).append(row[side]["differ"])
+    print(json.dumps({"mean_differ": {
+        op: {side: float(np.mean(v)) for side, v in acc.items()}
+        for op, acc in total.items()}}))
+
+
+if __name__ == "__main__":
+    main()

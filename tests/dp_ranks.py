@@ -1,14 +1,15 @@
 """Rank bodies of ``tests/test_torch_parallel.py``,
-``tests/test_torch_spatial.py`` and ``tests/test_torch_spatial_dcv_raft.py``:
+``tests/test_torch_spatial.py``, ``tests/test_torch_spatial_dcv_raft.py``
+and ``tests/test_torch_spatial_offgrid.py``:
 importable functions that ``cerberusnet_torch.parallel.launch`` runs in
 spawned ranks. They import
 torch and the port only (a rank never imports JAX); what they are held
 against is computed in the test process and handed in as numpy.
 
-``suite``, ``spatial_suite`` and ``dcv_raft_suite`` run every case of
-their test file in one spawn, so each file spawns its ranks once: each
-case is a function of (mesh, its payload) that returns numpy arrays and
-floats."""
+``suite``, ``spatial_suite``, ``dcv_raft_suite`` and ``offgrid_suite``
+run every case of their test file in one spawn, so each file spawns its
+ranks once: each case is a function of (mesh, its payload) that returns
+numpy arrays and floats."""
 
 import os
 import time
@@ -18,7 +19,7 @@ import torch
 import torch.distributed as dist
 
 from cerberusnet_torch.models.cerberus import CerberusNet
-from cerberusnet_torch.models.common import set_spatial
+from cerberusnet_torch.models.common import set_spatial, upsample_to
 from cerberusnet_torch.models.dcv_flow import (
     CerberusDCV,
     DCVFlowNet,
@@ -34,6 +35,7 @@ from cerberusnet_torch.models.raft import (
 from cerberusnet_torch.models.segmentation import SegNet
 from cerberusnet_torch.parallel.halo import gather_rows, halo_rows
 from cerberusnet_torch.parallel.mesh import (
+    level_extents,
     make_mesh,
     shard_batch,
     shard_samples,
@@ -509,3 +511,107 @@ def dcv_raft_suite(p):
                 for v, tp in p["trainers"].items()}
     return out
 
+
+
+# ------------------------------------------- the spatial axis off the grid
+
+# tests/test_torch_spatial_offgrid.py's models: every DCV and RAFT variant
+# and SegNet with either head
+OFFGRID_MODELS = {
+    **{n: m for n, m in DCV_RAFT_MODELS.items() if n != "CerberusNet"},
+    "SegNet": SPATIAL_MODELS["SegNet"],
+    "SegNetASPP": SPATIAL_MODELS["SegNetASPP"],
+}
+# H -> the (data, spatial) meshes its models run on
+OFFGRID_MESHES = {288: ((1, 4), (2, 2)), 368: ((1, 4), (2, 2)),
+                  200: ((2, 2),)}
+# the FPN's resizes between frame extents the ranks check: H -> (mesh,
+# (source rows, target rows) of the frame)
+OFFGRID_RESIZES = {200: ((2, 2), ((4, 7), (7, 13), (13, 25))),
+                   368: ((1, 4), ((12, 23),))}
+# the settings the reference refuses: (H, mesh, models)
+OFFGRID_REFUSED = ((202, (2, 2), ("CerberusDCV", "CerberusRAFT")),
+                   (352, (1, 4), ("CerberusNet", "FlowNet", "StereoNet")))
+OFFGRID_REFUSED_MODELS = {**OFFGRID_MODELS, **SPATIAL_MODELS}
+
+
+def offgrid_mesh(shape, h):
+    """The (data, spatial) ``shape`` mesh of the ranks for frames of ``h``
+    rows (``Trainer``'s extents for the tiny encoder)."""
+    return make_mesh(shape[0], "cpu", shape[1],
+                     extents=level_extents(h, len(TINY_ENC)))
+
+
+def refusal(mesh, spec, models):
+    """(the exception's type, its message) that ``model_grads`` raises."""
+    try:
+        model_grads(mesh, spec, models)
+    except (RuntimeError, ValueError) as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def resize_checks(mesh, h, pairs, w=3):
+    """``upsample_to`` on this rank's band from each pair's source extent
+    to its target's, against the whole frame's resize cut to the target
+    band (values, float64), and ``gradcheck`` of the whole frame's function
+    ``x -> the peers' outputs, gathered``."""
+    gen = torch.Generator().manual_seed(7)
+    out = {}
+    for hs, hd in pairs:
+        x = torch.randn((1, 2, hs, w), dtype=torch.float64, generator=gen)
+        src, dst = mesh.rows(hs), mesh.rows(hd)
+        rows = dst.stop - dst.start
+        want = torch.nn.functional.interpolate(
+            x, size=(hd, 2 * w), mode="bilinear", align_corners=False)
+
+        def fn(a, src=src, rows=rows):
+            band = _Replicated.apply(a, mesh)[:, :, src]
+            y = upsample_to(band, (rows, 2 * w), mesh)
+            tall = max(mesh.split(hd))
+            y = torch.nn.functional.pad(y, (0, 0, 0, tall - rows))
+            return mesh.spatial_sum(torch.stack([
+                y if r == mesh.spatial_rank else torch.zeros_like(y)
+                for r in range(mesh.spatial_size)]))
+
+        got = upsample_to(x[:, :, src], (rows, 2 * w), mesh)
+        out[f"{hs} {hd}"] = {
+            "values": float((got - want[:, :, dst]).abs().max()),
+            "gradcheck": torch.autograd.gradcheck(
+                fn, (x.clone().requires_grad_(),), raise_exception=False)}
+    return out
+
+
+def offgrid_suite(p):
+    """Every case of tests/test_torch_spatial_offgrid.py on this rank: the
+    models of ``p["models"][h]`` on ``OFFGRID_MESHES[h]`` in float64 and
+    those of ``p["jax"]`` ((h, mesh, model) triples) in float32, the band
+    resizes, the refused settings and the trainers of ``p["trainers"]`` on
+    2 x 2."""
+    torch.set_num_threads(1)
+    out = {"rank": dist.get_rank(), "jax": {}}
+    for h, shapes in OFFGRID_MESHES.items():
+        for shape in shapes:
+            mesh = offgrid_mesh(shape, h)
+            rows = mesh.rows(h)
+            key = f"{h} {shape[0]}x{shape[1]}"
+            out[key] = {
+                "rows": [rows.start, rows.stop],
+                "models": {name: model_grads(mesh, spec, OFFGRID_MODELS,
+                                             torch.float64)
+                           for name, spec in p["models"][h].items()}}
+            for jh, jshape, name in p["jax"]:
+                if (jh, tuple(jshape)) == (h, shape):
+                    out["jax"][f"{name} {key}"] = model_grads(
+                        mesh, p["models"][h][name], OFFGRID_MODELS)
+    out["resize"] = {h: resize_checks(offgrid_mesh(shape, h), h, pairs)
+                     for h, (shape, pairs) in OFFGRID_RESIZES.items()}
+    out["refused"] = {}
+    for h, shape, names in OFFGRID_REFUSED:
+        mesh = offgrid_mesh(shape, h)
+        for name in names:
+            out["refused"][f"{name} {h}"] = refusal(
+                mesh, p["refused"][f"{name} {h}"], OFFGRID_REFUSED_MODELS)
+    out["trainers"] = {v: spatial_trainer(None, {**tp, "shape": (2, 2)})
+                       for v, tp in p["trainers"].items()}
+    return out

@@ -632,6 +632,39 @@ def test_bf16_gradients_dtype_step_matches_jax(raft_bf16_step,
     assert not far, (limit, far)
 
 
+@pytest.mark.parametrize("kernel,cin,cout", [(1, 36, 96), (3, 96, 64),
+                                               (5, 2, 64), (3, 120, 16)])
+def test_bf16_tied_conv_rounds_as_flax(kernel, cin, cout):
+    """A bf16 ``TiedConv2d`` (the update block's convolutions; the shapes
+    of convc1, convc2, convf1 and the GRU's at the tiny widths) against
+    flax's ``nn.Conv(dtype=bfloat16)`` on the same bf16 input: the product
+    rounded to bf16, then the bf16 bias added (ROADMAP C7; a bias fused
+    into the product's float32 sum rounds once, and 12-34% of the outputs
+    of the update block's convolutions differed from JAX's,
+    scripts/raft_bf16_op_compare.py). Only the order of the products'
+    sums may differ: at most 0.5% of the outputs."""
+    import flax.linen as fnn
+
+    rng = np.random.RandomState(kernel + cin)
+    x = jnp.asarray(rng.randn(2, 8, 8, cin), jnp.float32).astype(jnp.bfloat16)
+    params = {"kernel": (rng.randn(kernel, kernel, cin, cout)
+                         / np.sqrt(kernel * kernel * cin)).astype(np.float32),
+              "bias": (0.1 * rng.randn(cout)).astype(np.float32)}
+    want = jax.jit(lambda p, v: fnn.Conv(
+        cout, (kernel, kernel), padding="SAME", dtype=jnp.bfloat16).apply(
+            {"params": p}, v))(params, x)
+    conv = tr.TiedConv2d(cin, cout, kernel, padding=kernel // 2)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            params["kernel"].transpose(3, 2, 0, 1).copy()))
+        conv.bias.copy_(torch.from_numpy(params["bias"]))
+        got = conv(torch.from_numpy(np.asarray(x, np.float32)).permute(
+            0, 3, 1, 2).bfloat16())
+    assert got.dtype == torch.bfloat16
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    assert np.mean(got != np.asarray(want, np.float32)) <= 5e-3
+
+
 def test_bf16_tied_weight_gradients_sum_in_float32(raft_bf16_step):
     """keep_tied_float32 as flax's per-call casts: in the bf16 step a kernel
     used once (context_proj) gets its bf16 convolution's gradient, bf16

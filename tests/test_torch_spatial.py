@@ -501,16 +501,6 @@ def test_unported_spatial_settings_name_a11c(variant, hw, world):
             "variant": variant, "rows": bands[s:s + 2]}
 
 
-@pytest.mark.parametrize("variant,spatial,hw", [
-    ("cerberus_dcv", 2, (200, 64)), ("raft", 2, (200, 64)),
-    ("cerberus", 4, (352, 64)), ("dcv_flow", 4, (400, 128))])
-def test_h_off_the_pyramid_names_a11d(variant, spatial, hw):
-    """An H that is no multiple of 2^6 under the spatial axis: SAME's
-    padding of an odd extent shifts the band edges (ROADMAP A11d)."""
-    with pytest.raises(NotImplementedError, match="A11d"):
-        Trainer(spatial_config(variant, spatial, hw), device="cpu")
-
-
 def test_trainer_rejects_degenerate_spatial_mesh():
     """The reference's guard (tests/test_parallel.py): at 64 x 64 the
     coarsest level has one row, fewer than 4 spatial ranks."""

@@ -37,7 +37,12 @@ from cerberusnet_torch.entry import REPO_ROOT, train_entry
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.train import losses as tl
 from cerberusnet_torch.train.config import ExperimentConfig, OptimConfig
-from cerberusnet_torch.train.trainer import Optimizer, Trainer, build_schedule
+from cerberusnet_torch.train.trainer import (
+    Optimizer,
+    Trainer,
+    build_schedule,
+    check_spatial_mesh,
+)
 from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
 from cerberusnet_torch.weights import load_flax_params
 
@@ -140,13 +145,7 @@ def test_unknown_key_raises():
 
 @pytest.mark.parametrize("values,item", [
     ({"model": {"variant": "pwc"}}, "A8"),
-    # CerberusDCV under the spatial axis at an H that is no multiple of
-    # 2^6 (tests/test_torch_spatial.py and test_torch_spatial_dcv_raft.py
-    # run every variant on the axis); the case keeps the id it had when
-    # the axis itself was refused as A11b
-    ({"model": {"variant": "cerberus_dcv"}, "data": {"hw": [200, 128]},
-      "train": {"num_spatial_devices": 2}}, "A11d"),
-], ids=["model-variant-pwc-A8", "train-num_spatial_devices-2-A11b"])
+], ids=["model-variant-pwc-A8"])
 def test_unported_values_raise(values, item):
     raw = tiny_config_dict()
     for section, entries in values.items():
@@ -154,6 +153,19 @@ def test_unported_values_raise(values, item):
     cfg = ExperimentConfig.from_dict(raw)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, device="cpu")
+
+
+def test_spatial_axis_off_the_grid_is_supported():
+    """CerberusDCV under the spatial axis at an H that is no multiple of
+    2^6 (A11d) passes the check, and the guard gives the mesh the frame's
+    "SAME" extents (tests/test_torch_spatial_offgrid.py trains there)."""
+    raw = tiny_config_dict()
+    raw["model"]["variant"] = "cerberus_dcv"
+    raw["data"]["hw"] = [200, 128]
+    raw["train"]["num_spatial_devices"] = 2
+    cfg = ExperimentConfig.from_dict(raw)
+    cfg.check_supported()
+    assert check_spatial_mesh(cfg) == (200, 100, 50, 25, 13, 7, 4)
 
 
 @pytest.mark.parametrize("ranks", [4, 8])
