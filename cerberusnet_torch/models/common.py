@@ -30,8 +30,14 @@ import torch.nn.functional as F
 from cerberusnet_torch.parallel.halo import halo_rows
 
 
+# LeakyReLU's slope as the reference multiplies a bf16 input by it, 0.1
+# rounded to bf16 (flax's ``negative_slope * x``; with float32's 0.1 about
+# a tenth of a bf16 block's outputs differed)
+BF16_SLOPE = float(torch.tensor(0.1, dtype=torch.bfloat16))
+
+
 def leaky(x):
-    return F.leaky_relu(x, 0.1)
+    return F.leaky_relu(x, BF16_SLOPE if x.dtype == torch.bfloat16 else 0.1)
 
 
 def set_spatial(model: nn.Module, mesh) -> nn.Module:
@@ -158,8 +164,26 @@ def same_pads(size: int, kernel: int, stride: int):
     return total // 2, total - total // 2
 
 
+class FlaxConv2d(nn.Conv2d):
+    """``nn.Conv2d`` that rounds as the reference's ``nn.Conv`` in a type
+    narrower than float32: the product is rounded to the input's type,
+    then the bias added in it (two roundings; with the bias fused, which
+    rounds once, 13-39% of the encoder's bf16 ConvBlock outputs and 21% of
+    RAFT's ``context_proj``'s differed from flax's,
+    scripts/raft_bf16_op_compare.py)."""
+
+    def forward(self, x):
+        return self.rounded_forward(x, self.weight, self.bias)
+
+    def rounded_forward(self, x, weight, bias):
+        if x.dtype.itemsize >= 4:
+            return self._conv_forward(x, weight, bias)
+        return self._conv_forward(x, weight, None) + bias[:, None, None]
+
+
 class ConvBlock(nn.Module):
-    """Conv 3x3 with "SAME" padding + LeakyReLU(0.1).
+    """Conv 3x3 with "SAME" padding + LeakyReLU(0.1), the conv rounding as
+    flax's (``FlaxConv2d``).
 
     A stride-2 block pads as XLA does, (0, 1) on an even extent and (1, 1)
     on an odd one, so it pads explicitly; a stride-1 block pads
@@ -175,9 +199,9 @@ class ConvBlock(nn.Module):
                  dilation: int = 1):
         super().__init__()
         self.stride = stride
-        self.conv = nn.Conv2d(in_channels, features, 3, stride=stride,
-                              padding=dilation if stride == 1 else 0,
-                              dilation=dilation)
+        self.conv = FlaxConv2d(in_channels, features, 3, stride=stride,
+                               padding=dilation if stride == 1 else 0,
+                               dilation=dilation)
 
     def forward(self, x):
         if self.stride == 1:

@@ -56,6 +56,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cerberusnet_torch.models.common import (
+    FlaxConv2d,
     band_conv,
     band_convs,
     leaky,
@@ -289,22 +290,16 @@ def convex_upsample(flow, mask, factor: int, spatial=None):
 # -------------------------------------------------------------- blocks
 
 
-class TiedConv2d(nn.Conv2d):
+class TiedConv2d(FlaxConv2d):
     """A convolution whose parameters are cast to the input's type at each
     use (no copy when they are of that type); kept float32
     (``keep_tied_float32``), the gradients of its uses sum in float32.
-
-    Below float32 it rounds as the reference's ``nn.Conv`` does: the
-    product is rounded to the input's type, then the bias is added in it
-    (two roundings; with the bias fused, which rounds once, 12-34% of the
-    update block's bf16 conv outputs differ from JAX's,
-    scripts/raft_bf16_op_compare.py)."""
+    It rounds as ``FlaxConv2d`` (with the bias fused, 12-34% of the update
+    block's bf16 conv outputs differed from JAX's)."""
 
     def forward(self, x):
-        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
-        if x.dtype == torch.float32:
-            return self._conv_forward(x, weight, bias)
-        return self._conv_forward(x, weight, None) + bias[:, None, None]
+        return self.rounded_forward(x, self.weight.to(x.dtype),
+                                    self.bias.to(x.dtype))
 
 
 def keep_tied_float32(module: nn.Module):
@@ -422,7 +417,7 @@ class RAFTDecoder(nn.Module):
         self.lookup_impl = lookup_impl
         feat = encoder_channels[level - 1]
         self.corr_proj = _conv(feat, fdim, 1)
-        self.context_proj = _conv(feat, hdim + cdim, 3, nn.Conv2d)
+        self.context_proj = _conv(feat, hdim + cdim, 3, FlaxConv2d)
         self.update = UpdateBlock(hdim, cdim, self.corr_channels(),
                                   2**level, self.channels)
 

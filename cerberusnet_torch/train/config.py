@@ -19,13 +19,12 @@ writes event files under ``ckpt_dir/tb``; ``train.qat`` (its ranges from
 ``train.debug_nans`` stops at the first NaN; ``train.num_data_devices``
 trains on that many ranks, one a card (``parallel/mesh.py``), and
 ``train.num_spatial_devices`` S splits each frame's rows over S of them,
-for every variant, at every H the reference runs there (the bands may
-differ in height, ``parallel/mesh.py``), but RMI at an H that is no
-multiple of 4 (ROADMAP C14). ``model.pallas_levels`` runs CerberusNet's first N
-encoder levels as fused kernels (K9) and ``model.pallas_grad`` selects
-their backward: ``"pallas"`` the reverse-sweep kernel (K10), ``"xla"`` the
-plain convolutions recomputed; the DCV and RAFT variants ignore both, as
-the reference does. The RAFT variants (``raft``, ``raft_stereo``,
+for every variant and loss, at every H the reference runs there (the
+bands may differ in height, ``parallel/mesh.py``). ``model.pallas_levels``
+runs CerberusNet's first N encoder levels as fused kernels (K9) and
+``model.pallas_grad`` selects their backward: ``"pallas"`` the
+reverse-sweep kernel (K10), ``"xla"`` the plain convolutions recomputed;
+the DCV and RAFT variants ignore both, as the reference does. The RAFT variants (``raft``, ``raft_stereo``,
 ``cerberus_raft``) read the ``raft_*`` keys, ``raft_lookup`` choosing the
 volume lookup (``"onehot"`` or ``"gather"``, the same function), and their
 losses ``loss.seq_gamma``. Keys that only steer XLA's program in the
@@ -242,7 +241,7 @@ class ExperimentConfig:
         run yet, naming its ROADMAP item, and ValueError for CerberusNet's
         fused levels beside the s2d knobs and for an unknown
         ``optim.grads_dtype``."""
-        m, d, o, t = self.model, self.data, self.optim, self.train
+        m, d, o = self.model, self.data, self.optim
         if m.variant == "cerberus" and m.pallas_levels and (
                 m.s2d_levels or m.s2d_stem or m.stem_pad_channels):
             raise ValueError("model.pallas_levels is mutually exclusive with "
@@ -254,14 +253,6 @@ class ExperimentConfig:
         checks = (
             (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
             (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
-            # RMI's 4x4 VALID pool straddles the bands where H is no
-            # multiple of 4 (their edges then fall on rows 2 mod 4)
-            (t.num_spatial_devices > 1 and self.loss.rmi_weight
-             and d.hw[0] % 4,
-             f"loss.rmi_weight under train.num_spatial_devices="
-             f"{t.num_spatial_devices} at data.hw[0]={d.hw[0]} (RMI's "
-             f"4x4 pool across the bands of an H that is no multiple of 4)",
-             "C14"),
         )
         for bad, what, item in checks:
             if bad:

@@ -35,9 +35,11 @@ reductions above run over all ranks, so they are the whole frame's. The
 terms that read across rows take a halo (``parallel/halo.py``): SSIM's 3x3
 windows and RMI's 3x3 regions the two rows below the band, smoothness's
 row differences one, and the last band keeps the outputs whose window ends
-inside the frame; their means divide by the frame's count. RMI's region
-means and covariances are sums over the frame, added over the spatial
-peers, so every peer solves the same 9x9 systems. The photometric term
+inside the frame; their means divide by the frame's count. RMI pools each
+4x4 window on the rank that holds its first row (3 rows of halo below),
+so its pooled bands may differ from every level's; its region means and
+covariances are sums over the frame, added over the spatial peers, so
+every peer solves the same 9x9 systems. The photometric term
 warps the whole frame of the second image (``warp2d``'s ``spatial``). The
 ground-truth pyramid's 2x2 sum pools stay within the band: where the
 frame's extent is even a band starts on an even row and holds an even
@@ -125,14 +127,16 @@ def rmi_loss(logits, labels, ignore_index: int = 255, pool_stride: int = 4,
     y = F.one_hot(safe, num_classes).float() * valid
     p = torch.softmax(logits, dim=-1) * valid
     p, y = p.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2)  # NCHW
+    if mesh.banded:
+        p, heights = _pooled_band(p, pool_stride, F.avg_pool2d, mesh)
+        y, _ = _pooled_band(y, pool_stride, F.max_pool2d, mesh)
+        return _rmi_band(y, p, heights, radius, eps, mesh)
     if pool_stride > 1:
         p = F.avg_pool2d(p, pool_stride)
         y = F.max_pool2d(y, pool_stride)
     b, c, h, w = p.shape
     hh, ww = h - radius + 1, w - radius + 1
     r = radius * radius
-    if mesh.banded:
-        return _rmi_band(y, p, radius, eps, mesh)
 
     def regions(x):  # (B, C, R, N), the shifts in row-major order
         crops = [x[:, :, i:i + hh, j:j + ww] for i in range(radius)
@@ -148,15 +152,41 @@ def rmi_loss(logits, labels, ignore_index: int = 255, pool_stride: int = 4,
     return _rmi_logdet(cov_yy, cov_yp, cov_pp, eps, mesh)
 
 
-def _rmi_band(y, p, radius: int, eps: float, mesh):
-    """``rmi_loss`` past its pooling on a band (NCHW): the regions that
-    start in the band, the rows below from the next band, and the region
-    means and covariances summed over the spatial peers."""
-    b, c, h, w = p.shape
+def _pooled_band(x, stride: int, pool, mesh):
+    """``pool``'s VALID ``stride`` x ``stride`` windows of the frame on a
+    band (NCHW): each window on the rank that holds its first row, with up
+    to ``stride`` - 1 rows of halo below; a band that starts inside a
+    window leaves its rows to the rank above, and the frame's last rows
+    past its whole windows are dropped, as one process drops them.
+    Returns (the pooled band, the peers' pooled heights): the pooled map's
+    bands, which need not be any level's."""
+    heights = mesh.band_heights(x.shape[2])
+    frame = sum(heights) // stride
+    starts = [sum(heights[:r]) for r in range(len(heights) + 1)]
+    first = [-(-s // stride) for s in starts]  # the window starting there
+    pooled = tuple(max(0, min(first[r + 1], frame) - first[r])
+                   for r in range(len(heights)))
+    s = mesh.spatial_rank
+    skip = first[s] * stride - starts[s]
+    x = halo_rows(x, 0, stride - 1, mesh)
+    x = x[:, :, skip:skip + pooled[s] * stride]
+    return pool(x, stride), pooled
+
+
+def _rmi_band(y, p, heights: tuple, radius: int, eps: float, mesh):
+    """``rmi_loss`` past its pooling on a band (NCHW) of the pooled map
+    whose peers hold ``heights`` rows: the regions that start in the band
+    and end in the frame, the rows below from the next bands, and the
+    region means and covariances summed over the spatial peers."""
+    b, c, _, w = p.shape
     ww, r = w - radius + 1, radius * radius
-    n = (mesh.frame_rows(h) - radius + 1) * ww  # the frame's regions
-    y, hh = _rows_below(y, radius - 1, mesh, dim=2)
-    p, _ = _rows_below(p, radius - 1, mesh, dim=2)
+    frame = sum(heights)
+    start = sum(heights[:mesh.spatial_rank])
+    hh = max(0, min(start + heights[mesh.spatial_rank],
+                    frame - radius + 1) - start)
+    n = (frame - radius + 1) * ww  # the frame's regions
+    y = halo_rows(y, 0, radius - 1, mesh, heights=heights)
+    p = halo_rows(p, 0, radius - 1, mesh, heights=heights)
 
     def regions(x):  # (B, C, R, N_band), centred on the frame's means
         crops = [x[:, :, i:i + hh, j:j + ww] for i in range(radius)

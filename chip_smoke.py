@@ -34,12 +34,12 @@ started); any failed check exits non-zero:
            3 on the 256-row band of 2 ranks (the 2-D kernels on f1 and f2
            haloed by their reach), the 2-D kernels also on the 8-row band
            of 384x1248's level 3 on 4 ranks, at the DCV dilations, and all
-           six on rank 0's 22-row band of 368x768's level 3 (part (d)); each
-           check
-           names the design that ran, as the library counted its launches
-           ("tc": every bf16 correlation kernel on the tensor cores;
-           "cuda_cores": float32), and fails on any other; and the
-           fused encoder-level kernels: K9
+           six on rank 0's 22-row band of 368x768's level 3 (part (d)), and
+           the forwards at the stream's fast model's five level shapes
+           (batch 1); each check names the design that ran, as the library
+           counted its launches ("tc": every bf16 correlation kernel on the
+           tensor cores; "cuda_cores": float32), and fails on any other;
+           and the fused encoder-level kernels: K9
            (encoder_level_fwd) at the three level shapes of pallas_levels=3
            at batch 3 (served) and 6 (trained) and four odd shapes (output
            extents no multiple of a tile, at levels 1-3's widths and one
@@ -57,6 +57,20 @@ started); any failed check exits non-zero:
            request; then the same weights and inputs with the plain
            correlations in bf16 and in float32 (the yardstick), and the
            eager forward's CUDA-event time
+  stream   cerberusnet_torch.examples.video_stream for each of its models
+           (cerberus, dcv, fast: CerberusNet at encoder (16, 24, 32, 48,
+           64, 96)), bf16 at 512x1024, 32 frames, 8 latency samples: the
+           copy stream's uploads, p50/p99 latency, streamed and
+           compute-bound fps; 5 + 5 (cerberus, fast) or 4 + 3 (dcv) kernel
+           launches a forward; frames 0, 16 and 31's streamed outputs
+           against the forward of the same frames already on the device
+           (bit-equality expected, held within 1e-3 relative L2), and, the
+           control, against the next frame's, which must miss; every
+           correlation call of one more forward against its plain version;
+           then RAFTFlowNet at default widths, 256x512, from one state at
+           1, 2, 4 and 8 iterations (examples/raft_anytime_inference.py):
+           count k's level field bit-equal to the 8-count run's k-th
+           iterate
   bench    the headline of python -m cerberusnet_torch.bench (CerberusNet
            through entry(), bf16, 512x1024, batch 1, three heads reduced;
            two-point slopes of back-to-back calls between CUDA events,
@@ -382,13 +396,14 @@ script's seconds, the card's nvidia-smi line and, last,
 no result. ``--only a,b,...`` runs env, build and the named phases alone
 (the data slice's run after data, and the evaluation slice's after
 flow_data where they need its fixtures), with no summary and no result
-line. The order: env, build, kernels, serve, then bench, whose ms per
-frame it needs (``--only serve,bench``); the deployment phases but the
+line. The order: env, build, kernels, serve, stream, then bench, whose ms
+per frame it needs (``--only serve,bench``); the deployment phases but the
 runner (export, quant_int8, train_qat, debug_nans), whose artifacts start
 the runner's AOTInductor compiles and g++ builds, which run beside every
-later phase; train, the DCV and pallas_levels phases, fit, train_dp,
-train_spatial, the RAFT phases, the data slice's and the evaluation slice's (cli the last of
-them), and the runner last, which waits for the compiles.
+later phase; train, the DCV and pallas_levels phases, fit, then train_dp
+and train_spatial, whose pair of ranks runs its jobs beside the RAFT
+phases, the data slice's and the evaluation slice's (cli the last of
+them) in this process; and the runner last, which waits for the compiles.
 """
 
 from __future__ import annotations
@@ -679,6 +694,7 @@ def phase_kernels(peaks, spin_rate):
     eval_gen = torch.Generator(device="cuda").manual_seed(5)
     sp_gen = torch.Generator(device="cuda").manual_seed(6)
     offgrid_gen = torch.Generator(device="cuda").manual_seed(7)
+    stream_gen = torch.Generator(device="cuda").manual_seed(8)
     checks = []
     dtypes = (torch.bfloat16, torch.float32)
     for name, (kernel, plain, disp_of, nk_of, flops_of, batches,
@@ -756,6 +772,12 @@ def phase_kernels(peaks, spin_rate):
             cases += [("tta", 1, level, torch.bfloat16, 1, disp_of(level),
                        level_shape(1, level, hw))
                       for hw in TTA_FRAMES_HW for level in LEVELS]
+            # the stream's fast model: its narrower encoder's levels, as
+            # served (its cerberus and dcv models run serve's shapes)
+            cases += [("fast", 1, level, torch.bfloat16, 1, disp_of(level),
+                       (1, HW[0] >> level, HW[1] >> level,
+                        STREAM_FAST_ENCODER[level - 1]))
+                      for level in LEVELS]
             cases += [("tiles", N_TILES, level, torch.bfloat16, 1,
                        disp_of(level), level_shape(N_TILES, level, TILE_HW))
                       for level in LEVELS]
@@ -773,7 +795,8 @@ def phase_kernels(peaks, spin_rate):
                   "things": eval_gen, "tta": eval_gen,
                   "tiles": eval_gen, "spatial_dcv": sp_gen,
                   "spatial_dcv_unequal": sp_gen,
-                  "spatial_dcv_offgrid": offgrid_gen}.get(path, gen)
+                  "spatial_dcv_offgrid": offgrid_gen,
+                  "fast": stream_gen}.get(path, gen)
             a = torch.randn(a_shape, generator=g_, device="cuda").to(dt)
             f = torch.randn(shape, generator=g_, device="cuda").to(dt)
             cc.reset_design_launches()
@@ -1212,6 +1235,169 @@ def phase_serve(phase):
     if not ok:
         sys.exit(1)
     return launches
+
+
+# stream: cerberusnet_torch.examples.video_stream's three models at
+# 512x1024, their correlation launches a forward; the frames streamed, the
+# latency samples among them and the frames whose streamed outputs are
+# held to the same model's forward on device-resident frames
+STREAM_LAUNCHES = {
+    "cerberus": {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)},
+    "dcv": {"corr2d_fwd": len(DCV_FLOW_DILATIONS),
+            "corr1d_fwd": len(DCV_DISP_DILATIONS)},
+    "fast": {"corr2d_fwd": len(LEVELS), "corr1d_fwd": len(LEVELS)},
+}
+STREAM_FAST_ENCODER = (16, 24, 32, 48, 64, 96)
+STREAM_FRAMES = 32
+STREAM_LATENCY = 8
+STREAM_KEEP = (0, STREAM_FRAMES // 2, STREAM_FRAMES - 1)
+# a streamed head against the device-resident forward's, relative L2
+# (bit-equality expected; the floor of the plain bf16 rule)
+STREAM_RTOL = 1e-3
+# RAFT anytime: RAFTFlowNet at its default widths, one state, these counts
+RAFT_ANYTIME_HW = (256, 512)
+RAFT_ANYTIME_ITERS = (1, 2, 4, 8)
+
+
+def stream_model(vs, name, errors):
+    """One model's streamed run: (launches over it, the per-model line)."""
+    import numpy as np
+
+    model = vs.load_model(name, "cuda")
+    record = {}
+    reset_launch_counts()
+    stats = vs.stream(name, STREAM_FRAMES, HW, STREAM_LATENCY, verbose=False,
+                      device="cuda", model=model, keep=STREAM_KEEP,
+                      record=record)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n = record["forwards"]
+    want = {k: STREAM_LAUNCHES[name].get(k, 0) * n for k in launches}
+    if launches != want:
+        errors.append(f"{name}: launches {launches} over {n} forwards, "
+                      f"expected {want}")
+    # each kept frame's streamed outputs against the forward of the same
+    # frame already on the device, and (the control) of the next frame
+    frames = list(vs.synthetic_stream(STREAM_FRAMES, HW))
+    infer = vs.make_infer(model)
+    other = {t: t + 1 if t + 1 < STREAM_FRAMES else t - 1
+             for t in STREAM_KEEP}
+    resident = {t: infer(torch.from_numpy(np.stack(frames[t])).cuda())[0]
+                for t in {*STREAM_KEEP, *other.values()}}
+    equal, controls = {}, {}
+    for t in STREAM_KEEP:
+        got = record["outputs"][t]
+        equal[t] = {}
+        for key in ("seg_logits", "flow", "disp"):
+            d = rel_l2(got[key], resident[t][key].float())
+            equal[t][key] = {"bit_equal": bool(torch.equal(
+                got[key], resident[t][key])), "rel_l2": d}
+            if not d <= STREAM_RTOL:
+                errors.append(f"{name} frame {t}: {key} {d} from the "
+                              f"resident forward")
+        miss = max(rel_l2(got[k], resident[other[t]][k].float())
+                   for k in ("seg_logits", "flow", "disp"))
+        controls[t] = {"against_frame": other[t], "max_rel_l2": miss}
+        if not miss > STREAM_RTOL:
+            errors.append(f"{name} frame {t}: frame {other[t]}'s outputs "
+                          f"pass the check ({miss}): a stale frame would "
+                          f"not show")
+    # every correlation call of one more forward against its plain version
+    # on the same tensors (launches outside the counted run)
+    calls = []
+    real = checked_corr_calls(calls)
+    try:
+        infer(torch.from_numpy(np.stack(frames[0])).cuda())
+        torch.cuda.synchronize()
+    finally:
+        restore_corr(real)
+    checked = calls_summary(calls)
+    if checked["calls"] != STREAM_LAUNCHES[name]:
+        errors.append(f"{name}: checked calls {checked['calls']}")
+    errors += [f"{name}: {e}" for e in checked["errors"]]
+    up = record["upload_ms"]
+    line = {"phase": "stream", "model": name, **stats,
+            "frames": STREAM_FRAMES, "latency_samples": STREAM_LATENCY,
+            "forwards": n, "launches": launches,
+            "launches_per_forward": {k: v / n for k, v in launches.items()},
+            "upload_ms_per_frame": statistics.median(up),
+            "upload_ms_max": max(up), "uploads": len(up),
+            "stage_ms_per_frame": statistics.median(record["stage_ms"]),
+            "stage_ms_max": max(record["stage_ms"]),
+            "stage_wait_ms_per_frame": statistics.median(record["wait_ms"]),
+            "loop_ms": record["loop_ms"],
+            "upload_bytes_per_frame": 3 * HW[0] * HW[1] * 3,
+            "streamed_vs_compute_bound": (stats["throughput_fps"]
+                                          / stats["compute_bound_fps"]),
+            "kept": equal, "controls": controls,
+            "calls": {k: v for k, v in checked.items() if k != "rows"}}
+    del model, record, resident
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def raft_anytime(errors):
+    """RAFTFlowNet at its default widths, bf16, from one state at each
+    count of RAFT_ANYTIME_ITERS through the example's ``anytime``: count
+    k's level field against the longest run's k-th iterate."""
+    import dataclasses
+
+    from cerberusnet_torch.entry import make_frames
+    from cerberusnet_torch.examples import raft_anytime_inference as ra
+    from cerberusnet_torch.train.config import ModelConfig
+    from cerberusnet_torch.train.trainer import build_model
+    from cerberusnet_torch.weights import init_params
+
+    cfg = dataclasses.replace(ra.config(), model=ModelConfig(
+        variant="raft", dtype="bfloat16"))
+    model, _ = build_model(cfg.model, None, torch.bfloat16)
+    init_params(model, torch.Generator().manual_seed(0))
+    left, _, temporal = make_frames(1, RAFT_ANYTIME_HW)
+    t0 = time.perf_counter()
+    outs = ra.anytime(cfg, model.state_dict(), (left, temporal),
+                      RAFT_ANYTIME_ITERS, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    level, last = cfg.model.raft_level, max(RAFT_ANYTIME_ITERS)
+    ties = {}
+    for k, out in outs.items():
+        field = out["flow_pyramid"][level]
+        it = outs[last]["flow_iterates"][k - 1]
+        ties[k] = {"bit_equal": bool(torch.equal(field, it)),
+                   "max_abs_diff": (field - it).abs().max().item(),
+                   "iterates": out["flow_iterates"].shape[0],
+                   "flow_finite": bool(torch.isfinite(out["flow"]).all())}
+        if not (ties[k]["bit_equal"] and ties[k]["iterates"] == k
+                and ties[k]["flow_finite"]):
+            errors.append(f"RAFT anytime iters {k}: {ties[k]}")
+    return {"hw": list(RAFT_ANYTIME_HW), "level": level, "dtype": "bfloat16",
+            "iters": list(RAFT_ANYTIME_ITERS), "ties": ties,
+            "seconds": seconds}
+
+
+def phase_stream(card):
+    """The JAX package's streaming serving loop ported
+    (cerberusnet_torch.examples.video_stream) for each of its models, and
+    RAFT anytime inference. Returns {"stream_<model>": launches}."""
+    from cerberusnet_torch.examples import video_stream as vs
+
+    t0 = time.perf_counter()
+    errors = []
+    if tuple(vs.FAST["encoder_channels"]) != STREAM_FAST_ENCODER:
+        errors.append(f"fast's encoder {vs.FAST['encoder_channels']} is not "
+                      f"the kernels phase's {STREAM_FAST_ENCODER}")
+    runs = {}
+    for name in STREAM_LAUNCHES:
+        runs[f"stream_{name}"], line = stream_model(vs, name, errors)
+        emit({**line, "card": card})
+    anytime = raft_anytime(errors)
+    emit({"phase": "stream", "ok": not errors, "hw": list(HW),
+          "dtype": "bfloat16", "raft_anytime": anytime,
+          "seconds": time.perf_counter() - t0, "card": card,
+          "errors": errors})
+    if errors:
+        sys.exit(1)
+    return runs
 
 
 # bench: the headline's timed calls beside n1 = 2 (the bench's default),
@@ -5497,7 +5683,10 @@ def sp_references(names, card):
 # is timed) while this process holds the pair's bf16 steps to their
 # yardsticks. All three spawns start before this process computes the
 # references, and each waits for its jobs in a file (waiting_rank) that
-# this process writes when they are ready and the card is theirs.
+# this process writes when they are ready. While the pair runs its jobs
+# (host-bound ranks, the card mostly idle) this process runs the phases
+# that need neither rank (``meanwhile``); their times are taken beside
+# the pair's.
 PAIR_RANKS = 2
 # the longest a spawn waits for its jobs
 JOBS_WAIT_S = 900
@@ -5559,11 +5748,12 @@ def write_jobs(path, jobs):
     os.replace(f"{path}.part", path)
 
 
-def phase_ranks(card, dp_parts="abd", sp_parts="acd"):
+def phase_ranks(card, dp_parts="abd", sp_parts="acd", meanwhile=None):
     """The train_dp and train_spatial phases: the parts of each named
     (train_dp's (c) and train_spatial's (b), on NCCL ranks a card each,
     run wherever there are two cards); each phase's lines, and its
-    closing line, then exit 1 if either failed. Returns the counts of
+    closing line, then exit 1 if either failed. ``meanwhile`` (phases of
+    this process) runs once the pair has its jobs. Returns the counts of
     train_dp (b)'s ranks and of train_spatial's bf16 launches by part and
     model."""
     import shutil
@@ -5628,6 +5818,9 @@ def phase_ranks(card, dp_parts="abd", sp_parts="acd"):
                 pair_sp, data, refs, root, "cuda:0", PAIR_RANKS)))
         if pair_keys:
             write("pair", jobs)
+        if meanwhile is not None:
+            meanwhile()
+        if pair_keys:
             pair_ranks, pair_s = spawns["pair"].result()
             emit({"phase": "train_spatial", "part": "pair", "ranks":
                   PAIR_RANKS, "backend": "gloo", "device": "cuda:0",
@@ -5853,6 +6046,16 @@ def summary(checks, counts):
             if counts[phase][name]:
                 dcv[phase] = path_numbers(checks, name, "dcv", 1,
                                           counts[phase][name])
+        # the stream: each model's forwards over its whole run (warm-up,
+        # streamed frames, device-resident frames), at serve's shapes and
+        # the fast model's
+        if counts["stream_cerberus"][name]:
+            paths["stream"] = path_numbers(checks, name, "cerberus", 1,
+                                           counts["stream_cerberus"][name])
+            paths["stream_fast"] = path_numbers(checks, name, "fast", 1,
+                                                counts["stream_fast"][name])
+            dcv["stream"] = path_numbers(checks, name, "dcv", 1,
+                                         counts["stream_dcv"][name])
         # CerberusDCV's calls on a rank's (haloed) band of level 3, the
         # launches of both ranks' bf16 steps summed
         if counts["train_spatial_dcv"][name]:
@@ -5929,6 +6132,8 @@ def main(argv):
     counts = {}
     if wanted("serve"):
         counts["serve"] = phase_serve("serve")
+    if wanted("stream"):
+        counts.update(phase_stream(card))
     if wanted("bench"):
         if "serve" not in SERVE_MS:
             fail("bench", "needs serve's ms per frame from the same run: "
@@ -5952,8 +6157,17 @@ def main(argv):
         sp_parts = ("acd" if wanted("train_spatial") else "b"
                     if only is not None and "train_spatial_cards" in only
                     else "")
+
+        def later():
+            # the phases that need neither rank: beside the pair's jobs
+            for phase in (phase_serve_raft, phase_train_raft,
+                          phase_fit_raft):
+                if wanted(phase.__name__[len("phase_"):]):
+                    phase(card)
+            data_phases(card, counts, wanted)
+
         if dp_parts or sp_parts:
-            runs = phase_ranks(card, dp_parts, sp_parts)
+            runs = phase_ranks(card, dp_parts, sp_parts, meanwhile=later)
             if "train_dp" in runs:
                 counts["train_dp"] = runs["train_dp"]
             if "sp_a" in runs:
@@ -5962,10 +6176,8 @@ def main(argv):
             if "sp_d" in runs:
                 counts["train_spatial_offgrid"] = runs["sp_d"][
                     "cerberus_dcv_offgrid"]
-        for phase in (phase_serve_raft, phase_train_raft, phase_fit_raft):
-            if wanted(phase.__name__[len("phase_"):]):
-                phase(card)
-        data_phases(card, counts, wanted)
+        else:
+            later()
         if wanted("runner"):
             record_launches(counts, phase_runner(card, root, batches))
     finally:

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's bf16 RAFT first rounds otherwise than the JAX package:
-each op of the flow decoder's first iterations, from the volume lookup
-through the motion encoder, the GRU and the flow head, fed the same inputs
-in both packages on the CPU.
+each convolution before the update block (the shared encoder's eighteen
+ConvBlocks, ``corr_proj`` and ``context_proj``) and each op of the flow
+decoder's first iterations, from the volume lookup through the motion
+encoder, the GRU and the flow head, fed the same inputs in both packages
+on the CPU.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/raft_bf16_op_compare.py [--seeds 3] [--iters 2]
 
@@ -15,6 +17,11 @@ GRU's, each update's). Then every op of iteration t is computed alone in
 both packages from JAX's captured inputs (an activation of a captured
 conv output is taken in bf16, as either package computes it alone):
 
+* ``ConvBlock_<n>`` (iteration "encoder"), for each of the three frames
+  the encoder takes: block n's output (conv, bias, LeakyReLU) from block
+  n - 1's captured output (the preprocessed frame for block 0);
+  ``corr_proj`` on the captured level features of the left and temporal
+  frames, ``context_proj`` on the left's;
 * ``lookup``: the pyramid of the all-pairs volume of the captured
   ``corr_proj`` outputs, sampled at grid + flow (float32);
 * the motion encoder's ``convc1``, ``convc2``, ``convf1``, ``convf2``,
@@ -111,6 +118,55 @@ def jax_conv(params, feat, k, x):
         params, x)
 
 
+def encoder_ops(cap, jp, port, ins, level):
+    """{op: comparisons} of the convolutions before the update block, each
+    fed JAX's captured input (``ins``: the frames the encoder takes)."""
+    from cerberusnet_tpu.models.common import ConvBlock
+
+    enc, penc = cap["PyramidEncoder_0"], jp["PyramidEncoder_0"]
+    ops = {}
+    for n, block in enumerate(port.encoder.blocks):
+        name = f"ConvBlock_{n}"
+        out = enc[name]["__call__"]
+        rows = []
+        for c, frame in enumerate(ins):
+            x = (frame.astype(BF16) if n == 0
+                 else enc[f"ConvBlock_{n - 1}"]["__call__"][c])
+            want = jax.jit(lambda p, v, f=out[c].shape[-1], s=block.stride:
+                           ConvBlock(f, stride=s, dtype=BF16).apply(
+                               {"params": p}, v))(penc[name], x)
+            with torch.no_grad():
+                got = to_numpy(block(to_torch(x)))
+            rows.append((compare(got, want), compare(out[c], want)))
+        ops[name] = {"port_vs_jax": merge([r[0] for r in rows]),
+                     "model_vs_jax": merge([r[1] for r in rows])}
+    last = f"ConvBlock_{3 * level - 1}"
+    feats = enc[last]["__call__"]
+    dec = port.flow
+    cap, jp = cap["RAFTFlowDecoder_0"], jp["RAFTFlowDecoder_0"]
+    for name, k, frames in (("corr_proj", 1, (0, 2)),
+                            ("context_proj", 3, (0,))):
+        mod = getattr(dec, name)
+        rows = []
+        for i, c in enumerate(frames):
+            x = feats[c]
+            model = cap[name]["__call__"][i]
+            want = jax_conv(jp[name], model.shape[-1], k, x)
+            with torch.no_grad():
+                got = to_numpy(mod(to_torch(x)))
+            rows.append((compare(got, want), compare(model, want)))
+        ops[name] = {"port_vs_jax": merge([r[0] for r in rows]),
+                     "model_vs_jax": merge([r[1] for r in rows])}
+    return ops
+
+
+def merge(parts: list) -> dict:
+    """``compare``'s results of equal-sized tensors as one."""
+    return {"differ": float(np.mean([p["differ"] for p in parts])),
+            "max_ulp": max(p["max_ulp"] for p in parts),
+            "sign_share": float(np.mean([p["sign_share"] for p in parts]))}
+
+
 def run(seed: int, iters: int):
     raw = raft_config_dict()
     raw["model"].update(dtype="bfloat16", raft_unroll=True)
@@ -167,7 +223,9 @@ def run(seed: int, iters: int):
                 torch.bfloat16),
             torch.from_numpy(np.asarray(g2.astype(jnp.float32))).to(
                 torch.bfloat16)), m.raft_corr_levels)
-    rows = []
+    rows = [{"seed": seed, "iter": "encoder", "op": op, **res}
+            for op, res in encoder_ops(state["intermediates"], params, port,
+                                       ins, m.raft_level).items()]
     for t in range(iters):
         coords = grid + flow
         cf = jr.corr_lookup(pyr_j, coords, m.raft_radius, impl=m.raft_lookup)

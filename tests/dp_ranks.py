@@ -128,12 +128,17 @@ def as_numpy(tensors: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in tensors.items()}
 
 
-def model_loss(name, out, batch, mesh):
+def model_loss(name, out, batch, mesh, rmi_weight=0.0):
     """The loss a model of ``SPATIAL_MODELS`` is held to: its head's, the
-    joint loss for CerberusNet."""
+    joint loss for CerberusNet; ``rmi_weight`` w makes SegNet's (1 - w) CE
+    + w RMI, as ``joint_loss``'s."""
     if name.startswith("SegNet"):
-        return tl.segmentation_loss(out["seg_logits"], batch["seg_labels"],
-                                    mesh=mesh)
+        ce = tl.segmentation_loss(out["seg_logits"], batch["seg_labels"],
+                                  mesh=mesh)
+        if not rmi_weight:
+            return ce
+        return (1.0 - rmi_weight) * ce + rmi_weight * tl.rmi_loss(
+            out["seg_logits"], batch["seg_labels"], mesh=mesh)
     if name == "FlowNet":
         return tl.multiscale_flow_loss(out["flow_pyramid"], batch["flow_gt"],
                                        batch["flow_valid"], mesh=mesh)
@@ -148,14 +153,16 @@ def model_grads(mesh, spec, models=None, dtype=torch.float32):
     """The loss and the parameters' gradients of a ``models`` entry
     (``SPATIAL_MODELS`` by default) on this rank's rows (and, on a spatial
     mesh, its band), all-reduced as the trainer does; ``dtype``: the
-    model's parameters and the batch's floats."""
+    model's parameters and the batch's floats; the spec's ``rmi_weight``
+    goes to ``model_loss``."""
     make, keys = (models or SPATIAL_MODELS)[spec["model"]]
     model = set_spatial(load_flax_params(make(), spec["params"]).to(dtype),
                         mesh)
     batch = {k: v.to(dtype) if v.dtype.is_floating_point else v
              for k, v in torch_tree(shard_batch(spec["batch"], mesh)).items()}
     out = model(*(batch[k] for k in keys))
-    loss = model_loss(spec["model"], out, batch, mesh)
+    loss = model_loss(spec["model"], out, batch, mesh,
+                      spec.get("rmi_weight", 0.0))
     loss.backward()
     names = [n for n, _ in model.named_parameters()]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -289,6 +296,10 @@ def sleep(seconds):
 # ------------------------------------------------------- the spatial axis
 
 SPATIAL_RANKS = 4
+# a test module's spawn's bound, about 4x its ranks' time under Tier-1's
+# six workers on an idle 8-core machine (35-100 s), so a stuck rank fails
+# its module and leaves the suite its clock
+RANKS_TIMEOUT_S = 420
 # (data, spatial) shapes of the 4 ranks
 SPATIAL_MESHES = ((1, 4), (2, 2))
 # tests/test_torch_spatial.py's losses: each term of the joint loss alone,
@@ -533,6 +544,14 @@ OFFGRID_RESIZES = {200: ((2, 2), ((4, 7), (7, 13), (13, 25))),
 OFFGRID_REFUSED = ((202, (2, 2), ("CerberusDCV", "CerberusRAFT")),
                    (352, (1, 4), ("CerberusNet", "FlowNet", "StereoNet")))
 OFFGRID_REFUSED_MODELS = {**OFFGRID_MODELS, **SPATIAL_MODELS}
+# RMI across the bands (SegNet's loss with rmi_weight 0.5): H -> (mesh,
+# models). 202 rows on 2 ranks band 74/128, so the second band starts
+# inside a 4x4 pool window and the frame's last 2 rows are the pool's
+# remainder; 288 on 1 x 4 bands 96/64/64/64 on the windows' edges
+OFFGRID_RMI = {202: ((2, 2), ("SegNet", "SegNetASPP")),
+               288: ((1, 4), ("SegNet", "SegNetASPP"))}
+# the RMI term alone against JAX's sharded rmi_loss: (H, mesh)
+OFFGRID_RMI_TERM = (202, (2, 2))
 
 
 def offgrid_mesh(shape, h):
@@ -586,8 +605,9 @@ def offgrid_suite(p):
     """Every case of tests/test_torch_spatial_offgrid.py on this rank: the
     models of ``p["models"][h]`` on ``OFFGRID_MESHES[h]`` in float64 and
     those of ``p["jax"]`` ((h, mesh, model) triples) in float32, the band
-    resizes, the refused settings and the trainers of ``p["trainers"]`` on
-    2 x 2."""
+    resizes, the refused settings, the trainers of ``p["trainers"]`` on
+    2 x 2, SegNet with RMI (``OFFGRID_RMI``, float64) and the RMI term
+    alone (``OFFGRID_RMI_TERM``, float32)."""
     torch.set_num_threads(1)
     out = {"rank": dist.get_rank(), "jax": {}}
     for h, shapes in OFFGRID_MESHES.items():
@@ -614,4 +634,12 @@ def offgrid_suite(p):
                 mesh, p["refused"][f"{name} {h}"], OFFGRID_REFUSED_MODELS)
     out["trainers"] = {v: spatial_trainer(None, {**tp, "shape": (2, 2)})
                        for v, tp in p["trainers"].items()}
+    out["rmi"] = {
+        h: {name: model_grads(offgrid_mesh(shape, h), p["rmi"][h][name],
+                              OFFGRID_MODELS, torch.float64)
+            for name in names}
+        for h, (shape, names) in OFFGRID_RMI.items()}
+    h, shape = OFFGRID_RMI_TERM
+    out["rmi_term"] = spatial_loss("rmi", offgrid_mesh(shape, h),
+                                   p["rmi_term"])
     return out

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "cerberusnet_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "cerberusnet_tpu",
@@ -57,7 +59,9 @@ def test_every_module_imports_with_jax_blocked():
         "export.aot", "export.runner", "export.runner_io", "quant",
         "quant.ptq", "quant.qat", "train.debug_nans", "parallel",
         "parallel.mesh", "parallel.halo", "bench", "utils.benchutil",
-        "utils.flops")} <= set(names)
+        "utils.flops", "examples", "examples.video_stream",
+        "examples.raft_anytime_inference", "examples.demo_end_to_end",
+        "examples.migrate_from_torch")} <= set(names)
 
 
 def _imported_roots(path):

@@ -374,7 +374,8 @@ def ranks(tmp_path_factory, jax_models, jax_trainer_step):
                        "dir": str(tmp_path_factory.mktemp("dp_ckpt"))},
         "pallas_levels": {"raw": config(model={"pallas_levels": 3})},
     }
-    return launch(dp_ranks.suite, N, args=(payload,), timeout=600)
+    return launch(dp_ranks.suite, N, args=(payload,),
+                  timeout=dp_ranks.RANKS_TIMEOUT_S)
 
 
 # ---------------------------------------------------------------- tests

@@ -665,6 +665,52 @@ def test_bf16_tied_conv_rounds_as_flax(kernel, cin, cout):
     assert np.mean(got != np.asarray(want, np.float32)) <= 5e-3
 
 
+@pytest.mark.parametrize("stride,cin,cout", [(2, 3, 8), (1, 8, 8),
+                                              (2, 12, 16), (1, 16, 24)])
+def test_bf16_conv_block_rounds_as_flax(stride, cin, cout):
+    """A bf16 ``ConvBlock`` (the shared encoder's, and the decoders' and
+    heads') against flax's ``ConvBlock(dtype=bfloat16)``, and at stride 1
+    a bf16 ``FlaxConv2d`` (RAFT's ``context_proj``) against flax's
+    ``nn.Conv``, on the same bf16 input: the product rounded to bf16, then
+    the bf16 bias added (ROADMAP C7; with the bias fused 13-39% of the
+    encoder's block outputs and 21% of context_proj's differed from
+    JAX's, scripts/raft_bf16_op_compare.py). Only the order of the
+    products' sums may differ: at most 0.5% of the outputs."""
+    import flax.linen as fnn
+
+    from cerberusnet_tpu.models.common import ConvBlock as JaxConvBlock
+    from cerberusnet_torch.models.common import ConvBlock, FlaxConv2d
+
+    rng = np.random.RandomState(stride + cin)
+    x = jnp.asarray(rng.randn(2, 10, 12, cin), jnp.float32).astype(
+        jnp.bfloat16)
+    params = {"kernel": (rng.randn(3, 3, cin, cout)
+                         / np.sqrt(9 * cin)).astype(np.float32),
+              "bias": (0.1 * rng.randn(cout)).astype(np.float32)}
+    xt = torch.from_numpy(np.asarray(x, np.float32)).permute(
+        0, 3, 1, 2).bfloat16()
+    kernel = torch.from_numpy(params["kernel"].transpose(3, 2, 0, 1).copy())
+    pairs = [(JaxConvBlock(cout, stride=stride, dtype=jnp.bfloat16),
+              ConvBlock(cin, cout, stride=stride))]
+    if stride == 1:
+        pairs.append((fnn.Conv(cout, (3, 3), padding="SAME",
+                               dtype=jnp.bfloat16),
+                      FlaxConv2d(cin, cout, 3, padding=1)))
+    for jmod, mod in pairs:
+        want = jax.jit(lambda p, v, m=jmod: m.apply(
+            {"params": p if m is not jmod or not isinstance(
+                m, JaxConvBlock) else {"Conv_0": p}}, v))(params, x)
+        conv = getattr(mod, "conv", mod).to(torch.bfloat16)
+        with torch.no_grad():
+            conv.weight.copy_(kernel)
+            conv.bias.copy_(torch.from_numpy(params["bias"]))
+            got = mod(xt)
+        assert got.dtype == torch.bfloat16
+        got = got.float().permute(0, 2, 3, 1).numpy()
+        assert got.shape == want.shape
+        assert np.mean(got != np.asarray(want, np.float32)) <= 5e-3, jmod
+
+
 def test_bf16_tied_weight_gradients_sum_in_float32(raft_bf16_step):
     """keep_tied_float32 as flax's per-call casts: in the bf16 step a kernel
     used once (context_proj) gets its bf16 convolution's gradient, bf16

@@ -265,7 +265,8 @@ def world(tmp_path_factory):
                          for v, hw in A11C_SETTINGS}}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(launch, dp_ranks.spatial_suite, N,
-                            args=(payload,), timeout=900)
+                            args=(payload,),
+                            timeout=dp_ranks.RANKS_TIMEOUT_S)
         jax_side = jax_value_and_grads(specs)
         return specs, ranks.result(), jax_side, trainer_payload
 

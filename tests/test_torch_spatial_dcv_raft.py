@@ -165,7 +165,8 @@ def world():
                "trainers": {v: trainer_payload(v) for v in TRAINER_MODELS}}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(launch, dp_ranks.dcv_raft_suite, N,
-                            args=(payload,), timeout=900)
+                            args=(payload,),
+                            timeout=dp_ranks.RANKS_TIMEOUT_S)
         jax_side = jax_value_and_grads(spec_tree)
         return spec_tree, ranks.result(), jax_side, payload["trainers"]
 

@@ -40,12 +40,20 @@ against the whole frame's ``F.interpolate`` cut to the band (float64) and
 by ``gradcheck``. The trainers of the tiny CerberusDCV and CerberusRAFT at
 200 x 64 on 2 x 2 (one step from the same masters, then ``evaluate`` of 3
 held-out samples) against one process. The refusals: H not divisible by S
-and the reference's guard raise before any rank is made, as does RMI across
-the bands of an H that is no multiple of 4 (ROADMAP C14); CerberusDCV and
-CerberusRAFT at 202 x 64 raise on every rank the error one process raises
-(the ground truth's 2x2 pool of 101 rows); CerberusNet, FlowNet and
-StereoNet at 352 x 64 raise the warp's ValueError on every rank (ROADMAP
-C10).
+and the reference's guard raise before any rank is made; CerberusDCV and
+CerberusRAFT at 202 x 64 raise on every rank the error one
+process raises (the ground truth's 2x2 pool of 101 rows); CerberusNet,
+FlowNet and StereoNet at 352 x 64 raise the warp's ValueError on every rank
+(ROADMAP C10).
+
+RMI across the bands (``train/losses.py``'s ``_pooled_band``: each 4x4
+window pooled on the rank holding its first row): SegNet with either head
+and ``rmi_weight`` 0.5 at 202 x 64 on 2 x 2 (bands of 74/128 rows, the
+second starting inside a window) and at 288 x 64 on 1 x 4 against one
+float64 process, loss within 1e-5 relative and gradients within 1e-5
+relative L2; the RMI term alone at 202 x 64 on 2 x 2 against JAX's
+``rmi_loss`` sharded over ``make_mesh(1, 2)`` at tests/test_parallel.py's
+tolerances.
 """
 
 import concurrent.futures
@@ -77,6 +85,7 @@ from tests import dp_ranks
 from tests.jax_pairs import numpy_tree
 from tests.test_torch_spatial import (
     flax_tree,
+    loss_inputs,
     model_batch,
     one_process_trainer,
     rel,
@@ -121,6 +130,9 @@ TRAINER_MODELS = {
     "cerberus_raft": {f"raft_{k}": v for k, v in dp_ranks.RAFT_DEC.items()},
 }
 TRAINER_HW = (200, W)
+RMI_WEIGHT = 0.5
+RMI_CASES = [(h, name) for h, (_, names) in dp_ranks.OFFGRID_RMI.items()
+             for name in names]
 
 
 def mesh_of(rank, spatial, h):
@@ -147,8 +159,10 @@ def spec(name, seed, h, models=dp_ranks.OFFGRID_MODELS):
 
 
 def specs():
-    """{"models": {h: {name: spec}}, "refused": {"name h": spec}}, each
-    spec a model name, random flax parameters and a batch."""
+    """{"models": {h: {name: spec}}, "refused": {"name h": spec}, "rmi":
+    {h: {name: spec}}, "rmi_term": the RMI term's inputs}, each spec a
+    model name, random flax parameters and a batch (RMI's with its
+    ``rmi_weight``)."""
     models = {h: {name: spec(name, 50 + i, h)
                   for i, name in enumerate(dp_ranks.OFFGRID_MODELS)}
               for h in dp_ranks.OFFGRID_MESHES}
@@ -156,7 +170,22 @@ def specs():
                                    dp_ranks.OFFGRID_REFUSED_MODELS)
                for h, _, names in dp_ranks.OFFGRID_REFUSED
                for i, name in enumerate(names)}
-    return {"models": models, "refused": refused}
+    rmi = {h: {name: {**spec(name, 90 + i, h), "rmi_weight": RMI_WEIGHT}
+               for i, name in enumerate(names)}
+           for h, (_, names) in dp_ranks.OFFGRID_RMI.items()}
+    term = loss_inputs(seed=3, h=dp_ranks.OFFGRID_RMI_TERM[0], w=W)
+    return {"models": models, "refused": refused, "rmi": rmi,
+            "rmi_term": {k: term[k] for k in ("seg_logits", "seg_labels")}}
+
+
+def jax_rmi_term(inputs):
+    """(value, gradient with respect to the logits) of JAX's ``rmi_loss``
+    with its inputs sharded over ``make_mesh(1, 2)``."""
+    mesh = jax_make_mesh(1, 2)
+    x = jax_shard_batch(inputs, mesh)
+    value, grad = jax.jit(jax.value_and_grad(jl.rmi_loss))(
+        x["seg_logits"], x["seg_labels"])
+    return float(value), np.asarray(grad)
 
 
 def jax_value_and_grads(spec_tree):
@@ -185,16 +214,17 @@ def jax_value_and_grads(spec_tree):
 
 
 def one_process_side(spec_tree):
-    """The port's one process in float64 on the same models, and its
-    refusals."""
-    models = {h: {name: dp_ranks.model_grads(
-        SINGLE, sp, dp_ranks.OFFGRID_MODELS, torch.float64)
-        for name, sp in by_name.items()}
-        for h, by_name in spec_tree["models"].items()}
+    """The port's one process in float64 on the same models, its
+    refusals, and SegNet with RMI."""
+    def grads(tree):
+        return {h: {name: dp_ranks.model_grads(
+            SINGLE, sp, dp_ranks.OFFGRID_MODELS, torch.float64)
+            for name, sp in by_name.items()} for h, by_name in tree.items()}
+
     refused = {k: dp_ranks.refusal(SINGLE, sp,
                                    dp_ranks.OFFGRID_REFUSED_MODELS)
                for k, sp in spec_tree["refused"].items()}
-    return models, refused
+    return grads(spec_tree["models"]), refused, grads(spec_tree["rmi"])
 
 
 @pytest.fixture(scope="module")
@@ -209,8 +239,10 @@ def world():
                        for name, h, m in JAX_MODELS]}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(launch, dp_ranks.offgrid_suite, N,
-                            args=(payload,), timeout=900)
+                            args=(payload,),
+                            timeout=dp_ranks.RANKS_TIMEOUT_S)
         jax_side = jax_value_and_grads(spec_tree)
+        jax_side["rmi_term"] = jax_rmi_term(spec_tree["rmi_term"])
         one = one_process_side(spec_tree)
         return spec_tree, ranks.result(), jax_side, trainers, one
 
@@ -334,19 +366,6 @@ def test_h_not_divisible_by_s_raises(h):
         Trainer(spatial_config("cerberus_dcv", 3, (h, W)), device="cpu")
 
 
-def test_rmi_across_bands_off_its_pool_names_c14():
-    """RMI's 4x4 VALID pool on the bands of an H that is no multiple of 4
-    (202 rows: level 1's 101 put the band edges on rows 2 mod 4) is not
-    ported: the check refuses it before any rank is made (ROADMAP C14);
-    at 200 rows it runs."""
-    raw = spatial_raw("seg", 2, (202, W))
-    raw["loss"]["rmi_weight"] = 0.5
-    with pytest.raises(NotImplementedError, match="C14"):
-        ExperimentConfig.from_dict(raw).check_supported()
-    raw["data"]["hw"] = [200, W]
-    ExperimentConfig.from_dict(raw).check_supported()
-
-
 def test_the_guard_refuses_200_rows_on_4_ranks():
     """The reference's guard: 200 // 64 = 3 coarsest rows < 4 ranks."""
     with pytest.raises(ValueError, match="exceeds the coarsest"):
@@ -408,6 +427,42 @@ def test_models_match_one_process(h, mesh, name, world, one_process):
         assert sorted(grads) == sorted(want)
         for n, g in grads.items():
             assert rel(g, want[n]) <= 1e-5, (n, rel(g, want[n]))
+
+
+# -------------------------------------------------------- RMI on bands
+
+
+@pytest.mark.parametrize("h,name", RMI_CASES)
+def test_rmi_across_bands_matches_one_process(h, name, world, one_process):
+    """SegNet's loss with RMI on the bands (at 202 rows a pool window
+    straddles two bands) is one float64 process's, and the check passes
+    the setting."""
+    shape = dp_ranks.OFFGRID_RMI[h][0]
+    raw = spatial_raw("seg", shape[1], (h, W))
+    raw["loss"]["rmi_weight"] = RMI_WEIGHT
+    ExperimentConfig.from_dict(raw).check_supported()
+    want_loss, want = one_process[2][h][name]
+    for res in world[1]:
+        loss, grads = res["rmi"][h][name]
+        assert loss == pytest.approx(want_loss, rel=1e-5)
+        assert sorted(grads) == sorted(want)
+        for n, g in grads.items():
+            assert rel(g, want[n]) <= 1e-5, (n, rel(g, want[n]))
+
+
+def test_rmi_term_matches_the_jax_mesh(world):
+    """The RMI term alone: each rank's value is JAX's sharded one, and its
+    gradient with respect to its band N times the frame's rows there
+    (tests/test_parallel.py's tolerances)."""
+    want, want_grad = world[2]["rmi_term"]
+    h, shape = dp_ranks.OFFGRID_RMI_TERM
+    for r, res in enumerate(world[1]):
+        value, grad = res["rmi_term"]
+        assert value == pytest.approx(want, rel=2e-5), (r, value, want)
+        mesh = DataMesh(rank=r, size=N, spatial_size=shape[1],
+                        extents=level_extents(h, LEVELS))
+        band = want_grad[mesh.shard(len(want_grad)), mesh.rows(h)]
+        np.testing.assert_allclose(grad / N, band, rtol=3e-4, atol=2e-6)
 
 
 def test_the_ranks_hold_the_rules_bands(world):
