@@ -77,7 +77,9 @@ def entry(device="cuda", dtype: torch.dtype = torch.bfloat16, hw=(512, 1024),
     ``raft_iters`` and ``raft_lookup`` are CerberusRAFT's, which has no
     correlation kernel (``corr_impl``), nor has SegNet; ``seg_head`` is
     the segmentation head of the models in ``SEGMENTING``; ``model_kw``
-    gives the model's constructor other widths (the tests' narrow models).
+    gives the model's constructor other widths (the tests' narrow models)
+    or arithmetic (``{"fused": False}``: the naive estimators beside the
+    reference's default fused ones).
     ``forward.model`` is the module it serves."""
     if variant not in SERVED:
         raise ValueError(f"unknown variant {variant!r}; expected one of "

@@ -43,7 +43,12 @@ class CerberusNet(nn.Module):
     ``stacked_input=True`` (the reference's producer-stacked signature)
     makes the forward take one (3B, H, W, 3) tensor holding [left; right;
     temporal] along the batch: the encoder's batch as it is, with the
-    same weights and arithmetic."""
+    same weights and arithmetic.
+
+    ``fused``, ``est_input``, ``distribute_outputs``, ``upfeat_impl`` and
+    ``upsample_impl`` are the reference's decoder arithmetic, with its
+    defaults; both decoders take them (``models/flow.py``'s
+    ``CoarseToFineDecoder``)."""
 
     def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
                  num_classes: int = 19, max_disp_full: int = 96,
@@ -53,17 +58,26 @@ class CerberusNet(nn.Module):
                  fpn_channels: int = 96, seg_head: str = "fpn",
                  corr_impl: str | None = None,
                  dtype: torch.dtype = torch.float32, pallas_levels: int = 0,
-                 pallas_grad: str = "xla", stacked_input: bool = False):
+                 pallas_grad: str = "xla", stacked_input: bool = False,
+                 fused: bool = True, est_input: str = "concat",
+                 distribute_outputs: bool = True,
+                 upfeat_impl: str = "subpixel",
+                 upsample_impl: str = "resize"):
         super().__init__()
         self.stacked_input = stacked_input
         self.encoder = PyramidEncoder(encoder_channels,
                                       pallas_levels=pallas_levels,
                                       pallas_grad=pallas_grad)
+        arithmetic = dict(corr_impl=corr_impl, fused=fused,
+                          est_input=est_input,
+                          distribute_outputs=distribute_outputs,
+                          upfeat_impl=upfeat_impl,
+                          upsample_impl=upsample_impl)
         self.disparity = DisparityDecoder(encoder_channels, max_disp_full,
                                           est_channels, ctx_channels,
-                                          corr_impl=corr_impl)
+                                          **arithmetic)
         self.flow = FlowDecoder(encoder_channels, flow_max_disp, est_channels,
-                                ctx_channels, corr_impl=corr_impl)
+                                ctx_channels, **arithmetic)
         self.segmentation = make_seg_head(seg_head, encoder_channels,
                                           num_classes, fpn_channels)
         self.to(dtype=dtype, memory_format=torch.channels_last)

@@ -20,9 +20,11 @@ existed.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -109,25 +111,114 @@ def _band_resize(x, rows: int, width: int, spatial, factor: int = 0,
     return y
 
 
-def upsample2x(x, spatial=None, heights: tuple = ()):
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of ``jax.image.resize``'s linear
+    kernel along one axis (its ``compute_weight_mat``, antialiased)."""
+    inv = np.float32(n_in / n_out)
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv \
+        - np.float32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+    w = np.maximum(np.float32(0), 1 - dist / max(inv, np.float32(1)))
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+_RESIZE_MATRICES: dict = {}
+
+
+def _resize_matrix(n_in: int, n_out: int, x):
+    """``_resize_weights`` rounded to ``x``'s type, as float32 on ``x``'s
+    device, kept by (sizes, type, device) so that a forward copies nothing
+    from the host (none is kept while a tracer runs the forward)."""
+    key = (n_in, n_out, x.dtype, x.device)
+    w = _RESIZE_MATRICES.get(key)
+    if w is None:
+        with torch.inference_mode(False):
+            w = torch.from_numpy(_resize_weights(n_in, n_out)).to(
+                x.dtype).to(device=x.device, dtype=torch.float32)
+        if type(x) is torch.Tensor and not torch.compiler.is_compiling():
+            _RESIZE_MATRICES[key] = w
+    return w
+
+
+def _resize_axis(x, dim: int, n: int):
+    """``x`` resized along ``dim`` (2: H, 3: W) to ``n``, as one
+    contraction of the reference's einsum in ``x``'s type: the weights
+    rounded to the type, the products summed in float32, the sums rounded
+    to the type. A power-of-2 ratio's weights are exact, and the
+    interpolation computes the same sums."""
+    m = x.shape[dim]
+    if m == n:
+        return x
+    if n % m == 0 and (n // m) & (n // m - 1) == 0:
+        size = (n, x.shape[3]) if dim == 2 else (x.shape[2], n)
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False)
+    w = _resize_matrix(m, n, x)
+    y = x.float()
+    return (y @ w if dim == 3 else w.t() @ y).to(x.dtype)
+
+
+def _resize(x, hw):
+    """Bilinear resize of a whole frame to ``hw``, as
+    ``jax.image.resize(..., "bilinear")``: in float32 one interpolation; in
+    a narrower type as the reference rounds there. Its separable einsum
+    contracts one axis, rounds to the type, then the other, the axis first
+    whose path costs fewer operations (H on a tie; where a map has one row
+    or column the orders agree). Rounded once, the FPN head's bf16
+    top-down sums differed from the reference's
+    (``scripts/pwc_bf16_op_compare.py`` holds them op by op)."""
+    hw = tuple(hw)
+    if x.dtype.itemsize >= 4:
+        return F.interpolate(x, size=hw, mode="bilinear",
+                             align_corners=False)
+    (h, w), (hh, ww) = x.shape[2:], hw
+    if h * w * hh + hh * w * ww <= h * w * ww + h * hh * ww:
+        return _resize_axis(_resize_axis(x, 2, hh), 3, ww)
+    return _resize_axis(_resize_axis(x, 3, ww), 2, hh)
+
+
+def _up2_phase(x, dim: int):
+    """x2 along ``dim`` as the reference's ``_up2_phase_dim``: y[2q] =
+    0.25 x[q-1] + 0.75 x[q], y[2q+1] = 0.75 x[q] + 0.25 x[q+1], edges
+    clamped, each product and sum in ``x``'s type."""
+    n = x.shape[dim]
+    prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+    y = torch.stack([0.25 * prev + 0.75 * x, 0.75 * x + 0.25 * nxt],
+                    dim + 1)
+    shape = list(x.shape)
+    shape[dim] *= 2
+    return y.reshape(shape)
+
+
+def upsample2x(x, spatial=None, heights: tuple = (), impl: str = "resize"):
     """Bilinear x2 on the half-pixel grid with edge clamp: upsampling equal
-    to ``jax.image.resize(..., "bilinear")``. ``spatial``: ``x`` is a band
-    of that mesh, of the peers' ``heights`` (by default its level's); the
-    result is the band of twice its rows of the frame's x2."""
+    to ``jax.image.resize(..., "bilinear")``, rounding as it does
+    (``_resize``), or with ``impl="phase"`` as the reference's
+    ``upsample2x_phase`` (H, then W; in bf16 it rounds otherwise).
+    ``spatial``: ``x`` is a band of that mesh, of the peers' ``heights``
+    (by default its level's); the result is the band of twice its rows of
+    the frame's x2, computed in float32 and rounded once."""
     if spatial is not None:
         return _band_resize(x, 2 * x.shape[2], 2 * x.shape[3], spatial, 2,
                             heights)
-    return F.interpolate(x, scale_factor=2, mode="bilinear",
-                         align_corners=False)
+    if impl == "phase":
+        return _up2_phase(_up2_phase(x, 2), 3)
+    return _resize(x, (2 * x.shape[2], 2 * x.shape[3]))
 
 
 def upsample_to(x, hw, spatial=None):
-    """Bilinear resize to ``hw`` (with ``spatial``: this rank's band of
-    rows at a level of the frame)."""
+    """Bilinear resize to ``hw`` (``_resize``; with ``spatial``: this
+    rank's band of rows at a level of the frame, computed in float32 and
+    rounded once)."""
     if spatial is not None:
         return _band_resize(x, hw[0], hw[1], spatial)
-    return F.interpolate(x, size=tuple(hw), mode="bilinear",
-                         align_corners=False)
+    return _resize(x, hw)
 
 
 def band_conv(conv: nn.Conv2d, x, spatial=None):
@@ -219,14 +310,122 @@ class ConvBlock(nn.Module):
         return leaky(self.conv(F.pad(x, (*pw, *ph))))
 
 
+def conv_same(x, weight, dilation: int = 1, spatial=None):
+    """The stride-1 "SAME" convolution of ``x`` with the OIHW ``weight`` (an
+    odd square kernel), no bias; with ``spatial``, on a band, the rows it
+    pads in H from the neighbouring bands (``band_conv``'s halo)."""
+    pad = dilation * (weight.shape[2] // 2)
+    if spatial is None:
+        return F.conv2d(x, weight, None, 1, pad, dilation)
+    return F.conv2d(halo_rows(x, pad, pad, spatial), weight, None, 1,
+                    (0, pad), dilation)
+
+
+def conv_over_components(comps, weight, bias, dilation: int = 1,
+                         spatial=None):
+    """``conv_same(cat(comps), weight) + bias`` as the reference's
+    ``conv_over_components`` computes it: one product a component against
+    its slice of the input axis, the products summed in their type in
+    component order, then the bias added."""
+    acc, off = None, 0
+    for c in comps:
+        n = c.shape[1]
+        y = conv_same(c, weight[:, off:off + n], dilation, spatial)
+        acc = y if acc is None else acc + y
+        off += n
+    return acc + bias.view(-1, 1, 1)
+
+
+def subpixel(upconv: nn.ConvTranspose2d):
+    """(weight, bias) of the 3x3 stride-1 "SAME" conv whose output, put
+    through ``depth_to_space``, is ``upconv``'s (4x4, stride 2, padding 1):
+    the reference's ``conv_transpose_subpixel``. Per axis, output 2q reads
+    inputs q - 1 and q through the transposed kernel's taps 3 and 1, output
+    2q + 1 inputs q and q + 1 through taps 2 and 0; padded with a zero tap
+    each side and flipped, the kernel holds phase 0's window at its odd
+    taps and phase 1's at its even ones. Output channels phase-major,
+    (rh, rw, c), the bias tiled."""
+    w = F.pad(upconv.weight, (1, 1, 1, 1)).flip(2, 3)  # (cin, cout, 6, 6)
+    phases = [w[:, :, 1 - rh::2, 1 - rw::2] for rh in (0, 1) for rw in (0, 1)]
+    return (torch.cat(phases, 1).transpose(0, 1),
+            upconv.bias.repeat(4))
+
+
+def depth_to_space(y):
+    """(B, 4C, H, W), channels phase-major (rh, rw, c) -> (B, C, 2H, 2W),
+    in ``torch.channels_last`` as the models' maps are (one copy of a
+    channels-last ``y``; in NCHW the next concatenation and convs would
+    each copy it back)."""
+    b, c4, h, w = y.shape
+    c = c4 // 4
+    y = y.permute(0, 2, 3, 1).reshape(b, h, w, 2, 2, c)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c)
+    return y.permute(0, 3, 1, 2)
+
+
+def fused_dense(inputs, convs, extras=(), spatial=None):
+    """The reference's ``FusedDenseEstimator`` arithmetic. ``inputs``: the
+    trunk's input components (NCHW); ``convs``: (weight, bias) of the
+    trunk's 3x3 convs, conv i reading the inputs and the outputs of convs
+    0..i-1; ``extras``: (weight, bias) of 3x3 convs reading all of them
+    (the predictor, the subpixel up-feature conv). Each component is
+    convolved once, against the output-axis concatenation of the slices of
+    the convs that read it (a suffix of the convs, so their partial
+    products are summed in one add a component, in their type, in
+    component order); then a trunk conv adds its bias and LeakyReLU, an
+    extra conv its bias. Returns (the trunk's outputs, the extra convs'
+    outputs)."""
+    comps = list(inputs)
+    n0, n_est = len(comps), len(convs)
+    convs = list(convs) + list(extras)
+    # each conv's weight cut into its slices of the components it reads
+    widths = [c.shape[1] for c in comps] + [w.shape[0] for w, _ in
+                                            convs[:n_est]]
+    slices = [torch.split(w, widths[:n0 + min(k, n_est)], dim=1)
+              for k, (w, _) in enumerate(convs)]
+    # acc: the partial sums of convs[held:], channel after channel
+    acc, held, ys = None, 0, []
+    for j in range(n0 + n_est):
+        c = comps[j] if j < n0 else ys[j - n0]
+        first = max(j - n0 + 1, 0)  # the first conv that reads component j
+        if first == len(convs):  # the last output, with no extra to read it
+            continue
+        out = conv_same(c, torch.cat([s[j] for s in slices[first:]]),
+                        spatial=spatial)
+        if acc is not None:  # the finished convs' channels leave
+            done = sum(w.shape[0] for w, _ in convs[held:first])
+            out = acc[:, done:] + out
+        acc, held = out, first
+        if n0 - 1 <= j < n0 - 1 + n_est:  # conv j - n0 + 1 has all it reads
+            weight, bias = convs[j - n0 + 1]
+            ys.append(leaky(acc[:, :weight.shape[0]] + bias.view(-1, 1, 1)))
+    outs, at = [], sum(w.shape[0] for w, _ in convs[held:n_est])
+    for weight, bias in convs[n_est:]:
+        outs.append(acc[:, at:at + weight.shape[0]] + bias.view(-1, 1, 1))
+        at += weight.shape[0]
+    return ys, outs
+
+
 class DenseEstimator(nn.Module):
     """DenseNet trunk: each conv block sees the concatenation of the input
-    and every earlier block's output; returns the final stack. Equal by
-    construction to the reference's ``FusedDenseEstimator``."""
+    and every earlier block's output; the final stack is the input of the
+    caller's predictor (``extras``), context network and up-feature conv.
+
+    ``fused=True`` computes it as the reference's default
+    ``FusedDenseEstimator`` does (``fused_dense``): the bf16 products of
+    each component summed in bf16, which rounds otherwise than one conv
+    over the concatenation. ``fused=False`` is the reference's
+    ``DenseEstimator`` and its predictor ``nn.Conv``, each block and the
+    predictor one conv over the concatenated stack, rounding as flax's
+    (``FlaxConv2d``). The parameters are the same either way."""
+
+    spatial = None
 
     def __init__(self, in_channels: int,
-                 channels: Sequence[int] = (128, 128, 96, 64, 32)):
+                 channels: Sequence[int] = (128, 128, 96, 64, 32),
+                 fused: bool = True):
         super().__init__()
+        self.fused = fused
         self.blocks = nn.ModuleList()
         cin = in_channels
         for ch in channels:
@@ -234,15 +433,35 @@ class DenseEstimator(nn.Module):
             cin += ch
         self.out_channels = cin
 
-    def forward(self, x):
+    def forward(self, x, extras=(), concat_stack: bool = True):
+        """``x``: the input, one tensor or a list of components of its
+        channels; ``extras``: 3x3 convs over the final stack (modules or
+        (weight, bias) pairs, the product then the bias). Returns (the stack,
+        concatenated or, with ``concat_stack=False`` in the fused form, a
+        list of its components; the extra convs' outputs)."""
+        comps = list(x) if isinstance(x, (list, tuple)) else [x]
+        if self.fused:
+            ys, outs = fused_dense(
+                comps, [(b.conv.weight, b.conv.bias) for b in self.blocks],
+                [(e.weight, e.bias) if isinstance(e, nn.Module) else e
+                 for e in extras], self.spatial)
+            comps += ys
+            return (torch.cat(comps, dim=1) if concat_stack else comps), outs
+        x = torch.cat(comps, dim=1) if len(comps) > 1 else comps[0]
         for block in self.blocks:
             x = torch.cat([x, block(x)], dim=1)
-        return x
+        return x, [band_conv(e, x, self.spatial) if isinstance(e, nn.Module)
+                   else conv_over_components([x], *e, spatial=self.spatial)
+                   for e in extras]
 
 
 class ContextNetwork(nn.Module):
     """Dilated refinement: conv blocks with the given dilations, then a
-    plain 3x3 conv to ``out_channels``."""
+    plain 3x3 conv to ``out_channels``, rounding as flax's. The input may
+    be a list of components of the stack's channels (the fused estimator's
+    with ``distribute_outputs``): the first conv is then the reference's
+    ``conv_over_components``, a product a component summed in their type,
+    then the bias and LeakyReLU."""
 
     spatial = None
 
@@ -255,10 +474,19 @@ class ContextNetwork(nn.Module):
         for ch, dil in zip(channels, dilations):
             self.blocks.append(ConvBlock(cin, ch, dilation=dil))
             cin = ch
-        self.out = nn.Conv2d(cin, out_channels, 3, padding=1)
+        self.out = FlaxConv2d(cin, out_channels, 3, padding=1)
+
+    def first(self, x):
+        """The first block's output, of a tensor or a list of components."""
+        if not isinstance(x, (list, tuple)):
+            return self.blocks[0](x)
+        conv = self.blocks[0].conv
+        return leaky(conv_over_components(x, conv.weight, conv.bias,
+                                          conv.dilation[0], self.spatial))
 
     def forward(self, x):
-        for block in self.blocks:
+        x = self.first(x)
+        for block in self.blocks[1:]:
             x = block(x)
         return band_conv(self.out, x, self.spatial)
 

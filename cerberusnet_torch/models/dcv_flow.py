@@ -10,10 +10,13 @@ A DCV decoder works at one pyramid level (3 by default) and warps nothing:
   2. a DenseEstimator over cat([volume for each dilation] + [f1]), a 3x3
      conv to the estimate's channels, plus a ContextNetwork's residual
   3. full resolution: ``level`` rounds of 2 * upsample2x
-The pyramid holds the one level's estimate. The reference's ``fused``
-estimator consumes the volumes without concatenating them, with the same
-arithmetic and parameters; here they are concatenated, and ``fused`` is
-not a parameter.
+The pyramid holds the one level's estimate. ``fused`` (the reference's
+default) computes the estimator and predictor as its
+``FusedDenseEstimator`` does, each volume and f1 a component of their own
+whose bf16 products are summed in bf16 (``models/common.py``'s
+``fused_dense``); ``fused=False`` concatenates them and runs one conv a
+block, as its ``DenseEstimator``. The parameters are the same either way;
+the context network reads the concatenated stack in both, as there.
 
 Inputs and outputs are NHWC, as in the reference; inside, NCHW tensors in
 ``torch.channels_last``, as ``CerberusNet`` runs them.
@@ -37,7 +40,7 @@ import torch.nn as nn
 from cerberusnet_torch.models.common import (
     ContextNetwork,
     DenseEstimator,
-    band_conv,
+    FlaxConv2d,
     leaky,
     nchw,
     nhwc,
@@ -58,7 +61,8 @@ class DCVDecoder(nn.Module):
     ``output`` (the result's key) and gives ``correlate`` on NHWC tensors.
 
     ``estimator`` is the reference's ``DenseEstimator_0``, ``predictor``
-    its ``Conv_0`` and ``context`` its ``ContextNetwork_0``."""
+    its ``Conv_0`` and ``context`` its ``ContextNetwork_0``; ``fused`` as
+    the module's doc says."""
 
     output = ""
     spatial = None
@@ -66,16 +70,18 @@ class DCVDecoder(nn.Module):
     def __init__(self, feat_channels: int, out_channels: int,
                  cost_channels: int, level: int, max_disp: int,
                  dilations: Sequence[int], est_channels: Sequence[int],
-                 ctx_channels: Sequence[int], corr_impl: str | None):
+                 ctx_channels: Sequence[int], corr_impl: str | None,
+                 fused: bool = True):
         super().__init__()
         self.level = level
         self.max_disp = max_disp
         self.dilations = tuple(dilations)
         self.corr_impl = corr_impl
         self.estimator = DenseEstimator(
-            len(self.dilations) * cost_channels + feat_channels, est_channels)
-        self.predictor = nn.Conv2d(self.estimator.out_channels, out_channels,
-                                   3, padding=1)
+            len(self.dilations) * cost_channels + feat_channels, est_channels,
+            fused)
+        self.predictor = FlaxConv2d(self.estimator.out_channels,
+                                    out_channels, 3, padding=1)
         self.context = ContextNetwork(self.estimator.out_channels,
                                       out_channels, ctx_channels)
 
@@ -89,8 +95,8 @@ class DCVDecoder(nn.Module):
         f1 = feats1[self.level - 1]
         a, b = nhwc(f1), nhwc(feats2[self.level - 1])
         volumes = [leaky(nchw(self.correlate(r, a, b))) for r in self.dilations]
-        x = self.estimator(torch.cat(volumes + [f1], dim=1))
-        est = band_conv(self.predictor, x, self.spatial) + self.context(x)
+        x, (est,) = self.estimator(volumes + [f1], [self.predictor])
+        est = est + self.context(x)
         full = est
         # on a band, the peers' rows of each x2 map: twice the last's (off
         # the pyramid's extents where H is no multiple of 2^level)
@@ -112,10 +118,10 @@ class DCVFlowDecoder(DCVDecoder):
                  dilations: Sequence[int] = (1, 2, 4, 8),
                  est_channels: Sequence[int] = EST_CHANNELS,
                  ctx_channels: Sequence[int] = CTX_CHANNELS,
-                 corr_impl: str | None = None):
+                 corr_impl: str | None = None, fused: bool = True):
         super().__init__(encoder_channels[level - 1], 2,
                          (2 * max_disp + 1) ** 2, level, max_disp, dilations,
-                         est_channels, ctx_channels, corr_impl)
+                         est_channels, ctx_channels, corr_impl, fused)
 
     def correlate(self, dilation, f1, f2):
         return correlation2d(f1, f2, self.max_disp, dilation,
@@ -133,10 +139,10 @@ class DCVStereoDecoder(DCVDecoder):
                  dilations: Sequence[int] = (1, 2, 3),
                  est_channels: Sequence[int] = EST_CHANNELS,
                  ctx_channels: Sequence[int] = CTX_CHANNELS,
-                 corr_impl: str | None = None):
+                 corr_impl: str | None = None, fused: bool = True):
         super().__init__(encoder_channels[level - 1], 1, max_disp + 1, level,
                          max_disp, dilations, est_channels, ctx_channels,
-                         corr_impl)
+                         corr_impl, fused)
 
     def correlate(self, dilation, f1, f2):
         # along W alone: a band's rows need no other band's
@@ -154,12 +160,12 @@ class DCVFlowNet(nn.Module):
                  est_channels: Sequence[int] = EST_CHANNELS,
                  ctx_channels: Sequence[int] = CTX_CHANNELS,
                  corr_impl: str | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused: bool = True):
         super().__init__()
         self.encoder = PyramidEncoder(encoder_channels)
         self.flow = DCVFlowDecoder(encoder_channels, level, max_disp,
                                    dilations, est_channels, ctx_channels,
-                                   corr_impl)
+                                   corr_impl, fused)
         self.to(dtype=dtype, memory_format=torch.channels_last)
 
     def forward(self, im1, im2):
@@ -179,12 +185,12 @@ class DCVStereoNet(nn.Module):
                  est_channels: Sequence[int] = EST_CHANNELS,
                  ctx_channels: Sequence[int] = CTX_CHANNELS,
                  corr_impl: str | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused: bool = True):
         super().__init__()
         self.encoder = PyramidEncoder(encoder_channels)
         self.disparity = DCVStereoDecoder(encoder_channels, level, max_disp,
                                           dilations, est_channels,
-                                          ctx_channels, corr_impl)
+                                          ctx_channels, corr_impl, fused)
         self.to(dtype=dtype, memory_format=torch.channels_last)
 
     def forward(self, left, right):
@@ -212,16 +218,16 @@ class CerberusDCV(nn.Module):
                  ctx_channels: Sequence[int] = CTX_CHANNELS,
                  fpn_channels: int = 96, seg_head: str = "fpn",
                  corr_impl: str | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused: bool = True):
         super().__init__()
         self.encoder = PyramidEncoder(encoder_channels)
         self.disparity = DCVStereoDecoder(encoder_channels, level,
                                           disp_max_disp, disp_dilations,
                                           est_channels, ctx_channels,
-                                          corr_impl)
+                                          corr_impl, fused)
         self.flow = DCVFlowDecoder(encoder_channels, level, flow_max_disp,
                                    flow_dilations, est_channels, ctx_channels,
-                                   corr_impl)
+                                   corr_impl, fused)
         self.segmentation = make_seg_head(seg_head, encoder_channels,
                                           num_classes, fpn_channels)
         self.to(dtype=dtype, memory_format=torch.channels_last)

@@ -38,11 +38,11 @@ class DisparityDecoder(CoarseToFineDecoder):
                  max_disp_full: int = 96,
                  est_channels: Sequence[int] = (128, 128, 96, 64, 32),
                  ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
-                 corr_impl: str | None = None):
+                 corr_impl: str | None = None, **arithmetic):
         self.max_disp_full = max_disp_full
         super().__init__(encoder_channels, 1,
                          [self.level_max_disp(l) + 1 for l in LEVELS],
-                         est_channels, ctx_channels, corr_impl)
+                         est_channels, ctx_channels, corr_impl, **arithmetic)
 
     def level_max_disp(self, level: int) -> int:
         return max(self.max_disp_full // (2**level), 4)
@@ -61,19 +61,22 @@ class StereoNet(nn.Module):
     """Encoder + disparity decoder (single task), port of ``StereoNet`` in
     ``cerberusnet_tpu/models/disparity.py``. ``encoder`` and ``disparity``
     are the reference's ``PyramidEncoder_0`` and ``DisparityDecoder_0``; a
-    frame whose sides are not multiples of 64 raises, as ``FlowNet``."""
+    frame whose sides are not multiples of 64 raises, as ``FlowNet``.
+    ``arithmetic`` (``fused``, ``est_input``, ``distribute_outputs``,
+    ``upfeat_impl``, ``upsample_impl``) goes to the decoder
+    (``CoarseToFineDecoder``)."""
 
     def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
                  max_disp_full: int = 96,
                  est_channels: Sequence[int] = (128, 128, 96, 64, 32),
                  ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
                  corr_impl: str | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, **arithmetic):
         super().__init__()
         self.encoder = PyramidEncoder(encoder_channels)
         self.disparity = DisparityDecoder(encoder_channels, max_disp_full,
                                           est_channels, ctx_channels,
-                                          corr_impl=corr_impl)
+                                          corr_impl=corr_impl, **arithmetic)
         self.to(dtype=dtype, memory_format=torch.channels_last)
 
     def forward(self, left, right):

@@ -15,9 +15,9 @@ Estimates are in pixels at each level's own resolution; the full-resolution
 estimate is the level-2 one upsampled by two x2 steps and scaled by 4.
 
 On a spatial mesh (``spatial``, ``models/common.py``'s ``set_spatial``)
-each rank runs the loop on its band of rows: the upsamplings and the 3x3
-predictors take a halo of one row, the transposed conv one row of input
-each side (its output cut to the band), the flow decoder's correlation
+each rank runs the loop on its band of rows: the upsamplings, the 3x3
+predictors and the up-feature conv (in its subpixel form, a 3x3 conv)
+take a halo of one row, the flow decoder's correlation
 f2 haloed by its reach and its warp the whole frame of f2
 (``ops/correlation.py``, ``ops/warp.py``). Where the frame's upsampled
 flow misses the next level's frame (an H that is no multiple of 64), every
@@ -34,13 +34,15 @@ import torch.nn as nn
 from cerberusnet_torch.models.common import (
     ContextNetwork,
     DenseEstimator,
-    band_conv,
+    FlaxConv2d,
+    conv_over_components,
+    depth_to_space,
     leaky,
     nchw,
     nhwc,
+    subpixel,
     upsample2x,
 )
-from cerberusnet_torch.parallel.halo import halo_rows
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.ops.correlation import correlation2d
 from cerberusnet_torch.ops.warp import warp2d
@@ -57,26 +59,60 @@ class CoarseToFineDecoder(nn.Module):
     Per level index i (level 6 first): ``estimators[i]`` is the reference's
     ``DenseEstimator_i``, ``predictors[i]`` its ``Conv_i`` and
     ``upfeats[i]`` its ``ConvTranspose_i``; ``context`` is
-    ``ContextNetwork_0``."""
+    ``ContextNetwork_0``.
+
+    The reference's arithmetic knobs, with its defaults: ``fused`` computes
+    the estimator and its predictor as ``FusedDenseEstimator`` (the
+    predictor an extra conv of the trunk's stack); ``est_input`` feeds it
+    one concatenated input ("concat") or the cost volume as a component of
+    its own ("split"); ``distribute_outputs`` (with ``fused``) keeps the
+    stack as components, so the context network's first conv and the
+    up-feature conv sum one product a component (the up-feature conv in
+    its subpixel form, a 3x3 conv, joins the trunk's convs beside the
+    predictor); ``upsample_impl``
+    ("resize" or "phase") is the reference's bilinear x2 of the estimate
+    (``models/common.py``'s ``upsample2x``). In bf16 each choice rounds
+    otherwise; the parameters are the same. The up-feature conv is
+    computed in its subpixel form at every setting (``estimate``), which
+    rounds as the transposed conv does: ``upfeat_impl`` ("subpixel" or
+    "convt", the reference's choice between two XLA lowerings of one
+    rounding) has no effect."""
 
     output = ""
     spatial = None
 
     def __init__(self, encoder_channels: Sequence[int], out_channels: int,
                  cost_channels: Sequence[int], est_channels: Sequence[int],
-                 ctx_channels: Sequence[int], corr_impl: str | None):
+                 ctx_channels: Sequence[int], corr_impl: str | None,
+                 fused: bool = True, est_input: str = "concat",
+                 distribute_outputs: bool = True,
+                 upfeat_impl: str = "subpixel",
+                 upsample_impl: str = "resize"):
         super().__init__()
+        if est_input not in ("concat", "split"):
+            raise ValueError(f"unknown est_input {est_input!r} (expected "
+                             "'concat' | 'split')")
+        if upfeat_impl not in ("subpixel", "convt"):
+            raise ValueError(f"unknown upfeat_impl {upfeat_impl!r} "
+                             "(expected 'subpixel' | 'convt')")
+        if upsample_impl not in ("resize", "phase"):
+            raise ValueError(f"unknown upsample_impl {upsample_impl!r} "
+                             "(expected 'resize' | 'phase')")
         self.corr_impl = corr_impl
+        self.upsample_impl = upsample_impl
+        self.fused = fused
+        self.est_input = est_input
+        self.distribute_outputs = distribute_outputs
         self.estimators = nn.ModuleList()
         self.predictors = nn.ModuleList()
         self.upfeats = nn.ModuleList()
         for i, (level, nk) in enumerate(zip(LEVELS, cost_channels)):
             extra = 0 if i == 0 else out_channels + UP_FEAT_CHANNELS
             est = DenseEstimator(nk + encoder_channels[level - 1] + extra,
-                                 est_channels)
+                                 est_channels, fused)
             self.estimators.append(est)
             self.predictors.append(
-                nn.Conv2d(est.out_channels, out_channels, 3, padding=1))
+                FlaxConv2d(est.out_channels, out_channels, 3, padding=1))
             if level != LEVELS[-1]:
                 self.upfeats.append(nn.ConvTranspose2d(
                     est.out_channels, UP_FEAT_CHANNELS, 4, stride=2, padding=1))
@@ -89,14 +125,32 @@ class CoarseToFineDecoder(nn.Module):
     def warp(self, f2, up):
         raise NotImplementedError
 
-    def upfeat(self, i: int, x):
-        """``upfeats[i]`` (4x4, stride 2, padding 1); on a band, of the
-        band with one row of its neighbours each side (output row 2j + k -
-        1 reads input row j), the output cut to the band's rows."""
-        if self.spatial is None:
-            return self.upfeats[i](x)
-        y = self.upfeats[i](halo_rows(x, 1, 1, self.spatial))
-        return y.narrow(2, 2, 2 * x.shape[2])
+    def estimate(self, i: int, cost, f1, inputs):
+        """(the stack, a tensor or a list of components; the predictor's
+        output; the next level's up-feature, None at the last level) of
+        level index i's estimator. The up-feature conv is computed in its
+        subpixel form (``subpixel``: a 3x3 conv, then ``depth_to_space``),
+        the product then the bias. With ``distribute_outputs`` it reads
+        the stack's components as the predictor does (the reference's
+        ``conv_transpose_subpixel``), so it joins the fused trunk's convs
+        as one more extra; else it is one conv over the concatenated
+        stack (flax's ``nn.ConvTranspose``)."""
+        distribute = self.fused and self.distribute_outputs
+        if self.fused and self.est_input == "split":
+            x = [cost, torch.cat([f1] + inputs, dim=1)]
+        else:
+            x = torch.cat([cost, f1] + inputs, dim=1)
+        extras = [self.predictors[i]]
+        up = subpixel(self.upfeats[i]) if i < len(self.upfeats) else None
+        if up is not None and (distribute or not self.fused):
+            extras.append(up)
+        stack, outs = self.estimators[i](x, extras,
+                                         concat_stack=not distribute)
+        if up is not None:
+            y = outs[1] if len(outs) > 1 else conv_over_components(
+                [stack], *up, spatial=self.spatial)
+            up = leaky(depth_to_space(y))
+        return stack, outs[0], up
 
     def forward(self, feats1, feats2):
         """Two pyramids (lists of NCHW maps, levels 1..6) -> {output:
@@ -111,22 +165,21 @@ class CoarseToFineDecoder(nn.Module):
                 f2w = nhwc(f2)
                 inputs = []
             else:
-                up = 2.0 * upsample2x(est, sp)
+                up = 2.0 * upsample2x(est, sp, impl=self.upsample_impl)
                 if sp is not None:
                     _check_frames(up, f2, est.shape[2], sp)
                 f2w = self.warp(nhwc(f2), nhwc(up))
                 inputs = [up, up_feat]
             cost = leaky(nchw(self.correlate(level, nhwc(f1), f2w)))
-            x = self.estimators[i](torch.cat([cost, f1] + inputs, dim=1))
-            est = band_conv(self.predictors[i], x, sp)
+            x, est, up_feat = self.estimate(i, cost, f1, inputs)
             if inputs:
                 est = est + up
             if level == LEVELS[-1]:
                 est = est + self.context(x)
-            else:
-                up_feat = leaky(self.upfeat(i, x))
             pyramid[level] = est
-        full = 4.0 * upsample2x(upsample2x(est, sp), sp)
+        impl = self.upsample_impl
+        full = 4.0 * upsample2x(upsample2x(est, sp, impl=impl), sp,
+                                impl=impl)
         return {self.output: full, f"{self.output}_pyramid": pyramid}
 
 
@@ -152,11 +205,11 @@ class FlowDecoder(CoarseToFineDecoder):
                  max_disp: int = 4,
                  est_channels: Sequence[int] = (128, 128, 96, 64, 32),
                  ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
-                 corr_impl: str | None = None):
+                 corr_impl: str | None = None, **arithmetic):
         self.max_disp = max_disp
         super().__init__(encoder_channels, 2,
                          [(2 * max_disp + 1) ** 2] * len(LEVELS),
-                         est_channels, ctx_channels, corr_impl)
+                         est_channels, ctx_channels, corr_impl, **arithmetic)
 
     def correlate(self, level, f1, f2):
         return correlation2d(f1, f2, self.max_disp, impl=self.corr_impl,
@@ -171,18 +224,22 @@ class FlowNet(nn.Module):
     ``cerberusnet_tpu/models/flow.py``. ``encoder`` and ``flow`` are the
     reference's ``PyramidEncoder_0`` and ``FlowDecoder_0``. A frame whose
     sides are not multiples of 64 raises in the warp, as in the reference:
-    a level's upsampled flow then misses the next level's extent."""
+    a level's upsampled flow then misses the next level's extent.
+    ``arithmetic`` (``fused``, ``est_input``, ``distribute_outputs``,
+    ``upfeat_impl``, ``upsample_impl``) goes to the decoder
+    (``CoarseToFineDecoder``)."""
 
     def __init__(self, encoder_channels: Sequence[int] = (16, 32, 64, 96, 128, 196),
                  max_disp: int = 4,
                  est_channels: Sequence[int] = (128, 128, 96, 64, 32),
                  ctx_channels: Sequence[int] = (128, 128, 128, 96, 64, 32),
                  corr_impl: str | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, **arithmetic):
         super().__init__()
         self.encoder = PyramidEncoder(encoder_channels)
         self.flow = FlowDecoder(encoder_channels, max_disp, est_channels,
-                                ctx_channels, corr_impl=corr_impl)
+                                ctx_channels, corr_impl=corr_impl,
+                                **arithmetic)
         self.to(dtype=dtype, memory_format=torch.channels_last)
 
     def forward(self, im1, im2):

@@ -19,7 +19,8 @@ projection upsampled to level 2; two conv blocks (``refine``,
 ``Conv_3``) give the logits, resized to full resolution.
 
 Either head's classifier runs in float32 whatever the trunk's type, so the
-logits keep full precision.
+logits keep full precision; the other convs round as the reference's
+``nn.Conv`` in bf16 (``FlaxConv2d``: the product, then the bias).
 
 On a spatial mesh (``spatial``, ``models/common.py``'s ``set_spatial``) a
 head runs on its band of rows: the conv blocks, the 3x3 classifier and the
@@ -38,6 +39,7 @@ import torch.nn as nn
 
 from cerberusnet_torch.models.common import (
     ConvBlock,
+    FlaxConv2d,
     band_conv,
     leaky,
     nhwc,
@@ -64,7 +66,7 @@ class SegmentationHead(nn.Module):
                  num_classes: int = 19, fpn_channels: int = 96):
         super().__init__()
         self.laterals = nn.ModuleList(
-            nn.Conv2d(encoder_channels[level - 1], fpn_channels, 1)
+            FlaxConv2d(encoder_channels[level - 1], fpn_channels, 1)
             for level in SEG_LEVELS)
         self.smooth = nn.ModuleList(
             ConvBlock(fpn_channels, fpn_channels) for _ in SEG_LEVELS[1:])
@@ -93,10 +95,10 @@ class ASPPSegmentationHead(nn.Module):
         cin = encoder_channels[level - 1]
         self.branches = nn.ModuleList(
             ConvBlock(cin, channels, dilation=r) for r in rates)
-        self.pool = nn.Conv2d(cin, channels, 1)
-        self.project = nn.Conv2d((len(rates) + 1) * channels, channels, 1)
-        self.skip = nn.Conv2d(encoder_channels[skip_level - 1],
-                              skip_channels, 1)
+        self.pool = FlaxConv2d(cin, channels, 1)
+        self.project = FlaxConv2d((len(rates) + 1) * channels, channels, 1)
+        self.skip = FlaxConv2d(encoder_channels[skip_level - 1],
+                               skip_channels, 1)
         self.refine = nn.ModuleList([
             ConvBlock(channels + skip_channels, channels),
             ConvBlock(channels, channels)])

@@ -2,7 +2,7 @@
 
     python3 -m cerberusnet_torch.trace_forward [--variant cerberus_dcv|cerberus_raft]
         [--train [--config configs/....json]] [--corr-impl plain]
-        [--pallas-levels N] [--raft-lookup gather]
+        [--pallas-levels N] [--raft-lookup gather] [--unfused] [--hw H W]
 
 Runs a default-width joint model (``--variant``: ``cerberus``, the
 default, ``cerberus_dcv`` or ``cerberus_raft``) under ``torch.profiler``
@@ -12,7 +12,12 @@ for 5 calls after warmup: a bf16 forward at 512x1024, batch 1, through
 variant's own experiment (``TRAIN_CONFIGS``). ``--pallas-levels N`` runs
 CerberusNet's first N encoder levels as fused kernels (a train step with
 their reverse-sweep kernel); ``--raft-lookup`` sets CerberusRAFT's volume
-lookup (by default the config's, or ``entry``'s onehot). Prints one JSON
+lookup (by default the config's, or ``entry``'s onehot); ``--unfused``
+builds the PWC and DCV models' naive estimators (``model.fused`` False)
+in place of the reference's default fused ones; ``--hw`` sets the
+forward's frame (an H that is no multiple of 64, such as RAFT's 368x768
+crops, takes the FPN head's resizes off the power-of-2 ratios). Prints
+one JSON
 line: wall ms per call, the device's kernel time per call by category
 (the fused encoder levels, convolutions, the correlation kernels, warp
 gathers and their backward's scatters, bilinear resizes, concatenations,
@@ -197,6 +202,11 @@ def main(argv=None) -> int:
                     help="CerberusNet's encoder levels run as fused kernels")
     ap.add_argument("--raft-lookup", choices=["onehot", "gather"],
                     default=None, help="CerberusRAFT's volume lookup")
+    ap.add_argument("--unfused", action="store_true",
+                    help="the PWC and DCV variants' naive estimators "
+                         "(model.fused False)")
+    ap.add_argument("--hw", type=int, nargs=2, default=(512, 1024),
+                    help="the forward's frame height and width")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_forward: no CUDA device", file=sys.stderr)
@@ -214,6 +224,8 @@ def main(argv=None) -> int:
                   "pallas_grad": "pallas"} if args.pallas_levels else {})
         if args.raft_lookup:
             model["raft_lookup"] = args.raft_lookup
+        if args.unfused:
+            model["fused"] = False
         trainer, (batch,) = train_entry(config, corr_impl=args.corr_impl,
                                         optim={"schedule": "constant"},
                                         model=model)
@@ -226,7 +238,9 @@ def main(argv=None) -> int:
                 else {})
         forward, imgs = entry(corr_impl=args.corr_impl,
                               variant=args.variant,
-                              pallas_levels=args.pallas_levels, **raft)
+                              pallas_levels=args.pallas_levels,
+                              hw=tuple(args.hw), model_kw={"fused": False} if args.unfused
+                              else None, **raft)
 
         def call():
             forward(*imgs)
@@ -260,7 +274,9 @@ def main(argv=None) -> int:
                         else args.raft_lookup or "onehot")
         if args.variant == "cerberus_raft" else None,
         "corr_impl": args.corr_impl or "kernel",
-        "pallas_levels": args.pallas_levels, "runs": RUNS,
+        "pallas_levels": args.pallas_levels, "fused": not args.unfused,
+        "hw": None if args.train else list(args.hw),
+        "runs": RUNS,
         "wall_ms_per_call": wall_ms,
         "device_kernel_ms_per_call": busy,
         "device_idle_share": 1.0 - busy / wall_ms if busy else None,

@@ -6,8 +6,8 @@ The same dataclass tree, the same keys and the same defaults, so every
 unknown key raises ``ValueError`` as in the reference.
 
 Parsing accepts every value. ``ExperimentConfig.check_supported()``, which
-the ``Trainer`` calls, raises ``NotImplementedError`` naming the ROADMAP
-item for a value the port does not run yet; it builds the model variants
+the ``Trainer`` calls, raises the reference's ``ValueError`` for a model
+variant or a dataset it does not know; the port builds the model variants
 in ``VARIANTS`` (``seg_head`` "fpn" or "aspp" for the joint models and
 ``seg``) and reads the datasets in ``DATASETS`` (``data.root``; Sintel's
 pass ``data.render_pass``), with every loss term (``loss.rmi_weight``,
@@ -24,18 +24,24 @@ bands may differ in height, ``parallel/mesh.py``). ``model.pallas_levels``
 runs CerberusNet's first N encoder levels as fused kernels (K9) and
 ``model.pallas_grad`` selects their backward: ``"pallas"`` the
 reverse-sweep kernel (K10), ``"xla"`` the plain convolutions recomputed;
-the DCV and RAFT variants ignore both, as the reference does. The RAFT variants (``raft``, ``raft_stereo``,
+the DCV and RAFT variants ignore both, as the reference does.
+``model.fused`` (the PWC and DCV models), ``est_input``,
+``distribute_outputs`` and ``upsample_impl`` (CerberusNet) choose the
+decoders' arithmetic, which rounds otherwise in bf16
+(``models/flow.py``); ``train.qat`` and
+int8 export rebuild the model with ``fused`` False, as the reference
+does. The RAFT variants (``raft``, ``raft_stereo``,
 ``cerberus_raft``) read the ``raft_*`` keys, ``raft_lookup`` choosing the
 volume lookup (``"onehot"`` or ``"gather"``, the same function), and their
 losses ``loss.seq_gamma``. Keys that only steer XLA's program in the
 reference, with the same arithmetic and the same parameter tree whatever
-their value, are accepted and have no effect here:
-``model.fused``, ``corr_stack``, ``distribute_outputs``, ``upfeat_impl``,
-``upsample_impl``, ``batched_encoder``, ``s2d_stem``, ``stem_pad_channels``,
+their value, are accepted and have no effect here: ``corr_stack``,
+``upfeat_impl`` (two lowerings of one rounding, ``models/flow.py``),
+``batched_encoder``, ``s2d_stem``, ``stem_pad_channels``,
 ``s2d_levels`` (for CerberusNet each raises ``ValueError`` beside
 ``pallas_levels``, as the reference's encoder does), ``entry_grad``,
-``est_input``, ``raft_unroll`` (``nn.scan`` or an unrolled loop over one
-parameter tree) and ``optim.flatten``.
+``raft_unroll`` (``nn.scan`` or an unrolled loop over one parameter tree)
+and ``optim.flatten``.
 """
 
 from __future__ import annotations
@@ -237,10 +243,9 @@ class ExperimentConfig:
         )
 
     def check_supported(self):
-        """Raises NotImplementedError for the first value the port does not
-        run yet, naming its ROADMAP item, and ValueError for CerberusNet's
-        fused levels beside the s2d knobs and for an unknown
-        ``optim.grads_dtype``."""
+        """Raises the reference's ValueError for an unknown model variant
+        or dataset, for CerberusNet's fused levels beside the s2d knobs
+        and for an unknown ``optim.grads_dtype``."""
         m, d, o = self.model, self.data, self.optim
         if m.variant == "cerberus" and m.pallas_levels and (
                 m.s2d_levels or m.s2d_stem or m.stem_pad_channels):
@@ -250,11 +255,7 @@ class ExperimentConfig:
             raise ValueError(
                 f"optim.grads_dtype must be 'float32' or 'bfloat16', "
                 f"got {o.grads_dtype!r}")
-        checks = (
-            (m.variant not in VARIANTS, f"model.variant={m.variant!r}", "A8"),
-            (d.dataset not in DATASETS, f"data.dataset={d.dataset!r}", "A6"),
-        )
-        for bad, what, item in checks:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
+        if m.variant not in VARIANTS:
+            raise ValueError(f"unknown model variant {m.variant!r}")
+        if d.dataset not in DATASETS:
+            raise ValueError(f"unknown dataset {d.dataset!r}")

@@ -151,20 +151,28 @@ def build_model(cfg: ModelConfig, corr_impl: str | None,
     every ``raft_*`` key, the joint models and ``SegNet`` take
     ``seg_head``, and only CerberusNet's encoder takes ``pallas_levels``
     and ``pallas_grad`` (the RAFT models and ``SegNet`` have no
-    correlation kernel, so no ``corr_impl`` either). The model's forward
+    correlation kernel, so no ``corr_impl`` either). The PWC and DCV
+    models take ``fused``, and CerberusNet alone ``est_input``,
+    ``distribute_outputs``, ``upfeat_impl`` and ``upsample_impl`` (the
+    single-task ones keep their decoders' defaults, as there). The model's forward
     takes the batch's tensors under the input keys, in order, and returns
     the output dict of its heads."""
     common = dict(encoder_channels=tuple(cfg.encoder_channels),
                   est_channels=tuple(cfg.est_channels),
                   ctx_channels=tuple(cfg.ctx_channels), corr_impl=corr_impl,
-                  dtype=dtype)
+                  dtype=dtype, fused=cfg.fused)
     seg = dict(num_classes=cfg.num_classes, fpn_channels=cfg.fpn_channels,
                seg_head=cfg.seg_head)
     if cfg.variant == "cerberus":
         return CerberusNet(max_disp_full=cfg.max_disp_full,
                            flow_max_disp=cfg.flow_max_disp,
                            pallas_levels=cfg.pallas_levels,
-                           pallas_grad=cfg.pallas_grad, **seg, **common), (
+                           pallas_grad=cfg.pallas_grad,
+                           est_input=cfg.est_input,
+                           distribute_outputs=cfg.distribute_outputs,
+                           upfeat_impl=cfg.upfeat_impl,
+                           upsample_impl=cfg.upsample_impl, **seg,
+                           **common), (
                                "left", "right", "temporal")
     if cfg.variant == "cerberus_dcv":
         return CerberusDCV(flow_max_disp=cfg.flow_max_disp, **seg,
@@ -402,8 +410,9 @@ class Trainer:
     fixed; every forward of the trainer (the loss, evaluation, TTA, the
     panels) runs the convs fake-quantized against them. CerberusNet's
     fused levels rebuild as plain ones (``model.pallas_levels`` becomes 0
-    in the config, as there): the fake quantization replaces the convs'
-    forwards, which the fused levels do not call.
+    in the config, as there) and the fused estimators as the naive ones
+    (``model.fused`` becomes False, as there): the fake quantization
+    replaces the convs' forwards, which neither fused form calls.
     ``train.debug_nans`` raises ``FloatingPointError`` at the first
     operator that outputs a NaN in a step (forward, backward, update) or
     an evaluation forward.
@@ -448,8 +457,9 @@ class Trainer:
     def __init__(self, config: ExperimentConfig, device="cuda"):
         config.check_supported()
         extents = check_spatial_mesh(config)
-        if config.train.qat and config.model.pallas_levels:
+        if config.train.qat:
             config.model.pallas_levels = 0
+            config.model.fused = False
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -993,8 +1003,9 @@ class Trainer:
         has. Every variant exports. Returns ``out_dir``.
 
         ``quant="int8"`` is the reference's TensorRT int8 build: the model
-        rebuilt with plain encoder levels (its fused levels do not call
-        the convs' forwards) is calibrated on ``calib_batches`` training
+        rebuilt with plain encoder levels and naive estimators (its fused
+        levels and fused estimators do not call the convs' forwards) is
+        calibrated on ``calib_batches`` training
         batches of ``batch`` (or, after QAT, takes its trained ranges),
         quantized from the float32 weights with ``quant_skip`` left float
         and the float weights stripped, and exported with its int8 convs.
@@ -1029,14 +1040,16 @@ class Trainer:
                      calib_batches: int = 2, quant_skip: tuple = ()):
         """The model ``export`` exports, in evaluation mode: a new one of
         this config's with the evaluation weights and, with
-        ``quant="int8"``, plain encoder levels and the ``quant`` entries
+        ``quant="int8"``, plain encoder levels, naive estimators
+        (``fused=False``) and the ``quant`` entries
         (the float weights of the quantized convs stripped)."""
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r} (expected "
                              "'int8')")
         m = self.config.model
         model, _ = build_model(
-            dataclasses.replace(m, pallas_levels=0) if quant else m,
+            dataclasses.replace(m, pallas_levels=0, fused=False) if quant
+            else m,
             self.corr_impl, self.dtype)
         model = model.to(self.device).eval()
         values = self.ema if self.ema is not None else self.masters

@@ -56,7 +56,13 @@ started); any failed check exits non-zero:
            types and finiteness, the pyramids, and 5 + 5 kernel launches per
            request; then the same weights and inputs with the plain
            correlations in bf16 and in float32 (the yardstick), and the
-           eager forward's CUDA-event time
+           eager forward's CUDA-event time; then (serve_arithmetic) the
+           same model with naive estimators (fused=False) against the
+           served reference default (fused=True): float32 heads within
+           1e-3 relative L2, the naive bf16 kernel path by the plain bf16
+           rule against float32, its 5 + 5 kernel launches a request, the
+           two forms' ms a frame in turns and their device launches a
+           forward (torch.profiler)
   stream   cerberusnet_torch.examples.video_stream for each of its models
            (cerberus, dcv, fast: CerberusNet at encoder (16, 24, 32, 48,
            64, 96)), bf16 at 512x1024, 32 frames, 8 latency samples: the
@@ -396,14 +402,16 @@ script's seconds, the card's nvidia-smi line and, last,
 no result. ``--only a,b,...`` runs env, build and the named phases alone
 (the data slice's run after data, and the evaluation slice's after
 flow_data where they need its fixtures), with no summary and no result
-line. The order: env, build, kernels, serve, stream, then bench, whose ms
-per frame it needs (``--only serve,bench``); the deployment phases but the
-runner (export, quant_int8, train_qat, debug_nans), whose artifacts start
-the runner's AOTInductor compiles and g++ builds, which run beside every
-later phase; train, the DCV and pallas_levels phases, fit, then train_dp
-and train_spatial, whose pair of ranks runs its jobs beside the RAFT
-phases, the data slice's and the evaluation slice's (cli the last of
-them) in this process; and the runner last, which waits for the compiles.
+line. The order: env, build; serve, stream, then bench, whose ms per
+frame it needs (``--only serve,bench``), before any compile shares the
+host; export, whose artifacts start the runner's AOTInductor compiles and
+g++ builds, which run beside every later phase; kernels; the other
+deployment phases but the runner (quant_int8,
+whose artifact starts its compile, train_qat, debug_nans); train, the DCV
+and pallas_levels phases, fit, then train_dp and train_spatial, whose
+pair of ranks runs its jobs beside the RAFT phases, the data slice's and
+the evaluation slice's (cli the last of them) in this process; and the
+runner last, which waits for the compiles.
 """
 
 from __future__ import annotations
@@ -1147,6 +1155,74 @@ SERVE = {
 
 # {serve phase: the kernel path's median eager ms per frame}
 SERVE_MS = {}
+# serve_arithmetic: the fused estimators' float32 heads against the naive
+# ones', relative L2 (the two differ by the sums' order alone)
+ARITHMETIC_F32_RTOL = 1e-3
+
+
+def device_launches(fn):
+    """The kernels one call of ``fn`` launches on the card (copies and
+    fills included), as torch.profiler lists them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerberusnet_torch.trace_forward import kernel_table
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(n for n, _ in kernel_table(prof.events()).values())
+
+
+def serve_arithmetic(requests, fused, fused_f32, limits, fwd_launches):
+    """CerberusNet's naive estimators (fused=False) beside the served
+    reference default (fused=True), on the same weights and requests."""
+    from cerberusnet_torch.entry import entry
+
+    naive, _ = entry(model_kw={"fused": False})
+    naive_f32, _ = entry(dtype=torch.float32, corr_impl="plain",
+                         model_kw={"fused": False})
+    errors = []
+    forms = {"fused": fused.model, "naive": naive.model}
+    for form, model in forms.items():
+        flags = {m.fused for m in model.modules() if hasattr(m, "fused")}
+        if flags != {form == "fused"}:
+            errors.append(f"the {form} model's estimators: fused {flags}")
+    want_rise = {k: fwd_launches.get(k, 0) for k in launch_counts()}
+    f32_heads, naive_heads = [], []
+    for i, req in enumerate(requests):
+        out, rise = launch_rise(lambda: naive(*req))
+        if rise != want_rise:
+            errors.append(f"naive request {i}: kernel launches rose by "
+                          f"{rise}")
+        ref, ref_naive = fused_f32(*req), naive_f32(*req)
+        for key in ("seg_logits", "flow", "disp"):
+            d32 = rel_l2(ref_naive[key], ref[key])
+            f32_heads.append({"request": i, "head": key,
+                              "naive_vs_fused_f32": d32})
+            if not d32 <= ARITHMETIC_F32_RTOL:
+                errors.append(f"request {i}: float32 {key} naive against "
+                              f"fused {d32} > {ARITHMETIC_F32_RTOL}")
+            d = rel_l2(out[key], ref[key])
+            limit = limits[i, key]
+            naive_heads.append({"request": i, "head": key,
+                                "naive_bf16_vs_f32": d, "limit": limit})
+            if not d <= limit:
+                errors.append(f"request {i}: naive bf16 {key} rel L2 {d} > "
+                              f"{limit}")
+    req = requests[0]
+    with torch.no_grad():
+        times = turns({"fused": lambda: fused(*req),
+                       "naive": lambda: naive(*req)}, lambda f: f(),
+                      runs=20, warmup=3)
+        launches = {form: device_launches(lambda f=f: f(*req))
+                    for form, f in (("fused", fused), ("naive", naive))}
+    return {"f32_naive_vs_fused": f32_heads,
+            "f32_bound": ARITHMETIC_F32_RTOL,
+            "naive_bf16_vs_f32": naive_heads, "ms_per_frame": times,
+            "device_launches_per_forward": launches}, errors
 
 
 def phase_serve(phase):
@@ -1193,14 +1269,14 @@ def phase_serve(phase):
                          for v in out[key].values()):
                 errors.append(f"request {i}: {key} not finite")
 
-    distances = []
+    distances, limits = [], {}
     for i, req in enumerate(requests):
         ref = plain_f32(*req)
         base = plain_bf16(*req)
         for key in want:
             d_kernel = rel_l2(answers[i][key], ref[key])
             d_plain = rel_l2(base[key], ref[key])
-            limit = 1.5 * d_plain + 1e-3
+            limit = limits[i, key] = 1.5 * d_plain + 1e-3
             distances.append({"request": i, "head": key,
                               "kernel_bf16_vs_f32": d_kernel,
                               "plain_bf16_vs_f32": d_plain, "limit": limit})
@@ -1234,6 +1310,15 @@ def phase_serve(phase):
           "max_memory_allocated_gib": peak_mem, "errors": errors})
     if not ok:
         sys.exit(1)
+    if phase == "serve":
+        arith, arith_errors = serve_arithmetic(requests, forward, plain_f32,
+                                               limits, fwd_launches)
+        emit({"phase": "serve_arithmetic", "ok": not arith_errors,
+              "variant": variant, "hw": list(HW), "dtype": "bfloat16",
+              **arith, "timing": "CUDA events around one forward, the two "
+              "forms in turns", "errors": arith_errors})
+        if arith_errors:
+            sys.exit(1)
     return launches
 
 
@@ -1907,6 +1992,10 @@ def phase_train(phase):
             "runs": sum(p["runs"] for p in parts)}
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
     int8_export = None
+    if train.get("qat") and any(
+            getattr(m, "fused", False) for m in trainer.model.modules()):
+        errors.append("QAT trains fused estimators: the fake quantization "
+                      "does not see their convs")
     if extra.get("export_int8"):
         import tempfile
 
@@ -4208,7 +4297,9 @@ def phase_quant_int8(card, root):
     from cerberusnet_torch.quant import ptq
 
     errors = []
-    model = seeded_model()
+    # the reference's int8 rebuild: naive estimators, whose convs the
+    # calibration and the interception see
+    model = seeded_model(fused=False)
     kernels = {n[:-len(".weight")]: p.detach() for n, p in
                seeded_model(dtype=torch.float32).named_parameters()
                if n.endswith(".weight")}
@@ -4228,6 +4319,10 @@ def phase_quant_int8(card, root):
     freed = before - torch.cuda.memory_allocated()
     del kernels
     names = ptq.quantized_convs(model)
+    n_convs = len(ptq._convs(model))
+    if len(names) != n_convs:
+        errors.append(f"{len(names)} of the naive model's {n_convs} convs "
+                      f"quantized")
 
     # im2col of each int8 conv in one forward: its int8 bytes
     cols = []
@@ -4473,12 +4568,13 @@ def runner_artifact(root, name):
 
 
 def int8_model():
-    """quant_int8's int8 CerberusNet: seed 0's model calibrated on the
-    CALIB_SEEDS frames and quantized from its float32 weights, stripped."""
+    """quant_int8's int8 CerberusNet: seed 0's model with naive
+    estimators (``fused=False``) calibrated on the CALIB_SEEDS frames and
+    quantized from its float32 weights, stripped."""
     from cerberusnet_torch.entry import make_frames
     from cerberusnet_torch.quant import calibrate, quantize
 
-    model = seeded_model()
+    model = seeded_model(fused=False)
     kernels = {n[:-len(".weight")]: p.detach() for n, p in
                seeded_model(dtype=torch.float32).named_parameters()
                if n.endswith(".weight")}
@@ -6127,24 +6223,30 @@ def main(argv):
     if peaks is None:
         fail("env", f"no published peaks known for {name!r}")
     phase_build()
-    spin_rate = sleep_cycles_per_ms()
-    checks = phase_kernels(peaks, spin_rate) if wanted("kernels") else []
     counts = {}
-    if wanted("serve"):
-        counts["serve"] = phase_serve("serve")
-    if wanted("stream"):
-        counts.update(phase_stream(card))
-    if wanted("bench"):
-        if "serve" not in SERVE_MS:
-            fail("bench", "needs serve's ms per frame from the same run: "
-                          "--only serve,bench")
-        counts["bench"] = phase_bench(card, peaks)
-    # the deployment slice's artifacts, kept to the runner phase, which
-    # comes last: its AOTInductor compiles (minutes of host work) start as
-    # soon as their artifacts exist and run beside the phases in between
+    # serve, stream and bench time host-bound forwards against each other
+    # (bench's band against serve, serve_arithmetic's fused against naive),
+    # so they run first, before any compile shares the host. The deployment
+    # slice's artifacts are kept to the runner phase, which comes last: its
+    # AOTInductor compiles (minutes of host work, the float artifacts' the
+    # longest chain of the script) start as soon as their artifacts exist,
+    # so export runs next, and they run beside every later phase
     root = tempfile.mkdtemp(prefix="cerberus_deploy_")
     try:
-        batches = deployment_phases(card, counts, wanted, root)
+        if wanted("serve"):
+            counts["serve"] = phase_serve("serve")
+        if wanted("stream"):
+            counts.update(phase_stream(card))
+        if wanted("bench"):
+            if "serve" not in SERVE_MS:
+                fail("bench", "needs serve's ms per frame from the same "
+                              "run: --only serve,bench")
+            counts["bench"] = phase_bench(card, peaks)
+        batches = export_phases(card, counts, wanted, root)
+        spin_rate = sleep_cycles_per_ms()
+        checks = (phase_kernels(peaks, spin_rate) if wanted("kernels")
+                  else [])
+        batches += deployment_phases(card, counts, wanted, root)
         for phase in ("train", "serve_dcv", "train_dcv",
                       "serve_pallas_levels", "train_pallas_levels"):
             if wanted(phase):
@@ -6204,12 +6306,11 @@ def record_launches(counts, runs):
                    for phase, launches in runs.items()})
 
 
-def deployment_phases(card, counts, wanted, root):
-    """The deployment slice's phases but the runner, their artifacts under
-    root; counts gains each path's launches. Starts the runner's
-    AOTInductor compiles as soon as their artifacts exist (the four float
-    ones, one after the other and the longer chain, after export, int8's
-    after quant_int8) and returns them (``start_packaging``'s)."""
+def export_phases(card, counts, wanted, root):
+    """The export phase, its artifacts under root; counts gains each
+    artifact's launches. Starts the runner's AOTInductor compiles of the
+    four float artifacts, one after the other (the longest chain), and
+    returns them (``start_packaging``'s)."""
     runs, batches = {}, []
     if wanted("export"):
         runs.update({f"export_{k}": v
@@ -6217,6 +6318,16 @@ def deployment_phases(card, counts, wanted, root):
         if wanted("runner"):
             batches.append(start_packaging(
                 root, [n for n in RUNNER_ARTIFACTS if n != "int8"]))
+    record_launches(counts, runs)
+    return batches
+
+
+def deployment_phases(card, counts, wanted, root):
+    """The deployment slice's other phases but the runner, their artifacts
+    under root; counts gains each path's launches. Starts the runner's
+    AOTInductor compile of int8's artifact after quant_int8 and returns it
+    (``start_packaging``'s)."""
+    runs, batches = {}, []
     if wanted("quant_int8"):
         runs.update(phase_quant_int8(card, root))
         if wanted("runner"):

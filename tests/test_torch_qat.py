@@ -77,7 +77,9 @@ def as_torch(batch):
 
 
 def port_model(params):
-    return load_flax_params(CerberusNet(**TINY), params).eval()
+    """The port's tiny model in the JAX side's form: naive estimators
+    (``fused=False``), whose convs the interception sees."""
+    return load_flax_params(CerberusNet(**TINY, fused=False), params).eval()
 
 
 def by_path(ema: dict, paths: dict) -> dict:

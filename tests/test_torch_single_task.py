@@ -49,7 +49,11 @@ from cerberusnet_torch.data.loader import batches
 from cerberusnet_torch.data.synthetic import SyntheticPerceptionDataset
 from cerberusnet_torch.entry import REPO_ROOT, entry
 from cerberusnet_torch.models.cerberus import CerberusNet
-from cerberusnet_torch.models.dcv_flow import CerberusDCV
+from cerberusnet_torch.models.dcv_flow import (
+    CerberusDCV,
+    DCVFlowNet,
+    DCVStereoNet,
+)
 from cerberusnet_torch.models.disparity import StereoNet
 from cerberusnet_torch.models.flow import FlowNet
 from cerberusnet_torch.models.raft import CerberusRAFT, keep_tied_float32
@@ -222,6 +226,45 @@ def test_joint_model_with_aspp_head_matches_jax(reference, name, dtype):
             jax_gap, port_gap = rel(want[k], want32[k]), rel(got[k],
                                                              want32[k])
             assert port_gap <= 2 * jax_gap + 1e-3, (k, port_gap, jax_gap)
+
+
+# the naive estimators (fused=False): model, the joint model whose JAX
+# run and parameters it takes, the frames it reads (left, right, temporal)
+UNFUSED = {
+    "CerberusNet": (lambda: CerberusNet(fused=False, **_seg("aspp"), **DEC),
+                    "CerberusNet_aspp", (0, 1, 2)),
+    "CerberusDCV": (lambda: CerberusDCV(fused=False, **_seg("aspp"), **DEC),
+                    "CerberusDCV_aspp", (0, 1, 2)),
+    "FlowNet": (lambda: FlowNet(encoder_channels=ENC, fused=False, **DEC),
+                "CerberusNet_aspp", (0, 2)),
+    "StereoNet": (lambda: StereoNet(encoder_channels=ENC, fused=False,
+                                    **DEC), "CerberusNet_aspp", (0, 1)),
+    "DCVFlowNet": (lambda: DCVFlowNet(encoder_channels=ENC, fused=False,
+                                      **DEC), "CerberusDCV_aspp", (0, 2)),
+    "DCVStereoNet": (lambda: DCVStereoNet(encoder_channels=ENC, fused=False,
+                                          **DEC), "CerberusDCV_aspp",
+                     (0, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(UNFUSED))
+def test_unfused_float32_outputs_match_jax(reference, name):
+    """The models with ``fused=False`` (each estimator conv and predictor
+    one conv over the concatenated stack) against the JAX joint model's
+    float32 outputs (its fused form, which its own tests hold to its naive
+    one within 1e-5) within 1e-4: the joint models whole, each single-task
+    model on the frames and with the parameters of its head there."""
+    make, joint, takes = UNFUSED[name]
+    params, _, want, _ = reference(joint, "float32", grads=False)
+    model = load_flax_params(make().eval(), params)
+    imgs = frames(3)
+    with torch.no_grad():
+        got = flat(model(*[torch.from_numpy(imgs[i]) for i in takes]))
+    assert got and set(got) <= set(want)
+    for k in got:
+        assert got[k].shape == want[k].shape, k
+        err = np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1)
+        assert err <= 1e-4, (name, k, err)
 
 
 @pytest.mark.parametrize("name", SINGLE)

@@ -143,15 +143,18 @@ def test_unknown_key_raises():
         ExperimentConfig.from_dict({"optim": {"lr_typo": 1.0}})
 
 
-@pytest.mark.parametrize("values,item", [
-    ({"model": {"variant": "pwc"}}, "A8"),
-], ids=["model-variant-pwc-A8"])
-def test_unported_values_raise(values, item):
+@pytest.mark.parametrize("values,message", [
+    ({"model": {"variant": "pwc"}}, "unknown model variant 'pwc'"),
+    ({"data": {"dataset": "imagenet"}}, "unknown dataset 'imagenet'"),
+], ids=["model-variant-pwc-A8", "data-dataset-imagenet"])
+def test_unported_values_raise(values, message):
+    """The reference's ValueErrors for a variant or a dataset that neither
+    package knows."""
     raw = tiny_config_dict()
     for section, entries in values.items():
         raw[section].update(entries)
     cfg = ExperimentConfig.from_dict(raw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=message):
         Trainer(cfg, device="cpu")
 
 
