@@ -251,10 +251,12 @@ def launches_of_one_call(row, device) -> dict:
             if v != before[k]}
 
 
-def measure(row, iters, device, rounds=ROUNDS, peaks=None) -> dict:
+def measure(row, iters, device, rounds=ROUNDS, peaks=None,
+            between=None) -> dict:
     """The row's fps (median, band, rounds), FLOPs per frame and MFU (None
     without ``peaks``), and launches per call. Raises where the kernels'
-    launches differ from the row's on the card."""
+    launches differ from the row's on the card. ``between()`` runs before
+    each timed round (``time_fn_two_point_rounds``)."""
     launches = launches_of_one_call(row, device)
     if torch.device(device).type == "cuda" and launches != {
             k: v for k, v in row.launches.items() if v}:
@@ -263,7 +265,8 @@ def measure(row, iters, device, rounds=ROUNDS, peaks=None) -> dict:
     per_frame = flops.count(lambda: row.fn(*row.args), device) / row.frames
     secs = benchutil.time_fn_two_point_rounds(
         row.fn, row.args, iters=(2, 2 + iters), reduce_out=row.reduce_out,
-        rounds=rounds, clock=benchutil.default_clock(device))
+        rounds=rounds, clock=benchutil.default_clock(device),
+        between=between)
     st = benchutil.stats(secs, row.frames)
     peak = peaks and peaks["bf16" if row.dtype == torch.bfloat16 else "f32"]
     return {**st, "flops": per_frame,

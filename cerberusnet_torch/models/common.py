@@ -13,9 +13,9 @@ H padding becomes a halo of as many rows, zeros at the frame's top and
 bottom (``band_conv``, and the stride-2 block's row below), and a bilinear
 resize keeps its band of the frame's output, reading the rows it needs
 edge-filled (``upsample2x``, ``upsample_to``; one row each side at an
-integer ratio). Without a mesh (``spatial`` None,
-one process) every module runs its own padding, as before the axis
-existed.
+integer ratio) and rounding as the frame's resize rounds. Without a mesh
+(``spatial`` None, one process) every module runs its own padding, as
+before the axis existed.
 """
 
 from __future__ import annotations
@@ -42,6 +42,55 @@ def leaky(x):
     return F.leaky_relu(x, BF16_SLOPE if x.dtype == torch.bfloat16 else 0.1)
 
 
+class _Sigmoid(torch.autograd.Function):
+    """flax's ``nn.sigmoid`` in a type narrower than float32, as XLA
+    computes it there: 1 / (1 + exp(-x)), each op rounded to the type; its
+    backward g (y (1 - y)), each product rounded (``torch.sigmoid`` rounds
+    once: 29-41% of the GRU gates' bf16 outputs differed from flax's,
+    ``scripts/raft_bf16_op_compare.py``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+class _Tanh(torch.autograd.Function):
+    """``torch.tanh`` (whose bf16 outputs are flax's) with the backward XLA
+    computes for ``jnp.tanh``: a = g (1 - y), then a + a y, each op rounded
+    to the type (autograd's ``tanh_backward`` rounds once)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        a = g * (1.0 - y)
+        return a + a * y
+
+
+def sigmoid(x):
+    """The logistic function, rounding as flax's ``nn.sigmoid`` forward and
+    backward (``_Sigmoid``); in float32 and float64 ``torch.sigmoid``."""
+    return torch.sigmoid(x) if x.dtype.itemsize >= 4 else _Sigmoid.apply(x)
+
+
+def tanh(x):
+    """tanh, rounding as ``jnp.tanh`` forward and backward (``_Tanh``); in
+    float32 and float64 ``torch.tanh``."""
+    return torch.tanh(x) if x.dtype.itemsize >= 4 else _Tanh.apply(x)
+
+
 def set_spatial(model: nn.Module, mesh) -> nn.Module:
     """Gives every module of ``model`` that reads across rows the mesh
     ``mesh`` when it splits rows over more than one rank, else None (each
@@ -54,7 +103,7 @@ def set_spatial(model: nn.Module, mesh) -> nn.Module:
 
 
 def _band_resize(x, rows: int, width: int, spatial, factor: int = 0,
-                 heights: tuple = ()):
+                 heights: tuple = (), impl: str = "resize"):
     """Bilinear resize of a band of ``x`` to ``width`` columns and
     ``rows`` rows, the whole frame's resize cut to this rank's band.
 
@@ -67,34 +116,41 @@ def _band_resize(x, rows: int, width: int, spatial, factor: int = 0,
     rows (h' the target frame's; clamped at its edges, as ``F.interpolate``
     and ``jax.image.resize`` upsample): the rows it reads come through
     ``halo_rows`` ("edge"), weighed by the frame's scale in float32
-    (float64 for a float64 ``x``), which the result is rounded from once."""
+    (float64 for a float64 ``x``), which the result is rounded from once.
+    In a narrower type the band rounds as ``_resize`` rounds the frame:
+    each axis contracted alone and rounded, in the frame's order
+    (``_band_rows``). ``impl="phase"`` (f = 2): the reference's
+    ``upsample2x_phase`` on the band, H then W, in every type."""
     hb = x.shape[2]
-    if not factor:
-        src = spatial.band_heights(hb)
-        dst = spatial.band_heights(rows)
-        hs, s0 = sum(src), spatial.band_start(hb)
-        hd, d0 = sum(dst), spatial.band_start(rows)
-        # every peer's band f times its own, or every peer the general way
-        if all(b * hs == a * hd for a, b in zip(src, dst)) and hd % hs == 0:
-            factor = hd // hs
+    src = tuple(heights) or spatial.band_heights(hb)
+    dst = (tuple(factor * b for b in src) if factor
+           else spatial.band_heights(rows))
+    hs, hd = sum(src), sum(dst)
+    s0 = sum(src[:spatial.spatial_rank])
+    # every peer's band f times its own, or every peer the general way
+    if not factor and all(b * hs == a * hd for a, b in zip(src, dst)) \
+            and hd % hs == 0:
+        factor = hd // hs
+    if impl == "phase":
+        y = _up2_phase(halo_rows(x, 1, 1, spatial, "edge", heights=src), 2)
+        return _layout_of(_up2_phase(y.narrow(2, 2, rows), 3), x)
+    if x.dtype.itemsize < 4:
+        w, ww = x.shape[3], width
+        if hs * w * hd + hd * w * ww <= hs * w * ww + hs * hd * ww:
+            y = _resize_axis(_band_rows(x, src, dst, spatial), 3, ww)
+        else:
+            y = _band_rows(x, src, dst, spatial, ww)
+        return _layout_of(y, x)
     if factor:
-        y = F.interpolate(halo_rows(x, 1, 1, spatial, "edge",
-                                    heights=heights),
-                          size=(factor * (hb + 2), width), mode="bilinear",
-                          align_corners=False)
-        return y.narrow(2, factor, rows)
+        return _interpolate_rows(
+            halo_rows(x, 1, 1, spatial, "edge", heights=src), factor, width)
 
     def source(j):  # the frame row output row j reads first
         return max(math.floor((j + 0.5) * (hs / hd) - 0.5), 0)
 
-    # one halo for every peer (an exchange takes pieces of one shape): the
-    # most rows any band reads above and below its own
-    top = bottom = 0
-    for r in range(spatial.spatial_size):
-        a, b = sum(src[:r]), sum(dst[:r])
-        top = max(top, a - source(b))
-        bottom = max(bottom, min(source(b + dst[r] - 1) + 1, hs - 1)
-                     - (a + src[r] - 1))
+    top, bottom = _halo_extent(src, dst, spatial, lambda b, n: (
+        source(b), min(source(b + n - 1) + 1, hs - 1)))
+    d0 = sum(dst[:spatial.spatial_rank])
     pos = torch.arange(d0, d0 + rows, dtype=torch.float64)
     pos = ((pos + 0.5) * (hs / hd) - 0.5).clamp_min(0.0)
     lo = pos.floor().long()
@@ -106,9 +162,84 @@ def _band_resize(x, rows: int, width: int, spatial, factor: int = 0,
     y = (y.index_select(2, lo) * (1.0 - lam) + y.index_select(2, hi) * lam)
     y = F.interpolate(y, size=(rows, width), mode="bilinear",
                       align_corners=False).to(x.dtype)
+    return _layout_of(y, x)
+
+
+def _layout_of(y, x):
+    """``y`` in ``x``'s memory format (channels last or contiguous)."""
     if x.is_contiguous(memory_format=torch.channels_last):
-        y = y.contiguous(memory_format=torch.channels_last)
+        return y.contiguous(memory_format=torch.channels_last)
     return y
+
+
+def _interpolate_rows(y, f: int, width: int):
+    """A band ``y`` with one edge-filled row of halo each side,
+    interpolated to f times as many rows and ``width`` columns, f rows of
+    each of its own kept: its band of the frame's resize where every band
+    is f times its peer's."""
+    hb = y.shape[2] - 2
+    y = F.interpolate(y, size=(f * (hb + 2), width), mode="bilinear",
+                      align_corners=False)
+    return y.narrow(2, f, f * hb)
+
+
+def _halo_extent(src: tuple, dst: tuple, spatial, reads):
+    """(top, bottom): the most frame rows any peer's band of ``dst`` reads
+    above and below its band of ``src`` (one halo for every peer: an
+    exchange takes pieces of one shape); ``reads(b, n)`` gives the first
+    and last frame rows that output rows b .. b + n - 1 read."""
+    top = bottom = 0
+    for r in range(spatial.spatial_size):
+        a = sum(src[:r])
+        first, last = reads(sum(dst[:r]), dst[r])
+        top = max(top, a - first)
+        bottom = max(bottom, last - (a + src[r] - 1))
+    return top, bottom
+
+
+def _band_rows(x, src: tuple, dst: tuple, spatial, width: int = 0):
+    """This rank's band of ``_resize_axis(frame, 2, sum(dst))``, the frame
+    whose peers' bands of rows are ``src`` (``x`` this rank's), cut to the
+    peers' bands ``dst``: a power-of-2 factor f between every band and its
+    peer's is ``_interpolate_rows``; else the frame's weights
+    (``_resize_weights``) rounded to ``x``'s type, of the output rows of
+    the band and the frame rows they read (those beyond the frame's edges
+    weigh 0), the products summed in float32 and rounded to the type.
+    ``width``: the frame resized along W to ``width`` columns first; that
+    contraction is row-local, so it runs after the halo exchange, which
+    moves the narrower rows."""
+    hs, hd = sum(src), sum(dst)
+
+    def along_w(y):
+        return _resize_axis(y, 3, width) if width else y
+
+    if src == dst:
+        return along_w(x)
+    f = hd // hs
+    if all(b == f * a for a, b in zip(src, dst)) and f & (f - 1) == 0:
+        y = along_w(halo_rows(x, 1, 1, spatial, "edge", heights=src))
+        return _interpolate_rows(y, f, y.shape[3])
+    weights = _resize_weights(hs, hd)
+
+    def reads(b, n):
+        rows = np.flatnonzero(weights[:, b:b + n].any(1))
+        return int(rows[0]), int(rows[-1])
+
+    top, bottom = _halo_extent(src, dst, spatial, reads)
+    rank = spatial.spatial_rank
+    first = sum(src[:rank]) - top  # the frame row of the halo's first
+
+    def band_weights():
+        n = top + src[rank] + bottom
+        w = np.zeros((n, dst[rank]), np.float32)
+        lo, hi = max(first, 0), min(first + n, hs)
+        d0 = sum(dst[:rank])
+        w[lo - first:hi - first] = weights[lo:hi, d0:d0 + dst[rank]]
+        return w
+
+    w = _device_matrix(("band", src, dst, rank), band_weights, x)
+    y = along_w(halo_rows(x, top, bottom, spatial, "edge", heights=src))
+    return (w.t() @ y.float()).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=64)
@@ -130,19 +261,26 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
 _RESIZE_MATRICES: dict = {}
 
 
-def _resize_matrix(n_in: int, n_out: int, x):
-    """``_resize_weights`` rounded to ``x``'s type, as float32 on ``x``'s
-    device, kept by (sizes, type, device) so that a forward copies nothing
-    from the host (none is kept while a tracer runs the forward)."""
-    key = (n_in, n_out, x.dtype, x.device)
+def _device_matrix(key, weights, x):
+    """``weights()`` (a float32 array) rounded to ``x``'s type, as float32
+    on ``x``'s device, kept by (``key``, type, device) so that a forward
+    copies nothing from the host (none is kept while a tracer runs the
+    forward)."""
+    key = (key, x.dtype, x.device)
     w = _RESIZE_MATRICES.get(key)
     if w is None:
         with torch.inference_mode(False):
-            w = torch.from_numpy(_resize_weights(n_in, n_out)).to(
-                x.dtype).to(device=x.device, dtype=torch.float32)
+            w = torch.from_numpy(weights()).to(x.dtype).to(
+                device=x.device, dtype=torch.float32)
         if type(x) is torch.Tensor and not torch.compiler.is_compiling():
             _RESIZE_MATRICES[key] = w
     return w
+
+
+def _resize_matrix(n_in: int, n_out: int, x):
+    """``_resize_weights`` as ``_device_matrix`` keeps it."""
+    return _device_matrix((n_in, n_out),
+                          lambda: _resize_weights(n_in, n_out), x)
 
 
 def _resize_axis(x, dim: int, n: int):
@@ -203,10 +341,10 @@ def upsample2x(x, spatial=None, heights: tuple = (), impl: str = "resize"):
     ``upsample2x_phase`` (H, then W; in bf16 it rounds otherwise).
     ``spatial``: ``x`` is a band of that mesh, of the peers' ``heights``
     (by default its level's); the result is the band of twice its rows of
-    the frame's x2, computed in float32 and rounded once."""
+    the frame's x2, rounded as the frame's (``_band_resize``)."""
     if spatial is not None:
         return _band_resize(x, 2 * x.shape[2], 2 * x.shape[3], spatial, 2,
-                            heights)
+                            heights, impl)
     if impl == "phase":
         return _up2_phase(_up2_phase(x, 2), 3)
     return _resize(x, (2 * x.shape[2], 2 * x.shape[3]))
@@ -214,8 +352,8 @@ def upsample2x(x, spatial=None, heights: tuple = (), impl: str = "resize"):
 
 def upsample_to(x, hw, spatial=None):
     """Bilinear resize to ``hw`` (``_resize``; with ``spatial``: this
-    rank's band of rows at a level of the frame, computed in float32 and
-    rounded once)."""
+    rank's band of rows at a level of the frame, rounded as the frame's,
+    ``_band_resize``)."""
     if spatial is not None:
         return _band_resize(x, hw[0], hw[1], spatial)
     return _resize(x, hw)

@@ -62,6 +62,8 @@ from cerberusnet_torch.models.common import (
     leaky,
     nchw,
     nhwc,
+    sigmoid,
+    tanh,
 )
 from cerberusnet_torch.models.encoder import PyramidEncoder
 from cerberusnet_torch.models.segmentation import make_seg_head
@@ -316,7 +318,8 @@ def _conv(cin: int, cout: int, k: int, cls=TiedConv2d):
 
 
 class ConvGRU(nn.Module):
-    """3x3 convolutional GRU cell: ``convz``, ``convr``, ``convq``."""
+    """3x3 convolutional GRU cell: ``convz``, ``convr``, ``convq``; its
+    gates round as flax's (``models/common.py``'s ``sigmoid``, ``tanh``)."""
 
     spatial = None
 
@@ -328,9 +331,9 @@ class ConvGRU(nn.Module):
 
     def forward(self, h, x):
         hx = torch.cat([h, x], dim=1)
-        z, r = (torch.sigmoid(y) for y in band_convs(
+        z, r = (sigmoid(y) for y in band_convs(
             (self.convz, self.convr), hx, self.spatial))
-        q = torch.tanh(band_conv(self.convq, torch.cat([r * h, x], dim=1),
+        q = tanh(band_conv(self.convq, torch.cat([r * h, x], dim=1),
                                  self.spatial))
         return (1.0 - z) * h + z * q
 
@@ -445,7 +448,7 @@ class RAFTDecoder(nn.Module):
         f1 = feats1[self.level - 1]
         pyramid = self.volume(f1, feats2[self.level - 1])
         ctx = band_conv(self.context_proj, f1, self.spatial)
-        hidden = torch.tanh(ctx[:, :self.hdim])
+        hidden = tanh(ctx[:, :self.hdim])
         context = torch.relu(ctx[:, self.hdim:])
         b, _, h, w = f1.shape
         grid = self.grid(b, h, w, f1.device)

@@ -249,13 +249,15 @@ def time_fn_two_point(
 def time_fn_two_point_rounds(
     fn, args, iters=(10, 30), reduce_out=None, rounds=3, build=None,
     clock=None, floor: float | None = None,
-    min_ratio: float = SLOPE_MIN_RATIO, warmup: int = 1,
+    min_ratio: float = SLOPE_MIN_RATIO, warmup: int = 1, between=None,
 ):
     """Per-round two-point slopes: after warmup, ``rounds`` rounds of one
     block of n1 and one of n2 calls; returns the positive per-round slopes
     (seconds per iteration). Raises FloorLimitedTiming when fewer than two
     rounds give a positive slope, or when a positive slope is within
-    ``min_ratio`` of the floor (``roundtrip_floor()`` unless given)."""
+    ``min_ratio`` of the floor (``roundtrip_floor()`` unless given).
+    ``between()``, if given, runs before each round, outside its blocks
+    (another timing taken in turns with the rounds)."""
     clock = clock or CudaClock()
     n1, n2 = iters
     runs = _runs(fn, args, iters, reduce_out, build, warmup)
@@ -263,6 +265,8 @@ def time_fn_two_point_rounds(
         floor = roundtrip_floor(clock=clock)
     slopes, walls = [], []
     for _ in range(rounds):
+        if between is not None:
+            between()
         walls = [_timed(clock, run) for run in runs]
         diff = walls[1] - walls[0]
         if diff > 0:

@@ -86,7 +86,9 @@ started); any failed check exits non-zero:
            plain operators, the MFU against the bf16 peak; its control,
            empty launches timed the same way, must raise
            FloorLimitedTiming; its ms per frame within 0.5-2x of serve's
-           median eager forward
+           timing (CUDA events around one eager forward) of the same
+           model and frames, in turns with the bench's rounds (3 turns of
+           10 forwards and two rounds)
   train    5 steps of configs/cerberus_synthetic.json through
            cerberusnet_torch.entry.train_entry (bf16, batch 2, 512x1024,
            constant learning rate): finite losses, 5 launches of each of
@@ -160,7 +162,9 @@ started); any failed check exits non-zero:
            names' first three parts) against the float32 step's within
            0.1 relative L2 (RAFT_BF16_GRAD_RTOL),
            and one float32 step at 128x256 against the CPU's within 1e-3;
-           ms per step of both lookups in turns and the peak memory
+           ms per step of both lookups in turns and the peak memory; ms
+           and device launches a step with the GRU's gates rounding as
+           flax's (the model's) and as torch.sigmoid/torch.tanh, in turns
   fit_raft  Trainer.fit of configs/raft_evidence.json at its widths
            (128x256, batch 4, 8 iterations, EMA) cut as fit cuts its
            config: 2 history rows with finite losses and the five held-out
@@ -343,7 +347,11 @@ started); any failed check exits non-zero:
            CerberusRAFT at 368x768 (RAFT's Sintel crop, an H that is no
            multiple of 64: bands of 176/192 rows, level 4 split 11/12), the
            send-back control (DCV) and the gather-reduce control (RAFT);
-           (a) and (d) in one spawn with train_dp's (b) and (d)
+           (a) and (d) in one spawn with train_dp's (b) and (d); on the
+           ranks of (a) and (d) and of (c), bf16 band resizes between the
+           frames' level extents (every x2 in the resize and phase forms,
+           every x4, the off-grid ratios) bit-equal to the whole frame's
+           resize cut to the band
   runner   the C++ runner of the exported program: cerberus_runner and
            libcerberus_ops built with g++ (their seconds; ldd shows no
            libpython); the export phase's four artifacts and quant_int8's
@@ -395,27 +403,32 @@ K9's and K10's on train_pallas_levels, K9's serve, export_pallas_levels
 and runner_pallas_levels numbers beside them, each with its time over the
 cuDNN level's
 (vs_plain) per level, and K10's weight-gradient partial bytes per step as
-its wrapper counted them in train_pallas_levels), a {"phase": "done"} line
-with the
-script's seconds, the card's nvidia-smi line and, last,
+its wrapper counted them in train_pallas_levels), a {"phase":
+"card_memory"} line (the card's memory in use by every process on it, the
+most after each phase line and in each 10 s, and the least free), a
+{"phase": "done"} line with the script's seconds, the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. ``--only a,b,...`` runs env, build and the named phases alone
 (the data slice's run after data, and the evaluation slice's after
 flow_data where they need its fixtures), with no summary and no result
-line. The order: env, build; serve, stream, then bench, whose ms per
-frame it needs (``--only serve,bench``), before any compile shares the
-host; export, whose artifacts start the runner's AOTInductor compiles and
+line. The order: env, build; serve, stream, then bench (timed beside
+serve's timing of the same forward, in turns), before any compile shares
+the host; export, whose artifacts start the runner's AOTInductor compiles and
 g++ builds, which run beside every later phase; kernels; the other
 deployment phases but the runner (quant_int8,
 whose artifact starts its compile, train_qat, debug_nans); train, the DCV
 and pallas_levels phases, fit, then train_dp and train_spatial, whose
 pair of ranks runs its jobs beside the RAFT phases, the data slice's and
 the evaluation slice's (cli the last of them) in this process; and the
-runner last, which waits for the compiles.
+runner last, which waits for the compiles. Each process's allocator holds
+a capped share of the card (``MAIN_MEMORY_SHARE``, ``PAIR_MEMORY_SHARE``,
+``SIDE_MEMORY_SHARE``), so that none takes the memory the others need.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import re
@@ -492,7 +505,38 @@ STARTED = time.perf_counter()
 def emit(obj):
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - STARTED}
+        CARD_MEMORY["after"] = obj["phase"]
     print(json.dumps(obj), flush=True)
+
+
+# The card's memory in use, by every process on it (this one, the ranks,
+# the background compiles and CLI processes), sampled by a thread every
+# CARD_MEMORY_EVERY_S: the most in use after each phase line (the phase
+# whose line came last) and in each 10 s, and the least free at any
+# sample
+CARD_MEMORY = {"after": "start", "used_gib": {}, "least_free_gib": None,
+               "least_free_after": None, "samples": 0, "by_10_s": []}
+CARD_MEMORY_EVERY_S = 0.5
+
+
+def watch_card_memory(stop):
+    """Samples the card's free and total memory into CARD_MEMORY until
+    ``stop`` (a threading.Event) is set."""
+    while not stop.wait(CARD_MEMORY_EVERY_S):
+        free, total = torch.cuda.mem_get_info(0)
+        used, after = (total - free) / 2**30, CARD_MEMORY["after"]
+        by_phase = CARD_MEMORY["used_gib"]
+        by_phase[after] = max(by_phase.get(after, 0.0), used)
+        least = CARD_MEMORY["least_free_gib"]
+        if least is None or free / 2**30 < least:
+            CARD_MEMORY.update(least_free_gib=free / 2**30,
+                               least_free_after=after)
+        CARD_MEMORY["samples"] += 1
+        # the most in use in each 10 s since the script's start
+        tens = CARD_MEMORY["by_10_s"]
+        i = int((time.perf_counter() - STARTED) // 10)
+        tens.extend([0.0] * (i + 1 - len(tens)))
+        tens[i] = max(tens[i], round(used, 2))
 
 
 def fail(phase, msg):
@@ -1486,9 +1530,14 @@ def phase_stream(card):
 
 
 # bench: the headline's timed calls beside n1 = 2 (the bench's default),
-# and the band its ms per frame must keep from serve's median eager forward
+# and the band its ms per frame must keep from serve's timing (CUDA events
+# around one eager forward) of the same model and frames, taken in turns
+# with the headline's own rounds: before each of its BENCH_TURNS rounds,
+# a serve block of BENCH_SERVE_RUNS forwards
 BENCH_ITERS = 10
 BENCH_SERVE_RATIO = (0.5, 2.0)
+BENCH_TURNS = 5
+BENCH_SERVE_RUNS = 10
 
 
 def empty_launches(n):
@@ -1502,15 +1551,26 @@ def empty_launches(n):
 def phase_bench(card, peaks):
     """The headline of cerberusnet_torch.bench: its launches, fps, FLOPs
     and MFU; the FLOP count against the plain operators'; the timing's
-    control; its ms per frame against serve's."""
+    control; its ms per frame against serve's timing of the same
+    forward, in turns."""
     from cerberusnet_torch import bench
     from cerberusnet_torch.utils import benchutil, flops
 
     errors = []
     t0 = time.perf_counter()
     row = bench.full3head()
+    serve_blocks = []
+
+    def serve_block():  # serve's timing of the same forward and frames
+        serve_blocks.append(cuda_times(lambda: row.fn(*row.args),
+                                       runs=BENCH_SERVE_RUNS,
+                                       warmup=2)["median"])
+
     reset_launch_counts()
-    st = bench.measure(row, BENCH_ITERS, "cuda", peaks=peaks)
+    # the headline's rounds in turns with serve's blocks, so that a host
+    # slowing for seconds slows both sides of the check
+    st = bench.measure(row, BENCH_ITERS, "cuda", rounds=BENCH_TURNS,
+                       peaks=peaks, between=serve_block)
     torch.cuda.synchronize()
     launches = launch_counts()
     if st["launches_per_call"] != EXPORT_LAUNCHES["cerberus"]:
@@ -1538,19 +1598,24 @@ def phase_bench(card, peaks):
     except benchutil.FloorLimitedTiming as e:
         control = {"raised": True, "best_ms": e.best * 1e3,
                    "floor_ms": e.floor * 1e3, "iters": e.iters}
+    # the headline's ms a frame, as the bench reports it, against serve's
     ms = 1e3 / st["fps"]
-    ratio = ms / SERVE_MS["serve"]
+    serve_ms = statistics.median(serve_blocks) / row.frames
+    ratio = ms / serve_ms
     lo, hi = BENCH_SERVE_RATIO
     if not lo <= ratio <= hi:
         errors.append(f"headline {ms} ms a frame, {ratio} x serve's "
-                      f"{SERVE_MS['serve']}")
+                      f"{serve_ms} in turns")
     del row
     ok = not errors
     emit({"phase": "bench", "ok": ok, "metric": bench.HEADLINE,
           "fps": st["fps"], "fps_band": st["fps_band"],
           "rounds": st["rounds"], "iters": BENCH_ITERS, "ms_per_frame": ms,
-          "serve_ms_per_frame": SERVE_MS["serve"], "vs_serve": ratio,
-          "vs_serve_band": list(BENCH_SERVE_RATIO),
+          "in_turns": {"serve_ms_per_frame": serve_ms,
+                       "serve_block_medians": serve_blocks,
+                       "serve_runs": BENCH_SERVE_RUNS, "turns": BENCH_TURNS},
+          "vs_serve": ratio, "vs_serve_band": list(BENCH_SERVE_RATIO),
+          "serve_phase_ms_per_frame": SERVE_MS.get("serve"),
           "flops_per_frame": st["flops"], "plain_operators_flops":
           plain_flops, "mfu": st["mfu"], "peak_bf16_flops_per_s":
           peaks["bf16"], "launches_per_call": st["launches_per_call"],
@@ -2550,6 +2615,7 @@ def phase_serve_raft(card):
                        lambda: fwds[impl](*req))}
             for impl in RAFT_LOOKUPS}
         del fwds
+    gates = raft_gates_forward(req)
     ok = not errors
     emit({"phase": "serve_raft", "ok": ok, "variant": "cerberus_raft",
           "hw": list(HW), "dtype": "bfloat16", "requests": N_REQUESTS,
@@ -2558,9 +2624,10 @@ def phase_serve_raft(card):
           "device_vs_cpu_f32": {"hw": list(RAFT_PARITY_HW),
                                 "rel_l2": device_rel,
                                 "limit": RAFT_DEVICE_RTOL},
-          "forward": points, "card": card,
+          "forward": points, "gates": gates, "card": card,
           "timing": "CUDA events around one eager forward after warmup, "
-                    "the lookups in turns", "errors": errors})
+                    "the lookups in turns, the gates in turns",
+          "errors": errors})
     if not ok:
         sys.exit(1)
     return launches
@@ -2639,6 +2706,8 @@ def phase_train_raft(card):
                    "max_memory_allocated_gib": peak_gib(
                        lambda: trainers[impl].train_step(batch))}
             for impl in RAFT_LOOKUPS}
+    del gather, trainers
+    gates = raft_gates_step(trainer, batch, constant)
     ok = not errors
     emit({"phase": "train_raft", "ok": ok, "config": RAFT_CONFIG,
           "hw": list(HW), "batch": TRAIN_BATCH, "dtype": "bfloat16",
@@ -2649,12 +2718,75 @@ def phase_train_raft(card):
           "device_vs_cpu_f32_grad": {"hw": list(RAFT_PARITY_HW),
                                      "rel_l2": device_rel,
                                      "limit": RAFT_DEVICE_GRAD_RTOL},
-          "train_step": step, "card": card,
+          "train_step": step, "gates": gates, "card": card,
           "timing": "CUDA events around one train_step(batch) call, host "
-                    "batch in, the lookups in turns", "errors": errors})
+                    "batch in, the lookups in turns, the gates in turns",
+          "errors": errors})
     if not ok:
         sys.exit(1)
     return launches
+
+
+@contextlib.contextmanager
+def torch_gates():
+    """The RAFT models' GRU gates and hidden state as ``torch.sigmoid`` and
+    ``torch.tanh`` (their form before they rounded as flax's, ROADMAP C7)
+    while it is entered."""
+    from cerberusnet_torch.models import raft
+
+    kept = raft.sigmoid, raft.tanh
+    raft.sigmoid, raft.tanh = torch.sigmoid, torch.tanh
+    try:
+        yield
+    finally:
+        raft.sigmoid, raft.tanh = kept
+
+
+def raft_gates_forward(req):
+    """The served eager bf16 CerberusRAFT forward with the gates rounding
+    as flax's (the model's) and with torch's own, on the same weights and
+    frames: ms a forward in turns and the device launches of one each."""
+    from cerberusnet_torch.entry import entry
+
+    forward, _ = entry(variant="cerberus_raft")
+
+    def call(form):
+        if form == "torch":
+            with torch_gates():
+                return forward(*req)
+        return forward(*req)
+
+    forms = {"flax": "flax", "torch": "torch"}
+    times = turns(forms, call, runs=20, warmup=3)
+    return {form: {**times[form], "device_launches_per_forward":
+                   device_launches(lambda f=form: call(f))}
+            for form in forms}
+
+
+def raft_gates_step(trainer, batch, optim):
+    """The eager bf16 RAFT step with the gates rounding as flax's (the
+    model's) and with torch's own, on the same masters and batch: ms a
+    step in turns and the device launches of one step each."""
+    from cerberusnet_torch.entry import train_entry
+
+    other, _ = train_entry(RAFT_CONFIG, batch_size=TRAIN_BATCH, n_batches=0,
+                           optim=optim)
+    other.load_masters(trainer.masters)
+
+    def step(form):
+        if form == "torch":
+            with torch_gates():
+                return other.train_step(batch)
+        return trainer.train_step(batch)
+
+    times = turns({"flax": "flax", "torch": "torch"}, step, runs=10,
+                  warmup=2)
+    launches = {form: device_launches(lambda f=form: step(f))
+                for form in ("flax", "torch")}
+    del other
+    torch.cuda.empty_cache()
+    return {form: {**times[form], "device_launches_per_step":
+                   launches[form]} for form in ("flax", "torch")}
 
 
 def phase_fit_raft(card):
@@ -5588,6 +5720,82 @@ def sp_rank(job):
             for name in job["models"]}
 
 
+# the bf16 band resizes a spatial rank holds to the whole frame's resize
+# cut to its band, bit for bit (ROADMAP C16): the frames of parts (a) and
+# (d) on the pair's ranks and (c)'s on its four; batch 2, 2 channels
+SP_RESIZE_FRAMES = {"pair": (HW, SP_OFFGRID_HW), "c": (DCV_KITTI_HW,)}
+
+
+def sp_band_resizes(job):
+    """A rank's bf16 band resizes on the card at each frame of ``job``,
+    between the frame's level extents: every x2 (``upsample2x`` and its
+    phase form, or ``upsample_to`` where the finer extent is not twice the
+    coarser), every x4 (``upsample_to``), each against the whole frame's
+    resize on this rank cut to the band: {"H x W": {case: the elements
+    that differ}}."""
+    from cerberusnet_torch.models.common import (
+        _resize,
+        upsample2x,
+        upsample_to,
+    )
+    from cerberusnet_torch.parallel.mesh import level_extents, make_mesh
+
+    dp_setup()
+    device = job["device"]
+    levels = len(ENCODER_CHANNELS)
+    out = {}
+    for h, w in job["frames"]:
+        rows, cols = level_extents(h, levels), level_extents(w, levels)
+        mesh = make_mesh(1, device, job["ranks"], extents=rows)
+        cases = {}
+        for fine in range(levels):
+            for coarse in (fine + 1, fine + 2):
+                if coarse > levels:
+                    continue
+                hs, hd, ws, wd = (rows[coarse], rows[fine], cols[coarse],
+                                  cols[fine])
+                gen = torch.Generator().manual_seed(hs * 1000 + ws)
+                x = torch.randn((2, 2, hs, ws), generator=gen).to(
+                    device=device, dtype=torch.bfloat16)
+                band, dst = x[:, :, mesh.rows(hs)], mesh.rows(hd)
+                forms = {"resize": (
+                    lambda: upsample_to(band, (dst.stop - dst.start, wd),
+                                        mesh), lambda: _resize(x, (hd, wd)))}
+                if (hd, wd) == (2 * hs, 2 * ws):
+                    forms = {"resize": (lambda: upsample2x(band, mesh),
+                                        lambda: _resize(x, (hd, wd))),
+                             "phase": (
+                        lambda: upsample2x(band, mesh, impl="phase"),
+                        lambda: upsample2x(x, impl="phase"))}
+                for form, (on_band, frame) in forms.items():
+                    got, want = on_band(), frame()[:, :, dst]
+                    cases[f"{hs}x{ws} {hd}x{wd} {form}"] = (
+                        int((got != want).sum()) if got.shape == want.shape
+                        else -1)
+        out[f"{h}x{w}"] = cases
+    return out
+
+
+def sp_resize_report(results):
+    """The checks of the ranks' band resizes ({spawn: [a rank's
+    ``sp_band_resizes``]}): one line, and the errors."""
+    errors = [f"bf16 band resize, {spawn} rank {r}, {frame} {case}: "
+              f"{n} elements differ from the frame's cut"
+              for spawn, ranks in results.items()
+              for r, res in enumerate(ranks) for frame, cases in res.items()
+              for case, n in cases.items() if n != 0]
+    emit({"phase": "train_spatial", "part": "band_resize", "dtype":
+          "bfloat16", "frames": {k: [list(f) for f in v]
+                                 for k, v in SP_RESIZE_FRAMES.items()},
+          "cases": sum(len(c) for ranks in results.values()
+                       for res in ranks for c in res.values()),
+          "differing": {spawn: [{f: sum(c.values()) for f, c in res.items()}
+                                for res in ranks]
+                        for spawn, ranks in results.items()},
+          "errors": errors})
+    return errors
+
+
 def sp_single(name, batches_):
     """One process's references on the card for ``name``: one step's taps
     and gradients and the masters after it in float32 through the
@@ -5786,20 +5994,40 @@ def sp_references(names, card):
 PAIR_RANKS = 2
 # the longest a spawn waits for its jobs
 JOBS_WAIT_S = 900
+# The share of the card's memory each process's allocator may hold. One
+# card carries this process and up to seven ranks at once, and cuDNN takes
+# as much workspace as it can allocate for a convolution's first plan (a
+# rank of (c) held 53 of the card's 79 GiB that way while its peers held
+# 2.4, and this process's RAFT forward beside it once ran out of memory).
+# Capped, a plan whose workspace exceeds the share gives way to the next.
+# Under the caps on an H100 80GB (700 W) a pair rank's job allocated at
+# most 9.0 GiB and a side rank's 2.4, and this process's phases 16.
+MAIN_MEMORY_SHARE = 0.40
+PAIR_MEMORY_SHARE = 0.18
+SIDE_MEMORY_SHARE = 0.10
 
 
-def waiting_rank(path, warm=True):
+def cap_memory(share):
+    """This process's allocator holds at most ``share`` of card 0."""
+    torch.cuda.set_per_process_memory_fraction(share, 0)
+
+
+def waiting_rank(path, warm=True, share=SIDE_MEMORY_SHARE):
     """A rank that waits for the jobs at ``path`` (an empty list where the
     parent failed before it wrote them) and runs each (key, function, job)
-    in turn: {"wait_s": s, key: (result, seconds)}. ``warm``: the card's
-    context, cuBLAS and cuDNN first (not for train_dp (a), whose job sets
-    cuBLAS's deterministic workspace before cuBLAS starts)."""
+    in turn: {"wait_s": s, "peak_gib": {key: [GiB allocated, reserved]},
+    key: (result, seconds)}, its allocator held to ``share`` of the card.
+    ``warm``: the card's context, cuBLAS and cuDNN first (not for train_dp
+    (a), whose job sets cuBLAS's deterministic workspace before cuBLAS
+    starts)."""
     import os
     import pickle
+    import threading
 
     from cerberusnet_torch.entry import train_entry  # noqa: F401  imports
 
     dp_setup()
+    cap_memory(share)
     if warm:
         x = torch.ones(1, 8, 16, 16, device="cuda:0")
         torch.nn.functional.conv2d(x, x[:, :, :3, :3].expand(8, 8, 3, 3))
@@ -5811,10 +6039,28 @@ def waiting_rank(path, warm=True):
         time.sleep(0.2)
     with open(path, "rb") as f:
         jobs = pickle.load(f)
-    out = {"wait_s": time.perf_counter() - t0}
+    out = {"wait_s": time.perf_counter() - t0, "peak_gib": {}}
     for key, fn, job in jobs:
+        # the job's most allocated and reserved, sampled (a job may reset
+        # the allocator's peaks); its cache goes back to the card after it
+        peak, done = [0, 0], threading.Event()
+
+        def sample():
+            while not done.wait(0.05):
+                peak[:] = [max(peak[0], torch.cuda.memory_allocated(0)),
+                           max(peak[1], torch.cuda.memory_reserved(0))]
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
         t0 = time.perf_counter()
-        out[key] = (fn(job), time.perf_counter() - t0)
+        try:
+            out[key] = (fn(job), time.perf_counter() - t0)
+        finally:
+            done.set()
+            sampler.join()
+        out["peak_gib"][key] = [b / 2**30 for b in peak]
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5883,8 +6129,9 @@ def phase_ranks(card, dp_parts="abd", sp_parts="acd", meanwhile=None):
             dp_a = dp_part_a_reference()
         timeout = JOBS_WAIT_S + SP_TIMEOUT_S
         if pair_keys:
-            spawns["pair"] = start_ranks(waiting_rank, PAIR_RANKS,
-                                         (paths["pair"],), "gloo", timeout)
+            spawns["pair"] = start_ranks(
+                waiting_rank, PAIR_RANKS,
+                (paths["pair"], True, PAIR_MEMORY_SHARE), "gloo", timeout)
         if "a" in dp_parts:
             spawns["dp_a"] = start_ranks(waiting_rank, 1,
                                          (paths["dp_a"], False), "nccl",
@@ -5912,6 +6159,9 @@ def phase_ranks(card, dp_parts="abd", sp_parts="acd", meanwhile=None):
         if pair_sp:
             jobs.append(("sp", sp_rank, sp_job(
                 pair_sp, data, refs, root, "cuda:0", PAIR_RANKS)))
+            jobs.append(("sp_resize", sp_band_resizes, {
+                "frames": SP_RESIZE_FRAMES["pair"], "device": "cuda:0",
+                "ranks": PAIR_RANKS}))
         if pair_keys:
             write("pair", jobs)
         if meanwhile is not None:
@@ -5923,14 +6173,18 @@ def phase_ranks(card, dp_parts="abd", sp_parts="acd", meanwhile=None):
                   "seconds": pair_s, "jobs": pair_keys,
                   "wait_s": [r["wait_s"] for r in pair_ranks],
                   "job_s": {k: [r[k][1] for r in pair_ranks]
-                            for k, *_ in jobs}})
+                            for k, *_ in jobs},
+                  "job_peak_gib": {k: [r["peak_gib"][k] for r in pair_ranks]
+                                   for k, *_ in jobs}})
         # the card is theirs now: (a) and (c), the yardsticks meanwhile
         if "a" in dp_parts:
             write("dp_a", [("dp_a", dp_one_rank, dp_a[0])])
         if "c" in sp_parts:
             write("sp_c", [("sp_c", sp_rank, sp_job(
                 SP_PARTS["c"], data, refs, root, "cuda:0",
-                SP_UNEQUAL_RANKS))])
+                SP_UNEQUAL_RANKS)), ("sp_resize", sp_band_resizes, {
+                    "frames": SP_RESIZE_FRAMES["c"], "device": "cuda:0",
+                    "ranks": SP_UNEQUAL_RANKS})])
         yard = {n: sp_yardsticks(n, data[n], root) for n in pair_sp
                 if SP_MODELS[n][2]}
         side = {k: spawns[k].result() for k in ("dp_a", "sp_c")
@@ -5983,6 +6237,13 @@ def phase_ranks(card, dp_parts="abd", sp_parts="acd", meanwhile=None):
         errs, counts[f"sp_{part}"] = sp_report(part, ranks, ranks_s, yard,
                                                refs, "gloo")
         sp_errors += errs
+    if sp_parts:
+        resized = {}
+        if pair_sp:
+            resized["pair"] = [r["sp_resize"][0] for r in pair_ranks]
+        if "c" in sp_parts:
+            resized["c"] = [r["sp_resize"][0] for r in side["sp_c"][0]]
+        sp_errors += sp_resize_report(resized)
     if sp_parts and two_cards:
         sp_errors += sp_part("b", "nccl", "cuda", data, refs)[0]
     elif sp_parts:
@@ -5992,6 +6253,8 @@ def phase_ranks(card, dp_parts="abd", sp_parts="acd", meanwhile=None):
     if sp_parts:
         emit({"phase": "train_spatial", "ok": not sp_errors,
               "parts": sp_parts,
+              "side_job_peak_gib": {k: [r["peak_gib"] for r in v[0]]
+                                    for k, v in side.items()},
               "models": {n: SP_MODELS[n][0] for n in data},
               "hw": list(HW), "offgrid_hw": list(SP_OFFGRID_HW),
               "batch": TRAIN_BATCH, "ranks": SP_RANKS,
@@ -6219,10 +6482,16 @@ def main(argv):
     from cerberusnet_torch.utils.flops import card_peaks
 
     card, name = phase_env()
+    cap_memory(MAIN_MEMORY_SHARE)
     peaks = card_peaks(name)
     if peaks is None:
         fail("env", f"no published peaks known for {name!r}")
     phase_build()
+    import threading
+
+    stop_watch = threading.Event()
+    threading.Thread(target=watch_card_memory, args=(stop_watch,),
+                     daemon=True).start()
     counts = {}
     # serve, stream and bench time host-bound forwards against each other
     # (bench's band against serve, serve_arithmetic's fused against naive),
@@ -6238,9 +6507,6 @@ def main(argv):
         if wanted("stream"):
             counts.update(phase_stream(card))
         if wanted("bench"):
-            if "serve" not in SERVE_MS:
-                fail("bench", "needs serve's ms per frame from the same "
-                              "run: --only serve,bench")
             counts["bench"] = phase_bench(card, peaks)
         batches = export_phases(card, counts, wanted, root)
         spin_rate = sleep_cycles_per_ms()
@@ -6283,8 +6549,13 @@ def main(argv):
         if wanted("runner"):
             record_launches(counts, phase_runner(card, root, batches))
     finally:
+        stop_watch.set()
         stop_background()
         shutil.rmtree(root, ignore_errors=True)
+    total = torch.cuda.mem_get_info(0)[1] / 2**30
+    emit({"phase": "card_memory", "total_gib": total,
+          "every_s": CARD_MEMORY_EVERY_S, **CARD_MEMORY,
+          "after": None})
     if only is not None:
         emit({"phase": "done", "only": sorted(only),
               "seconds": time.perf_counter() - t0})

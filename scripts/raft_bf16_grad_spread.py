@@ -4,7 +4,7 @@ the JAX package and in the port, on the CPU, and why a module's reading can
 be large.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/raft_bf16_grad_spread.py [--seeds 5]
-        [--no-excess-precision]
+        [--no-excess-precision] [--no-mkldnn]
 
 The tiny ``cerberus_raft`` experiment of tests/jax_pairs.py (encoder (8,
 12, 16, 16, 16, 16), fdim/hdim/cdim 16/16/8, 3 iterations, 64x64, batch 2
@@ -34,7 +34,10 @@ A last line gives each package's largest module reading.
 ``--no-excess-precision`` runs JAX with XLA's
 ``--xla_allow_excess_precision=false``: on the CPU, XLA otherwise drops
 bf16 roundings between operations it computes in float32, so its bf16
-reads closer to float32 than bf16 arithmetic does.
+reads closer to float32 than bf16 arithmetic does. ``--no-mkldnn`` runs
+the port's CPU convolutions without oneDNN (``torch.backends.mkldnn``):
+the same roundings in other summation orders, which shows how far the
+readings move with the order of a sum alone.
 
 A measurement for the port's record (PERF.md, the limit of
 ``chip_smoke.py``'s ``train_raft``), not a test.
@@ -149,7 +152,10 @@ def main():
     ap.add_argument("--seeds", type=int, default=5)
     ap.add_argument("--no-excess-precision", action="store_true",
                     help="JAX with --xla_allow_excess_precision=false")
+    ap.add_argument("--no-mkldnn", action="store_true",
+                    help="the port's CPU convolutions without oneDNN")
     args = ap.parse_args()
+    torch.backends.mkldnn.enabled = not args.no_mkldnn
     largest = {"jax": 0.0, "port": 0.0}
     for seed in range(args.seeds):
         (j32, jc32), (t32, tc32) = gradients("float32", seed)

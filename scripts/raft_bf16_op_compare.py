@@ -6,7 +6,8 @@ decoder's first iterations, from the volume lookup through the motion
 encoder, the GRU and the flow head, fed the same inputs in both packages
 on the CPU.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/raft_bf16_op_compare.py [--seeds 3] [--iters 2]
+    JAX_PLATFORMS=cpu PYTHONPATH=. python3 scripts/raft_bf16_op_compare.py [--seeds 3] [--iters 3]
+        [--no-excess-precision]
 
 The tiny ``cerberus_raft`` experiment of tests/jax_pairs.py in bfloat16
 (encoder (8, 12, 16, 16, 16, 16), fdim/hdim/cdim 16/16/8, 64x64, batch 2
@@ -25,8 +26,40 @@ conv output is taken in bf16, as either package computes it alone):
 * ``lookup``: the pyramid of the all-pairs volume of the captured
   ``corr_proj`` outputs, sampled at grid + flow (float32);
 * the motion encoder's ``convc1``, ``convc2``, ``convf1``, ``convf2``,
-  ``conv``; the GRU's ``convz``, ``convr``, ``convq`` and its update
-  ``(1 - z) h + z q``; ``flow_head1``, ``flow_head2``.
+  ``conv``; the GRU's ``convz``, ``convr``, ``convq``, its gates
+  ``sigmoid(convz)``, ``sigmoid(convr)``, ``tanh(convq)`` (each side's own
+  from the captured conv output; ``gate_*_torch`` with ``torch.sigmoid`` /
+  ``torch.tanh``, the port's form before its gates rounded as flax's) and
+  its update ``(1 - z) h + z q``;
+  ``flow_head1``, ``flow_head2``; the decoder's ``hidden_init``, ``tanh``
+  of ``context_proj``'s first channels (iteration "init").
+
+The backward, op by op (``bwd.`` rows): JAX's cotangent of the
+experiment's loss (``joint_loss`` with the sequence terms) is captured at
+the output of each call of the flow decoder's modules (a zero added there
+through flax's ``intercept_methods``, its gradient taken with the
+parameters'). Each update-block convolution and the GRU cell then run
+their backward alone on JAX's captured inputs and that cotangent:
+``jax.vjp`` of the flax module and ``torch.autograd.grad`` of the port's
+(float32 weights, cast to bf16 at the use, as either trainer keeps them):
+``bwd.<conv>.dx`` / ``.kernel`` / ``.bias``, ``bwd.gru.dh`` / ``.dx`` /
+``.<conv>.kernel`` / ``.<conv>.bias`` (``.dh_torch_gates`` /
+``.dx_torch_gates`` with torch's own gates); ``bwd.<conv>.dy`` the cotangent at
+the output of a conv whose only reader is the next conv through
+LeakyReLU; the hidden state's ``tanh`` (``bwd.hidden_init``) on the GRU's
+first ``dh``; ``bwd.volume.df1`` / ``.df2`` the all-pairs volume's
+backward, the iterations' ``convc1`` input cotangents through the
+lookups, the pyramid and the product to the two ``corr_proj`` outputs.
+Where JAX's model gives the same cotangent, ``model_vs_jax`` holds it
+against JAX's op alone. ``bwd.sum.<conv>.kernel`` / ``.bias`` (iteration
+"all") hold the update block's tied weights' gradients, summed over the
+iterations: ``port_vs_jax`` the port's sum of its ops' gradients against
+JAX's of its ops', ``model_vs_jax`` JAX's whole-model gradient against
+that sum. Two views of JAX's gradient program itself: ``grad_fwd.<op>``
+its forward values against the forward program's (``model_vs_jax``), and
+``cot_bf16_exact.<module>`` the ``share`` of its cotangents at a module's
+output that are bf16 values (below 1 where XLA keeps float32 between
+ops under its default excess precision).
 
 One JSON line an (seed, iteration, op): ``port_vs_jax`` compares the port's
 op with JAX's op run alone, ``model_vs_jax`` JAX's value inside its jitted
@@ -42,6 +75,7 @@ A measurement for the port's record (ROADMAP C7), not a test.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -57,12 +91,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from cerberusnet_torch.models import raft as tr  # noqa: E402
+from cerberusnet_torch.models.common import leaky as port_leaky  # noqa: E402
+from cerberusnet_torch.models.common import sigmoid, tanh  # noqa: E402
 from cerberusnet_torch.train.config import ExperimentConfig  # noqa: E402
 from cerberusnet_torch.train.trainer import build_model  # noqa: E402
 from cerberusnet_torch.weights import load_flax_params  # noqa: E402
 from cerberusnet_tpu.data.loader import collate, make_preprocess_fn  # noqa: E402
 from cerberusnet_tpu.data.synthetic import SyntheticPerceptionDataset  # noqa: E402
 from cerberusnet_tpu.models import raft as jr  # noqa: E402
+from cerberusnet_tpu.train import losses as jl  # noqa: E402
 from cerberusnet_tpu.train.config import ExperimentConfig as JaxConfig  # noqa: E402
 from cerberusnet_tpu.train.trainer import build_model as jax_build_model  # noqa: E402
 from tests.jax_pairs import RAFT_HW, draw_params, raft_config_dict  # noqa: E402
@@ -74,6 +111,9 @@ CONVS = {"convc1": ("motion", 1), "convc2": ("motion", 3),
          "conv": ("motion", 3), "convz": ("gru", 3), "convr": ("gru", 3),
          "convq": ("gru", 3), "flow_head1": (None, 3),
          "flow_head2": (None, 3)}
+# (conv, the conv fed LeakyReLU of its output alone)
+LEAKY_PAIRS = (("convc1", "convc2"), ("convf1", "convf2"),
+               ("flow_head1", "flow_head2"))
 
 
 def ulp(x):
@@ -167,6 +207,235 @@ def merge(parts: list) -> dict:
             "sign_share": float(np.mean([p["sign_share"] for p in parts]))}
 
 
+def jax_cotangents(forward, params, prep, cfg):
+    """(JAX's gradient of the experiment's loss, {"<path>#<call>": its
+    cotangent at the output of that call of a module of the flow decoder
+    (the path under ``RAFTFlowDecoder_0``)}, {the same key: that output's
+    value in this program}), from one jitted program."""
+    probe, seen, shapes, values = {}, {}, {}, {}
+
+    def interceptor(fn, args, kwargs, ctx):
+        out = fn(*args, **kwargs)
+        path = ctx.module.scope.path
+        if (ctx.method_name != "__call__" or not path
+                or path[0] != "RAFTFlowDecoder_0"
+                or not isinstance(out, jax.Array)):
+            return out
+        n = seen.get(path, 0)
+        seen[path] = n + 1
+        key = f"{'/'.join(path[1:])}#{n}"
+        shapes[key] = out.shape
+        values[key] = out
+        return out + probe[key].astype(out.dtype) if key in probe else out
+
+    def loss(p, zeros):
+        probe.clear()
+        probe.update(zeros)
+        seen.clear()
+        values.clear()
+        with nn.intercept_methods(interceptor):
+            total = jl.joint_loss(forward({"params": p}, prep), prep,
+                                  weights=cfg.loss.weights,
+                                  seq_gamma=cfg.loss.seq_gamma)[0]
+        return total, dict(values)
+
+    jax.eval_shape(loss, params, {})
+    zeros = {k: jnp.zeros(v, jnp.float32) for k, v in shapes.items()}
+    (grads, cots), vals = jax.jit(jax.grad(loss, argnums=(0, 1),
+                                           has_aux=True))(params, zeros)
+    return grads, cots, vals
+
+
+@contextlib.contextmanager
+def torch_gates():
+    """The port's RAFT gates as ``torch.sigmoid`` and ``torch.tanh`` (their
+    form before they rounded as flax's) while it is entered."""
+    kept = tr.sigmoid, tr.tanh
+    tr.sigmoid, tr.tanh = torch.sigmoid, torch.tanh
+    try:
+        yield
+    finally:
+        tr.sigmoid, tr.tanh = kept
+
+
+def torch_vjp(fn, inputs, params, ct):
+    """(the input cotangents, the parameters' gradients) of ``fn`` at
+    ``inputs`` (NHWC JAX arrays) for the cotangent ``ct``, NHWC and in
+    flax's layouts."""
+    ins = [to_torch(x).requires_grad_() for x in inputs]
+    out = fn(*ins)
+    grads = torch.autograd.grad(out, ins + list(params),
+                                to_torch(ct.astype(BF16)))
+    dins = [to_numpy(g) for g in grads[:len(ins)]]
+    return dins, [flax_layout(g) for g in grads[len(ins):]]
+
+
+def flax_layout(g):
+    """A port parameter's gradient in flax's layout (a conv weight's
+    (out, in, kh, kw) as (kh, kw, in, out))."""
+    g = g.float()
+    return (g.permute(2, 3, 1, 0) if g.dim() == 4 else g).numpy()
+
+
+def backward_rows(seed, cfg, params, prep, port, inputs, captured_out,
+                  hiddens, context, motions, ctx, iters, volume):
+    """The ``bwd.`` rows of the module docstring."""
+    _, forward, _ = jax_build_model(cfg.model)
+    jgrads, cots, vals = jax_cotangents(forward, params, prep, cfg)
+    jp = params["RAFTFlowDecoder_0"]["update"]
+    jg = jgrads["RAFTFlowDecoder_0"]["update"]
+    upd = tr.keep_tied_float32(port).flow.update
+    m = cfg.model
+    rows, sums = [], {}
+
+    def row(t, op, got, want):
+        rows.append({"seed": seed, "iter": t, "op": op,
+                     "port_vs_jax": compare(got, want)})
+
+    def module(where, name):
+        return upd if where is None else getattr(upd, where)
+
+    for t in range(iters):
+        for name, (where, _) in CONVS.items():
+            path = f"update/{where}/{name}" if where else f"update/{name}"
+            rows.append({"seed": seed, "iter": t, "op": f"grad_fwd.{name}",
+                         "model_vs_jax": compare(vals[f"{path}#{t}"],
+                                                 captured_out(name, t))})
+        rows.append({"seed": seed, "iter": t, "op": "grad_fwd.gru",
+                     "model_vs_jax": compare(vals[f"update/gru#{t}"],
+                                             hiddens[t + 1])})
+        for key in [k for k in cots if k.endswith(f"#{t}")]:
+            c = np.asarray(cots[key], np.float32)
+            rows.append({"seed": seed, "iter": t,
+                         "op": f"cot_bf16_exact.{key.split('#')[0]}",
+                         "share": float(np.mean(c == np.asarray(
+                             jnp.asarray(c, BF16), np.float32)))})
+    dh0, lookup_cts = None, []
+    for t in range(iters):
+        for name, (where, k) in CONVS.items():
+            path = f"update/{where}/{name}" if where else f"update/{name}"
+            ct = cots[f"{path}#{t}"].astype(BF16)
+            x = inputs[name][t]
+            sub = jp if where is None else jp[where]
+            feat = ct.shape[-1]
+            _, vjp = jax.vjp(lambda p, v, f=feat, k=k: nn.Conv(
+                f, (k, k), padding="SAME", dtype=BF16).apply(
+                    {"params": p}, v), sub[name], x)
+            dp, dx = jax.jit(vjp)(ct)
+            conv = getattr(module(where, name), name)
+            (tdx,), (tdw, tdb) = torch_vjp(conv, [x], [conv.weight,
+                                                      conv.bias], ct)
+            row(t, f"bwd.{name}.dx", tdx, dx)
+            if name == "convc1":  # the lookup's cotangent, as float32
+                lookup_cts.append(dx.astype(jnp.float32))
+            row(t, f"bwd.{name}.kernel", tdw, dp["kernel"])
+            row(t, f"bwd.{name}.bias", tdb, dp["bias"])
+            for leaf, tg, g in (("kernel", tdw, dp["kernel"]),
+                                ("bias", tdb, dp["bias"])):
+                acc = sums.setdefault((where, name, leaf), [0, 0])
+                acc[0] = acc[0] + tg.astype(np.float32)
+                acc[1] = acc[1] + np.asarray(g, np.float32)
+        # the GRU cell alone
+        h, x = hiddens[t], jnp.concatenate([context, motions[t]], -1)
+        ct = cots[f"update/gru#{t}"].astype(BF16)
+        _, vjp = jax.vjp(lambda p, h, x: jr.ConvGRU(
+            m.raft_hdim, dtype=BF16).apply({"params": p}, h, x),
+            jp["gru"], h, x)
+        dp, dh, dx = jax.jit(vjp)(ct)
+        gru = upd.gru
+        convs = (gru.convz, gru.convr, gru.convq)
+        (tdh, tdx), tps = torch_vjp(gru, [h, x], [q for c in convs
+                                                  for q in (c.weight, c.bias)],
+                                    ct)
+        row(t, "bwd.gru.dh", tdh, dh)
+        row(t, "bwd.gru.dx", tdx, dx)
+        with torch_gates():
+            (odh, odx), _ = torch_vjp(gru, [h, x], [], ct)
+        row(t, "bwd.gru.dh_torch_gates", odh, dh)
+        row(t, "bwd.gru.dx_torch_gates", odx, dx)
+        # the motion encoder's output reaches only the GRU: JAX's cotangent
+        # there inside its model against its GRU's alone
+        rows[-3]["model_vs_jax"] = compare(
+            cots[f"update/motion#{t}"], dx[..., context.shape[-1]:])
+        # a conv fed by LeakyReLU of another's output, the only use of it:
+        # the cotangent at that output (through leaky), alone and in JAX's
+        # model
+        for prev, name in LEAKY_PAIRS:
+            where, k = CONVS[name]
+            path = f"update/{where}/{name}" if where else f"update/{name}"
+            ppath = path.replace(name, prev)
+            y = captured_out(prev, t)
+            ct = cots[f"{path}#{t}"].astype(BF16)
+            sub = jp if where is None else jp[where]
+            _, vjp = jax.vjp(lambda v, p=sub[name], f=ct.shape[-1], k=k:
+                             nn.Conv(f, (k, k), padding="SAME",
+                                     dtype=BF16).apply({"params": p},
+                                                       leaky(v)), y)
+            (want,) = jax.jit(vjp)(ct)
+            conv = getattr(module(where, name), name)
+            (got,), _ = torch_vjp(lambda v, c=conv: c(port_leaky(v)), [y], [],
+                                  ct)
+            row(t, f"bwd.{prev}.dy", got, want)
+            rows[-1]["model_vs_jax"] = compare(cots[f"{ppath}#{t}"], want)
+        for i, name in enumerate(("convz", "convr", "convq")):
+            row(t, f"bwd.gru.{name}.kernel", tps[2 * i], dp[name]["kernel"])
+            row(t, f"bwd.gru.{name}.bias", tps[2 * i + 1], dp[name]["bias"])
+        if t == 0:
+            dh0 = dh
+    # the hidden state's tanh, on the GRU's first dh
+    hdim = m.raft_hdim
+    _, vjp = jax.vjp(jnp.tanh, ctx[..., :hdim])
+    (want,) = jax.jit(vjp)(dh0)
+    (got,), _ = torch_vjp(tanh, [ctx[..., :hdim]], [], dh0)
+    row("init", "bwd.hidden_init", got, want)
+    rows += volume_rows(seed, m, volume, lookup_cts, cots)
+    if iters < m.raft_iters:  # the sums need every iteration
+        return rows
+    for (where, name, leaf), (tsum, jsum) in sums.items():
+        node = jg if where is None else jg[where]
+        rows.append({"seed": seed, "iter": "all",
+                     "op": f"bwd.sum.{name}.{leaf}",
+                     "port_vs_jax": compare(tsum, jsum),
+                     "model_vs_jax": compare(node[name][leaf], jsum)})
+    return rows
+
+
+def volume_rows(seed, m, volume, lookup_cts, cots):
+    """``bwd.volume.df1`` / ``.df2``: the all-pairs volume's backward, the
+    iterations' lookups' cotangents (JAX's ``convc1`` input cotangents
+    alone, as float32) through the lookups, the pyramid and the product
+    to the two ``corr_proj`` outputs, in both packages; ``model_vs_jax``
+    JAX's cotangent there inside its model against its own alone."""
+    g1, g2, coords_at = volume
+    n = len(lookup_cts)
+
+    def jax_volume(a, b):
+        pyr = jr.correlation_pyramid(jr.allpairs_correlation(a, b),
+                                     m.raft_corr_levels)
+        return [jr.corr_lookup(pyr, c, m.raft_radius, impl=m.raft_lookup)
+                for c in coords_at[:n]]
+
+    _, vjp = jax.vjp(jax_volume, g1, g2)
+    want = jax.jit(vjp)(lookup_cts)
+    a, b = (torch.from_numpy(np.asarray(g.astype(jnp.float32))).to(
+        torch.bfloat16).requires_grad_() for g in (g1, g2))
+    pyr = tr.correlation_pyramid(tr.allpairs_correlation(a, b),
+                                 m.raft_corr_levels)
+    outs = [tr.corr_lookup(pyr, torch.from_numpy(np.asarray(c)),
+                           m.raft_radius, impl=m.raft_lookup)
+            for c in coords_at[:n]]
+    got = torch.autograd.grad(outs, [a, b], [
+        torch.from_numpy(np.array(c)) for c in lookup_cts])
+    out = []
+    for i, name in enumerate(("df1", "df2")):
+        r = {"seed": seed, "iter": "all", "op": f"bwd.volume.{name}",
+             "port_vs_jax": compare(got[i].float().numpy(), want[i])}
+        if n == m.raft_iters:
+            r["model_vs_jax"] = compare(cots[f"corr_proj#{i}"], want[i])
+        out.append(r)
+    return out
+
+
 def run(seed: int, iters: int):
     raw = raft_config_dict()
     raw["model"].update(dtype="bfloat16", raft_unroll=True)
@@ -201,7 +470,10 @@ def run(seed: int, iters: int):
         with torch.no_grad():
             return to_numpy(getattr(mod, name)(to_torch(x)))
 
+    inputs = {}
+
     def op_conv(name, x, t):
+        inputs.setdefault(name, []).append(x)
         where, k = CONVS[name]
         sub = jp["update"] if where is None else jp["update"][where]
         want = jax_conv(sub[name], captured(name, t).shape[-1], k, x)
@@ -226,8 +498,15 @@ def run(seed: int, iters: int):
     rows = [{"seed": seed, "iter": "encoder", "op": op, **res}
             for op, res in encoder_ops(state["intermediates"], params, port,
                                        ins, m.raft_level).items()]
+    with torch.no_grad():
+        init = to_numpy(tanh(to_torch(ctx)[:, :hdim]))
+    rows.append({"seed": seed, "iter": "init", "op": "hidden_init",
+                 "port_vs_jax": compare(init, hidden)})
+    hiddens, motions = [hidden], []
+    coords_at = []
     for t in range(iters):
         coords = grid + flow
+        coords_at.append(coords)
         cf = jr.corr_lookup(pyr_j, coords, m.raft_radius, impl=m.raft_lookup)
         with torch.no_grad():
             cf_t = tr.corr_lookup(pyr_t, torch.from_numpy(np.asarray(coords)),
@@ -250,6 +529,16 @@ def run(seed: int, iters: int):
         ops["convq"] = op_conv("convq", jnp.concatenate(
             [r * hidden, context, motion], -1), t)
         q = jnp.tanh(captured("convq", t))
+        for gate, conv, jf, tf, own in (
+                ("z", "convz", jax.nn.sigmoid, sigmoid, torch.sigmoid),
+                ("r", "convr", jax.nn.sigmoid, sigmoid, torch.sigmoid),
+                ("q", "convq", jnp.tanh, tanh, torch.tanh)):
+            c = captured(conv, t)
+            want = jax.jit(jf)(c)
+            ops[f"gate_{gate}"] = {"port_vs_jax": compare(
+                to_numpy(tf(to_torch(c))), want)}
+            ops[f"gate_{gate}_torch"] = {"port_vs_jax": compare(
+                to_numpy(own(to_torch(c))), want)}
         want = jax.jit(lambda z, h, q: (1.0 - z) * h + z * q)(z, hidden, q)
         with torch.no_grad():
             zt, ht, qt = (to_torch(v) for v in (z, hidden, q))
@@ -263,14 +552,19 @@ def run(seed: int, iters: int):
         for op, res in ops.items():
             rows.append({"seed": seed, "iter": t, "op": op, **res})
         hidden = new_hidden
+        hiddens.append(hidden)
+        motions.append(motion)
         flow = flow + cap["update"]["__call__"][t][1]
+    rows += backward_rows(seed, cfg, params, prep, port, inputs, captured,
+                          hiddens, context, motions, ctx, iters,
+                          (g1, g2, coords_at))
     return rows
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=3)
-    ap.add_argument("--iters", type=int, default=2)
+    ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--no-excess-precision", action="store_true",
                     help="JAX with --xla_allow_excess_precision=false")
     args = ap.parse_args()

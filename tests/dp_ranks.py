@@ -19,7 +19,11 @@ import torch
 import torch.distributed as dist
 
 from cerberusnet_torch.models.cerberus import CerberusNet
-from cerberusnet_torch.models.common import set_spatial, upsample_to
+from cerberusnet_torch.models.common import (
+    set_spatial,
+    upsample2x,
+    upsample_to,
+)
 from cerberusnet_torch.models.dcv_flow import (
     CerberusDCV,
     DCVFlowNet,
@@ -540,6 +544,15 @@ OFFGRID_MESHES = {288: ((1, 4), (2, 2)), 368: ((1, 4), (2, 2)),
 # (source rows, target rows) of the frame)
 OFFGRID_RESIZES = {200: ((2, 2), ((4, 7), (7, 13), (13, 25))),
                    368: ((1, 4), ((12, 23),))}
+# the bf16 band resizes the ranks hand back (held bit for bit to the whole
+# frame's resize cut to the band, and to JAX's sharded one): H -> (mesh,
+# (source rows, target rows) of the frame); OFFGRID_RESIZES' pairs, x2 on
+# and off the grid (23 -> 46, 25 -> 50: an odd source) and x4; each at a
+# width below the height and one above, which the frame's rule contracts in
+# the other order
+BF16_RESIZES = {200: ((2, 2), ((4, 7), (7, 13), (13, 25), (25, 50))),
+                368: ((1, 4), ((12, 23), (23, 46), (46, 184), (92, 184)))}
+BF16_RESIZE_WIDTHS = (3, 40)
 # the settings the reference refuses: (H, mesh, models)
 OFFGRID_REFUSED = ((202, (2, 2), ("CerberusDCV", "CerberusRAFT")),
                    (352, (1, 4), ("CerberusNet", "FlowNet", "StereoNet")))
@@ -601,6 +614,42 @@ def resize_checks(mesh, h, pairs, w=3):
     return out
 
 
+def bf16_resize_input(hs, w):
+    """The bf16 frame (batch 2, 2 channels, ``hs`` x ``w``) of a band
+    resize case, the same on every rank and in the test process."""
+    gen = torch.Generator().manual_seed(100 * hs + w)
+    return torch.randn((2, 2, hs, w), dtype=torch.float64,
+                       generator=gen).to(torch.bfloat16)
+
+
+def bf16_resize_forms(hs, hd, w):
+    """{form: (the call on a band of ``mesh``, the output's width)} of a
+    case: ``upsample2x`` and its phase form at x2, else ``upsample_to``
+    (x4: four times the width, else twice)."""
+    if hd == 2 * hs:
+        return {"resize": (lambda x, m, rows: upsample2x(x, m), 2 * w),
+                "phase": (lambda x, m, rows: upsample2x(x, m, impl="phase"),
+                          2 * w)}
+    ww = 4 * w if hd == 4 * hs else 2 * w
+    return {"resize": (lambda x, m, rows, ww=ww: upsample_to(x, (rows, ww),
+                                                             m), ww)}
+
+
+def bf16_resize_bands(mesh, pairs):
+    """{"hs hd w form": this rank's band of the bf16 resize, float32} of
+    each case of ``BF16_RESIZES``."""
+    out = {}
+    for hs, hd in pairs:
+        for w in BF16_RESIZE_WIDTHS:
+            x = bf16_resize_input(hs, w)
+            dst = mesh.rows(hd)
+            for form, (fn, _) in bf16_resize_forms(hs, hd, w).items():
+                y = fn(x[:, :, mesh.rows(hs)], mesh, dst.stop - dst.start)
+                assert y.dtype == torch.bfloat16
+                out[f"{hs} {hd} {w} {form}"] = y.float().numpy()
+    return out
+
+
 def offgrid_suite(p):
     """Every case of tests/test_torch_spatial_offgrid.py on this rank: the
     models of ``p["models"][h]`` on ``OFFGRID_MESHES[h]`` in float64 and
@@ -626,6 +675,9 @@ def offgrid_suite(p):
                         mesh, p["models"][h][name], OFFGRID_MODELS)
     out["resize"] = {h: resize_checks(offgrid_mesh(shape, h), h, pairs)
                      for h, (shape, pairs) in OFFGRID_RESIZES.items()}
+    out["bf16_resize"] = {
+        h: bf16_resize_bands(offgrid_mesh(shape, h), pairs)
+        for h, (shape, pairs) in BF16_RESIZES.items()}
     out["refused"] = {}
     for h, shape, names in OFFGRID_REFUSED:
         mesh = offgrid_mesh(shape, h)

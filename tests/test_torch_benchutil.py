@@ -56,6 +56,25 @@ def test_two_point_rounds_exact_slope(iters):
     assert clock.calls == (n1 + n2) * (1 + 3)  # a warmup of each, 3 rounds
 
 
+def test_between_runs_before_each_round_outside_its_blocks():
+    """``between`` runs once before each round; the clock time it takes
+    is in no slope."""
+    clock = StandIn()
+    marks = []
+
+    def between():
+        marks.append(clock.calls)
+        clock.t += 100.0  # a slow call between rounds
+
+    slopes = benchutil.time_fn_two_point_rounds(
+        clock.fn, (), iters=(2, 7), rounds=3,
+        clock=benchutil.HostClock(now=clock.now), floor=0.0,
+        between=between)
+    assert slopes == [PER_CALL] * 3
+    # after the warmup's 2 + 7 calls, and after each round's
+    assert marks == [9, 18, 27]
+
+
 def test_two_point_best_and_floor_subtracted():
     clock = StandIn()
     host = benchutil.HostClock(now=clock.now)

@@ -3,7 +3,7 @@
 to the imported ``TorchCerberus`` mirror's forward), ``--infer`` with the
 wrong number of images, ``--predict-dir`` and ``--profile`` (a
 torch.profiler trace with the train steps' operators). The export and
-quantisation flags are tests/test_torch_cli_export.py's."""
+quantisation flags are tests/test_torch_export.py's."""
 
 import json
 import os

@@ -3,13 +3,18 @@ Trainer.export, CerberusNet's stacked_input) against the JAX package's
 (cerberusnet_tpu/export/aot.py) on the CPU, on the tiny CerberusNet of
 tests/test_export.py with its weights carried across by
 load_flax_params; and the fake implementations of the kernels' operators
-(ops/library.py), which export traces through on the card.
+(ops/library.py), which export traces through on the card; and the
+CLI's export flags (``--export-dir``, ``--quant int8``,
+``--export-stacked``) on the CPU, each artifact exported once for the
+module (the stacked one held bit for bit to the separate-frame one).
 
 Tolerances: the loaded program runs the eager forward's operators (1e-6);
 against JAX's exported program the float32 outputs differ by summation
 order (1e-4 relative L2, as the port's model tests hold them).
 """
 
+import contextlib
+import io
 import json
 import os
 
@@ -22,12 +27,9 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from cerberusnet_tpu.export import load_exported as jax_load_exported
 from cerberusnet_tpu.export.aot import export_cerberus as jax_export_cerberus
 from cerberusnet_tpu.models import CerberusNet as JaxCerberusNet
-from cerberusnet_torch.export import (
-    export_inference,
-    load_exported,
-    save_exported,
-)
-from cerberusnet_torch.export.aot import DeployOutputs, export_cerberus
+from cerberusnet_torch import cli
+from cerberusnet_torch.export import load_exported
+from cerberusnet_torch.export.aot import export_cerberus
 from cerberusnet_torch.models.cerberus import CerberusNet
 from cerberusnet_torch.ops import correlation as corr
 from cerberusnet_torch.ops import library
@@ -35,6 +37,7 @@ from cerberusnet_torch.ops.encoder_level import (
     encoder_level_bwd_plain,
     encoder_level_plain,
 )
+from cerberusnet_torch.quant import quantized_apply
 from cerberusnet_torch.quant.ptq import rel_l2
 from cerberusnet_torch.testing import one_torch_thread  # noqa: F401
 from cerberusnet_torch.train.config import ExperimentConfig
@@ -55,8 +58,8 @@ def frames(seed, n=1):
 @pytest.fixture(scope="module")
 def artifacts(tmp_path_factory):
     """The JAX artifact of the tiny model (tests/test_export.py's), the
-    port's of the same weights (separate frames and stacked), the port
-    model, and JAX's outputs on a batch."""
+    port's of the same weights, the port model, and JAX's outputs on a
+    batch."""
     d = tmp_path_factory.mktemp("export")
     jmodel = JaxCerberusNet(**TINY, corr_impl="pure")
     batch = frames(0)
@@ -70,13 +73,8 @@ def artifacts(tmp_path_factory):
     model = model.eval()
     port_dir = export_cerberus(model, hw=HW, dtype=torch.float32,
                                out_dir=str(d / "port"))
-    model.stacked_input = True
-    stacked_dir = save_exported(
-        export_inference(DeployOutputs(model), (torch.zeros(3, *HW, 3),)),
-        str(d / "stacked"))
-    model.stacked_input = False
     return {"jax_dir": jax_dir, "jax_out": jax_out, "port_dir": port_dir,
-            "stacked_dir": stacked_dir, "model": model, "batch": batch}
+            "model": model, "batch": batch}
 
 
 _loaded = {}
@@ -115,13 +113,16 @@ def test_manifest_matches_jax(artifacts):
     assert os.path.getsize(os.path.join(artifacts["port_dir"], "model.pt2"))
 
 
-def test_stacked_artifact_equals_separate(artifacts):
-    batch = artifacts["batch"]
-    with open(os.path.join(artifacts["stacked_dir"], "manifest.json")) as f:
+def test_stacked_artifact_equals_separate(cli_exports):
+    """The CLI's stacked artifact against its separate-frame one, of the
+    same weights: bit for bit."""
+    batch = frames(0)
+    stacked_dir, separate_dir = cli_exports("stacked"), cli_exports("float")
+    with open(os.path.join(stacked_dir, "manifest.json")) as f:
         assert json.load(f)["inputs"] == [{"shape": [3, *HW, 3],
                                            "dtype": "float32"}]
-    sep = run(artifacts["port_dir"], *batch)
-    stk = run(artifacts["stacked_dir"], np.concatenate(batch, 0))
+    sep = run(separate_dir, *batch)
+    stk = run(stacked_dir, np.concatenate(batch, 0))
     for a, b in zip(sep, stk):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -322,3 +323,76 @@ def test_program_holds_the_kernels_operators(name, operators_on_cpu,
         eager = model(*batch)
     for g, k in zip(got, HEADS):
         torch.testing.assert_close(g, eager[k], rtol=0, atol=0)
+
+# ---------------------------------------------------- the CLI's export flags
+# ``--export-dir``, with ``--quant int8`` and with ``--export-stacked`` on
+# the CPU (``--device cpu``) at tiny widths, each one call of ``cli.main``
+# that writes ``model.pt2`` and ``manifest.json``; the float artifact
+# agrees with the trainer's forward, the int8 one with its int8 model
+
+CLI_CONFIG = {
+    "name": "tiny-cli-export",
+    "model": {"encoder_channels": [8, 12, 16, 16, 16, 16],
+              "est_channels": [16, 16, 12], "ctx_channels": [16, 16],
+              "fpn_channels": 16},
+    "data": {"hw": list(HW), "batch_size": 2, "num_workers": 1,
+             "synthetic_length": 2, "shuffle": False},
+    "optim": {"schedule": "constant"},
+    "train": {"log_every": 1000}}
+# flags: the artifact's inputs
+CLI_CASES = {"float": ([], [[1, *HW, 3]] * 3),
+             "int8": (["--quant", "int8"], [[1, *HW, 3]] * 3),
+             "stacked": (["--export-stacked"], [[3, *HW, 3]])}
+
+
+@pytest.fixture(scope="module")
+def cli_exports(tmp_path_factory):
+    """``cli_exports(case)``: the directory ``cli.main`` exported the
+    case's artifact to (run once for the module, its standard output
+    checked)."""
+    root = tmp_path_factory.mktemp("cli_export")
+    cfg = root / "tiny.json"
+    cfg.write_text(json.dumps(CLI_CONFIG))
+    done = {}
+
+    def get(case):
+        if case not in done:
+            out = str(root / case)
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                assert cli.main(["--config", str(cfg), "--device", "cpu",
+                                 "--export-dir", out,
+                                 *CLI_CASES[case][0]]) == 0
+            assert f"exported AOT artifact to {out}" in said.getvalue()
+            done[case] = out
+        return done[case]
+    return get
+
+
+@pytest.mark.parametrize("case", CLI_CASES)
+def test_cli_exports(case, cli_exports):
+    _, inputs = CLI_CASES[case]
+    out = cli_exports(case)
+    assert os.path.getsize(os.path.join(out, "model.pt2"))
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)
+    assert manifest["platforms"] == ["cpu"]
+    assert [i["shape"] for i in manifest["inputs"]] == inputs
+    assert [o["shape"][-1] for o in manifest["outputs"]] == [19, 2, 1]
+    if case == "stacked":
+        return  # held to the separate frames by test_stacked_artifact_...
+    # the program against the trainer the CLI built, seeded the same way:
+    # its forward, or its int8 model under quantized_apply
+    rng = np.random.RandomState(0)
+    inputs = [rng.rand(*s).astype(np.float32) for s in inputs]
+    tr = Trainer(ExperimentConfig.from_dict(CLI_CONFIG), device="cpu")
+    got = run(out, *inputs)
+    with torch.no_grad():
+        x = [torch.from_numpy(v) for v in inputs]
+        if case == "int8":
+            want = quantized_apply(tr.deploy_model("int8"), *x)
+        else:
+            want = tr.model.eval()(*x)
+    for g, k in zip(got, HEADS):
+        np.testing.assert_allclose(g.numpy(), want[k].numpy(), rtol=1e-5,
+                                   atol=1e-6)

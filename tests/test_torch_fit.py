@@ -584,7 +584,7 @@ def test_heldout_table(tmp_path):
     (["--export-dir", "d", "--quant", "int4"], "invalid choice"),
 ])
 def test_cli_unported_flags_raise(flag, message, capsys):
-    """The export flags are ported (tests/test_torch_cli_export.py); what
+    """The export flags are ported (tests/test_torch_export.py); what
     the CLI still refuses is an export option without --export-dir (the
     reference ignores it and trains) and an unknown --quant mode."""
     cfg = str(REPO_ROOT / "configs" / "cerberus_evidence_cpu.json")

@@ -3,7 +3,9 @@ two gloo ranks against the JAX package's ``make_mesh(2, 1)`` on the same
 global batch, and against one port process.
 
 The ranks are spawned once for the module (``tests/dp_ranks.py``'s
-``suite``, which imports no JAX) and the tests read their results. Every
+``suite``, which imports no JAX) while the test process computes the JAX
+side from the same weights and batches, and the tests read their
+results. Every
 global batch is built so that a naive per-rank mean fails: rank 0's half
 has 90% of its flow and disparity pixels valid and 10% of its labels
 ignored (255), rank 1's half 10% and 60%, and berHu's largest error lies
@@ -23,6 +25,8 @@ Trainer's step against the JAX Trainer's with two devices (components
 of relative L2, tests/test_torch_fit.py's rule; 1e-5 against one port
 process.
 """
+
+import concurrent.futures
 
 import jax
 import jax.numpy as jnp
@@ -234,20 +238,28 @@ def model_batch(seed):
     }
 
 
-@pytest.fixture(scope="module")
-def jax_models():
+def model_specs():
+    """{model: (random flax parameters, batch)} of the JAX test's models."""
+    out = {}
+    for i, (name, make) in enumerate(JAX_MODELS.items()):
+        batch = model_batch(i)
+        keys = dp_ranks.MODELS[name][1]
+        shapes = jax.eval_shape(make().init, jax.random.PRNGKey(i),
+                                *(batch[k][:1] for k in keys))["params"]
+        out[name] = (draw_params(shapes, i), batch)
+    return out
+
+
+def jax_model_grads(specs):
     """{model: (params, batch, loss, gradients by the port's names)}: the
     JAX test's models, value and gradient on the make_mesh(2, 1) mesh, the
     batch sharded over 'data' and the parameters replicated."""
     mesh = jax_make_mesh(N, 1)
     out = {}
-    for i, (name, make) in enumerate(JAX_MODELS.items()):
+    for name, make in JAX_MODELS.items():
         model = make()
-        batch = model_batch(i)
+        params, batch = specs[name]
         keys = dp_ranks.MODELS[name][1]
-        shapes = jax.eval_shape(model.init, jax.random.PRNGKey(i),
-                                *(batch[k][:1] for k in keys))["params"]
-        params = draw_params(shapes, i)
 
         def loss_fn(p, bd, model=model, name=name, keys=keys):
             out = model.apply({"params": p}, *(bd[k] for k in keys))
@@ -273,22 +285,31 @@ def jax_models():
 # ------------------------------------------------ trainer (JAX Trainer)
 
 
-@pytest.fixture(scope="module")
-def jax_trainer_step():
-    """One step of the JAX Trainer with num_data_devices=2 (uncertainty
-    weighting, no augmentation) from random weights on a skewed batch: its
-    preprocessing of the batch sharded on its mesh, the gradient of its
-    loss and one update of its optimizer (its ``train_step`` less the jit
-    that fuses them, which would compile the model once more). Returns
-    (port config, batch, initial masters, components, gradients, masters
-    after, gradients with ``optim.grads_dtype="bfloat16"``, masters after
-    two calls with ``optim.accum_steps=2``, the first on ``batch`` and the
-    second on ``second_batch()``), the trees by the port's names."""
+def trainer_start():
+    """The JAX Trainer with num_data_devices=2 (uncertainty weighting, no
+    augmentation), its random initial weights and a skewed batch: (JAX
+    trainer, port config, initial flax tree, batch, initial masters by the
+    port's names)."""
     raw = config(loss={"uncertainty_weighting": True})
     jt = JaxTrainer(JaxConfig.from_dict(raw))
     assert jt.mesh.shape["data"] == N
     init = draw_params(jt.state.params, 7)
-    batch = skewed(synthetic_batch())
+    cfg = ExperimentConfig.from_dict(raw)
+    masters = {k: v.numpy() for k, v in port_masters(cfg, init).items()}
+    return jt, raw, init, skewed(synthetic_batch()), masters
+
+
+def trainer_step_refs(start):
+    """One step of ``trainer_start``'s JAX Trainer from its weights on its
+    batch: its preprocessing of the batch sharded on its mesh, the
+    gradient of its loss and one update of its optimizer (its
+    ``train_step`` less the jit that fuses them, which would compile the
+    model once more). Returns (port config, batch, initial masters,
+    components, gradients, masters after, gradients with
+    ``optim.grads_dtype="bfloat16"``, masters after two calls with
+    ``optim.accum_steps=2``, the first on ``batch`` and the second on
+    ``second_batch()``), the trees by the port's names."""
+    jt, raw, init, batch, masters = start
     prep = jt.preprocess(jax_shard_batch(batch, jt.mesh))
     params = jax.device_put(init, replicated_sharding(jt.mesh))
     value_and_grad = jax.jit(jax.value_and_grad(jt._loss_fn, has_aux=True))
@@ -320,7 +341,7 @@ def jax_trainer_step():
     accum = jax.jit(two_calls)(params, grads, grads2)
     cfg = ExperimentConfig.from_dict(raw)
     np_tree = lambda d: {k: v.numpy() for k, v in d.items()}  # noqa: E731
-    return (raw, batch, np_tree(port_masters(cfg, init)),
+    return (raw, batch, masters,
             {k: float(v) for k, v in comps.items()},
             np_tree(port_masters(cfg, numpy_tree(grads))),
             np_tree(port_masters(cfg, numpy_tree(after))),
@@ -351,14 +372,18 @@ def augmented_batches():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, jax_models, jax_trainer_step):
-    """The two ranks' results of ``dp_ranks.suite``."""
-    raw, batch, masters = jax_trainer_step[:3]
+def world(tmp_path_factory):
+    """(the two ranks' results of ``dp_ranks.suite``, ``jax_model_grads``,
+    ``trainer_step_refs``): the ranks run while the test process computes
+    the JAX side from the same weights and batches."""
+    specs = model_specs()
+    start = trainer_start()
+    _, raw, _, batch, masters = start
     payload = {
         "losses": loss_inputs(),
-        "models": {name: {"model": name, "params": numpy_tree(m[0]),
-                          "batch": m[1]}
-                   for name, m in jax_models.items()},
+        "models": {name: {"model": name, "params": numpy_tree(params),
+                          "batch": batch_}
+                   for name, (params, batch_) in specs.items()},
         "trainer_step": {"raw": raw, "batch": batch, "masters": masters},
         "trainer_bf16": {"raw": {**raw, "optim": {
             **raw["optim"], "grads_dtype": "bfloat16"}}, "batch": batch,
@@ -374,8 +399,27 @@ def ranks(tmp_path_factory, jax_models, jax_trainer_step):
                        "dir": str(tmp_path_factory.mktemp("dp_ckpt"))},
         "pallas_levels": {"raw": config(model={"pallas_levels": 3})},
     }
-    return launch(dp_ranks.suite, N, args=(payload,),
-                  timeout=dp_ranks.RANKS_TIMEOUT_S)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(launch, dp_ranks.suite, N, args=(payload,),
+                            timeout=dp_ranks.RANKS_TIMEOUT_S)
+        models = jax_model_grads(specs)
+        step = trainer_step_refs(start)
+        return ranks.result(), models, step
+
+
+@pytest.fixture(scope="module")
+def ranks(world):
+    return world[0]
+
+
+@pytest.fixture(scope="module")
+def jax_models(world):
+    return world[1]
+
+
+@pytest.fixture(scope="module")
+def jax_trainer_step(world):
+    return world[2]
 
 
 # ---------------------------------------------------------------- tests

@@ -33,6 +33,8 @@ loss against the JAX package, on the CPU.
 * trace_forward's RAFT stages on a CPU profile.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -274,16 +276,25 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@functools.lru_cache(maxsize=None)
+def model_params(name):
+    """Random flax parameters for ``name``: their tree is the same in
+    every type, so one draw serves both."""
+    n, extra, _ = MODELS[name]
+    return random_params(getattr(jr, name)(**TINY, **extra),
+                         frames(1, n), 2)
+
+
 def jax_reference(name, dtype):
-    """Random flax parameters for ``name`` and the JAX model's outputs on
-    ``frames(1, n)`` in ``dtype``, in both forms with both lookups: one
-    compile for the four."""
+    """``model_params(name)`` and the JAX model's outputs on ``frames(1,
+    n)`` in ``dtype``, in both forms with both lookups: one compile for the
+    four."""
     n, extra, _ = MODELS[name]
     imgs = [jnp.asarray(i) for i in frames(1, n)]
     models = {(form, impl): getattr(jr, name)(
         unroll_iters=unroll, lookup_impl=impl, dtype=DTYPES[dtype][0],
         **TINY, **extra) for form, unroll in FORMS.items() for impl in LOOKUPS}
-    params = random_params(models["scan", "onehot"], imgs, 2)
+    params = model_params(name)
     run = jax.jit(lambda p, *x: {k: m.apply({"params": p}, *x)
                                  for k, m in models.items()})
     return params, {k: flat(v) for k, v in run(params, *imgs).items()}
@@ -709,6 +720,132 @@ def test_bf16_conv_block_rounds_as_flax(stride, cin, cout):
         got = got.float().permute(0, 2, 3, 1).numpy()
         assert got.shape == want.shape
         assert np.mean(got != np.asarray(want, np.float32)) <= 5e-3, jmod
+
+
+# the GRU's gates: (port function, flax's, torch's own)
+GATES = {"sigmoid": ("sigmoid", jax.nn.sigmoid, torch.sigmoid),
+         "tanh": ("tanh", jnp.tanh, torch.tanh)}
+# the update block's gate input at the tiny widths: (batch, h, w, hdim)
+GATE_SHAPE = (2, 8, 8, 16)
+
+
+def gate_inputs(seed):
+    """A conv output's scale of pre-activations and a cotangent, bf16."""
+    rng = np.random.RandomState(seed)
+    x = jnp.asarray(2.0 * rng.randn(*GATE_SHAPE), jnp.bfloat16)
+    g = jnp.asarray(rng.randn(*GATE_SHAPE), jnp.bfloat16)
+    return x, g
+
+
+def bits(a):
+    """A bf16 array's or tensor's values as a writable float32 array."""
+    return np.array(a.float() if isinstance(a, torch.Tensor)
+                    else jnp.asarray(a, jnp.float32), np.float32)
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_bf16_gate_rounds_as_flax(gate):
+    """``models/common.py``'s ``sigmoid`` and ``tanh`` (the GRU's gates and
+    the decoders' hidden state, ROADMAP C7) in bf16 against flax's
+    ``nn.sigmoid`` / ``jnp.tanh`` and their ``jax.vjp``, every element
+    bit-equal: XLA computes the sigmoid as 1 / (1 + exp(-x)) rounding each
+    op, and the backwards as g (y (1 - y)) and a = g (1 - y), a + a y
+    (with torch's own gates 29-41% of the GRU's sigmoid outputs and 35-70%
+    of its cotangents differed, scripts/raft_bf16_op_compare.py)."""
+    from cerberusnet_torch.models import common
+
+    name, jf, _ = GATES[gate]
+    x, g = gate_inputs(3)
+    y, vjp = jax.vjp(jf, x)
+    (dx,) = jax.jit(vjp)(g)
+    xt = torch.tensor(bits(x)).bfloat16().requires_grad_()
+    yt = getattr(common, name)(xt)
+    (dxt,) = torch.autograd.grad(yt, xt, torch.from_numpy(bits(g)).bfloat16())
+    assert yt.dtype == dxt.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits(yt.detach()), bits(y))
+    np.testing.assert_array_equal(bits(dxt), bits(dx))
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_float32_gate_is_torchs(gate):
+    """In float32 (and float64) the gates are torch's own, with autograd's
+    backward: every float32 test is unmoved."""
+    from cerberusnet_torch.models import common
+
+    name, _, own = GATES[gate]
+    x, g = gate_inputs(4)
+    for dtype in (torch.float32, torch.float64):
+        xt = torch.from_numpy(bits(x)).to(dtype).requires_grad_()
+        gt = torch.from_numpy(bits(g)).to(dtype)
+        y = getattr(common, name)(xt)
+        (dx,) = torch.autograd.grad(y, xt, gt)
+        (want,) = torch.autograd.grad(own(xt), xt, gt)
+        assert torch.equal(y, own(xt)) and torch.equal(dx, want)
+
+
+def test_bf16_conv_gru_backward_rounds_as_flax():
+    """One bf16 ``ConvGRU`` cell's backward at the tiny widths (hidden 16,
+    input 8 + 82 channels) against ``jax.vjp`` of flax's on the same
+    inputs, weights (float32, cast at the use) and cotangent: the
+    cotangents of h and x differ only by the order of the convolutions'
+    sums, at most 0.5% of their elements (0% in
+    scripts/raft_bf16_op_compare.py's ``bwd.gru.dh`` / ``.dx``); the
+    kernels' gradients are JAX's rounded to bf16 there (XLA's CPU
+    convolution hands its float32 sums on unrounded under its default
+    excess precision, ROADMAP C7), and each bias gradient is its gate's
+    pre-activation cotangents summed over the pixels and rounded once, no
+    farther from their float64 sum than JAX's (which XLA's CPU accumulates
+    in bf16)."""
+    hidden, inp = 16, 90
+    rng = np.random.RandomState(5)
+    h = jnp.asarray(np.tanh(rng.randn(2, 8, 8, hidden)), jnp.bfloat16)
+    x = jnp.asarray(rng.randn(2, 8, 8, inp), jnp.bfloat16)
+    ct = jnp.asarray(0.1 * rng.randn(2, 8, 8, hidden), jnp.bfloat16)
+    jgru = jr.ConvGRU(hidden, dtype=jnp.bfloat16)
+    params = draw_params(jax.eval_shape(jgru.init, jax.random.PRNGKey(0),
+                                        h, x)["params"], 6)
+    _, vjp = jax.vjp(lambda p, a, b: jgru.apply({"params": p}, a, b),
+                     params, h, x)
+    dp, dh, dx = jax.jit(vjp)(ct)
+    gru = tr.ConvGRU(hidden, inp)
+    with torch.no_grad():
+        for name in ("convz", "convr", "convq"):
+            conv = getattr(gru, name)
+            conv.weight.copy_(torch.from_numpy(
+                params[name]["kernel"].transpose(3, 2, 0, 1).copy()))
+            conv.bias.copy_(torch.from_numpy(params[name]["bias"]))
+
+    def nchw(a):
+        return torch.from_numpy(bits(a)).permute(0, 3, 1, 2).bfloat16()
+
+    # each gate's pre-activation cotangent, which its bias gradient sums
+    pre = {}
+
+    def keep(name):
+        def hook(module, args, out):
+            out.register_hook(lambda g: pre.__setitem__(name, g))
+        return hook
+
+    for name in ("convz", "convr", "convq"):
+        getattr(gru, name).register_forward_hook(keep(name))
+    ht, xt = nchw(h).requires_grad_(), nchw(x).requires_grad_()
+    out = gru(ht, xt)
+    convs = [getattr(gru, n) for n in ("convz", "convr", "convq")]
+    grads = torch.autograd.grad(out, [ht, xt] + [c.weight for c in convs]
+                                + [c.bias for c in convs], nchw(ct))
+    for got, want in ((grads[0], dh), (grads[1], dx)):
+        got = got.float().permute(0, 2, 3, 1).numpy()
+        assert np.mean(got != bits(want)) <= 5e-3
+    for i, name in enumerate(("convz", "convr", "convq")):
+        kernel = grads[2 + i].permute(2, 3, 1, 0).numpy()
+        want = bits(jnp.asarray(dp[name]["kernel"], jnp.bfloat16))
+        assert np.mean(kernel != want) <= 5e-3, name
+        exact = pre[name].double().sum((0, 2, 3)).numpy()
+        got = grads[5 + i].numpy()
+        np.testing.assert_allclose(got, exact, rtol=2.0**-8, atol=0,
+                                   err_msg=name)
+        assert (np.linalg.norm(got - exact) <= np.linalg.norm(
+            np.asarray(dp[name]["bias"], np.float64) - exact)), name
 
 
 def test_bf16_tied_weight_gradients_sum_in_float32(raft_bf16_step):

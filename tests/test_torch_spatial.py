@@ -248,8 +248,9 @@ def one_process_trainer(raw, masters, batch):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """(specs, the ranks' results, the JAX side, the trainer's payload):
-    the ranks run while the test process computes the JAX side."""
+    """(specs, the ranks' results, the JAX side, the trainer's payload,
+    ``one_process_side``): the ranks run while the test process computes
+    the JAX side and then one process's."""
     specs = model_specs()
     raw = trainer_raw()
     tr = Trainer(ExperimentConfig.from_dict(raw), device="cpu")
@@ -268,13 +269,12 @@ def world(tmp_path_factory):
                             args=(payload,),
                             timeout=dp_ranks.RANKS_TIMEOUT_S)
         jax_side = jax_value_and_grads(specs)
-        return specs, ranks.result(), jax_side, trainer_payload
+        one = one_process_side(specs, trainer_payload)
+        return specs, ranks.result(), jax_side, trainer_payload, one
 
 
-@pytest.fixture(scope="module")
-def one_process(world):
+def one_process_side(specs, tp):
     """The port's one process on the same models, losses and trainer."""
-    specs, _, _, tp = world
     models = {name: dp_ranks.model_grads(SINGLE, spec)
               for name, spec in specs.items()}
     x = loss_inputs()
@@ -282,6 +282,11 @@ def one_process(world):
               for name in dp_ranks.SPATIAL_LOSSES}
     return models, losses, one_process_trainer(tp["raw"], tp["masters"],
                                                tp["batch"])
+
+
+@pytest.fixture(scope="module")
+def one_process(world):
+    return world[4]
 
 
 # ------------------------------------------------------------------ ranks

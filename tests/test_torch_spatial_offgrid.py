@@ -37,7 +37,10 @@ at 368 x 64 on 2 x 2.
 The band resize: the FPN's ratios 4 -> 7, 7 -> 13 and 13 -> 25 at 200 rows
 on 2 x 2 and 12 -> 23 at 368 rows on 1 x 4, on the ranks' own bands,
 against the whole frame's ``F.interpolate`` cut to the band (float64) and
-by ``gradcheck``. The trainers of the tiny CerberusDCV and CerberusRAFT at
+by ``gradcheck``; in bf16 (``dp_ranks.BF16_RESIZES``: those ratios, x2 on
+and off the grid in both forms and x4, each at a width below and above
+the height), bit for bit against the whole frame's ``_resize`` (or phase
+form) cut to the band and against JAX's resize sharded over the mesh. The trainers of the tiny CerberusDCV and CerberusRAFT at
 200 x 64 on 2 x 2 (one step from the same masters, then ``evaluate`` of 3
 held-out samples) against one process. The refusals: H not divisible by S
 and the reference's guard raise before any rank is made; CerberusDCV and
@@ -60,6 +63,7 @@ import concurrent.futures
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -109,6 +113,10 @@ MODEL_CASES = [(h, f"{d}x{s}", name)
                for d, s in shapes for name in dp_ranks.OFFGRID_MODELS]
 RESIZE_CASES = [(h, f"{a} {b}") for h, (_, pairs)
                 in dp_ranks.OFFGRID_RESIZES.items() for a, b in pairs]
+BF16_RESIZE_CASES = [(h, a, b, w, form)
+                     for h, (_, pairs) in dp_ranks.BF16_RESIZES.items()
+                     for a, b in pairs for w in dp_ranks.BF16_RESIZE_WIDTHS
+                     for form in dp_ranks.bf16_resize_forms(a, b, w)]
 REFUSED = [f"{name} {h}" for h, _, names in dp_ranks.OFFGRID_REFUSED
            for name in names]
 VARIANTS = ("cerberus_dcv", "dcv_flow", "dcv_stereo", "cerberus_raft",
@@ -213,6 +221,42 @@ def jax_value_and_grads(spec_tree):
     return out
 
 
+def jax_bf16_resizes():
+    """{(H, hs, hd, w, form): JAX's bf16 resize of the case's frame with its
+    rows sharded over the H's (data, spatial) mesh, NCHW float32}:
+    ``jax.image.resize`` bilinear, and ``upsample2x_phase`` for the phase
+    form; one program an H."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from cerberusnet_tpu.models.common import upsample2x_phase
+
+    out = {}
+    for h, (shape, _) in dp_ranks.BF16_RESIZES.items():
+        rows = NamedSharding(jax_make_mesh(*shape), P("data", "spatial"))
+        cases = [c for c in BF16_RESIZE_CASES if c[0] == h]
+
+        def resize(v, case):
+            _, _, hd, w, form = case
+            v = jax.lax.with_sharding_constraint(v, rows)
+            if form == "phase":
+                y = upsample2x_phase(v)
+            else:
+                ww = dp_ranks.bf16_resize_forms(case[1], hd, w)[form][1]
+                y = jax.image.resize(v, (v.shape[0], hd, ww, v.shape[3]),
+                                     "bilinear")
+            return jax.lax.with_sharding_constraint(y, rows)
+
+        frames = [jnp.asarray(dp_ranks.bf16_resize_input(c[1], c[3]).float()
+                              .permute(0, 2, 3, 1).numpy(), jnp.bfloat16)
+                  for c in cases]
+        ys = jax.jit(lambda xs, cases=cases: [
+            resize(x, c) for x, c in zip(xs, cases)])(frames)
+        for c, y in zip(cases, ys):
+            out[c] = np.asarray(y.astype(jnp.float32)).transpose(0, 3, 1, 2)
+    return out
+
+
 def one_process_side(spec_tree):
     """The port's one process in float64 on the same models, its
     refusals, and SegNet with RMI."""
@@ -243,6 +287,7 @@ def world():
                             timeout=dp_ranks.RANKS_TIMEOUT_S)
         jax_side = jax_value_and_grads(spec_tree)
         jax_side["rmi_term"] = jax_rmi_term(spec_tree["rmi_term"])
+        jax_side["bf16_resize"] = jax_bf16_resizes()
         one = one_process_side(spec_tree)
         return spec_tree, ranks.result(), jax_side, trainers, one
 
@@ -399,6 +444,31 @@ def test_band_resize_is_the_frames_cut_to_the_band(h, pair, world):
         got = res["resize"][h][pair]
         assert got["values"] <= 1e-12, got
         assert got["gradcheck"], got
+
+
+@pytest.mark.parametrize("h,hs,hd,w,form", BF16_RESIZE_CASES)
+def test_bf16_band_resize_is_the_frames_cut_to_the_band(h, hs, hd, w, form,
+                                                         world):
+    """In bf16 each rank's band is, bit for bit, the port's whole-frame
+    resize (``_resize``, or ``upsample2x``'s phase form) cut to the band,
+    and that frame is JAX's resize with the rows sharded over the same
+    mesh (ROADMAP C16: computed in float32 and rounded once, the band
+    differed in 17-49% of its elements)."""
+    from cerberusnet_torch.models.common import _resize, upsample2x
+
+    shape = dp_ranks.BF16_RESIZES[h][0]
+    x = dp_ranks.bf16_resize_input(hs, w)
+    _, ww = dp_ranks.bf16_resize_forms(hs, hd, w)[form]
+    frame = (upsample2x(x, impl="phase") if form == "phase"
+             else _resize(x, (hd, ww))).float().numpy()
+    np.testing.assert_array_equal(
+        frame, world[2]["bf16_resize"][h, hs, hd, w, form])
+    for r, res in enumerate(world[1]):
+        mesh = DataMesh(rank=r, size=N, spatial_size=shape[1],
+                        extents=level_extents(h, LEVELS))
+        np.testing.assert_array_equal(
+            res["bf16_resize"][h][f"{hs} {hd} {w} {form}"],
+            frame[:, :, mesh.rows(hd)], err_msg=f"rank {r}")
 
 
 # ---------------------------------------------------------------- models
